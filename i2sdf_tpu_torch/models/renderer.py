@@ -1,0 +1,190 @@
+"""I2SDF volume renderer, eval path (counterpart of
+`i2sdf_tpu/models/renderer.py`).
+
+`I2SDFModel` holds the SDF net, the radiance net and the learnable beta.
+`render_rays` renders a batch of rays at eval (`training=False` in the
+reference): foreground only, with rgb, depth and the normal map. The
+light head and the NeRF++ background are not ported yet, and configs
+that ask for them are refused.
+
+Compute is f32 in the plain path on either device; on the card the three
+hot functions run as CUDA kernels with bf16 operands and f32
+accumulation (`ops/kernels/`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from ..ops.compositing import render_weights
+from ..ops.kernels import render_core, sampler_round, sdf_mlp
+from ..utils.cameras import get_camera_params
+from ..utils.jmath import safe_normalize
+from .density import effective_beta, laplace_density
+from .mlp import (ImplicitNet, ImplicitNetConfig, RenderingNet,
+                  RenderingNetConfig)
+from .sampler import SamplerConfig, error_bound_z_vals
+
+
+@dataclasses.dataclass(frozen=True)
+class I2SDFConfig:
+    feature_vector_size: int = 256
+    scene_bounding_sphere: float = 3.0
+    implicit: ImplicitNetConfig = None
+    rendering: RenderingNetConfig = None
+    sampler: SamplerConfig = None
+    beta_init: float = 0.1
+    beta_min: float = 1e-4
+
+    @classmethod
+    def from_cfgnode(cls, conf: Any) -> "I2SDFConfig":
+        """Build from a `model:` config section. Everything is computed in
+        f32 (the reference's `compute_dtype` key is not read: its TPU
+        default was bf16 matmul operands, which the port's kernels take
+        on their own)."""
+        for key in ("light_network", "bg_network"):
+            if key in conf:
+                raise ValueError(f"model.{key} is not ported yet")
+        rs = conf.ray_sampler
+        if rs.get("per_ray_exit", False) or not rs.get("early_exit", True):
+            raise ValueError("only the global early-exit sampler is ported")
+        fvs = conf.feature_vector_size
+        sphere = conf.get("scene_bounding_sphere", 1.0)
+        imp = conf.implicit_network
+        implicit = ImplicitNetConfig(
+            feature_vector_size=fvs,
+            sdf_bounding_sphere=0.0,  # the reference model passes 0.0
+            d_in=imp.get("d_in", 3),
+            d_out=imp.get("d_out", 1),
+            dims=tuple(imp.dims),
+            geometric_init=imp.get("geometric_init", True),
+            bias=imp.get("bias", 1.0),
+            skip_in=tuple(imp.get("skip_in", []) or []),
+            weight_norm=imp.get("weight_norm", True),
+            embed_type=imp.get("embed_type", None),
+            multires=imp.get("multires", 6),
+            sphere_scale=imp.get("sphere_scale", 1.0),
+        )
+        ren = conf.rendering_network
+        rendering = RenderingNetConfig(
+            feature_vector_size=fvs,
+            mode=ren.get("mode", "nerf"),
+            d_in=ren.get("d_in", 3),
+            d_out=ren.get("d_out", 3),
+            dims=tuple(ren.dims),
+            weight_norm=ren.get("weight_norm", True),
+            embed_type=ren.get("embed_type", None),
+            multires=ren.get("multires", 4),
+        )
+        sampler = SamplerConfig(
+            scene_bounding_sphere=sphere,
+            near=rs.get("near", 0.0),
+            N_samples=rs.N_samples,
+            N_samples_eval=rs.N_samples_eval,
+            N_samples_extra=rs.N_samples_extra,
+            eps=rs.get("eps", 0.1),
+            beta_iters=rs.get("beta_iters", 10),
+            max_total_iters=rs.get("max_total_iters", 5),
+            add_tiny=rs.get("add_tiny", 0.0),
+            round_eval_counts=(tuple(rs["round_eval_counts"])
+                               if "round_eval_counts" in rs else None),
+        )
+        return cls(feature_vector_size=fvs, scene_bounding_sphere=sphere,
+                   implicit=implicit, rendering=rendering, sampler=sampler,
+                   beta_init=conf.density.params_init.beta,
+                   beta_min=conf.density.get("beta_min", 1e-4))
+
+
+class I2SDFModel(nn.Module):
+    """Parameters of the model: `implicit`, `rendering` and raw `beta`."""
+
+    def __init__(self, cfg: I2SDFConfig, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        gen = torch.Generator().manual_seed(seed)
+        self.implicit = ImplicitNet(cfg.implicit, gen)
+        self.rendering = RenderingNet(cfg.rendering, gen)
+        self.beta = nn.Parameter(torch.tensor(cfg.beta_init,
+                                              dtype=torch.float32))
+
+
+@dataclasses.dataclass
+class KernelWeights:
+    """The model's weights in the kernels' layouts, packed once per render
+    (weight norm materialized, bf16, mma fragment order)."""
+    sdf: sdf_mlp.SdfMlpPack
+    core: render_core.RenderCorePack
+
+    @classmethod
+    def pack(cls, model: I2SDFModel) -> "KernelWeights":
+        return cls(sdf=sdf_mlp.SdfMlpPack(model.implicit),
+                   core=render_core.RenderCorePack(model.implicit,
+                                                   model.rendering))
+
+
+def render_rays(model: I2SDFModel, inputs: dict,
+                weights: KernelWeights | None = None,
+                plain: bool = False) -> dict:
+    """Render a batch of rays at eval.
+
+    inputs: {"uv": (B, N, 2), "intrinsics": (B, 4, 4), "pose": (B, 4, 4)}.
+    The three hot functions go through their kernel wrappers, which run
+    the CUDA kernel on a CUDA tensor and the plain PyTorch version on a
+    CPU tensor; `plain=True` takes the plain versions on any device
+    (used to hold the kernels' render against the plain one on the card).
+    `weights` are the packed kernel weights (packed here if None)."""
+    cfg = model.cfg
+    if weights is None and not plain:
+        weights = KernelWeights.pack(model)
+    with torch.no_grad():
+        ray_dirs_b, cam_loc_b = get_camera_params(
+            inputs["uv"], inputs["pose"], inputs["intrinsics"])
+        B, N = ray_dirs_b.shape[:2]
+        R = B * N
+        cam_loc = cam_loc_b[:, None, :].expand(B, N, 3).reshape(-1, 3)
+        ray_dirs = ray_dirs_b.reshape(-1, 3)
+        ray_dirs_norm = torch.linalg.norm(ray_dirs, dim=-1)
+        ray_dirs = ray_dirs / torch.clamp(ray_dirs_norm[:, None], min=1e-12)
+        beta = effective_beta(model.beta, cfg.beta_min)
+
+        if plain:
+            def sdf_fn(pts):
+                return sdf_mlp.sdf_mlp_plain(model.implicit, pts)
+
+            def round_impl(*a):
+                return sampler_round.sampler_round_plain(cfg.sampler, *a)
+        else:
+            def sdf_fn(pts):
+                return sdf_mlp.sdf_mlp_nograd(weights.sdf, pts)
+
+            def round_impl(*a):
+                return sampler_round.sampler_round(cfg.sampler, *a)
+
+        z_all = error_bound_z_vals(cfg.sampler, sdf_fn, ray_dirs, cam_loc,
+                                   beta, round_impl=round_impl)
+        z_max = z_all[:, -1]
+        z_vals = z_all[:, :-1]
+        S = z_vals.shape[1]
+        points = (cam_loc[:, None, :]
+                  + z_vals[..., None] * ray_dirs[:, None, :]).reshape(-1, 3)
+        dirs = ray_dirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
+
+        if plain:
+            sdf, grad, rgb = render_core.render_core_plain(
+                model.implicit, model.rendering, points, dirs)
+        else:
+            sdf, grad, rgb = render_core.render_core_fwd(weights.core,
+                                                         points, dirs)
+
+        density = laplace_density(sdf, beta).reshape(R, S)
+        w, _ = render_weights(z_vals, z_max, density)
+        rgb_values = (w[..., None] * rgb.reshape(R, S, 3)).sum(1)
+        depth = (w * z_vals).sum(1) / torch.clamp(ray_dirs_norm, min=1e-6)
+        normals = safe_normalize(grad).reshape(R, S, 3)
+        normal_map = safe_normalize((w[..., None] * normals).sum(1))
+    return {"rgb_values": rgb_values, "depth_values": depth,
+            "weight_sum": w.sum(-1, keepdim=True), "normal_map": normal_map}

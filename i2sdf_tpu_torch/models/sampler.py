@@ -1,0 +1,218 @@
+"""Error-bounded ray sampler, eval path (counterpart of
+`i2sdf_tpu/models/sampler.py`, VolSDF Algorithm 1).
+
+Ported: `SamplerConfig`, the deterministic eval `uniform_z_vals`,
+`round_update` (one refinement round: d* bound, beta bisection, weights,
+error-bound or final pdf, inverse CDF) and `error_bound_z_vals` on the
+global-early-exit branch (`early_exit=True`, `per_ray_exit=False`,
+`sampler.py:286-446`). Per-ray compaction and the training-time draws
+(stratified init, sorted uniforms, random extras, eikonal depths) are not
+ported yet.
+
+`round_update` is the plain version of the CUDA sampler-round kernel
+(`ops/kernels/sampler_round.py`), which is the production `round_impl`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+from ..ops.sampling import linear_z_vals, pdf_to_cdf, prefix_sum, sample_cdf
+from .density import laplace_density
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    scene_bounding_sphere: float = 3.0
+    near: float = 0.0
+    N_samples: int = 64
+    N_samples_eval: int = 128
+    N_samples_extra: int = 32
+    eps: float = 0.1
+    beta_iters: int = 10
+    max_total_iters: int = 5
+    add_tiny: float = 1e-6
+    round_eval_counts: tuple | None = None
+
+    @property
+    def eval_counts(self) -> tuple:
+        """Per-round evaluated-point counts, length max_total_iters."""
+        if self.round_eval_counts is None:
+            return (self.N_samples_eval,) * self.max_total_iters
+        counts = tuple(int(c) for c in self.round_eval_counts)
+        if len(counts) != self.max_total_iters:
+            raise ValueError(
+                f"round_eval_counts needs {self.max_total_iters} entries, "
+                f"got {len(counts)}")
+        return counts
+
+    @property
+    def far(self) -> float:
+        return 2.0 * self.scene_bounding_sphere
+
+    @property
+    def total_fg_samples(self) -> int:
+        """Final per-ray sample count incl. the near and far columns."""
+        return self.N_samples + self.N_samples_extra + 2
+
+
+def uniform_z_vals(cfg: SamplerConfig, n_rays: int, n: int,
+                   device) -> torch.Tensor:
+    """Deterministic eval init: n depths evenly spaced on [near, far]."""
+    near = torch.full((n_rays, 1), cfg.near, dtype=torch.float32,
+                      device=device)
+    far = torch.full((n_rays, 1), cfg.far, dtype=torch.float32,
+                     device=device)
+    return linear_z_vals(near, far, n)
+
+
+def _d_star(z_vals: torch.Tensor, sdf: torch.Tensor):
+    """Theorem-1 triangle bound on the in-section distance to the surface."""
+    dists = z_vals[:, 1:] - z_vals[:, :-1]
+    a, b, c = dists, sdf[:, :-1].abs(), sdf[:, 1:].abs()
+    first_cond = a ** 2 + b ** 2 <= c ** 2
+    second_cond = a ** 2 + c ** 2 <= b ** 2
+    s = (a + b + c) / 2.0
+    area = s * (s - a) * (s - b) * (s - c)
+    mask = (~first_cond) & (~second_cond) & (b + c - a > 0)
+    first_only = first_cond & (~second_cond)
+    heron = torch.nan_to_num(2.0 * torch.sqrt(torch.clamp(area, min=0.0))
+                             / torch.clamp(a, min=1e-12))
+    d_star = first_only * b + second_cond * c + heron * mask
+    same_sign = torch.sign(sdf[:, 1:]) * torch.sign(sdf[:, :-1]) == 1
+    return same_sign * d_star, dists
+
+
+def _error_bound(beta, sdf, dists, d_star):
+    """Per-ray max opacity-error bound; beta: (R, 1) or scalar."""
+    density = laplace_density(sdf, beta)
+    shifted = torch.cat([torch.zeros_like(dists[:, :1]),
+                         dists * density[:, :-1]], dim=-1)
+    integral = prefix_sum(shifted)
+    err = torch.exp(-d_star / beta) * dists ** 2 / (4 * beta ** 2)
+    bound = ((torch.clamp(torch.exp(prefix_sum(err)), max=1e6) - 1.0)
+             * torch.exp(-integral[:, :-1]))
+    return bound.max(dim=-1).values
+
+
+def round_update(cfg: SamplerConfig, z_vals, sdf, beta, beta0, u,
+                 final: bool):
+    """One refinement round (plain version of the sampler-round kernel).
+
+    z_vals/sdf: (R, S) sorted; beta: (R,); beta0: 0-d tensor; u: (R, N).
+    Returns (samples (R, N), beta (R,))."""
+    R = z_vals.shape[0]
+    d_star, dists = _d_star(z_vals, sdf)
+    converged = _error_bound(beta0, sdf, dists, d_star) <= cfg.eps
+    beta = torch.where(converged, beta0, beta)
+    lo = beta0.expand(R)
+    hi = beta
+    for _ in range(cfg.beta_iters):
+        mid = 0.5 * (lo + hi)
+        ok = _error_bound(mid[:, None], sdf, dists, d_star) <= cfg.eps
+        hi = torch.where(ok, mid, hi)
+        lo = torch.where(ok, lo, mid)
+    beta = hi
+
+    density = laplace_density(sdf, beta[:, None])
+    dists_inf = torch.cat([dists, torch.full_like(dists[:, :1], 1e10)], -1)
+    free_energy = dists_inf * density
+    shifted = torch.cat([torch.zeros_like(free_energy[:, :1]),
+                         free_energy[:, :-1]], dim=-1)
+    transmittance = torch.exp(-prefix_sum(shifted))
+    weights = (1.0 - torch.exp(-free_energy)) * transmittance
+    if final:
+        pdf = weights[:, :-1] + 1e-5
+    else:
+        err = (torch.exp(-d_star / beta[:, None]) * dists ** 2
+               / (4 * beta[:, None] ** 2))
+        pdf = ((torch.clamp(torch.exp(prefix_sum(err)), max=1e6) - 1.0)
+               * transmittance[:, :-1] + cfg.add_tiny)
+    return sample_cdf(z_vals, pdf_to_cdf(pdf), u), beta
+
+
+RoundImpl = Callable[..., tuple]
+SdfFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _sorted_merge(z_a, pay_a, z_b, pay_b):
+    """Row-wise merge of two sample sets with their payloads (stable:
+    ties keep `a` before `b`, as the reference's stable key sort does)."""
+    z, order = torch.sort(torch.cat([z_a, z_b], dim=-1), dim=-1, stable=True)
+    if pay_a is None:
+        return z, None
+    return z, torch.gather(torch.cat([pay_a, pay_b], dim=-1), -1, order)
+
+
+def error_bound_z_vals(cfg: SamplerConfig, sdf_fn: SdfFn, ray_dirs, cam_loc,
+                       beta0, round_impl: RoundImpl | None = None):
+    """Eval-time adaptive sampling with the global early exit.
+
+    ray_dirs (R, 3) unit, cam_loc (R, 3), beta0 0-d tensor. Returns the
+    sorted (R, total_fg_samples) depths. `sdf_fn` maps (N, 3) -> (N,);
+    `round_impl` has `round_update`'s signature minus cfg.
+
+    The reference's `lax.cond` on global convergence is a Python branch on
+    `bool(converged)` here: one host sync per refinement round, which
+    decides whether the next round runs the SDF MLP and the round kernel
+    at all."""
+    R = ray_dirs.shape[0]
+    device = ray_dirs.device
+    beta0 = torch.as_tensor(beta0, dtype=torch.float32, device=device)
+    counts = cfg.eval_counts
+    impl = round_impl or (lambda *a: round_update(cfg, *a))
+
+    def linspace_u(n):
+        return torch.linspace(0.0, 1.0, n, dtype=torch.float32,
+                              device=device).expand(R, n)
+
+    def eval_sdf(z):
+        pts = cam_loc[:, None, :] + z[..., None] * ray_dirs[:, None, :]
+        return sdf_fn(pts.reshape(-1, 3)).reshape(z.shape)
+
+    z_vals = uniform_z_vals(cfg, R, counts[0], device)
+    dists = z_vals[:, 1:] - z_vals[:, :-1]
+    beta = torch.sqrt((1.0 / (4.0 * math.log(cfg.eps + 1.0)))
+                      * (dists ** 2).sum(-1))
+
+    sdf = eval_sdf(z_vals)
+    samples = None
+    converged = False
+    for it in range(cfg.max_total_iters):
+        if samples is not None:
+            n_new = samples.shape[1]
+            # once every ray converged, the emitted samples are copies of
+            # the leading columns, so their SDF is too: the MLP is skipped
+            new_sdf = sdf[:, :n_new] if converged else eval_sdf(samples)
+            z_vals, sdf = _sorted_merge(z_vals, sdf, samples, new_sdf)
+        if it == cfg.max_total_iters - 1:
+            final_samples, beta = impl(z_vals, sdf, beta, beta0,
+                                       linspace_u(cfg.N_samples), True)
+            break
+        n_next = counts[it + 1]
+        if not converged:
+            samples, beta = impl(z_vals, sdf, beta, beta0,
+                                 linspace_u(n_next), False)
+            converged = bool((beta <= beta0).all())  # host sync
+        if converged:
+            samples = z_vals[:, :n_next]
+
+    near = torch.full((R, 1), cfg.near, dtype=torch.float32, device=device)
+    far = torch.full((R, 1), cfg.far, dtype=torch.float32, device=device)
+    if cfg.N_samples_extra > 0:
+        idx = extra_sample_index(z_vals.shape[1], cfg.N_samples_extra)
+        z_extra = torch.cat([near, z_vals[:, idx.to(device)], far], dim=-1)
+    else:
+        z_extra = torch.cat([near, far], dim=-1)
+    return _sorted_merge(final_samples, None, z_extra, None)[0]
+
+
+def extra_sample_index(n: int, k: int) -> torch.Tensor:
+    """Eval's evenly spaced subset of the accumulated samples:
+    `linspace(0, n-1, k)` in f32, truncated to int (the reference's
+    `jnp.linspace(...).astype(int32)`)."""
+    return torch.linspace(0, n - 1, k, dtype=torch.float32).to(torch.int64)

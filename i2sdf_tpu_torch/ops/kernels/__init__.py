@@ -1,0 +1,29 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version.
+
+| kernel | module | replaces (TPU kernel) |
+| --- | --- | --- |
+| `sdf_mlp_nograd` | `sdf_mlp.py`, `csrc/sdf_mlp.cu` | `ops/pallas/fused_mlp.py:157 fused_sdf_mlp` |
+| `sampler_round` | `sampler_round.py`, `csrc/sampler_round.cu` | `ops/pallas/sampler_round.py:218 sampler_round_pallas` |
+| `render_core_fwd` | `render_core.py`, `csrc/render_core.cu` | forward of `ops/pallas/fused_train.py:449 get_render_core_op` |
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and takes
+the plain PyTorch version for CPU tensors. Each module keeps a plain
+integer `launches` that its wrapper increments once per kernel launch.
+"""
+
+from . import render_core, sampler_round, sdf_mlp
+
+KERNELS = {
+    "sdf_mlp_nograd": sdf_mlp,
+    "sampler_round": sampler_round,
+    "render_core_fwd": render_core,
+}
+
+
+def launch_counts() -> dict:
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0

@@ -1,0 +1,110 @@
+"""Build and load the port's CUDA kernels (`i2sdf_tpu_torch/csrc/*.cu`).
+
+One `nvcc` call compiles every source for `sm_90a` into a shared library
+with a plain C interface, loaded with `ctypes` (no PyTorch headers, so the
+build takes seconds, not minutes). The library lands in
+`build/i2sdf_tpu_torch/` beside the package, named by a hash of the
+sources and flags: a changed source builds a new file, and a finished
+file is never rebuilt. The compiler writes to a temporary name that is
+renamed into place, so an interrupted build leaves no lock and no
+half-written library behind.
+
+Nothing here runs at import: the CPU-only test machine imports every
+module of the package and has no `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "i2sdf_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+BUILD_TIMEOUT_S = 300
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "i2sdf_sdf_mlp_nograd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "i2sdf_sampler_round": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F,
+                            _F, _I, _P],
+    "i2sdf_render_core_fwd": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P,
+                              _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                              _P],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libi2sdf_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the library if it is not there yet.
+
+    Returns (path, seconds spent compiling)."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
+    return out, time.perf_counter() - t0
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use only) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.i2sdf_error_string.argtypes = [ctypes.c_int]
+        lib.i2sdf_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = load_library().i2sdf_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")

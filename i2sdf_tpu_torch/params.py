@@ -1,0 +1,63 @@
+"""Parameter converter between the JAX package and the port.
+
+The JAX parameter tree is `{"implicit": {"lin{i}": {"v", "g", "b"}},
+"rendering": {...}, "beta": scalar}` with weights stored (in, out); the
+port stores them the same way (`models/mlp.py`), so a leaf crosses as it
+is, under the key `"{net}.lin{i}.{leaf}"`. The tree is taken as numpy
+arrays (the port never imports JAX): convert with `np.asarray` first.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.renderer import I2SDFConfig, I2SDFModel
+
+NETS = ("implicit", "rendering")
+
+
+def from_jax_params(tree: dict, cfg: I2SDFConfig | None = None) -> dict:
+    """JAX parameter tree (numpy leaves) -> the port's `state_dict`.
+    With `cfg`, keys and shapes are checked against the model."""
+    sd = {}
+    for net in NETS:
+        for lin, leaves in tree[net].items():
+            for leaf, arr in leaves.items():
+                sd[f"{net}.{lin}.{leaf}"] = torch.from_numpy(
+                    np.array(arr, dtype=np.float32))
+    sd["beta"] = torch.tensor(float(np.asarray(tree["beta"])),
+                              dtype=torch.float32)
+    if cfg is not None:
+        ref = I2SDFModel(cfg).state_dict()
+        if set(ref) != set(sd):
+            raise KeyError(f"parameter names differ: "
+                           f"{sorted(set(ref) ^ set(sd))}")
+        for k, v in ref.items():
+            if tuple(v.shape) != tuple(sd[k].shape):
+                raise ValueError(f"{k}: shape {tuple(sd[k].shape)}, model "
+                                 f"wants {tuple(v.shape)}")
+    return sd
+
+
+def to_jax_params(state_dict: dict) -> dict:
+    """The port's `state_dict` -> JAX parameter tree with numpy leaves."""
+    tree: dict = {net: {} for net in NETS}
+    for key, v in state_dict.items():
+        arr = v.detach().cpu().numpy().astype(np.float32)
+        if key == "beta":
+            tree["beta"] = arr
+            continue
+        net, lin, leaf = key.split(".")
+        tree[net].setdefault(lin, {})[leaf] = arr
+    return tree
+
+
+def load_model(cfg: I2SDFConfig, ckpt: str | None, seed: int,
+               device) -> I2SDFModel:
+    """The model with weights from a `.pt` state_dict, or the seeded init."""
+    model = I2SDFModel(cfg, seed=seed)
+    if ckpt is not None:
+        state = torch.load(ckpt, map_location="cpu", weights_only=True)
+        model.load_state_dict(state.get("state_dict", state))
+    return model.to(device)

@@ -1,0 +1,113 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and `nvcc`; elsewhere each skips, as
+decided when it runs. The file imports neither JAX nor the JAX package, so
+it runs on a machine that has only PyTorch (with `--noconftest`, since the
+suite's conftest sets up JAX):
+
+    python -m pytest --noconftest -p no:cacheprovider -q -m gpu \
+        tests/test_torch_gpu_kernels.py
+
+Tolerances: the MLP kernels take bf16 operands with f32 accumulation, so
+they are held to the JAX package's tolerances for its bf16 Pallas kernels
+(tests/test_pallas_mlp.py, tests/test_pallas_train.py); the sampler round
+is f32 in both versions, with the JAX package's own sampler-kernel
+tolerance for the draws (tests/test_pallas_sampler.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from i2sdf_tpu_torch.models import mlp
+from i2sdf_tpu_torch.models.sampler import SamplerConfig
+from i2sdf_tpu_torch.ops import kernels
+from i2sdf_tpu_torch.ops.kernels import render_core, sampler_round, sdf_mlp
+
+pytestmark = pytest.mark.gpu
+
+ICFG = mlp.ImplicitNetConfig(
+    feature_vector_size=256, sdf_bounding_sphere=0.0, dims=(256,) * 8,
+    skip_in=(4,), bias=0.6, embed_type="positional", multires=6)
+RCFG = mlp.RenderingNetConfig(feature_vector_size=256, dims=(256,) * 4,
+                              embed_type="positional", multires=4)
+SCFG = SamplerConfig(eps=0.1, beta_iters=10, add_tiny=1e-6)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README)")
+    return torch.device("cuda", 0)
+
+
+def _nets(dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return (mlp.ImplicitNet(ICFG, gen).to(dev),
+            mlp.RenderingNet(RCFG, gen).to(dev))
+
+
+def _points(n, dev, seed=1, scale=1.5):
+    return torch.from_numpy((np.random.default_rng(seed).normal(
+        size=(n, 3)) * scale).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 4097])
+def test_sdf_mlp_kernel(dev, n):
+    net, _ = _nets(dev)
+    pts = _points(n, dev, seed=n)
+    kernels.reset_launch_counts()
+    got = sdf_mlp.sdf_mlp_nograd(sdf_mlp.SdfMlpPack(net), pts)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sdf_mlp_nograd"] == 1
+    torch.testing.assert_close(got, sdf_mlp.sdf_mlp_plain(net, pts),
+                               atol=0.02, rtol=0.02)
+
+
+def _round_inputs(R, S, n_out, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    z = np.sort(rng.uniform(0.0, 6.0, (R, S)).astype(np.float32), axis=-1)
+    sdf = (3.0 - z + 0.1 * rng.normal(size=(R, S))).astype(np.float32)
+    beta = rng.uniform(0.05, 0.8, (R,)).astype(np.float32)
+    u = np.sort(rng.uniform(0.0, 1.0, (R, n_out)).astype(np.float32), -1)
+    return [torch.from_numpy(a).to(dev) for a in (z, sdf, beta, u)]
+
+
+@pytest.mark.parametrize("S", [97, 128, 480, 600])
+@pytest.mark.parametrize("final", [False, True])
+def test_sampler_round_kernel(dev, S, final):
+    z, sdf, beta, u = _round_inputs(333, S, 64, dev, seed=S)
+    beta0 = torch.tensor(0.1, device=dev)
+    s, b = sampler_round.sampler_round(SCFG, z, sdf, beta, beta0, u, final)
+    torch.cuda.synchronize()
+    s_ref, b_ref = sampler_round.sampler_round_plain(SCFG, z, sdf, beta,
+                                                     beta0, u, final)
+    torch.testing.assert_close(b, b_ref, rtol=1e-4, atol=1e-6)
+    diff = (s - s_ref).abs()
+    assert float(torch.quantile(diff.flatten(), 0.99)) < 0.08
+    assert float(diff.max()) < 0.5
+    torch.testing.assert_close(s.mean(-1), s_ref.mean(-1), rtol=0, atol=0.02)
+
+
+@pytest.mark.parametrize("n", [33, 1000])
+def test_render_core_kernel(dev, n):
+    net, rnet = _nets(dev)
+    x = _points(n, dev, seed=n, scale=0.8)
+    d = torch.nn.functional.normalize(_points(n, dev, seed=n + 1), dim=-1)
+    pack = render_core.RenderCorePack(net, rnet)
+    got = render_core.render_core_fwd(pack, x, d)
+    torch.cuda.synchronize()
+    ref = render_core.render_core_plain(net, rnet, x, d)
+    for name, g, r, (atol, rtol) in zip(
+            ("sdf", "grad", "rgb"), got, ref,
+            ((0.02, 0.02), (0.05, 0.08), (0.03, 0.05))):
+        torch.testing.assert_close(g, r, atol=atol, rtol=rtol, msg=name)
+
+
+def test_kernels_refuse_cpu_weights(dev):
+    net, rnet = _nets(torch.device("cpu"))
+    with pytest.raises(ValueError):
+        sdf_mlp.sdf_mlp_nograd(sdf_mlp.SdfMlpPack(net), _points(8, dev))
+    with pytest.raises(ValueError):
+        render_core.render_core_fwd(render_core.RenderCorePack(net, rnet),
+                                    _points(8, dev), _points(8, dev))
