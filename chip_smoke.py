@@ -6,23 +6,39 @@ Phases, each printed as one JSON line with its wall time:
 
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit;
-2. build: the three CUDA kernels (`i2sdf_tpu_torch/csrc/*.cu`) in one
-   `nvcc` call;
+2. build: the four CUDA kernels (`i2sdf_tpu_torch/csrc/*.cu`), one `nvcc`
+   per source, all started together, and one link;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the flagship eval render gives it, with the stated
-   tolerance; kernel, plain and library-yardstick times by CUDA events;
-4. slice: one 240x320 view of `data/synthetic_quality/scan1` rendered
-   through the port's eval entry point (`eval/render.py`) at the full width
-   of `configs/synthetic.yml`, seeded init weights; every output finite and
-   every kernel launched; then the first 12000-ray chunk rendered again
-   through the plain path, held against the kernels' render.
+   the shapes the flagship eval render (K1-K3) and training step (K4:
+   160,000 points with the cotangents of a seeded loss) give it, with the
+   stated tolerance; kernel, plain and library-yardstick times by CUDA
+   events;
+4. slice (the eval path): one 240x320 view of `data/synthetic_quality/
+   scan1` rendered through the port's eval entry point (`eval/render.py`)
+   at the full width of `configs/synthetic.yml`, seeded init weights;
+   every output finite and every kernel of the path launched; then the
+   first 12000-ray chunk rendered again through the plain path, held
+   against the kernels' render;
+5. train (the training path): `ReconstructionTrainer.fit` for 6 steps of
+   `configs/synthetic_quality.yml` at full width (1600 rays a step) on
+   scan1's images and cameras, with seeded synthetic depth, normals and
+   bubble point cloud at scan1's shapes (the checkout holds no `depth/`
+   or `normal/`), the bubble window open for steps 2-3 with a uniform pdf;
+   every loss finite, every kernel launched, K4 once a step; a profile
+   of two steps; then one batch through a kernel step and a plain step
+   from the same weights and draws, loss terms and gradients held to the
+   JAX package's gradient tolerance;
+6. cli: `python -m i2sdf_tpu_torch.main` in train mode for 3 steps on
+   scan1 as the checkout holds it (images and cameras only), then
+   `--resume` for one more step from the checkpoint it wrote.
 
 The card's `nvidia-smi` line is printed on its own after phase 1. The
-run ends with the launch counts, one JSON line with every kernel's
-numbers, and last `{"ok": true, "device": {...}}`. Any failure raises
-and exits nonzero; with no CUDA device the script exits nonzero before
-printing a result. All
-files are written to a temporary directory.
+run ends with the launch counts of each path, one JSON line with every
+kernel's numbers (launches from the training path), and last
+`{"ok": true, "device": {...}}`. Any failure raises and exits nonzero;
+with no CUDA device the script exits nonzero before printing a result.
+All files are written to a temporary directory; no scene file under
+`depth/`, `normal/`, `light_mask/` or `mesh.ply` is read.
 
 Precision: the plain path is f32 throughout, with TF32 turned off for
 matmuls and cuDNN; the kernels take bf16 operands with f32 accumulation.
@@ -30,9 +46,12 @@ matmuls and cuDNN; the kernels take bf16 operands with f32 accumulation.
 
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import math
+import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -51,11 +70,23 @@ from i2sdf_tpu_torch.ops.activations import softplus_beta
 from i2sdf_tpu_torch.ops import kernels
 from i2sdf_tpu_torch.ops.kernels import (build, render_core, sampler_round,
                                          sdf_mlp)
+from i2sdf_tpu_torch.train import step as train_step
+from i2sdf_tpu_torch.train.state import create_train_state
+from i2sdf_tpu_torch.train.trainer import ReconstructionTrainer
 from i2sdf_tpu_torch.utils.cameras import get_camera_params
 
 ROOT = Path(__file__).resolve().parent
 CONF = ROOT / "configs" / "synthetic.yml"
+TRAIN_CONF = ROOT / "configs" / "synthetic_quality.yml"
 SEED = 0
+EVAL_KERNELS = ("sdf_mlp_nograd", "sampler_round", "render_core_fwd")
+TRAIN_STEPS = 6          # bubble window [2, 4): off, off, on, on, off, off
+K4_RAYS, K4_EIK = 1600, 4800   # one training step's render-core batch
+# K4 and the training step against their plain versions: the JAX
+# package's gradient tolerance for its bf16 kernel
+# (tests/test_pallas_train.py:96-111), per leaf max|d| / max|ref| and the
+# cosine over all leaves; loss terms to the same relative bound.
+GRAD_LEAF_TOL, GRAD_COS_TOL = 0.1, 0.999
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3 bandwidth.
 PEAK_BF16 = 989e12
@@ -346,8 +377,8 @@ def run_slice(model, conf, device) -> dict:
     assert depth.shape == (H, W) and normal.shape == (H, W, 3), files
     assert np.isfinite(depth).all() and np.isfinite(normal).all()
     assert math.isfinite(res["psnr"]) and math.isfinite(res["ssim"])
-    missing = [k for k, v in launches.items() if v == 0]
-    assert not missing, f"kernels not launched on the main path: {missing}"
+    missing = [k for k in EVAL_KERNELS if launches[k] == 0]
+    assert not missing, f"kernels not launched on the eval path: {missing}"
     return dict(launches=launches, psnr=res["psnr"], ssim=res["ssim"],
                 render_s=res["seconds"][0], files=files,
                 image=[H, W], rays=H * W,
@@ -370,6 +401,332 @@ def compare_chunk(model, conf, device) -> dict:
     psnr = -10 * math.log10(max(mse, 1e-20))
     assert psnr >= SLICE_PSNR_BAR_DB, f"kernel vs plain rgb {psnr:.2f} dB"
     return dict(diff=diff, psnr_db=psnr, bar_db=SLICE_PSNR_BAR_DB)
+
+
+# ---- K4 and the training path -----------------------------------------------
+
+def loss_cotangents(sdf, grad, rgb, n_eik, seed):
+    """Cotangents (N, 7) [grad | sdf | rgb] of the JAX package's kernel-test
+    loss (tests/test_pallas_train.py:38-43: rgb L1, sdf^2, normal L1 and
+    eikonal against seeded targets) at these outputs; the last n_eik rows
+    (eikonal points) keep only the gradient's cotangent."""
+    gen = torch.Generator().manual_seed(seed)
+    n = sdf.shape[0]
+    gt = torch.rand((n, 3), generator=gen).to(sdf.device)
+    gn = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen),
+                                       dim=-1).to(sdf.device)
+    s, g, r = (t.detach().requires_grad_(True) for t in (sdf, grad, rgb))
+    with torch.enable_grad():
+        nrm = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True),
+                              min=1e-9)
+        loss = ((r - gt).abs().mean() + 0.2 * (s ** 2).mean()
+                + 0.5 * (1 - (nrm * gn).sum(-1)).abs().mean()
+                + 0.1 * ((torch.linalg.norm(g, dim=-1) - 1) ** 2).mean())
+        cs, cg, cr = torch.autograd.grad(loss, (s, g, r))
+    cot = torch.cat([cg, cs, cr], 1)
+    cot[n - n_eik:, 3:] = 0.0
+    return cot.contiguous()
+
+
+def grad_errors(got, ref) -> dict:
+    errs = [float((g - r).abs().max() / max(float(r.abs().max()), 1e-3))
+            for g, r in zip(got, ref)]
+    a = torch.cat([r.flatten().double() for r in ref])
+    b = torch.cat([g.flatten().double() for g in got])
+    return {"max_leaf_err": max(errs), "worst_leaf": int(np.argmax(errs)),
+            "cos": float(a @ b / (a.norm() * b.norm()))}
+
+
+def grads_ok(e: dict) -> bool:
+    return e["max_leaf_err"] < GRAD_LEAF_TOL and e["cos"] > GRAD_COS_TOL
+
+
+def k4_macs(icfg, rcfg) -> int:
+    """Multiply-adds per point of K4 at the nets' real widths: forward
+    recompute (SDF, full head, and radiance), reverse sweep (hidden layers
+    1 .. n-2 transposed), radiance backward (every layer transposed),
+    upward sweep (layers 0 .. n-2), downward sweep (layers n-1 .. 1), and
+    the weight-gradient products (two per SDF layer, one per radiance
+    layer)."""
+    d = icfg.layer_dims()
+    n = len(d) - 1
+    sd = [d[l] * (d[l + 1] - (d[0] if l + 1 in icfg.skip_in else 0))
+          for l in range(n)]
+    rd = rcfg.layer_dims()
+    rr = [rd[l] * rd[l + 1] for l in range(len(rd) - 1)]
+    return (sum(sd) + sum(rr) + sum(sd[1:n - 1]) + sum(rr)
+            + sum(sd[:n - 1]) + sum(sd[1:]) + 2 * sum(sd) + sum(rr))
+
+
+def library_core_grad(icfg, rcfg, w, x, dirs, cot):
+    """The same function as one PyTorch call chain: autograd of the plain
+    op with every product a bf16 torch.matmul (autocast)."""
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        outs = render_core.render_core_train_plain(icfg, rcfg, w, x, dirs)
+    return torch.autograd.grad(outs, w.flat(), (cot[:, 3:4], cot[:, :3],
+                                                cot[:, 4:7]))
+
+
+def check_k4(model, cfg, conf, device) -> dict:
+    """K4 at one training step's render-core batch: 1600 rays of view 0 at
+    97 depths each, plus 4800 eikonal rows in the scene's cube."""
+    sc = cfg.sampler
+    _, dirs, cam = chunk_rays(conf, device, K4_RAYS)
+    S = sc.total_fg_samples - 1
+    z = torch.linspace(0.0, sc.far, S, device=device)
+    x = (cam[:, None] + z[None, :, None] * dirs[:, None]).reshape(-1, 3)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    s = cfg.scene_bounding_sphere
+    eik = (torch.rand((K4_EIK, 3), generator=gen) * 2 * s - s).to(device)
+    x = torch.cat([x, eik]).contiguous()
+    d = torch.cat([dirs[:, None].expand(K4_RAYS, S, 3).reshape(-1, 3),
+                   torch.zeros_like(eik)]).contiguous()
+    icfg, rcfg = cfg.implicit, cfg.rendering
+    w = render_core.CoreWeights.of(model.implicit, model.rendering)
+    outs = render_core.render_core_train_plain(icfg, rcfg, w, x, d)
+    cot = loss_cotangents(*outs, K4_EIK, SEED + 5)
+    cots = (cot[:, 3:4], cot[:, :3], cot[:, 4:7])
+    ref = torch.autograd.grad(outs, w.flat(), cots)
+    del outs
+    with torch.no_grad():
+        k = render_core._KernelLayout(icfg, rcfg, w)
+        got = render_core.render_core_bwd(k, x, d, cot)
+    torch.cuda.synchronize()
+    got = [t for grp in got for t in grp]
+    errs = grad_errors(got, ref)
+    n = x.shape[0]
+    wbytes = sum(t.numel() for t in w.flat())
+    b_ms, b_by = bound(2.0 * k4_macs(icfg, rcfg) * n,
+                       n * 52 + wbytes * (2 + 4), PEAK_BF16)
+
+    def kernel():
+        with torch.no_grad():
+            render_core.render_core_bwd(k, x, d, cot)
+
+    def plain():
+        torch.autograd.grad(render_core.render_core_train_plain(
+            icfg, rcfg, w, x, d), w.flat(), cots)
+
+    row = dict(
+        name="render_core_bwd", route="cuda",
+        source="i2sdf_tpu_torch/csrc/render_core_bwd.cu",
+        replaces="i2sdf_tpu/ops/pallas/fused_train.py:449",
+        shape=[n, 7], rays=K4_RAYS, samples=S, eikonal_rows=K4_EIK,
+        max_abs_err=max(float((g - r).abs().max()) for g, r in
+                        zip(got, ref)),
+        **errs, leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
+        ms=time_ms(kernel, 5), plain_ms=time_ms(plain, 2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: library_core_grad(icfg, rcfg, w, x, d,
+                                                     cot), 2))
+    emit_row(row, grads_ok(errs))
+    return row
+
+
+def synthetic_supervision(data, seed):
+    """Seeded depth (scene units, 0.5 % invalid), view-space normals (0.5 %
+    zero) and so the bubble point cloud, at the scan's shapes."""
+    rng = np.random.default_rng(seed)
+    n, hw = data.n_images, data.total_pixels
+    depth = rng.uniform(0.5, 4.5, (n, hw)).astype(np.float32)
+    depth[rng.uniform(size=(n, hw)) < 0.005] = 0.0
+    normals = rng.normal(size=(n, hw, 3)).astype(np.float32)
+    normals[rng.uniform(size=(n, hw)) < 0.005] = 0.0
+    data.use_depth = data.use_normal = data.use_bubble = True
+    data.set_depth(depth)
+    data.set_normals(normals)
+
+
+def train_conf():
+    conf = load_cfg(str(TRAIN_CONF))
+    conf.dataset.scan_id = 1
+    conf.loss.min_bubble_iter = 2
+    conf.loss.max_bubble_iter = 4
+    conf.train.uniform_bubble = True
+    return conf
+
+
+def kernel_vs_plain_step(tr) -> dict:
+    """One batch with bubble points through a kernel step and a plain step
+    from the same weights and draws."""
+    cfg, data = tr.model_cfg, tr.device_data
+    P = data.pointcloud.shape[0]
+    gen = train_step.step_generator(SEED + 7, 0, tr.device)
+    draws = train_step.TrainDraws.sample(cfg, data, tr.batch_size, gen,
+                                         bubble_draws=tr.batch_size)
+    # every loss on: the normal loss (off inside the bubble window) and
+    # the bubble loss together
+    weights = dict(tr.loss_cfg.dynamic_weights(0),
+                   bubble=tr.loss_cfg.bubble_weight)
+    res = {}
+    for plain in (False, True):
+        model = copy.deepcopy(tr.state.model)
+        state = create_train_state(model, learning_rate=5e-4)
+        step = train_step.make_train_step(cfg, tr.batch_size, plain=plain)
+        bub = train_step.BubbleState(
+            pdf=torch.ones(P, device=tr.device),
+            sample_count=torch.zeros(P, dtype=torch.int64, device=tr.device))
+        m = step(state, data, draws, weights, bub)
+        res[plain] = ({k: float(v) for k, v in m.items()},
+                      [p.grad for p in model.parameters()])
+    mk, gk = res[False]
+    mp, gp = res[True]
+    term_err = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-6) for k in mp}
+    errs = grad_errors(gk, gp)
+    ok = grads_ok(errs) and all(
+        v < GRAD_LEAF_TOL for k, v in term_err.items() if k != "psnr")
+    out = dict(kernel_terms=mk, plain_terms=mp, term_rel_err=term_err,
+               **errs, ok=ok)
+    assert ok, f"kernel step vs plain step: {out}"
+    return out
+
+
+def profile_steps(tr, step0: int, n: int = 2) -> dict:
+    """torch.profiler over n training steps: device time by kernel, busy
+    and idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for s in range(step0, step0 + n):
+            tr.step_fn(tr.state, tr.device_data, tr.draws(s),
+                       tr.loss_cfg.dynamic_weights(s), tr.bubble)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"K1 sdf_mlp": "sdf_mlp_kernel", "K2 sampler_round":
+              "sampler_round", "K3 render_core_fwd": "render_core_kernel",
+              "K4 sweep": "sweep_kernel", "K4 atb": "atb_kernel",
+              "K4 sum": "sum_kernel"}
+    by = {g: 0.0 for g in groups}
+    by["other"] = 0.0
+    top = []
+    for e in prof.key_averages():
+        # kernels only: an operator's own entry also counts the kernels
+        # it launched (the autograd functions around K3 and K4 do)
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev = getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        if dev <= 0:
+            continue
+        top.append((dev, e.key[:60], e.count))
+        g = next((g for g, k in groups.items() if k in e.key), "other")
+        by[g] += dev
+    busy = sum(by.values())
+    top.sort(reverse=True)
+    return dict(steps=n, wall_ms_per_step=wall_ms / n,
+                device_ms_per_step={k: v / n for k, v in by.items()},
+                device_ms_total_per_step=busy / n,
+                device_busy_share=busy / wall_ms,
+                top=[dict(ms=t / n, name=k, calls=c) for t, k, c in top[:12]])
+
+
+def images_only_root(tmp) -> str:
+    """A data root whose scan1 holds only the checkout's images and
+    cameras (symlinks), so no depth, normal or light-mask file is read
+    wherever this runs."""
+    src = ROOT / "data" / "synthetic_quality" / "scan1"
+    scan = Path(tmp) / "data" / "synthetic_quality" / "scan1"
+    scan.mkdir(parents=True)
+    for name in ("image", "cameras_normalize.npz"):
+        os.symlink(src / name, scan / name)
+    return str(Path(tmp) / "data")
+
+
+def run_train(device) -> dict:
+    conf = train_conf()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = ReconstructionTrainer(conf, os.path.join(tmp, "exp"),
+                                   data_root=images_only_root(tmp),
+                                   device=device, seed=SEED)
+        data = tr.train_data
+        assert tr.device_data.depth is None and tr.device_data.normal is None
+        synthetic_supervision(data, SEED + 6)
+        tr.device_data = data.to_device(device)
+        times, seen = [], []
+        inner = tr.step_fn
+
+        def timed(state, d, draws, weights, bubble=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = inner(state, d, draws, weights, bubble)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            seen.append(({k: float(v) for k, v in m.items()},
+                         bubble is not None))
+            return m
+
+        tr.step_fn = timed
+        kernels.reset_launch_counts()
+        tr.fit(max_steps=TRAIN_STEPS, log_every=1)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        tr.step_fn = inner
+        assert [b for _, b in seen] == [False, False, True, True, False,
+                                        False], seen
+        for m, _ in seen:
+            assert all(math.isfinite(v) for v in m.values()), m
+        assert seen[2][0]["bubble_loss"] > 0 and seen[0][0]["depth_loss"] > 0
+        missing = [k for k, v in launches.items() if v == 0]
+        assert not missing, f"kernels not launched on the train path: {missing}"
+        assert launches["render_core_bwd"] == TRAIN_STEPS, launches
+        ckpts = sorted(os.listdir(os.path.join(tmp, "exp", "checkpoints")))
+        assert ckpts == [f"step_{TRAIN_STEPS}.pt"], ckpts
+        try:
+            prof = profile_steps(tr, TRAIN_STEPS)
+        except Exception as exc:  # the profiler is a measurement only
+            prof = {"error": repr(exc)}
+        cmp = kernel_vs_plain_step(tr)
+        steady = times[1:]
+        if "device_ms_total_per_step" in prof:
+            # the profiler slows the host; against the unprofiled step
+            prof["busy_share_of_median_step"] = (
+                prof["device_ms_total_per_step"]
+                / (statistics.median(steady) * 1e3))
+        out = dict(
+            launches=launches, steps=TRAIN_STEPS, rays=tr.batch_size,
+            # 97 samples and 3 eikonal points a ray
+            points=tr.batch_size * (tr.model_cfg.sampler.total_fg_samples
+                                    - 1 + 3),
+            step_s=times, step_s_median=statistics.median(steady),
+            rays_per_s=tr.batch_size / statistics.median(steady),
+            losses=[m["loss"] for m, _ in seen],
+            pointcloud=int(data.pointcloud.shape[0]),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            profile=prof, kernel_vs_plain=cmp)
+        del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_cli() -> dict:
+    """The train CLI on scan1 as the checkout holds it (images and cameras
+    only), then --resume for one step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        base = [sys.executable, "-m", "i2sdf_tpu_torch.main", "--conf",
+                str(TRAIN_CONF), "--scan_id", "1", "--data_root",
+                images_only_root(tmp), "--exps_folder",
+                str(Path(tmp) / "exps"), "--log_every", "1"]
+        runs = []
+        for extra in (["--max_steps", "3"], ["--max_steps", "4",
+                                             "--resume"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(base + extra, cwd=ROOT, capture_output=True,
+                                  text=True, timeout=600)
+            runs.append(dict(args=extra, rc=proc.returncode,
+                             seconds=time.perf_counter() - t0,
+                             tail=proc.stdout.strip().splitlines()[-4:]))
+            assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[
+                -3000:]
+        assert "[INFO] Resumed from step 3" in proc.stdout, proc.stdout
+        exp = Path(tmp) / "exps" / "quality_1" / "version_0"
+        ckpts = sorted(os.listdir(exp / "checkpoints"))
+        plots = sorted(str(p.relative_to(exp)) for p in (exp / "plots")
+                       .rglob("*.png"))
+    assert ckpts == ["step_3.pt", "step_4.pt"], ckpts
+    assert len(plots) == 6, plots
+    return dict(runs=runs, checkpoints=ckpts, plots=plots)
 
 
 def main() -> int:
@@ -402,7 +759,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = check_kernels(model, cfg, conf, device)
+    tconf = train_conf()
+    tcfg = renderer.I2SDFConfig.from_cfgnode(tconf.model)
+    rows.append(check_k4(renderer.I2SDFModel(tcfg, seed=SEED).to(device),
+                         tcfg, conf, device))
     emit("kernels", t0, n=len(rows))
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     sl = run_slice(model, conf, device)
@@ -411,16 +773,28 @@ def main() -> int:
     t0 = time.perf_counter()
     cmp = compare_chunk(model, conf, device)
     emit("compare", t0, **cmp)
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tr = run_train(device)
+    emit("train", t0, **tr)
+
+    t0 = time.perf_counter()
+    cli = run_cli()
+    emit("cli", t0, **cli)
 
     per_kernel = {}
     for row in rows:  # one entry per kernel: its main-path shape's row
         per_kernel.setdefault(row["name"], row)
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"launches": sl["launches"],
+    print(json.dumps({"launches": {"eval": sl["launches"],
+                                   "train": tr["launches"]},
                       "seconds": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": [
-        {**{k: r[k] for k in keys}, "launches": sl["launches"][r["name"]]}
+        {**{k: r[k] for k in keys}, "launches": tr["launches"][r["name"]]}
         for r in per_kernel.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

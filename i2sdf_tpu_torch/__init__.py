@@ -7,7 +7,9 @@ a reader find the counterpart (`config/`, `utils/cameras.py`,
 
 Slice 1 is the eval render of the flagship config (`configs/synthetic.yml`,
 `python -m i2sdf_tpu_torch.main --conf configs/synthetic.yml --test
---test_mode render`). Its three hot functions are hand-written CUDA kernels
-(`csrc/*.cu`); each has a plain PyTorch version beside it that the CPU path
-and the tests use.
+--test_mode render`). Slice 2 is its training step
+(`python -m i2sdf_tpu_torch.main --conf configs/synthetic_quality.yml
+--scan_id 1 --max_steps N [--resume]`). Their hot functions are four
+hand-written CUDA kernels (`csrc/*.cu`, listed in `ops/kernels/`); each
+has a plain PyTorch version beside it that the CPU path and the tests use.
 """

@@ -21,7 +21,8 @@ class PlotData:
                  data_root: str = "data", downsample: int = 1,
                  indices=None, **_unused):
         instance_dir = os.path.join(data_root, data_dir, f"scan{scan_id}")
-        paths = imaging.glob_pngs(os.path.join(instance_dir, "image"))
+        paths = imaging.glob_imgs(os.path.join(instance_dir, "image"),
+                                  (".png",))
         if not paths:
             raise FileNotFoundError(f"no images under {instance_dir}/image")
         cams = np.load(os.path.join(instance_dir, "cameras_normalize.npz"))

@@ -1,16 +1,22 @@
-"""CLI of the port (counterpart of `i2sdf_tpu/main.py`), render mode.
+"""CLI of the port (counterpart of `i2sdf_tpu/main.py`): train and render.
 
+    python -m i2sdf_tpu_torch.main --conf configs/synthetic_quality.yml \
+        --scan_id 1 [--max_steps N] [--resume] [--seed 7] [--device cpu]
     python -m i2sdf_tpu_torch.main --conf configs/synthetic.yml --test \
         --test_mode render [--indices 0 3] [--ckpt model.pt] [--seed 7] \
         [--device cpu]
 
-The flags are the reference's; only `--test --test_mode render` is
-ported so far, and other modes are refused. The model runs on the card
-unless `--device cpu` is given. Weights come from `--ckpt` (a `.pt`
+The flags are the reference's. Without `--test` the trainer runs
+(`train/trainer.py`) for `--max_steps` steps (the config's
+`train.steps` if not given); `--resume` continues from the newest
+checkpoint of the experiment's version directory. Of the test modes only
+`render` is ported; the others are refused. The model runs on the card
+unless `--device cpu` is given. Render weights come from `--ckpt` (a `.pt`
 state_dict, e.g. written from a JAX checkpoint with
-`i2sdf_tpu_torch.params.from_jax_params`) or else from the seeded init.
-`--seed` defaults to None, which means the config's `seed:` key, or 0: an
-explicit `--seed` always wins.
+`i2sdf_tpu_torch.params.from_jax_params`, or a training checkpoint's
+"model" entry) or else from the seeded init. `--seed` defaults to None,
+which means the config's `seed:` key, or 0: an explicit `--seed` always
+wins.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from .config import load_cfg
 from .eval.render import run_render_eval
 from .models.renderer import I2SDFConfig
 from .params import load_model
+from .train.trainer import ReconstructionTrainer
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -45,12 +52,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt", default=None, help="a .pt state_dict")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--log_every", type=int, default=50)
     return p
 
 
-def resolve_exp_dir(args, conf) -> str:
+def resolve_exp_dir(args, conf, new_version: bool = False) -> str:
     """`<exps_folder>/<expname>_<scan>/version_N`: the given version, else
-    the newest existing one, else 0."""
+    the newest existing one (a fresh one past it with `new_version`), else
+    0."""
     expname = args.expname or conf.train.get("expname", "run")
     scan_id = (args.scan_id if args.scan_id is not None
                else conf.dataset.get("scan_id", 0))
@@ -61,13 +72,15 @@ def resolve_exp_dir(args, conf) -> str:
         found = [int(m.group(1)) for d in os.listdir(base)
                  if (m := re.fullmatch(r"version_(\d+)", d))]
         version = max(found) if found else None
+        if new_version and version is not None:
+            version += 1
     return os.path.join(base, f"version_{version or 0}")
 
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if not (args.test and args.test_mode == "render"):
-        raise SystemExit("only --test --test_mode render is ported yet")
+    if args.test and args.test_mode != "render":
+        raise SystemExit(f"--test_mode {args.test_mode} is not ported yet")
     if args.is_val:
         raise SystemExit("--is_val (held-out val/ cameras) is not ported yet")
     device = torch.device(args.device)
@@ -76,12 +89,20 @@ def main(argv=None) -> int:
                          "PyTorch path on the CPU")
     conf = load_cfg(args.conf)
     seed = args.seed if args.seed is not None else conf.get("seed", 0)
-    exp_dir = resolve_exp_dir(args, conf)
+    exp_dir = resolve_exp_dir(
+        args, conf, new_version=not args.test and not args.resume)
     os.makedirs(exp_dir, exist_ok=True)
     print(f"[INFO] experiment dir: {exp_dir}")
     print(f"[INFO] device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
+    if not args.test:
+        trainer = ReconstructionTrainer(conf, exp_dir,
+                                        data_root=args.data_root,
+                                        device=device, seed=seed)
+        trainer.fit(max_steps=args.max_steps, resume=args.resume,
+                    log_every=args.log_every)
+        return 0
     cfg = I2SDFConfig.from_cfgnode(conf.model)
     model = load_model(cfg, args.ckpt, seed, device)
     print(f"[INFO] weights: {args.ckpt or f'seeded init (seed {seed})'}")

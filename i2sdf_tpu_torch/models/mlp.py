@@ -107,9 +107,6 @@ class WNLinear(nn.Module):
             return self.v * (self.g[None, :] / torch.clamp(norm, min=1e-12))
         return self.w
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight() + self.b
-
 
 def _uniform(gen, shape, bound):
     return (torch.rand(shape, generator=gen) * 2 - 1) * bound
@@ -156,16 +153,25 @@ class ImplicitNet(nn.Module):
         return [getattr(self, f"lin{i}") for i in range(self.n_layers)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inp = self.cfg.embed(x)
-        h = inp
-        inv_sqrt2 = 1.0 / math.sqrt(2.0)
-        for layer, lin in enumerate(self.layers()):
-            if layer in self.cfg.skip_in:
-                h = torch.cat([h, inp], dim=-1) * inv_sqrt2
-            h = lin(h)
-            if layer < self.n_layers - 1:
-                h = softplus_beta(h, 100.0)
-        return h
+        lins = self.layers()
+        return implicit_apply(self.cfg, [l.weight() for l in lins],
+                              [l.b for l in lins], x)
+
+
+def implicit_apply(cfg: ImplicitNetConfig, ws, bs,
+                   x: torch.Tensor) -> torch.Tensor:
+    """The implicit net with explicit (in, out) weights and biases:
+    (N, d_in) -> (N, d_out + F), unclamped."""
+    inp = cfg.embed(x)
+    h = inp
+    inv_sqrt2 = 1.0 / math.sqrt(2.0)
+    for layer in range(len(ws)):
+        if layer in cfg.skip_in:
+            h = torch.cat([h, inp], dim=-1) * inv_sqrt2
+        h = h @ ws[layer] + bs[layer]
+        if layer < len(ws) - 1:
+            h = softplus_beta(h, 100.0)
+    return h
 
 
 def clamp_sdf(cfg: ImplicitNetConfig, sdf: torch.Tensor,
@@ -216,9 +222,17 @@ class RenderingNet(nn.Module):
 
     def forward(self, view_dirs: torch.Tensor,
                 features: torch.Tensor) -> torch.Tensor:
-        h = torch.cat([self.cfg.embed(view_dirs), features], dim=-1)
-        for layer, lin in enumerate(self.layers()):
-            h = lin(h)
-            if layer < self.n_layers - 1:
-                h = torch.relu(h)
-        return torch.sigmoid(h)
+        lins = self.layers()
+        return rendering_apply(self.cfg, [l.weight() for l in lins],
+                               [l.b for l in lins], view_dirs, features)
+
+
+def rendering_apply(cfg: RenderingNetConfig, ws, bs, view_dirs: torch.Tensor,
+                    features: torch.Tensor) -> torch.Tensor:
+    """The radiance net with explicit (in, out) weights and biases."""
+    h = torch.cat([cfg.embed(view_dirs), features], dim=-1)
+    for layer in range(len(ws)):
+        h = h @ ws[layer] + bs[layer]
+        if layer < len(ws) - 1:
+            h = torch.relu(h)
+    return torch.sigmoid(h)

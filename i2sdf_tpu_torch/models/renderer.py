@@ -1,15 +1,20 @@
-"""I2SDF volume renderer, eval path (counterpart of
-`i2sdf_tpu/models/renderer.py`).
+"""I2SDF volume renderer (counterpart of `i2sdf_tpu/models/renderer.py`).
 
 `I2SDFModel` holds the SDF net, the radiance net and the learnable beta.
 `render_rays` renders a batch of rays at eval (`training=False` in the
-reference): foreground only, with rgb, depth and the normal map. The
-light head and the NeRF++ background are not ported yet, and configs
-that ask for them are refused.
+reference): foreground only, with rgb, depth and the normal map.
+`render_rays_train` is the training render (`renderer.py:299-311,
+345-377,470-499`): the eikonal points ride in the render core's batch
+with zero directions, and it returns what the losses read (`grad_theta`,
+`diff_norm`, `surface_sdf` on the bubble points, `normal_values` under
+`use_normal`), differentiable with respect to the model's parameters.
+Its random numbers come in a `RenderDraws` bundle. The light head and
+the NeRF++ background are not ported yet, and configs that ask for them
+are refused.
 
-Compute is f32 in the plain path on either device; on the card the three
-hot functions run as CUDA kernels with bf16 operands and f32
-accumulation (`ops/kernels/`).
+Compute is f32 in the plain path on either device; on the card the hot
+functions run as CUDA kernels with bf16 operands and f32 accumulation
+(`ops/kernels/`).
 """
 
 from __future__ import annotations
@@ -23,11 +28,11 @@ from torch import nn
 from ..ops.compositing import render_weights
 from ..ops.kernels import render_core, sampler_round, sdf_mlp
 from ..utils.cameras import get_camera_params
-from ..utils.jmath import safe_normalize
+from ..utils.jmath import safe_norm, safe_normalize
 from .density import effective_beta, laplace_density
 from .mlp import (ImplicitNet, ImplicitNetConfig, RenderingNet,
-                  RenderingNetConfig)
-from .sampler import SamplerConfig, error_bound_z_vals
+                  RenderingNetConfig, clamp_sdf)
+from .sampler import SamplerConfig, SamplerDraws, error_bound_z_vals
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +44,7 @@ class I2SDFConfig:
     sampler: SamplerConfig = None
     beta_init: float = 0.1
     beta_min: float = 1e-4
+    use_normal: bool = False
 
     @classmethod
     def from_cfgnode(cls, conf: Any) -> "I2SDFConfig":
@@ -96,7 +102,8 @@ class I2SDFConfig:
         return cls(feature_vector_size=fvs, scene_bounding_sphere=sphere,
                    implicit=implicit, rendering=rendering, sampler=sampler,
                    beta_init=conf.density.params_init.beta,
-                   beta_min=conf.density.get("beta_min", 1e-4))
+                   beta_min=conf.density.get("beta_min", 1e-4),
+                   use_normal=conf.get("use_normal", False))
 
 
 class I2SDFModel(nn.Module):
@@ -126,6 +133,118 @@ class KernelWeights:
                                                    model.rendering))
 
 
+def _camera_rays(inputs: dict):
+    """Unit ray directions, camera centres and the directions' norms,
+    one row per ray."""
+    ray_dirs_b, cam_loc_b = get_camera_params(
+        inputs["uv"], inputs["pose"], inputs["intrinsics"])
+    B, N = ray_dirs_b.shape[:2]
+    cam_loc = cam_loc_b[:, None, :].expand(B, N, 3).reshape(-1, 3)
+    ray_dirs = ray_dirs_b.reshape(-1, 3)
+    norm = torch.linalg.norm(ray_dirs, dim=-1)
+    return ray_dirs / torch.clamp(norm[:, None], min=1e-12), cam_loc, norm
+
+
+def _sampler_fns(model: I2SDFModel, sdf_pack, plain: bool):
+    cfg = model.cfg
+    if plain:
+        def sdf_fn(pts):
+            return sdf_mlp.sdf_mlp_plain(model.implicit, pts)
+
+        def round_impl(*a):
+            return sampler_round.sampler_round_plain(cfg.sampler, *a)
+    else:
+        def sdf_fn(pts):
+            return sdf_mlp.sdf_mlp_nograd(sdf_pack, pts)
+
+        def round_impl(*a):
+            return sampler_round.sampler_round(cfg.sampler, *a)
+    return sdf_fn, round_impl
+
+
+@dataclasses.dataclass
+class RenderDraws:
+    """The random numbers of one training render of R rays
+    (`renderer.py:246,305-314`): the sampler's, the eikonal points drawn
+    uniformly in the scene's bounding cube, and the jitter of their
+    near-surface neighbours."""
+    sampler: SamplerDraws
+    eik_uniform: torch.Tensor   # (R, 3) in [-sphere, sphere)
+    jitter: torch.Tensor        # (R, 3) in [-0.005, 0.005)
+
+    @classmethod
+    def sample(cls, cfg: I2SDFConfig, n_rays: int,
+               gen: torch.Generator) -> "RenderDraws":
+        dev, s = gen.device, cfg.scene_bounding_sphere
+        return cls(
+            sampler=SamplerDraws.sample(cfg.sampler, n_rays, gen),
+            eik_uniform=(torch.rand((n_rays, 3), generator=gen, device=dev)
+                         * (2 * s) - s),
+            jitter=(torch.rand((n_rays, 3), generator=gen, device=dev)
+                    * 0.01 - 0.005))
+
+
+def render_rays_train(model: I2SDFModel, inputs: dict, draws: RenderDraws,
+                      plain: bool = False) -> dict:
+    """Render a batch of rays for a training step.
+
+    inputs as `render_rays`'s, plus an optional "pointcloud" (P, 3) of
+    bubble points. The sampler and the render core go through their
+    kernel wrappers (CUDA kernels on CUDA tensors, the plain versions on
+    CPU tensors, or the plain versions anywhere with `plain=True`); the
+    render core's backward is K4 on the card. The sampler sees the
+    current weights (packed here) and beta, without gradient."""
+    cfg = model.cfg
+    with torch.no_grad():
+        ray_dirs, cam_loc, ray_dirs_norm = _camera_rays(inputs)
+        R = ray_dirs.shape[0]
+        beta0 = effective_beta(model.beta.detach(), cfg.beta_min)
+        sdf_pack = None if plain else sdf_mlp.SdfMlpPack(model.implicit)
+        sdf_fn, round_impl = _sampler_fns(model, sdf_pack, plain)
+        z_all = error_bound_z_vals(cfg.sampler, sdf_fn, ray_dirs, cam_loc,
+                                   beta0, round_impl=round_impl,
+                                   draws=draws.sampler)
+        z_eik = torch.gather(z_all, 1, draws.sampler.eik_idx)
+        z_max, z_vals = z_all[:, -1], z_all[:, :-1]
+        S = z_vals.shape[1]
+        points = (cam_loc[:, None, :]
+                  + z_vals[..., None] * ray_dirs[:, None, :]).reshape(-1, 3)
+        dirs = ray_dirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
+        eik_near = cam_loc + z_eik * ray_dirs
+        eik_all = torch.cat([draws.eik_uniform, eik_near,
+                             eik_near + draws.jitter])
+        pts_in = torch.cat([points, eik_all]).contiguous()
+        dirs_in = torch.cat([dirs, torch.zeros_like(eik_all)]).contiguous()
+
+    w = render_core.CoreWeights.of(model.implicit, model.rendering)
+    sdf_a, grad_a, rgb_a = render_core.render_core_train(
+        cfg.implicit, cfg.rendering, w, pts_in, dirs_in, plain=plain)
+    n_main = R * S
+    sdf, grad, rgb = sdf_a[:n_main], grad_a[:n_main], rgb_a[:n_main]
+    beta = effective_beta(model.beta, cfg.beta_min)
+    density = laplace_density(sdf, beta).reshape(R, S)
+    weights, _ = render_weights(z_vals, z_max, density)
+    out = {
+        "rgb_values": (weights[..., None] * rgb.reshape(R, S, 3)).sum(1),
+        "depth_values": ((weights * z_vals).sum(1)
+                         / torch.clamp(ray_dirs_norm, min=1e-6)),
+        "weight_sum": weights.sum(-1, keepdim=True),
+    }
+    grad_theta = grad_a[n_main:]
+    out["grad_theta"] = grad_theta[:2 * R]
+    pair = safe_normalize(grad_theta[R:])
+    out["diff_norm"] = safe_norm(pair[:R] - pair[R:], dim=-1)
+    if "pointcloud" in inputs:
+        pc = inputs["pointcloud"]
+        out["surface_sdf"] = clamp_sdf(cfg.implicit,
+                                       model.implicit(pc)[:, :1], pc)
+    if cfg.use_normal:
+        normals = safe_normalize(grad).reshape(R, S, 3)
+        out["normal_values"] = safe_normalize(
+            (weights.detach()[..., None] * normals).sum(1))
+    return out
+
+
 def render_rays(model: I2SDFModel, inputs: dict,
                 weights: KernelWeights | None = None,
                 plain: bool = False) -> dict:
@@ -141,29 +260,11 @@ def render_rays(model: I2SDFModel, inputs: dict,
     if weights is None and not plain:
         weights = KernelWeights.pack(model)
     with torch.no_grad():
-        ray_dirs_b, cam_loc_b = get_camera_params(
-            inputs["uv"], inputs["pose"], inputs["intrinsics"])
-        B, N = ray_dirs_b.shape[:2]
-        R = B * N
-        cam_loc = cam_loc_b[:, None, :].expand(B, N, 3).reshape(-1, 3)
-        ray_dirs = ray_dirs_b.reshape(-1, 3)
-        ray_dirs_norm = torch.linalg.norm(ray_dirs, dim=-1)
-        ray_dirs = ray_dirs / torch.clamp(ray_dirs_norm[:, None], min=1e-12)
+        ray_dirs, cam_loc, ray_dirs_norm = _camera_rays(inputs)
+        R = ray_dirs.shape[0]
         beta = effective_beta(model.beta, cfg.beta_min)
-
-        if plain:
-            def sdf_fn(pts):
-                return sdf_mlp.sdf_mlp_plain(model.implicit, pts)
-
-            def round_impl(*a):
-                return sampler_round.sampler_round_plain(cfg.sampler, *a)
-        else:
-            def sdf_fn(pts):
-                return sdf_mlp.sdf_mlp_nograd(weights.sdf, pts)
-
-            def round_impl(*a):
-                return sampler_round.sampler_round(cfg.sampler, *a)
-
+        sdf_fn, round_impl = _sampler_fns(
+            model, None if plain else weights.sdf, plain)
         z_all = error_bound_z_vals(cfg.sampler, sdf_fn, ray_dirs, cam_loc,
                                    beta, round_impl=round_impl)
         z_max = z_all[:, -1]

@@ -1,13 +1,15 @@
-"""Error-bounded ray sampler, eval path (counterpart of
-`i2sdf_tpu/models/sampler.py`, VolSDF Algorithm 1).
+"""Error-bounded ray sampler (counterpart of `i2sdf_tpu/models/sampler.py`,
+VolSDF Algorithm 1).
 
-Ported: `SamplerConfig`, the deterministic eval `uniform_z_vals`,
-`round_update` (one refinement round: d* bound, beta bisection, weights,
-error-bound or final pdf, inverse CDF) and `error_bound_z_vals` on the
-global-early-exit branch (`early_exit=True`, `per_ray_exit=False`,
-`sampler.py:286-446`). Per-ray compaction and the training-time draws
-(stratified init, sorted uniforms, random extras, eikonal depths) are not
-ported yet.
+Ported: `SamplerConfig`, `uniform_z_vals`, `round_update` (one refinement
+round: d* bound, beta bisection, weights, error-bound or final pdf,
+inverse CDF) and `error_bound_z_vals` on the global-early-exit branch
+(`early_exit=True`, `per_ray_exit=False`, `sampler.py:286-446`), at eval
+and in training. The training draws (`SamplerDraws`: the stratified init
+`sampler.py:134-148`, the final round's sorted uniforms `:188-196`, the
+sorted subset of the accumulated samples `:510-516`, the eikonal depth
+index `:530-532`) are passed in, so a test can hand both packages the same
+numbers. Per-ray compaction is not ported yet.
 
 `round_update` is the plain version of the CUDA sampler-round kernel
 (`ops/kernels/sampler_round.py`), which is the production `round_impl`.
@@ -21,7 +23,8 @@ from typing import Callable
 
 import torch
 
-from ..ops.sampling import linear_z_vals, pdf_to_cdf, prefix_sum, sample_cdf
+from ..ops.sampling import (linear_z_vals, pdf_to_cdf, prefix_sum,
+                            sample_cdf, stratify)
 from .density import laplace_density
 
 
@@ -58,6 +61,41 @@ class SamplerConfig:
     def total_fg_samples(self) -> int:
         """Final per-ray sample count incl. the near and far columns."""
         return self.N_samples + self.N_samples_extra + 2
+
+
+@dataclasses.dataclass
+class SamplerDraws:
+    """The random numbers of one training render's sampler (R rays)."""
+    strat: torch.Tensor      # (R, counts[0]) U[0, 1): stratified init jitter
+    final: torch.Tensor      # (R, N_samples + 1) U[0, 1): the final round's
+    #                          sorted uniforms (`_sorted_uniform`)
+    extra_idx: torch.Tensor  # (N_samples_extra,) int64, sorted: the subset
+    #                          of the accumulated samples kept as extras
+    eik_idx: torch.Tensor    # (R, 1) int64 in [0, total_fg_samples): one
+    #                          sample depth per ray for the eikonal points
+
+    @classmethod
+    def sample(cls, cfg: "SamplerConfig", n_rays: int,
+               gen: torch.Generator) -> "SamplerDraws":
+        dev = gen.device
+        total = sum(cfg.eval_counts)
+        perm = torch.randperm(total, generator=gen, device=dev)
+        return cls(
+            strat=torch.rand((n_rays, cfg.eval_counts[0]), generator=gen,
+                             device=dev),
+            final=torch.rand((n_rays, cfg.N_samples + 1), generator=gen,
+                             device=dev),
+            extra_idx=torch.sort(perm[:cfg.N_samples_extra]).values,
+            eik_idx=torch.randint(0, cfg.total_fg_samples, (n_rays, 1),
+                                  generator=gen, device=dev))
+
+
+def sorted_uniform(u: torch.Tensor) -> torch.Tensor:
+    """(R, n + 1) U[0, 1) -> (R, n) sorted U(0, 1) draws: normalized
+    partial sums of n + 1 Exp(1) spacings have the joint law of n sorted
+    uniforms (`i2sdf_tpu/models/sampler.py:188-196`)."""
+    s = torch.cumsum(-torch.log1p(-u), dim=-1)
+    return s[:, :-1] / torch.clamp(s[:, -1:], min=1e-12)
 
 
 def uniform_z_vals(cfg: SamplerConfig, n_rays: int, n: int,
@@ -149,12 +187,16 @@ def _sorted_merge(z_a, pay_a, z_b, pay_b):
 
 
 def error_bound_z_vals(cfg: SamplerConfig, sdf_fn: SdfFn, ray_dirs, cam_loc,
-                       beta0, round_impl: RoundImpl | None = None):
-    """Eval-time adaptive sampling with the global early exit.
+                       beta0, round_impl: RoundImpl | None = None,
+                       draws: SamplerDraws | None = None):
+    """Adaptive sampling with the global early exit.
 
     ray_dirs (R, 3) unit, cam_loc (R, 3), beta0 0-d tensor. Returns the
     sorted (R, total_fg_samples) depths. `sdf_fn` maps (N, 3) -> (N,);
-    `round_impl` has `round_update`'s signature minus cfg.
+    `round_impl` has `round_update`'s signature minus cfg. With `draws`
+    the init is stratified, the final round takes sorted uniforms and the
+    extras are the drawn subset (training); without, all three are
+    deterministic (eval).
 
     The reference's `lax.cond` on global convergence is a Python branch on
     `bool(converged)` here: one host sync per refinement round, which
@@ -175,6 +217,8 @@ def error_bound_z_vals(cfg: SamplerConfig, sdf_fn: SdfFn, ray_dirs, cam_loc,
         return sdf_fn(pts.reshape(-1, 3)).reshape(z.shape)
 
     z_vals = uniform_z_vals(cfg, R, counts[0], device)
+    if draws is not None:
+        z_vals = stratify(z_vals, draws.strat)
     dists = z_vals[:, 1:] - z_vals[:, :-1]
     beta = torch.sqrt((1.0 / (4.0 * math.log(cfg.eps + 1.0)))
                       * (dists ** 2).sum(-1))
@@ -190,8 +234,9 @@ def error_bound_z_vals(cfg: SamplerConfig, sdf_fn: SdfFn, ray_dirs, cam_loc,
             new_sdf = sdf[:, :n_new] if converged else eval_sdf(samples)
             z_vals, sdf = _sorted_merge(z_vals, sdf, samples, new_sdf)
         if it == cfg.max_total_iters - 1:
-            final_samples, beta = impl(z_vals, sdf, beta, beta0,
-                                       linspace_u(cfg.N_samples), True)
+            u = (linspace_u(cfg.N_samples) if draws is None
+                 else sorted_uniform(draws.final).contiguous())
+            final_samples, beta = impl(z_vals, sdf, beta, beta0, u, True)
             break
         n_next = counts[it + 1]
         if not converged:
@@ -204,7 +249,8 @@ def error_bound_z_vals(cfg: SamplerConfig, sdf_fn: SdfFn, ray_dirs, cam_loc,
     near = torch.full((R, 1), cfg.near, dtype=torch.float32, device=device)
     far = torch.full((R, 1), cfg.far, dtype=torch.float32, device=device)
     if cfg.N_samples_extra > 0:
-        idx = extra_sample_index(z_vals.shape[1], cfg.N_samples_extra)
+        idx = (extra_sample_index(z_vals.shape[1], cfg.N_samples_extra)
+               if draws is None else draws.extra_idx)
         z_extra = torch.cat([near, z_vals[:, idx.to(device)], far], dim=-1)
     else:
         z_extra = torch.cat([near, far], dim=-1)

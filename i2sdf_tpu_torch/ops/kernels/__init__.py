@@ -5,25 +5,29 @@
 | `sdf_mlp_nograd` | `sdf_mlp.py`, `csrc/sdf_mlp.cu` | `ops/pallas/fused_mlp.py:157 fused_sdf_mlp` |
 | `sampler_round` | `sampler_round.py`, `csrc/sampler_round.cu` | `ops/pallas/sampler_round.py:218 sampler_round_pallas` |
 | `render_core_fwd` | `render_core.py`, `csrc/render_core.cu` | forward of `ops/pallas/fused_train.py:449 get_render_core_op` |
+| `render_core_bwd` | `render_core.py`, `csrc/render_core_bwd.cu` | backward of `ops/pallas/fused_train.py:449 get_render_core_op` |
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
-the plain PyTorch version for CPU tensors. Each module keeps a plain
-integer `launches` that its wrapper increments once per kernel launch.
+the plain PyTorch version for CPU tensors. Each kernel has a plain
+integer counter in its module that its wrapper increments once per
+kernel launch (`launches` in `sdf_mlp.py` and `sampler_round.py`;
+`launches` and `bwd_launches` in `render_core.py`).
 """
 
 from . import render_core, sampler_round, sdf_mlp
 
 KERNELS = {
-    "sdf_mlp_nograd": sdf_mlp,
-    "sampler_round": sampler_round,
-    "render_core_fwd": render_core,
+    "sdf_mlp_nograd": (sdf_mlp, "launches"),
+    "sampler_round": (sampler_round, "launches"),
+    "render_core_fwd": (render_core, "launches"),
+    "render_core_bwd": (render_core, "bwd_launches"),
 }
 
 
 def launch_counts() -> dict:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (`i2sdf_tpu_torch/csrc/*.cu`).
 
-One `nvcc` call compiles every source for `sm_90a` into a shared library
-with a plain C interface, loaded with `ctypes` (no PyTorch headers, so the
-build takes seconds, not minutes). The library lands in
+Every source is compiled for `sm_90a` by its own `nvcc -c`, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with `ctypes` (no PyTorch headers, so the build takes
+seconds, not minutes). The library lands in
 `build/i2sdf_tpu_torch/` beside the package, named by a hash of the
 sources and flags: a changed source builds a new file, and a finished
 file is never rebuilt. The compiler writes to a temporary name that is
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "i2sdf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 300
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,6 +38,9 @@ _SIGNATURES = {
     "i2sdf_render_core_fwd": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P,
                               _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                               _P],
+    "i2sdf_render_core_bwd": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
+                              _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -63,27 +67,50 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the library if it is not there yet.
+    """Compile the library if it is not there yet: one `nvcc -c` per
+    source, run in parallel, then one link.
 
     Returns (path, seconds spent compiling)."""
     out = library_path()
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f".{tag}.{src.stem}.o" for src in srcs]
+    tmp = out.with_name(f".{tag}.so.tmp")
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
+    procs = []
     try:
+        for src, obj in zip(srcs, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        deadline = time.monotonic() + BUILD_TIMEOUT_S
+        for cmd, proc in procs:
+            _, err = proc.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err}")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *[str(o) for o in objs]]
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=BUILD_TIMEOUT_S)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, out)
     finally:
-        if tmp.exists():
-            tmp.unlink()
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in [*objs, tmp]:
+            if path.exists():
+                path.unlink()
     return out, time.perf_counter() - t0
 
 

@@ -1,99 +1,304 @@
-"""K3 `render_core_fwd`: SDF, spatial gradient and radiance at points.
+"""K3 `render_core_fwd` and K4 `render_core_bwd`: SDF, spatial gradient and
+radiance at points, and the backward of the same function.
 
-Replaces the forward of `i2sdf_tpu/ops/pallas/fused_train.py:449
-get_render_core_op` (via `render_core_fused`, `:707`), the eval forward of
-the render. The CUDA kernel is `csrc/render_core.cu` (its header says what
-bounds it and how it is built); `render_core_plain` is the same function
-in plain PyTorch (f32, the gradient by autograd), which the CPU path and
-the tests use. The bounding-sphere clamp is applied outside the kernel,
-as `fused_train.py:771-777` does.
+Replaces `i2sdf_tpu/ops/pallas/fused_train.py:449 get_render_core_op`:
+its forward (pallas_call at `:555`) is K3 (`csrc/render_core.cu`), its
+backward (`:609`, `_make_bwd_kernel` at `:267-446`) is K4
+(`csrc/render_core_bwd.cu`). Each CUDA source's header says what bounds
+it and how it is built.
+
+* `render_core_fwd(pack, x, dirs)`: the eval forward (no gradient).
+* `render_core_train(nets, x, dirs)`: the training op, differentiable
+  with respect to both nets' parameters, through the spatial gradient
+  too. On the card it is `RenderCoreTrain`, a `torch.autograd.Function`
+  whose forward launches K3 and whose backward launches K4; it takes the
+  *materialized* weights (weight norm applied outside by autograd) and
+  saves only its inputs, as `op_fwd` does (`fused_train.py:647-650`).
+* `render_core_plain` / `render_core_train_plain`: the same functions in
+  plain f32 PyTorch (the gradient by autograd, with `create_graph` for
+  training). The CPU path and the tests use them; on the card they only
+  serve as the yardstick the kernels are held to.
+
+The bounding-sphere clamp is applied outside the kernels, as
+`fused_train.py:771-777` does.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from ...models import mlp
 from . import build, mma_pack
 
-launches = 0  # kernel launches since the last reset_launch_counts()
+launches = 0      # K3 launches since the last reset_launch_counts()
+bwd_launches = 0  # K4 launches since the last reset_launch_counts()
 
-_ROWS = 32               # points per block (csrc/render_core.cu kRows)
+_ROWS = 32               # points per block (kRows in both kernels)
 _MAX_WIDTH = 320         # 8 warps x 5 tiles x 8 columns
 _MAX_SMEM = 232448       # bytes a block may use on the H100
+_MAX_SDF, _MAX_RAD = 12, 8   # layer slots of K4's scratch table
+_MAX_SPLITS = 32         # point-range splits of K4's weight-gradient sums
 _PLAIN_CHUNK = 1 << 17
 
 
+@dataclasses.dataclass(frozen=True)
+class CoreWeights:
+    """Materialized (in, out) weights and biases of both nets, in the
+    nets' own layouts (what autograd differentiates)."""
+    ws_sdf: tuple
+    bs_sdf: tuple
+    ws_rad: tuple
+    bs_rad: tuple
+
+    @classmethod
+    def of(cls, implicit: mlp.ImplicitNet,
+           rendering: mlp.RenderingNet) -> "CoreWeights":
+        si, ri = implicit.layers(), rendering.layers()
+        return cls(tuple(l.weight() for l in si), tuple(l.b for l in si),
+                   tuple(l.weight() for l in ri), tuple(l.b for l in ri))
+
+    def flat(self) -> list:
+        return [*self.ws_sdf, *self.bs_sdf, *self.ws_rad, *self.bs_rad]
+
+    @classmethod
+    def unflat(cls, ts, n_sdf: int, n_rad: int) -> "CoreWeights":
+        ts = list(ts)
+        a, b = n_sdf, 2 * n_sdf
+        return cls(tuple(ts[:a]), tuple(ts[a:b]), tuple(ts[b:b + n_rad]),
+                   tuple(ts[b + n_rad:b + 2 * n_rad]))
+
+
+def _sdf_perm(F: int) -> list:
+    """Kernel column order of the SDF output layer: [features | sdf]."""
+    return list(range(1, F + 1)) + [0]
+
+
+def _rad_perm(vdim: int, F: int) -> list:
+    """Kernel row order of the radiance input layer: [features | PE(view)]
+    (the nets' order is [PE(view) | features])."""
+    return list(range(vdim, vdim + F)) + list(range(vdim))
+
+
 class _KernelLayout:
-    def __init__(self, implicit: mlp.ImplicitNet, rendering: mlp.RenderingNet):
-        icfg, rcfg = implicit.cfg, rendering.cfg
+    """Both nets in the kernels' layouts, from materialized weights:
+
+    * `fwd`: the SDF chain, output layer as [features | sdf];
+    * `sdft`: the SDF chain transposed, last layer first (K3's reverse
+      sweep takes its rows 1.., K4's downward sweep rows 0..n-2);
+    * `rad`, `radt`: the radiance chain (first layer's rows as
+      [features | PE(view)]) and its transpose, last layer first.
+
+    Each transposed plan row's `real` is the width that continues down the
+    net (the hidden width of the layer's input, the part before the skip's
+    encoding), `col` where the encoding starts (skip layers), and SCALE
+    marks the 1/sqrt(2) of a skip."""
+
+    def __init__(self, icfg: mlp.ImplicitNetConfig,
+                 rcfg: mlp.RenderingNetConfig, w: CoreWeights):
         mma_pack.check_sdf_net(icfg)
         F = icfg.feature_vector_size
         if icfg.d_out != 1 or F % 2:
-            raise ValueError("render_core_fwd: needs d_out 1 and an even "
+            raise ValueError("render_core: needs d_out 1 and an even "
                              "feature width")
         if rcfg.embed_type != "positional" or rcfg.d_in != 3:
-            raise ValueError("render_core_fwd: the radiance net takes the "
+            raise ValueError("render_core: the radiance net takes the "
                              "positional view encoding")
         dims = icfg.layer_dims()
         d0 = dims[0]
-        n = implicit.n_layers
-        # forward: output layer as [features | sdf]
-        fwd_layers = mma_pack.sdf_chain(implicit,
-                                        last_cols=list(range(1, F + 1)) + [0])
-        self.fwd = mma_pack.pack_chain(fwd_layers)
-        # reverse sweep: transposed hidden layers, last hidden first
-        lins = implicit.layers()
-        rev = []
-        for l in range(n - 2, -1, -1):
-            w_t = lins[l].weight().detach().float().t()
-            skip = l in icfg.skip_in
+        n = len(dims) - 1
+        if n - 1 in icfg.skip_in:
+            raise ValueError("render_core: a skip into the output layer is "
+                             "not supported")
+        ws = [t.detach().float() for t in w.ws_sdf]
+        bs = [t.detach().float() for t in w.bs_sdf]
+        perm = _sdf_perm(F)
+        layers = []
+        for l in range(n):
+            wl, bl = (ws[l][:, perm], bs[l][perm]) if l == n - 1 else (
+                ws[l], bs[l])
+            flags = (mma_pack.SKIP_IN if l in icfg.skip_in else 0) | (
+                mma_pack.SCALE if l + 1 in icfg.skip_in else 0)
+            col = dims[l] - d0 if l in icfg.skip_in else 0
+            layers.append(dict(w=wl, b=bl, flags=flags, col=col))
+        self.fwd = mma_pack.pack_chain(layers)
+        tl = []
+        for l in range(n - 1, -1, -1):
+            wl = ws[l][:, perm] if l == n - 1 else ws[l]
             if l == 0:
                 real, col, flags = 0, 0, 0
-            elif skip:
+            elif l in icfg.skip_in:
                 real, col, flags = dims[l] - d0, dims[l] - d0, mma_pack.SCALE
             else:
                 real, col, flags = dims[l], mma_pack.NO_COL, 0
-            rev.append(dict(w=w_t, b=None, real=real, col=col, flags=flags))
-        self.rev = mma_pack.pack_chain(rev)
-        w_last = lins[-1].weight().detach().float()[:, 0]
+            tl.append(dict(w=wl.t(), b=None, real=real, col=col,
+                           flags=flags))
+        self.sdft = mma_pack.pack_chain(tl)
+        # K3's reverse sweep: the transposed hidden layers, last first (the
+        # plan rows hold absolute offsets into the same weight stream)
+        self.rev = mma_pack.PackedMlp(
+            self.sdft.weights, self.sdft.biases,
+            np.ascontiguousarray(self.sdft.plan[1:]))
         k0 = int(self.rev.plan[0, 0])
-        col0 = torch.zeros(k0, dtype=torch.float32, device=w_last.device)
-        col0[:w_last.shape[0]] = w_last.to(torch.bfloat16).float()
+        col0 = torch.zeros(k0, dtype=torch.float32, device=ws[0].device)
+        col0[:ws[-1].shape[0]] = ws[-1][:, 0].to(torch.bfloat16).float()
         self.wsdf_col = col0
-        # radiance: first layer rows reordered [features | PE(view)]
-        rl = rendering.layers()
-        vdim = rcfg.layer_dims()[0] - F
-        perm = list(range(vdim, vdim + F)) + list(range(vdim))
-        rad = []
-        for l, lin in enumerate(rl):
-            w = lin.weight().detach().float()
-            rad.append(dict(w=w[perm] if l == 0 else w,
-                            b=lin.b.detach().float()))
-        self.rad = mma_pack.pack_chain(rad)
-        widest = max(self.fwd.max_width, self.rev.max_width,
-                     self.rad.max_width)
+        rdims = rcfg.layer_dims()
+        vdim = rdims[0] - F
+        wr = [t.detach().float() for t in w.ws_rad]
+        br = [t.detach().float() for t in w.bs_rad]
+        wr[0] = wr[0][_rad_perm(vdim, F)]
+        nr = len(wr)
+        self.rad = mma_pack.pack_chain(
+            [dict(w=wr[l], b=br[l]) for l in range(nr)])
+        self.radt = mma_pack.pack_chain(
+            [dict(w=wr[l].t(), b=None, real=F if l == 0 else rdims[l])
+             for l in range(nr - 1, -1, -1)])
+        widest = max(p.max_width for p in (self.fwd, self.sdft, self.rad,
+                                           self.radt))
         if widest > _MAX_WIDTH:
-            raise ValueError(f"render_core_fwd: layer width above "
-                             f"{_MAX_WIDTH}")
+            raise ValueError(f"render_core: layer width above {_MAX_WIDTH}")
+        if n > _MAX_SDF or nr > _MAX_RAD:
+            raise ValueError("render_core: too many layers for the kernels")
+        self.n_sdf, self.n_rad, self.F, self.vdim = n, nr, F, vdim
         self.lda = mma_pack.row_stride(widest)
         self.ldd = mma_pack.row_stride(int(self.fwd.plan[:-1, 1].max()))
         self.ldg = mma_pack.round_up(d0, 8)
-        smem = (2 * (2 * _ROWS * self.lda + (n - 1) * _ROWS * self.ldd)
-                + 4 * _ROWS * (7 + self.ldg))
-        if smem > _MAX_SMEM:
-            raise ValueError(f"render_core_fwd: needs {smem} bytes of shared "
-                             "memory")
+        for name, smem in (("fwd", self.fwd_smem()),
+                           ("bwd", self.bwd_smem())):
+            if smem > _MAX_SMEM:
+                raise ValueError(f"render_core_{name}: needs {smem} bytes of "
+                                 "shared memory")
         self.mx, self.md = icfg.multires, rcfg.multires
+        self.shapes = (tuple(tuple(t.shape) for t in w.ws_sdf),
+                       tuple(tuple(t.shape) for t in w.ws_rad))
+
+    def fwd_smem(self) -> int:
+        """csrc/render_core.cu's shared memory (bytes)."""
+        return (2 * (2 * _ROWS * self.lda + (self.n_sdf - 1) * _ROWS
+                     * self.ldd) + 4 * _ROWS * (7 + self.ldg))
+
+    def bwd_smem(self) -> int:
+        """csrc/render_core_bwd.cu's sweep kernel shared memory (bytes)."""
+        return (2 * (2 * _ROWS * self.lda + (self.n_sdf - 1) * _ROWS
+                     * self.ldd)
+                + 4 * _ROWS * (3 + 3 + 8 + 4 + self.ldg + self.lda))
+
+    def unpack_grads(self, out: torch.Tensor, plan: "_BwdPlan"):
+        """K4's flat output -> (dws_sdf, dbs_sdf, dws_rad, dbs_rad) in the
+        nets' own layouts: padding cut, the SDF output layer's columns and
+        the radiance input layer's rows put back in order (the gather's
+        transpose, as autodiff of `fused_train.py:737-754` does)."""
+        (w_sdf, w_rad), n, nr = self.shapes, self.n_sdf, self.n_rad
+        dws, dbs = [], []
+        for p, (k, m) in enumerate(list(w_sdf) + list(w_rad)):
+            K, N = plan.dims[p]
+            dws.append(out[plan.out[p]:plan.out[p] + K * N].view(K, N)[:k,
+                                                                        :m])
+            o = plan.out_db + plan.db[p]
+            dbs.append(out[o:o + m])
+        inv_sdf = np.argsort(_sdf_perm(self.F))
+        dws[n - 1] = dws[n - 1][:, inv_sdf]
+        dbs[n - 1] = dbs[n - 1][inv_sdf]
+        inv_rad = np.argsort(_rad_perm(self.vdim, self.F))
+        dws[n] = dws[n][inv_rad]
+        return dws[:n], dbs[:n], dws[n:], dbs[n:]
+
+
+class _BwdPlan:
+    """K4's scratch layout at n points, and the int64 table that tells the
+    kernel where everything is (read in this order by
+    `i2sdf_render_core_bwd`). All sizes in elements; bf16 arrays live in
+    one scratch buffer, f32 arrays in another, each array 16-byte aligned.
+
+    Per SDF layer l (K_l x N_l padded): `ax` (2 np, K_l) = [da_l ; X_l],
+    `br` (2 np, N_l) = [r_l ; dz_l], so dW_l = ax^T br over 2 np rows;
+    `dzx` (np, N_l) the second-order term injected into z_l; `ah` (np,
+    K_l, f32) d sdf / d h_l. Per radiance layer: `rx` (np, K) its inputs,
+    `rdz` (np, N) its output cotangents. `dbpart` (blocks, tb) each block's
+    bias-gradient sums. Each weight gradient is summed over `splits[p]`
+    point ranges of `chunk[p]` rows into `part[p]`, then the ranges are
+    added in order (deterministic). `out` (f32): every dW_p (K x N), then
+    the tb bias gradients."""
+
+    def __init__(self, k: _KernelLayout, n: int):
+        ns, nr = k.n_sdf, k.n_rad
+        self.np = np_ = mma_pack.round_up(max(n, 1), _ROWS)
+        self.blocks = np_ // _ROWS
+        Ks, Ns = [int(v) for v in k.fwd.plan[:, 0]], [int(v) for v in
+                                                      k.fwd.plan[:, 1]]
+        Kr, Nr = [int(v) for v in k.rad.plan[:, 0]], [int(v) for v in
+                                                      k.rad.plan[:, 1]]
+        self.dims = list(zip(Ks, Ns)) + list(zip(Kr, Nr))
+        self.n16 = self.n32 = 0
+
+        def take16(size):
+            o, self.n16 = self.n16, self.n16 + mma_pack.round_up(size, 8)
+            return o
+
+        def take32(size):
+            o, self.n32 = self.n32, self.n32 + mma_pack.round_up(size, 4)
+            return o
+
+        self.ax = [take16(2 * np_ * K) for K in Ks]
+        self.br = [take16(2 * np_ * N) for N in Ns]
+        self.dzx = [take16(np_ * N) for N in Ns[:-1]] + [-1]
+        self.ah = [-1] + [take32(np_ * K) for K in Ks[1:]]
+        self.rx = [take16(np_ * K) for K in Kr]
+        self.rdz = [take16(np_ * N) for N in Nr]
+        self.tb = sum(Ns) + sum(Nr)
+        self.db = list(np.cumsum([0] + Ns + Nr)[:-1].astype(int))
+        self.dbpart = take32(self.blocks * self.tb)
+        rows = [2 * np_] * ns + [np_] * nr
+        self.splits, self.chunk, self.part, self.out = [], [], [], []
+        o = 0
+        for (K, N), m in zip(self.dims, rows):
+            steps = m // _ROWS
+            per = -(-steps // min(_MAX_SPLITS, steps))
+            self.splits.append(-(-steps // per))
+            self.chunk.append(per * _ROWS)
+            self.part.append(take32(self.splits[-1] * K * N))
+            self.out.append(o)
+            o += K * N
+        self.out_db = o
+        self.n_out = o + self.tb
+        self.table = np.ascontiguousarray(np.asarray(
+            self.ax + self.br + self.dzx + self.ah + self.rx + self.rdz
+            + [self.dbpart, self.tb] + self.db + self.splits + self.chunk
+            + self.part + self.out + [self.out_db], np.int64))
 
 
 class RenderCorePack:
-    """Both nets, plus their kernel layout when they live on the card."""
+    """Both nets, plus their kernel layout when they live on the card
+    (packed once, for eval)."""
 
     def __init__(self, implicit: mlp.ImplicitNet, rendering: mlp.RenderingNet):
         self.implicit, self.rendering = implicit, rendering
-        self.kernel = (_KernelLayout(implicit, rendering)
-                       if next(implicit.parameters()).is_cuda else None)
+        self.kernel = None
+        if next(implicit.parameters()).is_cuda:
+            with torch.no_grad():
+                self.kernel = _KernelLayout(implicit.cfg, rendering.cfg,
+                                            CoreWeights.of(implicit,
+                                                           rendering))
+
+
+# ---- plain versions ---------------------------------------------------------
+
+def render_core_train_plain(icfg, rcfg, w: CoreWeights, x: torch.Tensor,
+                            dirs: torch.Tensor):
+    """(sdf (N, 1), grad (N, 3), rgb (N, 3)) in f32, differentiable with
+    respect to the weights in `w`, through the spatial gradient too
+    (`create_graph`). Unclamped; `x` and `dirs` are constants."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        out = mlp.implicit_apply(icfg, w.ws_sdf, w.bs_sdf, xg)
+        sdf, feat = out[:, :1], out[:, 1:]
+        (grad,) = torch.autograd.grad(sdf, xg, torch.ones_like(sdf),
+                                      create_graph=True)
+        rgb = mlp.rendering_apply(rcfg, w.ws_rad, w.bs_rad, dirs, feat)
+    return sdf, grad, rgb
 
 
 def render_core_plain(implicit: mlp.ImplicitNet, rendering: mlp.RenderingNet,
@@ -110,22 +315,31 @@ def render_core_plain(implicit: mlp.ImplicitNet, rendering: mlp.RenderingNet,
     return tuple(torch.cat(o) for o in zip(*outs))
 
 
-def render_core_fwd(p: RenderCorePack, x: torch.Tensor, dirs: torch.Tensor):
-    """(sdf (N, 1), grad (N, 3), rgb (N, 3)) at points x along unit dirs.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (or raise)."""
-    global launches
-    if not x.is_cuda:
-        return render_core_plain(p.implicit, p.rendering, x, dirs)
-    k = p.kernel
-    if k is None:
-        raise ValueError("render_core_fwd: the nets' weights are not on the "
-                         "card")
+def _sphere_clamp(icfg, x, sdf, grad):
+    if icfg.sdf_bounding_sphere > 0.0:
+        norm = torch.linalg.norm(x, dim=-1, keepdim=True)
+        sphere = icfg.sphere_scale * (icfg.sdf_bounding_sphere - norm)
+        sphere_grad = -icfg.sphere_scale * x / torch.clamp(norm, min=1e-12)
+        grad = torch.where(sphere < sdf, sphere_grad, grad)
+        sdf = torch.minimum(sdf, sphere)
+    return sdf, grad
+
+
+# ---- kernels ----------------------------------------------------------------
+
+def _check_points(x, dirs, name):
     mma_pack.check_input(x, "x", cols=3)
     mma_pack.check_input(dirs, "dirs", cols=3)
     if dirs.shape != x.shape or dirs.device != x.device:
-        raise ValueError("render_core_fwd: x and dirs differ in shape or "
-                         "device")
+        raise ValueError(f"{name}: x and dirs differ in shape or device")
+
+
+def _launch_fwd(k: _KernelLayout, x: torch.Tensor, dirs: torch.Tensor):
+    global launches
+    _check_points(x, dirs, "render_core_fwd")
+    if k.fwd.weights.device != x.device:
+        raise ValueError("render_core_fwd: the weights are not on the "
+                         "points' device")
     n = x.shape[0]
     sdf = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     grad = torch.empty((n, 3), dtype=torch.float32, device=x.device)
@@ -144,11 +358,114 @@ def render_core_fwd(p: RenderCorePack, x: torch.Tensor, dirs: torch.Tensor):
         mma_pack.stream_of(x))
     build.check(err, "render_core_fwd")
     launches += 1
-    icfg = p.implicit.cfg
-    if icfg.sdf_bounding_sphere > 0.0:
-        norm = torch.linalg.norm(x, dim=-1, keepdim=True)
-        sphere = icfg.sphere_scale * (icfg.sdf_bounding_sphere - norm)
-        sphere_grad = -icfg.sphere_scale * x / torch.clamp(norm, min=1e-12)
-        grad = torch.where(sphere < sdf, sphere_grad, grad)
-        sdf = torch.minimum(sdf, sphere)
+    return sdf, grad, rgb
+
+
+def render_core_fwd(p: RenderCorePack, x: torch.Tensor, dirs: torch.Tensor):
+    """(sdf (N, 1), grad (N, 3), rgb (N, 3)) at points x along unit dirs.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (or raise)."""
+    if not x.is_cuda:
+        return render_core_plain(p.implicit, p.rendering, x, dirs)
+    if p.kernel is None:
+        raise ValueError("render_core_fwd: the nets' weights are not on the "
+                         "card")
+    sdf, grad, rgb = _launch_fwd(p.kernel, x, dirs)
+    sdf, grad = _sphere_clamp(p.implicit.cfg, x, sdf, grad)
+    return sdf, grad, rgb
+
+
+def pack_cotangents(n: int, c_sdf, c_grad, c_rgb, device) -> torch.Tensor:
+    """(N, 7) f32 [c_grad 3 | c_sdf 1 | c_rgb 3], zeros for a missing one
+    (the TPU kernel's cotangent stream, `fused_train.py:578-583`)."""
+    cot = torch.zeros((n, 7), dtype=torch.float32, device=device)
+    for sl, c in ((slice(0, 3), c_grad), (slice(3, 4), c_sdf),
+                  (slice(4, 7), c_rgb)):
+        if c is not None:
+            cot[:, sl] = c.reshape(n, -1)
+    return cot
+
+
+def render_core_bwd(k: _KernelLayout, x: torch.Tensor, dirs: torch.Tensor,
+                    cot: torch.Tensor):
+    """K4: the gradients of <cot, [grad | sdf | rgb]> with respect to the
+    materialized weights and biases of both nets (unclamped outputs),
+    as (dws_sdf, dbs_sdf, dws_rad, dbs_rad) lists of f32 tensors.
+    CUDA tensors only: the plain backward is autograd of
+    `render_core_train_plain`."""
+    global bwd_launches
+    if not x.is_cuda:
+        raise ValueError("render_core_bwd: the kernel takes CUDA tensors; "
+                         "the plain backward is autograd of "
+                         "render_core_train_plain")
+    _check_points(x, dirs, "render_core_bwd")
+    mma_pack.check_input(cot, "cot", cols=7)
+    if cot.shape[0] != x.shape[0] or k.fwd.weights.device != x.device:
+        raise ValueError("render_core_bwd: cotangents, points and weights "
+                         "disagree in length or device")
+    n = x.shape[0]
+    plan = _BwdPlan(k, n)
+    ws16 = torch.empty(plan.n16, dtype=torch.bfloat16, device=x.device)
+    ws32 = torch.empty(plan.n32, dtype=torch.float32, device=x.device)
+    out = torch.empty(plan.n_out, dtype=torch.float32, device=x.device)
+    lib = build.load_library()
+    err = lib.i2sdf_render_core_bwd(
+        x.data_ptr(), dirs.data_ptr(), cot.data_ptr(), n, plan.np,
+        k.fwd.weights.data_ptr(), k.fwd.biases.data_ptr(),
+        k.fwd.plan.ctypes.data, k.fwd.n_layers,
+        k.sdft.weights.data_ptr(), k.sdft.plan.ctypes.data,
+        k.sdft.n_layers, k.wsdf_col.data_ptr(),
+        k.rad.weights.data_ptr(), k.rad.biases.data_ptr(),
+        k.rad.plan.ctypes.data, k.rad.n_layers,
+        k.radt.weights.data_ptr(), k.radt.plan.ctypes.data,
+        k.radt.n_layers, k.mx, k.md, k.lda, k.ldd, k.ldg,
+        ws16.data_ptr(), ws32.data_ptr(), plan.table.ctypes.data,
+        out.data_ptr(), mma_pack.stream_of(x))
+    build.check(err, "render_core_bwd")
+    bwd_launches += 1
+    return k.unpack_grads(out, plan)
+
+
+class RenderCoreTrain(torch.autograd.Function):
+    """The training op on the card: K3 forward, K4 backward.
+
+    apply(icfg, rcfg, x, dirs, *weights.flat()) -> (sdf, grad, rgb),
+    unclamped. Gradients flow to the weights and biases only (x and dirs
+    are constants: sampler depths and cameras)."""
+
+    @staticmethod
+    def forward(ctx, icfg, rcfg, x, dirs, *flat):
+        n_sdf = len(icfg.layer_dims()) - 1
+        w = CoreWeights.unflat(flat, n_sdf, len(rcfg.layer_dims()) - 1)
+        sdf, grad, rgb = _launch_fwd(_KernelLayout(icfg, rcfg, w), x, dirs)
+        ctx.save_for_backward(x, dirs, *flat)
+        ctx.cfgs = (icfg, rcfg)
+        return sdf, grad, rgb
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, c_sdf, c_grad, c_rgb):
+        x, dirs, *flat = ctx.saved_tensors
+        icfg, rcfg = ctx.cfgs
+        n_sdf = len(icfg.layer_dims()) - 1
+        w = CoreWeights.unflat(flat, n_sdf, len(rcfg.layer_dims()) - 1)
+        cot = pack_cotangents(x.shape[0], c_sdf, c_grad, c_rgb, x.device)
+        dws, dbs, dwr, dbr = render_core_bwd(_KernelLayout(icfg, rcfg, w),
+                                             x, dirs, cot)
+        return (None, None, None, None, *dws, *dbs, *dwr, *dbr)
+
+
+def render_core_train(icfg, rcfg, w: CoreWeights, x: torch.Tensor,
+                      dirs: torch.Tensor, plain: bool = False):
+    """(sdf (N, 1), grad (N, 3), rgb (N, 3)), bounding-sphere clamped,
+    differentiable with respect to `w`. CPU tensors take the plain
+    version; CUDA tensors launch K3 now and K4 in the backward (or
+    raise). `plain=True` takes the plain version on any device (to hold
+    the kernels against it on the card)."""
+    if x.is_cuda and not plain:
+        sdf, grad, rgb = RenderCoreTrain.apply(icfg, rcfg, x, dirs,
+                                               *w.flat())
+    else:
+        sdf, grad, rgb = render_core_train_plain(icfg, rcfg, w, x, dirs)
+    sdf, grad = _sphere_clamp(icfg, x, sdf, grad)
     return sdf, grad, rgb

@@ -15,6 +15,16 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, dim=-1)
 
 
+def stratify(z_vals: torch.Tensor, t_rand: torch.Tensor) -> torch.Tensor:
+    """Jitter each sample within its midpoint-delimited bin; t_rand holds
+    U[0, 1) draws of z_vals' shape (`i2sdf_tpu/ops/sampling.py:45`, whose
+    key draws them there)."""
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+    lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+    return lower + (upper - lower) * t_rand
+
+
 def linear_z_vals(near: torch.Tensor, far: torch.Tensor,
                   n: int) -> torch.Tensor:
     """near/far: (R, 1) -> (R, n) linearly spaced depths."""

@@ -59,5 +59,6 @@ def load_model(cfg: I2SDFConfig, ckpt: str | None, seed: int,
     model = I2SDFModel(cfg, seed=seed)
     if ckpt is not None:
         state = torch.load(ckpt, map_location="cpu", weights_only=True)
-        model.load_state_dict(state.get("state_dict", state))
+        model.load_state_dict(state.get("model",
+                                        state.get("state_dict", state)))
     return model.to(device)

@@ -1,1 +1,2 @@
-"""Eval-render driver (chunked full-image rendering)."""
+"""Training (state, step, checkpoints, trainer) and the chunked eval
+render driver."""

@@ -1,11 +1,175 @@
-"""Chunked full-image eval render (counterpart of
-`i2sdf_tpu/train/step.py::make_eval_render_fn`)."""
+"""Training step and chunked eval render (counterpart of
+`i2sdf_tpu/train/step.py`).
+
+`make_train_step` returns the step the JAX package jits
+(`step.py:101-247`): the ray-batch gather, the bubble draw (in the
+window), the training render, the losses, the backward (K4 on the card),
+Adam, and the point-cloud pdf update with its sample counts. PyTorch runs
+it eagerly. Its random numbers arrive in a `TrainDraws` bundle, drawn by
+default from a `torch.Generator` seeded with (seed, step), so a resumed
+run replays the draws an uninterrupted run would have made.
+
+Host syncs of one step: the sampler's global early exit reads one flag
+per refinement round (up to `max_total_iters - 1` = 4 at the flagship
+config, `models/sampler.py`). Nothing else in the step waits for the
+card; the metrics stay on the device.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from ..data.recon import DeviceArrays, sample_batch
 from ..models import renderer
+from ..models.losses import compute_losses
+from .state import TrainState
+
+N_BUCKETS = 4096  # the two-stage bubble draw's first stage (step.py:124-146)
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one step's draws: a function of (seed, step)."""
+    return torch.Generator(device=device).manual_seed(
+        (seed * 1_000_003 + step) % (1 << 63))
+
+
+@dataclasses.dataclass
+class TrainDraws:
+    """The random numbers of one training step."""
+    batch_idx: torch.Tensor        # (B,) int64 flat (image, pixel) indices
+    render: renderer.RenderDraws
+    bubble_u: torch.Tensor | None = None   # (K * Bb, 2) U[0, 1): bucket
+    #                                        and in-bucket uniforms
+    bubble_idx: torch.Tensor | None = None  # (Bb,) int64: given bubble
+    #                                         points (overrides bubble_u)
+
+    @classmethod
+    def sample(cls, cfg: renderer.I2SDFConfig, data: DeviceArrays,
+               batch_size: int, gen: torch.Generator,
+               bubble_draws: int = 0) -> "TrainDraws":
+        n = data.rgb.shape[0] * data.rgb.shape[1]
+        dev = gen.device
+        idx = torch.randint(0, n, (batch_size,), generator=gen, device=dev)
+        rd = renderer.RenderDraws.sample(cfg, batch_size, gen)
+        u = (torch.rand((bubble_draws, 2), generator=gen, device=dev)
+             if bubble_draws else None)
+        return cls(batch_idx=idx, render=rd, bubble_u=u)
+
+
+def draw_bubble(pdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Point indices drawn with replacement from the (unnormalized) pdf,
+    two-stage as `step.py:124-146`: a bucket by its mass, then a point in
+    the bucket by its weight. Here each stage inverts the CDF at the
+    given uniforms (the JAX package takes Gumbel-max draws: the same law,
+    other numbers). u: (n, 2) -> (n,) int64."""
+    P = pdf.shape[0]
+    pad = (-P) % N_BUCKETS
+    pdf2d = torch.cat([pdf, pdf.new_zeros(pad)]).reshape(N_BUCKETS, -1)
+    per = pdf2d.shape[1]
+    cdf = torch.cumsum(pdf2d.sum(-1), 0)
+    b = torch.searchsorted(cdf, (u[:, 0] * cdf[-1]).contiguous(),
+                           right=True)
+    b = torch.clamp(b, max=N_BUCKETS - 1)
+    rows = torch.cumsum(pdf2d[b], -1)
+    w = torch.searchsorted(rows, (u[:, 1:] * rows[:, -1:]).contiguous(),
+                           right=True)[:, 0]
+    w = torch.clamp(w, max=per - 1)
+    return torch.clamp(b * per + w, max=P - 1)
+
+
+@dataclasses.dataclass
+class BubbleState:
+    """The bubble window's device state (`trainer.py:309-350`)."""
+    pdf: torch.Tensor            # (P,) f32
+    sample_count: torch.Tensor   # (P,) int64
+    queue: torch.Tensor | None = None   # (K * Bb,) drawn ahead, K > 1
+    queue_pos: int = 0
+
+
+def update_pdf(pdf, pointlinks, flat_indices, values, pdf_prune: float,
+               pdf_max: float | None):
+    """Scatter per-pixel errors into the point-cloud pdf
+    (`step.py:185-193`): clamp to pdf_max, zero below pdf_prune, route
+    through pointlinks; pixels without a point (-1) are dropped."""
+    if pdf_max is not None:
+        values = torch.clamp(values, max=pdf_max)
+    values = torch.where(values < pdf_prune, torch.zeros_like(values),
+                         values)
+    links = pointlinks[flat_indices]
+    keep = links >= 0
+    pdf = pdf.clone()
+    pdf[links[keep]] = values[keep]
+    return pdf
+
+
+def make_train_step(cfg: renderer.I2SDFConfig, batch_size: int,
+                    bubble_batch_size: int | None = None,
+                    pdf_prune: float = 0.0, pdf_max: float | None = None,
+                    pdf_criterion: str = "DEPTH",
+                    angular_reference_bug: bool = False,
+                    bubble_draw_every: int = 1, plain: bool = False):
+    """The training step.
+
+        step(state, data, draws, weights, bubble=None) -> metrics
+
+    `bubble` (a `BubbleState`, in the window) is updated in place: the
+    draw (every `bubble_draw_every`-th step K * Bb indices ahead, sliced
+    per step, as `step.py:219-233`), the pdf scatter and the sample
+    counts. `metrics` are 0-d device tensors: the loss, its nine terms and
+    the batch PSNR. `plain=True` takes the plain versions of the kernels
+    on any device."""
+    bubble_bs = bubble_batch_size or batch_size
+    every = max(int(bubble_draw_every), 1)
+    if pdf_criterion not in ("DEPTH", "RGB"):
+        raise ValueError(f"pdf_criterion {pdf_criterion!r}")
+
+    def step(state: TrainState, data: DeviceArrays, draws: TrainDraws,
+             weights: dict, bubble: BubbleState | None = None) -> dict:
+        model = state.model
+        inputs, gt = sample_batch(data, draws.batch_idx)
+        bubble_idx = None
+        if bubble is not None:
+            if draws.bubble_idx is not None:
+                bubble_idx = draws.bubble_idx
+            elif every == 1:
+                bubble_idx = draw_bubble(bubble.pdf,
+                                         draws.bubble_u[:bubble_bs])
+            else:
+                pos = bubble.queue_pos % every
+                if pos == 0:
+                    bubble.queue = draw_bubble(
+                        bubble.pdf, draws.bubble_u[:every * bubble_bs])
+                bubble_idx = bubble.queue[pos * bubble_bs:
+                                          (pos + 1) * bubble_bs]
+                bubble.queue_pos += 1
+            inputs["pointcloud"] = data.pointcloud[bubble_idx]
+        out = renderer.render_rays_train(model, inputs, draws.render,
+                                         plain=plain)
+        terms = compute_losses(out, gt, weights,
+                               angular_reference_bug=angular_reference_bug)
+        state.optimizer.zero_grad(set_to_none=True)
+        terms["loss"].backward()
+        state.apply_gradients()
+        metrics = {k: v.detach() for k, v in terms.items()}
+        with torch.no_grad():
+            mse = ((out["rgb_values"] - gt["rgb"].reshape(-1, 3)) ** 2).mean()
+            metrics["psnr"] = -10.0 * torch.log10(mse)
+            if bubble is not None:
+                if pdf_criterion == "DEPTH":
+                    crit = (out["depth_values"] - gt["depth"]).abs()
+                else:
+                    crit = (out["rgb_values"].clamp(0, 1)
+                            - gt["rgb"].clamp(0, 1)).abs().mean(-1)
+                bubble.pdf = update_pdf(bubble.pdf, data.pointlinks,
+                                        draws.batch_idx, crit, pdf_prune,
+                                        pdf_max)
+                bubble.sample_count = bubble.sample_count.index_add(
+                    0, bubble_idx, torch.ones_like(bubble_idx))
+        return metrics
+
+    return step
 
 
 def make_eval_render_fn(model: renderer.I2SDFModel, chunk_size: int):

@@ -2,9 +2,11 @@
 
 PNG files are read and written with the standard library's `zlib` and
 numpy alone (8-bit gray, RGB or RGBA, not interlaced): the machine the
-port runs on is not promised OpenCV, imageio or PIL. Downsampling is an
-area mean over exact integer factors (what OpenCV's INTER_AREA computes
-there). PSNR, SSIM and the sRGB curve follow the reference's definitions.
+port runs on is not promised OpenCV, imageio or PIL. EXR depth and normal
+maps are read by `utils/exr.py`, and `.npy` is accepted wherever an EXR
+is (`load_depth`, `load_normal`). Downsampling is an area mean over exact
+integer factors (what OpenCV's INTER_AREA computes there). PSNR, SSIM
+and the sRGB curve follow the reference's definitions.
 """
 
 from __future__ import annotations
@@ -17,15 +19,46 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .exr import read_exr
+
+IMG_EXTENSIONS = (".png", ".exr", ".npy")
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # PNG color type -> channels
 
 
-def glob_pngs(path: str) -> list[str]:
+def glob_imgs(path: str, exts: tuple = IMG_EXTENSIONS) -> list[str]:
+    """Sorted files of a directory with these extensions; [] if it is
+    missing."""
     if not os.path.isdir(path):
         return []
     return sorted(os.path.join(path, f) for f in os.listdir(path)
-                  if f.endswith(".png"))
+                  if f.endswith(exts))
+
+
+def _read_float(path: str) -> np.ndarray:
+    """`.npy` as stored; EXR with R, G, B channels in B, G, R order (the
+    reference's cv2 convention, `i2sdf_tpu/utils/imaging.py:36-45`)."""
+    if path.endswith(".npy"):
+        return np.load(path)
+    data, names = read_exr(path)
+    if data.ndim == 3 and set(names[:3]) == {"R", "G", "B"}:
+        data = data[:, :, ::-1].copy()
+    return data
+
+
+def load_depth(path: str) -> np.ndarray:
+    """Depth map as float32 (H, W): an EXR's last channel in B, G, R
+    order (R), a single-channel EXR, or `.npy`."""
+    img = np.asarray(_read_float(path), dtype=np.float32)
+    return img[:, :, -1] if img.ndim == 3 else img
+
+
+def load_normal(path: str) -> np.ndarray:
+    """Normal map as float32 (H, W, 3) in R, G, B order."""
+    if path.endswith(".npy"):
+        return np.load(path).astype(np.float32)
+    img = np.asarray(_read_float(path), dtype=np.float32)
+    return img[:, :, ::-1].copy()
 
 
 def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:

@@ -12,7 +12,8 @@ Tolerances: the MLP kernels take bf16 operands with f32 accumulation, so
 they are held to the JAX package's tolerances for its bf16 Pallas kernels
 (tests/test_pallas_mlp.py, tests/test_pallas_train.py); the sampler round
 is f32 in both versions, with the JAX package's own sampler-kernel
-tolerance for the draws (tests/test_pallas_sampler.py).
+tolerance for the draws (tests/test_pallas_sampler.py). K4's tests say
+theirs beside them.
 """
 
 import numpy as np
@@ -111,3 +112,103 @@ def test_kernels_refuse_cpu_weights(dev):
     with pytest.raises(ValueError):
         render_core.render_core_fwd(render_core.RenderCorePack(net, rnet),
                                     _points(8, dev), _points(8, dev))
+
+
+# ---- K4 render_core_bwd ----------------------------------------------------
+# Cotangents are those of the JAX package's kernel-test loss at the plain
+# outputs (test_torch_bwd_replay.loss_cotangents). The kernel is held to
+# its bf16 replay (the same rounding points) with the JAX package's
+# gradient tolerance at every count, and to the plain f32 backward by
+# cosine > 0.999 at every count and per leaf (< 0.1) from 4,800 points
+# up: below that a few bf16 mask flips weigh on a leaf as much as the
+# signal does (replay: 0.62 per leaf at 1 point, 0.018 at 4,800).
+
+@pytest.mark.parametrize("n,eik", [(1, 0), (31, 0), (33, 16), (4800, 4800),
+                                   (160_000, 4800)])
+def test_render_core_bwd_kernel(dev, n, eik):
+    from test_torch_bwd_replay import (CASES, eik_only, emulate_bwd,
+                                       grad_check, loss_cotangents, nets,
+                                       plain_vjp, points)
+    net, rnet = nets(*CASES["flagship"], device=dev)
+    x, d = points(n, n, eik, device=dev)
+    w = render_core.CoreWeights.of(net, rnet)
+    cot = eik_only(loss_cotangents(*render_core.render_core_train_plain(
+        net.cfg, rnet.cfg, w, x, d)), eik)
+    with torch.no_grad():
+        k = render_core._KernelLayout(net.cfg, rnet.cfg, w)
+        kernels.reset_launch_counts()
+        got = render_core.render_core_bwd(k, x, d, cot)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["render_core_bwd"] == 1
+        got = [t for grp in got for t in grp]
+        replay = [t for grp in emulate_bwd(k, x, d, cot) for t in grp]
+    grad_check(got, replay)
+    ref = plain_vjp(net.cfg, rnet.cfg, w, x, d, cot)
+    grad_check(got, ref, leaf_tol=0.1 if n >= 4800 else float("inf"))
+
+
+def test_render_core_bwd_padding_rows_add_nothing(dev):
+    """33 points and the same 33 plus 31 rows with zero cotangents share
+    one padded size (64): the results agree to the bit."""
+    from test_torch_bwd_replay import CASES, nets, points
+    net, rnet = nets(*CASES["flagship"], device=dev)
+    x, d = points(64, 3, device=dev)
+    cot = torch.randn((64, 7), generator=torch.Generator().manual_seed(0))
+    cot = cot.to(dev)
+    cot[33:] = 0.0
+    with torch.no_grad():
+        k = render_core._KernelLayout(
+            net.cfg, rnet.cfg, render_core.CoreWeights.of(net, rnet))
+        a = render_core.render_core_bwd(k, x[:33].contiguous(),
+                                        d[:33].contiguous(),
+                                        cot[:33].contiguous())
+        b = render_core.render_core_bwd(k, x, d, cot)
+    for ga, gb in zip([t for g in a for t in g], [t for g in b for t in g]):
+        assert torch.equal(ga, gb)
+
+
+@pytest.mark.parametrize("sphere", [0.0, 1.0])
+@pytest.mark.parametrize("n,eik", [(1, 0), (31, 0), (33, 16), (4800, 4800),
+                                   (160_000, 4800)])
+def test_render_core_train_op(dev, n, eik, sphere):
+    """The training op (K3 forward, K4 backward, the sphere clamp outside)
+    against the plain op, through autograd to v, g and b."""
+    from test_torch_bwd_replay import (CASES, eik_only, grad_check,
+                                       loss_cotangents, nets, points)
+    net, rnet = nets(*CASES["flagship"], device=dev)
+    icfg = mlp.ImplicitNetConfig(**{**net.cfg.__dict__,
+                                    "sdf_bounding_sphere": sphere})
+    x, d = points(n, n + 1, eik, device=dev)
+    leaves = list(net.parameters()) + list(rnet.parameters())
+    outs = {}
+    for plain in (True, False):
+        kernels.reset_launch_counts()
+        w = render_core.CoreWeights.of(net, rnet)
+        outs[plain] = render_core.render_core_train(icfg, rnet.cfg, w, x, d,
+                                                    plain=plain)
+        if plain:
+            cot = eik_only(loss_cotangents(*outs[True]), eik)
+        g = torch.autograd.grad(outs[plain], leaves,
+                                (cot[:, 3:4], cot[:, :3], cot[:, 4:7]))
+        torch.cuda.synchronize()
+        outs[plain] = (outs[plain], list(g))
+        want = {"render_core_fwd": 0 if plain else 1,
+                "render_core_bwd": 0 if plain else 1}
+        counts = kernels.launch_counts()
+        assert {k: counts[k] for k in want} == want
+    # the clamp takes the sphere's gradient where the sphere is below the
+    # net's sdf; next to the sphere the kernel's bf16 sdf may decide the
+    # other way, so the gradients are compared where both decide alike
+    (sk, gk, rk), (sp, gp, rp) = ((t.detach() for t in outs[p][0])
+                                  for p in (False, True))
+    agree = torch.ones_like(sk[:, 0], dtype=torch.bool)
+    if sphere > 0:
+        bound_sdf = sphere - torch.linalg.norm(x, dim=-1, keepdim=True)
+        agree = ((sk == bound_sdf) == (sp == bound_sdf))[:, 0]
+        assert float(agree.float().mean()) > 0.99
+    for name, a, b, (atol, rtol) in zip(
+            ("sdf", "grad", "rgb"), (sk, gk[agree], rk), (sp, gp[agree], rp),
+            ((0.02, 0.02), (0.05, 0.08), (0.03, 0.05))):
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol, msg=name)
+    grad_check(outs[False][1], outs[True][1],
+               leaf_tol=0.1 if n >= 4800 else float("inf"))

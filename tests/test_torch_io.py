@@ -1,7 +1,8 @@
 """The port's host-side IO: its own YAML loader, PNG codec and area
 downsampling (held to PyYAML and OpenCV), its metrics (held to the JAX
-package's), and a guard that the package and `chip_smoke.py` import none
-of JAX, the JAX package, OpenCV, imageio, PIL, orbax or PyYAML."""
+package's), and a guard that the package (the training slice's modules
+by name) and `chip_smoke.py` import none of JAX, the JAX package,
+OpenCV, imageio, PIL, orbax or PyYAML."""
 
 import glob
 import os
@@ -171,6 +172,11 @@ names = [m.name for m in pkgutil.walk_packages(i2sdf_tpu_torch.__path__,
                                                 "i2sdf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+missing = {"i2sdf_tpu_torch.utils.exr", "i2sdf_tpu_torch.data.recon",
+           "i2sdf_tpu_torch.models.losses", "i2sdf_tpu_torch.train.state",
+           "i2sdf_tpu_torch.train.step", "i2sdf_tpu_torch.train.checkpoint",
+           "i2sdf_tpu_torch.train.trainer"} - set(names)
+assert not missing, missing
 import chip_smoke
 print(len(names), "modules")
 """
@@ -181,4 +187,4 @@ def test_port_imports_nothing_the_card_may_lack():
     proc = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 20
+    assert int(proc.stdout.split()[0]) >= 36

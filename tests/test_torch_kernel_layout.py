@@ -178,7 +178,8 @@ def test_sdf_mlp_plan_replays_to_plain(case):
 def test_render_core_plan_replays_to_plain(case):
     width, skip, feat, rad, mx, md = CASES[case]
     net, rnet = _nets(width, skip, feat, rad, mx, md)
-    k = render_core._KernelLayout(net, rnet)
+    k = render_core._KernelLayout(net.cfg, rnet.cfg,
+                                  render_core.CoreWeights.of(net, rnet))
     rng = np.random.default_rng(2)
     x = torch.from_numpy((rng.normal(size=(200, 3)) * 0.8).astype(
         np.float32))
