@@ -6,12 +6,14 @@ Phases, each printed as one JSON line with its wall time:
 
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit;
-2. build: the four CUDA kernels (`i2sdf_tpu_torch/csrc/*.cu`), one `nvcc`
+2. build: the six CUDA kernels (`i2sdf_tpu_torch/csrc/*.cu`), one `nvcc`
    per source, all started together, and one link;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the flagship eval render (K1-K3) and training step (K4:
-   160,000 points with the cotangents of a seeded loss) give it, with the
-   stated tolerance; kernel, plain and library-yardstick times by CUDA
+   the shapes the flagship eval render (K1-K3) and training steps give it
+   (K4: 160,000 points with the cotangents of a seeded loss; K5 and K6:
+   the normal-off step's 4,800 eikonal points, and 155,200 points, the
+   size the JAX renderer feeds the op on its other training route), with
+   the stated tolerance; kernel, plain and library-yardstick times by CUDA
    events;
 4. slice (the eval path): one 240x320 view of `data/synthetic_quality/
    scan1` rendered through the port's eval entry point (`eval/render.py`)
@@ -24,17 +26,28 @@ Phases, each printed as one JSON line with its wall time:
    scan1's images and cameras, with seeded synthetic depth, normals and
    bubble point cloud at scan1's shapes (the checkout holds no `depth/`
    or `normal/`), the bubble window open for steps 2-3 with a uniform pdf;
-   every loss finite, every kernel launched, K4 once a step; a profile
+   every loss finite, K1-K4 launched, K4 once a step; a profile
    of two steps; then one batch through a kernel step and a plain step
    from the same weights and draws, loss terms and gradients held to the
    JAX package's gradient tolerance;
-6. cli: `python -m i2sdf_tpu_torch.main` in train mode for 3 steps on
+6. train_nonormal (the normal-loss-off training path): the same trainer,
+   config and synthetic depth and bubble cloud with `normal_weight: 0`,
+   which routes the render points through the plain nets and the
+   eikonal points through K5/K6; every loss finite, per step K5 and K6
+   once, K3 and K4 never, K1 and K2 at most five times (one a sampler
+   round); a profile of two steps; one batch through a kernel step and a
+   plain step;
+7. cli: `python -m i2sdf_tpu_torch.main` in train mode for 3 steps on
    scan1 as the checkout holds it (images and cameras only), then
-   `--resume` for one more step from the checkpoint it wrote.
+   `--resume` for one more step from the checkpoint it wrote, then
+   `--test --test_mode render --indices 0` with no `--ckpt`, which must
+   load that newest checkpoint (step 4) and write finite images; last the
+   train CLI for 2 steps on a copy of the config with `normal_weight: 0`
+   in the temporary directory, whose logs carry no normal term.
 
 The card's `nvidia-smi` line is printed on its own after phase 1. The
 run ends with the launch counts of each path, one JSON line with every
-kernel's numbers (launches from the training path), and last
+kernel's numbers (launches from the training path it serves), and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero;
 with no CUDA device the script exits nonzero before printing a result.
 All files are written to a temporary directory; no scene file under
@@ -68,8 +81,8 @@ from i2sdf_tpu_torch.models import renderer
 from i2sdf_tpu_torch.models.density import effective_beta
 from i2sdf_tpu_torch.ops.activations import softplus_beta
 from i2sdf_tpu_torch.ops import kernels
-from i2sdf_tpu_torch.ops.kernels import (build, render_core, sampler_round,
-                                         sdf_mlp)
+from i2sdf_tpu_torch.ops.kernels import (build, render_core, rev,
+                                         sampler_round, sdf_mlp)
 from i2sdf_tpu_torch.train import step as train_step
 from i2sdf_tpu_torch.train.state import create_train_state
 from i2sdf_tpu_torch.train.trainer import ReconstructionTrainer
@@ -80,8 +93,13 @@ CONF = ROOT / "configs" / "synthetic.yml"
 TRAIN_CONF = ROOT / "configs" / "synthetic_quality.yml"
 SEED = 0
 EVAL_KERNELS = ("sdf_mlp_nograd", "sampler_round", "render_core_fwd")
+TRAIN_KERNELS = EVAL_KERNELS + ("render_core_bwd",)
+NONORMAL_KERNELS = ("sdf_mlp_nograd", "sampler_round", "rev_fwd", "rev_bwd")
 TRAIN_STEPS = 6          # bubble window [2, 4): off, off, on, on, off, off
 K4_RAYS, K4_EIK = 1600, 4800   # one training step's render-core batch
+# K5 against its plain version: the JAX package's tolerances for its rev
+# kernel (tests/test_pallas_rev.py), (atol, rtol)
+REV_TOLS = {"sdf": (0.02, 0.02), "feat": (0.05, 0.05), "grad": (0.05, 0.08)}
 # K4 and the training step against their plain versions: the JAX
 # package's gradient tolerance for its bf16 kernel
 # (tests/test_pallas_train.py:96-111), per leaf max|d| / max|ref| and the
@@ -148,10 +166,14 @@ def close(a: torch.Tensor, b: torch.Tensor, atol: float, rtol: float) -> bool:
 def hidden_macs(icfg) -> int:
     """Multiply-adds per point of the SDF net's hidden layers (the layer
     before a skip is narrowed by the encoding's width)."""
-    dims = icfg.layer_dims()
-    return sum(dims[l] * (dims[l + 1] - (dims[0] if l + 1 in icfg.skip_in
-                                         else 0))
-               for l in range(len(dims) - 2))
+    return sum(sdf_layer_macs(icfg)[:-1])
+
+
+def sdf_layer_macs(icfg) -> list:
+    """Multiply-adds per point of each SDF layer at its real width."""
+    d = icfg.layer_dims()
+    return [d[l] * (d[l + 1] - (d[0] if l + 1 in icfg.skip_in else 0))
+            for l in range(len(d) - 1)]
 
 
 # ---- library yardsticks: the same functions as bf16 torch.matmul chains ----
@@ -448,10 +470,8 @@ def k4_macs(icfg, rcfg) -> int:
     upward sweep (layers 0 .. n-2), downward sweep (layers n-1 .. 1), and
     the weight-gradient products (two per SDF layer, one per radiance
     layer)."""
-    d = icfg.layer_dims()
-    n = len(d) - 1
-    sd = [d[l] * (d[l + 1] - (d[0] if l + 1 in icfg.skip_in else 0))
-          for l in range(n)]
+    sd = sdf_layer_macs(icfg)
+    n = len(sd)
     rd = rcfg.layer_dims()
     rr = [rd[l] * rd[l + 1] for l in range(len(rd) - 1)]
     return (sum(sd) + sum(rr) + sum(sd[1:n - 1]) + sum(rr)
@@ -523,18 +543,177 @@ def check_k4(model, cfg, conf, device) -> dict:
     return row
 
 
-def synthetic_supervision(data, seed):
-    """Seeded depth (scene units, 0.5 % invalid), view-space normals (0.5 %
-    zero) and so the bubble point cloud, at the scan's shapes."""
+# ---- K5 and K6: get_rev_op's forward and backward ---------------------------
+
+def k5_macs(icfg) -> int:
+    """K5 per point: the forward with the full head, and the reverse sweep
+    through the hidden layers transposed (layers n-2 .. 0)."""
+    sd = sdf_layer_macs(icfg)
+    return sum(sd) + sum(sd[:-1])
+
+
+def k6_macs(icfg) -> int:
+    """K6 per point: the forward recompute of the hidden layers, the
+    reverse sweep (layers n-2 .. 1 transposed), the upward sweep (layers
+    0 .. n-2), the downward sweep (layers n-1 .. 1) and the two
+    weight-gradient products of every layer."""
+    sd = sdf_layer_macs(icfg)
+    n = len(sd)
+    return (sum(sd[:n - 1]) + sum(sd[1:n - 1]) + sum(sd[:n - 1])
+            + sum(sd[1:]) + 2 * sum(sd))
+
+
+def eikonal_batch(cfg, conf, device, seed):
+    """One training step's 4,800 eikonal points as `render_rays_train` makes
+    them: a third uniform in the scene's cube, a third at a depth drawn
+    among each ray's 97 samples on the first 1600 rays of view 0, and
+    those jittered by up to 0.005."""
+    _, dirs, cam = chunk_rays(conf, device, K4_RAYS)
+    gen = torch.Generator().manual_seed(seed)
+    s = cfg.scene_bounding_sphere
+    S = cfg.sampler.total_fg_samples - 1
+    z = torch.linspace(0.0, cfg.sampler.far, S)
+    z_eik = z[torch.randint(0, S, (K4_RAYS,), generator=gen)].to(device)
+    uni = (torch.rand((K4_RAYS, 3), generator=gen) * 2 * s - s).to(device)
+    near = cam + z_eik[:, None] * dirs
+    jit = (torch.rand((K4_RAYS, 3), generator=gen) * 0.01 - 0.005).to(device)
+    return torch.cat([uni, near, near + jit]).contiguous()
+
+
+def render_batch(cfg, conf, device):
+    """The 155,200 render points of one training step (1600 rays of view 0
+    at 97 depths)."""
+    _, dirs, cam = chunk_rays(conf, device, K4_RAYS)
+    S = cfg.sampler.total_fg_samples - 1
+    z = torch.linspace(0.0, cfg.sampler.far, S, device=device)
+    return (cam[:, None] + z[None, :, None] * dirs[:, None]).reshape(
+        -1, 3).contiguous()
+
+
+def rev_cotangents(out, grad, seed):
+    """(c_out, c_g) of the JAX package's rev-kernel test loss
+    (tests/test_pallas_rev.py:18-23: sdf^2, 0.1 features^2, normal L1
+    against seeded targets, eikonal) at these outputs; both non-zero."""
+    gen = torch.Generator().manual_seed(seed)
+    gn = torch.nn.functional.normalize(torch.randn((out.shape[0], 3),
+                                                   generator=gen),
+                                       dim=-1).to(out.device)
+    o, g = (t.detach().requires_grad_(True) for t in (out, grad))
+    with torch.enable_grad():
+        nrm = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True),
+                              min=1e-9)
+        loss = ((o[:, :1] ** 2).mean() + 0.1 * (o[:, 1:] ** 2).mean()
+                + 0.5 * (1 - (nrm * gn).sum(-1)).abs().mean()
+                + 0.1 * ((torch.linalg.norm(g, dim=-1) - 1) ** 2).mean())
+        c_out, c_g = torch.autograd.grad(loss, (o, g))
+    return c_out.contiguous(), c_g.contiguous()
+
+
+def check_rev(model, cfg, conf, device) -> list[dict]:
+    """K5 and K6 at the normal-off step's eikonal batch (4,800 points) and
+    at 155,200 points, against the plain op (`rev_plain`: f32 autograd
+    with create_graph)."""
+    icfg = cfg.implicit
+    net = model.implicit
+    lins = net.layers()
+    ws, bs = [l.weight() for l in lins], [l.b for l in lins]
+    with torch.no_grad():
+        k = rev.RevLayout(icfg, ws, bs)
+    n_w = sum(w.numel() for w in ws)
+    n_p = n_w + sum(b.numel() for b in bs)
+    rows = []
+    for label, x in (("eikonal", eikonal_batch(cfg, conf, device, SEED + 8)),
+                     ("render", render_batch(cfg, conf, device))):
+        n = x.shape[0]
+        # K5
+        with torch.no_grad():
+            got = rev.rev_fwd(k, x)
+        torch.cuda.synchronize()
+        out_p, grad_p = rev.rev_plain(icfg, ws, bs, x)
+        pairs = {"sdf": (got[0][:, :1], out_p[:, :1]),
+                 "feat": (got[0][:, 1:], out_p[:, 1:]),
+                 "grad": (got[1], grad_p)}
+        errs = {name: float((a - b.detach()).abs().max())
+                for name, (a, b) in pairs.items()}
+        ok = all(close(a, b.detach(), *REV_TOLS[name])
+                 for name, (a, b) in pairs.items())
+        b_ms, b_by = bound(2.0 * k5_macs(icfg) * n,
+                           n * (12 + 4 * k.out_cols + 12) + 2 * 2 * n_w,
+                           PEAK_BF16)
+
+        def k5():
+            with torch.no_grad():
+                rev.rev_fwd(k, x)
+
+        def lib5():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                rev.rev_plain(icfg, ws, bs, x)
+
+        rows.append(dict(
+            name="rev_fwd", route="cuda",
+            source="i2sdf_tpu_torch/csrc/rev_fwd.cu",
+            replaces="i2sdf_tpu/ops/pallas/fused_rev.py:213",
+            points=label, shape=[n, 3], max_abs_err=max(errs.values()),
+            errs=errs, tolerances=REV_TOLS, ms=time_ms(k5, 5),
+            plain_ms=time_ms(lambda: rev.rev_plain(icfg, ws, bs, x), 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib5, 3)))
+        emit_row(rows[-1], ok)
+        # K6
+        c_out, c_g = rev_cotangents(out_p, grad_p, SEED + 9)
+        ref = torch.autograd.grad((out_p, grad_p), ws + bs, (c_out, c_g))
+        del out_p, grad_p
+        with torch.no_grad():
+            dws, dbs = rev.rev_bwd(k, x, c_out, c_g)
+        torch.cuda.synchronize()
+        gerrs = grad_errors(dws + dbs, ref)
+        b_ms, b_by = bound(2.0 * k6_macs(icfg) * n,
+                           n * (12 + 4 * k.out_cols + 12) + 2 * 2 * n_w
+                           + 4 * n_p, PEAK_BF16)
+
+        def k6():
+            with torch.no_grad():
+                rev.rev_bwd(k, x, c_out, c_g)
+
+        def plain6():
+            torch.autograd.grad(rev.rev_plain(icfg, ws, bs, x), ws + bs,
+                                (c_out, c_g))
+
+        def lib6():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                outs = rev.rev_plain(icfg, ws, bs, x)
+            torch.autograd.grad(outs, ws + bs, (c_out, c_g))
+
+        rows.append(dict(
+            name="rev_bwd", route="cuda",
+            source="i2sdf_tpu_torch/csrc/rev_bwd.cu",
+            replaces="i2sdf_tpu/ops/pallas/fused_rev.py:213",
+            points=label, shape=[n, 3], cotangents=[k.out_cols, 3],
+            max_abs_err=max(float((g - r).abs().max())
+                            for g, r in zip(dws + dbs, ref)),
+            **gerrs, leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
+            ms=time_ms(k6, 5), plain_ms=time_ms(plain6, 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib6, 2)))
+        emit_row(rows[-1], grads_ok(gerrs))
+        del ref, c_out, c_g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def synthetic_supervision(data, seed, normals=True):
+    """Seeded depth (scene units, 0.5 % invalid), with `normals`
+    view-space normals (0.5 % zero), and so the bubble point cloud, at the
+    scan's shapes."""
     rng = np.random.default_rng(seed)
     n, hw = data.n_images, data.total_pixels
     depth = rng.uniform(0.5, 4.5, (n, hw)).astype(np.float32)
     depth[rng.uniform(size=(n, hw)) < 0.005] = 0.0
-    normals = rng.normal(size=(n, hw, 3)).astype(np.float32)
-    normals[rng.uniform(size=(n, hw)) < 0.005] = 0.0
-    data.use_depth = data.use_normal = data.use_bubble = True
+    data.use_depth = data.use_bubble = True
     data.set_depth(depth)
-    data.set_normals(normals)
+    if normals:
+        nmaps = rng.normal(size=(n, hw, 3)).astype(np.float32)
+        nmaps[rng.uniform(size=(n, hw)) < 0.005] = 0.0
+        data.use_normal = True
+        data.set_normals(nmaps)
 
 
 def train_conf():
@@ -554,8 +733,9 @@ def kernel_vs_plain_step(tr) -> dict:
     gen = train_step.step_generator(SEED + 7, 0, tr.device)
     draws = train_step.TrainDraws.sample(cfg, data, tr.batch_size, gen,
                                          bubble_draws=tr.batch_size)
-    # every loss on: the normal loss (off inside the bubble window) and
-    # the bubble loss together
+    # every loss the config weighs on together: the normal loss (off
+    # inside the bubble window; zero with normal_weight 0) and the bubble
+    # loss
     weights = dict(tr.loss_cfg.dynamic_weights(0),
                    bubble=tr.loss_cfg.bubble_weight)
     res = {}
@@ -594,10 +774,15 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
                        tr.loss_cfg.dynamic_weights(s), tr.bubble)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    # K3 and K5 are one kernel template, K4 and K6 another, told apart by
+    # the template argument (true: with the radiance net); the products
+    # and sums are K4's on the normal-on path, K6's on the other
     groups = {"K1 sdf_mlp": "sdf_mlp_kernel", "K2 sampler_round":
-              "sampler_round", "K3 render_core_fwd": "render_core_kernel",
-              "K4 sweep": "sweep_kernel", "K4 atb": "atb_kernel",
-              "K4 sum": "sum_kernel"}
+              "sampler_round", "K3 render_core_fwd": "fwd_sweep_kernel<true>",
+              "K5 rev_fwd": "fwd_sweep_kernel<false>",
+              "K4 sweep": "bwd_sweep_kernel<true>",
+              "K6 sweep": "bwd_sweep_kernel<false>",
+              "K4/K6 atb": "atb_kernel", "K4/K6 sum": "sum_kernel"}
     by = {g: 0.0 for g in groups}
     by["other"] = 0.0
     top = []
@@ -634,25 +819,35 @@ def images_only_root(tmp) -> str:
     return str(Path(tmp) / "data")
 
 
-def run_train(device) -> dict:
+def run_train(device, normal: bool = True) -> dict:
+    """6 steps through the trainer. With `normal` off (`normal_weight: 0`,
+    no normal maps) the step takes the rev route: K5 and K6 once a step,
+    K3 and K4 never (counted around each step; the validation render at
+    the end of `fit` runs the eval path, K1-K3)."""
     conf = train_conf()
+    if not normal:
+        conf.loss.normal_weight = 0.0
     with tempfile.TemporaryDirectory() as tmp:
         tr = ReconstructionTrainer(conf, os.path.join(tmp, "exp"),
                                    data_root=images_only_root(tmp),
                                    device=device, seed=SEED)
         data = tr.train_data
         assert tr.device_data.depth is None and tr.device_data.normal is None
-        synthetic_supervision(data, SEED + 6)
+        assert tr.model_cfg.use_normal == normal
+        synthetic_supervision(data, SEED + 6, normals=normal)
         tr.device_data = data.to_device(device)
-        times, seen = [], []
+        times, seen, per_step = [], [], []
         inner = tr.step_fn
 
         def timed(state, d, draws, weights, bubble=None):
             torch.cuda.synchronize()
+            before = kernels.launch_counts()
             t0 = time.perf_counter()
             m = inner(state, d, draws, weights, bubble)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+            after = kernels.launch_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
             seen.append(({k: float(v) for k, v in m.items()},
                          bubble is not None))
             return m
@@ -668,9 +863,19 @@ def run_train(device) -> dict:
         for m, _ in seen:
             assert all(math.isfinite(v) for v in m.values()), m
         assert seen[2][0]["bubble_loss"] > 0 and seen[0][0]["depth_loss"] > 0
-        missing = [k for k, v in launches.items() if v == 0]
-        assert not missing, f"kernels not launched on the train path: {missing}"
-        assert launches["render_core_bwd"] == TRAIN_STEPS, launches
+        want = TRAIN_KERNELS if normal else NONORMAL_KERNELS
+        missing = [k for k in want if launches[k] == 0]
+        assert not missing, f"kernels not launched on the path: {missing}"
+        if normal:
+            assert launches["render_core_bwd"] == TRAIN_STEPS, launches
+        else:
+            for c in per_step:
+                assert c["rev_fwd"] == c["rev_bwd"] == 1, c
+                assert c["render_core_fwd"] == c["render_core_bwd"] == 0, c
+                assert 1 <= c["sdf_mlp_nograd"] <= 5, c
+                assert 2 <= c["sampler_round"] <= 5, c
+            for m, _ in seen:
+                assert m["normal_loss"] == m["angular_loss"] == 0.0, m
         ckpts = sorted(os.listdir(os.path.join(tmp, "exp", "checkpoints")))
         assert ckpts == [f"step_{TRAIN_STEPS}.pt"], ckpts
         try:
@@ -685,7 +890,8 @@ def run_train(device) -> dict:
                 prof["device_ms_total_per_step"]
                 / (statistics.median(steady) * 1e3))
         out = dict(
-            launches=launches, steps=TRAIN_STEPS, rays=tr.batch_size,
+            launches=launches, launches_per_step=per_step,
+            steps=TRAIN_STEPS, rays=tr.batch_size,
             # 97 samples and 3 eikonal points a ray
             points=tr.batch_size * (tr.model_cfg.sampler.total_fg_samples
                                     - 1 + 3),
@@ -702,15 +908,18 @@ def run_train(device) -> dict:
 
 def run_cli() -> dict:
     """The train CLI on scan1 as the checkout holds it (images and cameras
-    only), then --resume for one step."""
+    only), then --resume for one step, then the render CLI with no --ckpt,
+    which loads the newest checkpoint; last the train CLI on a copy of the
+    config with the normal losses off."""
     with tempfile.TemporaryDirectory() as tmp:
-        base = [sys.executable, "-m", "i2sdf_tpu_torch.main", "--conf",
-                str(TRAIN_CONF), "--scan_id", "1", "--data_root",
-                images_only_root(tmp), "--exps_folder",
-                str(Path(tmp) / "exps"), "--log_every", "1"]
+        cli = [sys.executable, "-m", "i2sdf_tpu_torch.main", "--scan_id",
+               "1", "--data_root", images_only_root(tmp), "--log_every", "1"]
+        base = cli + ["--conf", str(TRAIN_CONF), "--exps_folder",
+                      str(Path(tmp) / "exps")]
         runs = []
-        for extra in (["--max_steps", "3"], ["--max_steps", "4",
-                                             "--resume"]):
+        for extra in (["--max_steps", "3"],
+                      ["--max_steps", "4", "--resume"],
+                      ["--test", "--test_mode", "render", "--indices", "0"]):
             t0 = time.perf_counter()
             proc = subprocess.run(base + extra, cwd=ROOT, capture_output=True,
                                   text=True, timeout=600)
@@ -719,14 +928,41 @@ def run_cli() -> dict:
                              tail=proc.stdout.strip().splitlines()[-4:]))
             assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[
                 -3000:]
-        assert "[INFO] Resumed from step 3" in proc.stdout, proc.stdout
+            if "--resume" in extra:
+                assert "[INFO] Resumed from step 3" in proc.stdout, \
+                    proc.stdout
+        assert "[INFO] restored checkpoint @4" in proc.stdout, proc.stdout
+        # the normal-off route through the CLI: a copy of the config with
+        # normal_weight 0, in its own experiments folder
+        nonormal = Path(tmp) / "quality_nonormal.yml"
+        nonormal.write_text(TRAIN_CONF.read_text().replace(
+            "normal_weight: 0.05", "normal_weight: 0.0"))
+        args = ["--conf", str(nonormal), "--exps_folder",
+                str(Path(tmp) / "exps_nonormal"), "--max_steps", "2"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cli + args, cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        logs = [ln for ln in proc.stdout.splitlines() if "[scan1 " in ln]
+        runs.append(dict(args=args, rc=proc.returncode,
+                         seconds=time.perf_counter() - t0, tail=logs))
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[
+            -3000:]
+        assert len(logs) == 2 and not any(
+            t in ln for ln in logs for t in ("normal=", "angular=")), logs
         exp = Path(tmp) / "exps" / "quality_1" / "version_0"
         ckpts = sorted(os.listdir(exp / "checkpoints"))
         plots = sorted(str(p.relative_to(exp)) for p in (exp / "plots")
                        .rglob("*.png"))
+        depth = np.load(exp / "eval" / "depth" / "0000.npy")
+        normal = np.load(exp / "eval" / "normal" / "0000w.npy")
+        evals = sorted(str(p.relative_to(exp / "eval"))
+                       for p in (exp / "eval").rglob("*") if p.is_file())
     assert ckpts == ["step_3.pt", "step_4.pt"], ckpts
     assert len(plots) == 6, plots
-    return dict(runs=runs, checkpoints=ckpts, plots=plots)
+    assert np.isfinite(depth).all() and np.isfinite(normal).all()
+    assert depth.ndim == 2 and normal.shape == depth.shape + (3,)
+    return dict(runs=runs, checkpoints=ckpts, plots=plots,
+                rendered_step=4, eval_files=evals, image=list(depth.shape))
 
 
 def main() -> int:
@@ -761,8 +997,11 @@ def main() -> int:
     rows = check_kernels(model, cfg, conf, device)
     tconf = train_conf()
     tcfg = renderer.I2SDFConfig.from_cfgnode(tconf.model)
-    rows.append(check_k4(renderer.I2SDFModel(tcfg, seed=SEED).to(device),
-                         tcfg, conf, device))
+    tmodel = renderer.I2SDFModel(tcfg, seed=SEED).to(device)
+    rows.append(check_k4(tmodel, tcfg, conf, device))
+    torch.cuda.empty_cache()
+    rows += check_rev(tmodel, tcfg, conf, device)
+    del tmodel
     emit("kernels", t0, n=len(rows))
     torch.cuda.empty_cache()
 
@@ -782,19 +1021,32 @@ def main() -> int:
     emit("train", t0, **tr)
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trn = run_train(device, normal=False)
+    emit("train_nonormal", t0, **trn)
+
+    t0 = time.perf_counter()
     cli = run_cli()
     emit("cli", t0, **cli)
 
     per_kernel = {}
     for row in rows:  # one entry per kernel: its main-path shape's row
         per_kernel.setdefault(row["name"], row)
+    # each kernel's launches from the training path it serves: K1-K4 the
+    # normal-on step's (`train`), K5/K6 the normal-off step's
+    path_of = {k: "train_nonormal" if k.startswith("rev_") else "train"
+               for k in per_kernel}
+    paths = {"train": tr["launches"], "train_nonormal": trn["launches"]}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"launches": {"eval": sl["launches"],
-                                   "train": tr["launches"]},
+                                   "train": tr["launches"],
+                                   "train_nonormal": trn["launches"]},
                       "seconds": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": [
-        {**{k: r[k] for k in keys}, "launches": tr["launches"][r["name"]]}
+        {**{k: r[k] for k in keys},
+         "launches": paths[path_of[r["name"]]][r["name"]],
+         "launches_path": path_of[r["name"]]}
         for r in per_kernel.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

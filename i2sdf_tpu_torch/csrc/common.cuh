@@ -165,6 +165,1064 @@ struct EpiSoftplus {
   }
 };
 
+// ---- the SDF net's sweeps over a block of kSweepRows points (K3-K6) ------
+//
+// K3 and K5 are one kernel body (`fwd_sweep_kernel`): the forward with
+// the activation derivative stashed as bf16 s = softplus100'(z), then
+// d sdf / d x swept back through the net. K4 and K6 are another
+// (`bwd_sweep_kernel`): the derivative stashed as q (`stash_q`), the
+// backward's four sweeps staging every layer's weight-gradient operands in
+// device memory (`Scratch`), then the split-K products and the fixed-order
+// sums (`launch_wgrad`, both behind `launch_bwd`).
+
+constexpr int kSweepMT = 2;
+constexpr int kSweepRows = kSweepMT * 16;
+constexpr int kSweepMaxNT = 5;  // up to 8 warps * 5 tiles * 8 = 320 cols
+constexpr int kMaxSdf = 12;
+constexpr int kMaxRad = 8;
+constexpr int kMaxJobs = kMaxSdf + kMaxRad;
+constexpr int kCot = 8;  // shared-memory stride of a row's cotangents
+
+__device__ __forceinline__ float bf(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ void put2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
+}
+
+// The activation derivative as stored for the backward: q =
+// sigmoid(-|100 z|) with the sign bit set where z > 0 (-0 in softplus's
+// linear region), so both s = sigmoid(100 z) and 1 - s keep bf16's
+// relative precision in the second-order factor 100 s (1 - s).
+__device__ __forceinline__ float stash_q(float z) {
+  const float t = 100.f * z;
+  if (t > 20.f) return -0.f;
+  const float q = 1.f / (1.f + expf(fabsf(t)));
+  return t > 0.f ? -q : q;
+}
+
+// s = softplus100'(z) from the stash.
+__device__ __forceinline__ float stash_s(float v) {
+  return signbit(v) ? 1.f + v : v;
+}
+
+// 100 s (1 - s) from the stash.
+__device__ __forceinline__ float stash_d2(float v) {
+  const float q = fabsf(v);
+  return 100.f * q * (1.f - q);
+}
+
+// Copy `cols` (a multiple of 8) columns of the block's rows between shared
+// memory (row stride lda) and device memory (row stride ld), 16 bytes a
+// thread.
+__device__ __forceinline__ void store_rows(const __nv_bfloat16* s, int lda,
+                                           __nv_bfloat16* g, int ld, int cols,
+                                           int row0) {
+  const int v = cols >> 3;
+  for (int i = threadIdx.x; i < kSweepRows * v; i += kThreads) {
+    const int r = i / v, c = (i % v) << 3;
+    *reinterpret_cast<uint4*>(g + (size_t)(row0 + r) * ld + c) =
+        *reinterpret_cast<const uint4*>(s + r * lda + c);
+  }
+}
+
+__device__ __forceinline__ void load_rows(__nv_bfloat16* s, int lda,
+                                          const __nv_bfloat16* g, int ld,
+                                          int cols, int row0) {
+  const int v = cols >> 3;
+  for (int i = threadIdx.x; i < kSweepRows * v; i += kThreads) {
+    const int r = i / v, c = (i % v) << 3;
+    *reinterpret_cast<uint4*>(s + r * lda + c) =
+        *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * ld + c);
+  }
+}
+
+// Hidden SDF layer of the backward's recompute: bf16(scale *
+// softplus100(acc + b)), and the stash q of its derivative.
+struct EpiSoftplusQ {
+  __nv_bfloat16* out;
+  int lda;
+  const float* bias;
+  float scale;
+  __nv_bfloat16* q;
+  int ldd;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    const float z0 = v0 + bias[c], z1 = v1 + bias[c + 1];
+    put2(out + r * lda + c, softplus100(z0) * scale, softplus100(z1) * scale);
+    put2(q + r * ldd + c, stash_q(z0), stash_q(z1));
+  }
+};
+
+// ---- K3 and K5: the SDF net's outputs and d sdf / d x ----------------------
+
+// Reverse layer: a = r_l @ W_l^T is d sdf / d (input of layer l). Columns
+// below n_h continue down the net: r_{l-1} = bf16(scale * a * dact_{l-1});
+// columns [gcol, gcol + d0) belong to the encoding and are added, scaled,
+// into gpe (f32). Padding columns are written as zeros.
+struct EpiRev {
+  __nv_bfloat16* out;
+  int lda;
+  const __nv_bfloat16* dact;
+  int ldd;
+  float scale;
+  int n_h, gcol, d0;
+  float* gpe;
+  int ldg;
+  __device__ __forceinline__ float one(int r, int c, float v, float d) {
+    v *= scale;
+    if (c < n_h) return v * d;
+    const int p = c - gcol;
+    if (p >= 0 && p < d0) gpe[r * ldg + p] += v;
+    return 0.f;
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    float2 d = make_float2(0.f, 0.f);
+    if (c < n_h)
+      d = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(dact + r * ldd + c));
+    put2(out + r * lda + c, one(r, c, v0, d.x), one(r, c + 1, v1, d.y));
+  }
+};
+
+// K3's output layer, columns [features (F) | sdf]: the features to the
+// radiance input buffer (no activation), sdf to shared memory.
+struct EpiFeatSdf {
+  __nv_bfloat16* out;
+  int lda;
+  const float* bias;
+  float* sdf_s;
+  int F;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    const float z0 = v0 + bias[c], z1 = v1 + bias[c + 1];
+    if (c < F) {
+      put2(out + r * lda + c, z0, z1);
+    } else if (c == F) {
+      sdf_s[r] = z0;
+    }
+  }
+};
+
+// K5's output layer: columns [0, out_cols) of rows below n to device
+// memory, in the net's own order.
+struct EpiOut {
+  float* out;
+  const float* bias;
+  int row0, n, out_cols;
+  __device__ __forceinline__ void put(int r, int c, float v) {
+    if (c < out_cols && row0 + r < n)
+      out[(size_t)(row0 + r) * out_cols + c] = v + bias[c];
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    put(r, c, v0);
+    put(r, c + 1, v1);
+  }
+};
+
+struct EpiRelu {
+  __nv_bfloat16* out;
+  int lda;
+  const float* bias;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    put2(out + r * lda + c, fmaxf(v0 + bias[c], 0.f),
+         fmaxf(v1 + bias[c + 1], 0.f));
+  }
+};
+
+// K3's rgb: sigmoid of the radiance net's output, rows below n.
+struct EpiRgbOut {
+  float* rgb;
+  const float* bias;
+  int row0, n, d_out;
+  __device__ __forceinline__ void put(int r, int c, float v) {
+    if (c < d_out && row0 + r < n)
+      rgb[(size_t)(row0 + r) * d_out + c] = 1.f / (1.f + expf(-(v + bias[c])));
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    put(r, c, v0);
+    put(r, c + 1, v1);
+  }
+};
+
+// Shared memory of `fwd_sweep_kernel` (bytes): two activation buffers,
+// every hidden layer's activation derivative, and per row the point, the
+// view direction, the sdf and the encoding's gradient.
+inline size_t fwd_smem_bytes(int lda, int ldd, int n_dact, int ldg) {
+  return (2 * (size_t)kSweepRows * lda + (size_t)n_dact * kSweepRows * ldd) *
+             sizeof(__nv_bfloat16) +
+         (size_t)kSweepRows * (3 + 3 + 1 + ldg) * sizeof(float);
+}
+
+namespace {
+
+// K3 (`kRadiance`) and K5 in one kernel body. A block of 32 points runs
+// the SDF net forward with its activations in shared memory, stashing each
+// hidden layer's activation derivative (bf16 s = softplus100'(z)). K3's
+// output layer keeps the features in shared memory for the radiance net
+// on [features | PE(dirs)] and the sdf for its output; K5's writes its
+// columns to device memory. Then d sdf / d h goes back through the
+// transposed hidden layers (`rev`, rev.L[i] is hidden layer
+// n_hidden-1-i), starting from r = W_last[:, sdf] * dact (`wsdf_col`, zero
+// padded to the next layer's depth), the encoding's share gathered at
+// layer 0 and at the skip into gpe (f32), and the closed-form Jacobian of
+// the wide-block encoding, d sin(f x)/dx = f cos(f x), d cos(f x)/dx =
+// -f sin(f x), gives d sdf / d x. The sweeps are written out in one kernel
+// body, in K3's own form (an indexed pair of buffers, restrict-qualified
+// kernel arguments): as device functions shared by two kernels, or with
+// the buffers selected instead of indexed, K3 ran measurably slower on
+// the H100.
+template <bool kRadiance>
+__global__ void __launch_bounds__(kThreads)
+fwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
+                 int n, const uint2* __restrict__ w_fwd,
+                 const float* __restrict__ b_sdf, Plan fwd,
+                 const uint2* __restrict__ w_rev, Plan rev,
+                 const float* __restrict__ wsdf_col,
+                 const uint2* __restrict__ w_rad,
+                 const float* __restrict__ b_rad, Plan rad, int mx, int md,
+                 int lda, int ldd, int ldg, int out_cols,
+                 float* __restrict__ sdf_out, float* __restrict__ grad_out,
+                 float* __restrict__ rgb_out, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_hidden = fwd.n - 1;
+  __nv_bfloat16* buf[2];
+  buf[0] = reinterpret_cast<__nv_bfloat16*>(smem);
+  buf[1] = buf[0] + kSweepRows * lda;
+  __nv_bfloat16* dact = buf[1] + kSweepRows * lda;
+  float* xs = reinterpret_cast<float*>(dact + (size_t)n_hidden * kSweepRows *
+                                                  ldd);
+  float* ds = xs + kSweepRows * 3;
+  float* sdf_s = ds + kSweepRows * 3;
+  float* gpe = sdf_s + kSweepRows;
+  const int row0 = blockIdx.x * kSweepRows;
+  const int d0x = 3 + 6 * mx;
+  const int F = fwd.L[fwd.n - 1][kReal] - 1;  // feature width
+
+  for (int i = threadIdx.x; i < kSweepRows * 3; i += kThreads) {
+    const int r = row0 + i / 3;
+    xs[i] = r < n ? x[(size_t)r * 3 + i % 3] : 0.f;
+    if (kRadiance) ds[i] = r < n ? dirs[(size_t)r * 3 + i % 3] : 0.f;
+  }
+  for (int i = threadIdx.x; i < kSweepRows * ldg; i += kThreads) gpe[i] = 0.f;
+  __syncthreads();
+  write_pe(buf[0], lda, kSweepRows, xs, mx, 0, fwd.L[0][kK], 1.f);
+  __syncthreads();
+
+  // ---- SDF forward, stashing activation derivatives --------------------
+  int cur = 0;
+  for (int l = 0; l < fwd.n; ++l) {
+    const int* L = fwd.L[l];
+    if (L[kFlags] & kSkipIn) {
+      write_pe(buf[cur], lda, kSweepRows, xs, mx, L[kCol], L[kK], kInvSqrt2);
+      __syncthreads();
+    }
+    const uint2* W = w_fwd + L[kWOff];
+    const float* b = b_sdf + L[kBOff];
+    if (l < n_hidden) {
+      EpiSoftplus epi{buf[cur ^ 1], lda, b,
+                      (L[kFlags] & kScale) ? kInvSqrt2 : 1.f,
+                      dact + (size_t)l * kSweepRows * ldd, ldd};
+      mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
+    } else if (kRadiance) {
+      EpiFeatSdf epi{buf[cur ^ 1], lda, b, sdf_s, F};
+      mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
+    } else {
+      EpiOut epi{out, b, row0, n, out_cols};
+      mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+
+  // ---- K3: radiance net on [features | PE(dirs)] --------------------------
+  if (kRadiance) {
+    write_pe(buf[cur], lda, kSweepRows, ds, md, F, rad.L[0][kK], 1.f);
+    __syncthreads();
+    for (int l = 0; l < rad.n; ++l) {
+      const int* L = rad.L[l];
+      const uint2* W = w_rad + L[kWOff];
+      const float* b = b_rad + L[kBOff];
+      if (l < rad.n - 1) {
+        EpiRelu epi{buf[cur ^ 1], lda, b};
+        mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK], W, L[kN],
+                                         epi);
+      } else {
+        EpiRgbOut epi{rgb_out, b, row0, n, L[kReal]};
+        mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK], W, L[kN],
+                                         epi);
+      }
+      __syncthreads();
+      cur ^= 1;
+    }
+  }
+
+  // ---- reverse sweep: d sdf / d x --------------------------------------
+  {
+    const int K = rev.L[0][kK];
+    const __nv_bfloat16* dl = dact + (size_t)(n_hidden - 1) * kSweepRows * ldd;
+    for (int i = threadIdx.x; i < kSweepRows * K; i += kThreads) {
+      const int r = i / K, c = i % K;
+      buf[cur][r * lda + c] =
+          __float2bfloat16_rn(wsdf_col[c] * bf(dl + r * ldd + c));
+    }
+  }
+  __syncthreads();
+  for (int i = 0; i < rev.n; ++i) {
+    const int* L = rev.L[i];
+    const int l = n_hidden - 1 - i;
+    EpiRev epi{buf[cur ^ 1], lda,
+               l > 0 ? dact + (size_t)(l - 1) * kSweepRows * ldd : nullptr,
+               ldd, (L[kFlags] & kScale) ? kInvSqrt2 : 1.f, L[kReal], L[kCol],
+               d0x, gpe, ldg};
+    mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK],
+                                     w_rev + L[kWOff], L[kN], epi);
+    __syncthreads();
+    cur ^= 1;
+  }
+
+  // ---- encoding Jacobian, outputs --------------------------------------
+  for (int i = threadIdx.x; i < kSweepRows * 3; i += kThreads) {
+    const int r = i / 3, d = i % 3;
+    if (row0 + r >= n) continue;
+    const float* gp = gpe + r * ldg;
+    const float xd = xs[3 * r + d];
+    float g = gp[d];
+    for (int j = 0; j < mx; ++j) {
+      const float f = ldexpf(1.f, j);
+      g += f * (gp[3 + d * mx + j] * cosf(xd * f) -
+                gp[3 + 3 * mx + d * mx + j] * sinf(xd * f));
+    }
+    grad_out[(size_t)(row0 + r) * 3 + d] = g;
+    if (kRadiance && d == 0) sdf_out[row0 + r] = sdf_s[r];
+  }
+}
+
+// Launch `fwd_sweep_kernel` on n points (the arguments as the kernel's);
+// returns the launch's error.
+template <bool kRadiance>
+inline cudaError_t launch_fwd_sweep(
+    const float* x, const float* dirs, int n, const uint2* w_fwd,
+    const float* b_sdf, const Plan& fwd, const uint2* w_rev, const Plan& rev,
+    const float* wsdf_col, const uint2* w_rad, const float* b_rad,
+    const Plan& rad, int mx, int md, int lda, int ldd, int ldg, int out_cols,
+    float* sdf_out, float* grad_out, float* rgb_out, float* out,
+    void* stream) {
+  const size_t smem = fwd_smem_bytes(lda, ldd, fwd.n - 1, ldg);
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_sweep_kernel<kRadiance>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (n + kSweepRows - 1) / kSweepRows;
+  fwd_sweep_kernel<kRadiance><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      x, dirs, n, w_fwd, b_sdf, fwd, w_rev, rev, wsdf_col, w_rad, b_rad, rad,
+      mx, md, lda, ldd, ldg, out_cols, sdf_out, grad_out, rgb_out, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ---- K4 and K6: the backward's sweeps -------------------------------------
+
+// Where the backward stages each layer's operands (element pointers into
+// the bf16 and f32 scratch), as the host's table lays them out
+// (i2sdf_tpu_torch/ops/kernels/render_core.py::_BwdPlan).
+struct Scratch {
+  __nv_bfloat16* ax[kMaxSdf];   // (2 np, K_l): [da_l ; X_l]
+  __nv_bfloat16* br[kMaxSdf];   // (2 np, N_l): [r_l ; dz_l]
+  __nv_bfloat16* dzx[kMaxSdf];  // (np, N_l): dz_extra into z_l
+  float* ah[kMaxSdf];           // (np, K_l): d sdf / d h_l
+  __nv_bfloat16* rx[kMaxRad];   // (np, K_L): radiance layer inputs
+  __nv_bfloat16* rdz[kMaxRad];  // (np, N_L): radiance output cotangents
+  float* dbpart;                // (blocks, tb): bias-gradient rows
+  int tb, np;
+  int db_sdf[kMaxSdf];
+  int db_rad[kMaxRad];
+};
+
+// The block's shared memory in the backward's sweep: two activation
+// buffers, every hidden layer's stash q, the points, the view directions,
+// the cotangents [c_grad | c_sdf | c_rgb] (kCot a row), the rgb, the
+// encoding's gradient cotangent dge and the f32 dz the bias sums take.
+struct BwdSmem {
+  __nv_bfloat16 *buf0, *buf1, *q;
+  float *xs, *ds, *cot, *rgb, *dge, *dzf;
+};
+
+__device__ __forceinline__ BwdSmem carve_bwd(unsigned char* p, int lda,
+                                             int ldd, int n_q, int ldg) {
+  BwdSmem s;
+  s.buf0 = reinterpret_cast<__nv_bfloat16*>(p);
+  s.buf1 = s.buf0 + kSweepRows * lda;
+  s.q = s.buf1 + kSweepRows * lda;
+  s.xs = reinterpret_cast<float*>(s.q + (size_t)n_q * kSweepRows * ldd);
+  s.ds = s.xs + kSweepRows * 3;
+  s.cot = s.ds + kSweepRows * 3;
+  s.rgb = s.cot + kSweepRows * kCot;
+  s.dge = s.rgb + kSweepRows * 4;
+  s.dzf = s.dge + kSweepRows * ldg;
+  return s;
+}
+
+// Bytes of BwdSmem (the host mirrors it in `bwd_smem`).
+inline size_t bwd_smem_bytes(int lda, int ldd, int n_q, int ldg) {
+  return (2 * (size_t)kSweepRows * lda + (size_t)n_q * kSweepRows * ldd) *
+             sizeof(__nv_bfloat16) +
+         (size_t)kSweepRows * (3 + 3 + kCot + 4 + ldg + lda) * sizeof(float);
+}
+
+// The block's bias-gradient row: column c summed over the rows in order.
+__device__ __forceinline__ void put_db(float* dst, const float* dzf, int lda,
+                                       int n) {
+  for (int c = threadIdx.x; c < n; c += kThreads) {
+    float acc = 0.f;
+    for (int r = 0; r < kSweepRows; ++r) acc += dzf[r * lda + c];
+    dst[c] = acc;
+  }
+}
+
+// K4's output layer, columns [features | sdf]: the features become the
+// radiance input; the sdf value itself is not needed here.
+struct EpiFeat {
+  __nv_bfloat16* out;
+  int lda;
+  const float* bias;
+  int F;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    if (c < F) put2(out + r * lda + c, v0 + bias[c], v1 + bias[c + 1]);
+  }
+};
+
+// K4's rgb, to shared memory (kSweepRows x 4).
+struct EpiRgbShared {
+  float* rgb;
+  const float* bias;
+  int d_out;
+  __device__ __forceinline__ void put(int r, int c, float v) {
+    if (c < d_out) rgb[r * 4 + c] = 1.f / (1.f + expf(-(v + bias[c])));
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    put(r, c, v0);
+    put(r, c + 1, v1);
+  }
+};
+
+// Radiance backward through a hidden layer's input: dz = dh * (x > 0),
+// the ReLU mask read back from the layer's stored input.
+struct EpiRadBack {
+  __nv_bfloat16* out;
+  int lda;
+  const __nv_bfloat16* x;
+  int ldx, row0;
+  float* dzf;  // kSweepRows x lda f32, shared: the values the bias sums take
+  __device__ __forceinline__ float one(int r, int c, float v) {
+    const float d = bf(x + (size_t)(row0 + r) * ldx + c) > 0.f ? v : 0.f;
+    dzf[r * lda + c] = d;
+    return d;
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    put2(out + r * lda + c, one(r, c, v0), one(r, c + 1, v1));
+  }
+};
+
+// Radiance backward into its first layer's input [features | PE(view)]:
+// the feature columns are the cotangent of the SDF output's features.
+struct EpiFeatCot {
+  __nv_bfloat16* out;  // device memory: dz of the last SDF layer
+  int ld, row0, F;
+  float* dzf;
+  int lda;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    if (c >= F) return;
+    put2(out + (size_t)(row0 + r) * ld + c, v0, v1);
+    dzf[r * lda + c] = v0;
+    dzf[r * lda + c + 1] = v1;
+  }
+};
+
+// Reverse sweep through W_l^T: ah = scale * (r_l W_l^T) on the hidden
+// columns (stored in f32), r_{l-1} = bf16(ah * s_{l-1}); zero elsewhere.
+struct EpiRevQ {
+  __nv_bfloat16* out;
+  int lda;
+  const __nv_bfloat16* q;
+  int ldd;
+  float scale;
+  int n_h;
+  float* ah;
+  int ldah, row0;
+  __device__ __forceinline__ float one(int r, int c, float v) {
+    float a = 0.f, o = 0.f;
+    if (c < n_h) {
+      a = v * scale;
+      o = a * stash_s(bf(q + r * ldd + c));
+    }
+    ah[(size_t)(row0 + r) * ldah + c] = a;
+    return o;
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    put2(out + r * lda + c, one(r, c, v0), one(r, c + 1, v1));
+  }
+};
+
+// Upward sweep: dr = da_l W_l is the cotangent of r_l. On the hidden
+// columns, da_{l+1} = scale * dr * s_l (scale 1/sqrt(2) into a skip) and
+// dz_extra_l = bf16(dr * ah_{l+1} * 100 s_l (1 - s_l)).
+struct EpiUp {
+  __nv_bfloat16* out;
+  int lda;
+  const __nv_bfloat16* q;
+  int ldd;
+  const float* ah;
+  int ldah;
+  __nv_bfloat16* dzx;
+  int lddz, row0, n_h;
+  float scale;
+  __device__ __forceinline__ float one(int r, int c, float v, float& x) {
+    if (c >= n_h) {
+      x = 0.f;
+      return 0.f;
+    }
+    const float st = bf(q + r * ldd + c);
+    x = v * ah[(size_t)(row0 + r) * ldah + c] * stash_d2(st);
+    return v * stash_s(st) * scale;
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    float x0, x1;
+    const float a0 = one(r, c, v0, x0), a1 = one(r, c + 1, v1, x1);
+    put2(out + r * lda + c, a0, a1);
+    put2(dzx + (size_t)(row0 + r) * lddz + c, x0, x1);
+  }
+};
+
+// Downward sweep through W_l^T: on the hidden columns,
+// dz_{l-1} = scale * (dz_l W_l^T) * s_{l-1} + dz_extra_{l-1}.
+struct EpiDown {
+  __nv_bfloat16* out;
+  int lda;
+  const __nv_bfloat16* q;
+  int ldd;
+  const __nv_bfloat16* dzx;
+  int lddz, row0, n_h;
+  float scale;
+  float* dzf;
+  __device__ __forceinline__ float one(int r, int c, float v) {
+    const float d = c < n_h ? v * scale * stash_s(bf(q + r * ldd + c)) +
+                                  bf(dzx + (size_t)(row0 + r) * lddz + c)
+                            : 0.f;
+    dzf[r * lda + c] = d;
+    return d;
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    put2(out + r * lda + c, one(r, c, v0), one(r, c + 1, v1));
+  }
+};
+
+namespace {
+
+// K4 (`kRadiance`) and K6 in one kernel body, 32 points a block: the SDF
+// forward recompute (X_l to rows [np, 2 np) of ax[l], the stash q_l);
+// K4's radiance forward and backward, which give the output layer's dz
+// (K6 reads it from c_out, in the net's own column order); the reverse
+// sweep (r_l to rows [0, np) of br[l], ah_l to ah[l], from e_sdf in the
+// output layer's sdf column); dg_emb from c_grad by the encoding's
+// closed-form Jacobian; the upward sweep, the transpose of the reverse
+// sweep (da_l to rows [0, np) of ax[l], the second-order term dz_extra_l
+// = dr * ah * 100 s (1 - s) to dzx[l]); the downward sweep (dz_l to rows
+// [np, 2 np) of br[l]) with those injections. Each hidden layer's bias
+// row goes to the block's row of `dbpart`. Written out in one body, in
+// K4's own form, as K3's and K5's kernel is.
+template <bool kRadiance>
+__global__ void __launch_bounds__(kThreads)
+bwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
+                 const float* __restrict__ cot,
+                 const float* __restrict__ c_out, int out_cols,
+                 const float* __restrict__ c_g, int n,
+                 const uint2* __restrict__ w_fwd,
+                 const float* __restrict__ b_sdf, Plan fwd,
+                 const uint2* __restrict__ w_t, Plan tp,
+                 const float* __restrict__ wsdf_col,
+                 const uint2* __restrict__ w_rad,
+                 const float* __restrict__ b_rad, Plan rad,
+                 const uint2* __restrict__ w_radt, Plan radt, int mx, int md,
+                 int lda, int ldd, int ldg, Scratch sc) {
+  constexpr int kMT = kSweepMT, kMaxNT = kSweepMaxNT, kRows = kSweepRows;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ns = fwd.n, nh = ns - 1, nr = rad.n;
+  const BwdSmem s = carve_bwd(smem, lda, ldd, nh, ldg);
+  __nv_bfloat16* buf[2] = {s.buf0, s.buf1};
+  const int row0 = blockIdx.x * kRows;
+  const int np = sc.np;
+  const int d0 = 3 + 6 * mx;
+  const int F = fwd.L[ns - 1][kReal] - 1;
+  // the output layer's sdf column: K4's layout is [features | sdf], K6's
+  // the net's own [sdf | features]
+  const int sdf_col = kRadiance ? F : 0;
+  float* dbp = sc.dbpart + (size_t)blockIdx.x * sc.tb;
+
+  for (int i = threadIdx.x; i < kRows * 3; i += kThreads) {
+    const int r = row0 + i / 3;
+    s.xs[i] = r < n ? x[(size_t)r * 3 + i % 3] : 0.f;
+    if (kRadiance) s.ds[i] = r < n ? dirs[(size_t)r * 3 + i % 3] : 0.f;
+  }
+  // [c_grad | c_sdf | c_rgb] a row (K6: c_g only)
+  for (int i = threadIdx.x; i < kRows * kCot; i += kThreads) {
+    const int r = row0 + i / kCot, c = i % kCot;
+    if (kRadiance)
+      s.cot[i] = (r < n && c < 7) ? cot[(size_t)r * 7 + c] : 0.f;
+    else
+      s.cot[i] = (r < n && c < 3) ? c_g[(size_t)r * 3 + c] : 0.f;
+  }
+  __syncthreads();
+  write_pe(buf[0], lda, kRows, s.xs, mx, 0, fwd.L[0][kK], 1.f);
+  __syncthreads();
+
+  // ---- 1. SDF forward: X_l to ax[l] rows [np, 2np), stash q_l ----------
+  int cur = 0;
+  for (int l = 0; l < ns; ++l) {
+    const int* L = fwd.L[l];
+    if (L[kFlags] & kSkipIn) {
+      write_pe(buf[cur], lda, kRows, s.xs, mx, L[kCol], L[kK], kInvSqrt2);
+      __syncthreads();
+    }
+    store_rows(buf[cur], lda, sc.ax[l] + (size_t)np * L[kK], L[kK], L[kK],
+               row0);
+    const uint2* W = w_fwd + L[kWOff];
+    const float* b = b_sdf + L[kBOff];
+    if (l < nh) {
+      EpiSoftplusQ epi{buf[cur ^ 1], lda, b,
+                       (L[kFlags] & kScale) ? kInvSqrt2 : 1.f,
+                       s.q + (size_t)l * kRows * ldd, ldd};
+      mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
+    } else if (kRadiance) {
+      EpiFeat epi{buf[cur ^ 1], lda, b, F};
+      mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
+    }  // K6 needs only the output layer's input
+    __syncthreads();
+    cur ^= 1;
+  }
+
+  const int n_last = fwd.L[ns - 1][kN];
+  __nv_bfloat16* cy = sc.br[ns - 1] + (size_t)np * n_last;
+  if (kRadiance) {
+    // ---- 2. radiance forward: X_L to rx[L], rgb to shared memory --------
+    write_pe(buf[cur], lda, kRows, s.ds, md, F, rad.L[0][kK], 1.f);
+    __syncthreads();
+    for (int l = 0; l < nr; ++l) {
+      const int* L = rad.L[l];
+      store_rows(buf[cur], lda, sc.rx[l], L[kK], L[kK], row0);
+      const uint2* W = w_rad + L[kWOff];
+      const float* b = b_rad + L[kBOff];
+      if (l < nr - 1) {
+        EpiRelu epi{buf[cur ^ 1], lda, b};
+        mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
+      } else {
+        EpiRgbShared epi{s.rgb, b, L[kReal]};
+        mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
+      }
+      __syncthreads();
+      cur ^= 1;
+    }
+
+    // ---- 3. radiance backward -------------------------------------------
+    {
+      const int N = rad.L[nr - 1][kN], d_out = rad.L[nr - 1][kReal];
+      for (int i = threadIdx.x; i < kRows * N; i += kThreads) {
+        const int r = i / N, c = i % N;
+        float v = 0.f;
+        if (c < d_out) {
+          const float g = s.rgb[r * 4 + c];
+          v = s.cot[r * kCot + 4 + c] * g * (1.f - g);
+        }
+        s.dzf[r * lda + c] = v;
+        buf[cur][r * lda + c] = __float2bfloat16_rn(v);
+      }
+      __syncthreads();
+      store_rows(buf[cur], lda, sc.rdz[nr - 1], N, N, row0);
+      put_db(dbp + sc.db_rad[nr - 1], s.dzf, lda, N);
+      __syncthreads();
+    }
+    for (int l = nr - 1; l >= 0; --l) {
+      const int* L = radt.L[nr - 1 - l];  // W_l^T
+      const uint2* W = w_radt + L[kWOff];
+      if (l > 0) {
+        EpiRadBack epi{buf[cur ^ 1], lda, sc.rx[l], L[kN], row0, s.dzf};
+        mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
+        __syncthreads();
+        const int N = rad.L[l - 1][kN];
+        store_rows(buf[cur ^ 1], lda, sc.rdz[l - 1], N, N, row0);
+        put_db(dbp + sc.db_rad[l - 1], s.dzf, lda, N);
+        __syncthreads();
+        cur ^= 1;
+      } else {
+        EpiFeatCot epi{cy, n_last, row0, F, s.dzf, lda};
+        mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
+        // the sdf column carries c_sdf; padding columns are zero
+        for (int i = threadIdx.x; i < kRows * (n_last - F); i += kThreads) {
+          const int r = i / (n_last - F), c = F + i % (n_last - F);
+          const float v = c == F ? s.cot[r * kCot + 3] : 0.f;
+          cy[(size_t)(row0 + r) * n_last + c] = __float2bfloat16_rn(v);
+          s.dzf[r * lda + c] = v;
+        }
+        __syncthreads();
+        put_db(dbp + sc.db_sdf[ns - 1], s.dzf, lda, n_last);
+        __syncthreads();
+      }
+    }
+  } else {
+    // ---- 2-3. K6: the output layer's dz is c_out, from memory ----------
+    for (int i = threadIdx.x; i < kRows * n_last; i += kThreads) {
+      const int r = i / n_last, c = i % n_last;
+      const float v = (row0 + r < n && c < out_cols)
+                          ? c_out[(size_t)(row0 + r) * out_cols + c]
+                          : 0.f;
+      cy[(size_t)(row0 + r) * n_last + c] = __float2bfloat16_rn(v);
+      s.dzf[r * lda + c] = v;
+    }
+    __syncthreads();
+    put_db(dbp + sc.db_sdf[ns - 1], s.dzf, lda, n_last);
+    __syncthreads();
+  }
+
+  // ---- 4. reverse sweep: r_l to br[l] rows [0, np), ah_l to ah[l] -------
+  {
+    for (int i = threadIdx.x; i < kRows * n_last; i += kThreads) {
+      const int r = i / n_last, c = i % n_last;
+      sc.br[ns - 1][(size_t)(row0 + r) * n_last + c] =
+          __float2bfloat16_rn(c == sdf_col ? 1.f : 0.f);
+    }
+    // ah_{n-1} = W_{n-1}[:, sdf]; r_{n-2} = bf16(ah_{n-1} * s_{n-2})
+    const int K = fwd.L[ns - 1][kK];
+    const __nv_bfloat16* ql = s.q + (size_t)(nh - 1) * kRows * ldd;
+    for (int i = threadIdx.x; i < kRows * K; i += kThreads) {
+      const int r = i / K, c = i % K;
+      const float a = wsdf_col[c];
+      sc.ah[ns - 1][(size_t)(row0 + r) * K + c] = a;
+      buf[cur][r * lda + c] =
+          __float2bfloat16_rn(a * stash_s(bf(ql + r * ldd + c)));
+    }
+    __syncthreads();
+    store_rows(buf[cur], lda, sc.br[ns - 2], K, K, row0);
+  }
+  for (int l = ns - 2; l >= 1; --l) {
+    const int* L = tp.L[ns - 1 - l];  // W_l^T
+    EpiRevQ epi{buf[cur ^ 1], lda, s.q + (size_t)(l - 1) * kRows * ldd, ldd,
+                (L[kFlags] & kScale) ? kInvSqrt2 : 1.f, L[kReal], sc.ah[l],
+                L[kN], row0};
+    mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], w_t + L[kWOff], L[kN], epi);
+    __syncthreads();
+    const int N = fwd.L[l - 1][kN];
+    store_rows(buf[cur ^ 1], lda, sc.br[l - 1], N, N, row0);
+    cur ^= 1;
+  }
+
+  // ---- 5. dg_emb = (c_grad Sel^T) * tilde, f32 --------------------------
+  for (int i = threadIdx.x; i < kRows * ldg; i += kThreads) {
+    const int r = i / ldg, j = i % ldg;
+    float v = 0.f;
+    if (j < 3) {
+      v = s.cot[r * kCot + j];
+    } else if (j < d0) {
+      int p = j - 3;
+      const bool is_cos = p >= 3 * mx;
+      if (is_cos) p -= 3 * mx;
+      const int k = p / mx;
+      const float f = ldexpf(1.f, p % mx);
+      const float arg = s.xs[3 * r + k] * f;
+      v = s.cot[r * kCot + k] * (is_cos ? -f * sinf(arg) : f * cosf(arg));
+    }
+    s.dge[i] = v;
+  }
+  __syncthreads();
+
+  // ---- 6. upward sweep: da_l to ax[l] rows [0, np), dz_extra_l to dzx ---
+  {
+    const int K = fwd.L[0][kK];
+    for (int i = threadIdx.x; i < kRows * K; i += kThreads) {
+      const int r = i / K, c = i % K;
+      buf[cur][r * lda + c] =
+          __float2bfloat16_rn(c < d0 ? s.dge[r * ldg + c] : 0.f);
+    }
+    __syncthreads();
+    store_rows(buf[cur], lda, sc.ax[0], K, K, row0);
+  }
+  for (int l = 0; l < nh; ++l) {
+    const int* L = fwd.L[l];
+    const int* L1 = fwd.L[l + 1];
+    EpiUp epi{buf[cur ^ 1], lda, s.q + (size_t)l * kRows * ldd, ldd,
+              sc.ah[l + 1], L1[kK], sc.dzx[l], L[kN], row0, L[kReal],
+              (L[kFlags] & kScale) ? kInvSqrt2 : 1.f};
+    mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], w_fwd + L[kWOff], L[kN],
+                           epi);
+    __syncthreads();
+    if (L1[kFlags] & kSkipIn) {
+      const int col = L1[kCol], w = L1[kK] - col;
+      for (int i = threadIdx.x; i < kRows * w; i += kThreads) {
+        const int r = i / w, p = i % w;
+        buf[cur ^ 1][r * lda + col + p] = __float2bfloat16_rn(
+            p < d0 ? s.dge[r * ldg + p] * kInvSqrt2 : 0.f);
+      }
+      __syncthreads();
+    }
+    store_rows(buf[cur ^ 1], lda, sc.ax[l + 1], L1[kK], L1[kK], row0);
+    cur ^= 1;
+  }
+
+  // ---- 7. downward sweep: dz_l to br[l] rows [np, 2np) ------------------
+  __syncthreads();
+  load_rows(buf[cur], lda, cy, n_last, n_last, row0);
+  __syncthreads();
+  for (int l = ns - 1; l >= 1; --l) {
+    const int* L = tp.L[ns - 1 - l];  // W_l^T
+    const int N = fwd.L[l - 1][kN];
+    EpiDown epi{buf[cur ^ 1], lda, s.q + (size_t)(l - 1) * kRows * ldd, ldd,
+                sc.dzx[l - 1], N, row0, L[kReal],
+                (L[kFlags] & kScale) ? kInvSqrt2 : 1.f, s.dzf};
+    mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], w_t + L[kWOff], L[kN], epi);
+    __syncthreads();
+    store_rows(buf[cur ^ 1], lda, sc.br[l - 1] + (size_t)np * N, N, N, row0);
+    put_db(dbp + sc.db_sdf[l - 1], s.dzf, lda, N);
+    __syncthreads();
+    cur ^= 1;
+  }
+}
+
+// ---- weight gradients: C = A^T B over the points, split K ----------------
+
+}  // namespace
+
+// ---- weight gradients: C = A^T B over the points, split K ----------------
+
+struct GemmJob {
+  const __nv_bfloat16* a;  // (m, k)
+  const __nv_bfloat16* b;  // (m, n)
+  float* part;             // (splits, k, n)
+  int m, k, n, chunk, tiles_k, tiles_n, blocks;
+};
+
+struct GemmJobs {
+  GemmJob j[kMaxJobs];
+  int n;
+};
+
+constexpr int kTM = 32, kTK = 64, kTN = 64, kLdT = kTK + 8;
+
+__device__ __forceinline__ uint32_t pk(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+namespace {
+
+__global__ void __launch_bounds__(kThreads) atb_kernel(GemmJobs jobs) {
+  __shared__ __align__(16) __nv_bfloat16 as[kTM * kLdT];
+  __shared__ __align__(16) __nv_bfloat16 bs[kTM * kLdT];
+  int b = blockIdx.x, ji = 0;
+  while (ji < jobs.n - 1 && b >= jobs.j[ji].blocks) {
+    b -= jobs.j[ji].blocks;
+    ++ji;
+  }
+  const GemmJob J = jobs.j[ji];
+  const int tn = b % J.tiles_n;
+  b /= J.tiles_n;
+  const int tk = b % J.tiles_k, split = b / J.tiles_k;
+  const int k0 = tk * kTK, n0 = tn * kTN;
+  const int m_begin = split * J.chunk;
+  const int m_end = min(J.m, m_begin + J.chunk);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wk = warp & 3, wn = warp >> 2;
+  const int lr = threadIdx.x >> 3, lc = (threadIdx.x & 7) << 3;
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int m0 = m_begin; m0 < m_end; m0 += kTM) {
+    uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
+    if (k0 + lc < J.k)
+      va = *reinterpret_cast<const uint4*>(J.a + (size_t)(m0 + lr) * J.k +
+                                           k0 + lc);
+    if (n0 + lc < J.n)
+      vb = *reinterpret_cast<const uint4*>(J.b + (size_t)(m0 + lr) * J.n +
+                                           n0 + lc);
+    __syncthreads();
+    *reinterpret_cast<uint4*>(as + lr * kLdT + lc) = va;
+    *reinterpret_cast<uint4*>(bs + lr * kLdT + lc) = vb;
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int mr = ks * 16 + 2 * tig;
+      const int kr = wk * 16 + g;
+      uint32_t a[4];
+      a[0] = pk(as[mr * kLdT + kr], as[(mr + 1) * kLdT + kr]);
+      a[1] = pk(as[mr * kLdT + kr + 8], as[(mr + 1) * kLdT + kr + 8]);
+      a[2] = pk(as[(mr + 8) * kLdT + kr], as[(mr + 9) * kLdT + kr]);
+      a[3] = pk(as[(mr + 8) * kLdT + kr + 8], as[(mr + 9) * kLdT + kr + 8]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int nc = wn * 32 + j * 8 + g;
+        const uint32_t b0 = pk(bs[mr * kLdT + nc], bs[(mr + 1) * kLdT + nc]);
+        const uint32_t b1 =
+            pk(bs[(mr + 8) * kLdT + nc], bs[(mr + 9) * kLdT + nc]);
+        mma_bf16(acc[j], a, b0, b1);
+      }
+    }
+  }
+  float* P = J.part + (size_t)split * J.k * J.n;
+  const int row = k0 + wk * 16 + g;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + wn * 32 + j * 8 + 2 * tig;
+    if (col >= J.n) continue;
+    if (row < J.k) {
+      P[(size_t)row * J.n + col] = acc[j][0];
+      P[(size_t)row * J.n + col + 1] = acc[j][1];
+    }
+    if (row + 8 < J.k) {
+      P[(size_t)(row + 8) * J.n + col] = acc[j][2];
+      P[(size_t)(row + 8) * J.n + col + 1] = acc[j][3];
+    }
+  }
+}
+
+// ---- fixed-order sums of the partials -----------------------------------
+
+struct SumJob {
+  const float* src;  // (s, e)
+  float* dst;        // (e,)
+  long long e;
+  int s;
+};
+
+struct SumJobs {
+  SumJob j[kMaxJobs + 1];
+  int n;
+  long long total;
+};
+
+__global__ void __launch_bounds__(kThreads) sum_kernel(SumJobs jobs) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < jobs.total; i += (long long)gridDim.x * kThreads) {
+    long long e = i;
+    int ji = 0;
+    while (ji < jobs.n - 1 && e >= jobs.j[ji].e) {
+      e -= jobs.j[ji].e;
+      ++ji;
+    }
+    const SumJob& J = jobs.j[ji];
+    float acc = 0.f;
+    for (int s = 0; s < J.s; ++s) acc += J.src[(size_t)s * J.e + e];
+    J.dst[e] = acc;
+  }
+}
+
+// The scratch table (int64, element offsets), read in the order
+// `_BwdPlan` writes it: ax, br, dzx, ah (SDF layers), rx, rdz (radiance
+// layers), dbpart, tb, the bias offsets; returns the rest (the products'
+// splits, chunks, partials and outputs).
+inline const long long* read_scratch(const long long* t, int n_fwd,
+                                     int n_rad, int np, void* ws16,
+                                     float* ws32, Scratch& sc) {
+  __nv_bfloat16* b16 = (__nv_bfloat16*)ws16;
+  for (int l = 0; l < n_fwd; ++l) sc.ax[l] = b16 + *t++;
+  for (int l = 0; l < n_fwd; ++l) sc.br[l] = b16 + *t++;
+  for (int l = 0; l < n_fwd; ++l, ++t) sc.dzx[l] = *t < 0 ? nullptr : b16 + *t;
+  for (int l = 0; l < n_fwd; ++l, ++t) sc.ah[l] = *t < 0 ? nullptr : ws32 + *t;
+  for (int l = 0; l < n_rad; ++l) sc.rx[l] = b16 + *t++;
+  for (int l = 0; l < n_rad; ++l) sc.rdz[l] = b16 + *t++;
+  sc.dbpart = ws32 + *t++;
+  sc.tb = (int)*t++;
+  sc.np = np;
+  for (int l = 0; l < n_fwd; ++l) sc.db_sdf[l] = (int)*t++;
+  for (int l = 0; l < n_rad; ++l) sc.db_rad[l] = (int)*t++;
+  return t;
+}
+
+// The weight gradients from the staged operands: every dW_p = A^T B over
+// the points (SDF layer: [da ; X]^T [r ; dz] over 2 np rows; radiance
+// layer: X^T dz over np rows), split over point ranges, then the ranges
+// and the blocks' bias rows added in a fixed order into `out` (no
+// atomics: the same result to the bit run to run). `t` is the rest of the
+// table after read_scratch.
+inline cudaError_t launch_wgrad(const Plan& fwd, const Plan* rad,
+                                const Scratch& sc, const long long* t,
+                                float* ws32, float* out, cudaStream_t st) {
+  const int n_fwd = fwd.n, n_rad = rad ? rad->n : 0;
+  const int jobs_n = n_fwd + n_rad;
+  const long long* splits = t;
+  const long long* chunk = t + jobs_n;
+  const long long* part = t + 2 * jobs_n;
+  const long long* outp = t + 3 * jobs_n;
+  const long long out_db = t[4 * jobs_n];
+  GemmJobs gj;
+  SumJobs sj;
+  gj.n = jobs_n;
+  sj.n = jobs_n + 1;
+  int gemm_blocks = 0;
+  long long total = 0;
+  for (int p = 0; p < jobs_n; ++p) {
+    const bool is_sdf = p < n_fwd;
+    const int* L = is_sdf ? fwd.L[p] : rad->L[p - n_fwd];
+    GemmJob& J = gj.j[p];
+    J.a = is_sdf ? sc.ax[p] : sc.rx[p - n_fwd];
+    J.b = is_sdf ? sc.br[p] : sc.rdz[p - n_fwd];
+    J.part = ws32 + part[p];
+    J.m = is_sdf ? 2 * sc.np : sc.np;
+    J.k = L[kK];
+    J.n = L[kN];
+    J.chunk = (int)chunk[p];
+    J.tiles_k = (J.k + kTK - 1) / kTK;
+    J.tiles_n = (J.n + kTN - 1) / kTN;
+    J.blocks = J.tiles_k * J.tiles_n * (int)splits[p];
+    gemm_blocks += J.blocks;
+    sj.j[p] = SumJob{J.part, out + outp[p], (long long)J.k * J.n,
+                     (int)splits[p]};
+    total += sj.j[p].e;
+  }
+  const int blocks = sc.np / kSweepRows;
+  sj.j[jobs_n] = SumJob{sc.dbpart, out + out_db, (long long)sc.tb, blocks};
+  sj.total = total + sc.tb;
+  atb_kernel<<<gemm_blocks, kThreads, 0, st>>>(gj);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long sum_blocks = (sj.total + kThreads - 1) / kThreads;
+  sum_kernel<<<(int)(sum_blocks < 4096 ? sum_blocks : 4096), kThreads, 0,
+               st>>>(sj);
+  return cudaGetLastError();
+}
+
+// K4 or K6: the sweep, then the weight-gradient products and sums, on n
+// points padded to np (the arguments as `bwd_sweep_kernel`'s; `table` is
+// the host's scratch table, read by `read_scratch`).
+template <bool kRadiance>
+inline cudaError_t launch_bwd(
+    const float* x, const float* dirs, const float* cot, const float* c_out,
+    int out_cols, const float* c_g, int n, int np, const uint2* w_fwd,
+    const float* b_sdf, const Plan& fwd, const uint2* w_t, const Plan& tp,
+    const float* wsdf_col, const uint2* w_rad, const float* b_rad,
+    const Plan& rad, const uint2* w_radt, const Plan& radt, int mx, int md,
+    int lda, int ldd, int ldg, void* ws16, float* ws32,
+    const long long* table, float* out, void* stream) {
+  Scratch sc;
+  const long long* rest =
+      read_scratch(table, fwd.n, kRadiance ? rad.n : 0, np, ws16, ws32, sc);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = bwd_smem_bytes(lda, ldd, fwd.n - 1, ldg);
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_sweep_kernel<kRadiance>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  bwd_sweep_kernel<kRadiance><<<np / kSweepRows, kThreads, smem, st>>>(
+      x, dirs, cot, c_out, out_cols, c_g, n, w_fwd, b_sdf, fwd, w_t, tp,
+      wsdf_col, w_rad, b_rad, rad, w_radt, radt, mx, md, lda, ldd, ldg, sc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_wgrad(fwd, kRadiance ? &rad : nullptr, sc, rest, ws32, out,
+                      st);
+}
+
+}  // namespace
+
 inline cudaError_t set_smem(const void* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -2,15 +2,28 @@
 
 `I2SDFModel` holds the SDF net, the radiance net and the learnable beta.
 `render_rays` renders a batch of rays at eval (`training=False` in the
-reference): foreground only, with rgb, depth and the normal map.
-`render_rays_train` is the training render (`renderer.py:299-311,
-345-377,470-499`): the eikonal points ride in the render core's batch
-with zero directions, and it returns what the losses read (`grad_theta`,
+reference): foreground only, with rgb, depth and the normal map, through
+K1-K3. `render_rays_train` is the training render (`renderer.py:299-311,
+345-394,470-499`); it returns what the losses read (`grad_theta`,
 `diff_norm`, `surface_sdf` on the bubble points, `normal_values` under
-`use_normal`), differentiable with respect to the model's parameters.
-Its random numbers come in a `RenderDraws` bundle. The light head and
-the NeRF++ background are not ported yet, and configs that ask for them
-are refused.
+`use_normal`), differentiable with respect to the model's parameters,
+and takes one of two routes, chosen as the JAX renderer chooses
+(`returns_grad`, `renderer.py:294`):
+
+* normal losses on (`use_normal`): the render core, K3 forward and K4
+  backward, on the render points and the eikonal points folded into one
+  batch with zero directions (`renderer.py:345-377`);
+* normal losses off: the render points through the SDF net with no
+  spatial gradient and then the radiance net, in plain PyTorch (large
+  matrix products that the JAX package leaves to XLA,
+  `renderer.py:387-394`), and `grad_theta` of the eikonal points through
+  K5 forward and K6 backward (`get_rev_op`, `renderer.py:473-477`).
+
+The sampler runs K1 and K2 on both routes. Its random numbers come in a
+`RenderDraws` bundle. Still refused, with a message: the light head
+(`model.light_network`), the NeRF++ background (`model.bg_network`), the
+per-ray sampler exit (`ray_sampler.per_ray_exit`, `early_exit: false`),
+idr-mode radiance and the SH/Fourier encodings.
 
 Compute is f32 in the plain path on either device; on the card the hot
 functions run as CUDA kernels with bf16 operands and f32 accumulation
@@ -26,7 +39,7 @@ import torch
 from torch import nn
 
 from ..ops.compositing import render_weights
-from ..ops.kernels import render_core, sampler_round, sdf_mlp
+from ..ops.kernels import render_core, rev, sampler_round, sdf_mlp
 from ..utils.cameras import get_camera_params
 from ..utils.jmath import safe_norm, safe_normalize
 from .density import effective_beta, laplace_density
@@ -189,11 +202,11 @@ def render_rays_train(model: I2SDFModel, inputs: dict, draws: RenderDraws,
     """Render a batch of rays for a training step.
 
     inputs as `render_rays`'s, plus an optional "pointcloud" (P, 3) of
-    bubble points. The sampler and the render core go through their
-    kernel wrappers (CUDA kernels on CUDA tensors, the plain versions on
-    CPU tensors, or the plain versions anywhere with `plain=True`); the
-    render core's backward is K4 on the card. The sampler sees the
-    current weights (packed here) and beta, without gradient."""
+    bubble points. The sampler and the kernels of the route (module
+    docstring) go through their wrappers: CUDA kernels on CUDA tensors,
+    the plain versions on CPU tensors, or the plain versions anywhere
+    with `plain=True`. The sampler sees the current weights (packed here)
+    and beta, without gradient."""
     cfg = model.cfg
     with torch.no_grad():
         ray_dirs, cam_loc, ray_dirs_norm = _camera_rays(inputs)
@@ -213,14 +226,25 @@ def render_rays_train(model: I2SDFModel, inputs: dict, draws: RenderDraws,
         eik_near = cam_loc + z_eik * ray_dirs
         eik_all = torch.cat([draws.eik_uniform, eik_near,
                              eik_near + draws.jitter])
-        pts_in = torch.cat([points, eik_all]).contiguous()
-        dirs_in = torch.cat([dirs, torch.zeros_like(eik_all)]).contiguous()
 
-    w = render_core.CoreWeights.of(model.implicit, model.rendering)
-    sdf_a, grad_a, rgb_a = render_core.render_core_train(
-        cfg.implicit, cfg.rendering, w, pts_in, dirs_in, plain=plain)
-    n_main = R * S
-    sdf, grad, rgb = sdf_a[:n_main], grad_a[:n_main], rgb_a[:n_main]
+    returns_grad = cfg.use_normal or cfg.rendering.mode == "idr"
+    if returns_grad:
+        with torch.no_grad():
+            pts_in = torch.cat([points, eik_all]).contiguous()
+            dirs_in = torch.cat([dirs, torch.zeros_like(eik_all)]).contiguous()
+        w = render_core.CoreWeights.of(model.implicit, model.rendering)
+        sdf_a, grad_a, rgb_a = render_core.render_core_train(
+            cfg.implicit, cfg.rendering, w, pts_in, dirs_in, plain=plain)
+        n_main = R * S
+        sdf, grad, rgb = sdf_a[:n_main], grad_a[:n_main], rgb_a[:n_main]
+        grad_theta = grad_a[n_main:]
+    else:
+        out_main = model.implicit(points)
+        sdf = clamp_sdf(cfg.implicit, out_main[:, :1], points)
+        rgb = model.rendering(dirs, out_main[:, 1:])
+        _, _, grad_theta = rev.sdf_outputs_rev(model.implicit,
+                                               eik_all.contiguous(),
+                                               plain=plain)
     beta = effective_beta(model.beta, cfg.beta_min)
     density = laplace_density(sdf, beta).reshape(R, S)
     weights, _ = render_weights(z_vals, z_max, density)
@@ -230,7 +254,6 @@ def render_rays_train(model: I2SDFModel, inputs: dict, draws: RenderDraws,
                          / torch.clamp(ray_dirs_norm, min=1e-6)),
         "weight_sum": weights.sum(-1, keepdim=True),
     }
-    grad_theta = grad_a[n_main:]
     out["grad_theta"] = grad_theta[:2 * R]
     pair = safe_normalize(grad_theta[R:])
     out["diff_norm"] = safe_norm(pair[:R] - pair[R:], dim=-1)

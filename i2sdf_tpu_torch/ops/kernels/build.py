@@ -41,6 +41,10 @@ _SIGNATURES = {
     "i2sdf_render_core_bwd": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
                               _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                               _I, _I, _P, _P, _P, _P, _P],
+    "i2sdf_rev_fwd": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,
+                      _I, _P, _P, _P],
+    "i2sdf_rev_bwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P,
+                      _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -20,7 +20,10 @@ it and how it is built.
   serve as the yardstick the kernels are held to.
 
 The bounding-sphere clamp is applied outside the kernels, as
-`fused_train.py:771-777` does.
+`fused_train.py:771-777` does. The SDF net's kernel layout (`sdf_chains`),
+the backward's scratch plan (`_BwdPlan`) and its shared-memory size
+(`bwd_smem`) serve K5 and K6 too (`rev.py`), whose kernels are K3's and
+K4's kernel bodies without the radiance net (`csrc/common.cuh`).
 """
 
 from __future__ import annotations
@@ -82,23 +85,69 @@ def _rad_perm(vdim: int, F: int) -> list:
     return list(range(vdim, vdim + F)) + list(range(vdim))
 
 
-class _KernelLayout:
-    """Both nets in the kernels' layouts, from materialized weights:
+def sdf_chains(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
+               perm: list | None = None):
+    """The SDF net in the sweep kernels' layouts (K3-K6), from materialized
+    (detached, f32) weights and biases, the output layer's columns in the
+    order `perm` (the net's own order if None):
 
-    * `fwd`: the SDF chain, output layer as [features | sdf];
-    * `sdft`: the SDF chain transposed, last layer first (K3's reverse
-      sweep takes its rows 1.., K4's downward sweep rows 0..n-2);
-    * `rad`, `radt`: the radiance chain (first layer's rows as
-      [features | PE(view)]) and its transpose, last layer first.
+    * `fwd`: the chain, layer 0 first;
+    * `sdft`: the chain transposed, last layer first (K3/K5's reverse
+      sweep takes its rows 1.., K4/K6's downward sweep rows 0..n-2);
+    * `rev`: `sdft`'s rows 1.. (the plan rows hold absolute offsets into
+      the same weight stream);
+    * `wsdf_col`: the output layer's sdf column in bf16, zero-padded to
+      the depth of the first transposed hidden layer.
 
     Each transposed plan row's `real` is the width that continues down the
     net (the hidden width of the layer's input, the part before the skip's
     encoding), `col` where the encoding starts (skip layers), and SCALE
     marks the 1/sqrt(2) of a skip."""
+    mma_pack.check_sdf_net(icfg)
+    dims = icfg.layer_dims()
+    d0, n = dims[0], len(dims) - 1
+    if n - 1 in icfg.skip_in:
+        raise ValueError("a skip into the SDF net's output layer is not "
+                         "supported")
+    if perm is not None:
+        ws = ws[:-1] + [ws[-1][:, perm]]
+        bs = bs[:-1] + [bs[-1][perm]]
+    layers = []
+    for l in range(n):
+        flags = (mma_pack.SKIP_IN if l in icfg.skip_in else 0) | (
+            mma_pack.SCALE if l + 1 in icfg.skip_in else 0)
+        col = dims[l] - d0 if l in icfg.skip_in else 0
+        layers.append(dict(w=ws[l], b=bs[l], flags=flags, col=col))
+    fwd = mma_pack.pack_chain(layers)
+    tl = []
+    for l in range(n - 1, -1, -1):
+        if l == 0:
+            real, col, flags = 0, 0, 0
+        elif l in icfg.skip_in:
+            real, col, flags = dims[l] - d0, dims[l] - d0, mma_pack.SCALE
+        else:
+            real, col, flags = dims[l], mma_pack.NO_COL, 0
+        tl.append(dict(w=ws[l].t(), b=None, real=real, col=col, flags=flags))
+    sdft = mma_pack.pack_chain(tl)
+    rev = mma_pack.PackedMlp(sdft.weights, sdft.biases,
+                             np.ascontiguousarray(sdft.plan[1:]))
+    sdf_col = 0 if perm is None else perm.index(0)
+    wsdf_col = torch.zeros(int(rev.plan[0, 0]), dtype=torch.float32,
+                           device=ws[0].device)
+    wsdf_col[:ws[-1].shape[0]] = ws[-1][:, sdf_col].to(torch.bfloat16).float()
+    return fwd, sdft, rev, wsdf_col
+
+
+class _KernelLayout:
+    """Both nets in the kernels' layouts, from materialized weights:
+
+    * `fwd`, `sdft`, `rev`, `wsdf_col`: the SDF chain (`sdf_chains`), its
+      output layer as [features | sdf];
+    * `rad`, `radt`: the radiance chain (first layer's rows as
+      [features | PE(view)]) and its transpose, last layer first."""
 
     def __init__(self, icfg: mlp.ImplicitNetConfig,
                  rcfg: mlp.RenderingNetConfig, w: CoreWeights):
-        mma_pack.check_sdf_net(icfg)
         F = icfg.feature_vector_size
         if icfg.d_out != 1 or F % 2:
             raise ValueError("render_core: needs d_out 1 and an even "
@@ -109,42 +158,9 @@ class _KernelLayout:
         dims = icfg.layer_dims()
         d0 = dims[0]
         n = len(dims) - 1
-        if n - 1 in icfg.skip_in:
-            raise ValueError("render_core: a skip into the output layer is "
-                             "not supported")
-        ws = [t.detach().float() for t in w.ws_sdf]
-        bs = [t.detach().float() for t in w.bs_sdf]
-        perm = _sdf_perm(F)
-        layers = []
-        for l in range(n):
-            wl, bl = (ws[l][:, perm], bs[l][perm]) if l == n - 1 else (
-                ws[l], bs[l])
-            flags = (mma_pack.SKIP_IN if l in icfg.skip_in else 0) | (
-                mma_pack.SCALE if l + 1 in icfg.skip_in else 0)
-            col = dims[l] - d0 if l in icfg.skip_in else 0
-            layers.append(dict(w=wl, b=bl, flags=flags, col=col))
-        self.fwd = mma_pack.pack_chain(layers)
-        tl = []
-        for l in range(n - 1, -1, -1):
-            wl = ws[l][:, perm] if l == n - 1 else ws[l]
-            if l == 0:
-                real, col, flags = 0, 0, 0
-            elif l in icfg.skip_in:
-                real, col, flags = dims[l] - d0, dims[l] - d0, mma_pack.SCALE
-            else:
-                real, col, flags = dims[l], mma_pack.NO_COL, 0
-            tl.append(dict(w=wl.t(), b=None, real=real, col=col,
-                           flags=flags))
-        self.sdft = mma_pack.pack_chain(tl)
-        # K3's reverse sweep: the transposed hidden layers, last first (the
-        # plan rows hold absolute offsets into the same weight stream)
-        self.rev = mma_pack.PackedMlp(
-            self.sdft.weights, self.sdft.biases,
-            np.ascontiguousarray(self.sdft.plan[1:]))
-        k0 = int(self.rev.plan[0, 0])
-        col0 = torch.zeros(k0, dtype=torch.float32, device=ws[0].device)
-        col0[:ws[-1].shape[0]] = ws[-1][:, 0].to(torch.bfloat16).float()
-        self.wsdf_col = col0
+        self.fwd, self.sdft, self.rev, self.wsdf_col = sdf_chains(
+            icfg, [t.detach().float() for t in w.ws_sdf],
+            [t.detach().float() for t in w.bs_sdf], _sdf_perm(F))
         rdims = rcfg.layer_dims()
         vdim = rdims[0] - F
         wr = [t.detach().float() for t in w.ws_rad]
@@ -166,25 +182,14 @@ class _KernelLayout:
         self.lda = mma_pack.row_stride(widest)
         self.ldd = mma_pack.row_stride(int(self.fwd.plan[:-1, 1].max()))
         self.ldg = mma_pack.round_up(d0, 8)
-        for name, smem in (("fwd", self.fwd_smem()),
-                           ("bwd", self.bwd_smem())):
+        for name, smem in (("fwd", fwd_smem(self)),
+                           ("bwd", bwd_smem(self))):
             if smem > _MAX_SMEM:
                 raise ValueError(f"render_core_{name}: needs {smem} bytes of "
                                  "shared memory")
         self.mx, self.md = icfg.multires, rcfg.multires
         self.shapes = (tuple(tuple(t.shape) for t in w.ws_sdf),
                        tuple(tuple(t.shape) for t in w.ws_rad))
-
-    def fwd_smem(self) -> int:
-        """csrc/render_core.cu's shared memory (bytes)."""
-        return (2 * (2 * _ROWS * self.lda + (self.n_sdf - 1) * _ROWS
-                     * self.ldd) + 4 * _ROWS * (7 + self.ldg))
-
-    def bwd_smem(self) -> int:
-        """csrc/render_core_bwd.cu's sweep kernel shared memory (bytes)."""
-        return (2 * (2 * _ROWS * self.lda + (self.n_sdf - 1) * _ROWS
-                     * self.ldd)
-                + 4 * _ROWS * (3 + 3 + 8 + 4 + self.ldg + self.lda))
 
     def unpack_grads(self, out: torch.Tensor, plan: "_BwdPlan"):
         """K4's flat output -> (dws_sdf, dbs_sdf, dws_rad, dbs_rad) in the
@@ -207,11 +212,28 @@ class _KernelLayout:
         return dws[:n], dbs[:n], dws[n:], dbs[n:]
 
 
+def fwd_smem(k) -> int:
+    """The shared memory (bytes) of K3's and K5's kernel (`fwd_smem_bytes`
+    in csrc/common.cuh) for a layout `k` with `n_sdf`, `lda`, `ldd` and
+    `ldg`."""
+    return (2 * (2 * _ROWS * k.lda + (k.n_sdf - 1) * _ROWS * k.ldd)
+            + 4 * _ROWS * (3 + 3 + 1 + k.ldg))
+
+
+def bwd_smem(k) -> int:
+    """The shared memory (bytes) of K4's and K6's sweep kernel
+    (`bwd_smem_bytes` in csrc/common.cuh) for a layout `k` with
+    `n_sdf`, `lda`, `ldd` and `ldg`."""
+    return (2 * (2 * _ROWS * k.lda + (k.n_sdf - 1) * _ROWS * k.ldd)
+            + 4 * _ROWS * (3 + 3 + 8 + 4 + k.ldg + k.lda))
+
+
 class _BwdPlan:
     """K4's scratch layout at n points, and the int64 table that tells the
-    kernel where everything is (read in this order by
-    `i2sdf_render_core_bwd`). All sizes in elements; bf16 arrays live in
-    one scratch buffer, f32 arrays in another, each array 16-byte aligned.
+    kernel where everything is (read in this order by `read_scratch` in
+    csrc/common.cuh); with no radiance layers (`k.n_rad` 0) it is K6's.
+    All sizes in elements; bf16 arrays live in one scratch buffer, f32
+    arrays in another, each array 16-byte aligned.
 
     Per SDF layer l (K_l x N_l padded): `ax` (2 np, K_l) = [da_l ; X_l],
     `br` (2 np, N_l) = [r_l ; dz_l], so dW_l = ax^T br over 2 np rows;
@@ -223,14 +245,14 @@ class _BwdPlan:
     added in order (deterministic). `out` (f32): every dW_p (K x N), then
     the tb bias gradients."""
 
-    def __init__(self, k: _KernelLayout, n: int):
+    def __init__(self, k, n: int):
         ns, nr = k.n_sdf, k.n_rad
         self.np = np_ = mma_pack.round_up(max(n, 1), _ROWS)
         self.blocks = np_ // _ROWS
         Ks, Ns = [int(v) for v in k.fwd.plan[:, 0]], [int(v) for v in
                                                       k.fwd.plan[:, 1]]
-        Kr, Nr = [int(v) for v in k.rad.plan[:, 0]], [int(v) for v in
-                                                      k.rad.plan[:, 1]]
+        rad = k.rad.plan if nr else np.zeros((0, 8), np.int32)
+        Kr, Nr = [int(v) for v in rad[:, 0]], [int(v) for v in rad[:, 1]]
         self.dims = list(zip(Ks, Ns)) + list(zip(Kr, Nr))
         self.n16 = self.n32 = 0
 

@@ -53,12 +53,12 @@ def to_jax_params(state_dict: dict) -> dict:
     return tree
 
 
-def load_model(cfg: I2SDFConfig, ckpt: str | None, seed: int,
+def load_model(cfg: I2SDFConfig, ckpt: str, seed: int,
                device) -> I2SDFModel:
-    """The model with weights from a `.pt` state_dict, or the seeded init."""
+    """The model with weights from a `.pt` file: a state_dict, or a
+    training checkpoint (its "model" entry). `seed` only builds the
+    modules the weights are loaded into."""
     model = I2SDFModel(cfg, seed=seed)
-    if ckpt is not None:
-        state = torch.load(ckpt, map_location="cpu", weights_only=True)
-        model.load_state_dict(state.get("model",
-                                        state.get("state_dict", state)))
+    state = torch.load(ckpt, map_location="cpu", weights_only=True)
+    model.load_state_dict(state.get("model", state.get("state_dict", state)))
     return model.to(device)

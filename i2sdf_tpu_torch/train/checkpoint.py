@@ -25,9 +25,14 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         os.makedirs(self.ckpt_dir, exist_ok=True)
 
-    def steps(self) -> list[int]:
-        return sorted(int(m.group(1)) for f in os.listdir(self.ckpt_dir)
+    @staticmethod
+    def list_steps(ckpt_dir: str) -> list[int]:
+        """The steps of the checkpoints in `ckpt_dir`, ascending."""
+        return sorted(int(m.group(1)) for f in os.listdir(ckpt_dir)
                       if (m := _NAME.fullmatch(f)))
+
+    def steps(self) -> list[int]:
+        return self.list_steps(self.ckpt_dir)
 
     def latest_step(self) -> int | None:
         steps = self.steps()

@@ -127,95 +127,77 @@ def _block_rows_sum(t, rows=32):
     return t.reshape(-1, rows, t.shape[1]).sum(1)
 
 
-def emulate_bwd(k: render_core._KernelLayout, x, dirs, cot, rnd=bf):
-    """`csrc/render_core_bwd.cu` in torch; returns what the wrapper
-    returns. `rnd` is where the kernel rounds to bf16 (activations,
-    cotangents, everything it stores as bf16); the identity replays the
-    same algorithm in f32 (on the kernel's bf16 weights)."""
-    n = x.shape[0]
-    plan = render_core._BwdPlan(k, n)
-    P, ns, nr, F = plan.np, k.n_sdf, k.n_rad, k.F
-    dev = x.device
-    ws16 = torch.full((plan.n16,), float("nan"), device=dev)
-    ws32 = torch.full((plan.n32,), float("nan"), device=dev)
+class ReplayScratch:
+    """The backward's two scratch buffers at a `_BwdPlan` (bf16 values
+    held as f32), every element NaN at first, so a region the
+    weight-gradient products read but the sweep never wrote shows up."""
 
-    def v16(off, rows, cols):
-        return ws16[off:off + rows * cols].view(rows, cols)
+    def __init__(self, plan, dev):
+        self.plan = plan
+        self.ws16 = torch.full((plan.n16,), float("nan"), device=dev)
+        self.ws32 = torch.full((plan.n32,), float("nan"), device=dev)
+        self.dbp = self.v32(plan.dbpart, plan.blocks, plan.tb)
 
-    def v32(off, rows, cols):
-        return ws32[off:off + rows * cols].view(rows, cols)
+    def v16(self, off, rows, cols):
+        return self.ws16[off:off + rows * cols].view(rows, cols)
 
-    def pad(t, cols=None):
-        out = x.new_zeros((P, cols or t.shape[1]))
-        out[:n, :t.shape[1]] = t
-        return out
+    def v32(self, off, rows, cols):
+        return self.ws32[off:off + rows * cols].view(rows, cols)
 
-    def pad_cols(t, cols):
-        out = x.new_zeros((t.shape[0], max(cols, t.shape[1])))
-        out[:, :t.shape[1]] = t
-        return out
+    def put_db(self, off, dz):
+        self.dbp[:, off:off + dz.shape[1]] = _block_rows_sum(dz)
 
-    xs, ds, cs = pad(x), pad(dirs), pad(cot, 8)
-    Ks = [int(v) for v in k.fwd.plan[:, 0]]
-    Ns = [int(v) for v in k.fwd.plan[:, 1]]
-    dbp = v32(plan.dbpart, plan.blocks, plan.tb)
 
-    def put_db(off, dz):
-        dbp[:, off:off + dz.shape[1]] = _block_rows_sum(dz)
+def pad_rows(t, rows, cols=None):
+    out = t.new_zeros((rows, cols or t.shape[1]))
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
 
-    # 1. SDF forward
-    d0 = 3 + 6 * k.mx
-    h = rnd(pe_cols(xs, k.mx, Ks[0]))
-    qs = []
-    for l in range(ns):
+
+def _pad_cols(t, cols):
+    out = t.new_zeros((t.shape[0], max(cols, t.shape[1])))
+    out[:, :t.shape[1]] = t
+    return out
+
+
+def replay_sdf_forward(k, sc: ReplayScratch, xs, rnd, last=True):
+    """Step 1 of `bwd_sweep_kernel` (csrc/common.cuh), the forward
+    recompute with the q stash: X_l to rows [np, 2 np) of ax[l]; returns
+    the stashes q_l and, with `last`, the output layer's accumulator."""
+    plan, P = sc.plan, sc.plan.np
+    h = rnd(pe_cols(xs, k.mx, int(k.fwd.plan[0, 0])))
+    qs, z = [], None
+    for l in range(k.n_sdf):
         K, N, real, flags, col, W, b = unpack(k.fwd, l)
         if flags & mma_pack.SKIP_IN:
             h = torch.cat([h[:, :col], rnd(pe_cols(xs, k.mx, K - col)
                                             * INV_SQRT2)], 1)
-        v16(plan.ax[l], 2 * P, K)[P:] = h[:, :K]
-        z = h[:, :K] @ W + b
-        if l < ns - 1:
+        sc.v16(plan.ax[l], 2 * P, K)[P:] = h[:, :K]
+        if l < k.n_sdf - 1:
+            z = h[:, :K] @ W + b
             scale = INV_SQRT2 if flags & mma_pack.SCALE else 1.0
             h = rnd(softplus_beta(z) * scale)
             qs.append(stash_q(z, rnd))
-        else:
-            feat = rnd(z[:, :F])
-    # 2. radiance forward
-    K0r = int(k.rad.plan[0, 0])
-    h = torch.cat([feat, rnd(pe_cols(ds, k.md, K0r - F))], 1)
-    for l in range(nr):
-        K, N, real, _, _, W, b = unpack(k.rad, l)
-        v16(plan.rx[l], P, K)[:] = h[:, :K]
-        z = h[:, :K] @ W + b
-        if l < nr - 1:
-            h = rnd(torch.relu(z))
-        else:
-            rgb = torch.sigmoid(z[:, :real])
-    # 3. radiance backward
-    Nl = int(k.rad.plan[nr - 1, 1])
-    dz = x.new_zeros((P, Nl))
-    dz[:, :3] = cs[:, 4:7] * rgb * (1 - rgb)
-    put_db(plan.db[ns + nr - 1], dz)
-    a = rnd(dz)
-    v16(plan.rdz[nr - 1], P, Nl)[:] = a
-    for l in range(nr - 1, -1, -1):
-        K, N, real, _, _, W, _ = unpack(k.radt, nr - 1 - l)
-        dh = a[:, :K] @ W
-        if l > 0:
-            mask = v16(plan.rx[l], P, N) > 0
-            dz = torch.where(mask, dh, torch.zeros_like(dh))
-            put_db(plan.db[ns + l - 1], dz)
-            a = rnd(dz)
-            v16(plan.rdz[l - 1], P, N)[:] = a
-        else:
-            cy = x.new_zeros((P, Ns[-1]))
-            cy[:, :F] = dh[:, :F]
-            cy[:, F] = cs[:, 3]
-            put_db(plan.db[ns - 1], cy)
-            v16(plan.br[ns - 1], 2 * P, Ns[-1])[P:] = rnd(cy)
+        elif last:
+            z = h[:, :K] @ W + b
+    return qs, z
+
+
+def replay_sdf_backward(k, sc: ReplayScratch, xs, cs, qs, sdf_col, rnd):
+    """Steps 4-7 of `bwd_sweep_kernel` (csrc/common.cuh: the reverse,
+    upward and downward sweeps), once the output layer's dz is in rows
+    [np, 2 np) of br[n-1] with its bias row, then the split-K products and
+    the fixed-order sums (`launch_wgrad`).
+    cs: (np, 8) cotangents, c_grad in columns 0..2. Returns the kernel's
+    flat output."""
+    plan, P, ns = sc.plan, sc.plan.np, k.n_sdf
+    dev = xs.device
+    Ks = [int(v) for v in k.fwd.plan[:, 0]]
+    Ns = [int(v) for v in k.fwd.plan[:, 1]]
+    v16, v32 = sc.v16, sc.v32
     # 4. reverse sweep
-    r1 = x.new_zeros((P, Ns[-1]))
-    r1[:, F] = 1.0
+    r1 = xs.new_zeros((P, Ns[-1]))
+    r1[:, sdf_col] = 1.0
     v16(plan.br[ns - 1], 2 * P, Ns[-1])[:P] = r1
     K = Ks[-1]
     ah = k.wsdf_col[:K].expand(P, K)
@@ -226,9 +208,9 @@ def emulate_bwd(k: render_core._KernelLayout, x, dirs, cot, rnd=bf):
         K, N, n_h, flags, _, W, _ = unpack(k.sdft, ns - 1 - l)
         scale = INV_SQRT2 if flags & mma_pack.SCALE else 1.0
         hid = torch.arange(N, device=dev) < n_h
-        a = torch.where(hid, (r[:, :K] @ W) * scale, x.new_zeros(()))
+        a = torch.where(hid, (r[:, :K] @ W) * scale, xs.new_zeros(()))
         v32(plan.ah[l], P, N)[:] = a
-        s_prev = x.new_zeros((P, N))
+        s_prev = xs.new_zeros((P, N))
         s_prev[:, :n_h] = stash_s(qs[l - 1][:, :n_h])
         r = rnd(a * s_prev)
         v16(plan.br[l - 1], 2 * P, Ns[l - 1])[:P] = r[:, :Ns[l - 1]]
@@ -240,7 +222,7 @@ def emulate_bwd(k: render_core._KernelLayout, x, dirs, cot, rnd=bf):
                      (cg * f * torch.cos(xf)).reshape(P, -1),
                      (-cg * f * torch.sin(xf)).reshape(P, -1)], 1)
     # 6. upward sweep
-    da = rnd(pad_cols(dge, Ks[0]))
+    da = rnd(_pad_cols(dge, Ks[0]))
     v16(plan.ax[0], 2 * P, Ks[0])[:P] = da
     for l in range(ns - 1):
         K, N, n_h, flags, _, W, _ = unpack(k.fwd, l)
@@ -249,15 +231,15 @@ def emulate_bwd(k: render_core._KernelLayout, x, dirs, cot, rnd=bf):
         hid = torch.arange(N, device=dev) < n_h
         q = qs[l][:, :N]
         ahn = v32(plan.ah[l + 1], P, Ks[l + 1])[:, :N]
-        dzx = torch.where(hid, dr * ahn * stash_d2(q), x.new_zeros(()))
+        dzx = torch.where(hid, dr * ahn * stash_d2(q), xs.new_zeros(()))
         v16(plan.dzx[l], P, N)[:] = rnd(dzx)
-        nxt = x.new_zeros((P, Ks[l + 1]))
+        nxt = xs.new_zeros((P, Ks[l + 1]))
         nxt[:, :N] = rnd(torch.where(hid, dr * stash_s(q) * scale,
-                                    x.new_zeros(())))
+                                    xs.new_zeros(())))
         _, _, _, flags1, col1, _, _ = unpack(k.fwd, l + 1)
         if flags1 & mma_pack.SKIP_IN:
             w1 = Ks[l + 1] - col1
-            nxt[:, col1:] = rnd(pad_cols(dge * INV_SQRT2, w1)[:, :w1])
+            nxt[:, col1:] = rnd(_pad_cols(dge * INV_SQRT2, w1)[:, :w1])
         v16(plan.ax[l + 1], 2 * P, Ks[l + 1])[:P] = nxt
         da = nxt
     # 7. downward sweep
@@ -269,8 +251,8 @@ def emulate_bwd(k: render_core._KernelLayout, x, dirs, cot, rnd=bf):
         hid = torch.arange(Ns[l - 1], device=dev) < n_h
         s_prev = stash_s(qs[l - 1][:, :Ns[l - 1]])
         dzx = v16(plan.dzx[l - 1], P, Ns[l - 1])
-        dz = torch.where(hid, v * s_prev + dzx, x.new_zeros(()))
-        put_db(plan.db[l - 1], dz)
+        dz = torch.where(hid, v * s_prev + dzx, xs.new_zeros(()))
+        sc.put_db(plan.db[l - 1], dz)
         a = rnd(dz)
         v16(plan.br[l - 1], 2 * P, Ns[l - 1])[P:] = a
     # weight-gradient products, split over point ranges, then fixed-order sums
@@ -286,8 +268,60 @@ def emulate_bwd(k: render_core._KernelLayout, x, dirs, cot, rnd=bf):
             rows = slice(s * plan.chunk[p], min(M, (s + 1) * plan.chunk[p]))
             parts[s] = (A[rows].T @ B[rows]).reshape(-1)
         out[plan.out[p]:plan.out[p] + K * N] = parts.sum(0)
-    assert not torch.isnan(dbp).any()
-    out[plan.out_db:] = dbp.sum(0)
+    assert not torch.isnan(sc.dbp).any()
+    out[plan.out_db:] = sc.dbp.sum(0)
+    return out
+
+
+def emulate_bwd(k: render_core._KernelLayout, x, dirs, cot, rnd=bf):
+    """`csrc/render_core_bwd.cu` in torch; returns what the wrapper
+    returns. `rnd` is where the kernel rounds to bf16 (activations,
+    cotangents, everything it stores as bf16); the identity replays the
+    same algorithm in f32 (on the kernel's bf16 weights)."""
+    plan = render_core._BwdPlan(k, x.shape[0])
+    P, ns, nr, F = plan.np, k.n_sdf, k.n_rad, k.F
+    sc = ReplayScratch(plan, x.device)
+    v16 = sc.v16
+    xs, ds, cs = pad_rows(x, P), pad_rows(dirs, P), pad_rows(cot, P, 8)
+    Ns = [int(v) for v in k.fwd.plan[:, 1]]
+    # 1. SDF forward
+    qs, z = replay_sdf_forward(k, sc, xs, rnd)
+    feat = rnd(z[:, :F])
+    # 2. radiance forward
+    K0r = int(k.rad.plan[0, 0])
+    h = torch.cat([feat, rnd(pe_cols(ds, k.md, K0r - F))], 1)
+    for l in range(nr):
+        K, N, real, _, _, W, b = unpack(k.rad, l)
+        v16(plan.rx[l], P, K)[:] = h[:, :K]
+        z = h[:, :K] @ W + b
+        if l < nr - 1:
+            h = rnd(torch.relu(z))
+        else:
+            rgb = torch.sigmoid(z[:, :real])
+    # 3. radiance backward
+    Nl = int(k.rad.plan[nr - 1, 1])
+    dz = x.new_zeros((P, Nl))
+    dz[:, :3] = cs[:, 4:7] * rgb * (1 - rgb)
+    sc.put_db(plan.db[ns + nr - 1], dz)
+    a = rnd(dz)
+    v16(plan.rdz[nr - 1], P, Nl)[:] = a
+    for l in range(nr - 1, -1, -1):
+        K, N, real, _, _, W, _ = unpack(k.radt, nr - 1 - l)
+        dh = a[:, :K] @ W
+        if l > 0:
+            mask = v16(plan.rx[l], P, N) > 0
+            dz = torch.where(mask, dh, torch.zeros_like(dh))
+            sc.put_db(plan.db[ns + l - 1], dz)
+            a = rnd(dz)
+            v16(plan.rdz[l - 1], P, N)[:] = a
+        else:
+            cy = x.new_zeros((P, Ns[-1]))
+            cy[:, :F] = dh[:, :F]
+            cy[:, F] = cs[:, 3]
+            sc.put_db(plan.db[ns - 1], cy)
+            v16(plan.br[ns - 1], 2 * P, Ns[-1])[P:] = rnd(cy)
+    # 4-7 and the weight-gradient products
+    out = replay_sdf_backward(k, sc, xs, cs, qs, F, rnd)
     return k.unpack_grads(out, plan)
 
 

@@ -12,8 +12,8 @@ Tolerances: the MLP kernels take bf16 operands with f32 accumulation, so
 they are held to the JAX package's tolerances for its bf16 Pallas kernels
 (tests/test_pallas_mlp.py, tests/test_pallas_train.py); the sampler round
 is f32 in both versions, with the JAX package's own sampler-kernel
-tolerance for the draws (tests/test_pallas_sampler.py). K4's tests say
-theirs beside them.
+tolerance for the draws (tests/test_pallas_sampler.py). K4's, K5's and
+K6's tests say theirs beside them.
 """
 
 import numpy as np
@@ -23,7 +23,8 @@ import torch
 from i2sdf_tpu_torch.models import mlp
 from i2sdf_tpu_torch.models.sampler import SamplerConfig
 from i2sdf_tpu_torch.ops import kernels
-from i2sdf_tpu_torch.ops.kernels import render_core, sampler_round, sdf_mlp
+from i2sdf_tpu_torch.ops.kernels import (render_core, rev, sampler_round,
+                                         sdf_mlp)
 
 pytestmark = pytest.mark.gpu
 
@@ -211,4 +212,139 @@ def test_render_core_train_op(dev, n, eik, sphere):
             ((0.02, 0.02), (0.05, 0.08), (0.03, 0.05))):
         torch.testing.assert_close(a, b, atol=atol, rtol=rtol, msg=name)
     grad_check(outs[False][1], outs[True][1],
+               leaf_tol=0.1 if n >= 4800 else float("inf"))
+
+
+# ---- K5 rev_fwd and K6 rev_bwd ----------------------------------------------
+# At the flagship SDF net. Up to 4,800 points (the normal-off step's
+# eikonal batch) the points are drawn as the training step draws them
+# (test_torch_rev_replay.eikonal_points: a third uniform in the scene's
+# cube [-4, 4]^3, a third near a surface, its jittered neighbours); at
+# 155,200 they are render points around the scene's centre
+# (test_torch_bwd_replay.points), the batch the JAX renderer feeds the op
+# on its other training route (`renderer.py:383-386`). K5 is held to
+# `rev_plain` with the JAX package's tolerances for its rev kernel
+# (tests/test_pallas_rev.py: sdf 0.02, features 0.05, grad 0.05 / rtol
+# 0.08). K6 takes the cotangents of that test's loss,
+# which reads the sdf, the features and the gradient (so c_out and c_g are
+# both non-zero), and is held to its bf16 replay with the JAX package's
+# gradient tolerance at every count, and to the plain f32 backward by
+# cosine > 0.999 at every count and per leaf (< 0.1) from 4,800 points up,
+# as K4 is.
+
+REV_COUNTS = [1, 31, 33, 4800, 155_200]
+REV_TOLS = {"sdf": (0.02, 0.02), "feat": (0.05, 0.05), "grad": (0.05, 0.08)}
+
+
+def _rev_case(dev, n, sphere=0.0):
+    from test_torch_bwd_replay import points
+    from test_torch_rev_replay import FLAGSHIP, eikonal_points, sdf_net
+    net = sdf_net(**FLAGSHIP, sphere=sphere, device=dev)
+    if n > 4800:
+        return net, points(n, n, device=dev)[0].contiguous()
+    return net, eikonal_points(n, n, device=dev)
+
+
+def _rev_close(outs, refs):
+    (out, grad), (out_r, grad_r) = outs, refs
+    pairs = {"sdf": (out[:, :1], out_r[:, :1]),
+             "feat": (out[:, 1:], out_r[:, 1:]), "grad": (grad, grad_r)}
+    for name, (a, b) in pairs.items():
+        torch.testing.assert_close(a, b.detach(), atol=REV_TOLS[name][0],
+                                   rtol=REV_TOLS[name][1], msg=name)
+
+
+@pytest.mark.parametrize("n", REV_COUNTS)
+def test_rev_fwd_kernel(dev, n):
+    from test_torch_rev_replay import flat_weights
+    net, x = _rev_case(dev, n)
+    ws, bs = flat_weights(net)
+    with torch.no_grad():
+        k = rev.RevLayout(net.cfg, ws, bs)
+        kernels.reset_launch_counts()
+        got = rev.rev_fwd(k, x)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["rev_fwd"] == 1
+    _rev_close(got, rev.rev_plain(net.cfg, ws, bs, x))
+
+
+@pytest.mark.parametrize("n", REV_COUNTS)
+def test_rev_bwd_kernel(dev, n):
+    from test_torch_bwd_replay import grad_check
+    from test_torch_rev_replay import (emulate_rev_bwd, flat_weights,
+                                       loss_cotangents)
+    net, x = _rev_case(dev, n)
+    ws, bs = flat_weights(net)
+    out, grad = rev.rev_plain(net.cfg, ws, bs, x)
+    c_out, c_g = loss_cotangents(out, grad, seed=n)
+    assert c_out.abs().max() > 0 and c_g.abs().max() > 0
+    ref = list(torch.autograd.grad((out, grad), ws + bs, (c_out, c_g)))
+    del out, grad
+    with torch.no_grad():
+        k = rev.RevLayout(net.cfg, ws, bs)
+        kernels.reset_launch_counts()
+        got = rev.rev_bwd(k, x, c_out.contiguous(), c_g.contiguous())
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["rev_bwd"] == 1
+        got = [t for grp in got for t in grp]
+        replay = [t for grp in emulate_rev_bwd(k, x, c_out, c_g) for t in grp]
+    grad_check(got, replay)
+    grad_check(got, ref, leaf_tol=0.1 if n >= 4800 else float("inf"))
+
+
+def test_rev_bwd_padding_rows_add_nothing_and_runs_agree(dev):
+    """33 points and the same 33 plus 31 rows with zero cotangents share
+    one padded size (64): the results agree to the bit, and a second run
+    gives the same bits."""
+    from test_torch_rev_replay import flat_weights
+    net, x = _rev_case(dev, 64)
+    gen = torch.Generator().manual_seed(0)
+    c_out = torch.randn((64, 257), generator=gen).to(dev)
+    c_g = torch.randn((64, 3), generator=gen).to(dev)
+    c_out[33:] = 0.0
+    c_g[33:] = 0.0
+    with torch.no_grad():
+        k = rev.RevLayout(net.cfg, *flat_weights(net))
+        a = rev.rev_bwd(k, x[:33].contiguous(), c_out[:33].contiguous(),
+                        c_g[:33].contiguous())
+        b = rev.rev_bwd(k, x, c_out, c_g)
+        c = rev.rev_bwd(k, x, c_out, c_g)
+    flat = lambda r: [t for g in r for t in g]  # noqa: E731
+    for ga, gb, gc in zip(flat(a), flat(b), flat(c)):
+        assert torch.equal(ga, gb) and torch.equal(gb, gc)
+
+
+@pytest.mark.parametrize("sphere", [0.0, 1.0])
+@pytest.mark.parametrize("n", [33, 4800])
+def test_rev_op(dev, n, sphere):
+    """The op (K5 forward, K6 backward, the sphere clamp outside) against
+    the plain op, through autograd to v, g and b."""
+    from test_torch_bwd_replay import grad_check
+    from test_torch_rev_replay import loss_cotangents
+    net, x = _rev_case(dev, n, sphere)
+    leaves = list(net.parameters())
+    res = {}
+    for plain in (True, False):
+        kernels.reset_launch_counts()
+        sdf, feat, grad = rev.sdf_outputs_rev(net, x, plain=plain)
+        if plain:
+            c_out, c_g = loss_cotangents(torch.cat([sdf, feat], 1), grad)
+        g = torch.autograd.grad((sdf, feat, grad), leaves,
+                                (c_out[:, :1], c_out[:, 1:], c_g))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = 0 if plain else 1
+        assert counts["rev_fwd"] == counts["rev_bwd"] == want, counts
+        assert counts["render_core_fwd"] == counts["render_core_bwd"] == 0
+        res[plain] = ((sdf.detach(), feat.detach(), grad.detach()), list(g))
+    (sk, fk, gk), (sp, fp, gp) = res[False][0], res[True][0]
+    agree = torch.ones_like(sk[:, 0], dtype=torch.bool)
+    if sphere > 0:
+        # next to the sphere the kernel's bf16 sdf may pick the other side
+        bound_sdf = sphere - torch.linalg.norm(x, dim=-1, keepdim=True)
+        agree = ((sk == bound_sdf) == (sp == bound_sdf))[:, 0]
+        assert float(agree.float().mean()) > 0.99
+    _rev_close((torch.cat([sk, fk], 1), gk[agree]),
+               (torch.cat([sp, fp], 1), gp[agree]))
+    grad_check(res[False][1], res[True][1],
                leaf_tol=0.1 if n >= 4800 else float("inf"))

@@ -187,4 +187,4 @@ def test_port_imports_nothing_the_card_may_lack():
     proc = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 36
+    assert int(proc.stdout.split()[0]) >= 37

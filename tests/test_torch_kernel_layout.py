@@ -53,24 +53,57 @@ def fresh(n, lda):
     return [torch.full((n, lda), float("nan")) for _ in range(2)]
 
 
-def run_sdf_chain(pm, x, F, lda, dact=None):
-    """The SDF forward of both kernels; returns (buffers, cur, last acc)."""
+def run_sdf_chain(pm, x, F, lda, dact=None, rnd=bf):
+    """The SDF forward of the kernels; returns (buffers, cur, last acc).
+    `rnd` is where the kernels round to bf16 (the identity replays the
+    same algorithm in f32 on the packed bf16 weights)."""
     bufs, cur = fresh(x.shape[0], lda), 0
     K0 = int(pm.plan[0, 0])
-    bufs[0][:, :K0] = bf(pe_cols(x, F, K0))
+    bufs[0][:, :K0] = rnd(pe_cols(x, F, K0))
     for i in range(pm.n_layers):
         K, N, real, flags, col, W, b = unpack(pm, i)
         assert K <= lda and N <= lda
         if flags & mma_pack.SKIP_IN:
-            bufs[cur][:, col:K] = bf(pe_cols(x, F, K - col) * INV_SQRT2)
+            bufs[cur][:, col:K] = rnd(pe_cols(x, F, K - col) * INV_SQRT2)
         z = bufs[cur][:, :K] @ W + b
         if i == pm.n_layers - 1:
             return bufs, cur, z
         scale = INV_SQRT2 if flags & mma_pack.SCALE else 1.0
-        bufs[cur ^ 1][:, :N] = bf(softplus_beta(z) * scale)
+        bufs[cur ^ 1][:, :N] = rnd(softplus_beta(z) * scale)
         if dact is not None:
-            dact.append(bf(dsoftplus(z)))
+            dact.append(rnd(dsoftplus(z)))
         cur ^= 1
+
+
+def replay_grad_sweep(k, bufs, cur, dact, x, rnd=bf):
+    """The reverse sweep of `fwd_sweep_kernel` (csrc/common.cuh, K3 and
+    K5): d sdf / d x from the stashed derivatives, through `k.rev` and
+    `k.wsdf_col`."""
+    K = int(k.rev.plan[0, 0])
+    bufs[cur][:, :K] = rnd(k.wsdf_col[:K] * dact[-1][:, :K])
+    d0 = 3 + 6 * k.mx
+    gpe = torch.zeros((x.shape[0], d0))
+    n_hidden = len(dact)
+    for i in range(k.rev.n_layers):
+        l = n_hidden - 1 - i
+        K, N, n_h, flags, gcol, W, _ = unpack(k.rev, i)
+        a = bufs[cur][:, :K] @ W
+        if flags & mma_pack.SCALE:
+            a = a * INV_SQRT2
+        nxt = torch.zeros((x.shape[0], N))
+        if n_h:
+            nxt[:, :n_h] = a[:, :n_h] * dact[l - 1][:, :n_h]
+        lo, hi = max(gcol, 0), min(gcol + d0, N)
+        if lo < hi:
+            gpe[:, lo - gcol:hi - gcol] += a[:, lo:hi]
+        bufs[cur ^ 1][:, :N] = rnd(nxt)
+        cur ^= 1
+    f = 2.0 ** torch.arange(k.mx, dtype=torch.float32)
+    xf = x[:, :, None] * f
+    g_sin = gpe[:, 3:3 + 3 * k.mx].reshape(-1, 3, k.mx)
+    g_cos = gpe[:, 3 + 3 * k.mx:].reshape(-1, 3, k.mx)
+    return gpe[:, :3] + (f * (g_sin * torch.cos(xf)
+                              - g_cos * torch.sin(xf))).sum(-1)
 
 
 def emulate_sdf_mlp(p: sdf_mlp.SdfMlpPack, x):
@@ -95,32 +128,7 @@ def emulate_render_core(k, x, dirs, F_feat):
             cur ^= 1
         else:
             rgb = torch.sigmoid(z[:, :real])
-    K = int(k.rev.plan[0, 0])
-    bufs[cur][:, :K] = bf(k.wsdf_col[:K] * dact[-1][:, :K])
-    d0 = 3 + 6 * k.mx
-    gpe = torch.zeros((x.shape[0], d0))
-    n_hidden = k.fwd.n_layers - 1
-    for i in range(k.rev.n_layers):
-        l = n_hidden - 1 - i
-        K, N, n_h, flags, gcol, W, _ = unpack(k.rev, i)
-        a = bufs[cur][:, :K] @ W
-        if flags & mma_pack.SCALE:
-            a = a * INV_SQRT2
-        nxt = torch.zeros((x.shape[0], N))
-        if n_h:
-            nxt[:, :n_h] = a[:, :n_h] * dact[l - 1][:, :n_h]
-        lo, hi = max(gcol, 0), min(gcol + d0, N)
-        if lo < hi:
-            gpe[:, lo - gcol:hi - gcol] += a[:, lo:hi]
-        bufs[cur ^ 1][:, :N] = bf(nxt)
-        cur ^= 1
-    f = 2.0 ** torch.arange(k.mx, dtype=torch.float32)
-    xf = x[:, :, None] * f
-    g_sin = gpe[:, 3:3 + 3 * k.mx].reshape(-1, 3, k.mx)
-    g_cos = gpe[:, 3 + 3 * k.mx:].reshape(-1, 3, k.mx)
-    grad = gpe[:, :3] + (f * (g_sin * torch.cos(xf)
-                              - g_cos * torch.sin(xf))).sum(-1)
-    return sdf, grad, rgb
+    return sdf, replay_grad_sweep(k, bufs, cur, dact, x), rgb
 
 
 def test_fragment_packing_round_trips():

@@ -42,6 +42,7 @@ from i2sdf_tpu_torch.data.recon import ReconData
 from i2sdf_tpu_torch.models import renderer
 from i2sdf_tpu_torch.models.losses import LossConfig
 from i2sdf_tpu_torch.models.sampler import SamplerDraws
+from i2sdf_tpu_torch.ops.kernels import render_core, rev
 from i2sdf_tpu_torch.params import from_jax_params
 from i2sdf_tpu_torch.train import step as tstep
 from i2sdf_tpu_torch.train.state import create_train_state
@@ -141,18 +142,31 @@ def jax_draws(jcfg, jdata, base_key, step, pdf=None):
     return draws
 
 
-def _pair(tmp_path, bubble):
+def _pair(tmp_path, bubble, normal=True):
+    """Both packages' model, parameters and data on the tiny scene. With
+    `normal` off the normal loss weight is 0 and the scene's normal maps
+    are overwritten with bytes no loader can parse, so a loader that read
+    one would fail."""
     path = write_tiny_scene(str(tmp_path))
+    if not normal:
+        ndir = os.path.join(str(tmp_path), "tiny", "scan0", "normal")
+        for name in os.listdir(ndir):
+            with open(os.path.join(ndir, name), "wb") as f:
+                f.write(b"not a normal map")
+        text = open(path).read().replace("normal_weight: 0.05",
+                                         "normal_weight: 0.0")
+        with open(path, "w") as f:
+            f.write(text)
     jc, tc = jax_load_cfg(path), load_cfg(path)
     for c in (jc, tc):
-        c.model.use_normal = True
+        c.model.use_normal = normal
     jcfg = jrenderer.I2SDFConfig.from_cfgnode(jc.model)
     tcfg = renderer.I2SDFConfig.from_cfgnode(tc.model)
     params = jrenderer.init(jax.random.PRNGKey(0), jcfg)
     model = renderer.I2SDFModel(tcfg)
     model.load_state_dict(from_jax_params(to_numpy(params), tcfg))
     kw = dict(data_dir="tiny", scan_id=0, data_root=str(tmp_path),
-              use_depth=True, use_normal=True, use_bubble=bubble,
+              use_depth=True, use_normal=normal, use_bubble=bubble,
               pdf_prune=0.05, pdf_max=0.2)
     return (jcfg, params, JReconData(**kw).to_device(),
             LossConfig.from_cfgnode(tc.loss), tcfg, model,
@@ -215,6 +229,60 @@ def test_train_step_matches_jax(tmp_path):
         assert d.max() <= 2 * 3 * LR, (k, d.max())
         diffs.append(d)
     assert np.quantile(np.concatenate(diffs), 0.99) <= 1e-2 * LR
+
+
+def test_train_step_normal_off_matches_jax(tmp_path, monkeypatch):
+    """With the normal losses off, the JAX step renders the points with no
+    spatial gradient and takes `grad_theta` from the eikonal points alone
+    (`renderer.py:387-394,473-477`); the port takes the same route, with
+    the rev op (K5/K6 on the card) and never the render core."""
+    jcfg, params, jdata, lcfg, tcfg, model, data = _pair(tmp_path, False,
+                                                         normal=False)
+    assert not tcfg.use_normal and data.normal is None
+    base = jax.random.PRNGKey(11)
+    weights = lcfg.dynamic_weights(0)
+    assert weights["normal"] == 0 and weights["angular"] == 0
+    jw = {k: jnp.float32(v) for k, v in weights.items()}
+
+    def jloss(p):
+        key = jax.random.fold_in(base, 0)
+        k_batch, _, k_render = jax.random.split(key, 3)
+        _, inputs, gt = jax_sample_batch(jdata, k_batch, BATCH)
+        out = jrenderer.render_rays(p, jcfg, inputs, k_render, training=True,
+                                    fused_sampler=False,
+                                    fused_train_grad=False)
+        terms = jax_losses(out, gt, jw)
+        return terms["loss"], terms
+
+    (_, jterms), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        params)
+
+    def no_render_core(*a, **k):
+        raise AssertionError("the render core ran with the normal loss off")
+
+    calls = []
+
+    def counted(net, x, plain=False):
+        calls.append(x.shape[0])
+        return sdf_outputs_rev(net, x, plain=plain)
+
+    sdf_outputs_rev = rev.sdf_outputs_rev
+    monkeypatch.setattr(render_core, "render_core_train", no_render_core)
+    monkeypatch.setattr(rev, "sdf_outputs_rev", counted)
+    state = create_train_state(model, learning_rate=LR, decay_steps=200_000)
+    step = tstep.make_train_step(tcfg, BATCH)
+    metrics = step(state, data, jax_draws(jcfg, jdata, base, 0), weights)
+    assert calls == [3 * BATCH]
+    assert float(metrics["normal_loss"]) == 0.0
+    assert float(metrics["angular_loss"]) == 0.0
+    for k, v in jterms.items():
+        assert float(metrics[k]) == pytest.approx(float(v), rel=2e-5,
+                                                  abs=1e-7), k
+    got = {k: p.grad.numpy() for k, p in model.named_parameters()}
+    for k, ref in _flat_params(jgrads).items():
+        scale = max(np.abs(ref).max(), 1e-8)
+        np.testing.assert_allclose(got[k], ref, rtol=0, atol=5e-4 * scale,
+                                   err_msg=k)
 
 
 def test_bubble_step_matches_jax(tmp_path):
