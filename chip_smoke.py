@@ -12,9 +12,10 @@ Phases, each printed as one JSON line with its wall time:
    the shapes the flagship eval render (K1-K3) and training steps give it
    (K4: 160,000 points with the cotangents of a seeded loss; K5 and K6:
    the normal-off step's 4,800 eikonal points, and 155,200 points, the
-   size the JAX renderer feeds the op on its other training route), with
-   the stated tolerance; kernel, plain and library-yardstick times by CUDA
-   events;
+   size the JAX renderer feeds the op on its other training route), and
+   K3 and K4 with the light head at the light config's eval chunk and
+   training batch (both `detach_light` values for K4), with the stated
+   tolerance; kernel, plain and library-yardstick times by CUDA events;
 4. slice (the eval path): one 240x320 view of `data/synthetic_quality/
    scan1` rendered through the port's eval entry point (`eval/render.py`)
    at the full width of `configs/synthetic.yml`, seeded init weights;
@@ -37,21 +38,39 @@ Phases, each printed as one JSON line with its wall time:
    once, K3 and K4 never, K1 and K2 at most five times (one a sampler
    round); a profile of two steps; one batch through a kernel step and a
    plain step;
-7. cli: `python -m i2sdf_tpu_torch.main` in train mode for 3 steps on
+7. eval_light (the light-mask config's eval path): one 240x320 view of
+   scan1 through the eval entry point at the full width of
+   `configs/synthetic_light_mask.yml` (SDF 6 x 256, radiance 3 x 256,
+   light 256 -> 128 -> 1), seeded init weights: every output finite, K1,
+   K2 and K3 with the light head launched (K3 without it never); then the
+   first chunk through the plain path, its rgb and light mask held to the
+   kernels';
+8. train_light: the trainer for 6 steps of a copy of the light config at
+   full width on scan1 with seeded light masks (grey PNGs at scan1's
+   shape, written to the temporary scene) and the `train` phase's seeded
+   depth, normals and bubble cloud: K3 and K4 with the light head once a
+   step (without it never), `light_mask_loss` > 0 at every step, every
+   light-net leaf moved; a profile of two steps; one batch through a
+   kernel step and a plain step;
+9. cli: `python -m i2sdf_tpu_torch.main` in train mode for 3 steps on
    scan1 as the checkout holds it (images and cameras only), then
    `--resume` for one more step from the checkpoint it wrote, then
    `--test --test_mode render --indices 0` with no `--ckpt`, which must
-   load that newest checkpoint (step 4) and write finite images; last the
+   load that newest checkpoint (step 4) and write finite images; then the
    train CLI for 2 steps on a copy of the config with `normal_weight: 0`
-   in the temporary directory, whose logs carry no normal term.
+   in the temporary directory, whose logs carry no normal term; last the
+   train CLI for 2 steps on a copy of the light config (with seeded light
+   masks), whose logs carry the light-mask term and whose validation
+   writes a light-mask plot, and the render CLI on its newest checkpoint.
 
 The card's `nvidia-smi` line is printed on its own after phase 1. The
 run ends with the launch counts of each path, one JSON line with every
-kernel's numbers (launches from the training path it serves), and last
+kernel's numbers (launches from the path it serves), and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero;
 with no CUDA device the script exits nonzero before printing a result.
 All files are written to a temporary directory; no scene file under
-`depth/`, `normal/`, `light_mask/` or `mesh.ply` is read.
+`depth/`, `normal/`, `light_mask/` or `mesh.ply` is read (the light masks
+are written by the script).
 
 Precision: the plain path is f32 throughout, with TF32 turned off for
 matmuls and cuDNN; the kernels take bf16 operands with f32 accumulation.
@@ -86,20 +105,30 @@ from i2sdf_tpu_torch.ops.kernels import (build, render_core, rev,
 from i2sdf_tpu_torch.train import step as train_step
 from i2sdf_tpu_torch.train.state import create_train_state
 from i2sdf_tpu_torch.train.trainer import ReconstructionTrainer
+from i2sdf_tpu_torch.utils import imaging
 from i2sdf_tpu_torch.utils.cameras import get_camera_params
 
 ROOT = Path(__file__).resolve().parent
 CONF = ROOT / "configs" / "synthetic.yml"
 TRAIN_CONF = ROOT / "configs" / "synthetic_quality.yml"
+LIGHT_CONF = ROOT / "configs" / "synthetic_light_mask.yml"
 SEED = 0
 EVAL_KERNELS = ("sdf_mlp_nograd", "sampler_round", "render_core_fwd")
 TRAIN_KERNELS = EVAL_KERNELS + ("render_core_bwd",)
 NONORMAL_KERNELS = ("sdf_mlp_nograd", "sampler_round", "rev_fwd", "rev_bwd")
+EVAL_LIGHT_KERNELS = ("sdf_mlp_nograd", "sampler_round",
+                      "render_core_fwd_light")
+LIGHT_KERNELS = EVAL_LIGHT_KERNELS + ("render_core_bwd_light",)
 TRAIN_STEPS = 6          # bubble window [2, 4): off, off, on, on, off, off
 K4_RAYS, K4_EIK = 1600, 4800   # one training step's render-core batch
 # K5 against its plain version: the JAX package's tolerances for its rev
 # kernel (tests/test_pallas_rev.py), (atol, rtol)
 REV_TOLS = {"sdf": (0.02, 0.02), "feat": (0.05, 0.05), "grad": (0.05, 0.08)}
+# K3 (and K3 with the light head) against its plain version: the JAX
+# package's tolerances for its render kernel (tests/test_pallas_train.py:
+# 73-77, 171-176), (atol, rtol)
+CORE_TOLS = {"sdf": (0.02, 0.02), "grad": (0.05, 0.08), "rgb": (0.03, 0.05),
+             "lmask": (0.02, 0.03)}
 # K4 and the training step against their plain versions: the JAX
 # package's gradient tolerance for its bf16 kernel
 # (tests/test_pallas_train.py:96-111), per leaf max|d| / max|ref| and the
@@ -196,7 +225,8 @@ def library_sdf(net, ws, bs, pts):
     return h[:, 0]
 
 
-def library_render_core(inet, iw, ib, rnet, rw, rb, x, dirs):
+def library_render_core(inet, iw, ib, rnet, rw, rb, x, dirs, lw=None,
+                        lb=None):
     cfg = inet.cfg
     pe = cfg.embed(x)
     inp = pe.to(torch.bfloat16)
@@ -234,7 +264,14 @@ def library_render_core(inet, iw, ib, rnet, rw, rb, x, dirs):
     for l in range(len(rw)):
         z = torch.matmul(h, rw[l]).float() + rb[l]
         h = torch.relu(z).to(torch.bfloat16) if l < len(rw) - 1 else z
-    return sdf, grad, torch.sigmoid(h)
+    outs = (sdf, grad, torch.sigmoid(h))
+    if lw is None:
+        return outs
+    h = torch.relu(feat).to(torch.bfloat16)
+    for l in range(len(lw)):
+        z = torch.matmul(h, lw[l]).float() + lb[l]
+        h = softplus_beta(z).to(torch.bfloat16) if l < len(lw) - 1 else z
+    return outs + (torch.sigmoid(h),)
 
 
 # ---- phases ---------------------------------------------------------------
@@ -338,42 +375,81 @@ def check_kernels(model, cfg, conf, device) -> list[dict]:
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
         emit_row(rows[-1], ok)
 
-    # K3: the eval forward at the final sample count per ray
+    rows.append(check_k3(model, cfg, conf, device))
+    return rows
+
+
+def light_macs(lcfg) -> list:
+    """Multiply-adds per point of each light layer at its real width."""
+    d = lcfg.layer_dims()
+    return [d[l] * d[l + 1] for l in range(len(d) - 1)]
+
+
+def eval_chunk_points(cfg, conf, device):
+    """One eval chunk's render points: 12000 rays of view 0 at the final
+    sample count, evenly spaced, and their directions."""
+    sc = cfg.sampler
+    R = conf.train.split_n_pixels
+    _, dirs, cam = chunk_rays(conf, device, R)
     S3 = sc.total_fg_samples - 1
     z3 = torch.linspace(0.0, sc.far, S3, device=device)
     x = (cam[:, None] + z3[None, :, None] * dirs[:, None]).reshape(-1, 3)
-    x = x.contiguous()
-    dd = dirs[:, None].expand(R, S3, 3).reshape(-1, 3).contiguous()
+    dd = dirs[:, None].expand(R, S3, 3).reshape(-1, 3)
+    return x.contiguous(), dd.contiguous()
+
+
+def check_k3(model, cfg, conf, device) -> dict:
+    """K3 (with the light head, if the model has one: its own kernel,
+    `render_core_fwd_light`) on one eval chunk against the plain version."""
+    x, dd = eval_chunk_points(cfg, conf, device)
+    wk = renderer.KernelWeights.pack(model)
+    iw, ib = _bf16_weights(model.implicit)
+    rw, rb = _bf16_weights(model.rendering)
+    light = model.light
+    lw, lb = _bf16_weights(light) if light is not None else (None, None)
     k_out = render_core.render_core_fwd(wk.core, x, dd)
     torch.cuda.synchronize()
     p_out = render_core.render_core_plain(model.implicit, model.rendering,
-                                          x, dd)
-    tols = {"sdf": (0.02, 0.02), "grad": (0.05, 0.08), "rgb": (0.03, 0.05)}
+                                          x, dd, light)
+    tols = {k: CORE_TOLS[k] for k in list(CORE_TOLS)[:len(k_out)]}
     errs = {k: float((a - b).abs().max())
             for k, a, b in zip(tols, k_out, p_out)}
     ok = all(close(a, b, *tols[k]) for k, a, b in zip(tols, k_out, p_out))
+    dims = cfg.implicit.layer_dims()
     rdims = cfg.rendering.layer_dims()
     # forward (full head), reverse sweep (the hidden layers transposed),
-    # radiance net
+    # radiance net, light net
     macs = (2 * hidden_macs(cfg.implicit) + dims[-2] * dims[-1]
             + sum(rdims[l] * rdims[l + 1] for l in range(len(rdims) - 1)))
     wbytes = (sum(w.numel() for w in iw) * 2 * 2
               + sum(w.numel() for w in rw) * 2)
-    b_ms, b_by = bound(2.0 * macs * len(x), len(x) * 52 + wbytes, PEAK_BF16)
-    rows.append(dict(
-        name="render_core_fwd", route="cuda",
-        source="i2sdf_tpu_torch/csrc/render_core.cu",
+    out_bytes = 28
+    if light is not None:
+        macs += sum(light_macs(cfg.light))
+        wbytes += sum(w.numel() for w in lw) * 2
+        out_bytes += 4
+    b_ms, b_by = bound(2.0 * macs * len(x), len(x) * (24 + out_bytes)
+                       + wbytes, PEAK_BF16)
+    row = dict(
+        name="render_core_fwd" + ("_light" if light is not None else ""),
+        route="cuda", source="i2sdf_tpu_torch/csrc/render_core.cu",
         replaces="i2sdf_tpu/ops/pallas/fused_train.py:449",
         shape=list(x.shape), max_abs_err=max(errs.values()),
         errs=errs, tolerances=tols,
         ms=time_ms(lambda: render_core.render_core_fwd(wk.core, x, dd), 5),
         plain_ms=time_ms(lambda: render_core.render_core_plain(
-            model.implicit, model.rendering, x, dd), 2),
+            model.implicit, model.rendering, x, dd, light), 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: library_render_core(
-            model.implicit, iw, ib, model.rendering, rw, rb, x, dd), 3)))
-    emit_row(rows[-1], ok)
-    return rows
+            model.implicit, iw, ib, model.rendering, rw, rb, x, dd, lw, lb),
+            3))
+    if light is not None:
+        # the same nets without the head: what the head costs K3
+        bare = render_core.RenderCorePack(model.implicit, model.rendering)
+        row["ms_without_head"] = time_ms(
+            lambda: render_core.render_core_fwd(bare, x, dd), 5)
+    emit_row(row, ok)
+    return row
 
 
 def emit_row(row: dict, ok: bool) -> None:
@@ -383,7 +459,10 @@ def emit_row(row: dict, ok: bool) -> None:
                              f"plain version")
 
 
-def run_slice(model, conf, device) -> dict:
+def run_slice(model, conf, device, want=EVAL_KERNELS) -> dict:
+    """One view through the eval entry point: finite outputs, and every
+    kernel in `want` launched (K3 with or without the light head, never
+    the other)."""
     with tempfile.TemporaryDirectory() as tmp:
         kernels.reset_launch_counts()
         res = run_render_eval(model, conf, tmp, data_root=str(ROOT / "data"),
@@ -399,8 +478,11 @@ def run_slice(model, conf, device) -> dict:
     assert depth.shape == (H, W) and normal.shape == (H, W, 3), files
     assert np.isfinite(depth).all() and np.isfinite(normal).all()
     assert math.isfinite(res["psnr"]) and math.isfinite(res["ssim"])
-    missing = [k for k in EVAL_KERNELS if launches[k] == 0]
+    missing = [k for k in want if launches[k] == 0]
     assert not missing, f"kernels not launched on the eval path: {missing}"
+    other = ("render_core_fwd" if "render_core_fwd_light" in want
+             else "render_core_fwd_light")
+    assert launches[other] == 0, launches
     return dict(launches=launches, psnr=res["psnr"], ssim=res["ssim"],
                 render_s=res["seconds"][0], files=files,
                 image=[H, W], rays=H * W,
@@ -414,38 +496,53 @@ def compare_chunk(model, conf, device) -> dict:
     for out in (k, p):
         for v in out.values():
             assert torch.isfinite(v).all()
+    assert set(k) == set(p)
     diff = {}
     for key, name in (("rgb_values", "rgb"), ("depth_values", "depth"),
-                      ("normal_map", "normal")):
-        d = (k[key] - p[key]).abs()
-        diff[name] = {"mean_abs": float(d.mean()), "max_abs": float(d.max())}
-    mse = float(((k["rgb_values"] - p["rgb_values"]) ** 2).mean())
-    psnr = -10 * math.log10(max(mse, 1e-20))
-    assert psnr >= SLICE_PSNR_BAR_DB, f"kernel vs plain rgb {psnr:.2f} dB"
-    return dict(diff=diff, psnr_db=psnr, bar_db=SLICE_PSNR_BAR_DB)
+                      ("normal_map", "normal"), ("light_mask", "light")):
+        if key in k:
+            d = (k[key] - p[key]).abs()
+            diff[name] = {"mean_abs": float(d.mean()),
+                          "max_abs": float(d.max())}
+    psnr = {}
+    for key in ("rgb_values", "light_mask"):
+        if key in k:
+            mse = float(((k[key] - p[key]) ** 2).mean())
+            psnr[key] = -10 * math.log10(max(mse, 1e-20))
+            assert psnr[key] >= SLICE_PSNR_BAR_DB, \
+                f"kernel vs plain {key} {psnr[key]:.2f} dB"
+    return dict(diff=diff, psnr_db=psnr["rgb_values"],
+                light_mask_psnr_db=psnr.get("light_mask"),
+                bar_db=SLICE_PSNR_BAR_DB)
 
 
 # ---- K4 and the training path -----------------------------------------------
 
-def loss_cotangents(sdf, grad, rgb, n_eik, seed):
-    """Cotangents (N, 7) [grad | sdf | rgb] of the JAX package's kernel-test
-    loss (tests/test_pallas_train.py:38-43: rgb L1, sdf^2, normal L1 and
-    eikonal against seeded targets) at these outputs; the last n_eik rows
-    (eikonal points) keep only the gradient's cotangent."""
+def loss_cotangents(sdf, grad, rgb, n_eik, seed, lmask=None):
+    """Cotangents (N, 8) [grad | sdf | rgb | lmask] of the JAX package's
+    kernel-test loss (tests/test_pallas_train.py:38-43: rgb L1, sdf^2,
+    normal L1 and eikonal against seeded targets; with a light mask its
+    light test's 0.3 * mean((lmask - target)^2), `:186-188`) at these
+    outputs; the last n_eik rows (eikonal points) keep only the gradient's
+    cotangent."""
     gen = torch.Generator().manual_seed(seed)
     n = sdf.shape[0]
     gt = torch.rand((n, 3), generator=gen).to(sdf.device)
     gn = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen),
                                        dim=-1).to(sdf.device)
+    gl = torch.rand((n, 1), generator=gen).to(sdf.device)
     s, g, r = (t.detach().requires_grad_(True) for t in (sdf, grad, rgb))
+    m = (sdf.new_zeros((n, 1)) if lmask is None else lmask.detach()
+         ).requires_grad_(True)
     with torch.enable_grad():
         nrm = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True),
                               min=1e-9)
         loss = ((r - gt).abs().mean() + 0.2 * (s ** 2).mean()
                 + 0.5 * (1 - (nrm * gn).sum(-1)).abs().mean()
-                + 0.1 * ((torch.linalg.norm(g, dim=-1) - 1) ** 2).mean())
-        cs, cg, cr = torch.autograd.grad(loss, (s, g, r))
-    cot = torch.cat([cg, cs, cr], 1)
+                + 0.1 * ((torch.linalg.norm(g, dim=-1) - 1) ** 2).mean()
+                + 0.3 * ((m - gl) ** 2).mean() * (lmask is not None))
+        cs, cg, cr, cm = torch.autograd.grad(loss, (s, g, r, m))
+    cot = torch.cat([cg, cs, cr, cm], 1)
     cot[n - n_eik:, 3:] = 0.0
     return cot.contiguous()
 
@@ -463,33 +560,44 @@ def grads_ok(e: dict) -> bool:
     return e["max_leaf_err"] < GRAD_LEAF_TOL and e["cos"] > GRAD_COS_TOL
 
 
-def k4_macs(icfg, rcfg) -> int:
+def k4_macs(icfg, rcfg, lcfg=None, detach_light=True) -> int:
     """Multiply-adds per point of K4 at the nets' real widths: forward
     recompute (SDF, full head, and radiance), reverse sweep (hidden layers
     1 .. n-2 transposed), radiance backward (every layer transposed),
     upward sweep (layers 0 .. n-2), downward sweep (layers n-1 .. 1), and
     the weight-gradient products (two per SDF layer, one per radiance
-    layer)."""
+    layer). With a light head: its forward, its backward through layers
+    n_l-1 .. 1 transposed (and layer 0 unless detached), and one
+    weight-gradient product per light layer."""
     sd = sdf_layer_macs(icfg)
     n = len(sd)
     rd = rcfg.layer_dims()
     rr = [rd[l] * rd[l + 1] for l in range(len(rd) - 1)]
-    return (sum(sd) + sum(rr) + sum(sd[1:n - 1]) + sum(rr)
+    macs = (sum(sd) + sum(rr) + sum(sd[1:n - 1]) + sum(rr)
             + sum(sd[:n - 1]) + sum(sd[1:]) + 2 * sum(sd) + sum(rr))
+    if lcfg is not None:
+        lm = light_macs(lcfg)
+        macs += (sum(lm) + sum(lm[1:]) + (0 if detach_light else lm[0])
+                 + sum(lm))
+    return macs
 
 
-def library_core_grad(icfg, rcfg, w, x, dirs, cot):
+def library_core_grad(icfg, rcfg, w, x, dirs, cot, lcfg=None,
+                      detach_light=True):
     """The same function as one PyTorch call chain: autograd of the plain
     op with every product a bf16 torch.matmul (autocast)."""
     with torch.autocast("cuda", dtype=torch.bfloat16):
-        outs = render_core.render_core_train_plain(icfg, rcfg, w, x, dirs)
-    return torch.autograd.grad(outs, w.flat(), (cot[:, 3:4], cot[:, :3],
-                                                cot[:, 4:7]))
+        outs = render_core.render_core_train_plain(icfg, rcfg, w, x, dirs,
+                                                   lcfg, detach_light)
+    cots = (cot[:, 3:4], cot[:, :3], cot[:, 4:7], cot[:, 7:8])
+    return torch.autograd.grad(outs, w.flat(), cots[:len(outs)])
 
 
-def check_k4(model, cfg, conf, device) -> dict:
+def check_k4(model, cfg, conf, device, detach_light=True) -> dict:
     """K4 at one training step's render-core batch: 1600 rays of view 0 at
-    97 depths each, plus 4800 eikonal rows in the scene's cube."""
+    97 depths each, plus 4800 eikonal rows in the scene's cube; with the
+    model's light head (if it has one: its own kernel,
+    `render_core_bwd_light`) at this `detach_light`."""
     sc = cfg.sampler
     _, dirs, cam = chunk_rays(conf, device, K4_RAYS)
     S = sc.total_fg_samples - 1
@@ -501,44 +609,58 @@ def check_k4(model, cfg, conf, device) -> dict:
     x = torch.cat([x, eik]).contiguous()
     d = torch.cat([dirs[:, None].expand(K4_RAYS, S, 3).reshape(-1, 3),
                    torch.zeros_like(eik)]).contiguous()
-    icfg, rcfg = cfg.implicit, cfg.rendering
-    w = render_core.CoreWeights.of(model.implicit, model.rendering)
-    outs = render_core.render_core_train_plain(icfg, rcfg, w, x, d)
-    cot = loss_cotangents(*outs, K4_EIK, SEED + 5)
-    cots = (cot[:, 3:4], cot[:, :3], cot[:, 4:7])
+    icfg, rcfg, lcfg = cfg.implicit, cfg.rendering, cfg.light
+    w = render_core.CoreWeights.of(model.implicit, model.rendering,
+                                   model.light)
+    outs = render_core.render_core_train_plain(icfg, rcfg, w, x, d, lcfg,
+                                               detach_light)
+    cot = loss_cotangents(*outs[:3], K4_EIK, SEED + 5,
+                          lmask=outs[3] if lcfg is not None else None)
+    cots = (cot[:, 3:4], cot[:, :3], cot[:, 4:7], cot[:, 7:8])[:len(outs)]
     ref = torch.autograd.grad(outs, w.flat(), cots)
     del outs
     with torch.no_grad():
-        k = render_core._KernelLayout(icfg, rcfg, w)
-        got = render_core.render_core_bwd(k, x, d, cot)
+        k = render_core._KernelLayout(icfg, rcfg, w, lcfg)
+        got = render_core.render_core_bwd(k, x, d, cot, detach_light)
     torch.cuda.synchronize()
     got = [t for grp in got for t in grp]
     errs = grad_errors(got, ref)
     n = x.shape[0]
     wbytes = sum(t.numel() for t in w.flat())
-    b_ms, b_by = bound(2.0 * k4_macs(icfg, rcfg) * n,
-                       n * 52 + wbytes * (2 + 4), PEAK_BF16)
+    b_ms, b_by = bound(2.0 * k4_macs(icfg, rcfg, lcfg, detach_light) * n,
+                       n * (24 + 4 * cot.shape[1]) + wbytes * (2 + 4),
+                       PEAK_BF16)
 
     def kernel():
         with torch.no_grad():
-            render_core.render_core_bwd(k, x, d, cot)
+            render_core.render_core_bwd(k, x, d, cot, detach_light)
 
     def plain():
         torch.autograd.grad(render_core.render_core_train_plain(
-            icfg, rcfg, w, x, d), w.flat(), cots)
+            icfg, rcfg, w, x, d, lcfg, detach_light), w.flat(), cots)
 
     row = dict(
-        name="render_core_bwd", route="cuda",
-        source="i2sdf_tpu_torch/csrc/render_core_bwd.cu",
+        name="render_core_bwd" + ("_light" if lcfg is not None else ""),
+        route="cuda", source="i2sdf_tpu_torch/csrc/render_core_bwd.cu",
         replaces="i2sdf_tpu/ops/pallas/fused_train.py:449",
-        shape=[n, 7], rays=K4_RAYS, samples=S, eikonal_rows=K4_EIK,
+        shape=list(cot.shape), rays=K4_RAYS, samples=S, eikonal_rows=K4_EIK,
+        detach_light=detach_light if lcfg is not None else None,
         max_abs_err=max(float((g - r).abs().max()) for g, r in
                         zip(got, ref)),
         **errs, leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
         ms=time_ms(kernel, 5), plain_ms=time_ms(plain, 2),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: library_core_grad(icfg, rcfg, w, x, d,
-                                                     cot), 2))
+        library_ms=time_ms(lambda: library_core_grad(
+            icfg, rcfg, w, x, d, cot, lcfg, detach_light), 2))
+    if lcfg is not None:
+        # the same nets without the head (it ignores cotangent column 7):
+        # what the head costs K4
+        with torch.no_grad():
+            bare = render_core._KernelLayout(icfg, rcfg, render_core.
+                                             CoreWeights.of(model.implicit,
+                                                            model.rendering))
+        row["ms_without_head"] = time_ms(
+            lambda: render_core.render_core_bwd(bare, x, d, cot), 5)
     emit_row(row, grads_ok(errs))
     return row
 
@@ -775,13 +897,17 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     # K3 and K5 are one kernel template, K4 and K6 another, told apart by
-    # the template argument (true: with the radiance net); the products
-    # and sums are K4's on the normal-on path, K6's on the other
+    # the template arguments (with the radiance net; with the light head);
+    # the products and sums are K4's on the normal-on paths, K6's on the
+    # normal-off path
     groups = {"K1 sdf_mlp": "sdf_mlp_kernel", "K2 sampler_round":
-              "sampler_round", "K3 render_core_fwd": "fwd_sweep_kernel<true>",
-              "K5 rev_fwd": "fwd_sweep_kernel<false>",
-              "K4 sweep": "bwd_sweep_kernel<true>",
-              "K6 sweep": "bwd_sweep_kernel<false>",
+              "sampler_round",
+              "K3 render_core_fwd": "fwd_sweep_kernel<true, false>",
+              "K3 render_core_fwd_light": "fwd_sweep_kernel<true, true>",
+              "K5 rev_fwd": "fwd_sweep_kernel<false, false>",
+              "K4 sweep": "bwd_sweep_kernel<true, false>",
+              "K4 sweep light": "bwd_sweep_kernel<true, true>",
+              "K6 sweep": "bwd_sweep_kernel<false, false>",
               "K4/K6 atb": "atb_kernel", "K4/K6 sum": "sum_kernel"}
     by = {g: 0.0 for g in groups}
     by["other"] = 0.0
@@ -807,35 +933,66 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
                 top=[dict(ms=t / n, name=k, calls=c) for t, k, c in top[:12]])
 
 
-def images_only_root(tmp) -> str:
+def images_only_root(tmp, light_masks: bool = False) -> str:
     """A data root whose scan1 holds only the checkout's images and
-    cameras (symlinks), so no depth, normal or light-mask file is read
-    wherever this runs."""
+    cameras (symlinks), so no depth, normal or light-mask file of the
+    checkout is read wherever this runs; with `light_masks`, seeded grey
+    PNG light masks at the images' shape (a tenth of the pixels lit),
+    written there."""
     src = ROOT / "data" / "synthetic_quality" / "scan1"
     scan = Path(tmp) / "data" / "synthetic_quality" / "scan1"
     scan.mkdir(parents=True)
     for name in ("image", "cameras_normalize.npz"):
         os.symlink(src / name, scan / name)
+    if light_masks:
+        images = imaging.glob_imgs(str(src / "image"), (".png",))
+        H, W = imaging.read_png(images[0]).shape[:2]
+        rng = np.random.default_rng(SEED + 10)
+        (scan / "light_mask").mkdir()
+        for i in range(len(images)):
+            lit = rng.uniform(size=(H, W)) < 0.1
+            imaging.write_png(str(scan / "light_mask" / f"{i:04d}.png"),
+                              (lit * 255).astype(np.uint8))
     return str(Path(tmp) / "data")
 
 
-def run_train(device, normal: bool = True) -> dict:
+def light_conf(train: bool = True):
+    """A copy of the light config on scan1 of the checkout (its own
+    `data_dir` is a scene the checkout does not hold); for training, the
+    bubble window moved to steps 2-3 with a uniform pdf, as `train_conf`."""
+    conf = load_cfg(str(LIGHT_CONF))
+    conf.dataset.data_dir = "synthetic_quality"
+    conf.dataset.scan_id = 1
+    if train:
+        conf.loss.min_bubble_iter = 2
+        conf.loss.max_bubble_iter = 4
+        conf.train.uniform_bubble = True
+    return conf
+
+
+def run_train(device, normal: bool = True, light: bool = False) -> dict:
     """6 steps through the trainer. With `normal` off (`normal_weight: 0`,
     no normal maps) the step takes the rev route: K5 and K6 once a step,
     K3 and K4 never (counted around each step; the validation render at
-    the end of `fit` runs the eval path, K1-K3)."""
-    conf = train_conf()
+    the end of `fit` runs the eval path, K1-K3). With `light`, the light
+    config with seeded light masks: K3 and K4 with the light head once a
+    step, the light-mask loss on at every step, every light-net leaf
+    moved."""
+    conf = light_conf() if light else train_conf()
     if not normal:
         conf.loss.normal_weight = 0.0
     with tempfile.TemporaryDirectory() as tmp:
         tr = ReconstructionTrainer(conf, os.path.join(tmp, "exp"),
-                                   data_root=images_only_root(tmp),
+                                   data_root=images_only_root(tmp, light),
                                    device=device, seed=SEED)
         data = tr.train_data
         assert tr.device_data.depth is None and tr.device_data.normal is None
         assert tr.model_cfg.use_normal == normal
+        assert tr.model_cfg.use_light == light == data.use_lightmask
         synthetic_supervision(data, SEED + 6, normals=normal)
         tr.device_data = data.to_device(device)
+        light0 = ([p.detach().clone() for p in tr.state.model.light
+                   .parameters()] if light else [])
         times, seen, per_step = [], [], []
         inner = tr.step_fn
 
@@ -863,10 +1020,21 @@ def run_train(device, normal: bool = True) -> dict:
         for m, _ in seen:
             assert all(math.isfinite(v) for v in m.values()), m
         assert seen[2][0]["bubble_loss"] > 0 and seen[0][0]["depth_loss"] > 0
-        want = TRAIN_KERNELS if normal else NONORMAL_KERNELS
+        want = (LIGHT_KERNELS if light else TRAIN_KERNELS if normal
+                else NONORMAL_KERNELS)
         missing = [k for k in want if launches[k] == 0]
         assert not missing, f"kernels not launched on the path: {missing}"
-        if normal:
+        if light:
+            for c in per_step:
+                assert (c["render_core_fwd_light"]
+                        == c["render_core_bwd_light"] == 1), c
+                assert c["render_core_fwd"] == c["render_core_bwd"] == 0, c
+            for m, _ in seen:
+                assert m["light_mask_loss"] > 0, m
+            moved = [float((a.detach() - b).abs().max()) for a, b in zip(
+                tr.state.model.light.parameters(), light0)]
+            assert all(v > 0 for v in moved), moved
+        elif normal:
             assert launches["render_core_bwd"] == TRAIN_STEPS, launches
         else:
             for c in per_step:
@@ -898,6 +1066,8 @@ def run_train(device, normal: bool = True) -> dict:
             step_s=times, step_s_median=statistics.median(steady),
             rays_per_s=tr.batch_size / statistics.median(steady),
             losses=[m["loss"] for m, _ in seen],
+            light_mask_losses=([m["light_mask_loss"] for m, _ in seen]
+                               if light else None),
             pointcloud=int(data.pointcloud.shape[0]),
             peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
             profile=prof, kernel_vs_plain=cmp)
@@ -961,8 +1131,45 @@ def run_cli() -> dict:
     assert len(plots) == 6, plots
     assert np.isfinite(depth).all() and np.isfinite(normal).all()
     assert depth.ndim == 2 and normal.shape == depth.shape + (3,)
-    return dict(runs=runs, checkpoints=ckpts, plots=plots,
+    return dict(runs=runs + run_cli_light(), checkpoints=ckpts, plots=plots,
                 rendered_step=4, eval_files=evals, image=list(depth.shape))
+
+
+def run_cli_light() -> list:
+    """The train CLI for 2 steps on a copy of the light config (scan1 of
+    the checkout, seeded light masks), then the render CLI on its newest
+    checkpoint."""
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = Path(tmp) / "light_mask.yml"
+        conf.write_text(LIGHT_CONF.read_text().replace(
+            "data_dir: synthetic\n", "data_dir: synthetic_quality\n"))
+        cli = [sys.executable, "-m", "i2sdf_tpu_torch.main", "--scan_id",
+               "1", "--data_root", images_only_root(tmp, light_masks=True),
+               "--log_every", "1", "--conf", str(conf), "--exps_folder",
+               str(Path(tmp) / "exps")]
+        runs = []
+        for extra in (["--max_steps", "2"],
+                      ["--test", "--test_mode", "render", "--indices", "0"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cli + extra, cwd=ROOT, capture_output=True,
+                                  text=True, timeout=600)
+            logs = [ln for ln in proc.stdout.splitlines() if "[scan1 " in ln]
+            runs.append(dict(args=["light"] + extra, rc=proc.returncode,
+                             seconds=time.perf_counter() - t0,
+                             tail=logs or proc.stdout.strip().splitlines()
+                             [-3:]))
+            assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[
+                -3000:]
+        assert "[INFO] restored checkpoint @2" in proc.stdout, proc.stdout
+        assert len(runs[0]["tail"]) == 2 and all(
+            "light_mask=" in ln for ln in runs[0]["tail"]), runs[0]
+        exp = Path(tmp) / "exps" / "synthetic_light_1" / "version_0"
+        lplots = sorted(p.name for p in (exp / "plots" / "light_mask")
+                        .glob("*.png"))
+        depth = np.load(exp / "eval" / "depth" / "0000.npy")
+    assert lplots and np.isfinite(depth).all(), (lplots, depth.shape)
+    runs[-1]["light_mask_plots"] = lplots
+    return runs
 
 
 def main() -> int:
@@ -1002,6 +1209,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += check_rev(tmodel, tcfg, conf, device)
     del tmodel
+    # K3 and K4 with the light head, at the light config's full width
+    lconf = light_conf(train=False)
+    lcfg = renderer.I2SDFConfig.from_cfgnode(lconf.model)
+    lmodel = renderer.I2SDFModel(lcfg, seed=SEED).to(device)
+    rows.append(check_k3(lmodel, lcfg, lconf, device))
+    torch.cuda.empty_cache()
+    for detach in (True, False):
+        rows.append(check_k4(lmodel, lcfg, lconf, device, detach))
+        torch.cuda.empty_cache()
+    del lmodel
     emit("kernels", t0, n=len(rows))
     torch.cuda.empty_cache()
 
@@ -1026,6 +1243,21 @@ def main() -> int:
     emit("train_nonormal", t0, **trn)
 
     t0 = time.perf_counter()
+    lconf = light_conf(train=False)
+    lcfg = renderer.I2SDFConfig.from_cfgnode(lconf.model)
+    lmodel = renderer.I2SDFModel(lcfg, seed=SEED).to(device)
+    sll = run_slice(lmodel, lconf, device, want=EVAL_LIGHT_KERNELS)
+    cmpl = compare_chunk(lmodel, lconf, device)
+    emit("eval_light", t0, **sll, compare=cmpl)
+    del lmodel
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trl = run_train(device, light=True)
+    emit("train_light", t0, **trl)
+
+    t0 = time.perf_counter()
     cli = run_cli()
     emit("cli", t0, **cli)
 
@@ -1033,15 +1265,20 @@ def main() -> int:
     for row in rows:  # one entry per kernel: its main-path shape's row
         per_kernel.setdefault(row["name"], row)
     # each kernel's launches from the training path it serves: K1-K4 the
-    # normal-on step's (`train`), K5/K6 the normal-off step's
-    path_of = {k: "train_nonormal" if k.startswith("rev_") else "train"
+    # normal-on step's (`train`), K5/K6 the normal-off step's, K3 and K4
+    # with the light head the light config's step's
+    path_of = {k: ("train_nonormal" if k.startswith("rev_") else
+                   "train_light" if k.endswith("_light") else "train")
                for k in per_kernel}
-    paths = {"train": tr["launches"], "train_nonormal": trn["launches"]}
+    paths = {"train": tr["launches"], "train_nonormal": trn["launches"],
+             "train_light": trl["launches"]}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"launches": {"eval": sl["launches"],
                                    "train": tr["launches"],
-                                   "train_nonormal": trn["launches"]},
+                                   "train_nonormal": trn["launches"],
+                                   "eval_light": sll["launches"],
+                                   "train_light": trl["launches"]},
                       "seconds": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},

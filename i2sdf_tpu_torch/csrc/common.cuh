@@ -173,15 +173,30 @@ struct EpiSoftplus {
 // (`bwd_sweep_kernel`): the derivative stashed as q (`stash_q`), the
 // backward's four sweeps staging every layer's weight-gradient operands in
 // device memory (`Scratch`), then the split-K products and the fixed-order
-// sums (`launch_wgrad`, both behind `launch_bwd`).
+// sums (`launch_wgrad`, both behind `launch_bwd`). The light head of the
+// light-mask config is a second template flag of K3's and K4's kernels
+// (`kLight`): its code sits under `if constexpr`, so the kernels without
+// it compile as they did before it.
 
 constexpr int kSweepMT = 2;
 constexpr int kSweepRows = kSweepMT * 16;
 constexpr int kSweepMaxNT = 5;  // up to 8 warps * 5 tiles * 8 = 320 cols
 constexpr int kMaxSdf = 12;
 constexpr int kMaxRad = 8;
-constexpr int kMaxJobs = kMaxSdf + kMaxRad;
-constexpr int kCot = 8;  // shared-memory stride of a row's cotangents
+constexpr int kMaxLight = 4;
+constexpr int kMaxJobs = kMaxSdf + kMaxRad + kMaxLight;
+// a row's cotangents [c_grad | c_sdf | c_rgb | c_lm], in device memory
+// and in shared memory
+constexpr int kCot = 8;
+
+// The light net's plan rows (`L`, layer 0 first) and those of its
+// transpose (`T`, last layer first), kept apart from `Plan` so that the
+// kernels' parameters stay small.
+struct LightPlan {
+  int n;
+  int L[kMaxLight][8];
+  int T[kMaxLight][8];
+};
 
 __device__ __forceinline__ float bf(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
@@ -284,6 +299,18 @@ struct EpiRev {
   }
 };
 
+// The light net's input: relu of the F feature columns of `feat`, zero up
+// to the first light layer's depth K.
+__device__ __forceinline__ void light_input(__nv_bfloat16* dst, int lda,
+                                            const __nv_bfloat16* feat, int F,
+                                            int K) {
+  for (int i = threadIdx.x; i < kSweepRows * K; i += kThreads) {
+    const int r = i / K, c = i % K;
+    dst[r * lda + c] = __float2bfloat16_rn(
+        c < F ? fmaxf(bf(feat + r * lda + c), 0.f) : 0.f);
+  }
+}
+
 // K3's output layer, columns [features (F) | sdf]: the features to the
 // radiance input buffer (no activation), sdf to shared memory.
 struct EpiFeatSdf {
@@ -343,11 +370,43 @@ struct EpiRgbOut {
   }
 };
 
+// K3's light head: the light net on relu(features) in `in`, ping-ponging
+// with `tmp` (both kSweepRows x lda), its sigmoid output to rows [row0, n)
+// of `lmask_out`. Out of line and at the kernel's end: inlined after the
+// SDF output layer it raised the whole kernel's register spills from 20
+// to 104 bytes and K3's time by ~28% (at its end, 52 bytes and ~19%); out
+// of line K3 keeps its 20 bytes, and the head costs ~10% (H100,
+// scripts/time_render_core.py --light).
+static __device__ __noinline__ void light_forward(
+    __nv_bfloat16* in, __nv_bfloat16* tmp, int lda,
+    const uint2* __restrict__ w_l, const float* __restrict__ b_l,
+    LightPlan lp, float* __restrict__ lmask_out, int row0, int n) {
+  __nv_bfloat16* lbuf[2] = {in, tmp};
+  for (int l = 0; l < lp.n; ++l) {
+    const int* L = lp.L[l];
+    const uint2* W = w_l + L[kWOff];
+    const float* b = b_l + L[kBOff];
+    if (l < lp.n - 1) {
+      EpiSoftplus epi{lbuf[(l & 1) ^ 1], lda, b, 1.f, nullptr, 0};
+      mma_layer<kSweepMT, kSweepMaxNT>(lbuf[l & 1], lda, L[kK], W, L[kN],
+                                       epi);
+    } else {
+      EpiRgbOut epi{lmask_out, b, row0, n, 1};
+      mma_layer<kSweepMT, kSweepMaxNT>(lbuf[l & 1], lda, L[kK], W, L[kN],
+                                       epi);
+    }
+    __syncthreads();
+  }
+}
+
 // Shared memory of `fwd_sweep_kernel` (bytes): two activation buffers,
 // every hidden layer's activation derivative, and per row the point, the
-// view direction, the sdf and the encoding's gradient.
-inline size_t fwd_smem_bytes(int lda, int ldd, int n_dact, int ldg) {
-  return (2 * (size_t)kSweepRows * lda + (size_t)n_dact * kSweepRows * ldd) *
+// view direction, the sdf and the encoding's gradient; with the light
+// head, a third activation buffer at the end.
+inline size_t fwd_smem_bytes(int lda, int ldd, int n_dact, int ldg,
+                             bool light) {
+  return ((2 + light) * (size_t)kSweepRows * lda +
+          (size_t)n_dact * kSweepRows * ldd) *
              sizeof(__nv_bfloat16) +
          (size_t)kSweepRows * (3 + 3 + 1 + ldg) * sizeof(float);
 }
@@ -369,8 +428,11 @@ namespace {
 // body, in K3's own form (an indexed pair of buffers, restrict-qualified
 // kernel arguments): as device functions shared by two kernels, or with
 // the buffers selected instead of indexed, K3 ran measurably slower on
-// the H100.
-template <bool kRadiance>
+// the H100. With `kLight` (K3 of the light-mask config), relu(features)
+// is copied to a third buffer right after the SDF net's output layer, and
+// at the end the light net runs on it (`light_forward`), its sigmoid
+// output to `lmask_out`.
+template <bool kRadiance, bool kLight>
 __global__ void __launch_bounds__(kThreads)
 fwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
                  int n, const uint2* __restrict__ w_fwd,
@@ -378,10 +440,13 @@ fwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
                  const uint2* __restrict__ w_rev, Plan rev,
                  const float* __restrict__ wsdf_col,
                  const uint2* __restrict__ w_rad,
-                 const float* __restrict__ b_rad, Plan rad, int mx, int md,
+                 const float* __restrict__ b_rad, Plan rad,
+                 const uint2* __restrict__ w_l,
+                 const float* __restrict__ b_l, LightPlan lp, int mx, int md,
                  int lda, int ldd, int ldg, int out_cols,
                  float* __restrict__ sdf_out, float* __restrict__ grad_out,
-                 float* __restrict__ rgb_out, float* __restrict__ out) {
+                 float* __restrict__ rgb_out, float* __restrict__ lmask_out,
+                 float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_hidden = fwd.n - 1;
   __nv_bfloat16* buf[2];
@@ -431,6 +496,13 @@ fwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
     }
     __syncthreads();
     cur ^= 1;
+  }
+
+  // ---- K3 with the light head: keep relu(features) for the light net ----
+  if constexpr (kLight) {
+    __nv_bfloat16* lb =
+        reinterpret_cast<__nv_bfloat16*>(gpe + kSweepRows * ldg);
+    light_input(lb, lda, buf[cur], F, lp.L[0][kK]);
   }
 
   // ---- K3: radiance net on [features | PE(dirs)] --------------------------
@@ -494,27 +566,36 @@ fwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
     grad_out[(size_t)(row0 + r) * 3 + d] = g;
     if (kRadiance && d == 0) sdf_out[row0 + r] = sdf_s[r];
   }
+  // ---- K3 with the light head: the light net ----------------------------
+  if constexpr (kLight) {
+    __syncthreads();
+    light_forward(reinterpret_cast<__nv_bfloat16*>(gpe + kSweepRows * ldg),
+                  buf[0], lda, w_l, b_l, lp, lmask_out, row0, n);
+  }
 }
 
 // Launch `fwd_sweep_kernel` on n points (the arguments as the kernel's);
 // returns the launch's error.
-template <bool kRadiance>
+template <bool kRadiance, bool kLight>
 inline cudaError_t launch_fwd_sweep(
     const float* x, const float* dirs, int n, const uint2* w_fwd,
     const float* b_sdf, const Plan& fwd, const uint2* w_rev, const Plan& rev,
     const float* wsdf_col, const uint2* w_rad, const float* b_rad,
-    const Plan& rad, int mx, int md, int lda, int ldd, int ldg, int out_cols,
-    float* sdf_out, float* grad_out, float* rgb_out, float* out,
+    const Plan& rad, const uint2* w_l, const float* b_l, const LightPlan& lp,
+    int mx, int md, int lda, int ldd, int ldg, int out_cols, float* sdf_out,
+    float* grad_out, float* rgb_out, float* lmask_out, float* out,
     void* stream) {
-  const size_t smem = fwd_smem_bytes(lda, ldd, fwd.n - 1, ldg);
+  const size_t smem = fwd_smem_bytes(lda, ldd, fwd.n - 1, ldg, kLight);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_sweep_kernel<kRadiance>,
+      fwd_sweep_kernel<kRadiance, kLight>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n + kSweepRows - 1) / kSweepRows;
-  fwd_sweep_kernel<kRadiance><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, dirs, n, w_fwd, b_sdf, fwd, w_rev, rev, wsdf_col, w_rad, b_rad, rad,
-      mx, md, lda, ldd, ldg, out_cols, sdf_out, grad_out, rgb_out, out);
+  fwd_sweep_kernel<kRadiance, kLight>
+      <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+          x, dirs, n, w_fwd, b_sdf, fwd, w_rev, rev, wsdf_col, w_rad, b_rad,
+          rad, w_l, b_l, lp, mx, md, lda, ldd, ldg, out_cols, sdf_out,
+          grad_out, rgb_out, lmask_out, out);
   return cudaGetLastError();
 }
 
@@ -532,19 +613,25 @@ struct Scratch {
   float* ah[kMaxSdf];           // (np, K_l): d sdf / d h_l
   __nv_bfloat16* rx[kMaxRad];   // (np, K_L): radiance layer inputs
   __nv_bfloat16* rdz[kMaxRad];  // (np, N_L): radiance output cotangents
+  __nv_bfloat16* lx[kMaxLight];   // (np, K): light layer inputs
+  __nv_bfloat16* ldz[kMaxLight];  // (np, N): light output cotangents (a
+                                  // hidden layer's s until they replace it)
   float* dbpart;                // (blocks, tb): bias-gradient rows
   int tb, np;
   int db_sdf[kMaxSdf];
   int db_rad[kMaxRad];
+  int db_light[kMaxLight];
 };
 
 // The block's shared memory in the backward's sweep: two activation
 // buffers, every hidden layer's stash q, the points, the view directions,
-// the cotangents [c_grad | c_sdf | c_rgb] (kCot a row), the rgb, the
-// encoding's gradient cotangent dge and the f32 dz the bias sums take.
+// the cotangents [c_grad | c_sdf | c_rgb | c_lm] (kCot a row), the rgb,
+// the encoding's gradient cotangent dge and the f32 dz the bias sums
+// take; with the light head, a third activation buffer `lb` at the end.
 struct BwdSmem {
   __nv_bfloat16 *buf0, *buf1, *q;
   float *xs, *ds, *cot, *rgb, *dge, *dzf;
+  __nv_bfloat16* lb;
 };
 
 __device__ __forceinline__ BwdSmem carve_bwd(unsigned char* p, int lda,
@@ -559,12 +646,15 @@ __device__ __forceinline__ BwdSmem carve_bwd(unsigned char* p, int lda,
   s.rgb = s.cot + kSweepRows * kCot;
   s.dge = s.rgb + kSweepRows * 4;
   s.dzf = s.dge + kSweepRows * ldg;
+  s.lb = reinterpret_cast<__nv_bfloat16*>(s.dzf + kSweepRows * lda);
   return s;
 }
 
 // Bytes of BwdSmem (the host mirrors it in `bwd_smem`).
-inline size_t bwd_smem_bytes(int lda, int ldd, int n_q, int ldg) {
-  return (2 * (size_t)kSweepRows * lda + (size_t)n_q * kSweepRows * ldd) *
+inline size_t bwd_smem_bytes(int lda, int ldd, int n_q, int ldg,
+                             bool light) {
+  return ((2 + light) * (size_t)kSweepRows * lda +
+          (size_t)n_q * kSweepRows * ldd) *
              sizeof(__nv_bfloat16) +
          (size_t)kSweepRows * (3 + 3 + kCot + 4 + ldg + lda) * sizeof(float);
 }
@@ -635,6 +725,101 @@ struct EpiFeatCot {
     put2(out + (size_t)(row0 + r) * ld + c, v0, v1);
     dzf[r * lda + c] = v0;
     dzf[r * lda + c + 1] = v1;
+  }
+};
+
+// ---- K4's light head ---------------------------------------------------
+
+// A hidden light layer in K4's forward: bf16(softplus100(acc + b)) to
+// shared memory, and its first-order derivative s = softplus100'(z) to
+// the layer's dz staging in device memory, where the backward reads it
+// (the light net's input is not differentiated with respect to x, so no
+// second-order stash is needed).
+struct EpiSoftplusS {
+  __nv_bfloat16* out;
+  int lda;
+  const float* bias;
+  __nv_bfloat16* s;
+  int lds, row0;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    const float z0 = v0 + bias[c], z1 = v1 + bias[c + 1];
+    put2(out + r * lda + c, softplus100(z0), softplus100(z1));
+    put2(s + (size_t)(row0 + r) * lds + c, dsoftplus100(z0),
+         dsoftplus100(z1));
+  }
+};
+
+// K4's light output layer: lm = sigmoid(acc + b) in column 0 and its
+// cotangent dz = c_lm lm (1 - lm), zero elsewhere: bf16 to shared memory
+// (the transposed layer's operand) and to the layer's dz staging, f32 to
+// dzf for the bias sums.
+struct EpiLightDz {
+  __nv_bfloat16* out;
+  int lda;
+  const float* bias;
+  const float* cot;
+  float* dzf;
+  __nv_bfloat16* dz;
+  int ldz, row0;
+  __device__ __forceinline__ float one(int r, int c, float v) {
+    float d = 0.f;
+    if (c == 0) {
+      const float lm = 1.f / (1.f + expf(-(v + bias[0])));
+      d = cot[r * kCot + 7] * lm * (1.f - lm);
+    }
+    dzf[r * lda + c] = d;
+    return d;
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    const float d0 = one(r, c, v0), d1 = one(r, c + 1, v1);
+    put2(out + r * lda + c, d0, d1);
+    put2(dz + (size_t)(row0 + r) * ldz + c, d0, d1);
+  }
+};
+
+// Light backward through a hidden layer's activation: dz = dh * s, s read
+// from the layer's dz staging and dz written back in its place; bf16 to
+// shared memory for the next transposed layer, f32 to dzf.
+struct EpiLightBack {
+  __nv_bfloat16* out;
+  int lda;
+  __nv_bfloat16* dz;
+  int ldz, row0;
+  float* dzf;
+  __device__ __forceinline__ float one(int r, int c, float v) {
+    const float d = v * bf(dz + (size_t)(row0 + r) * ldz + c);
+    dzf[r * lda + c] = d;
+    return d;
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    const float d0 = one(r, c, v0), d1 = one(r, c + 1, v1);
+    put2(out + r * lda + c, d0, d1);
+    put2(dz + (size_t)(row0 + r) * ldz + c, d0, d1);
+  }
+};
+
+// With the light features not detached: the light net's input cotangent
+// dz_0 W_0^T, gated by relu'(features) (read back from the radiance net's
+// stored input [features | PE]), joins the features' cotangent from the
+// radiance net in f32 (dzf), and the sum replaces the bf16 cotangent of
+// the SDF output layer in device memory.
+struct EpiLightFeat {
+  __nv_bfloat16* out;
+  int ld, row0, F;
+  float* dzf;
+  int lda;
+  const __nv_bfloat16* x;
+  int ldx;
+  __device__ __forceinline__ float one(int r, int c, float v) {
+    const bool on = bf(x + (size_t)(row0 + r) * ldx + c) > 0.f;
+    const float d = dzf[r * lda + c] + (on ? v : 0.f);
+    dzf[r * lda + c] = d;
+    return d;
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
+    if (c >= F) return;
+    const float d0 = one(r, c, v0), d1 = one(r, c + 1, v1);
+    put2(out + (size_t)(row0 + r) * ld + c, d0, d1);
   }
 };
 
@@ -730,7 +915,15 @@ namespace {
 // [np, 2 np) of br[l]) with those injections. Each hidden layer's bias
 // row goes to the block's row of `dbpart`. Written out in one body, in
 // K4's own form, as K3's and K5's kernel is.
-template <bool kRadiance>
+//
+// With `kLight` (K4 of the light-mask config), step 1b runs the light net
+// on relu(features) between `lb` and the free buffer of the pair (X_l to
+// lx[l], a hidden layer's s to ldz[l]), its output's cotangent dz = c_lm
+// lm (1 - lm), and the light backward through its hidden layers (dz_l to
+// ldz[l]), before the radiance net needs the features. Unless
+// `detach_light`, the light net's input cotangent, gated by relu'(feat),
+// joins the features' cotangent at the end of step 3.
+template <bool kRadiance, bool kLight>
 __global__ void __launch_bounds__(kThreads)
 bwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
                  const float* __restrict__ cot,
@@ -742,8 +935,12 @@ bwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
                  const float* __restrict__ wsdf_col,
                  const uint2* __restrict__ w_rad,
                  const float* __restrict__ b_rad, Plan rad,
-                 const uint2* __restrict__ w_radt, Plan radt, int mx, int md,
-                 int lda, int ldd, int ldg, Scratch sc) {
+                 const uint2* __restrict__ w_radt, Plan radt,
+                 const uint2* __restrict__ w_l,
+                 const float* __restrict__ b_l,
+                 const uint2* __restrict__ w_lt, LightPlan lp,
+                 int detach_light, int mx, int md, int lda, int ldd, int ldg,
+                 Scratch sc) {
   constexpr int kMT = kSweepMT, kMaxNT = kSweepMaxNT, kRows = kSweepRows;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ns = fwd.n, nh = ns - 1, nr = rad.n;
@@ -763,11 +960,11 @@ bwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
     s.xs[i] = r < n ? x[(size_t)r * 3 + i % 3] : 0.f;
     if (kRadiance) s.ds[i] = r < n ? dirs[(size_t)r * 3 + i % 3] : 0.f;
   }
-  // [c_grad | c_sdf | c_rgb] a row (K6: c_g only)
+  // [c_grad | c_sdf | c_rgb | c_lm] a row (K6: c_g only)
   for (int i = threadIdx.x; i < kRows * kCot; i += kThreads) {
     const int r = row0 + i / kCot, c = i % kCot;
     if (kRadiance)
-      s.cot[i] = (r < n && c < 7) ? cot[(size_t)r * 7 + c] : 0.f;
+      s.cot[i] = r < n ? cot[(size_t)r * kCot + c] : 0.f;
     else
       s.cot[i] = (r < n && c < 3) ? c_g[(size_t)r * 3 + c] : 0.f;
   }
@@ -798,6 +995,43 @@ bwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
     }  // K6 needs only the output layer's input
     __syncthreads();
     cur ^= 1;
+  }
+
+  // ---- 1b. the light head: forward, and backward to its input ----------
+  if constexpr (kLight) {
+    const int nl = lp.n;
+    light_input(s.lb, lda, buf[cur], F, lp.L[0][kK]);
+    __syncthreads();
+    // layer l reads lbuf[l & 1] and writes lbuf[(l & 1) ^ 1]
+    __nv_bfloat16* lbuf[2] = {s.lb, buf[cur ^ 1]};
+    for (int l = 0; l < nl; ++l) {
+      const int* L = lp.L[l];
+      const uint2* W = w_l + L[kWOff];
+      const float* b = b_l + L[kBOff];
+      store_rows(lbuf[l & 1], lda, sc.lx[l], L[kK], L[kK], row0);
+      if (l < nl - 1) {
+        EpiSoftplusS epi{lbuf[(l & 1) ^ 1], lda, b, sc.ldz[l], L[kN], row0};
+        mma_layer<kMT, kMaxNT>(lbuf[l & 1], lda, L[kK], W, L[kN], epi);
+      } else {
+        EpiLightDz epi{lbuf[(l & 1) ^ 1], lda, b, s.cot, s.dzf, sc.ldz[l],
+                       L[kN], row0};
+        mma_layer<kMT, kMaxNT>(lbuf[l & 1], lda, L[kK], W, L[kN], epi);
+      }
+      __syncthreads();
+    }
+    put_db(dbp + sc.db_light[nl - 1], s.dzf, lda, lp.L[nl - 1][kN]);
+    __syncthreads();
+    // dz_l sits in lbuf[(l & 1) ^ 1]; dz_{l-1} goes to lbuf[l & 1]
+    for (int l = nl - 1; l >= 1; --l) {
+      const int* L = lp.T[nl - 1 - l];  // W_l^T
+      const int N = lp.L[l - 1][kN];
+      EpiLightBack epi{lbuf[l & 1], lda, sc.ldz[l - 1], N, row0, s.dzf};
+      mma_layer<kMT, kMaxNT>(lbuf[(l & 1) ^ 1], lda, L[kK], w_lt + L[kWOff],
+                             L[kN], epi);
+      __syncthreads();
+      put_db(dbp + sc.db_light[l - 1], s.dzf, lda, N);
+      __syncthreads();
+    }
   }
 
   const int n_last = fwd.L[ns - 1][kN];
@@ -863,6 +1097,18 @@ bwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
           s.dzf[r * lda + c] = v;
         }
         __syncthreads();
+        if constexpr (kLight) {
+          if (!detach_light) {
+            const int* L = lp.T[lp.n - 1];  // W_0^T
+            load_rows(buf[cur ^ 1], lda, sc.ldz[0], L[kK], L[kK], row0);
+            __syncthreads();
+            EpiLightFeat epi{cy,     n_last,    row0, F, s.dzf,
+                             lda,    sc.rx[0],  rad.L[0][kK]};
+            mma_layer<kMT, kMaxNT>(buf[cur ^ 1], lda, L[kK], w_lt + L[kWOff],
+                                   L[kN], epi);
+            __syncthreads();
+          }
+        }
         put_db(dbp + sc.db_sdf[ns - 1], s.dzf, lda, n_last);
         __syncthreads();
       }
@@ -1118,11 +1364,11 @@ __global__ void __launch_bounds__(kThreads) sum_kernel(SumJobs jobs) {
 
 // The scratch table (int64, element offsets), read in the order
 // `_BwdPlan` writes it: ax, br, dzx, ah (SDF layers), rx, rdz (radiance
-// layers), dbpart, tb, the bias offsets; returns the rest (the products'
-// splits, chunks, partials and outputs).
+// layers), lx, ldz (light layers), dbpart, tb, the bias offsets; returns
+// the rest (the products' splits, chunks, partials and outputs).
 inline const long long* read_scratch(const long long* t, int n_fwd,
-                                     int n_rad, int np, void* ws16,
-                                     float* ws32, Scratch& sc) {
+                                     int n_rad, int n_light, int np,
+                                     void* ws16, float* ws32, Scratch& sc) {
   __nv_bfloat16* b16 = (__nv_bfloat16*)ws16;
   for (int l = 0; l < n_fwd; ++l) sc.ax[l] = b16 + *t++;
   for (int l = 0; l < n_fwd; ++l) sc.br[l] = b16 + *t++;
@@ -1130,25 +1376,30 @@ inline const long long* read_scratch(const long long* t, int n_fwd,
   for (int l = 0; l < n_fwd; ++l, ++t) sc.ah[l] = *t < 0 ? nullptr : ws32 + *t;
   for (int l = 0; l < n_rad; ++l) sc.rx[l] = b16 + *t++;
   for (int l = 0; l < n_rad; ++l) sc.rdz[l] = b16 + *t++;
+  for (int l = 0; l < n_light; ++l) sc.lx[l] = b16 + *t++;
+  for (int l = 0; l < n_light; ++l) sc.ldz[l] = b16 + *t++;
   sc.dbpart = ws32 + *t++;
   sc.tb = (int)*t++;
   sc.np = np;
   for (int l = 0; l < n_fwd; ++l) sc.db_sdf[l] = (int)*t++;
   for (int l = 0; l < n_rad; ++l) sc.db_rad[l] = (int)*t++;
+  for (int l = 0; l < n_light; ++l) sc.db_light[l] = (int)*t++;
   return t;
 }
 
 // The weight gradients from the staged operands: every dW_p = A^T B over
-// the points (SDF layer: [da ; X]^T [r ; dz] over 2 np rows; radiance
-// layer: X^T dz over np rows), split over point ranges, then the ranges
-// and the blocks' bias rows added in a fixed order into `out` (no
+// the points (SDF layer: [da ; X]^T [r ; dz] over 2 np rows; radiance and
+// light layer: X^T dz over np rows), split over point ranges, then the
+// ranges and the blocks' bias rows added in a fixed order into `out` (no
 // atomics: the same result to the bit run to run). `t` is the rest of the
 // table after read_scratch.
 inline cudaError_t launch_wgrad(const Plan& fwd, const Plan* rad,
-                                const Scratch& sc, const long long* t,
-                                float* ws32, float* out, cudaStream_t st) {
+                                const LightPlan* light, const Scratch& sc,
+                                const long long* t, float* ws32, float* out,
+                                cudaStream_t st) {
   const int n_fwd = fwd.n, n_rad = rad ? rad->n : 0;
-  const int jobs_n = n_fwd + n_rad;
+  const int n_light = light ? light->n : 0;
+  const int jobs_n = n_fwd + n_rad + n_light;
   const long long* splits = t;
   const long long* chunk = t + jobs_n;
   const long long* part = t + 2 * jobs_n;
@@ -1161,11 +1412,12 @@ inline cudaError_t launch_wgrad(const Plan& fwd, const Plan* rad,
   int gemm_blocks = 0;
   long long total = 0;
   for (int p = 0; p < jobs_n; ++p) {
-    const bool is_sdf = p < n_fwd;
-    const int* L = is_sdf ? fwd.L[p] : rad->L[p - n_fwd];
+    const bool is_sdf = p < n_fwd, is_rad = !is_sdf && p < n_fwd + n_rad;
+    const int q = p - n_fwd - n_rad;  // light layer
+    const int* L = is_sdf ? fwd.L[p] : is_rad ? rad->L[p - n_fwd] : light->L[q];
     GemmJob& J = gj.j[p];
-    J.a = is_sdf ? sc.ax[p] : sc.rx[p - n_fwd];
-    J.b = is_sdf ? sc.br[p] : sc.rdz[p - n_fwd];
+    J.a = is_sdf ? sc.ax[p] : is_rad ? sc.rx[p - n_fwd] : sc.lx[q];
+    J.b = is_sdf ? sc.br[p] : is_rad ? sc.rdz[p - n_fwd] : sc.ldz[q];
     J.part = ws32 + part[p];
     J.m = is_sdf ? 2 * sc.np : sc.np;
     J.k = L[kK];
@@ -1194,31 +1446,35 @@ inline cudaError_t launch_wgrad(const Plan& fwd, const Plan* rad,
 // K4 or K6: the sweep, then the weight-gradient products and sums, on n
 // points padded to np (the arguments as `bwd_sweep_kernel`'s; `table` is
 // the host's scratch table, read by `read_scratch`).
-template <bool kRadiance>
+template <bool kRadiance, bool kLight>
 inline cudaError_t launch_bwd(
     const float* x, const float* dirs, const float* cot, const float* c_out,
     int out_cols, const float* c_g, int n, int np, const uint2* w_fwd,
     const float* b_sdf, const Plan& fwd, const uint2* w_t, const Plan& tp,
     const float* wsdf_col, const uint2* w_rad, const float* b_rad,
-    const Plan& rad, const uint2* w_radt, const Plan& radt, int mx, int md,
-    int lda, int ldd, int ldg, void* ws16, float* ws32,
-    const long long* table, float* out, void* stream) {
+    const Plan& rad, const uint2* w_radt, const Plan& radt,
+    const uint2* w_l, const float* b_l, const uint2* w_lt,
+    const LightPlan& lp, int detach_light, int mx, int md, int lda, int ldd,
+    int ldg, void* ws16, float* ws32, const long long* table, float* out,
+    void* stream) {
   Scratch sc;
   const long long* rest =
-      read_scratch(table, fwd.n, kRadiance ? rad.n : 0, np, ws16, ws32, sc);
+      read_scratch(table, fwd.n, kRadiance ? rad.n : 0, kLight ? lp.n : 0,
+                   np, ws16, ws32, sc);
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = bwd_smem_bytes(lda, ldd, fwd.n - 1, ldg);
+  const size_t smem = bwd_smem_bytes(lda, ldd, fwd.n - 1, ldg, kLight);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_sweep_kernel<kRadiance>,
+      bwd_sweep_kernel<kRadiance, kLight>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  bwd_sweep_kernel<kRadiance><<<np / kSweepRows, kThreads, smem, st>>>(
+  bwd_sweep_kernel<kRadiance, kLight><<<np / kSweepRows, kThreads, smem, st>>>(
       x, dirs, cot, c_out, out_cols, c_g, n, w_fwd, b_sdf, fwd, w_t, tp,
-      wsdf_col, w_rad, b_rad, rad, w_radt, radt, mx, md, lda, ldd, ldg, sc);
+      wsdf_col, w_rad, b_rad, rad, w_radt, radt, w_l, b_l, w_lt, lp,
+      detach_light, mx, md, lda, ldd, ldg, sc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_wgrad(fwd, kRadiance ? &rad : nullptr, sc, rest, ws32, out,
-                      st);
+  return launch_wgrad(fwd, kRadiance ? &rad : nullptr,
+                      kLight ? &lp : nullptr, sc, rest, ws32, out, st);
 }
 
 }  // namespace
@@ -1234,6 +1490,18 @@ inline Plan read_plan(const int* desc, int n) {
   p.n = n;
   for (int l = 0; l < n && l < kMaxLayers; ++l)
     for (int f = 0; f < 8; ++f) p.L[l][f] = desc[l * 8 + f];
+  return p;
+}
+
+// The light net's plan from its rows and its transpose's (n 0: none).
+inline LightPlan read_light_plan(const int* desc, const int* t_desc, int n) {
+  LightPlan p{};
+  p.n = n;
+  for (int l = 0; l < n && l < kMaxLight; ++l)
+    for (int f = 0; f < 8; ++f) {
+      p.L[l][f] = desc[l * 8 + f];
+      if (t_desc) p.T[l][f] = t_desc[l * 8 + f];
+    }
   return p;
 }
 

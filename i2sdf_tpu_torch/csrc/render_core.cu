@@ -24,23 +24,45 @@
 // closed-form Jacobian of the wide-block encoding: d sin(f x)/dx =
 // f cos(f x), d cos(f x)/dx = -f sin(f x). Only sdf, grad and rgb reach
 // device memory.
+//
+// The light head of the light-mask config (the TPU op's `lcfg` branch,
+// `fused_train.py:173-195,252-256`) is the kernel's `kLight`
+// instantiation, taken when the light net has layers (n_l > 0): after the
+// SDF output layer, relu(features) goes to a third activation buffer
+// (~19 KB more shared memory); at the end of the kernel the light net
+// (Softplus(100) hidden layers, its one output column padded to a 16-wide
+// tile with zero weights) runs between it and a free buffer of the pair,
+// in an out-of-line device function whose registers are allocated apart
+// from the sweeps', and a sigmoid epilogue writes the mask (N, 1). At the
+// light config (256 -> 128 -> 1) that is ~66 K more flops a point,
+// against the ~1.9 M of the SDF sweeps and the radiance net, and 4 more
+// bytes out.
 #include "common.cuh"
 
 extern "C" int i2sdf_render_core_fwd(
     const float* x, const float* dirs, int n, const void* w_fwd,
     const float* b_sdf, const int* fwd_desc, int n_fwd, const void* w_rev,
     const int* rev_desc, int n_rev, const float* wsdf_col, const void* w_rad,
-    const float* b_rad, const int* rad_desc, int n_rad, int mx, int md,
-    int lda, int ldd, int ldg, float* sdf_out, float* grad_out,
-    float* rgb_out, void* stream) {
+    const float* b_rad, const int* rad_desc, int n_rad, const void* w_l,
+    const float* b_l, const int* l_desc, int n_l, int mx, int md, int lda,
+    int ldd, int ldg, float* sdf_out, float* grad_out, float* rgb_out,
+    float* lmask_out, void* stream) {
   using namespace i2sdf;
   if (n <= 0) return 0;
   if (n_fwd > kMaxLayers || n_rev != n_fwd - 1 || n_rad > kMaxLayers ||
-      n_fwd < 2)
+      n_fwd < 2 || n_l < 0 || n_l > kMaxLight)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_fwd_sweep<true>(
-      x, dirs, n, (const uint2*)w_fwd, b_sdf, read_plan(fwd_desc, n_fwd),
-      (const uint2*)w_rev, read_plan(rev_desc, n_rev), wsdf_col,
-      (const uint2*)w_rad, b_rad, read_plan(rad_desc, n_rad), mx, md, lda,
-      ldd, ldg, 0, sdf_out, grad_out, rgb_out, nullptr, stream);
+  const Plan fwd = read_plan(fwd_desc, n_fwd), rev = read_plan(rev_desc, n_rev);
+  const Plan rad = read_plan(rad_desc, n_rad);
+  const LightPlan lp = read_light_plan(l_desc, nullptr, n_l);
+  if (n_l > 0)
+    return (int)launch_fwd_sweep<true, true>(
+        x, dirs, n, (const uint2*)w_fwd, b_sdf, fwd, (const uint2*)w_rev, rev,
+        wsdf_col, (const uint2*)w_rad, b_rad, rad, (const uint2*)w_l, b_l,
+        lp, mx, md, lda, ldd, ldg, 0, sdf_out, grad_out, rgb_out, lmask_out,
+        nullptr, stream);
+  return (int)launch_fwd_sweep<true, false>(
+      x, dirs, n, (const uint2*)w_fwd, b_sdf, fwd, (const uint2*)w_rev, rev,
+      wsdf_col, (const uint2*)w_rad, b_rad, rad, nullptr, nullptr, lp, mx, md,
+      lda, ldd, ldg, 0, sdf_out, grad_out, rgb_out, nullptr, nullptr, stream);
 }

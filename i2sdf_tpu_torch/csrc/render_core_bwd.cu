@@ -47,7 +47,25 @@
 // s = sigmoid(100 z) and 1 - s keep bf16's relative precision in the
 // second-order factor 100 s (1 - s). The encoding's Jacobian is the
 // closed form (d sin(f x)/dx = f cos(f x)). Eikonal rows carry zero
-// directions and zero rgb and sdf cotangents, so only c_grad reaches them.
+// directions and zero rgb, sdf and light cotangents, so only c_grad
+// reaches them.
+//
+// The light head (the TPU op's backward with `lcfg`,
+// `fused_train.py:324-348`) is the `kLight` instantiation, taken when
+// the light net has layers: c_lm is column 7 of the cotangent rows. In
+// the sweep, right after the SDF recompute, the light net runs on
+// relu(features) (a third activation buffer, ~19 KB of shared memory),
+// staging each layer's input and, for a hidden layer, its first-order
+// derivative s = sigmoid(100 z) (the light net's input is not
+// differentiated with respect to x, so there is no second-order term);
+// dz = c_lm lm (1 - lm) goes back through the transposed light layers,
+// dz = dh s replacing s in the staging. The light layers' weight
+// gradients join the split-K products and the fixed-order sums, so they
+// are bit-stable too. With `detach_light` off, the light net's input
+// cotangent, gated by relu'(features), is added in f32 to the features'
+// cotangent from the radiance net before the SDF output layer's
+// cotangent is stored; with it on, nothing of the light reaches the SDF
+// net's sweeps, whose results are the kernel without the light head's.
 #include "common.cuh"
 
 // The scratch table (int64, element offsets) is built by
@@ -58,18 +76,31 @@ extern "C" int i2sdf_render_core_bwd(
     const void* w_fwd, const float* b_sdf, const int* fwd_desc, int n_fwd,
     const void* w_t, const int* t_desc, int n_t, const float* wsdf_col,
     const void* w_rad, const float* b_rad, const int* rad_desc, int n_rad,
-    const void* w_radt, const int* radt_desc, int n_radt, int mx, int md,
-    int lda, int ldd, int ldg, void* ws16, float* ws32,
-    const long long* table, float* out, void* stream) {
+    const void* w_radt, const int* radt_desc, int n_radt, const void* w_l,
+    const float* b_l, const int* l_desc, int n_l, const void* w_lt,
+    const int* lt_desc, int n_lt, int detach_light, int mx, int md, int lda,
+    int ldd, int ldg, void* ws16, float* ws32, const long long* table,
+    float* out, void* stream) {
   using namespace i2sdf;
   if (n <= 0) return 0;
   if (n_fwd > kMaxSdf || n_rad > kMaxRad || n_t != n_fwd ||
-      n_radt != n_rad || n_fwd < 2)
+      n_radt != n_rad || n_fwd < 2 || n_l < 0 || n_l > kMaxLight ||
+      n_lt != n_l)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_bwd<true>(
+  const Plan fwd = read_plan(fwd_desc, n_fwd), tp = read_plan(t_desc, n_t);
+  const Plan rad = read_plan(rad_desc, n_rad);
+  const Plan radt = read_plan(radt_desc, n_radt);
+  const LightPlan lp = read_light_plan(l_desc, lt_desc, n_l);
+  if (n_l > 0)
+    return (int)launch_bwd<true, true>(
+        x, dirs, cot, nullptr, 0, nullptr, n, np, (const uint2*)w_fwd, b_sdf,
+        fwd, (const uint2*)w_t, tp, wsdf_col, (const uint2*)w_rad, b_rad, rad,
+        (const uint2*)w_radt, radt, (const uint2*)w_l, b_l,
+        (const uint2*)w_lt, lp, detach_light, mx, md, lda, ldd, ldg, ws16,
+        ws32, table, out, stream);
+  return (int)launch_bwd<true, false>(
       x, dirs, cot, nullptr, 0, nullptr, n, np, (const uint2*)w_fwd, b_sdf,
-      read_plan(fwd_desc, n_fwd), (const uint2*)w_t, read_plan(t_desc, n_t),
-      wsdf_col, (const uint2*)w_rad, b_rad, read_plan(rad_desc, n_rad),
-      (const uint2*)w_radt, read_plan(radt_desc, n_radt), mx, md, lda, ldd,
-      ldg, ws16, ws32, table, out, stream);
+      fwd, (const uint2*)w_t, tp, wsdf_col, (const uint2*)w_rad, b_rad, rad,
+      (const uint2*)w_radt, radt, nullptr, nullptr, nullptr, lp, 1, mx, md,
+      lda, ldd, ldg, ws16, ws32, table, out, stream);
 }

@@ -45,10 +45,12 @@ extern "C" int i2sdf_rev_bwd(const float* x, const float* c_out,
   if (n <= 0) return 0;
   if (n_fwd > kMaxSdf || n_t != n_fwd || n_fwd < 2)
     return (int)cudaErrorInvalidValue;
-  const Plan none{};  // no radiance net
-  return (int)launch_bwd<false>(
+  const Plan none{};        // no radiance net
+  const LightPlan no_l{};  // no light net
+  return (int)launch_bwd<false, false>(
       x, nullptr, nullptr, c_out, out_cols, c_g, n, np, (const uint2*)w_fwd,
       b_sdf, read_plan(fwd_desc, n_fwd), (const uint2*)w_t,
       read_plan(t_desc, n_t), wsdf_col, nullptr, nullptr, none, nullptr,
-      none, mx, 0, lda, ldd, ldg, ws16, ws32, table, out, stream);
+      none, nullptr, nullptr, nullptr, no_l, 1, mx, 0, lda, ldd, ldg, ws16,
+      ws32, table, out, stream);
 }

@@ -38,10 +38,11 @@ extern "C" int i2sdf_rev_fwd(const float* x, int n, const void* w_fwd,
   if (n <= 0) return 0;
   if (n_fwd > kMaxLayers || n_rev != n_fwd - 1 || n_fwd < 2)
     return (int)cudaErrorInvalidValue;
-  const Plan none{};  // no radiance net
-  return (int)launch_fwd_sweep<false>(
+  const Plan none{};        // no radiance net
+  const LightPlan no_l{};  // no light net
+  return (int)launch_fwd_sweep<false, false>(
       x, nullptr, n, (const uint2*)w_fwd, b_sdf, read_plan(fwd_desc, n_fwd),
       (const uint2*)w_rev, read_plan(rev_desc, n_rev), wsdf_col, nullptr,
-      nullptr, none, mx, 0, lda, ldd, ldg, out_cols, nullptr, grad_out,
-      nullptr, out, stream);
+      nullptr, none, nullptr, nullptr, no_l, mx, 0, lda, ldd, ldg, out_cols,
+      nullptr, grad_out, nullptr, nullptr, out, stream);
 }

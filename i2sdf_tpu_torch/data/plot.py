@@ -1,9 +1,14 @@
 """Full-image evaluation data (counterpart of `i2sdf_tpu/data/plot.py`).
 
-Cameras come from `cameras_normalize.npz` (`world_mat_i @ scale_mat_i`,
-decomposed with numpy), images from `image/*.png`. Only the requested
-views are read. `downsample` takes an area mean and rescales the
-intrinsics. The `val/` held-out cameras and HDR images are not ported yet.
+Two sources, as the JAX package has them: the training dataset's arrays
+handed over in memory (`data=`: intrinsics, poses, images, resolution and
+light masks, `plot.py:58-65` there), or the scan directory, where cameras
+come from `cameras_normalize.npz` (`world_mat_i @ scale_mat_i`,
+decomposed with numpy) and images from `image/*.png`; only the requested
+views are read, and no light masks (JAX `plot.py:91-96` builds its
+`ReconData` without them either). The selected views (`indices`) are then downsampled by an area
+mean, light masks with the images (`plot.py:98-112`), and the intrinsics
+rescaled. The `val/` held-out cameras and HDR images are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,10 +21,54 @@ from ..utils import imaging
 from ..utils.cameras import load_K_Rt_from_P
 
 
+def _downsample(imgs: np.ndarray, res, factor: int) -> np.ndarray:
+    """(n, H*W, C) -> (n, h*w, C) area means."""
+    H, W = res
+    return np.stack([imaging.downsample_area(im.reshape(H, W, -1), factor)
+                     .reshape(-1, im.shape[-1]) for im in imgs])
+
+
 class PlotData:
-    def __init__(self, data_dir: str, scan_id: int = 0,
+    def __init__(self, data_dir: str | None = None, scan_id: int = 0,
                  data_root: str = "data", downsample: int = 1,
-                 indices=None, **_unused):
+                 indices=None, data: dict | None = None, **_unused):
+        if data is not None:
+            intr = np.asarray(data["intrinsics"])
+            pose = np.asarray(data["pose"])
+            rgb = np.asarray(data["rgb"])
+            res = list(data["img_res"])
+            lmask = (np.asarray(data["light_mask"])
+                     if data.get("light_mask") is not None else None)
+            idx = (list(range(len(rgb))) if indices is None
+                   else [int(i) for i in indices])
+            intr, pose, rgb = intr[idx], pose[idx], rgb[idx]
+            if lmask is not None:
+                lmask = lmask[idx]
+        else:
+            intr, pose, rgb, res, idx = self._read(
+                data_dir, scan_id, data_root, indices)
+            lmask = None
+        if downsample > 1:
+            intr = intr.copy()
+            intr[:, :2, :] /= downsample
+            rgb = _downsample(rgb, res, downsample)
+            if lmask is not None:
+                lmask = _downsample(lmask, res, downsample)
+            res = [res[0] // downsample, res[1] // downsample]
+        self.indices = idx
+        self.img_res = res
+        self.intrinsics_all = intr
+        self.pose_all = pose
+        self.rgb_images = rgb
+        self.lightmask_images = lmask
+        self.n_images = len(idx)
+        self.total_pixels = res[0] * res[1]
+        H, W = res
+        jj, ii = np.meshgrid(np.arange(W), np.arange(H))
+        self.uv = np.stack([jj, ii], -1).reshape(-1, 2).astype(np.float32)
+
+    @staticmethod
+    def _read(data_dir, scan_id, data_root, indices):
         instance_dir = os.path.join(data_root, data_dir, f"scan{scan_id}")
         paths = imaging.glob_imgs(os.path.join(instance_dir, "image"),
                                   (".png",))
@@ -33,24 +82,12 @@ class PlotData:
             P = (cams[f"world_mat_{i}"].astype(np.float32)
                  @ cams[f"scale_mat_{i}"].astype(np.float32))[:3, :4]
             K, c2w = load_K_Rt_from_P(P)
-            if downsample > 1:
-                K = K.copy()
-                K[:2, :] /= downsample
             intr.append(K)
             pose.append(c2w)
-            img = imaging.downsample_area(imaging.load_rgb(paths[i]),
-                                          downsample)
+            img = imaging.load_rgb(paths[i])
             rgb.append(img.reshape(-1, 3))
-        self.indices = idx
-        self.img_res = list(img.shape[:2])
-        self.intrinsics_all = np.stack(intr)
-        self.pose_all = np.stack(pose)
-        self.rgb_images = np.stack(rgb)
-        self.n_images = len(idx)
-        self.total_pixels = self.img_res[0] * self.img_res[1]
-        H, W = self.img_res
-        jj, ii = np.meshgrid(np.arange(W), np.arange(H))
-        self.uv = np.stack([jj, ii], -1).reshape(-1, 2).astype(np.float32)
+        return (np.stack(intr), np.stack(pose), np.stack(rgb),
+                list(img.shape[:2]), idx)
 
     def image_inputs(self, i: int):
         """Row i: (uv (HW, 2), intrinsics, pose, rgb_gt (HW, 3))."""

@@ -8,8 +8,9 @@ bubble point cloud is the valid depth unprojected, with `pointlinks`
 (flat pixel -> point, -1 where invalid) and `pixlinks` (point -> flat
 pixel). A modality whose directory is missing is switched off, as the JAX
 loader does. Images are PNG (`utils/imaging.py`); depth and normal maps
-EXR or `.npy`. Masks and light masks are not read yet: their losses are
-off in the configs this port runs.
+EXR or `.npy`; light masks grey PNG or `.npy` (`load_mask`), read for the
+light-mask loss (JAX `recon.py:133-139`). Object masks are not read yet:
+their loss is off in the configs this port runs.
 
 Every flat tensor is moved to the device once (`DeviceArrays`), and each
 step gathers its ray batch there (`sample_batch`).
@@ -34,6 +35,7 @@ class DeviceArrays:
     intrinsics: torch.Tensor           # (n, 4, 4)
     pose: torch.Tensor                 # (n, 4, 4)
     rgb: torch.Tensor                  # (n, HW, 3)
+    light_mask: torch.Tensor | None = None    # (n, HW, 1)
     depth: torch.Tensor | None = None         # (n, HW)
     depth_mask: torch.Tensor | None = None    # (n, HW) bool
     normal: torch.Tensor | None = None        # (n, HW, 3)
@@ -73,9 +75,6 @@ class ReconData:
         if is_hdr or use_mask or noise_scale > 0:
             raise ValueError("HDR images, masks and depth noise are not "
                              "ported yet")
-        if use_lightmask and os.path.isdir(
-                os.path.join(self.instance_dir, "light_mask")):
-            raise ValueError("the light-mask loss is not ported yet")
         image_paths = imaging.glob_imgs(
             os.path.join(self.instance_dir, "image"), (".png",))
         self.n_images = len(image_paths)
@@ -102,6 +101,14 @@ class ReconData:
         H, W = self.img_res
         jj, ii = np.meshgrid(np.arange(W), np.arange(H))
         self.uv = np.stack([jj, ii], -1).reshape(-1, 2).astype(np.float32)
+
+        lmask_dir = os.path.join(self.instance_dir, "light_mask")
+        self.use_lightmask = use_lightmask and os.path.isdir(lmask_dir)
+        self.lightmask_images = None
+        if self.use_lightmask:
+            self.lightmask_images = np.stack([
+                imaging.load_mask(p).reshape(-1, 1)
+                for p in imaging.glob_imgs(lmask_dir)])
 
         self.pdf_prune, self.pdf_max = pdf_prune, pdf_max
         depth_dir = os.path.join(self.instance_dir, "depth")
@@ -175,6 +182,7 @@ class ReconData:
         return DeviceArrays(
             uv=put(self.uv), intrinsics=put(self.intrinsics_all),
             pose=put(self.pose_all), rgb=put(self.rgb_images),
+            light_mask=put(self.lightmask_images),
             depth=put(self.depth_images), depth_mask=put(self.depth_masks),
             normal=put(self.normal_images),
             normal_mask=put(self.normal_masks),
@@ -193,6 +201,8 @@ def sample_batch(data: DeviceArrays, idx: torch.Tensor):
               "intrinsics": data.intrinsics[img],
               "pose": data.pose[img]}
     gt = {"rgb": data.rgb[img, pidx]}
+    if data.light_mask is not None:
+        gt["light_mask"] = data.light_mask[img, pidx]
     if data.depth is not None:
         gt["depth"] = data.depth[img, pidx]
         gt["depth_mask"] = data.depth_mask[img, pidx]

@@ -4,7 +4,9 @@ render the selected views, write the artifacts, report PSNR and SSIM.
 Artifacts under `<exp_dir>/eval/`: `rendering/{i}_pred.png` and the
 pred|gt panel `rendering/{i}.png`, `depth/{i}.npy` with a gray PNG,
 `normal/{i}w.npy` (world), `normal/{i}.npy` and `.png` (camera), and
-`metrics.txt`. LPIPS is not ported yet.
+`metrics.txt`. In the light-mask config the render computes the light
+mask too (K3 with the light head on the card) and, as the JAX package's
+`eval/render.py`, writes none of it. LPIPS is not ported yet.
 """
 
 from __future__ import annotations

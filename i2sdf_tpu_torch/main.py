@@ -6,7 +6,9 @@
         --test_mode render [--indices 0 3] [--ckpt last|N|model.pt] \
         [--seed 7] [--device cpu]
 
-The flags are the reference's. Without `--test` the trainer runs
+The flags are the reference's. Every shipped config whose model the port
+has (the flagship's, its normal-loss-off copies, the light-mask config)
+runs through both modes. Without `--test` the trainer runs
 (`train/trainer.py`) for `--max_steps` steps (the config's
 `train.steps` if not given); `--resume` continues from the newest
 checkpoint of the experiment's version directory. Of the test modes only

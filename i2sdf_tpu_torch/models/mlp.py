@@ -4,7 +4,9 @@ Weight-normalized linear layers `lin{i}` = {v, g, b} with `v` stored
 (in, out), as the JAX package stores them, so the forward is `x @ W + b`
 and parameters cross between the packages without a transpose
 (`i2sdf_tpu_torch/params.py`). Geometric sphere init, skip connections
-scaled by 1/sqrt(2), Softplus(100), bounding-sphere clamp.
+scaled by 1/sqrt(2), Softplus(100), bounding-sphere clamp. The light
+head of the light-mask config is an `ImplicitNet` too: no encoding, no
+geometric init, a sigmoid `output_activation`.
 
 Compute is f32 everywhere in these modules; the CUDA kernels
 (`ops/kernels/`) take bf16 operands with f32 accumulation and are held to
@@ -44,9 +46,13 @@ class ImplicitNetConfig:
     embed_type: str | None = None
     multires: int = 6
     sphere_scale: float = 1.0
+    output_activation: str | None = None
 
     def __post_init__(self):
         _check_embed(self.embed_type)
+        if self.output_activation not in (None, "sigmoid"):
+            raise ValueError(f"output_activation {self.output_activation!r}"
+                             " is not ported yet (only 'sigmoid')")
 
     def layer_dims(self) -> list[int]:
         dims = ([self.d_in] + list(self.dims)
@@ -161,7 +167,8 @@ class ImplicitNet(nn.Module):
 def implicit_apply(cfg: ImplicitNetConfig, ws, bs,
                    x: torch.Tensor) -> torch.Tensor:
     """The implicit net with explicit (in, out) weights and biases:
-    (N, d_in) -> (N, d_out + F), unclamped."""
+    (N, d_in) -> (N, d_out + F), unclamped, through the output
+    activation if the config has one (JAX `mlp.py:211-212`)."""
     inp = cfg.embed(x)
     h = inp
     inv_sqrt2 = 1.0 / math.sqrt(2.0)
@@ -171,6 +178,8 @@ def implicit_apply(cfg: ImplicitNetConfig, ws, bs,
         h = h @ ws[layer] + bs[layer]
         if layer < len(ws) - 1:
             h = softplus_beta(h, 100.0)
+    if cfg.output_activation == "sigmoid":
+        h = torch.sigmoid(h)
     return h
 
 

@@ -1,12 +1,14 @@
 """I2SDF volume renderer (counterpart of `i2sdf_tpu/models/renderer.py`).
 
-`I2SDFModel` holds the SDF net, the radiance net and the learnable beta.
-`render_rays` renders a batch of rays at eval (`training=False` in the
-reference): foreground only, with rgb, depth and the normal map, through
-K1-K3. `render_rays_train` is the training render (`renderer.py:299-311,
+`I2SDFModel` holds the SDF net, the radiance net, the learnable beta and,
+in the light-mask config, the light net. `render_rays` renders a batch of
+rays at eval (`training=False` in the reference): foreground only, with
+rgb, depth, the normal map and the light mask, through K1-K3.
+`render_rays_train` is the training render (`renderer.py:299-311,
 345-394,470-499`); it returns what the losses read (`grad_theta`,
 `diff_norm`, `surface_sdf` on the bubble points, `normal_values` under
-`use_normal`), differentiable with respect to the model's parameters,
+`use_normal`, `light_mask` with a light head), differentiable with
+respect to the model's parameters,
 and takes one of two routes, chosen as the JAX renderer chooses
 (`returns_grad`, `renderer.py:294`):
 
@@ -20,10 +22,23 @@ and takes one of two routes, chosen as the JAX renderer chooses
   K5 forward and K6 backward (`get_rev_op`, `renderer.py:473-477`).
 
 The sampler runs K1 and K2 on both routes. Its random numbers come in a
-`RenderDraws` bundle. Still refused, with a message: the light head
-(`model.light_network`), the NeRF++ background (`model.bg_network`), the
-per-ray sampler exit (`ray_sampler.per_ray_exit`, `early_exit: false`),
-idr-mode radiance and the SH/Fourier encodings.
+`RenderDraws` bundle.
+
+The light head of the light-mask config (`model.light_network`, JAX
+`renderer.py:92-107,185-186`) is an MLP on relu(features) with a sigmoid
+output, composited with the weights detached (`renderer.py:464-465`), so
+the light loss reaches neither beta nor the SDF through them. It rides
+in the render core's kernels on the normal-on route and at eval
+(`renderer.py:327-333,363-368`; only the render points' rows, not the
+eikonal points', enter the loss), and runs as a plain net on the
+features on the normal-off route (`renderer.py:456-462`). With
+`model.detach_light_feature` (true by default) its loss reaches the
+light net only; without, the SDF net through the features too.
+
+Still refused, with a message: the NeRF++ background
+(`model.bg_network`), the per-ray sampler exit
+(`ray_sampler.per_ray_exit`, `early_exit: false`), idr-mode radiance and
+the SH/Fourier encodings.
 
 Compute is f32 in the plain path on either device; on the card the hot
 functions run as CUDA kernels with bf16 operands and f32 accumulation
@@ -58,6 +73,12 @@ class I2SDFConfig:
     beta_init: float = 0.1
     beta_min: float = 1e-4
     use_normal: bool = False
+    light: ImplicitNetConfig | None = None
+    detach_light_feature: bool = True
+
+    @property
+    def use_light(self) -> bool:
+        return self.light is not None
 
     @classmethod
     def from_cfgnode(cls, conf: Any) -> "I2SDFConfig":
@@ -65,9 +86,8 @@ class I2SDFConfig:
         f32 (the reference's `compute_dtype` key is not read: its TPU
         default was bf16 matmul operands, which the port's kernels take
         on their own)."""
-        for key in ("light_network", "bg_network"):
-            if key in conf:
-                raise ValueError(f"model.{key} is not ported yet")
+        if "bg_network" in conf:
+            raise ValueError("model.bg_network is not ported yet")
         rs = conf.ray_sampler
         if rs.get("per_ray_exit", False) or not rs.get("early_exit", True):
             raise ValueError("only the global early-exit sampler is ported")
@@ -99,6 +119,21 @@ class I2SDFConfig:
             embed_type=ren.get("embed_type", None),
             multires=ren.get("multires", 4),
         )
+        light = None
+        if "light_network" in conf:
+            ln = conf.light_network
+            light = ImplicitNetConfig(
+                feature_vector_size=0,
+                sdf_bounding_sphere=0.0,
+                d_in=fvs,
+                d_out=1,
+                dims=tuple(ln.dims),
+                geometric_init=False,
+                skip_in=tuple(ln.get("skip_in", []) or []),
+                weight_norm=ln.get("weight_norm", True),
+                embed_type=None,
+                output_activation="sigmoid",
+            )
         sampler = SamplerConfig(
             scene_bounding_sphere=sphere,
             near=rs.get("near", 0.0),
@@ -116,11 +151,14 @@ class I2SDFConfig:
                    implicit=implicit, rendering=rendering, sampler=sampler,
                    beta_init=conf.density.params_init.beta,
                    beta_min=conf.density.get("beta_min", 1e-4),
-                   use_normal=conf.get("use_normal", False))
+                   use_normal=conf.get("use_normal", False), light=light,
+                   detach_light_feature=conf.get("detach_light_feature",
+                                                 True))
 
 
 class I2SDFModel(nn.Module):
-    """Parameters of the model: `implicit`, `rendering` and raw `beta`."""
+    """Parameters of the model: `implicit`, `rendering`, raw `beta` and,
+    in the light-mask config, `light`."""
 
     def __init__(self, cfg: I2SDFConfig, seed: int = 0):
         super().__init__()
@@ -130,6 +168,7 @@ class I2SDFModel(nn.Module):
         self.rendering = RenderingNet(cfg.rendering, gen)
         self.beta = nn.Parameter(torch.tensor(cfg.beta_init,
                                               dtype=torch.float32))
+        self.light = ImplicitNet(cfg.light, gen) if cfg.use_light else None
 
 
 @dataclasses.dataclass
@@ -142,8 +181,8 @@ class KernelWeights:
     @classmethod
     def pack(cls, model: I2SDFModel) -> "KernelWeights":
         return cls(sdf=sdf_mlp.SdfMlpPack(model.implicit),
-                   core=render_core.RenderCorePack(model.implicit,
-                                                   model.rendering))
+                   core=render_core.RenderCorePack(
+                       model.implicit, model.rendering, model.light))
 
 
 def _camera_rays(inputs: dict):
@@ -228,20 +267,30 @@ def render_rays_train(model: I2SDFModel, inputs: dict, draws: RenderDraws,
                              eik_near + draws.jitter])
 
     returns_grad = cfg.use_normal or cfg.rendering.mode == "idr"
+    lmask = None
     if returns_grad:
         with torch.no_grad():
             pts_in = torch.cat([points, eik_all]).contiguous()
             dirs_in = torch.cat([dirs, torch.zeros_like(eik_all)]).contiguous()
-        w = render_core.CoreWeights.of(model.implicit, model.rendering)
-        sdf_a, grad_a, rgb_a = render_core.render_core_train(
-            cfg.implicit, cfg.rendering, w, pts_in, dirs_in, plain=plain)
+        w = render_core.CoreWeights.of(model.implicit, model.rendering,
+                                       model.light)
+        sdf_a, grad_a, rgb_a, *lm_a = render_core.render_core_train(
+            cfg.implicit, cfg.rendering, w, pts_in, dirs_in, plain=plain,
+            lcfg=cfg.light, detach_light=cfg.detach_light_feature)
         n_main = R * S
         sdf, grad, rgb = sdf_a[:n_main], grad_a[:n_main], rgb_a[:n_main]
+        if lm_a:
+            lmask = lm_a[0][:n_main]
         grad_theta = grad_a[n_main:]
     else:
         out_main = model.implicit(points)
         sdf = clamp_sdf(cfg.implicit, out_main[:, :1], points)
         rgb = model.rendering(dirs, out_main[:, 1:])
+        if cfg.use_light:
+            lf = torch.relu(out_main[:, 1:])
+            if cfg.detach_light_feature:
+                lf = lf.detach()
+            lmask = model.light(lf)
         _, _, grad_theta = rev.sdf_outputs_rev(model.implicit,
                                                eik_all.contiguous(),
                                                plain=plain)
@@ -254,6 +303,9 @@ def render_rays_train(model: I2SDFModel, inputs: dict, draws: RenderDraws,
                          / torch.clamp(ray_dirs_norm, min=1e-6)),
         "weight_sum": weights.sum(-1, keepdim=True),
     }
+    if lmask is not None:
+        out["light_mask"] = (weights.detach()[..., None]
+                             * lmask.reshape(R, S, 1)).sum(1)
     out["grad_theta"] = grad_theta[:2 * R]
     pair = safe_normalize(grad_theta[R:])
     out["diff_norm"] = safe_norm(pair[:R] - pair[R:], dim=-1)
@@ -298,11 +350,11 @@ def render_rays(model: I2SDFModel, inputs: dict,
         dirs = ray_dirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
 
         if plain:
-            sdf, grad, rgb = render_core.render_core_plain(
-                model.implicit, model.rendering, points, dirs)
+            sdf, grad, rgb, *lmask = render_core.render_core_plain(
+                model.implicit, model.rendering, points, dirs, model.light)
         else:
-            sdf, grad, rgb = render_core.render_core_fwd(weights.core,
-                                                         points, dirs)
+            sdf, grad, rgb, *lmask = render_core.render_core_fwd(
+                weights.core, points, dirs)
 
         density = laplace_density(sdf, beta).reshape(R, S)
         w, _ = render_weights(z_vals, z_max, density)
@@ -310,5 +362,10 @@ def render_rays(model: I2SDFModel, inputs: dict,
         depth = (w * z_vals).sum(1) / torch.clamp(ray_dirs_norm, min=1e-6)
         normals = safe_normalize(grad).reshape(R, S, 3)
         normal_map = safe_normalize((w[..., None] * normals).sum(1))
-    return {"rgb_values": rgb_values, "depth_values": depth,
-            "weight_sum": w.sum(-1, keepdim=True), "normal_map": normal_map}
+        out = {"rgb_values": rgb_values, "depth_values": depth,
+               "weight_sum": w.sum(-1, keepdim=True),
+               "normal_map": normal_map}
+        if lmask:
+            out["light_mask"] = (w[..., None]
+                                 * lmask[0].reshape(R, S, 1)).sum(1)
+    return out

@@ -6,6 +6,8 @@
 | `sampler_round` | `sampler_round.py`, `csrc/sampler_round.cu` | `ops/pallas/sampler_round.py:218 sampler_round_pallas` |
 | `render_core_fwd` | `render_core.py`, `csrc/render_core.cu` | forward of `ops/pallas/fused_train.py:449 get_render_core_op` |
 | `render_core_bwd` | `render_core.py`, `csrc/render_core_bwd.cu` | backward of `ops/pallas/fused_train.py:449 get_render_core_op` |
+| `render_core_fwd_light` | `render_core.py`, `csrc/render_core.cu` | forward of the same op with the light head (`lcfg`) |
+| `render_core_bwd_light` | `render_core.py`, `csrc/render_core_bwd.cu` | backward of the same op with the light head |
 | `rev_fwd` | `rev.py`, `csrc/rev_fwd.cu` | forward of `ops/pallas/fused_rev.py:213 get_rev_op` |
 | `rev_bwd` | `rev.py`, `csrc/rev_bwd.cu` | backward of `ops/pallas/fused_rev.py:213 get_rev_op` |
 
@@ -13,7 +15,8 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 the plain PyTorch version for CPU tensors. Each kernel has a plain
 integer counter in its module that its wrapper increments once per
 kernel launch (`launches` in `sdf_mlp.py` and `sampler_round.py`;
-`launches` and `bwd_launches` in `render_core.py` and `rev.py`).
+`launches` and `bwd_launches` in `render_core.py` and `rev.py`;
+`light_launches` and `light_bwd_launches` in `render_core.py`).
 """
 
 from . import render_core, rev, sampler_round, sdf_mlp
@@ -23,6 +26,8 @@ KERNELS = {
     "sampler_round": (sampler_round, "launches"),
     "render_core_fwd": (render_core, "launches"),
     "render_core_bwd": (render_core, "bwd_launches"),
+    "render_core_fwd_light": (render_core, "light_launches"),
+    "render_core_bwd_light": (render_core, "light_bwd_launches"),
     "rev_fwd": (rev, "launches"),
     "rev_bwd": (rev, "bwd_launches"),
 }

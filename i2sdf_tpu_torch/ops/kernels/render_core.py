@@ -1,5 +1,6 @@
 """K3 `render_core_fwd` and K4 `render_core_bwd`: SDF, spatial gradient and
-radiance at points, and the backward of the same function.
+radiance at points (and, with a light head, the light mask), and the
+backward of the same function.
 
 Replaces `i2sdf_tpu/ops/pallas/fused_train.py:449 get_render_core_op`:
 its forward (pallas_call at `:555`) is K3 (`csrc/render_core.cu`), its
@@ -7,17 +8,29 @@ backward (`:609`, `_make_bwd_kernel` at `:267-446`) is K4
 (`csrc/render_core_bwd.cu`). Each CUDA source's header says what bounds
 it and how it is built.
 
+The light head of the light-mask config (the `lcfg` / `detach_light`
+branch of the TPU op: `_light_forward` at `:173-195`, the forward at
+`:252-256`, the backward at `:324-348`) runs inside both kernels: the
+light MLP on relu(features), a sigmoid mask (N, 1) beside sdf, grad and
+rgb. K3 and K4 with the light head are their own kernel instantiations
+(`kLight` in `csrc/common.cuh`), counted apart: `render_core_fwd_light`
+and `render_core_bwd_light`. The light loss reaches the light net; with
+`detach_light` off, its feature cotangent joins the SDF's through
+relu'(features) (`fused_train.py:345-348`).
+
 * `render_core_fwd(pack, x, dirs)`: the eval forward (no gradient).
 * `render_core_train(nets, x, dirs)`: the training op, differentiable
-  with respect to both nets' parameters, through the spatial gradient
+  with respect to every net's parameters, through the spatial gradient
   too. On the card it is `RenderCoreTrain`, a `torch.autograd.Function`
   whose forward launches K3 and whose backward launches K4; it takes the
   *materialized* weights (weight norm applied outside by autograd) and
   saves only its inputs, as `op_fwd` does (`fused_train.py:647-650`).
 * `render_core_plain` / `render_core_train_plain`: the same functions in
   plain f32 PyTorch (the gradient by autograd, with `create_graph` for
-  training). The CPU path and the tests use them; on the card they only
-  serve as the yardstick the kernels are held to.
+  training; the light head as `_ref_light` in
+  `tests/test_pallas_train.py:139-148`). The CPU path and the tests use
+  them; on the card they only serve as the yardstick the kernels are
+  held to.
 
 The bounding-sphere clamp is applied outside the kernels, as
 `fused_train.py:771-777` does. The SDF net's kernel layout (`sdf_chains`),
@@ -38,40 +51,70 @@ from . import build, mma_pack
 
 launches = 0      # K3 launches since the last reset_launch_counts()
 bwd_launches = 0  # K4 launches since the last reset_launch_counts()
+light_launches = 0      # K3 with the light head
+light_bwd_launches = 0  # K4 with the light head
 
 _ROWS = 32               # points per block (kRows in both kernels)
 _MAX_WIDTH = 320         # 8 warps x 5 tiles x 8 columns
 _MAX_SMEM = 232448       # bytes a block may use on the H100
-_MAX_SDF, _MAX_RAD = 12, 8   # layer slots of K4's scratch table
+_MAX_SDF, _MAX_RAD, _MAX_LIGHT = 12, 8, 4   # layer slots of K4's table
 _MAX_SPLITS = 32         # point-range splits of K4's weight-gradient sums
 _PLAIN_CHUNK = 1 << 17
 
 
 @dataclasses.dataclass(frozen=True)
 class CoreWeights:
-    """Materialized (in, out) weights and biases of both nets, in the
-    nets' own layouts (what autograd differentiates)."""
+    """Materialized (in, out) weights and biases of the nets, in the nets'
+    own layouts (what autograd differentiates); the light net's are empty
+    without a light head."""
     ws_sdf: tuple
     bs_sdf: tuple
     ws_rad: tuple
     bs_rad: tuple
+    ws_l: tuple = ()
+    bs_l: tuple = ()
 
     @classmethod
-    def of(cls, implicit: mlp.ImplicitNet,
-           rendering: mlp.RenderingNet) -> "CoreWeights":
+    def of(cls, implicit: mlp.ImplicitNet, rendering: mlp.RenderingNet,
+           light: mlp.ImplicitNet | None = None) -> "CoreWeights":
         si, ri = implicit.layers(), rendering.layers()
+        li = light.layers() if light is not None else []
         return cls(tuple(l.weight() for l in si), tuple(l.b for l in si),
-                   tuple(l.weight() for l in ri), tuple(l.b for l in ri))
+                   tuple(l.weight() for l in ri), tuple(l.b for l in ri),
+                   tuple(l.weight() for l in li), tuple(l.b for l in li))
 
     def flat(self) -> list:
-        return [*self.ws_sdf, *self.bs_sdf, *self.ws_rad, *self.bs_rad]
+        return [*self.ws_sdf, *self.bs_sdf, *self.ws_rad, *self.bs_rad,
+                *self.ws_l, *self.bs_l]
 
     @classmethod
-    def unflat(cls, ts, n_sdf: int, n_rad: int) -> "CoreWeights":
+    def unflat(cls, ts, n_sdf: int, n_rad: int,
+               n_l: int = 0) -> "CoreWeights":
         ts = list(ts)
         a, b = n_sdf, 2 * n_sdf
+        c = b + 2 * n_rad
         return cls(tuple(ts[:a]), tuple(ts[a:b]), tuple(ts[b:b + n_rad]),
-                   tuple(ts[b + n_rad:b + 2 * n_rad]))
+                   tuple(ts[b + n_rad:c]), tuple(ts[c:c + n_l]),
+                   tuple(ts[c + n_l:c + 2 * n_l]))
+
+
+def n_layers(cfg) -> int:
+    """The layer count of a net's config (0 for no net)."""
+    return 0 if cfg is None else len(cfg.layer_dims()) - 1
+
+
+def check_light_net(icfg: mlp.ImplicitNetConfig,
+                    lcfg: mlp.ImplicitNetConfig) -> None:
+    """The light heads the kernels run (`supports_render_core`,
+    `fused_train.py:683-704`): no encoding, no skip, relu(features) in,
+    one sigmoid output."""
+    if (lcfg.embed_type is not None or lcfg.skip_in
+            or lcfg.d_in != icfg.feature_vector_size or lcfg.d_out != 1
+            or lcfg.feature_vector_size != 0
+            or lcfg.output_activation != "sigmoid"):
+        raise ValueError("render_core: the light head must be an MLP on the "
+                         "features with no encoding or skip and one sigmoid "
+                         "output")
 
 
 def _sdf_perm(F: int) -> list:
@@ -139,15 +182,19 @@ def sdf_chains(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
 
 
 class _KernelLayout:
-    """Both nets in the kernels' layouts, from materialized weights:
+    """The nets in the kernels' layouts, from materialized weights:
 
     * `fwd`, `sdft`, `rev`, `wsdf_col`: the SDF chain (`sdf_chains`), its
       output layer as [features | sdf];
     * `rad`, `radt`: the radiance chain (first layer's rows as
-      [features | PE(view)]) and its transpose, last layer first."""
+      [features | PE(view)]) and its transpose, last layer first;
+    * with a light head (`lcfg`), `light` and `lightt`: the light chain,
+      its first layer's rows the features in the net's order, and its
+      transpose, last layer first (`n_light` layers; 0 without)."""
 
     def __init__(self, icfg: mlp.ImplicitNetConfig,
-                 rcfg: mlp.RenderingNetConfig, w: CoreWeights):
+                 rcfg: mlp.RenderingNetConfig, w: CoreWeights,
+                 lcfg: mlp.ImplicitNetConfig | None = None):
         F = icfg.feature_vector_size
         if icfg.d_out != 1 or F % 2:
             raise ValueError("render_core: needs d_out 1 and an even "
@@ -172,13 +219,25 @@ class _KernelLayout:
         self.radt = mma_pack.pack_chain(
             [dict(w=wr[l].t(), b=None, real=F if l == 0 else rdims[l])
              for l in range(nr - 1, -1, -1)])
-        widest = max(p.max_width for p in (self.fwd, self.sdft, self.rad,
-                                           self.radt))
+        chains = [self.fwd, self.sdft, self.rad, self.radt]
+        self.light = self.lightt = None
+        nl = n_layers(lcfg)
+        if lcfg is not None:
+            check_light_net(icfg, lcfg)
+            wl = [t.detach().float() for t in w.ws_l]
+            bl = [t.detach().float() for t in w.bs_l]
+            self.light = mma_pack.pack_chain(
+                [dict(w=wl[l], b=bl[l]) for l in range(nl)])
+            self.lightt = mma_pack.pack_chain(
+                [dict(w=wl[l].t(), b=None) for l in range(nl - 1, -1, -1)])
+            chains += [self.light, self.lightt]
+        widest = max(p.max_width for p in chains)
         if widest > _MAX_WIDTH:
             raise ValueError(f"render_core: layer width above {_MAX_WIDTH}")
-        if n > _MAX_SDF or nr > _MAX_RAD:
+        if n > _MAX_SDF or nr > _MAX_RAD or nl > _MAX_LIGHT:
             raise ValueError("render_core: too many layers for the kernels")
-        self.n_sdf, self.n_rad, self.F, self.vdim = n, nr, F, vdim
+        self.n_sdf, self.n_rad, self.n_light = n, nr, nl
+        self.F, self.vdim = F, vdim
         self.lda = mma_pack.row_stride(widest)
         self.ldd = mma_pack.row_stride(int(self.fwd.plan[:-1, 1].max()))
         self.ldg = mma_pack.round_up(d0, 8)
@@ -189,16 +248,18 @@ class _KernelLayout:
                                  "shared memory")
         self.mx, self.md = icfg.multires, rcfg.multires
         self.shapes = (tuple(tuple(t.shape) for t in w.ws_sdf),
-                       tuple(tuple(t.shape) for t in w.ws_rad))
+                       tuple(tuple(t.shape) for t in w.ws_rad),
+                       tuple(tuple(t.shape) for t in w.ws_l[:nl]))
 
     def unpack_grads(self, out: torch.Tensor, plan: "_BwdPlan"):
-        """K4's flat output -> (dws_sdf, dbs_sdf, dws_rad, dbs_rad) in the
-        nets' own layouts: padding cut, the SDF output layer's columns and
-        the radiance input layer's rows put back in order (the gather's
+        """K4's flat output -> (dws_sdf, dbs_sdf, dws_rad, dbs_rad, dws_l,
+        dbs_l) in the nets' own layouts (the light lists empty without a
+        light head): padding cut, the SDF output layer's columns and the
+        radiance input layer's rows put back in order (the gather's
         transpose, as autodiff of `fused_train.py:737-754` does)."""
-        (w_sdf, w_rad), n, nr = self.shapes, self.n_sdf, self.n_rad
+        (w_sdf, w_rad, w_l), n, nr = self.shapes, self.n_sdf, self.n_rad
         dws, dbs = [], []
-        for p, (k, m) in enumerate(list(w_sdf) + list(w_rad)):
+        for p, (k, m) in enumerate(list(w_sdf) + list(w_rad) + list(w_l)):
             K, N = plan.dims[p]
             dws.append(out[plan.out[p]:plan.out[p] + K * N].view(K, N)[:k,
                                                                         :m])
@@ -209,51 +270,59 @@ class _KernelLayout:
         dbs[n - 1] = dbs[n - 1][inv_sdf]
         inv_rad = np.argsort(_rad_perm(self.vdim, self.F))
         dws[n] = dws[n][inv_rad]
-        return dws[:n], dbs[:n], dws[n:], dbs[n:]
+        c = n + nr
+        return dws[:n], dbs[:n], dws[n:c], dbs[n:c], dws[c:], dbs[c:]
 
 
 def fwd_smem(k) -> int:
     """The shared memory (bytes) of K3's and K5's kernel (`fwd_smem_bytes`
-    in csrc/common.cuh) for a layout `k` with `n_sdf`, `lda`, `ldd` and
-    `ldg`."""
-    return (2 * (2 * _ROWS * k.lda + (k.n_sdf - 1) * _ROWS * k.ldd)
+    in csrc/common.cuh) for a layout `k` with `n_sdf`, `n_light`, `lda`,
+    `ldd` and `ldg`: with a light head, one more activation buffer."""
+    return (2 * ((2 + (k.n_light > 0)) * _ROWS * k.lda
+                 + (k.n_sdf - 1) * _ROWS * k.ldd)
             + 4 * _ROWS * (3 + 3 + 1 + k.ldg))
 
 
 def bwd_smem(k) -> int:
     """The shared memory (bytes) of K4's and K6's sweep kernel
     (`bwd_smem_bytes` in csrc/common.cuh) for a layout `k` with
-    `n_sdf`, `lda`, `ldd` and `ldg`."""
-    return (2 * (2 * _ROWS * k.lda + (k.n_sdf - 1) * _ROWS * k.ldd)
+    `n_sdf`, `n_light`, `lda`, `ldd` and `ldg`."""
+    return (2 * ((2 + (k.n_light > 0)) * _ROWS * k.lda
+                 + (k.n_sdf - 1) * _ROWS * k.ldd)
             + 4 * _ROWS * (3 + 3 + 8 + 4 + k.ldg + k.lda))
 
 
 class _BwdPlan:
     """K4's scratch layout at n points, and the int64 table that tells the
     kernel where everything is (read in this order by `read_scratch` in
-    csrc/common.cuh); with no radiance layers (`k.n_rad` 0) it is K6's.
-    All sizes in elements; bf16 arrays live in one scratch buffer, f32
-    arrays in another, each array 16-byte aligned.
+    csrc/common.cuh); with no radiance and no light layers (`k.n_rad`,
+    `k.n_light` 0) it is K6's. All sizes in elements; bf16 arrays live in
+    one scratch buffer, f32 arrays in another, each array 16-byte aligned.
 
     Per SDF layer l (K_l x N_l padded): `ax` (2 np, K_l) = [da_l ; X_l],
     `br` (2 np, N_l) = [r_l ; dz_l], so dW_l = ax^T br over 2 np rows;
     `dzx` (np, N_l) the second-order term injected into z_l; `ah` (np,
     K_l, f32) d sdf / d h_l. Per radiance layer: `rx` (np, K) its inputs,
-    `rdz` (np, N) its output cotangents. `dbpart` (blocks, tb) each block's
-    bias-gradient sums. Each weight gradient is summed over `splits[p]`
-    point ranges of `chunk[p]` rows into `part[p]`, then the ranges are
-    added in order (deterministic). `out` (f32): every dW_p (K x N), then
-    the tb bias gradients."""
+    `rdz` (np, N) its output cotangents; per light layer likewise `lx`
+    and `ldz` (a hidden layer's `ldz` holds its activation derivative
+    until the backward overwrites it with dz). `dbpart` (blocks, tb) each
+    block's bias-gradient sums. Each weight gradient is summed over
+    `splits[p]` point ranges of `chunk[p]` rows into `part[p]`, then the
+    ranges are added in order (deterministic). `out` (f32): every dW_p
+    (K x N; SDF, radiance, light layers), then the tb bias gradients."""
 
     def __init__(self, k, n: int):
-        ns, nr = k.n_sdf, k.n_rad
+        ns, nr, nl = k.n_sdf, k.n_rad, k.n_light
         self.np = np_ = mma_pack.round_up(max(n, 1), _ROWS)
         self.blocks = np_ // _ROWS
         Ks, Ns = [int(v) for v in k.fwd.plan[:, 0]], [int(v) for v in
                                                       k.fwd.plan[:, 1]]
         rad = k.rad.plan if nr else np.zeros((0, 8), np.int32)
         Kr, Nr = [int(v) for v in rad[:, 0]], [int(v) for v in rad[:, 1]]
-        self.dims = list(zip(Ks, Ns)) + list(zip(Kr, Nr))
+        light = k.light.plan if nl else np.zeros((0, 8), np.int32)
+        Kl, Nl = [int(v) for v in light[:, 0]], [int(v) for v in light[:, 1]]
+        self.dims = (list(zip(Ks, Ns)) + list(zip(Kr, Nr))
+                     + list(zip(Kl, Nl)))
         self.n16 = self.n32 = 0
 
         def take16(size):
@@ -270,10 +339,12 @@ class _BwdPlan:
         self.ah = [-1] + [take32(np_ * K) for K in Ks[1:]]
         self.rx = [take16(np_ * K) for K in Kr]
         self.rdz = [take16(np_ * N) for N in Nr]
-        self.tb = sum(Ns) + sum(Nr)
-        self.db = list(np.cumsum([0] + Ns + Nr)[:-1].astype(int))
+        self.lx = [take16(np_ * K) for K in Kl]
+        self.ldz = [take16(np_ * N) for N in Nl]
+        self.tb = sum(Ns) + sum(Nr) + sum(Nl)
+        self.db = list(np.cumsum([0] + Ns + Nr + Nl)[:-1].astype(int))
         self.dbpart = take32(self.blocks * self.tb)
-        rows = [2 * np_] * ns + [np_] * nr
+        rows = [2 * np_] * ns + [np_] * (nr + nl)
         self.splits, self.chunk, self.part, self.out = [], [], [], []
         o = 0
         for (K, N), m in zip(self.dims, rows):
@@ -288,31 +359,38 @@ class _BwdPlan:
         self.n_out = o + self.tb
         self.table = np.ascontiguousarray(np.asarray(
             self.ax + self.br + self.dzx + self.ah + self.rx + self.rdz
+            + self.lx + self.ldz
             + [self.dbpart, self.tb] + self.db + self.splits + self.chunk
             + self.part + self.out + [self.out_db], np.int64))
 
 
 class RenderCorePack:
-    """Both nets, plus their kernel layout when they live on the card
-    (packed once, for eval)."""
+    """The nets (the light net too, if there is one), plus their kernel
+    layout when they live on the card (packed once, for eval)."""
 
-    def __init__(self, implicit: mlp.ImplicitNet, rendering: mlp.RenderingNet):
-        self.implicit, self.rendering = implicit, rendering
+    def __init__(self, implicit: mlp.ImplicitNet, rendering: mlp.RenderingNet,
+                 light: mlp.ImplicitNet | None = None):
+        self.implicit, self.rendering, self.light = implicit, rendering, light
         self.kernel = None
         if next(implicit.parameters()).is_cuda:
             with torch.no_grad():
-                self.kernel = _KernelLayout(implicit.cfg, rendering.cfg,
-                                            CoreWeights.of(implicit,
-                                                           rendering))
+                self.kernel = _KernelLayout(
+                    implicit.cfg, rendering.cfg,
+                    CoreWeights.of(implicit, rendering, light),
+                    None if light is None else light.cfg)
 
 
 # ---- plain versions ---------------------------------------------------------
 
 def render_core_train_plain(icfg, rcfg, w: CoreWeights, x: torch.Tensor,
-                            dirs: torch.Tensor):
-    """(sdf (N, 1), grad (N, 3), rgb (N, 3)) in f32, differentiable with
-    respect to the weights in `w`, through the spatial gradient too
-    (`create_graph`). Unclamped; `x` and `dirs` are constants."""
+                            dirs: torch.Tensor, lcfg=None,
+                            detach_light: bool = True):
+    """(sdf (N, 1), grad (N, 3), rgb (N, 3)) in f32, and with a light head
+    (`lcfg`, weights in `w.ws_l`, `w.bs_l`) the light mask (N, 1) of the
+    light net on relu(features), the features detached with
+    `detach_light`; differentiable with respect to the weights in `w`,
+    through the spatial gradient too (`create_graph`). Unclamped; `x`
+    and `dirs` are constants."""
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
         out = mlp.implicit_apply(icfg, w.ws_sdf, w.bs_sdf, xg)
@@ -320,20 +398,31 @@ def render_core_train_plain(icfg, rcfg, w: CoreWeights, x: torch.Tensor,
         (grad,) = torch.autograd.grad(sdf, xg, torch.ones_like(sdf),
                                       create_graph=True)
         rgb = mlp.rendering_apply(rcfg, w.ws_rad, w.bs_rad, dirs, feat)
-    return sdf, grad, rgb
+        if lcfg is None:
+            return sdf, grad, rgb
+        lf = torch.relu(feat)
+        if detach_light:
+            lf = lf.detach()
+        return sdf, grad, rgb, mlp.implicit_apply(lcfg, w.ws_l, w.bs_l, lf)
 
 
 def render_core_plain(implicit: mlp.ImplicitNet, rendering: mlp.RenderingNet,
-                      x: torch.Tensor, dirs: torch.Tensor):
-    """(sdf (N, 1), grad (N, 3), rgb (N, 3)) in f32 (chunked)."""
+                      x: torch.Tensor, dirs: torch.Tensor,
+                      light: mlp.ImplicitNet | None = None):
+    """(sdf (N, 1), grad (N, 3), rgb (N, 3)) in f32 (chunked), and with a
+    light net the light mask (N, 1)."""
     outs = []
     for xc, dc in zip(x.split(_PLAIN_CHUNK), dirs.split(_PLAIN_CHUNK)):
         sdf, feat, grad = mlp.sdf_outputs(implicit, xc)
         with torch.no_grad():
-            outs.append((sdf, grad, rendering(dc, feat)))
+            o = (sdf, grad, rendering(dc, feat))
+            if light is not None:
+                o += (light(torch.relu(feat)),)
+            outs.append(o)
     if not outs:
         z = x.new_zeros((0, 1))
-        return z, x.new_zeros((0, 3)), x.new_zeros((0, 3))
+        o = (z, x.new_zeros((0, 3)), x.new_zeros((0, 3)))
+        return o if light is None else o + (x.new_zeros((0, 1)),)
     return tuple(torch.cat(o) for o in zip(*outs))
 
 
@@ -356,8 +445,16 @@ def _check_points(x, dirs, name):
         raise ValueError(f"{name}: x and dirs differ in shape or device")
 
 
+def _light_args(k: _KernelLayout) -> tuple:
+    """The light net's kernel arguments (null pointers without one)."""
+    if not k.n_light:
+        return None, None, None, 0
+    return (k.light.weights.data_ptr(), k.light.biases.data_ptr(),
+            k.light.plan.ctypes.data, k.n_light)
+
+
 def _launch_fwd(k: _KernelLayout, x: torch.Tensor, dirs: torch.Tensor):
-    global launches
+    global launches, light_launches
     _check_points(x, dirs, "render_core_fwd")
     if k.fwd.weights.device != x.device:
         raise ValueError("render_core_fwd: the weights are not on the "
@@ -366,6 +463,8 @@ def _launch_fwd(k: _KernelLayout, x: torch.Tensor, dirs: torch.Tensor):
     sdf = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     grad = torch.empty((n, 3), dtype=torch.float32, device=x.device)
     rgb = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+    lmask = (torch.empty((n, 1), dtype=torch.float32, device=x.device)
+             if k.n_light else None)
     lib = build.load_library()
     err = lib.i2sdf_render_core_fwd(
         x.data_ptr(), dirs.data_ptr(), n,
@@ -374,54 +473,62 @@ def _launch_fwd(k: _KernelLayout, x: torch.Tensor, dirs: torch.Tensor):
         k.rev.weights.data_ptr(), k.rev.plan.ctypes.data, k.rev.n_layers,
         k.wsdf_col.data_ptr(),
         k.rad.weights.data_ptr(), k.rad.biases.data_ptr(),
-        k.rad.plan.ctypes.data, k.rad.n_layers,
+        k.rad.plan.ctypes.data, k.rad.n_layers, *_light_args(k),
         k.mx, k.md, k.lda, k.ldd, k.ldg,
         sdf.data_ptr(), grad.data_ptr(), rgb.data_ptr(),
+        None if lmask is None else lmask.data_ptr(),
         mma_pack.stream_of(x))
     build.check(err, "render_core_fwd")
+    if k.n_light:
+        light_launches += 1
+        return sdf, grad, rgb, lmask
     launches += 1
     return sdf, grad, rgb
 
 
 def render_core_fwd(p: RenderCorePack, x: torch.Tensor, dirs: torch.Tensor):
-    """(sdf (N, 1), grad (N, 3), rgb (N, 3)) at points x along unit dirs.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (or raise)."""
+    """(sdf (N, 1), grad (N, 3), rgb (N, 3)) at points x along unit dirs,
+    and with a light net the light mask (N, 1). CPU tensors take the
+    plain version; CUDA tensors launch the kernel (or raise)."""
     if not x.is_cuda:
-        return render_core_plain(p.implicit, p.rendering, x, dirs)
+        return render_core_plain(p.implicit, p.rendering, x, dirs, p.light)
     if p.kernel is None:
         raise ValueError("render_core_fwd: the nets' weights are not on the "
                          "card")
-    sdf, grad, rgb = _launch_fwd(p.kernel, x, dirs)
+    sdf, grad, *rest = _launch_fwd(p.kernel, x, dirs)
     sdf, grad = _sphere_clamp(p.implicit.cfg, x, sdf, grad)
-    return sdf, grad, rgb
+    return (sdf, grad, *rest)
 
 
-def pack_cotangents(n: int, c_sdf, c_grad, c_rgb, device) -> torch.Tensor:
-    """(N, 7) f32 [c_grad 3 | c_sdf 1 | c_rgb 3], zeros for a missing one
-    (the TPU kernel's cotangent stream, `fused_train.py:578-583`)."""
-    cot = torch.zeros((n, 7), dtype=torch.float32, device=device)
+def pack_cotangents(n: int, c_sdf, c_grad, c_rgb, device,
+                    c_lm=None) -> torch.Tensor:
+    """(N, 8) f32 [c_grad 3 | c_sdf 1 | c_rgb 3 | c_lm 1], zeros for a
+    missing one (the TPU kernel's cotangent stream,
+    `fused_train.py:578-583`)."""
+    cot = torch.zeros((n, 8), dtype=torch.float32, device=device)
     for sl, c in ((slice(0, 3), c_grad), (slice(3, 4), c_sdf),
-                  (slice(4, 7), c_rgb)):
+                  (slice(4, 7), c_rgb), (slice(7, 8), c_lm)):
         if c is not None:
             cot[:, sl] = c.reshape(n, -1)
     return cot
 
 
 def render_core_bwd(k: _KernelLayout, x: torch.Tensor, dirs: torch.Tensor,
-                    cot: torch.Tensor):
-    """K4: the gradients of <cot, [grad | sdf | rgb]> with respect to the
-    materialized weights and biases of both nets (unclamped outputs),
-    as (dws_sdf, dbs_sdf, dws_rad, dbs_rad) lists of f32 tensors.
-    CUDA tensors only: the plain backward is autograd of
+                    cot: torch.Tensor, detach_light: bool = True):
+    """K4: the gradients of <cot, [grad | sdf | rgb | lmask]> with respect
+    to the materialized weights and biases of the nets (unclamped
+    outputs), as (dws_sdf, dbs_sdf, dws_rad, dbs_rad, dws_l, dbs_l) lists
+    of f32 tensors (the light lists empty without a light head; with one,
+    `detach_light` off lets the light cotangent reach the SDF net through
+    the features). CUDA tensors only: the plain backward is autograd of
     `render_core_train_plain`."""
-    global bwd_launches
+    global bwd_launches, light_bwd_launches
     if not x.is_cuda:
         raise ValueError("render_core_bwd: the kernel takes CUDA tensors; "
                          "the plain backward is autograd of "
                          "render_core_train_plain")
     _check_points(x, dirs, "render_core_bwd")
-    mma_pack.check_input(cot, "cot", cols=7)
+    mma_pack.check_input(cot, "cot", cols=8)
     if cot.shape[0] != x.shape[0] or k.fwd.weights.device != x.device:
         raise ValueError("render_core_bwd: cotangents, points and weights "
                          "disagree in length or device")
@@ -430,6 +537,8 @@ def render_core_bwd(k: _KernelLayout, x: torch.Tensor, dirs: torch.Tensor,
     ws16 = torch.empty(plan.n16, dtype=torch.bfloat16, device=x.device)
     ws32 = torch.empty(plan.n32, dtype=torch.float32, device=x.device)
     out = torch.empty(plan.n_out, dtype=torch.float32, device=x.device)
+    lightt = ((k.lightt.weights.data_ptr(), k.lightt.plan.ctypes.data,
+               k.n_light) if k.n_light else (None, None, 0))
     lib = build.load_library()
     err = lib.i2sdf_render_core_bwd(
         x.data_ptr(), dirs.data_ptr(), cot.data_ptr(), n, plan.np,
@@ -440,54 +549,63 @@ def render_core_bwd(k: _KernelLayout, x: torch.Tensor, dirs: torch.Tensor,
         k.rad.weights.data_ptr(), k.rad.biases.data_ptr(),
         k.rad.plan.ctypes.data, k.rad.n_layers,
         k.radt.weights.data_ptr(), k.radt.plan.ctypes.data,
-        k.radt.n_layers, k.mx, k.md, k.lda, k.ldd, k.ldg,
+        k.radt.n_layers, *_light_args(k), *lightt, int(bool(detach_light)),
+        k.mx, k.md, k.lda, k.ldd, k.ldg,
         ws16.data_ptr(), ws32.data_ptr(), plan.table.ctypes.data,
         out.data_ptr(), mma_pack.stream_of(x))
     build.check(err, "render_core_bwd")
-    bwd_launches += 1
+    if k.n_light:
+        light_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return k.unpack_grads(out, plan)
 
 
 class RenderCoreTrain(torch.autograd.Function):
     """The training op on the card: K3 forward, K4 backward.
 
-    apply(icfg, rcfg, x, dirs, *weights.flat()) -> (sdf, grad, rgb),
+    apply(icfg, rcfg, lcfg, detach_light, x, dirs, *weights.flat()) ->
+    (sdf, grad, rgb), and the light mask with a light head (`lcfg`),
     unclamped. Gradients flow to the weights and biases only (x and dirs
     are constants: sampler depths and cameras)."""
 
     @staticmethod
-    def forward(ctx, icfg, rcfg, x, dirs, *flat):
-        n_sdf = len(icfg.layer_dims()) - 1
-        w = CoreWeights.unflat(flat, n_sdf, len(rcfg.layer_dims()) - 1)
-        sdf, grad, rgb = _launch_fwd(_KernelLayout(icfg, rcfg, w), x, dirs)
+    def forward(ctx, icfg, rcfg, lcfg, detach_light, x, dirs, *flat):
+        w = CoreWeights.unflat(flat, n_layers(icfg), n_layers(rcfg),
+                               n_layers(lcfg))
+        outs = _launch_fwd(_KernelLayout(icfg, rcfg, w, lcfg), x, dirs)
         ctx.save_for_backward(x, dirs, *flat)
-        ctx.cfgs = (icfg, rcfg)
-        return sdf, grad, rgb
+        ctx.cfgs = (icfg, rcfg, lcfg, detach_light)
+        return outs
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, c_sdf, c_grad, c_rgb):
+    def backward(ctx, c_sdf, c_grad, c_rgb, c_lm=None):
         x, dirs, *flat = ctx.saved_tensors
-        icfg, rcfg = ctx.cfgs
-        n_sdf = len(icfg.layer_dims()) - 1
-        w = CoreWeights.unflat(flat, n_sdf, len(rcfg.layer_dims()) - 1)
-        cot = pack_cotangents(x.shape[0], c_sdf, c_grad, c_rgb, x.device)
-        dws, dbs, dwr, dbr = render_core_bwd(_KernelLayout(icfg, rcfg, w),
-                                             x, dirs, cot)
-        return (None, None, None, None, *dws, *dbs, *dwr, *dbr)
+        icfg, rcfg, lcfg, detach_light = ctx.cfgs
+        w = CoreWeights.unflat(flat, n_layers(icfg), n_layers(rcfg),
+                               n_layers(lcfg))
+        cot = pack_cotangents(x.shape[0], c_sdf, c_grad, c_rgb, x.device,
+                              c_lm)
+        grads = render_core_bwd(_KernelLayout(icfg, rcfg, w, lcfg), x, dirs,
+                                cot, detach_light)
+        return (None,) * 6 + tuple(t for g in grads for t in g)
 
 
 def render_core_train(icfg, rcfg, w: CoreWeights, x: torch.Tensor,
-                      dirs: torch.Tensor, plain: bool = False):
-    """(sdf (N, 1), grad (N, 3), rgb (N, 3)), bounding-sphere clamped,
+                      dirs: torch.Tensor, plain: bool = False, lcfg=None,
+                      detach_light: bool = True):
+    """(sdf (N, 1), grad (N, 3), rgb (N, 3)), and with a light head
+    (`lcfg`) the light mask (N, 1); bounding-sphere clamped,
     differentiable with respect to `w`. CPU tensors take the plain
     version; CUDA tensors launch K3 now and K4 in the backward (or
     raise). `plain=True` takes the plain version on any device (to hold
     the kernels against it on the card)."""
     if x.is_cuda and not plain:
-        sdf, grad, rgb = RenderCoreTrain.apply(icfg, rcfg, x, dirs,
-                                               *w.flat())
+        sdf, grad, *rest = RenderCoreTrain.apply(
+            icfg, rcfg, lcfg, detach_light, x, dirs, *w.flat())
     else:
-        sdf, grad, rgb = render_core_train_plain(icfg, rcfg, w, x, dirs)
+        sdf, grad, *rest = render_core_train_plain(icfg, rcfg, w, x, dirs,
+                                                   lcfg, detach_light)
     sdf, grad = _sphere_clamp(icfg, x, sdf, grad)
-    return sdf, grad, rgb
+    return (sdf, grad, *rest)

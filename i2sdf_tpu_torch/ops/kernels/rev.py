@@ -43,7 +43,8 @@ class RevLayout:
     weights and biases: `fwd`, `sdft`, `rev` and `wsdf_col` as
     `render_core.sdf_chains` builds them, in the net's column order."""
 
-    n_rad, rad = 0, None   # K6's scratch plan has no radiance layers
+    # K6's scratch plan has no radiance and no light layers
+    n_rad, rad, n_light = 0, None, 0
 
     def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs):
         if icfg.d_out != 1:

@@ -1,10 +1,11 @@
 """Parameter converter between the JAX package and the port.
 
 The JAX parameter tree is `{"implicit": {"lin{i}": {"v", "g", "b"}},
-"rendering": {...}, "beta": scalar}` with weights stored (in, out); the
-port stores them the same way (`models/mlp.py`), so a leaf crosses as it
-is, under the key `"{net}.lin{i}.{leaf}"`. The tree is taken as numpy
-arrays (the port never imports JAX): convert with `np.asarray` first.
+"rendering": {...}, "beta": scalar}`, and `"light": {...}` in the
+light-mask config, with weights stored (in, out); the port stores them
+the same way (`models/mlp.py`), so a leaf crosses as it is, under the key
+`"{net}.lin{i}.{leaf}"`. The tree is taken as numpy arrays (the port
+never imports JAX): convert with `np.asarray` first.
 """
 
 from __future__ import annotations
@@ -14,14 +15,14 @@ import torch
 
 from .models.renderer import I2SDFConfig, I2SDFModel
 
-NETS = ("implicit", "rendering")
+NETS = ("implicit", "rendering", "light")  # "light" only where present
 
 
 def from_jax_params(tree: dict, cfg: I2SDFConfig | None = None) -> dict:
     """JAX parameter tree (numpy leaves) -> the port's `state_dict`.
     With `cfg`, keys and shapes are checked against the model."""
     sd = {}
-    for net in NETS:
+    for net in (n for n in NETS if n in tree):
         for lin, leaves in tree[net].items():
             for leaf, arr in leaves.items():
                 sd[f"{net}.{lin}.{leaf}"] = torch.from_numpy(
@@ -42,14 +43,14 @@ def from_jax_params(tree: dict, cfg: I2SDFConfig | None = None) -> dict:
 
 def to_jax_params(state_dict: dict) -> dict:
     """The port's `state_dict` -> JAX parameter tree with numpy leaves."""
-    tree: dict = {net: {} for net in NETS}
+    tree: dict = {}
     for key, v in state_dict.items():
         arr = v.detach().cpu().numpy().astype(np.float32)
         if key == "beta":
             tree["beta"] = arr
             continue
         net, lin, leaf = key.split(".")
-        tree[net].setdefault(lin, {})[leaf] = arr
+        tree.setdefault(net, {}).setdefault(lin, {})[leaf] = arr
     return tree
 
 

@@ -1,6 +1,7 @@
 """Checkpoints (counterpart of `i2sdf_tpu/train/checkpoint.py`, which uses
 orbax): one `torch.save` file a step under `<dir>/step_<n>.pt` with the
-model, the optimizer, the step and, inside the bubble window, the pdf and
+model (every net of it, the light net in the light-mask config), the
+optimizer, the step and, inside the bubble window, the pdf and
 sample counts (so a mid-window resume keeps its importance sampling, as
 the JAX package does). A file is written to a temporary name and renamed
 into place, so a crash never leaves a half-written checkpoint; the

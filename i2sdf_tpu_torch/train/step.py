@@ -2,9 +2,12 @@
 `i2sdf_tpu/train/step.py`).
 
 `make_train_step` returns the step the JAX package jits
-(`step.py:101-247`): the ray-batch gather, the bubble draw (in the
-window), the training render, the losses, the backward (K4 on the card),
-Adam, and the point-cloud pdf update with its sample counts. PyTorch runs
+(`step.py:101-247`): the ray-batch gather (with the light-mask target in
+the light-mask config), the bubble draw (in the window), the training
+render, the losses, the backward (K4 on the card), Adam, and the
+point-cloud pdf update with its sample counts. `make_eval_render_fn`
+renders a whole image in chunks; its output holds the light mask too
+when the model has a light head. PyTorch runs
 it eagerly. Its random numbers arrive in a `TrainDraws` bundle, drawn by
 default from a `torch.Generator` seeded with (seed, step), so a resumed
 run replays the draws an uninterrupted run would have made.

@@ -6,8 +6,12 @@ trainer.py`).
 `min_bubble_iter`: the point-cloud pdf initialized from an eval render of
 every training pixel, or uniform with `train.uniform_bubble`; closed at
 `max_bubble_iter`), periodic validation renders through the eval render
-with PSNR and SSIM and their plots, logs every `log_every` steps, and
-checkpoints. Left out against the JAX trainer: LPIPS, TensorBoard,
+with PSNR and SSIM and their plots (the light mask too, in grey, in the
+light-mask config), logs every `log_every` steps, and checkpoints. The
+validation views come from the training data's arrays, light masks
+included (`train.flip_light` inverts them in both, as
+`trainer.py:196-205` there). Left out against the JAX trainer: LPIPS,
+TensorBoard,
 multi-device data parallelism, per-ray sampler compaction, and the bubble
 hot/count maps and point-cloud HTML of `train/artifacts.py`.
 """
@@ -55,10 +59,15 @@ class ReconstructionTrainer:
             use_mask=lc.mask_weight > 0, use_depth=lc.depth_weight > 0,
             use_normal=use_normal, use_bubble=lc.bubble_weight > 0,
             use_lightmask=lc.light_mask_weight > 0, **ds)
-        self.device_data = self.train_data.to_device(self.device)
-        self.plot_data = PlotData(ds["data_dir"], scan_id=self.scan_id,
-                                  data_root=data_root,
-                                  downsample=ds.get("downsample", 1))
+        td = self.train_data
+        if td.use_lightmask and conf.train.get("flip_light", False):
+            td.lightmask_images = 1.0 - td.lightmask_images
+        self.device_data = td.to_device(self.device)
+        self.plot_data = PlotData(
+            data={"intrinsics": td.intrinsics_all, "pose": td.pose_all,
+                  "rgb": td.rgb_images, "img_res": td.img_res,
+                  "light_mask": td.lightmask_images},
+            downsample=ds.get("downsample", 1))
         self.plot_nimgs = conf.plot.get("plot_nimgs", 1)
 
         conf.model.use_normal = use_normal
@@ -248,6 +257,11 @@ class ReconstructionTrainer:
             n_cam = out["normal_map"].reshape(H, W, 3) @ pose[:3, :3]
             imaging.write_png(f"{self.plots_dir}/normal/{step}_{i}.png",
                               imaging.to_u8((n_cam + 1.0) / 2.0))
+            if "light_mask" in out:
+                os.makedirs(f"{self.plots_dir}/light_mask", exist_ok=True)
+                imaging.write_png(
+                    f"{self.plots_dir}/light_mask/{step}_{i}.png",
+                    imaging.to_u8(out["light_mask"].reshape(H, W)))
         result = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
         print(f"[val @{step}] " + " ".join(f"{k}={v:.4g}"
                                            for k, v in result.items())

@@ -4,7 +4,8 @@ PNG files are read and written with the standard library's `zlib` and
 numpy alone (8-bit gray, RGB or RGBA, not interlaced): the machine the
 port runs on is not promised OpenCV, imageio or PIL. EXR depth and normal
 maps are read by `utils/exr.py`, and `.npy` is accepted wherever an EXR
-is (`load_depth`, `load_normal`). Downsampling is an area mean over exact
+is (`load_depth`, `load_normal`); masks are PNG or `.npy`
+(`load_mask`). Downsampling is an area mean over exact
 integer factors (what OpenCV's INTER_AREA computes there). PSNR, SSIM
 and the sRGB curve follow the reference's definitions.
 """
@@ -155,6 +156,21 @@ def load_rgb(path: str) -> np.ndarray:
     if img.shape[2] == 1:
         img = np.repeat(img, 3, axis=2)
     return img[:, :, :3]
+
+
+def load_mask(path: str) -> np.ndarray:
+    """Single-channel mask as float32 (H, W): `.npy` as stored, an 8-bit
+    PNG's first channel scaled to [0, 1] when its maximum is above 1.5 (a
+    0/1 mask stays as it is), as `i2sdf_tpu/utils/imaging.py:83-95`."""
+    if path.endswith(".npy"):
+        img = np.load(path).astype(np.float32)
+    else:
+        img = read_png(path).astype(np.float32)
+        if img.max() > 1.5:
+            img = img / 255.0
+    if img.ndim == 3:
+        img = img[:, :, 0]
+    return img.astype(np.float32)
 
 
 def to_u8(img: np.ndarray) -> np.ndarray:

@@ -37,7 +37,7 @@ from i2sdf_tpu_torch.models import mlp
 from i2sdf_tpu_torch.ops.activations import softplus_beta
 from i2sdf_tpu_torch.ops.kernels import mma_pack, render_core
 from i2sdf_tpu_torch.models.embedder import positional_encoding
-from test_torch_kernel_layout import bf, unpack
+from test_torch_kernel_layout import LIGHT_CASES, bf, light_net, unpack
 
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -57,33 +57,43 @@ def grad_check(got, ref, leaf_tol=0.1, cos_tol=0.999) -> dict:
     return {"max_leaf_err": errs[worst], "cos": cos}
 
 
-def loss_cotangents(sdf, grad, rgb, seed=0):
-    """Cotangents (N, 7) [grad | sdf | rgb] of the loss the JAX package's
-    kernel test takes (`tests/test_pallas_train.py:38-43`: rgb L1, sdf^2,
-    normal L1 against seeded targets, eikonal) at these outputs."""
+def loss_cotangents(sdf, grad, rgb, seed=0, lmask=None):
+    """Cotangents (N, 8) [grad | sdf | rgb | lmask] of the loss the JAX
+    package's kernel test takes (`tests/test_pallas_train.py:38-43`: rgb
+    L1, sdf^2, normal L1 against seeded targets, eikonal; with a light
+    mask, its light test's 0.3 * mean((lmask - target)^2), `:186-188`) at
+    these outputs; the light column is zero without a light mask."""
     n = sdf.shape[0]
     gen = torch.Generator().manual_seed(seed)
     gt = torch.rand((n, 3), generator=gen).to(sdf.device)
     gn = torch.nn.functional.normalize(
         torch.randn((n, 3), generator=gen), dim=-1).to(sdf.device)
-    s, g, r = (t.detach().requires_grad_(True) for t in (sdf, grad, rgb))
+    gl = torch.rand((n, 1), generator=gen).to(sdf.device)
+    lm = sdf.new_zeros((n, 1)) if lmask is None else lmask
+    s, g, r, m = (t.detach().requires_grad_(True)
+                  for t in (sdf, grad, rgb, lm))
     with torch.enable_grad():
         nrm = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True),
                               min=1e-9)
         loss = ((r - gt).abs().mean() + 0.2 * (s ** 2).mean()
                 + 0.5 * (1 - (nrm * gn).sum(-1)).abs().mean()
                 + 0.1 * ((torch.linalg.norm(g, dim=-1) - 1) ** 2).mean())
-        cs, cg, cr = torch.autograd.grad(loss, (s, g, r))
-    return torch.cat([cg, cs, cr], 1)
+        if lmask is not None:
+            loss = loss + 0.3 * ((m - gl) ** 2).mean()
+        cs, cg, cr, cm = torch.autograd.grad(loss, (s, g, r, m),
+                                             allow_unused=True)
+    cm = torch.zeros_like(lm) if cm is None else cm
+    return torch.cat([cg, cs, cr, cm], 1)
 
 
-def plain_vjp(icfg, rcfg, w, x, dirs, cot):
-    """The plain backward: gradients of <cot, [grad | sdf | rgb]> with
-    respect to `w.flat()`."""
-    sdf, grad, rgb = render_core.render_core_train_plain(icfg, rcfg, w, x,
-                                                         dirs)
-    return list(torch.autograd.grad((sdf, grad, rgb), w.flat(),
-                                    (cot[:, 3:4], cot[:, :3], cot[:, 4:7])))
+def plain_vjp(icfg, rcfg, w, x, dirs, cot, lcfg=None, detach_light=True):
+    """The plain backward: gradients of <cot, [grad | sdf | rgb | lmask]>
+    with respect to `w.flat()` (the light mask with a light head)."""
+    outs = render_core.render_core_train_plain(icfg, rcfg, w, x, dirs,
+                                               lcfg, detach_light)
+    cots = (cot[:, 3:4], cot[:, :3], cot[:, 4:7], cot[:, 7:8])
+    return list(torch.autograd.grad(outs, w.flat(), cots[:len(outs)],
+                                    allow_unused=True))
 
 
 def bf16_weights(w: render_core.CoreWeights) -> render_core.CoreWeights:
@@ -97,7 +107,9 @@ def bf16_weights(w: render_core.CoreWeights) -> render_core.CoreWeights:
         tuple(leaf(t, True) for t in w.ws_sdf),
         tuple(leaf(t, False) for t in w.bs_sdf),
         tuple(leaf(t, True) for t in w.ws_rad),
-        tuple(leaf(t, False) for t in w.bs_rad))
+        tuple(leaf(t, False) for t in w.bs_rad),
+        tuple(leaf(t, True) for t in w.ws_l),
+        tuple(leaf(t, False) for t in w.bs_l))
 
 
 def pe_cols(x, F, width):
@@ -257,11 +269,17 @@ def replay_sdf_backward(k, sc: ReplayScratch, xs, cs, qs, sdf_col, rnd):
         v16(plan.br[l - 1], 2 * P, Ns[l - 1])[P:] = a
     # weight-gradient products, split over point ranges, then fixed-order sums
     out = torch.full((plan.n_out,), float("nan"), device=dev)
+    nr = k.n_rad
     for p, (K, N) in enumerate(plan.dims):
         sdf_layer = p < ns
         M = 2 * P if sdf_layer else P
-        A = v16(plan.ax[p] if sdf_layer else plan.rx[p - ns], M, K)
-        B = v16(plan.br[p] if sdf_layer else plan.rdz[p - ns], M, N)
+        if sdf_layer:
+            A, B = v16(plan.ax[p], M, K), v16(plan.br[p], M, N)
+        elif p < ns + nr:
+            A, B = v16(plan.rx[p - ns], M, K), v16(plan.rdz[p - ns], M, N)
+        else:
+            A = v16(plan.lx[p - ns - nr], M, K)
+            B = v16(plan.ldz[p - ns - nr], M, N)
         assert not (torch.isnan(A).any() or torch.isnan(B).any()), p
         parts = v32(plan.part[p], plan.splits[p], K * N)
         for s in range(plan.splits[p]):
@@ -273,11 +291,45 @@ def replay_sdf_backward(k, sc: ReplayScratch, xs, cs, qs, sdf_col, rnd):
     return out
 
 
-def emulate_bwd(k: render_core._KernelLayout, x, dirs, cot, rnd=bf):
+def replay_light(k, sc: ReplayScratch, feat, cs, rnd):
+    """Step 1b of `bwd_sweep_kernel<true, true>`: the light net on
+    relu(features) (X_l to lx[l], a hidden layer's s to ldz[l]), the
+    output's dz = c_lm lm (1 - lm), and the backward through the hidden
+    layers, dz replacing s in ldz[l], each layer's bias row to dbpart."""
+    plan, P, nl = sc.plan, sc.plan.np, k.n_light
+    o = k.n_sdf + k.n_rad  # the light layers' slots
+    h = _pad_cols(torch.relu(feat), int(k.light.plan[0, 0]))
+    for l in range(nl):
+        K, N, _, _, _, W, b = unpack(k.light, l)
+        sc.v16(plan.lx[l], P, K)[:] = h[:, :K]
+        z = h[:, :K] @ W + b
+        if l < nl - 1:
+            s = torch.where(100 * z > 20, torch.ones_like(z),
+                            torch.sigmoid(100 * z))
+            sc.v16(plan.ldz[l], P, N)[:] = rnd(s)
+            h = rnd(softplus_beta(z))
+        else:
+            lm = torch.sigmoid(z[:, :1])
+            dz = feat.new_zeros((P, N))
+            dz[:, :1] = cs[:, 7:8] * lm * (1 - lm)
+            sc.put_db(plan.db[o + l], dz)
+            a = rnd(dz)
+            sc.v16(plan.ldz[l], P, N)[:] = a
+    for l in range(nl - 1, 0, -1):
+        K, N, _, _, _, W, _ = unpack(k.lightt, nl - 1 - l)
+        dz = (a[:, :K] @ W) * sc.v16(plan.ldz[l - 1], P, N)
+        sc.put_db(plan.db[o + l - 1], dz)
+        a = rnd(dz)
+        sc.v16(plan.ldz[l - 1], P, N)[:] = a
+
+
+def emulate_bwd(k: render_core._KernelLayout, x, dirs, cot, rnd=bf,
+                detach_light=True):
     """`csrc/render_core_bwd.cu` in torch; returns what the wrapper
     returns. `rnd` is where the kernel rounds to bf16 (activations,
     cotangents, everything it stores as bf16); the identity replays the
-    same algorithm in f32 (on the kernel's bf16 weights)."""
+    same algorithm in f32 (on the kernel's bf16 weights). With a light
+    head (`k.n_light`), c_lm is the cotangents' column 7."""
     plan = render_core._BwdPlan(k, x.shape[0])
     P, ns, nr, F = plan.np, k.n_sdf, k.n_rad, k.F
     sc = ReplayScratch(plan, x.device)
@@ -287,6 +339,9 @@ def emulate_bwd(k: render_core._KernelLayout, x, dirs, cot, rnd=bf):
     # 1. SDF forward
     qs, z = replay_sdf_forward(k, sc, xs, rnd)
     feat = rnd(z[:, :F])
+    # 1b. the light head
+    if k.n_light:
+        replay_light(k, sc, feat, cs, rnd)
     # 2. radiance forward
     K0r = int(k.rad.plan[0, 0])
     h = torch.cat([feat, rnd(pe_cols(ds, k.md, K0r - F))], 1)
@@ -318,6 +373,12 @@ def emulate_bwd(k: render_core._KernelLayout, x, dirs, cot, rnd=bf):
             cy = x.new_zeros((P, Ns[-1]))
             cy[:, :F] = dh[:, :F]
             cy[:, F] = cs[:, 3]
+            if k.n_light and not detach_light:
+                # the light net's input cotangent through relu'(features)
+                K0, N0, _, _, _, W0, _ = unpack(k.lightt, k.n_light - 1)
+                cl = (v16(plan.ldz[0], P, K0) @ W0)[:, :F]
+                on = v16(plan.rx[0], P, int(k.rad.plan[0, 0]))[:, :F] > 0
+                cy[:, :F] += torch.where(on, cl, torch.zeros_like(cl))
             sc.put_db(plan.db[ns - 1], cy)
             v16(plan.br[ns - 1], 2 * P, Ns[-1])[P:] = rnd(cy)
     # 4-7 and the weight-gradient products
@@ -425,7 +486,125 @@ def test_bwd_plan_table_and_cotangents():
     assert plan.tb == sum(N for _, N in plan.dims)
     cot = render_core.pack_cotangents(
         2, torch.ones(2, 1), torch.full((2, 3), 2.0), None, "cpu")
-    assert cot.tolist() == [[2, 2, 2, 1, 0, 0, 0]] * 2
+    assert cot.tolist() == [[2, 2, 2, 1, 0, 0, 0, 0]] * 2
+    cot = render_core.pack_cotangents(2, None, None, None, "cpu",
+                                      torch.full((2, 1), 5.0))
+    assert cot.tolist() == [[0, 0, 0, 0, 0, 0, 0, 5]] * 2
+
+
+def light_layout(case, device="cpu", seed=0):
+    """The nets and kernel layout of a `LIGHT_CASES` case."""
+    (width, skip, feat, rad, mx, md), depth, rdepth, ldims = LIGHT_CASES[case]
+    gen = torch.Generator().manual_seed(seed)
+    icfg = mlp.ImplicitNetConfig(
+        feature_vector_size=feat, sdf_bounding_sphere=0.0,
+        dims=(width,) * depth, skip_in=(skip,), bias=0.6,
+        embed_type="positional", multires=mx)
+    rcfg = mlp.RenderingNetConfig(feature_vector_size=feat,
+                                  dims=(rad,) * rdepth,
+                                  embed_type="positional", multires=md)
+    net, rnet = mlp.ImplicitNet(icfg, gen), mlp.RenderingNet(rcfg, gen)
+    with torch.no_grad():  # move off the init's zero PE weights
+        for lin in net.layers() + rnet.layers():
+            lin.v.add_(0.01 * torch.randn(lin.v.shape, generator=gen))
+    lnet = light_net(feat, ldims, seed)
+    return net.to(device), rnet.to(device), lnet.to(device)
+
+
+def _light_grads(net, rnet, lnet, x, d, c, detach, rnd):
+    w = render_core.CoreWeights.of(net, rnet, lnet)
+    with torch.no_grad():
+        k = render_core._KernelLayout(net.cfg, rnet.cfg, w, lnet.cfg)
+        got = [t for grp in emulate_bwd(k, x, d, c, rnd=rnd,
+                                        detach_light=detach) for t in grp]
+    return w, k, got
+
+
+@pytest.mark.parametrize("detach", [True, False], ids=["detached",
+                                                       "coupled"])
+@pytest.mark.parametrize("case,n,eik", [("light", 96, 32),
+                                        ("narrow", 33, 0),
+                                        ("narrow", 160, 64)])
+def test_k4_light_replay_in_f32_equals_plain_backward(case, n, eik, detach):
+    """K4 with the light head, its algorithm in f32 on its bf16 weights,
+    against the plain backward on the same weights (1e-5 of each leaf's
+    largest entry), light leaves included and non-zero; detached, the
+    SDF and radiance leaves are the replay's without the light head."""
+    net, rnet, lnet = light_layout(case)
+    x, d = points(n, n, eik)
+    c = eik_only(torch.from_numpy(np.random.default_rng(n).normal(
+        size=(n, 8)).astype(np.float32)), eik)
+    w, k, got = _light_grads(net, rnet, lnet, x, d, c, detach,
+                             lambda t: t)
+    ref = plain_vjp(net.cfg, rnet.cfg, bf16_weights(w), x, d, c, lnet.cfg,
+                    detach)
+    assert [g.shape for g in got] == [r.shape for r in ref]
+    for i, (g, r) in enumerate(zip(got, ref)):
+        torch.testing.assert_close(g, r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()),
+                                   msg=str(i))
+    n_light = 2 * k.n_light
+    assert all(float(g.abs().max()) > 0 for g in got[-n_light:])
+    if detach:
+        with torch.no_grad():
+            k0 = render_core._KernelLayout(net.cfg, rnet.cfg,
+                                           render_core.CoreWeights.of(
+                                               net, rnet))
+            base = [t for grp in emulate_bwd(k0, x, d, c, rnd=lambda t: t)
+                    for t in grp]
+        for g, b in zip(got[:-n_light], base):
+            assert torch.equal(g, b)
+
+
+@pytest.mark.parametrize("detach", [True, False], ids=["detached",
+                                                       "coupled"])
+def test_k4_light_replay_with_its_rounding_meets_the_kernel_tolerance(
+        detach):
+    """At the light-mask config's widths and depths, with the kernel's
+    bf16 rounding and a loss's cotangents (the light term included),
+    against the plain f32 backward: the JAX package's gradient tolerance
+    for its bf16 kernel, every leaf the light net's too."""
+    net, rnet, lnet = light_layout("light")
+    n, eik = 1024, 256
+    x, d = points(n, 5, eik)
+    w = render_core.CoreWeights.of(net, rnet, lnet)
+    outs = render_core.render_core_train_plain(net.cfg, rnet.cfg, w, x, d,
+                                               lnet.cfg, detach)
+    c = eik_only(loss_cotangents(*outs[:3], lmask=outs[3]), eik)
+    assert float(c[:, 7].abs().max()) > 0
+    _, _, got = _light_grads(net, rnet, lnet, x, d, c, detach, bf)
+    grad_check(got, plain_vjp(net.cfg, rnet.cfg, w, x, d, c, lnet.cfg,
+                              detach))
+
+
+def test_bwd_plan_table_with_the_light_head():
+    """The light layers' staging (lx, ldz), slots and bias rows follow the
+    radiance layers' in the table, disjoint from every other array."""
+    net, rnet, lnet = light_layout("light")
+    with torch.no_grad():
+        k = render_core._KernelLayout(
+            net.cfg, rnet.cfg, render_core.CoreWeights.of(net, rnet, lnet),
+            lnet.cfg)
+    plan = render_core._BwdPlan(k, 160_000)
+    ns, nr, nl = k.n_sdf, k.n_rad, k.n_light
+    assert (ns, nr, nl) == (7, 4, 2)
+    assert len(plan.table) == (4 * ns + 2 * nr + 2 * nl + 2
+                               + 5 * (ns + nr + nl) + 1)
+    assert plan.dims[ns + nr:] == [(256, 128), (128, 16)]
+    spans = []
+    for l, (K, N) in enumerate(plan.dims[:ns]):
+        spans += [(plan.ax[l], 2 * plan.np * K), (plan.br[l], 2 * plan.np * N)]
+        if l < ns - 1:
+            spans.append((plan.dzx[l], plan.np * N))
+    for l, (K, N) in enumerate(plan.dims[ns:ns + nr]):
+        spans += [(plan.rx[l], plan.np * K), (plan.rdz[l], plan.np * N)]
+    for l, (K, N) in enumerate(plan.dims[ns + nr:]):
+        spans += [(plan.lx[l], plan.np * K), (plan.ldz[l], plan.np * N)]
+    spans.sort()
+    for (o1, s1), (o2, _) in zip(spans, spans[1:]):
+        assert o1 % 8 == 0 and o1 + s1 <= o2
+    assert plan.tb == sum(N for _, N in plan.dims)
+    assert plan.db[ns + nr:] == [plan.tb - 16 - 128, plan.tb - 16]
 
 
 def test_train_op_on_cpu_is_the_plain_version_clamped():

@@ -13,7 +13,8 @@ they are held to the JAX package's tolerances for its bf16 Pallas kernels
 (tests/test_pallas_mlp.py, tests/test_pallas_train.py); the sampler round
 is f32 in both versions, with the JAX package's own sampler-kernel
 tolerance for the draws (tests/test_pallas_sampler.py). K4's, K5's and
-K6's tests say theirs beside them.
+K6's tests, and those of K3 and K4 with the light head, say theirs beside
+them.
 """
 
 import numpy as np
@@ -154,7 +155,7 @@ def test_render_core_bwd_padding_rows_add_nothing(dev):
     from test_torch_bwd_replay import CASES, nets, points
     net, rnet = nets(*CASES["flagship"], device=dev)
     x, d = points(64, 3, device=dev)
-    cot = torch.randn((64, 7), generator=torch.Generator().manual_seed(0))
+    cot = torch.randn((64, 8), generator=torch.Generator().manual_seed(0))
     cot = cot.to(dev)
     cot[33:] = 0.0
     with torch.no_grad():
@@ -212,6 +213,139 @@ def test_render_core_train_op(dev, n, eik, sphere):
             ((0.02, 0.02), (0.05, 0.08), (0.03, 0.05))):
         torch.testing.assert_close(a, b, atol=atol, rtol=rtol, msg=name)
     grad_check(outs[False][1], outs[True][1],
+               leaf_tol=0.1 if n >= 4800 else float("inf"))
+
+
+# ---- K3 and K4 with the light head ------------------------------------------
+# At the light-mask config's nets (test_torch_kernel_layout.LIGHT_CASES:
+# SDF 6 x 256 with the skip at 3, radiance 3 x 256, light 256 -> 128 -> 1).
+# The forward is held to the plain version with the JAX light test's
+# tolerances (tests/test_pallas_train.py:171-176: the mask 0.02 / rtol
+# 0.03); the backward, with the cotangents of that test's loss (its light
+# term included), to its bf16 replay and to the plain f32 backward as K4
+# is, for both `detach_light` values.
+
+LIGHT_TOLS = {"sdf": (0.02, 0.02), "grad": (0.05, 0.08), "rgb": (0.03, 0.05),
+              "lmask": (0.02, 0.03)}
+
+
+@pytest.mark.parametrize("n", [1, 33, 12_000])
+def test_render_core_light_kernel(dev, n):
+    from test_torch_bwd_replay import light_layout, points
+    net, rnet, lnet = light_layout("light", device=dev)
+    x, d = points(n, n, device=dev)
+    pack = render_core.RenderCorePack(net, rnet, lnet)
+    kernels.reset_launch_counts()
+    got = render_core.render_core_fwd(pack, x, d)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["render_core_fwd_light"] == 1
+    assert counts["render_core_fwd"] == 0
+    ref = render_core.render_core_plain(net, rnet, x, d, lnet)
+    assert len(got) == len(ref) == 4
+    for (name, (atol, rtol)), g, r in zip(LIGHT_TOLS.items(), got, ref):
+        torch.testing.assert_close(g, r, atol=atol, rtol=rtol, msg=name)
+
+
+def _light_case(dev, n, eik, detach, seed=0):
+    from test_torch_bwd_replay import (eik_only, light_layout,
+                                       loss_cotangents, points)
+    net, rnet, lnet = light_layout("light", device=dev)
+    x, d = points(n, n + seed, eik, device=dev)
+    w = render_core.CoreWeights.of(net, rnet, lnet)
+    outs = render_core.render_core_train_plain(net.cfg, rnet.cfg, w, x, d,
+                                               lnet.cfg, detach)
+    cot = eik_only(loss_cotangents(*outs[:3], lmask=outs[3]), eik)
+    return net, rnet, lnet, x, d, w, cot
+
+
+@pytest.mark.parametrize("detach", [True, False], ids=["detached",
+                                                       "coupled"])
+@pytest.mark.parametrize("n,eik", [(1, 0), (33, 16), (4800, 4800),
+                                   (160_000, 4800)])
+def test_render_core_bwd_light_kernel(dev, n, eik, detach):
+    from test_torch_bwd_replay import emulate_bwd, grad_check, plain_vjp
+    net, rnet, lnet, x, d, w, cot = _light_case(dev, n, eik, detach)
+    with torch.no_grad():
+        k = render_core._KernelLayout(net.cfg, rnet.cfg, w, lnet.cfg)
+        kernels.reset_launch_counts()
+        got = render_core.render_core_bwd(k, x, d, cot, detach)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["render_core_bwd_light"] == 1
+        assert counts["render_core_bwd"] == 0
+        got = [t for grp in got for t in grp]
+        replay = [t for grp in emulate_bwd(k, x, d, cot, detach_light=detach)
+                  for t in grp]
+    grad_check(got, replay)
+    ref = plain_vjp(net.cfg, rnet.cfg, w, x, d, cot, lnet.cfg, detach)
+    grad_check(got, ref, leaf_tol=0.1 if n >= 4800 else float("inf"))
+
+
+@pytest.mark.parametrize("detach", [True, False], ids=["detached",
+                                                       "coupled"])
+def test_render_core_bwd_light_padding_and_determinism(dev, detach):
+    """33 points and the same 33 plus 31 rows with zero cotangents share
+    one padded size (64): the results agree to the bit, and a second run
+    gives the same bits. Detached, the SDF and radiance gradients are
+    those of the kernel without the light head, to the bit."""
+    net, rnet, lnet, x, d, w, cot = _light_case(dev, 64, 0, detach, seed=3)
+    cot[33:] = 0.0
+    flat = lambda r: [t for g in r for t in g]  # noqa: E731
+    with torch.no_grad():
+        k = render_core._KernelLayout(net.cfg, rnet.cfg, w, lnet.cfg)
+        a = flat(render_core.render_core_bwd(
+            k, x[:33].contiguous(), d[:33].contiguous(),
+            cot[:33].contiguous(), detach))
+        b = flat(render_core.render_core_bwd(k, x, d, cot, detach))
+        c = flat(render_core.render_core_bwd(k, x, d, cot, detach))
+        k0 = render_core._KernelLayout(net.cfg, rnet.cfg,
+                                       render_core.CoreWeights.of(net, rnet))
+        base = flat(render_core.render_core_bwd(k0, x, d, cot))
+    for ga, gb, gc in zip(a, b, c):
+        assert torch.equal(ga, gb) and torch.equal(gb, gc)
+    n_light = 2 * k.n_light
+    assert all(float(g.abs().max()) > 0 for g in b[-n_light:])
+    same = [torch.equal(g, h) for g, h in zip(b[:-n_light], base)]
+    if detach:
+        assert all(same)
+    else:  # the light cotangent reaches the SDF net
+        assert not all(same[:2 * k.n_sdf])
+
+
+@pytest.mark.parametrize("detach", [True, False], ids=["detached",
+                                                       "coupled"])
+@pytest.mark.parametrize("n,eik", [(33, 16), (4800, 4800)])
+def test_render_core_light_train_op(dev, n, eik, detach):
+    """The training op with the light head (K3 forward, K4 backward)
+    against the plain op, through autograd to every v, g and b."""
+    from test_torch_bwd_replay import (eik_only, grad_check, light_layout,
+                                       loss_cotangents, points)
+    net, rnet, lnet = light_layout("light", device=dev)
+    x, d = points(n, n + 2, eik, device=dev)
+    leaves = (list(net.parameters()) + list(rnet.parameters())
+              + list(lnet.parameters()))
+    res = {}
+    for plain in (True, False):
+        kernels.reset_launch_counts()
+        w = render_core.CoreWeights.of(net, rnet, lnet)
+        outs = render_core.render_core_train(net.cfg, rnet.cfg, w, x, d,
+                                             plain=plain, lcfg=lnet.cfg,
+                                             detach_light=detach)
+        if plain:
+            cot = eik_only(loss_cotangents(*outs[:3], lmask=outs[3]), eik)
+        g = torch.autograd.grad(outs, leaves, (cot[:, 3:4], cot[:, :3],
+                                               cot[:, 4:7], cot[:, 7:8]))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = 0 if plain else 1
+        assert (counts["render_core_fwd_light"]
+                == counts["render_core_bwd_light"] == want), counts
+        res[plain] = ([t.detach() for t in outs], list(g))
+    for (name, (atol, rtol)), a, b in zip(LIGHT_TOLS.items(), res[False][0],
+                                          res[True][0]):
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol, msg=name)
+    grad_check(res[False][1], res[True][1],
                leaf_tol=0.1 if n >= 4800 else float("inf"))
 
 

@@ -111,13 +111,32 @@ def emulate_sdf_mlp(p: sdf_mlp.SdfMlpPack, x):
     return z[:, 0]
 
 
+def emulate_light(k, feat, rnd=bf):
+    """K3's light head (`kLight` in `fwd_sweep_kernel`): the light chain
+    on relu(features), zero-padded to its first layer's depth, each hidden
+    layer's activation rounded where the kernel rounds it; returns the
+    sigmoid mask (N, 1)."""
+    K0 = int(k.light.plan[0, 0])
+    h = torch.zeros((feat.shape[0], K0))
+    h[:, :feat.shape[1]] = torch.relu(feat)
+    for i in range(k.light.n_layers):
+        K, N, real, _, _, W, b = unpack(k.light, i)
+        z = h[:, :K] @ W + b
+        if i == k.light.n_layers - 1:
+            return torch.sigmoid(z[:, :1])
+        h = rnd(softplus_beta(z))
+
+
 def emulate_render_core(k, x, dirs, F_feat):
+    """K3 in torch; with a light head (`k.n_light`) the light mask is a
+    fourth output."""
     dact = []
     bufs, cur, z = run_sdf_chain(k.fwd, x, k.mx, k.lda, dact)
     sdf = z[:, F_feat:F_feat + 1]
     out = bufs[cur ^ 1]
     out[:, :F_feat] = bf(z[:, :F_feat])
     cur ^= 1
+    lmask = emulate_light(k, out[:, :F_feat].clone()) if k.n_light else None
     K0 = int(k.rad.plan[0, 0])
     out[:, F_feat:K0] = bf(pe_cols(dirs, k.md, K0 - F_feat))
     for i in range(k.rad.n_layers):
@@ -128,7 +147,8 @@ def emulate_render_core(k, x, dirs, F_feat):
             cur ^= 1
         else:
             rgb = torch.sigmoid(z[:, :real])
-    return sdf, replay_grad_sweep(k, bufs, cur, dact, x), rgb
+    outs = (sdf, replay_grad_sweep(k, bufs, cur, dact, x), rgb)
+    return outs if lmask is None else outs + (lmask,)
 
 
 def test_fragment_packing_round_trips():
@@ -148,13 +168,14 @@ def test_fragment_packing_round_trips():
                          8 * t + g])
 
 
-def _nets(width, skip, feat, rad, mx, md, seed=0):
+def _nets(width, skip, feat, rad, mx, md, seed=0, depth=8, rdepth=4):
     gen = torch.Generator().manual_seed(seed)
     icfg = mlp.ImplicitNetConfig(
         feature_vector_size=feat, sdf_bounding_sphere=0.0,
-        dims=(width,) * 8, skip_in=(skip,), bias=0.6,
+        dims=(width,) * depth, skip_in=(skip,), bias=0.6,
         embed_type="positional", multires=mx)
-    rcfg = mlp.RenderingNetConfig(feature_vector_size=feat, dims=(rad,) * 4,
+    rcfg = mlp.RenderingNetConfig(feature_vector_size=feat,
+                                  dims=(rad,) * rdepth,
                                   embed_type="positional", multires=md)
     net, rnet = mlp.ImplicitNet(icfg, gen), mlp.RenderingNet(rcfg, gen)
     with torch.no_grad():  # move off the init's zero PE weights
@@ -163,8 +184,20 @@ def _nets(width, skip, feat, rad, mx, md, seed=0):
     return net, rnet
 
 
+def light_net(feat, dims, seed=0):
+    """A light head as the light-mask config builds it (renderer.py)."""
+    lcfg = mlp.ImplicitNetConfig(
+        feature_vector_size=0, sdf_bounding_sphere=0.0, d_in=feat, d_out=1,
+        dims=dims, geometric_init=False, output_activation="sigmoid")
+    return mlp.ImplicitNet(lcfg, torch.Generator().manual_seed(seed + 11))
+
+
 CASES = {"flagship": (256, 4, 256, 256, 6, 4),
          "narrow": (64, 3, 32, 48, 4, 2)}
+# the light-mask config's nets (SDF 6 x 256, skip at 3; radiance 3 x 256;
+# light 256 -> 128 -> 1) and a narrow one with two light hidden layers
+LIGHT_CASES = {"light": ((256, 3, 256, 256, 6, 4), 6, 3, (128,)),
+               "narrow": ((64, 2, 32, 48, 4, 2), 4, 2, (24, 16))}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -199,6 +232,38 @@ def test_render_core_plan_replays_to_plain(case):
                                ((0.02, 0.02), (0.05, 0.08), (0.03, 0.05))):
         assert torch.isfinite(g).all(), name
         torch.testing.assert_close(g, r, atol=tol[0], rtol=tol[1], msg=name)
+
+
+@pytest.mark.parametrize("case", list(LIGHT_CASES))
+def test_render_core_light_plan_replays_to_plain(case):
+    """K3 with the light head, at the SDF and radiance depths the case
+    gives: the replay's light mask to the plain version at the JAX light
+    test's tolerance (`tests/test_pallas_train.py:171-176`), and the other
+    outputs as without the head."""
+    (width, skip, feat, rad, mx, md), depth, rdepth, ldims = LIGHT_CASES[case]
+    net, rnet = _nets(width, skip, feat, rad, mx, md, depth=depth,
+                      rdepth=rdepth)
+    lnet = light_net(feat, ldims)
+    k = render_core._KernelLayout(
+        net.cfg, rnet.cfg, render_core.CoreWeights.of(net, rnet, lnet),
+        lnet.cfg)
+    assert k.n_light == len(ldims) + 1 and k.n_sdf == depth + 1
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((rng.normal(size=(200, 3)) * 0.8).astype(
+        np.float32))
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(200, 3)).astype(np.float32)), dim=-1)
+    got = emulate_render_core(k, x, d, feat)
+    ref = render_core.render_core_plain(net, rnet, x, d, lnet)
+    assert len(got) == len(ref) == 4
+    for name, g, r, tol in zip(("sdf", "grad", "rgb", "lmask"), got, ref,
+                               ((0.02, 0.02), (0.05, 0.08), (0.03, 0.05),
+                                (0.02, 0.03))):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, r, atol=tol[0], rtol=tol[1], msg=name)
+    # the light layers fit the shared memory the kernels are given
+    assert render_core.fwd_smem(k) <= render_core._MAX_SMEM
+    assert render_core.bwd_smem(k) <= render_core._MAX_SMEM
 
 
 # ---- the sampler round's warp arithmetic ----------------------------------

@@ -46,6 +46,7 @@ from i2sdf_tpu_torch.ops.kernels import render_core, rev
 from i2sdf_tpu_torch.params import from_jax_params
 from i2sdf_tpu_torch.train import step as tstep
 from i2sdf_tpu_torch.train.state import create_train_state
+from i2sdf_tpu_torch.utils import imaging as timaging
 from test_torch_helpers import to_numpy
 from test_torch_slice import _tiny_scene
 
@@ -84,6 +85,31 @@ def write_tiny_scene(root, seed=0):
             .replace("min_bubble_iter: 50000", "min_bubble_iter: 0")
             .replace("max_bubble_iter: 150000", "max_bubble_iter: 10"))
     path = os.path.join(root, "tiny.yml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def write_light_scene(root, seed=0):
+    """The tiny scene with seeded grey PNG light masks (0 or 255, a third
+    of the pixels lit), and its config turned into the light-mask
+    config's shape: a light head 16 -> 16 -> 1 and the light-mask loss at
+    the light config's weight. Returns the config's path."""
+    path = write_tiny_scene(root, seed)
+    scan = os.path.join(root, "tiny", "scan0", "light_mask")
+    os.makedirs(scan)
+    rng = np.random.default_rng(seed + 1)
+    for i in range(2):
+        lit = rng.uniform(size=(24, 32)) < 1 / 3
+        timaging.write_png(os.path.join(scan, f"{i:04d}.png"),
+                           (lit * 255).astype(np.uint8))
+    text = (open(path).read()
+            .replace("    bubble_weight: 0.5\n",
+                     "    bubble_weight: 0.5\n    light_mask_weight: 0.5\n")
+            .replace("    density:\n", "    light_network:\n"
+                     "        dims: [16]\n        weight_norm: True\n\n"
+                     "    density:\n"))
+    assert "light_network" in text and "light_mask_weight" in text
     with open(path, "w") as f:
         f.write(text)
     return path
@@ -142,12 +168,14 @@ def jax_draws(jcfg, jdata, base_key, step, pdf=None):
     return draws
 
 
-def _pair(tmp_path, bubble, normal=True):
+def _pair(tmp_path, bubble, normal=True, light=False, detach=True):
     """Both packages' model, parameters and data on the tiny scene. With
     `normal` off the normal loss weight is 0 and the scene's normal maps
     are overwritten with bytes no loader can parse, so a loader that read
-    one would fail."""
-    path = write_tiny_scene(str(tmp_path))
+    one would fail. With `light`, the light-mask config's shape and the
+    scene's light masks (`write_light_scene`), and `detach` written into
+    its config as `model.detach_light_feature`."""
+    path = (write_light_scene if light else write_tiny_scene)(str(tmp_path))
     if not normal:
         ndir = os.path.join(str(tmp_path), "tiny", "scan0", "normal")
         for name in os.listdir(ndir):
@@ -155,6 +183,13 @@ def _pair(tmp_path, bubble, normal=True):
                 f.write(b"not a normal map")
         text = open(path).read().replace("normal_weight: 0.05",
                                          "normal_weight: 0.0")
+        with open(path, "w") as f:
+            f.write(text)
+    if not detach:
+        text = open(path).read().replace(
+            "    light_network:\n",
+            "    detach_light_feature: False\n    light_network:\n")
+        assert "detach_light_feature: False" in text
         with open(path, "w") as f:
             f.write(text)
     jc, tc = jax_load_cfg(path), load_cfg(path)
@@ -167,7 +202,7 @@ def _pair(tmp_path, bubble, normal=True):
     model.load_state_dict(from_jax_params(to_numpy(params), tcfg))
     kw = dict(data_dir="tiny", scan_id=0, data_root=str(tmp_path),
               use_depth=True, use_normal=normal, use_bubble=bubble,
-              pdf_prune=0.05, pdf_max=0.2)
+              use_lightmask=light, pdf_prune=0.05, pdf_max=0.2)
     return (jcfg, params, JReconData(**kw).to_device(),
             LossConfig.from_cfgnode(tc.loss), tcfg, model,
             ReconData(**kw).to_device("cpu"))
@@ -175,15 +210,16 @@ def _pair(tmp_path, bubble, normal=True):
 
 def _flat_params(tree):
     return {f"{net}.{lin}.{leaf}": np.asarray(v)
-            for net in ("implicit", "rendering")
+            for net in ("implicit", "rendering", "light") if net in tree
             for lin, leaves in tree[net].items()
             for leaf, v in leaves.items()} | {"beta": np.asarray(
                 tree["beta"])}
 
 
-def test_train_step_matches_jax(tmp_path):
-    jcfg, params, jdata, lcfg, tcfg, model, data = _pair(tmp_path, False)
-    base = jax.random.PRNGKey(7)
+def _step_against_jax(jcfg, params, jdata, lcfg, tcfg, model, data, base):
+    """Step 0's loss terms and gradients, then the parameters after 3
+    steps of each package's own step, against the JAX package's (the
+    module docstring's tolerances); returns the port's step-0 metrics."""
     weights = lcfg.dynamic_weights(0)
     jw = {k: jnp.float32(v) for k, v in weights.items()}
 
@@ -229,6 +265,38 @@ def test_train_step_matches_jax(tmp_path):
         assert d.max() <= 2 * 3 * LR, (k, d.max())
         diffs.append(d)
     assert np.quantile(np.concatenate(diffs), 0.99) <= 1e-2 * LR
+    return metrics
+
+
+def test_train_step_matches_jax(tmp_path):
+    _step_against_jax(*_pair(tmp_path, False), jax.random.PRNGKey(7))
+
+
+@pytest.mark.parametrize("detach", [True, False],
+                         ids=["detached", "coupled"])
+@pytest.mark.parametrize("normal", [True, False],
+                         ids=["render_core", "plain_light_net"])
+def test_train_step_light_matches_jax(tmp_path, normal, detach):
+    """The light-mask config's step against the JAX step on its two
+    routes: normal losses on (the render core with the light head; K3/K4
+    with it on the card) and off (the plain light net on the render
+    points' relu(features), `renderer.py:456-462`), with
+    `detach_light_feature` on (the light loss reaches the light net only)
+    and off (it reaches the SDF net through relu'(features)). Loss terms,
+    the light term among them, gradients and the parameters after 3
+    steps, the light net's and the SDF net's included, at the module
+    docstring's tolerances."""
+    pair = _pair(tmp_path, False, normal=normal, light=True, detach=detach)
+    jcfg, params, jdata, lcfg, tcfg, model, data = pair
+    assert jcfg.use_light and tcfg.use_light and data.light_mask is not None
+    assert jcfg.detach_light_feature == tcfg.detach_light_feature == detach
+    assert lcfg.light_mask_weight == 0.5
+    light0 = {k: p.detach().clone()
+              for k, p in model.light.named_parameters()}
+    metrics = _step_against_jax(*pair, jax.random.PRNGKey(5))
+    assert float(metrics["light_mask_loss"]) > 0
+    assert all(float((p.detach() - light0[k]).abs().max()) > 0
+               for k, p in model.light.named_parameters())
 
 
 def test_train_step_normal_off_matches_jax(tmp_path, monkeypatch):
