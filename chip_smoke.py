@@ -6,16 +6,20 @@ Phases, each printed as one JSON line with its wall time:
 
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit;
-2. build: the six CUDA kernels (`i2sdf_tpu_torch/csrc/*.cu`), one `nvcc`
-   per source, all started together, and one link;
+2. build: the nine CUDA kernels (`i2sdf_tpu_torch/csrc/*.cu`), one
+   `nvcc` per source, all started together, and one link;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the flagship eval render (K1-K3) and training steps give it
    (K4: 160,000 points with the cotangents of a seeded loss; K5 and K6:
    the normal-off step's 4,800 eikonal points, and 155,200 points, the
    size the JAX renderer feeds the op on its other training route), and
    K3 and K4 with the light head at the light config's eval chunk and
-   training batch (both `detach_light` values for K4), with the stated
-   tolerance; kernel, plain and library-yardstick times by CUDA events;
+   training batch (both `detach_light` values for K4), K7 at the perray
+   config's training shape (1600 x 416) and an eval chunk (12,000 x 416),
+   K8 at the bg config's training batch (51,200 points) and eval chunk
+   (384,000), K9 at the training batch with a seeded loss's cotangents,
+   with the stated tolerance; kernel, plain and library-yardstick times
+   by CUDA events;
 4. slice (the eval path): one 240x320 view of `data/synthetic_quality/
    scan1` rendered through the port's eval entry point (`eval/render.py`)
    at the full width of `configs/synthetic.yml`, seeded init weights;
@@ -52,7 +56,23 @@ Phases, each printed as one JSON line with its wall time:
    step (without it never), `light_mask_loss` > 0 at every step, every
    light-net leaf moved; a profile of two steps; one batch through a
    kernel step and a plain step;
-9. cli: `python -m i2sdf_tpu_torch.main` in train mode for 3 steps on
+9. eval_perray: one 240x320 view of scan1 through the eval entry point
+   with the perray config (`synthetic_quality.yml` with
+   `ray_sampler.per_ray_exit` and `per_ray_fracs` pinned to [1.0, 0.5,
+   0.5, 0.5]; the beta ladder would not compact at the seeded init's
+   beta): K7 four times a chunk, and K1/K2 on the capped rows after the
+   first compacted round (the sizes they saw are recorded); then the
+   first chunk through the plain path;
+10. train_perray: the trainer for 6 steps of the perray config: K7 four
+   times a step, K3/K4 once, every loss finite; a profile of two steps;
+   one batch through a kernel step and a plain step;
+11. eval_bg: one view of the bg config (`synthetic_quality.yml` with the
+   NeRF++ background of VolSDF's BlendedMVS config, `BG_BLOCK`): K8 once
+   a chunk, K9 never; then the first chunk through the plain path;
+12. train_bg: the trainer for 6 steps of the bg config: K8 and K9 once a
+   step beside K1-K4, every background leaf moved; a profile of two
+   steps; one batch through a kernel step and a plain step;
+13. cli: `python -m i2sdf_tpu_torch.main` in train mode for 3 steps on
    scan1 as the checkout holds it (images and cameras only), then
    `--resume` for one more step from the checkpoint it wrote, then
    `--test --test_mode render --indices 0` with no `--ckpt`, which must
@@ -61,7 +81,9 @@ Phases, each printed as one JSON line with its wall time:
    in the temporary directory, whose logs carry no normal term; last the
    train CLI for 2 steps on a copy of the light config (with seeded light
    masks), whose logs carry the light-mask term and whose validation
-   writes a light-mask plot, and the render CLI on its newest checkpoint.
+   writes a light-mask plot, and the render CLI on its newest checkpoint;
+   and the train CLI for 2 steps on the bg config and the render CLI on
+   its newest checkpoint.
 
 The card's `nvidia-smi` line is printed on its own after phase 1. The
 run ends with the launch counts of each path, one JSON line with every
@@ -96,12 +118,14 @@ import torch
 from i2sdf_tpu_torch.config import load_cfg
 from i2sdf_tpu_torch.data.plot import PlotData
 from i2sdf_tpu_torch.eval.render import run_render_eval
-from i2sdf_tpu_torch.models import renderer
+from i2sdf_tpu_torch.models import mlp, renderer
 from i2sdf_tpu_torch.models.density import effective_beta
 from i2sdf_tpu_torch.ops.activations import softplus_beta
 from i2sdf_tpu_torch.ops import kernels
-from i2sdf_tpu_torch.ops.kernels import (build, render_core, rev,
-                                         sampler_round, sdf_mlp)
+from i2sdf_tpu_torch.models import sampler as tsampler
+from i2sdf_tpu_torch.ops.kernels import (bg_core, build, conv_check,
+                                         render_core, rev, sampler_round,
+                                         sdf_mlp)
 from i2sdf_tpu_torch.train import step as train_step
 from i2sdf_tpu_torch.train.state import create_train_state
 from i2sdf_tpu_torch.train.trainer import ReconstructionTrainer
@@ -119,6 +143,56 @@ NONORMAL_KERNELS = ("sdf_mlp_nograd", "sampler_round", "rev_fwd", "rev_bwd")
 EVAL_LIGHT_KERNELS = ("sdf_mlp_nograd", "sampler_round",
                       "render_core_fwd_light")
 LIGHT_KERNELS = EVAL_LIGHT_KERNELS + ("render_core_bwd_light",)
+EVAL_PERRAY_KERNELS = EVAL_KERNELS + ("conv_check",)
+PERRAY_KERNELS = TRAIN_KERNELS + ("conv_check",)
+EVAL_BG_KERNELS = EVAL_KERNELS + ("bg_core_fwd",)
+BG_KERNELS = TRAIN_KERNELS + ("bg_core_fwd", "bg_core_bwd")
+# the perray config's pinned capacities (the beta ladder gives None at the
+# seeded init's beta 0.1, so it would never compact)
+PER_RAY_FRACS = (1.0, 0.5, 0.5, 0.5)
+# the bg config's background: the NeRF++ nets of VolSDF's BlendedMVS config
+# (`confs/bmvs.conf`, `bg_network`) in this repo's schema
+BG_BLOCK = """    bg_network:
+        feature_vector_size: 256
+        implicit_network:
+            d_in: 4
+            d_out: 1
+            dims: [256, 256, 256, 256, 256, 256, 256, 256]
+            geometric_init: False
+            skip_in: [4]
+            weight_norm: False
+            embed_type: positional
+            multires: 10
+        rendering_network:
+            mode: nerf
+            d_in: 3
+            d_out: 3
+            dims: [128]
+            weight_norm: False
+            embed_type: positional
+            multires: 4
+
+"""
+# K7 against its plain version: both f32 with sums in other orders, so a
+# ray whose f64 bound lies within 1e-4 relative of eps may flip; flags must
+# agree outside that band, and under 1 % of the rays may lie in it
+CONV_BAND, CONV_BAND_SHARE = 1e-4, 0.01
+# K8 against its plain version, besides CORE_TOLS: each output's max error
+# at most this share of the spread of the plain output over the points
+# (max - min). At init the pair's outputs vary little from point to point,
+# so an absolute tolerance alone would pass a kernel that lost the features
+# or PE(view); the check runs at the model's weights and at copies scaled
+# by BG_SIGNAL_GAIN (the uniform init's std times sqrt(6) is He's
+# sqrt(2 / fan_in), so the outputs vary by O(1)), where each output's
+# spread must be at least BG_MIN_SPREAD and each planted fault of
+# `bg_faults` must fail the check.
+BG_SPREAD_TOL = 0.05
+BG_SIGNAL_GAIN = math.sqrt(6.0)
+BG_MIN_SPREAD = 0.25
+# f32 operations per sample of the convergence check (d*, the Laplace
+# density, two scan steps, the bound, the max), counted from
+# csrc/ray_common.cuh
+CONV_OPS_PER_SAMPLE = 25
 TRAIN_STEPS = 6          # bubble window [2, 4): off, off, on, on, off, off
 K4_RAYS, K4_EIK = 1600, 4800   # one training step's render-core batch
 # K5 against its plain version: the JAX package's tolerances for its rev
@@ -459,10 +533,10 @@ def emit_row(row: dict, ok: bool) -> None:
                              f"plain version")
 
 
-def run_slice(model, conf, device, want=EVAL_KERNELS) -> dict:
-    """One view through the eval entry point: finite outputs, and every
+def run_slice(model, conf, device, want=EVAL_KERNELS, never=()) -> dict:
+    """One view through the eval entry point: finite outputs, every
     kernel in `want` launched (K3 with or without the light head, never
-    the other)."""
+    the other) and none in `never`."""
     with tempfile.TemporaryDirectory() as tmp:
         kernels.reset_launch_counts()
         res = run_render_eval(model, conf, tmp, data_root=str(ROOT / "data"),
@@ -483,6 +557,7 @@ def run_slice(model, conf, device, want=EVAL_KERNELS) -> dict:
     other = ("render_core_fwd" if "render_core_fwd_light" in want
              else "render_core_fwd_light")
     assert launches[other] == 0, launches
+    assert all(launches[k] == 0 for k in never), launches
     return dict(launches=launches, psnr=res["psnr"], ssim=res["ssim"],
                 render_s=res["seconds"][0], files=files,
                 image=[H, W], rays=H * W,
@@ -821,6 +896,309 @@ def check_rev(model, cfg, conf, device) -> list[dict]:
     return rows
 
 
+# ---- K7 conv_check, K8/K9 the background pair -----------------------------
+
+def perray_conf(train: bool = True):
+    """The perray config: `synthetic_quality.yml` with per-ray compaction at
+    the pinned fractions (`train_conf`'s bubble window when training)."""
+    conf = train_conf() if train else load_cfg(str(TRAIN_CONF))
+    conf.dataset.scan_id = 1
+    rs = conf.model.ray_sampler
+    rs.per_ray_exit = True
+    rs.per_ray_fracs = list(PER_RAY_FRACS)
+    return conf
+
+
+def bg_conf_path(tmp) -> str:
+    """The bg config (`synthetic_quality.yml` with `BG_BLOCK`) written to
+    `tmp`."""
+    text = TRAIN_CONF.read_text()
+    assert "    density:\n" in text
+    path = Path(tmp) / "quality_bg.yml"
+    path.write_text(text.replace("    density:\n",
+                                 BG_BLOCK + "    density:\n"))
+    return str(path)
+
+
+def bg_conf(train: bool = True):
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = load_cfg(bg_conf_path(tmp))
+    conf.dataset.scan_id = 1
+    if train:
+        conf.loss.min_bubble_iter = 2
+        conf.loss.max_bubble_iter = 4
+        conf.train.uniform_bubble = True
+    return conf
+
+
+def check_conv(model, cfg, conf, device) -> list[dict]:
+    """K7 at the perray training shape (1600 rays) and an eval chunk (12,000
+    rays), both at S = 416 (round 3 of the taper): the first rays of view
+    0, sorted depths, the SDF of the seeded model by K1. Both flags must
+    appear among the rays (in the f64 truth and in K7's output)."""
+    sc = cfg.sampler
+    wk = renderer.KernelWeights.pack(model)
+    beta0 = effective_beta(model.beta.detach(), cfg.beta_min)
+    S = sum(sc.eval_counts[:4])
+    rows = []
+    for R in (K4_RAYS, conf.train.split_n_pixels):
+        _, dirs, cam = chunk_rays(conf, device, R)
+        gen = torch.Generator().manual_seed(SEED + 11)
+        z = torch.sort(torch.rand((R, S), generator=gen) * sc.far, -1).values
+        z = z.to(device).contiguous()
+        pts = (cam[:, None] + z[..., None] * dirs[:, None]).reshape(-1, 3)
+        sdf = sdf_mlp.sdf_mlp_nograd(wk.sdf, pts.contiguous()).reshape(R, S)
+        got = conv_check.conv_check(sc, z, sdf, beta0)
+        torch.cuda.synchronize()
+        plain = tsampler.converged_rays(sc, z, sdf, beta0)
+        z64, s64 = z.double().cpu(), sdf.double().cpu()
+        d_star, dists = tsampler._d_star(z64, s64)
+        b64 = tsampler._error_bound(beta0.double().cpu(), s64, dists, d_star)
+        outside = ((b64 - sc.eps).abs() > CONV_BAND * sc.eps).to(device)
+        truth = (b64 <= sc.eps).to(device)
+        flips = (got != plain) | (got != truth)
+        in_band = int((~outside).sum())
+        # both flags must appear, so that a constant output fails
+        mixed = 0 < int(truth.sum()) < R and 0 < int(got.sum()) < R
+        ok = (not bool((flips & outside).any())
+              and in_band < CONV_BAND_SHARE * R and mixed)
+        ops = R * S * CONV_OPS_PER_SAMPLE
+        b_ms, b_by = bound(ops, R * S * 8 + R, PEAK_F32)
+        rows.append(dict(
+            name="conv_check", route="cuda",
+            source="i2sdf_tpu_torch/csrc/conv_check.cu",
+            replaces="i2sdf_tpu/ops/pallas/sampler_round.py:355",
+            shape=[R, S], max_abs_err=float((flips & outside).any()),
+            converged=int(got.sum()),
+            converged_share=float(got.float().mean()), in_band=in_band,
+            flips_in_band=int((flips & ~outside).sum()),
+            ms=time_ms(lambda: conv_check.conv_check(sc, z, sdf, beta0), 20),
+            plain_ms=time_ms(lambda: tsampler.converged_rays(
+                sc, z, sdf, beta0), 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        emit_row(rows[-1], ok)
+    return rows
+
+
+def bg_points(cfg, conf, device, n_rays):
+    """The background pair's inputs for the first `n_rays` rays of view 0:
+    the sampler's eval inverse depths on the inverted sphere
+    (N_samples_inverse_sphere a ray), flattened."""
+    _, dirs, cam = chunk_rays(conf, device, n_rays)
+    nbg = cfg.sampler.N_samples_inverse_sphere
+    z = torch.linspace(0.0, 1.0, nbg, device=device).expand(n_rays, nbg)
+    z = z * (1.0 / cfg.scene_bounding_sphere)
+    _, x4, d = renderer._bg_inputs(cfg, z, dirs, cam.contiguous())
+    return x4, d
+
+
+def bg_layer_macs(icfg, rcfg) -> tuple[list, list]:
+    """Multiply-adds per point of each background layer at its real width
+    (implicit, radiance)."""
+    rd = rcfg.layer_dims()
+    return (sdf_layer_macs(icfg),
+            [rd[l] * rd[l + 1] for l in range(len(rd) - 1)])
+
+
+def k9_macs(icfg, rcfg) -> int:
+    """K9 per point: the forward recompute, the radiance layers transposed
+    (layer 0 cut to the features' rows), the implicit layers n-1 .. 1
+    transposed (cut to the hidden part of their input) and one
+    weight-gradient product a layer."""
+    sd, rr = bg_layer_macs(icfg, rcfg)
+    d, rd = icfg.layer_dims(), rcfg.layer_dims()
+    F = icfg.feature_vector_size
+    out = [d[l + 1] - (d[0] if l + 1 in icfg.skip_in else 0)
+           for l in range(len(d) - 1)]
+    keep = [d[l] - (d[0] if l in icfg.skip_in else 0)
+            for l in range(len(d) - 1)]
+    back_i = sum(keep[l] * out[l] for l in range(1, len(sd)))
+    back_r = sum(rr[1:]) + F * rd[1]
+    return 2 * (sum(sd) + sum(rr)) + back_i + back_r
+
+
+def library_bg(icfg, rcfg, iw, ib, rw, rb, x4, dirs):
+    """The pair as a bf16 torch.matmul chain (the library yardstick)."""
+    inp = icfg.embed(x4).to(torch.bfloat16)
+    h, n = inp, len(iw)
+    for l in range(n):
+        if l in icfg.skip_in:
+            h = torch.cat([h, inp], -1) * (1 / math.sqrt(2))
+        z = torch.matmul(h, iw[l]).float() + ib[l]
+        h = softplus_beta(z).to(torch.bfloat16) if l < n - 1 else z
+    sigma, feat = h[:, :1], h[:, 1:]
+    h = torch.cat([rcfg.embed(dirs), feat], -1).to(torch.bfloat16)
+    for l in range(len(rw)):
+        z = torch.matmul(h, rw[l]).float() + rb[l]
+        h = torch.relu(z).to(torch.bfloat16) if l < len(rw) - 1 else z
+    return sigma, torch.sigmoid(h)
+
+
+def bg_cotangents(sigma, rgb, seed):
+    """[c_sigma | c_rgb] of a loss at these outputs: rgb L1 against seeded
+    targets and 0.2 sigma^2."""
+    gen = torch.Generator().manual_seed(seed)
+    gt = torch.rand(rgb.shape, generator=gen).to(rgb.device)
+    s, r = (t.detach().requires_grad_(True) for t in (sigma, rgb))
+    with torch.enable_grad():
+        loss = (r - gt).abs().mean() + 0.2 * (s ** 2).mean()
+        cs, cr = torch.autograd.grad(loss, (s, r))
+    return torch.cat([cs, cr], 1).contiguous()
+
+
+def signal_bg_nets(implicit, rendering):
+    """Copies of the background nets with every weight scaled by
+    BG_SIGNAL_GAIN."""
+    nets = copy.deepcopy(implicit), copy.deepcopy(rendering)
+    with torch.no_grad():
+        for net in nets:
+            for lin in net.layers():
+                (lin.g if lin.weight_norm else lin.w).mul_(BG_SIGNAL_GAIN)
+    return nets
+
+
+def bg_faults(icfg, rcfg, w, x4, dirs) -> dict:
+    """The plain pair with one piece broken, as a faulty K8 would break it:
+    the features zeroed, PE(view) of a constant direction, the skip
+    layer's re-injected encoding dropped, x4's first two coordinates
+    swapped."""
+    out = mlp.implicit_apply(icfg, w.ws_i, w.bs_i, x4)
+    ws = list(w.ws_i)
+    skip, d0 = icfg.skip_in[0], icfg.layer_dims()[0]
+    ws[skip] = torch.cat([ws[skip][:-d0], torch.zeros_like(ws[skip][-d0:])])
+    noskip = mlp.implicit_apply(icfg, ws, w.bs_i, x4)
+    swapped = mlp.implicit_apply(icfg, w.ws_i, w.bs_i, x4[:, [1, 0, 2, 3]])
+    faults = {"features_zeroed": (out, dirs, torch.zeros_like(out[:, 1:])),
+              "view_constant": (out, torch.zeros_like(dirs), out[:, 1:]),
+              "skip_dropped": (noskip, dirs, noskip[:, 1:]),
+              "x4_swapped": (swapped, dirs, swapped[:, 1:])}
+    return {k: (o[:, :1], mlp.rendering_apply(rcfg, w.ws_r, w.bs_r, d, f))
+            for k, (o, d, f) in faults.items()}
+
+
+def spread_errors(got, ref) -> dict:
+    """Per output (sigma, rgb): max|got - ref| over the spread of ref."""
+    return {k: float((a - b).abs().max() / (b.max() - b.min()))
+            for k, a, b in zip(("sigma", "rgb"), got, ref)}
+
+
+def check_bg_signal(implicit, rendering, x4, d, faults: bool) -> tuple:
+    """K8 at the nets scaled by BG_SIGNAL_GAIN against the plain pair, by
+    the spread rule; with `faults`, each planted fault must fail that
+    rule. Returns (fields for the row, ok)."""
+    si, sr = signal_bg_nets(implicit, rendering)
+    got = bg_core.bg_core_eval(bg_core.BgPack(si, sr), x4, d)
+    torch.cuda.synchronize()
+    w = bg_core.BgWeights.of(si, sr)
+    with torch.no_grad():
+        ref = bg_core.bg_core_plain(si.cfg, sr.cfg, w, x4, d)
+        bad = ({k: spread_errors(v, ref) for k, v in bg_faults(
+            si.cfg, sr.cfg, w, x4, d).items()} if faults else {})
+    spread = {k: float(b.max() - b.min()) for k, b in zip(("sigma", "rgb"),
+                                                          ref)}
+    rel = spread_errors(got, ref)
+    caught = all(max(e.values()) > BG_SPREAD_TOL for e in bad.values())
+    ok = (max(rel.values()) <= BG_SPREAD_TOL and caught
+          and min(spread.values()) >= BG_MIN_SPREAD)
+    return dict(spread=spread, spread_errs=rel, fault_spread_errs=bad), ok
+
+
+def check_bg(model, cfg, conf, device) -> list[dict]:
+    """K8 at an eval chunk (12,000 rays x 32 = 384,000 points) and a
+    training batch (1600 x 32 = 51,200), K9 at the training batch with a
+    seeded loss's cotangents, each against its plain version. K8 is held
+    at the model's weights to CORE_TOLS and to the spread rule
+    (BG_SPREAD_TOL), and at the signal-scaled copies to the spread rule,
+    the planted faults failing it at the training batch."""
+    icfg, rcfg = cfg.bg_implicit, cfg.bg_rendering
+    pack = bg_core.BgPack(model.bg_implicit, model.bg_rendering)
+    w = bg_core.BgWeights.of(model.bg_implicit, model.bg_rendering)
+    iw, ib = _bf16_weights(model.bg_implicit)
+    rw, rb = _bf16_weights(model.bg_rendering)
+    sd, rr = bg_layer_macs(icfg, rcfg)
+    n_w = sum(t.numel() for t in iw + rw)
+    n_p = sum(t.numel() for t in w.flat())
+    rows = []
+    x4_t, d_t = bg_points(cfg, conf, device, K4_RAYS)
+    for label, (x4, d) in (("train", (x4_t, d_t)), ("eval", bg_points(
+            cfg, conf, device, conf.train.split_n_pixels))):
+        n = x4.shape[0]
+        got = bg_core.bg_core_eval(pack, x4, d)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            ref = bg_core.bg_core_plain(icfg, rcfg, w, x4, d)
+        tols = {"sigma": CORE_TOLS["sdf"], "rgb": CORE_TOLS["rgb"]}
+        errs = {k: float((a - b).abs().max())
+                for k, a, b in zip(tols, got, ref)}
+        rel = spread_errors(got, ref)
+        signal, signal_ok = check_bg_signal(
+            model.bg_implicit, model.bg_rendering, x4, d, label == "train")
+        ok = (all(close(a, b, *tols[k]) for k, a, b in zip(tols, got, ref))
+              and max(rel.values()) <= BG_SPREAD_TOL and signal_ok)
+        b_ms, b_by = bound(2.0 * (sum(sd) + sum(rr)) * n,
+                           n * (16 + 12 + 16) + 2 * n_w, PEAK_BF16)
+
+        def plain_fwd():
+            with torch.no_grad():
+                bg_core.bg_core_plain(icfg, rcfg, w, x4, d)
+
+        rows.append(dict(
+            name="bg_core_fwd", route="cuda",
+            source="i2sdf_tpu_torch/csrc/bg_core.cu",
+            replaces="i2sdf_tpu/ops/pallas/fused_bg.py:209",
+            points=label, shape=[n, 4], max_abs_err=max(errs.values()),
+            errs=errs, tolerances=tols, spread_errs=rel,
+            spread_tol=BG_SPREAD_TOL,
+            spread={k: float(b.max() - b.min()) for k, b in zip(tols, ref)},
+            signal=signal,
+            ms=time_ms(lambda: bg_core.bg_core_eval(pack, x4, d), 5),
+            plain_ms=time_ms(plain_fwd, 2), bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: library_bg(icfg, rcfg, iw, ib, rw, rb,
+                                                  x4, d), 3)))
+        emit_row(rows[-1], ok)
+    # K9 at the training batch
+    x4, d = x4_t, d_t
+    sigma, rgb = bg_core.bg_core_plain(icfg, rcfg, w, x4, d)
+    cot = bg_cotangents(sigma, rgb, SEED + 12)
+    cots = (cot[:, :1], cot[:, 1:])
+    ref = torch.autograd.grad((sigma, rgb), w.flat(), cots)
+    with torch.no_grad():
+        k = bg_core.BgLayout(icfg, rcfg, w)
+        got = [t for g in bg_core.bg_core_bwd(k, x4, d, cot) for t in g]
+        again = [t for g in bg_core.bg_core_bwd(k, x4, d, cot) for t in g]
+    torch.cuda.synchronize()
+    stable = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs = grad_errors(got, ref)
+    n = x4.shape[0]
+    b_ms, b_by = bound(2.0 * k9_macs(icfg, rcfg) * n,
+                       n * (16 + 12 + 16) + 2 * n_w + 4 * n_p, PEAK_BF16)
+
+    def kernel():
+        with torch.no_grad():
+            bg_core.bg_core_bwd(k, x4, d, cot)
+
+    def plain():
+        torch.autograd.grad(bg_core.bg_core_plain(icfg, rcfg, w, x4, d),
+                            w.flat(), cots)
+
+    def library():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            outs = bg_core.bg_core_plain(icfg, rcfg, w, x4, d)
+        torch.autograd.grad(outs, w.flat(), cots)
+
+    rows.append(dict(
+        name="bg_core_bwd", route="cuda",
+        source="i2sdf_tpu_torch/csrc/bg_core_bwd.cu",
+        replaces="i2sdf_tpu/ops/pallas/fused_bg.py:209",
+        points="train", shape=[n, 4],
+        max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got, ref)),
+        **errs, leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
+        bit_stable=stable, ms=time_ms(kernel, 5), plain_ms=time_ms(plain, 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 2)))
+    emit_row(rows[-1], grads_ok(errs) and stable)
+    return rows
+
+
 def synthetic_supervision(data, seed, normals=True):
     """Seeded depth (scene units, 0.5 % invalid), with `normals`
     view-space normals (0.5 % zero), and so the bubble point cloud, at the
@@ -898,8 +1276,8 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     # K3 and K5 are one kernel template, K4 and K6 another, told apart by
     # the template arguments (with the radiance net; with the light head);
-    # the products and sums are K4's on the normal-on paths, K6's on the
-    # normal-off path
+    # the products and sums are K4's on the normal-on paths (and K9's too
+    # with the background), K6's on the normal-off path
     groups = {"K1 sdf_mlp": "sdf_mlp_kernel", "K2 sampler_round":
               "sampler_round",
               "K3 render_core_fwd": "fwd_sweep_kernel<true, false>",
@@ -908,7 +1286,10 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
               "K4 sweep": "bwd_sweep_kernel<true, false>",
               "K4 sweep light": "bwd_sweep_kernel<true, true>",
               "K6 sweep": "bwd_sweep_kernel<false, false>",
-              "K4/K6 atb": "atb_kernel", "K4/K6 sum": "sum_kernel"}
+              "K7 conv_check": "conv_check_kernel",
+              "K8 bg_core_fwd": "bg_fwd_kernel",
+              "K9 sweep": "bg_bwd_sweep_kernel",
+              "K4/K6/K9 atb": "atb_kernel", "K4/K6/K9 sum": "sum_kernel"}
     by = {g: 0.0 for g in groups}
     by["other"] = 0.0
     top = []
@@ -970,15 +1351,29 @@ def light_conf(train: bool = True):
     return conf
 
 
-def run_train(device, normal: bool = True, light: bool = False) -> dict:
-    """6 steps through the trainer. With `normal` off (`normal_weight: 0`,
-    no normal maps) the step takes the rev route: K5 and K6 once a step,
-    K3 and K4 never (counted around each step; the validation render at
-    the end of `fit` runs the eval path, K1-K3). With `light`, the light
-    config with seeded light masks: K3 and K4 with the light head once a
-    step, the light-mask loss on at every step, every light-net leaf
-    moved."""
-    conf = light_conf() if light else train_conf()
+TRAIN_CONFS = {"train": train_conf, "nonormal": train_conf,
+               "light": light_conf, "perray": perray_conf, "bg": bg_conf}
+TRAIN_WANT = {"train": TRAIN_KERNELS, "nonormal": NONORMAL_KERNELS,
+              "light": LIGHT_KERNELS, "perray": PERRAY_KERNELS,
+              "bg": BG_KERNELS}
+
+
+def run_train(device, kind: str = "train") -> dict:
+    """6 steps through the trainer (counts taken around each step; the
+    validation render at the end of `fit` runs the eval path). `kind`:
+
+    * `train`: the flagship step, K1-K4, K4 once a step;
+    * `nonormal` (`normal_weight: 0`, no normal maps): the rev route, K5
+      and K6 once a step, K3 and K4 never;
+    * `light`: the light config with seeded light masks: K3 and K4 with
+      the light head once a step, the light-mask loss on at every step,
+      every light-net leaf moved;
+    * `perray`: per-ray compaction at the pinned fractions: K7 four times
+      a step (once a refinement round), K3/K4 once;
+    * `bg`: the NeRF++ background: K8 and K9 once a step beside K1-K4,
+      every background leaf moved."""
+    conf = TRAIN_CONFS[kind]()
+    normal, light = kind != "nonormal", kind == "light"
     if not normal:
         conf.loss.normal_weight = 0.0
     with tempfile.TemporaryDirectory() as tmp:
@@ -993,7 +1388,14 @@ def run_train(device, normal: bool = True, light: bool = False) -> dict:
         tr.device_data = data.to_device(device)
         light0 = ([p.detach().clone() for p in tr.state.model.light
                    .parameters()] if light else [])
+        bg0 = {k: p.detach().clone()
+               for k, p in tr.state.model.named_parameters()
+               if k.startswith("bg_")}
+        assert bool(bg0) == (kind == "bg") == tr.model_cfg.use_bg
+        assert tr.per_ray == (kind == "perray")
         times, seen, per_step = [], [], []
+        if tr.per_ray:  # the phase's step first, so that `timed` wraps it
+            tr.update_per_ray_phase()
         inner = tr.step_fn
 
         def timed(state, d, draws, weights, bubble=None):
@@ -1020,8 +1422,7 @@ def run_train(device, normal: bool = True, light: bool = False) -> dict:
         for m, _ in seen:
             assert all(math.isfinite(v) for v in m.values()), m
         assert seen[2][0]["bubble_loss"] > 0 and seen[0][0]["depth_loss"] > 0
-        want = (LIGHT_KERNELS if light else TRAIN_KERNELS if normal
-                else NONORMAL_KERNELS)
+        want = TRAIN_WANT[kind]
         missing = [k for k in want if launches[k] == 0]
         assert not missing, f"kernels not launched on the path: {missing}"
         if light:
@@ -1034,6 +1435,20 @@ def run_train(device, normal: bool = True, light: bool = False) -> dict:
             moved = [float((a.detach() - b).abs().max()) for a, b in zip(
                 tr.state.model.light.parameters(), light0)]
             assert all(v > 0 for v in moved), moved
+        elif kind == "perray":
+            assert tr.per_ray_fracs == PER_RAY_FRACS, tr.per_ray_fracs
+            n_checks = tr.model_cfg.sampler.max_total_iters - 1
+            for c in per_step:
+                assert c["conv_check"] == n_checks, c
+                assert c["render_core_fwd"] == c["render_core_bwd"] == 1, c
+        elif kind == "bg":
+            for c in per_step:
+                assert c["bg_core_fwd"] == c["bg_core_bwd"] == 1, c
+                assert c["render_core_fwd"] == c["render_core_bwd"] == 1, c
+            params = dict(tr.state.model.named_parameters())
+            moved = {k: float((params[k].detach() - v).abs().max())
+                     for k, v in bg0.items()}
+            assert all(v > 0 for v in moved.values()), moved
         elif normal:
             assert launches["render_core_bwd"] == TRAIN_STEPS, launches
         else:
@@ -1074,6 +1489,73 @@ def run_train(device, normal: bool = True, light: bool = False) -> dict:
         del tr
     torch.cuda.empty_cache()
     return out
+
+
+def run_eval_perray(device) -> dict:
+    """One view of the perray config (seeded init) through the eval entry
+    point, the sizes K1, K2 and K7 see recorded on the way (points for K1,
+    rays for K2 and K7): after the first compacted round they run on the
+    capped rows. Then the first chunk through the plain path."""
+    conf = perray_conf(train=False)
+    cfg = renderer.I2SDFConfig.from_cfgnode(conf.model)
+    model = renderer.I2SDFModel(cfg, seed=SEED).to(device)
+    sizes = {"sdf_mlp_nograd": [], "sampler_round": [], "conv_check": []}
+    orig = (sdf_mlp.sdf_mlp_nograd, sampler_round.sampler_round,
+            conv_check.conv_check)
+
+    def k1(p, pts):
+        sizes["sdf_mlp_nograd"].append(pts.shape[0])
+        return orig[0](p, pts)
+
+    def k2(sc, z, *a):
+        sizes["sampler_round"].append(z.shape[0])
+        return orig[1](sc, z, *a)
+
+    def k7(sc, z, *a):
+        sizes["conv_check"].append(z.shape[0])
+        return orig[2](sc, z, *a)
+
+    sdf_mlp.sdf_mlp_nograd, sampler_round.sampler_round = k1, k2
+    conv_check.conv_check = k7
+    try:
+        sl = run_slice(model, conf, device, want=EVAL_PERRAY_KERNELS)
+    finally:
+        (sdf_mlp.sdf_mlp_nograd, sampler_round.sampler_round,
+         conv_check.conv_check) = orig
+    R = conf.train.split_n_pixels
+    cap = tsampler.per_ray_caps(cfg.sampler, R)[1]
+    # the first chunk: K2 on all rays, then on the capped rows, last on all
+    first = sizes["sampler_round"][:cfg.sampler.max_total_iters]
+    assert first[0] == R and first[-1] == R and cap < R, first
+    assert all(r == cap for r in first[1:-1]), (first, cap)
+    assert min(sizes["sdf_mlp_nograd"]) < R * min(cfg.sampler.eval_counts)
+    assert sl["launches"]["conv_check"] == (
+        sl["chunks"] * (cfg.sampler.max_total_iters - 1)), sl["launches"]
+    cmp = compare_chunk(model, conf, device)
+    del model
+    torch.cuda.empty_cache()
+    n_rounds = cfg.sampler.max_total_iters
+    return dict(**sl, compare=cmp, fracs=list(PER_RAY_FRACS), cap=cap,
+                first_chunk_sizes={
+                    "sdf_mlp_nograd": sizes["sdf_mlp_nograd"][:n_rounds],
+                    "sampler_round": first,
+                    "conv_check": sizes["conv_check"][:n_rounds - 1]})
+
+
+def run_eval_bg(device) -> dict:
+    """One view of the bg config (seeded init) through the eval entry
+    point: K8 once a chunk, K9 never; then the first chunk through the
+    plain path."""
+    conf = bg_conf(train=False)
+    cfg = renderer.I2SDFConfig.from_cfgnode(conf.model)
+    model = renderer.I2SDFModel(cfg, seed=SEED).to(device)
+    sl = run_slice(model, conf, device, want=EVAL_BG_KERNELS,
+                   never=("bg_core_bwd",))
+    assert sl["launches"]["bg_core_fwd"] == sl["chunks"], sl["launches"]
+    cmp = compare_chunk(model, conf, device)
+    del model
+    torch.cuda.empty_cache()
+    return dict(**sl, compare=cmp)
 
 
 def run_cli() -> dict:
@@ -1131,8 +1613,9 @@ def run_cli() -> dict:
     assert len(plots) == 6, plots
     assert np.isfinite(depth).all() and np.isfinite(normal).all()
     assert depth.ndim == 2 and normal.shape == depth.shape + (3,)
-    return dict(runs=runs + run_cli_light(), checkpoints=ckpts, plots=plots,
-                rendered_step=4, eval_files=evals, image=list(depth.shape))
+    return dict(runs=runs + run_cli_light() + run_cli_bg(), checkpoints=ckpts,
+                plots=plots, rendered_step=4, eval_files=evals,
+                image=list(depth.shape))
 
 
 def run_cli_light() -> list:
@@ -1169,6 +1652,38 @@ def run_cli_light() -> list:
         depth = np.load(exp / "eval" / "depth" / "0000.npy")
     assert lplots and np.isfinite(depth).all(), (lplots, depth.shape)
     runs[-1]["light_mask_plots"] = lplots
+    return runs
+
+
+def run_cli_bg() -> list:
+    """The train CLI for 2 steps on the bg config (scan1 of the checkout,
+    images and cameras only), then the render CLI on its newest
+    checkpoint."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = [sys.executable, "-m", "i2sdf_tpu_torch.main", "--scan_id",
+               "1", "--data_root", images_only_root(tmp), "--log_every", "1",
+               "--conf", bg_conf_path(tmp), "--exps_folder",
+               str(Path(tmp) / "exps")]
+        runs = []
+        for extra in (["--max_steps", "2"],
+                      ["--test", "--test_mode", "render", "--indices", "0"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cli + extra, cwd=ROOT, capture_output=True,
+                                  text=True, timeout=600)
+            logs = [ln for ln in proc.stdout.splitlines() if "[scan1 " in ln]
+            runs.append(dict(args=["bg"] + extra, rc=proc.returncode,
+                             seconds=time.perf_counter() - t0,
+                             tail=logs or proc.stdout.strip().splitlines()
+                             [-3:]))
+            assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[
+                -3000:]
+        assert "[INFO] restored checkpoint @2" in proc.stdout, proc.stdout
+        assert len(runs[0]["tail"]) == 2, runs[0]
+        exp = Path(tmp) / "exps" / "quality_1" / "version_0"
+        depth = np.load(exp / "eval" / "depth" / "0000.npy")
+        pred = imaging.read_png(str(exp / "eval" / "rendering"
+                                    / "0000_pred.png"))
+    assert np.isfinite(depth).all() and pred.shape[:2] == depth.shape
     return runs
 
 
@@ -1219,6 +1734,18 @@ def main() -> int:
         rows.append(check_k4(lmodel, lcfg, lconf, device, detach))
         torch.cuda.empty_cache()
     del lmodel
+    # K7 at the perray config, K8 and K9 at the bg config (full width)
+    pconf = perray_conf(train=False)
+    pcfg = renderer.I2SDFConfig.from_cfgnode(pconf.model)
+    pmodel = renderer.I2SDFModel(pcfg, seed=SEED).to(device)
+    rows += check_conv(pmodel, pcfg, pconf, device)
+    del pmodel
+    bconf = bg_conf(train=False)
+    bcfg = renderer.I2SDFConfig.from_cfgnode(bconf.model)
+    bmodel = renderer.I2SDFModel(bcfg, seed=SEED).to(device)
+    rows += check_bg(bmodel, bcfg, bconf, device)
+    del bmodel
+    torch.cuda.empty_cache()
     emit("kernels", t0, n=len(rows))
     torch.cuda.empty_cache()
 
@@ -1239,7 +1766,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    trn = run_train(device, normal=False)
+    trn = run_train(device, "nonormal")
     emit("train_nonormal", t0, **trn)
 
     t0 = time.perf_counter()
@@ -1254,8 +1781,26 @@ def main() -> int:
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    trl = run_train(device, light=True)
+    trl = run_train(device, "light")
     emit("train_light", t0, **trl)
+
+    t0 = time.perf_counter()
+    slp = run_eval_perray(device)
+    emit("eval_perray", t0, **slp)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trp = run_train(device, "perray")
+    emit("train_perray", t0, **trp)
+
+    t0 = time.perf_counter()
+    slb = run_eval_bg(device)
+    emit("eval_bg", t0, **slb)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trb = run_train(device, "bg")
+    emit("train_bg", t0, **trb)
 
     t0 = time.perf_counter()
     cli = run_cli()
@@ -1266,19 +1811,27 @@ def main() -> int:
         per_kernel.setdefault(row["name"], row)
     # each kernel's launches from the training path it serves: K1-K4 the
     # normal-on step's (`train`), K5/K6 the normal-off step's, K3 and K4
-    # with the light head the light config's step's
+    # with the light head the light config's step's, K7 the perray
+    # config's, K8 and K9 the bg config's
     path_of = {k: ("train_nonormal" if k.startswith("rev_") else
-                   "train_light" if k.endswith("_light") else "train")
+                   "train_light" if k.endswith("_light") else
+                   "train_perray" if k == "conv_check" else
+                   "train_bg" if k.startswith("bg_core") else "train")
                for k in per_kernel}
     paths = {"train": tr["launches"], "train_nonormal": trn["launches"],
-             "train_light": trl["launches"]}
+             "train_light": trl["launches"], "train_perray": trp["launches"],
+             "train_bg": trb["launches"]}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"launches": {"eval": sl["launches"],
                                    "train": tr["launches"],
                                    "train_nonormal": trn["launches"],
                                    "eval_light": sll["launches"],
-                                   "train_light": trl["launches"]},
+                                   "train_light": trl["launches"],
+                                   "eval_perray": slp["launches"],
+                                   "train_perray": trp["launches"],
+                                   "eval_bg": slb["launches"],
+                                   "train_bg": trb["launches"]},
                       "seconds": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},

@@ -8,7 +8,9 @@
 
 The flags are the reference's. Every shipped config whose model the port
 has (the flagship's, its normal-loss-off copies, the light-mask config)
-runs through both modes. Without `--test` the trainer runs
+runs through both modes, and so do configs with per-ray sampler
+compaction (`ray_sampler.per_ray_exit`) or the NeRF++ background
+(`model.bg_network`). Without `--test` the trainer runs
 (`train/trainer.py`) for `--max_steps` steps (the config's
 `train.steps` if not given); `--resume` continues from the newest
 checkpoint of the experiment's version directory. Of the test modes only

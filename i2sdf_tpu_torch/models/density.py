@@ -17,3 +17,8 @@ def laplace_density(sdf: torch.Tensor, beta) -> torch.Tensor:
     alpha = 1.0 / beta
     return alpha * (0.5 + 0.5 * torch.sign(sdf)
                     * torch.expm1(-sdf.abs() / beta))
+
+
+def abs_density(x: torch.Tensor) -> torch.Tensor:
+    """NeRF++ background density: |sigma| (JAX `density.py:27`)."""
+    return x.abs()

@@ -10,16 +10,20 @@
 | `render_core_bwd_light` | `render_core.py`, `csrc/render_core_bwd.cu` | backward of the same op with the light head |
 | `rev_fwd` | `rev.py`, `csrc/rev_fwd.cu` | forward of `ops/pallas/fused_rev.py:213 get_rev_op` |
 | `rev_bwd` | `rev.py`, `csrc/rev_bwd.cu` | backward of `ops/pallas/fused_rev.py:213 get_rev_op` |
+| `conv_check` | `conv_check.py`, `csrc/conv_check.cu` | `ops/pallas/sampler_round.py:355 conv_check_pallas` |
+| `bg_core_fwd` | `bg_core.py`, `csrc/bg_core.cu` | forward of `ops/pallas/fused_bg.py:209 get_bg_core_op` |
+| `bg_core_bwd` | `bg_core.py`, `csrc/bg_core_bwd.cu` | backward of `ops/pallas/fused_bg.py:209 get_bg_core_op` |
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 the plain PyTorch version for CPU tensors. Each kernel has a plain
 integer counter in its module that its wrapper increments once per
-kernel launch (`launches` in `sdf_mlp.py` and `sampler_round.py`;
-`launches` and `bwd_launches` in `render_core.py` and `rev.py`;
+kernel launch (`launches` in `sdf_mlp.py`, `sampler_round.py` and
+`conv_check.py`; `launches` and `bwd_launches` in `render_core.py`,
+`rev.py` and `bg_core.py`;
 `light_launches` and `light_bwd_launches` in `render_core.py`).
 """
 
-from . import render_core, rev, sampler_round, sdf_mlp
+from . import bg_core, conv_check, render_core, rev, sampler_round, sdf_mlp
 
 KERNELS = {
     "sdf_mlp_nograd": (sdf_mlp, "launches"),
@@ -30,6 +34,9 @@ KERNELS = {
     "render_core_bwd_light": (render_core, "light_bwd_launches"),
     "rev_fwd": (rev, "launches"),
     "rev_bwd": (rev, "bwd_launches"),
+    "conv_check": (conv_check, "launches"),
+    "bg_core_fwd": (bg_core, "launches"),
+    "bg_core_bwd": (bg_core, "bwd_launches"),
 }
 
 

@@ -46,6 +46,12 @@ _SIGNATURES = {
                       _I, _P, _P, _P],
     "i2sdf_rev_bwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P,
                       _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "i2sdf_conv_check": [_P, _P, _P, _F, _P, _I, _I, _P],
+    "i2sdf_bg_core_fwd": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _P, _P, _P],
+    "i2sdf_bg_core_bwd": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                          _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                          _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,8 +1,10 @@
 """Parameter converter between the JAX package and the port.
 
 The JAX parameter tree is `{"implicit": {"lin{i}": {"v", "g", "b"}},
-"rendering": {...}, "beta": scalar}`, and `"light": {...}` in the
-light-mask config, with weights stored (in, out); the port stores them
+"rendering": {...}, "beta": scalar}`, `"light": {...}` in the light-mask
+config, and `"bg_implicit"`, `"bg_rendering"` with the NeRF++ background
+(`{"w", "b"}` leaves where `weight_norm` is off), with weights stored
+(in, out); the port stores them
 the same way (`models/mlp.py`), so a leaf crosses as it is, under the key
 `"{net}.lin{i}.{leaf}"`. The tree is taken as numpy arrays (the port
 never imports JAX): convert with `np.asarray` first.
@@ -15,7 +17,8 @@ import torch
 
 from .models.renderer import I2SDFConfig, I2SDFModel
 
-NETS = ("implicit", "rendering", "light")  # "light" only where present
+# "light" and the background's nets only where the config has them
+NETS = ("implicit", "rendering", "light", "bg_implicit", "bg_rendering")
 
 
 def from_jax_params(tree: dict, cfg: I2SDFConfig | None = None) -> dict:

@@ -6,16 +6,21 @@
 the light-mask config), the bubble draw (in the window), the training
 render, the losses, the backward (K4 on the card), Adam, and the
 point-cloud pdf update with its sample counts. `make_eval_render_fn`
-renders a whole image in chunks; its output holds the light mask too
-when the model has a light head. PyTorch runs
-it eagerly. Its random numbers arrive in a `TrainDraws` bundle, drawn by
-default from a `torch.Generator` seeded with (seed, step), so a resumed
-run replays the draws an uninterrupted run would have made.
+renders a whole image in chunks; its output holds the light mask too when
+the model has a light head. PyTorch runs it eagerly. With per-ray sampler
+compaction the capacities follow the learned beta (`PER_RAY_PHASES`,
+`step.py:35-83`): the trainer builds the step of the current phase
+(`cfg_with_fracs`), and the eval render picks its own, unless the config
+pins `per_ray_fracs`. The step's random numbers arrive in a `TrainDraws`
+bundle, drawn by default from a `torch.Generator` seeded with (seed,
+step), so a resumed run replays the draws an uninterrupted run would have
+made.
 
-Host syncs of one step: the sampler's global early exit reads one flag
-per refinement round (up to `max_total_iters - 1` = 4 at the flagship
-config, `models/sampler.py`). Nothing else in the step waits for the
-card; the metrics stay on the device.
+Host syncs of one step: the sampler's global or per-ray early exit reads
+one flag per refinement round (up to `max_total_iters - 1` = 4 at the
+flagship config, `models/sampler.py`; none with `early_exit: false`).
+Nothing else in the step waits for the card; the metrics stay on the
+device.
 """
 
 from __future__ import annotations
@@ -26,10 +31,58 @@ import torch
 
 from ..data.recon import DeviceArrays, sample_batch
 from ..models import renderer
+from ..models.density import effective_beta
 from ..models.losses import compute_losses
 from .state import TrainState
 
 N_BUCKETS = 4096  # the two-stage bubble draw's first stage (step.py:124-146)
+
+# Per-ray compaction phases (`step.py:35-58`): (beta floor, per_ray_fracs),
+# the first row whose floor is below beta wins; None is the plain global
+# early exit. Each cap is the unconverged fraction the JAX package measured
+# at that beta plus a margin.
+PER_RAY_PHASES = (
+    (0.05, None),
+    (0.02, (1.0, 1.0, 1.0, 0.77)),
+    (0.005, (1.0, 1.0, 1.0, 0.66)),
+    (0.002, (1.0, 1.0, 1.0, 0.85)),
+    (0.0, None),
+)
+
+
+def per_ray_fracs_for_beta(beta: float):
+    """The capacity phase for the learned beta (`step.py:60-65`)."""
+    for floor, fracs in PER_RAY_PHASES:
+        if beta > floor:
+            return fracs
+    return PER_RAY_PHASES[-1][1]
+
+
+def cfg_with_fracs(model_cfg: renderer.I2SDFConfig,
+                   fracs) -> renderer.I2SDFConfig:
+    """The model config with its sampler in a per-ray capacity phase (None:
+    the plain global early exit; `step.py:68-83`)."""
+    sc = model_cfg.sampler
+    if fracs is None:
+        if not sc.per_ray_exit:
+            return model_cfg
+        sc = dataclasses.replace(sc, per_ray_exit=False)
+    else:
+        sc = dataclasses.replace(sc, per_ray_exit=True,
+                                 per_ray_fracs=tuple(fracs))
+    return dataclasses.replace(model_cfg, sampler=sc)
+
+
+def eval_fracs(model: renderer.I2SDFModel):
+    """The eval render's per-ray phase (`step.py:282-292`): the pinned
+    fractions, else the beta ladder's; None without per-ray compaction."""
+    sc = model.cfg.sampler
+    if not sc.per_ray_exit:
+        return None
+    if sc.per_ray_fracs is not None:
+        return tuple(sc.per_ray_fracs)
+    beta = float(effective_beta(model.beta.detach(), model.cfg.beta_min))
+    return per_ray_fracs_for_beta(beta)
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -122,7 +175,8 @@ def make_train_step(cfg: renderer.I2SDFConfig, batch_size: int,
     per step, as `step.py:219-233`), the pdf scatter and the sample
     counts. `metrics` are 0-d device tensors: the loss, its nine terms and
     the batch PSNR. `plain=True` takes the plain versions of the kernels
-    on any device."""
+    on any device. The render samples with `cfg.sampler` (a per-ray
+    phase's, from `cfg_with_fracs`)."""
     bubble_bs = bubble_batch_size or batch_size
     every = max(int(bubble_draw_every), 1)
     if pdf_criterion not in ("DEPTH", "RGB"):
@@ -149,7 +203,7 @@ def make_train_step(cfg: renderer.I2SDFConfig, batch_size: int,
                 bubble.queue_pos += 1
             inputs["pointcloud"] = data.pointcloud[bubble_idx]
         out = renderer.render_rays_train(model, inputs, draws.render,
-                                         plain=plain)
+                                         plain=plain, sampler=cfg.sampler)
         terms = compute_losses(out, gt, weights,
                                angular_reference_bug=angular_reference_bug)
         state.optimizer.zero_grad(set_to_none=True)
@@ -179,11 +233,13 @@ def make_eval_render_fn(model: renderer.I2SDFModel, chunk_size: int):
     """Returns render_image(uv (HW, 2), intrinsics (4, 4), pose (4, 4)) ->
     dict of (HW, ...) tensors. The image is cut into `chunk_size`-ray
     chunks (the last one zero-padded, as the reference pads it), each
-    rendered by `render_rays`; the kernels' weights are packed once."""
+    rendered by `render_rays`; the kernels' weights are packed once. With
+    per-ray compaction each image samples in the phase of `eval_fracs`."""
     weights = renderer.KernelWeights.pack(model)
 
     def render_image(uv: torch.Tensor, intrinsics: torch.Tensor,
                      pose: torch.Tensor) -> dict:
+        sampler = cfg_with_fracs(model.cfg, eval_fracs(model)).sampler
         n = uv.shape[0]
         n_pad = (-n) % chunk_size
         uv_p = torch.cat([uv, uv.new_zeros((n_pad, 2))]) if n_pad else uv
@@ -191,7 +247,8 @@ def make_eval_render_fn(model: renderer.I2SDFModel, chunk_size: int):
         for chunk in uv_p.split(chunk_size):
             outs.append(renderer.render_rays(
                 model, {"uv": chunk[None], "intrinsics": intrinsics[None],
-                        "pose": pose[None]}, weights=weights))
+                        "pose": pose[None]}, weights=weights,
+                sampler=sampler))
         return {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}
 
     return render_image

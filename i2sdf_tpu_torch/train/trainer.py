@@ -10,10 +10,16 @@ with PSNR and SSIM and their plots (the light mask too, in grey, in the
 light-mask config), logs every `log_every` steps, and checkpoints. The
 validation views come from the training data's arrays, light masks
 included (`train.flip_light` inverts them in both, as
-`trainer.py:196-205` there). Left out against the JAX trainer: LPIPS,
-TensorBoard,
-multi-device data parallelism, per-ray sampler compaction, and the bubble
-hot/count maps and point-cloud HTML of `train/artifacts.py`.
+`trainer.py:196-205` there). With per-ray sampler compaction
+(`ray_sampler.per_ray_exit`) the step's capacity phase follows the
+learned beta (`trainer.py:206-222,385-406,498`): at the start of `fit`
+(a resumed run's too) and every `train.per_ray_check_freq` steps the
+trainer picks the phase (`train/step.py::per_ray_fracs_for_beta`, or the
+config's pinned `per_ray_fracs`) and, when it changed, builds that
+phase's step; PyTorch has nothing to recompile. The validation renders
+keep `per_ray_exit` and pick their own phase. Left out against the JAX
+trainer: LPIPS, TensorBoard, multi-device data parallelism, and the
+bubble hot/count maps and point-cloud HTML of `train/artifacts.py`.
 """
 
 from __future__ import annotations
@@ -29,12 +35,14 @@ import torch
 from ..data.plot import PlotData
 from ..data.recon import ReconData
 from ..models import renderer
+from ..models.density import effective_beta
 from ..models.losses import TERMS, LossConfig
 from ..utils import imaging
 from .checkpoint import CheckpointManager
 from .state import create_train_state, make_reference_lr_schedule
-from .step import (BubbleState, TrainDraws, make_eval_render_fn,
-                   make_train_step, step_generator, update_pdf)
+from .step import (BubbleState, TrainDraws, cfg_with_fracs, eval_fracs,
+                   make_eval_render_fn, make_train_step, step_generator,
+                   update_pdf)
 
 
 class ReconstructionTrainer:
@@ -102,14 +110,21 @@ class ReconstructionTrainer:
                 len(self.train_data) / self.batch_size)), 1)
         else:
             self.plot_freq = 500
-        self.step_fn = make_train_step(
-            self.model_cfg, self.batch_size,
+        self._step_kwargs = dict(
             bubble_batch_size=self.bubble_batch_size,
             pdf_prune=self.train_data.pdf_prune,
             pdf_max=self.train_data.pdf_max,
             pdf_criterion=self.pdf_criterion,
             angular_reference_bug=lc.angular_reference_bug,
             bubble_draw_every=self.bubble_draw_every)
+        # per-ray compaction: the step starts on the global early exit;
+        # `update_per_ray_phase` swaps in the beta's phase
+        self.per_ray = self.model_cfg.sampler.per_ray_exit
+        self.per_ray_check_freq = tc.get("per_ray_check_freq", 250)
+        self.per_ray_fracs = None
+        self.step_fn = make_train_step(
+            cfg_with_fracs(self.model_cfg, None), self.batch_size,
+            **self._step_kwargs)
         self.bubble: BubbleState | None = None
         self.bubble_activated = False
         self.ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"))
@@ -173,6 +188,22 @@ class ReconstructionTrainer:
 
     # -- training loop -------------------------------------------------------
 
+    def update_per_ray_phase(self) -> None:
+        """Pick the per-ray capacity phase for the learned beta (the
+        config's pinned `per_ray_fracs` at every beta; `eval_fracs`) and
+        build its step when it changed (`trainer.py:388-406`)."""
+        fracs = eval_fracs(self.state.model)
+        if fracs == self.per_ray_fracs:
+            return
+        self.per_ray_fracs = fracs
+        self.step_fn = make_train_step(
+            cfg_with_fracs(self.model_cfg, fracs), self.batch_size,
+            **self._step_kwargs)
+        beta = float(effective_beta(self.state.model.beta.detach(),
+                                    self.model_cfg.beta_min))
+        print(f"[INFO] per-ray sampler phase: beta={beta:.2e} "
+              f"fracs={fracs}")
+
     def draws(self, step: int) -> TrainDraws:
         """Step `step`'s random numbers: a function of (seed, step)."""
         gen = step_generator(self.seed + 1, step, self.device)
@@ -194,10 +225,14 @@ class ReconstructionTrainer:
                 print(f"[INFO] Resumed from step {self.state.step}")
             except FileNotFoundError:
                 print("[INFO] No checkpoint found, starting fresh")
+        if self.per_ray:
+            self.update_per_ray_phase()
         pending, t0 = [], time.perf_counter()
         step = self.state.step
         while step < max_steps:
             self._maybe_toggle_bubble(step)
+            if self.per_ray and step % self.per_ray_check_freq == 0:
+                self.update_per_ray_phase()
             metrics = self.step_fn(self.state, self.device_data,
                                    self.draws(step),
                                    self.loss_cfg.dynamic_weights(step),

@@ -13,19 +13,22 @@ they are held to the JAX package's tolerances for its bf16 Pallas kernels
 (tests/test_pallas_mlp.py, tests/test_pallas_train.py); the sampler round
 is f32 in both versions, with the JAX package's own sampler-kernel
 tolerance for the draws (tests/test_pallas_sampler.py). K4's, K5's and
-K6's tests, and those of K3 and K4 with the light head, say theirs beside
-them.
+K6's tests, those of K3 and K4 with the light head, and those of K7-K9
+say theirs beside them.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
 from i2sdf_tpu_torch.models import mlp
+from i2sdf_tpu_torch.models import sampler as tsampler
 from i2sdf_tpu_torch.models.sampler import SamplerConfig
 from i2sdf_tpu_torch.ops import kernels
-from i2sdf_tpu_torch.ops.kernels import (render_core, rev, sampler_round,
-                                         sdf_mlp)
+from i2sdf_tpu_torch.ops.kernels import (bg_core, conv_check, render_core,
+                                         rev, sampler_round, sdf_mlp)
 
 pytestmark = pytest.mark.gpu
 
@@ -482,3 +485,240 @@ def test_rev_op(dev, n, sphere):
                (torch.cat([sp, fp], 1), gp[agree]))
     grad_check(res[False][1], res[True][1],
                leaf_tol=0.1 if n >= 4800 else float("inf"))
+
+
+# ---- K7 conv_check ----------------------------------------------------------
+# Both versions compute the error bound in f32 with their sums in other
+# orders, so a ray whose bound lies within rounding of eps may flip: flags
+# must agree with the plain version's and with the f64 bound's wherever the
+# f64 bound is more than 1e-4 relative from eps, and fewer than 1 % of the
+# rays may lie in that band.
+
+def _conv_inputs(R, S, seed):
+    rng = np.random.default_rng(seed)
+    z = np.sort(rng.uniform(0.0, 6.0, (R, S)), axis=-1)
+    wall = rng.uniform(1.0, 8.0, (R, 1))
+    slope = rng.uniform(0.3, 1.0, (R, 1))
+    sdf = (wall - z) * slope + rng.uniform(0.0, 0.05, (R, 1)) * rng.normal(
+        size=(R, S))
+    return torch.from_numpy(z), torch.from_numpy(sdf)
+
+
+@pytest.mark.parametrize("S", [97, 128, 416, 600])
+def test_conv_check_kernel(dev, S):
+    R = 1600
+    z64, s64 = _conv_inputs(R, S, S)
+    z, s = z64.float().to(dev), s64.float().to(dev)
+    in_band, mixed = 0, False
+    for beta0 in (0.02, 0.05, 0.2):
+        b0 = torch.tensor(beta0, device=dev)
+        kernels.reset_launch_counts()
+        got = conv_check.conv_check(SCFG, z, s, b0)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["conv_check"] == 1
+        assert got.dtype == torch.bool and got.shape == (R,)
+        plain = tsampler.converged_rays(SCFG, z, s, b0)
+        d_star, dists = tsampler._d_star(z64, s64)
+        bound = tsampler._error_bound(torch.tensor(beta0, dtype=torch.float64),
+                                      s64, dists, d_star)
+        outside = ((bound - SCFG.eps).abs() > 1e-4 * SCFG.eps).to(dev)
+        truth = (bound <= SCFG.eps).to(dev)
+        mixed |= 0 < int(truth.sum()) < R
+        assert bool(((got == truth) | ~outside).all())
+        assert bool(((got == plain) | ~outside).all())
+        in_band += int((~outside).sum())
+    assert in_band < 0.01 * 3 * R
+    assert mixed  # both flags at some beta0: a constant output fails
+
+
+# ---- K8 bg_core_fwd and K9 bg_core_bwd ------------------------------------
+# The background config's nets (VolSDF's BlendedMVS widths). K8 against the
+# plain pair at CORE_TOLS's sdf and rgb tolerances (bf16 operands, f32
+# accumulation) and by the spread rule: each output's max error at most
+# BG_SPREAD_TOL of the plain output's spread (max - min) over 4096 seeded
+# points. At init the outputs vary little from point to point, so the
+# spread rule also runs on nets whose weights are scaled by sqrt(6) (the
+# uniform init's std then is He's sqrt(2 / fan_in)), where each spread is
+# at least BG_MIN_SPREAD. K9 with a loss's cotangents against autograd of
+# the plain pair (f32): cosine > 0.999 at every count and per leaf < 0.1
+# from 4,800 points up (below that a few bf16 mask flips weigh on a leaf
+# as much as the signal does, as for K4), and against its bf16 replay
+# (test_torch_bg_replay.replay_bwd, on the CPU) at the JAX package's
+# gradient tolerance; two runs agree to the bit.
+
+BG_SPREAD_TOL, BG_MIN_SPREAD = 0.05, 0.25
+BG_ICFG = mlp.ImplicitNetConfig(
+    feature_vector_size=256, sdf_bounding_sphere=0.0, d_in=4,
+    dims=(256,) * 8, skip_in=(4,), geometric_init=False, weight_norm=False,
+    embed_type="positional", multires=10)
+BG_RCFG = mlp.RenderingNetConfig(
+    feature_vector_size=256, dims=(128,), weight_norm=False,
+    embed_type="positional", multires=4)
+
+
+def _bg_points(n, gen):
+    p = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen),
+                                      dim=-1)
+    x4 = torch.cat([p, torch.rand((n, 1), generator=gen) * 0.25], 1)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen),
+                                      dim=-1)
+    return x4, d
+
+
+def _bg_case(dev, n, seed=0, wn=False, signal=False):
+    import dataclasses
+    gen = torch.Generator().manual_seed(seed)
+    net_i = mlp.ImplicitNet(dataclasses.replace(BG_ICFG, weight_norm=wn),
+                            gen)
+    net_r = mlp.RenderingNet(dataclasses.replace(BG_RCFG, weight_norm=wn),
+                             gen)
+    if signal:
+        with torch.no_grad():
+            for lin in net_i.layers() + net_r.layers():
+                (lin.g if wn else lin.w).mul_(math.sqrt(6.0))
+    x4, d = _bg_points(n, gen)
+    return (net_i.to(dev), net_r.to(dev), x4.to(dev).contiguous(),
+            d.to(dev).contiguous())
+
+
+def _bg_spreads(net_i, net_r):
+    """The spread rule's scale: the spread (max - min) of the plain pair's
+    sigma and rgb over 4096 seeded points."""
+    x4, d = _bg_points(4096, torch.Generator().manual_seed(4096))
+    dev = next(net_i.parameters()).device
+    with torch.no_grad():
+        ref = bg_core.bg_core_plain(net_i.cfg, net_r.cfg,
+                                    bg_core.BgWeights.of(net_i, net_r),
+                                    x4.to(dev), d.to(dev))
+    return [float(r.max() - r.min()) for r in ref]
+
+
+def _assert_spread_rule(got, ref, spreads):
+    for name, g, r, s in zip(("sigma", "rgb"), got, ref, spreads):
+        err = float((g - r).abs().max())
+        assert err <= BG_SPREAD_TOL * s, (name, err, s)
+
+
+def _bg_cotangents(sigma, rgb, seed):
+    """[c_sigma | c_rgb] of a loss: rgb L1 against seeded targets and 0.2
+    sigma^2."""
+    gen = torch.Generator().manual_seed(seed)
+    gt = torch.rand(rgb.shape, generator=gen).to(rgb.device)
+    s, r = sigma.detach().requires_grad_(True), rgb.detach().requires_grad_(
+        True)
+    with torch.enable_grad():
+        loss = (r - gt).abs().mean() + 0.2 * (s ** 2).mean()
+        cs, cr = torch.autograd.grad(loss, (s, r))
+    return torch.cat([cs, cr], 1).contiguous()
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 4097, 51_200])
+def test_bg_core_fwd_kernel(dev, n):
+    """At the init's weights (CORE_TOLS and the spread rule) and at the
+    scaled ones (the spread rule, each spread at least BG_MIN_SPREAD)."""
+    for signal in (False, True):
+        net_i, net_r, x4, d = _bg_case(dev, n, seed=n, signal=signal)
+        pack = bg_core.BgPack(net_i, net_r)
+        kernels.reset_launch_counts()
+        sigma, rgb = bg_core.bg_core_eval(pack, x4, d)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["bg_core_fwd"] == 1
+        with torch.no_grad():
+            s_ref, rgb_ref = bg_core.bg_core_plain(
+                net_i.cfg, net_r.cfg, bg_core.BgWeights.of(net_i, net_r), x4,
+                d)
+        spreads = _bg_spreads(net_i, net_r)
+        _assert_spread_rule((sigma, rgb), (s_ref, rgb_ref), spreads)
+        if signal:
+            assert min(spreads) >= BG_MIN_SPREAD, spreads
+        else:
+            torch.testing.assert_close(sigma, s_ref, atol=0.02, rtol=0.02)
+            torch.testing.assert_close(rgb, rgb_ref, atol=0.03, rtol=0.05)
+
+
+@pytest.mark.parametrize("n", [1, 70, 4800, 51_200])
+def test_bg_core_bwd_kernel(dev, n):
+    from test_torch_bg_replay import replay_bwd
+    from test_torch_bwd_replay import grad_check
+    net_i, net_r, x4, d = _bg_case(dev, n, seed=n)
+    w = bg_core.BgWeights.of(net_i, net_r)
+    sigma, rgb = bg_core.bg_core_plain(net_i.cfg, net_r.cfg, w, x4, d)
+    cot = _bg_cotangents(sigma, rgb, seed=n)
+    ref = list(torch.autograd.grad((sigma, rgb), w.flat(),
+                                   (cot[:, :1], cot[:, 1:])))
+    with torch.no_grad():
+        k = bg_core.BgLayout(net_i.cfg, net_r.cfg, w)
+        kernels.reset_launch_counts()
+        got = bg_core.bg_core_bwd(k, x4, d, cot)
+        again = bg_core.bg_core_bwd(k, x4, d, cot)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["bg_core_bwd"] == 2
+    got = [t for g in got for t in g]
+    for a, b in zip(got, [t for g in again for t in g]):
+        assert torch.equal(a, b)
+    grad_check(got, ref, leaf_tol=0.1 if n >= 4800 else float("inf"))
+    if n <= 4800:
+        cpu = lambda t: t.detach().cpu()  # noqa: E731
+        with torch.no_grad():
+            kc = bg_core.BgLayout(net_i.cfg, net_r.cfg, bg_core.BgWeights(
+                *(tuple(cpu(t) for t in g)
+                  for g in (w.ws_i, w.bs_i, w.ws_r, w.bs_r))))
+        replay = [t for g in replay_bwd(kc, cpu(x4), cpu(d), cpu(cot))
+                  for t in g]
+        grad_check([cpu(t) for t in got], replay)
+
+
+def test_bg_core_bwd_padding_rows_add_nothing(dev):
+    """33 points and the same 33 plus 31 rows with zero cotangents share
+    one padded size (64): the results agree to the bit."""
+    net_i, net_r, x4, d = _bg_case(dev, 64, seed=3)
+    cot = torch.randn((64, 4), generator=torch.Generator().manual_seed(0))
+    cot = cot.to(dev)
+    cot[33:] = 0.0
+    with torch.no_grad():
+        k = bg_core.BgLayout(net_i.cfg, net_r.cfg,
+                             bg_core.BgWeights.of(net_i, net_r))
+        a = bg_core.bg_core_bwd(k, x4[:33].contiguous(), d[:33].contiguous(),
+                                cot[:33].contiguous())
+        b = bg_core.bg_core_bwd(k, x4, d, cot)
+    flat = lambda r: [t for g in r for t in g]  # noqa: E731
+    for ga, gb in zip(flat(a), flat(b)):
+        assert torch.equal(ga, gb)
+
+
+@pytest.mark.parametrize("wn", [False, True], ids=["no_wn", "wn"])
+def test_bg_core_op(dev, wn):
+    """The op (K8 forward, K9 backward) against the plain op, through
+    autograd to the nets' leaves (v, g, b with weight norm)."""
+    from test_torch_bwd_replay import grad_check
+    net_i, net_r, x4, d = _bg_case(dev, 4800, seed=5, wn=wn)
+    leaves = list(net_i.parameters()) + list(net_r.parameters())
+    res = {}
+    for plain in (True, False):
+        kernels.reset_launch_counts()
+        sigma, rgb = bg_core.bg_core(net_i.cfg, net_r.cfg,
+                                     bg_core.BgWeights.of(net_i, net_r), x4,
+                                     d, plain=plain)
+        if plain:
+            cot = _bg_cotangents(sigma, rgb, seed=7)
+        g = torch.autograd.grad((sigma, rgb), leaves,
+                                (cot[:, :1], cot[:, 1:]))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = 0 if plain else 1
+        assert counts["bg_core_fwd"] == counts["bg_core_bwd"] == want, counts
+        res[plain] = ((sigma.detach(), rgb.detach()), list(g))
+    torch.testing.assert_close(res[False][0][0], res[True][0][0], atol=0.02,
+                               rtol=0.02)
+    torch.testing.assert_close(res[False][0][1], res[True][0][1], atol=0.03,
+                               rtol=0.05)
+    _assert_spread_rule(res[False][0], res[True][0],
+                        _bg_spreads(net_i, net_r))
+    grad_check(res[False][1], res[True][1])
+
+
+def test_bg_kernels_refuse_cpu_weights(dev):
+    net_i, net_r, x4, d = _bg_case(torch.device("cpu"), 8)
+    with pytest.raises(ValueError):
+        bg_core.bg_core_eval(bg_core.BgPack(net_i, net_r), x4.to(dev),
+                             d.to(dev))

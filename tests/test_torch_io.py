@@ -175,7 +175,9 @@ for name in names:
 missing = {"i2sdf_tpu_torch.utils.exr", "i2sdf_tpu_torch.data.recon",
            "i2sdf_tpu_torch.models.losses", "i2sdf_tpu_torch.train.state",
            "i2sdf_tpu_torch.train.step", "i2sdf_tpu_torch.train.checkpoint",
-           "i2sdf_tpu_torch.train.trainer"} - set(names)
+           "i2sdf_tpu_torch.train.trainer",
+           "i2sdf_tpu_torch.ops.kernels.conv_check",
+           "i2sdf_tpu_torch.ops.kernels.bg_core"} - set(names)
 assert not missing, missing
 import chip_smoke
 print(len(names), "modules")
@@ -187,4 +189,4 @@ def test_port_imports_nothing_the_card_may_lack():
     proc = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 37
+    assert int(proc.stdout.split()[0]) >= 39

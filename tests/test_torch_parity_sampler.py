@@ -123,8 +123,9 @@ def test_error_bound_z_vals_global_exit(case):
         calls.append(p.shape[0])
         return torch.linalg.norm(p, dim=-1) - 1.0
 
-    z = tsampler.error_bound_z_vals(tcfg, sdf_fn, *_torch(dirs, cam),
-                                    torch.tensor(beta0))
+    z, z_bg = tsampler.error_bound_z_vals(tcfg, sdf_fn, *_torch(dirs, cam),
+                                          torch.tensor(beta0))
+    assert z_bg is None
     assert len(calls) == (4 if hit else 1), calls
     assert z.shape == z_ref.shape == (24, tcfg.total_fg_samples)
     np.testing.assert_allclose(z.numpy(), np.asarray(z_ref), atol=1e-5)

@@ -115,6 +115,32 @@ def write_light_scene(root, seed=0):
     return path
 
 
+# a background block (`model.bg_network`) at narrow widths: the NeRF++
+# nets of VolSDF's BlendedMVS config in shape, with a smaller encoding
+BG_BLOCK = """    bg_network:
+        feature_vector_size: 16
+        implicit_network:
+            d_in: 4
+            d_out: 1
+            dims: [48, 48, 48]
+            geometric_init: False
+            skip_in: [2]
+            weight_norm: False
+            embed_type: positional
+            multires: 4
+        rendering_network:
+            mode: nerf
+            d_in: 3
+            d_out: 3
+            dims: [16]
+            weight_norm: False
+            embed_type: positional
+            multires: 4
+
+"""
+PER_RAY_FRACS = (1.0, 0.5, 0.5, 0.5)
+
+
 def _jax_draw_bubble(pdf, k_bubble, n_draws):
     """`i2sdf_tpu/train/step.py:124-146` (a closure there)."""
     n_buckets = 4096
@@ -162,20 +188,35 @@ def jax_draws(jcfg, jdata, base_key, step, pdf=None):
                                              maxval=s)),
             jitter=t(jax.random.uniform(k_jitter, (R, 3), minval=-0.005,
                                         maxval=0.005))))
+    if sc.inverse_sphere_bg:
+        draws.render.sampler.bg = t(jax.random.uniform(
+            keys[-1], (R, sc.N_samples_inverse_sphere)))
     if pdf is not None:
         draws.bubble_idx = t(_jax_draw_bubble(pdf, k_bubble, BATCH),
                              torch.int64)
     return draws
 
 
-def _pair(tmp_path, bubble, normal=True, light=False, detach=True):
+def _pair(tmp_path, bubble, normal=True, light=False, detach=True, bg=False,
+          per_ray=False):
     """Both packages' model, parameters and data on the tiny scene. With
     `normal` off the normal loss weight is 0 and the scene's normal maps
     are overwritten with bytes no loader can parse, so a loader that read
     one would fail. With `light`, the light-mask config's shape and the
     scene's light masks (`write_light_scene`), and `detach` written into
-    its config as `model.detach_light_feature`."""
+    its config as `model.detach_light_feature`. With `bg`, the
+    background block `BG_BLOCK`; with `per_ray`, the sampler's per-ray
+    compaction at the pinned `PER_RAY_FRACS`."""
     path = (write_light_scene if light else write_tiny_scene)(str(tmp_path))
+    text = open(path).read()
+    if bg:
+        text = text.replace("    density:\n", BG_BLOCK + "    density:\n")
+    if per_ray:
+        text = text.replace(
+            "    ray_sampler:\n", "    ray_sampler:\n        per_ray_exit: "
+            f"True\n        per_ray_fracs: {list(PER_RAY_FRACS)}\n")
+    with open(path, "w") as f:
+        f.write(text)
     if not normal:
         ndir = os.path.join(str(tmp_path), "tiny", "scan0", "normal")
         for name in os.listdir(ndir):
@@ -210,7 +251,8 @@ def _pair(tmp_path, bubble, normal=True, light=False, detach=True):
 
 def _flat_params(tree):
     return {f"{net}.{lin}.{leaf}": np.asarray(v)
-            for net in ("implicit", "rendering", "light") if net in tree
+            for net in ("implicit", "rendering", "light", "bg_implicit",
+                        "bg_rendering") if net in tree
             for lin, leaves in tree[net].items()
             for leaf, v in leaves.items()} | {"beta": np.asarray(
                 tree["beta"])}
