@@ -6,7 +6,7 @@ Phases, each printed as one JSON line with its wall time:
 
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit;
-2. build: the nine CUDA kernels (`i2sdf_tpu_torch/csrc/*.cu`), one
+2. build: the CUDA kernels (`i2sdf_tpu_torch/csrc/*.cu`), one
    `nvcc` per source, all started together, and one link;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the flagship eval render (K1-K3) and training steps give it
@@ -18,15 +18,28 @@ Phases, each printed as one JSON line with its wall time:
    config's training shape (1600 x 416) and an eval chunk (12,000 x 416),
    K8 at the bg config's training batch (51,200 points) and eval chunk
    (384,000), K9 at the training batch with a seeded loss's cotangents,
-   with the stated tolerance; kernel, plain and library-yardstick times
-   by CUDA events;
-4. slice (the eval path): one 240x320 view of `data/synthetic_quality/
+   and K10 at the first eval chunk's 1,164,000 sample points,
+   K11 and K12 at the normal-off step's 4,800 eikonal points and at
+   155,200, each at the init's weights and at weights perturbed by 0.01
+   N(0, 1), where three tangent faults planted in the plain op must fail
+   the same check, K11 also against K5 and K12 against K6; each with the
+   stated tolerance; kernel, plain and library-yardstick times by CUDA
+   events;
+4. sdf_outputs (the path of K10-K12, whose JAX counterparts only the JAX
+   package's public kernel API reaches): `fused_sdf_outputs` under no_grad
+   over the first eval chunk's sample points, and `sdf_outputs_fused_grad`
+   inside one backward of the JAX package's tangent-kernel test loss over
+   the eikonal batch, at the full width of `configs/synthetic.yml`: every
+   output finite, unit normals where the gradient is non-zero, every SDF
+   leaf's gradient finite and non-zero, K10, K11 and K12 launched once
+   each and no other kernel;
+5. slice (the eval path): one 240x320 view of `data/synthetic_quality/
    scan1` rendered through the port's eval entry point (`eval/render.py`)
    at the full width of `configs/synthetic.yml`, seeded init weights;
    every output finite and every kernel of the path launched; then the
    first 12000-ray chunk rendered again through the plain path, held
    against the kernels' render;
-5. train (the training path): `ReconstructionTrainer.fit` for 6 steps of
+6. train (the training path): `ReconstructionTrainer.fit` for 6 steps of
    `configs/synthetic_quality.yml` at full width (1600 rays a step) on
    scan1's images and cameras, with seeded synthetic depth, normals and
    bubble point cloud at scan1's shapes (the checkout holds no `depth/`
@@ -35,44 +48,44 @@ Phases, each printed as one JSON line with its wall time:
    of two steps; then one batch through a kernel step and a plain step
    from the same weights and draws, loss terms and gradients held to the
    JAX package's gradient tolerance;
-6. train_nonormal (the normal-loss-off training path): the same trainer,
+7. train_nonormal (the normal-loss-off training path): the same trainer,
    config and synthetic depth and bubble cloud with `normal_weight: 0`,
    which routes the render points through the plain nets and the
    eikonal points through K5/K6; every loss finite, per step K5 and K6
    once, K3 and K4 never, K1 and K2 at most five times (one a sampler
    round); a profile of two steps; one batch through a kernel step and a
    plain step;
-7. eval_light (the light-mask config's eval path): one 240x320 view of
+8. eval_light (the light-mask config's eval path): one 240x320 view of
    scan1 through the eval entry point at the full width of
    `configs/synthetic_light_mask.yml` (SDF 6 x 256, radiance 3 x 256,
    light 256 -> 128 -> 1), seeded init weights: every output finite, K1,
    K2 and K3 with the light head launched (K3 without it never); then the
    first chunk through the plain path, its rgb and light mask held to the
    kernels';
-8. train_light: the trainer for 6 steps of a copy of the light config at
+9. train_light: the trainer for 6 steps of a copy of the light config at
    full width on scan1 with seeded light masks (grey PNGs at scan1's
    shape, written to the temporary scene) and the `train` phase's seeded
    depth, normals and bubble cloud: K3 and K4 with the light head once a
    step (without it never), `light_mask_loss` > 0 at every step, every
    light-net leaf moved; a profile of two steps; one batch through a
    kernel step and a plain step;
-9. eval_perray: one 240x320 view of scan1 through the eval entry point
+10. eval_perray: one 240x320 view of scan1 through the eval entry point
    with the perray config (`synthetic_quality.yml` with
    `ray_sampler.per_ray_exit` and `per_ray_fracs` pinned to [1.0, 0.5,
    0.5, 0.5]; the beta ladder would not compact at the seeded init's
    beta): K7 four times a chunk, and K1/K2 on the capped rows after the
    first compacted round (the sizes they saw are recorded); then the
    first chunk through the plain path;
-10. train_perray: the trainer for 6 steps of the perray config: K7 four
+11. train_perray: the trainer for 6 steps of the perray config: K7 four
    times a step, K3/K4 once, every loss finite; a profile of two steps;
    one batch through a kernel step and a plain step;
-11. eval_bg: one view of the bg config (`synthetic_quality.yml` with the
+12. eval_bg: one view of the bg config (`synthetic_quality.yml` with the
    NeRF++ background of VolSDF's BlendedMVS config, `BG_BLOCK`): K8 once
    a chunk, K9 never; then the first chunk through the plain path;
-12. train_bg: the trainer for 6 steps of the bg config: K8 and K9 once a
+13. train_bg: the trainer for 6 steps of the bg config: K8 and K9 once a
    step beside K1-K4, every background leaf moved; a profile of two
    steps; one batch through a kernel step and a plain step;
-13. cli: `python -m i2sdf_tpu_torch.main` in train mode for 3 steps on
+14. cli: `python -m i2sdf_tpu_torch.main` in train mode for 3 steps on
    scan1 as the checkout holds it (images and cameras only), then
    `--resume` for one more step from the checkpoint it wrote, then
    `--test --test_mode render --indices 0` with no `--ckpt`, which must
@@ -125,7 +138,7 @@ from i2sdf_tpu_torch.ops import kernels
 from i2sdf_tpu_torch.models import sampler as tsampler
 from i2sdf_tpu_torch.ops.kernels import (bg_core, build, conv_check,
                                          render_core, rev, sampler_round,
-                                         sdf_mlp)
+                                         sdf_grad, sdf_mlp, sdf_outputs)
 from i2sdf_tpu_torch.train import step as train_step
 from i2sdf_tpu_torch.train.state import create_train_state
 from i2sdf_tpu_torch.train.trainer import ReconstructionTrainer
@@ -147,6 +160,7 @@ EVAL_PERRAY_KERNELS = EVAL_KERNELS + ("conv_check",)
 PERRAY_KERNELS = TRAIN_KERNELS + ("conv_check",)
 EVAL_BG_KERNELS = EVAL_KERNELS + ("bg_core_fwd",)
 BG_KERNELS = TRAIN_KERNELS + ("bg_core_fwd", "bg_core_bwd")
+SDF_OUTPUTS_KERNELS = ("sdf_outputs", "sdf_grad_fwd", "sdf_grad_bwd")
 # the perray config's pinned capacities (the beta ladder gives None at the
 # seeded init's beta 0.1, so it would never compact)
 PER_RAY_FRACS = (1.0, 0.5, 0.5, 0.5)
@@ -198,6 +212,16 @@ K4_RAYS, K4_EIK = 1600, 4800   # one training step's render-core batch
 # K5 against its plain version: the JAX package's tolerances for its rev
 # kernel (tests/test_pallas_rev.py), (atol, rtol)
 REV_TOLS = {"sdf": (0.02, 0.02), "feat": (0.05, 0.05), "grad": (0.05, 0.08)}
+# K10 and K11 against their plain versions: the JAX package's tolerances
+# for its tangent-stream kernels (tests/test_pallas_outputs.py:39-49),
+# (atol, rtol), and each point's gradient cosine
+TAN_TOLS = REV_TOLS
+TAN_COS_TOL = 0.995
+# ... held where the plain gradient's norm is at least this: below it bf16's
+# error can turn a short gradient past the bound, and the JAX kernel's own
+# gradient does so (tests/test_torch_parity_sdf_outputs.py::
+# test_flagship_perturbed_matches_pallas_interpret)
+TAN_COS_MIN_NORM = 0.5
 # K3 (and K3 with the light head) against its plain version: the JAX
 # package's tolerances for its render kernel (tests/test_pallas_train.py:
 # 73-77, 171-176), (atol, rtol)
@@ -760,6 +784,12 @@ def k6_macs(icfg) -> int:
             + sum(sd[1:]) + 2 * sum(sd))
 
 
+def staging_gb(plan) -> float:
+    """The device memory (GB) a weight-gradient kernel's scratch plan
+    takes: its bf16 and f32 buffers."""
+    return (2 * plan.n16 + 4 * plan.n32) / 1e9
+
+
 def eikonal_batch(cfg, conf, device, seed):
     """One training step's 4,800 eikonal points as `render_rays_train` makes
     them: a third uniform in the scene's cube, a third at a depth drawn
@@ -885,6 +915,7 @@ def check_rev(model, cfg, conf, device) -> list[dict]:
             source="i2sdf_tpu_torch/csrc/rev_bwd.cu",
             replaces="i2sdf_tpu/ops/pallas/fused_rev.py:213",
             points=label, shape=[n, 3], cotangents=[k.out_cols, 3],
+            staging_gb=staging_gb(render_core._BwdPlan(k, n)),
             max_abs_err=max(float((g - r).abs().max())
                             for g, r in zip(dws + dbs, ref)),
             **gerrs, leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
@@ -894,6 +925,391 @@ def check_rev(model, cfg, conf, device) -> list[dict]:
         del ref, c_out, c_g
         torch.cuda.empty_cache()
     return rows
+
+
+# ---- K10-K12: the tangent-stream ops (fused_outputs.py, fused_grad.py) -----
+
+def k10_macs(icfg) -> int:
+    """K10 and K11 per point: the forward with the full head, and three
+    tangent streams through the hidden layers and the head's sdf column."""
+    sd = sdf_layer_macs(icfg)
+    return sum(sd) + 3 * (sum(sd[:-1]) + icfg.layer_dims()[-2])
+
+
+def k12_macs(icfg) -> int:
+    """K12 per point, four streams each: the tangent sweep through the
+    hidden layers, the reverse sweep through layers n-1 .. 1 transposed,
+    and every layer's weight-gradient product."""
+    sd = sdf_layer_macs(icfg)
+    return 4 * (sum(sd[:-1]) + sum(sd[1:]) + sum(sd))
+
+
+def perturbed_net(net, seed):
+    """A copy of the net with every parameter moved by 0.01 N(0, 1),
+    seeded: off the init's zero encoding rows of layer 0 and the skip,
+    which hide a fault in the tangents' layout."""
+    net = copy.deepcopy(net)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.01 * torch.randn(p.shape, generator=gen).to(p.device))
+    return net
+
+
+def net_weights(net):
+    lins = net.layers()
+    return [l.weight() for l in lins], [l.b for l in lins]
+
+
+def tangent_faults(icfg, x) -> dict:
+    """The encoding's tangents (into layer 0, at the skip) as a faulty
+    K10-K12 would build them: the sin and cos blocks swapped, the skip's
+    dropped, the x and y axes swapped."""
+    t = sdf_grad.embed_tangents(icfg, x)
+    a, b = 3, 3 + 3 * icfg.multires
+    swapped = torch.cat([t[..., :a], t[..., b:], t[..., a:b]], -1)
+    return {"cos_sin_swapped": (swapped, swapped),
+            "skip_tangents_dropped": (t, torch.zeros_like(t)),
+            "axes_permuted": (t[[1, 0, 2]], t[[1, 0, 2]])}
+
+
+def sweep_outputs(net, x, clamp: bool, fault=None, bf16w: bool = False):
+    """(sdf, feat, grad) of the plain tangent sweep (chunked, no gradient):
+    with `fault`, that planted tangent fault; with `bf16w`, at the weights
+    rounded to bf16 (the kernels' operands; f32 biases and arithmetic);
+    clamped to the bounding sphere if `clamp`."""
+    icfg = net.cfg
+    ws, bs = net_weights(net)
+    if bf16w:
+        ws = [w.to(torch.bfloat16).float() for w in ws]
+    outs = []
+    with torch.no_grad():
+        for xc in x.split(1 << 16):
+            tans = tangent_faults(icfg, xc)[fault] if fault else ()
+            out, grad = sdf_grad.sdf_tangents(icfg, ws, bs, xc, *tans)
+            sdf = out[:, :1]
+            if clamp:
+                sdf, grad = render_core._sphere_clamp(icfg, xc, sdf, grad)
+            outs.append((sdf, out[:, 1:], grad))
+    return [torch.cat(o) for o in zip(*outs)]
+
+
+def fault_vjp(net, x, c_out, c_g, fault):
+    """The weight gradients of <c_out, out> + <c_g, grad> through the plain
+    tangent sweep with one planted fault (chunked)."""
+    icfg = net.cfg
+    ws, bs = net_weights(net)
+    total = None
+    for xc, co, cg in zip(x.split(1 << 15), c_out.split(1 << 15),
+                          c_g.split(1 << 15)):
+        out, grad = sdf_grad.sdf_tangents(
+            icfg, ws, bs, xc, *tangent_faults(icfg, xc)[fault])
+        g = torch.autograd.grad((out, grad), ws + bs, (co, cg))
+        total = g if total is None else [a + b for a, b in zip(total, g)]
+    return total
+
+
+def tangent_check(got, ref, x, icfg, clamped: bool) -> tuple[dict, bool]:
+    """(sdf, feat, grad) of a tangent kernel against the plain op's, by
+    the JAX package's bounds for its tangent kernels (TAN_TOLS, and the
+    gradient's cosine > TAN_COS_TOL at each point where the plain
+    gradient's norm is at least TAN_COS_MIN_NORM; `cos_min_all` is over
+    every point). For `clamped` outputs (K10)
+    with a bounding sphere, the points where the two took different sides
+    (next to the sphere, where the kernel's bf16 sdf may pick the other)
+    are left out; at most 1% may be."""
+    agree = torch.ones_like(ref[0][:, 0], dtype=torch.bool)
+    if clamped and icfg.sdf_bounding_sphere > 0:
+        sphere = icfg.sphere_scale * (icfg.sdf_bounding_sphere
+                                      - torch.linalg.norm(x, dim=-1))
+        agree = (((got[0][:, 0] - sphere).abs() < 1e-5)
+                 == ((ref[0][:, 0] - sphere).abs() < 1e-5))
+    got = [t[agree] for t in got]
+    ref = [t.detach()[agree] for t in ref]
+    g, gr = got[2], ref[2]
+    cos = (g * gr).sum(-1) / torch.clamp(g.norm(dim=-1) * gr.norm(dim=-1),
+                                         min=1e-9)
+    held = gr.norm(dim=-1) >= TAN_COS_MIN_NORM
+    errs = {k: float((a - b).abs().max())
+            for k, a, b in zip(TAN_TOLS, got, ref)}
+    fields = dict(errs=errs, cos_min=float(cos[held].min()),
+                  cos_held=float(held.float().mean()),
+                  cos_min_all=float(cos.min()),
+                  sphere_agree=float(agree.float().mean()))
+    ok = (all(close(a, b, *TAN_TOLS[k]) for k, a, b in zip(TAN_TOLS, got,
+                                                              ref))
+          and fields["cos_min"] > TAN_COS_TOL
+          and fields["sphere_agree"] >= 0.99)
+    return fields, ok
+
+
+def check_sdf_outputs(model, cfg, conf, device) -> list[dict]:
+    """K10 at the first eval chunk's 1,164,000 sample points
+    (`eval_chunk_points`), at the init's weights and at perturbed weights,
+    against the plain op (`sdf_outputs_plain`, the tangent sweep in f32);
+    at the perturbed weights against the plain op at the weights rounded to
+    bf16 (there that rounding alone moves the gradient by about the whole
+    atol, for any bf16 kernel: tests/test_torch_tangent_replay.py; the f32
+    comparison is reported as `vs_f32`), and each planted tangent fault in
+    the plain op must fail the same check."""
+    icfg = cfg.implicit
+    x, _ = eval_chunk_points(cfg, conf, device)
+    n = x.shape[0]
+    rows = []
+    for label, net in (("init", model.implicit),
+                       ("perturbed", perturbed_net(model.implicit,
+                                                   SEED + 10))):
+        with torch.no_grad():
+            got = sdf_outputs.fused_sdf_outputs(net, x)
+            torch.cuda.synchronize()
+            ref = sdf_outputs.sdf_outputs_plain(net, x)
+            vs_f32 = None
+            if label == "perturbed":
+                vs_f32 = tangent_check(got, ref, x, icfg, True)[0]
+                ref = sweep_outputs(net, x, True, bf16w=True)
+            fields, ok = tangent_check(got, ref, x, icfg, True)
+            fields["vs_f32"] = vs_f32
+            if label == "perturbed":
+                bad = {f: tangent_check(sweep_outputs(net, x, True, f), ref,
+                                        x, icfg, True)
+                       for f in tangent_faults(icfg, x[:1])}
+                fields["fault_errs"] = {f: v[0] for f, v in bad.items()}
+                fields["faults_caught"] = not any(v[1] for v in bad.values())
+                ok = ok and fields["faults_caught"]
+            ws, _ = net_weights(net)
+            n_w = sum(w.numel() for w in ws)
+            b_ms, b_by = bound(2.0 * k10_macs(icfg) * n,
+                               n * (12 + 4 * icfg.layer_dims()[-1] + 12)
+                               + 2 * n_w, PEAK_BF16)
+
+            def library():
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    sdf_outputs.sdf_outputs_plain(net, x)
+
+            rows.append(dict(
+                name="sdf_outputs", route="cuda",
+                source="i2sdf_tpu_torch/csrc/sdf_outputs.cu",
+                replaces="i2sdf_tpu/ops/pallas/fused_outputs.py:95",
+                weights=label, shape=[n, 3],
+                max_abs_err=max(fields["errs"].values()), **fields,
+                tolerances=TAN_TOLS, cos_tol=TAN_COS_TOL,
+                ms=time_ms(lambda: sdf_outputs.fused_sdf_outputs(net, x), 5),
+                plain_ms=time_ms(lambda: sdf_outputs.sdf_outputs_plain(net,
+                                                                       x), 2),
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 2)))
+        emit_row(rows[-1], ok)
+        del got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
+    """K11 and K12 at the normal-off step's eikonal batch (4,800 points)
+    and at 155,200 points, at the init's weights and at perturbed weights,
+    against the plain op (`sdf_grad_plain`: f32 autograd with
+    create_graph), K11 at the perturbed weights against the plain sweep at
+    the weights rounded to bf16 as K10 is (the f32 comparison reported as
+    `vs_f32`), K12 with the cotangents of the JAX package's kernel-test
+    loss (`rev_cotangents`) and with their c_g alone; at the perturbed
+    weights each planted tangent fault in the plain op must fail the same
+    check (K12's with c_g alone). Each row also holds
+    K11 against K5 and K12 against K6 on the same points, weights and
+    cotangents, to the same bounds."""
+    icfg = cfg.implicit
+    rows = []
+    nets = (("init", model.implicit),
+            ("perturbed", perturbed_net(model.implicit, SEED + 10)))
+    for (label, x), (wlabel, net) in itertools.product(
+            (("eikonal", eikonal_batch(cfg, conf, device, SEED + 8)),
+             ("render", render_batch(cfg, conf, device))), nets):
+        n = x.shape[0]
+        ws, bs = net_weights(net)
+        n_w = sum(w.numel() for w in ws)
+        n_p = n_w + sum(b.numel() for b in bs)
+        with torch.no_grad():
+            k = sdf_grad.SdfGradLayout(icfg, ws, bs)
+            kr = rev.RevLayout(icfg, ws, bs)
+        # K11
+        with torch.no_grad():
+            out, grad = sdf_grad.sdf_grad_fwd(k, x)
+            torch.cuda.synchronize()
+            out5, grad5 = rev.rev_fwd(kr, x)
+        out_p, grad_p = sdf_grad.sdf_grad_plain(icfg, ws, bs, x)
+        split = lambda o, g: (o[:, :1], o[:, 1:], g)  # noqa: E731
+        ref11, vs_f32 = split(out_p, grad_p), None
+        if wlabel == "perturbed":
+            vs_f32 = tangent_check(split(out, grad), ref11, x, icfg, False)[0]
+            ref11 = sweep_outputs(net, x, False, bf16w=True)
+        fields, ok = tangent_check(split(out, grad), ref11, x, icfg, False)
+        vs_k5, ok5 = tangent_check(split(out, grad), split(out5, grad5), x,
+                                   icfg, False)
+        fields.update(vs_f32=vs_f32, vs_rev_fwd=vs_k5)
+        ok = ok and ok5
+        if wlabel == "perturbed":
+            bad = {f: tangent_check(sweep_outputs(net, x, False, f), ref11, x,
+                                    icfg, False)
+                   for f in tangent_faults(icfg, x[:1])}
+            fields["fault_errs"] = {f: v[0] for f, v in bad.items()}
+            fields["faults_caught"] = not any(v[1] for v in bad.values())
+            ok = ok and fields["faults_caught"]
+        b_ms, b_by = bound(2.0 * k10_macs(icfg) * n,
+                           n * (12 + 4 * k.out_cols + 12) + 2 * n_w,
+                           PEAK_BF16)
+
+        def k11():
+            with torch.no_grad():
+                sdf_grad.sdf_grad_fwd(k, x)
+
+        def lib11():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                sdf_grad.sdf_grad_plain(icfg, ws, bs, x)
+
+        rows.append(dict(
+            name="sdf_grad_fwd", route="cuda",
+            source="i2sdf_tpu_torch/csrc/sdf_grad_fwd.cu",
+            replaces="i2sdf_tpu/ops/pallas/fused_grad.py:250",
+            points=label, weights=wlabel, shape=[n, 3],
+            max_abs_err=max(fields["errs"].values()), **fields,
+            tolerances=TAN_TOLS, cos_tol=TAN_COS_TOL, ms=time_ms(k11, 5),
+            plain_ms=time_ms(lambda: sdf_grad.sdf_grad_plain(icfg, ws, bs,
+                                                             x), 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib11, 3)))
+        emit_row(rows[-1], ok)
+        del out, grad, out5, grad5
+        # K12, with the loss's cotangents and with c_g alone: the second
+        # isolates the tangent path, which the loss's sdf and feature
+        # terms can outweigh in a leaf
+        c_out, c_g = rev_cotangents(out_p, grad_p, SEED + 9)
+        ref = torch.autograd.grad((out_p, grad_p), ws + bs, (c_out, c_g),
+                                  retain_graph=True)
+        no_out = torch.zeros_like(c_out)
+        ref_g = [torch.zeros_like(p) if g is None else g for g, p in zip(
+            torch.autograd.grad(grad_p, ws + bs, c_g, allow_unused=True),
+            ws + bs)]
+        del out_p, grad_p
+        with torch.no_grad():
+            got = [t for g in sdf_grad.sdf_grad_bwd(k, x, c_out, c_g)
+                   for t in g]
+            again = [t for g in sdf_grad.sdf_grad_bwd(k, x, c_out, c_g)
+                     for t in g]
+            got_g = [t for g in sdf_grad.sdf_grad_bwd(k, x, no_out, c_g)
+                     for t in g]
+            torch.cuda.synchronize()
+            got6 = [t for g in rev.rev_bwd(kr, x, c_out, c_g) for t in g]
+        stable = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        gerrs = grad_errors(got, ref)
+        vs_k6 = grad_errors(got, got6)
+        only_g = grad_errors(got_g, ref_g)
+        ok = (grads_ok(gerrs) and grads_ok(vs_k6) and grads_ok(only_g)
+              and stable)
+        fields = dict(**gerrs, grad_cotangent_only=only_g, vs_rev_bwd=vs_k6,
+                      bit_stable=stable)
+        if wlabel == "perturbed":
+            bad = {f: grad_errors(fault_vjp(net, x, no_out, c_g, f), ref_g)
+                   for f in tangent_faults(icfg, x[:1])}
+            fields["fault_errs"] = bad
+            fields["faults_caught"] = not any(grads_ok(e)
+                                              for e in bad.values())
+            ok = ok and fields["faults_caught"]
+        del got6, got_g, ref_g
+        b_ms, b_by = bound(2.0 * k12_macs(icfg) * n,
+                           n * (12 + 4 * k.out_cols + 12) + 2 * 2 * n_w
+                           + 4 * n_p, PEAK_BF16)
+
+        def k12():
+            with torch.no_grad():
+                sdf_grad.sdf_grad_bwd(k, x, c_out, c_g)
+
+        def plain12():
+            torch.autograd.grad(sdf_grad.sdf_grad_plain(icfg, ws, bs, x),
+                                ws + bs, (c_out, c_g))
+
+        def lib12():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                outs = sdf_grad.sdf_grad_plain(icfg, ws, bs, x)
+            torch.autograd.grad(outs, ws + bs, (c_out, c_g))
+
+        rows.append(dict(
+            name="sdf_grad_bwd", route="cuda",
+            source="i2sdf_tpu_torch/csrc/sdf_grad_bwd.cu",
+            replaces="i2sdf_tpu/ops/pallas/fused_grad.py:250",
+            points=label, weights=wlabel, shape=[n, 3],
+            cotangents=[k.out_cols, 3],
+            staging_gb=staging_gb(sdf_grad._BwdPlan(k, n)),
+            max_abs_err=max(float((g - r).abs().max())
+                            for g, r in zip(got, ref)),
+            **fields, leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
+            ms=time_ms(k12, 5), plain_ms=time_ms(plain12, 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib12, 2)))
+        emit_row(rows[-1], ok)
+        del ref, got, c_out, c_g, k, kr
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tangent_loss(sdf, feat, grad, gt_n):
+    """The JAX package's loss for its tangent-kernel test
+    (`tests/test_pallas_grad.py::_loss_terms`)."""
+    nrm = grad / torch.clamp(torch.linalg.norm(grad, dim=-1, keepdim=True),
+                             min=1e-9)
+    return ((sdf ** 2).mean() + 0.1 * (feat ** 2).mean()
+            + 0.5 * (1 - (nrm * gt_n).sum(-1)).abs().mean()
+            + 0.1 * ((torch.linalg.norm(grad, dim=-1) - 1) ** 2).mean())
+
+
+def run_sdf_outputs(model, cfg, conf, device) -> dict:
+    """The path of K10-K12: the two public entry points as a user calls
+    them at full width. `fused_sdf_outputs` under no_grad over the first
+    eval chunk's 1,164,000 sample points (the normal map's inputs), and
+    `sdf_outputs_fused_grad` inside one backward of the JAX package's
+    kernel-test loss over the normal-off step's 4,800 eikonal points.
+    Every output finite, the normals unit where the gradient is non-zero
+    and the gradient's median norm near 1 (the geometric init's SDF is a
+    sphere's distance), every SDF leaf's gradient finite and non-zero, and
+    K10, K11 and K12 each launched once (no other kernel)."""
+    net = model.implicit
+    x, _ = eval_chunk_points(cfg, conf, device)
+    eik = eikonal_batch(cfg, conf, device, SEED + 8)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    gt_n = torch.nn.functional.normalize(
+        torch.randn((eik.shape[0], 3), generator=gen), dim=-1).to(device)
+    leaves = list(net.parameters())
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        sdf, feat, grad = sdf_outputs.fused_sdf_outputs(net, x)
+    loss = tangent_loss(*sdf_grad.sdf_outputs_fused_grad(net, eik), gt_n)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    seconds = time.perf_counter() - t0
+    gnorm = torch.linalg.norm(grad, dim=-1)
+    nz = gnorm > 0
+    normals = grad[nz] / gnorm[nz, None]
+    shapes = [list(t.shape) for t in (sdf, feat, grad)]
+    finite = all(bool(torch.isfinite(t).all()) for t in (sdf, feat, grad))
+    unit = float((torch.linalg.norm(normals, dim=-1) - 1).abs().max())
+    leaf_ok = all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+                  for g in grads)
+    others = {k: v for k, v in launches.items()
+              if k not in SDF_OUTPUTS_KERNELS and v}
+    want = all(launches[k] == 1 for k in SDF_OUTPUTS_KERNELS)
+    out = dict(points=x.shape[0], eikonal_points=eik.shape[0],
+               shapes=shapes, finite=finite, nonzero_grad=float(
+                   nz.float().mean()), normal_unit_err=unit,
+               grad_norm_median=float(gnorm.median()),
+               loss=float(loss.detach()),
+               leaves=len(grads), leaves_finite_nonzero=leaf_ok,
+               launches=launches, other_launches=others, seconds=seconds)
+    if not (finite and leaf_ok and unit < 1e-3 and want and not others
+            and 0.5 < out["grad_norm_median"] < 2.0
+            and math.isfinite(out["loss"])
+            and shapes == [[x.shape[0], 1], [x.shape[0],
+                                             cfg.implicit.feature_vector_size],
+                           [x.shape[0], 3]]):
+        raise AssertionError(f"sdf_outputs path failed: {out}")
+    return out
 
 
 # ---- K7 conv_check, K8/K9 the background pair -----------------------------
@@ -1717,12 +2133,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = check_kernels(model, cfg, conf, device)
+    rows += check_sdf_outputs(model, cfg, conf, device)
     tconf = train_conf()
     tcfg = renderer.I2SDFConfig.from_cfgnode(tconf.model)
     tmodel = renderer.I2SDFModel(tcfg, seed=SEED).to(device)
     rows.append(check_k4(tmodel, tcfg, conf, device))
     torch.cuda.empty_cache()
     rows += check_rev(tmodel, tcfg, conf, device)
+    rows += check_sdf_grad(tmodel, tcfg, conf, device)
     del tmodel
     # K3 and K4 with the light head, at the light config's full width
     lconf = light_conf(train=False)
@@ -1747,6 +2165,11 @@ def main() -> int:
     del bmodel
     torch.cuda.empty_cache()
     emit("kernels", t0, n=len(rows))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    so = run_sdf_outputs(model, cfg, conf, device)
+    emit("sdf_outputs", t0, **so)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1812,15 +2235,16 @@ def main() -> int:
     # each kernel's launches from the training path it serves: K1-K4 the
     # normal-on step's (`train`), K5/K6 the normal-off step's, K3 and K4
     # with the light head the light config's step's, K7 the perray
-    # config's, K8 and K9 the bg config's
-    path_of = {k: ("train_nonormal" if k.startswith("rev_") else
+    # config's, K8 and K9 the bg config's, K10-K12 the `sdf_outputs` phase's
+    path_of = {k: ("sdf_outputs" if k in SDF_OUTPUTS_KERNELS else
+                   "train_nonormal" if k.startswith("rev_") else
                    "train_light" if k.endswith("_light") else
                    "train_perray" if k == "conv_check" else
                    "train_bg" if k.startswith("bg_core") else "train")
                for k in per_kernel}
     paths = {"train": tr["launches"], "train_nonormal": trn["launches"],
              "train_light": trl["launches"], "train_perray": trp["launches"],
-             "train_bg": trb["launches"]}
+             "train_bg": trb["launches"], "sdf_outputs": so["launches"]}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"launches": {"eval": sl["launches"],
@@ -1831,7 +2255,8 @@ def main() -> int:
                                    "eval_perray": slp["launches"],
                                    "train_perray": trp["launches"],
                                    "eval_bg": slb["launches"],
-                                   "train_bg": trb["launches"]},
+                                   "train_bg": trb["launches"],
+                                   "sdf_outputs": so["launches"]},
                       "seconds": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},

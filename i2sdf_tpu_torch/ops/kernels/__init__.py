@@ -13,17 +13,25 @@
 | `conv_check` | `conv_check.py`, `csrc/conv_check.cu` | `ops/pallas/sampler_round.py:355 conv_check_pallas` |
 | `bg_core_fwd` | `bg_core.py`, `csrc/bg_core.cu` | forward of `ops/pallas/fused_bg.py:209 get_bg_core_op` |
 | `bg_core_bwd` | `bg_core.py`, `csrc/bg_core_bwd.cu` | backward of `ops/pallas/fused_bg.py:209 get_bg_core_op` |
+| `sdf_outputs` | `sdf_outputs.py`, `csrc/sdf_outputs.cu` | `ops/pallas/fused_outputs.py:95 fused_sdf_outputs` |
+| `sdf_grad_fwd` | `sdf_grad.py`, `csrc/sdf_grad_fwd.cu` | forward of `ops/pallas/fused_grad.py:250 get_sdf_outputs_op` |
+| `sdf_grad_bwd` | `sdf_grad.py`, `csrc/sdf_grad_bwd.cu` | backward of `ops/pallas/fused_grad.py:250 get_sdf_outputs_op` |
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 the plain PyTorch version for CPU tensors. Each kernel has a plain
 integer counter in its module that its wrapper increments once per
-kernel launch (`launches` in `sdf_mlp.py`, `sampler_round.py` and
-`conv_check.py`; `launches` and `bwd_launches` in `render_core.py`,
-`rev.py` and `bg_core.py`;
+kernel launch (`launches` in `sdf_mlp.py`, `sampler_round.py`,
+`conv_check.py` and `sdf_outputs.py`; `launches` and `bwd_launches` in
+`render_core.py`, `rev.py`, `bg_core.py` and `sdf_grad.py`;
 `light_launches` and `light_bwd_launches` in `render_core.py`).
+
+With K10-K12 every `pl.pallas_call` site of the JAX package has its
+counterpart here. K10-K12 share the tangent sweep in
+`csrc/tangent_common.cuh`.
 """
 
-from . import bg_core, conv_check, render_core, rev, sampler_round, sdf_mlp
+from . import (bg_core, conv_check, render_core, rev, sampler_round,
+               sdf_grad, sdf_mlp, sdf_outputs)
 
 KERNELS = {
     "sdf_mlp_nograd": (sdf_mlp, "launches"),
@@ -37,6 +45,9 @@ KERNELS = {
     "conv_check": (conv_check, "launches"),
     "bg_core_fwd": (bg_core, "launches"),
     "bg_core_bwd": (bg_core, "bwd_launches"),
+    "sdf_outputs": (sdf_outputs, "launches"),
+    "sdf_grad_fwd": (sdf_grad, "launches"),
+    "sdf_grad_bwd": (sdf_grad, "bwd_launches"),
 }
 
 

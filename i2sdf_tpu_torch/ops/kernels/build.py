@@ -52,6 +52,11 @@ _SIGNATURES = {
     "i2sdf_bg_core_bwd": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                           _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                           _P],
+    "i2sdf_sdf_outputs": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P,
+                          _P],
+    "i2sdf_sdf_grad_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "i2sdf_sdf_grad_bwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+                           _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

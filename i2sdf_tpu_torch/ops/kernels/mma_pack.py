@@ -97,8 +97,12 @@ def sdf_chain(net, last_cols=None) -> list[dict]:
     return layers
 
 
-def check_sdf_net(cfg) -> None:
-    if cfg.embed_type != "positional" or cfg.d_in != 3:
+def check_sdf_net(cfg, embed_none: bool = False) -> None:
+    """Refuse a net the SDF kernels cannot run: they take 3-d points with
+    the positional encoding (or, where `embed_none`, with no encoding:
+    the tangent-stream kernels K10-K12 run that as frequency count 0)."""
+    if cfg.d_in != 3 or not (cfg.embed_type == "positional"
+                             or (embed_none and cfg.embed_type is None)):
         raise ValueError("the SDF kernels take 3-d points with the "
                          "positional encoding")
     if 0 in cfg.skip_in:

@@ -129,7 +129,7 @@ def _rad_perm(vdim: int, F: int) -> list:
 
 
 def sdf_chains(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
-               perm: list | None = None):
+               perm: list | None = None, embed_none: bool = False):
     """The SDF net in the sweep kernels' layouts (K3-K6), from materialized
     (detached, f32) weights and biases, the output layer's columns in the
     order `perm` (the net's own order if None):
@@ -145,8 +145,9 @@ def sdf_chains(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
     Each transposed plan row's `real` is the width that continues down the
     net (the hidden width of the layer's input, the part before the skip's
     encoding), `col` where the encoding starts (skip layers), and SCALE
-    marks the 1/sqrt(2) of a skip."""
-    mma_pack.check_sdf_net(icfg)
+    marks the 1/sqrt(2) of a skip. `embed_none` also takes a net with no
+    encoding (`mma_pack.check_sdf_net`)."""
+    mma_pack.check_sdf_net(icfg, embed_none)
     dims = icfg.layer_dims()
     d0, n = dims[0], len(dims) - 1
     if n - 1 in icfg.skip_in:

@@ -74,14 +74,20 @@ class RevLayout:
 
     def unpack_grads(self, out: torch.Tensor, plan):
         """K6's flat output -> (dws, dbs) in the net's own shapes."""
-        dws, dbs = [], []
-        for p, (k, m) in enumerate(self.shapes):
-            K, N = plan.dims[p]
-            dws.append(out[plan.out[p]:plan.out[p] + K * N].view(K, N)[:k,
-                                                                        :m])
-            o = plan.out_db + plan.db[p]
-            dbs.append(out[o:o + m])
-        return dws, dbs
+        return unpack_grads(self.shapes, out, plan)
+
+
+def unpack_grads(shapes, out: torch.Tensor, plan):
+    """A weight-gradient launch's flat output (`plan.out[p]`: layer p's
+    padded (K, N) gradient; `plan.out_db + plan.db[p]`: its bias's) ->
+    (dws, dbs) cut to the (in, out) `shapes` of the net's layers."""
+    dws, dbs = [], []
+    for p, (k, m) in enumerate(shapes):
+        K, N = plan.dims[p]
+        dws.append(out[plan.out[p]:plan.out[p] + K * N].view(K, N)[:k, :m])
+        o = plan.out_db + plan.db[p]
+        dbs.append(out[o:o + m])
+    return dws, dbs
 
 
 # ---- plain version ----------------------------------------------------------

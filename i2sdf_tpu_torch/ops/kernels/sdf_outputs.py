@@ -1,0 +1,93 @@
+"""K10 `sdf_outputs`: the SDF net's sdf, features and spatial gradient at
+points, forward only, bounding-sphere clamped.
+
+Replaces `i2sdf_tpu/ops/pallas/fused_outputs.py:95 fused_sdf_outputs`
+(pallas_call at `:135`): (sdf, feature, d sdf / d x) at every sample, the
+normal map's inputs on an eval render. The CUDA kernel is
+`csrc/sdf_outputs.cu`, the tangent sweep of K11 (`sdf_grad.py`) with the
+clamp and its gradient select in its epilogue; its header says what
+bounds it.
+
+* `sdf_outputs_plain(net, points)`: the same function in plain f32
+  PyTorch (`sdf_grad.sdf_tangents`, chunked). The CPU path and the tests
+  use it; on the card it only serves as the yardstick the kernel is held
+  to.
+* `sdf_outputs_fwd(k, icfg, points)`: the launch, CUDA tensors only.
+* `fused_sdf_outputs(net, points)`: the entry point. Like the JAX op,
+  which has no AD rules (`fused_outputs.py:17-18`), it gives no gradient:
+  it runs under `torch.no_grad()`, and a call where autograd would track
+  the points or the net's parameters raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...models import mlp
+from . import build, mma_pack, render_core, sdf_grad
+
+launches = 0  # K10 launches since the last reset_launch_counts()
+
+_PLAIN_CHUNK = 1 << 16
+
+
+def _weights(net: mlp.ImplicitNet):
+    lins = net.layers()
+    return [l.weight() for l in lins], [l.b for l in lins]
+
+
+def sdf_outputs_plain(net: mlp.ImplicitNet, points: torch.Tensor):
+    """(sdf (N, 1), feat (N, F), grad (N, 3)) of the clamped SDF in f32,
+    by the tangent sweep (chunked to bound memory)."""
+    cfg = net.cfg
+    outs = []
+    with torch.no_grad():
+        ws, bs = _weights(net)
+        for x in points.split(_PLAIN_CHUNK):
+            out, grad = sdf_grad.sdf_tangents(cfg, ws, bs, x)
+            sdf, grad = render_core._sphere_clamp(cfg, x, out[:, :1], grad)
+            outs.append((sdf, out[:, 1:], grad))
+    if not outs:
+        F = cfg.feature_vector_size
+        return (points.new_zeros((0, 1)), points.new_zeros((0, F)),
+                points.new_zeros((0, 3)))
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def sdf_outputs_fwd(k: sdf_grad.SdfGradLayout, icfg: mlp.ImplicitNetConfig,
+                    points: torch.Tensor):
+    """K10: (sdf (N, 1), feat (N, F), grad (N, 3)), the sdf clamped to the
+    bounding sphere of `icfg` and the gradient the sphere's where it
+    wins."""
+    global launches
+    sdf_grad.check_points(k, points, "sdf_outputs")
+    n = points.shape[0]
+    out = torch.empty((n, k.out_cols), dtype=torch.float32,
+                      device=points.device)
+    grad = torch.empty((n, 3), dtype=torch.float32, device=points.device)
+    if n:
+        err = build.load_library().i2sdf_sdf_outputs(
+            points.data_ptr(), n, k.fwd.weights.data_ptr(),
+            k.fwd.biases.data_ptr(), k.fwd.plan.ctypes.data,
+            k.fwd.n_layers, k.mx, k.lda, k.out_cols,
+            float(icfg.sdf_bounding_sphere), float(icfg.sphere_scale),
+            out.data_ptr(), grad.data_ptr(), mma_pack.stream_of(points))
+        build.check(err, "sdf_outputs")
+        launches += 1
+    return out[:, :1], out[:, 1:], grad
+
+
+def fused_sdf_outputs(net: mlp.ImplicitNet, points: torch.Tensor):
+    """(N, 3) -> (sdf (N, 1), feat (N, F), grad (N, 3)), forward only, the
+    sdf clamped to the bounding sphere. CPU tensors take the plain
+    version; CUDA tensors launch K10 (or raise)."""
+    if torch.is_grad_enabled() and (
+            points.requires_grad
+            or any(p.requires_grad for p in net.parameters())):
+        raise ValueError("fused_sdf_outputs: forward only, with no gradient; "
+                         "call it under torch.no_grad()")
+    if not points.is_cuda:
+        return sdf_outputs_plain(net, points)
+    with torch.no_grad():
+        k = sdf_grad.SdfGradLayout(net.cfg, *_weights(net))
+        return sdf_outputs_fwd(k, net.cfg, points)

@@ -17,6 +17,7 @@ K6's tests, those of K3 and K4 with the light head, and those of K7-K9
 say theirs beside them.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -28,7 +29,8 @@ from i2sdf_tpu_torch.models import sampler as tsampler
 from i2sdf_tpu_torch.models.sampler import SamplerConfig
 from i2sdf_tpu_torch.ops import kernels
 from i2sdf_tpu_torch.ops.kernels import (bg_core, conv_check, render_core,
-                                         rev, sampler_round, sdf_mlp)
+                                         rev, sampler_round, sdf_grad,
+                                         sdf_mlp, sdf_outputs)
 
 pytestmark = pytest.mark.gpu
 
@@ -722,3 +724,289 @@ def test_bg_kernels_refuse_cpu_weights(dev):
     with pytest.raises(ValueError):
         bg_core.bg_core_eval(bg_core.BgPack(net_i, net_r), x4.to(dev),
                              d.to(dev))
+
+
+# ---- K10-K12: the tangent-stream kernels -----------------------------------
+# K10 and K11 are held to the JAX package's bounds for its tangent-stream
+# kernels (tests/test_pallas_outputs.py:39-49: sdf 0.02, features 0.05,
+# gradient atol 0.05 / rtol 0.08, cosine > 0.995 per point), K12 to its
+# gradient bound with a loss's cotangents, per leaf from 4,800 points up as
+# K6 is. The nets are the flagship SDF net at its init and at perturbed
+# weights (the replay tests' nets: v + 0.01 N(0, 1)), where the encoding's
+# rows of layer 0 and of the skip are no longer zero; and a net with no
+# encoding (the kernels run it as frequency count 0). 33 points are not a
+# multiple of the 16-point block. The per-point cosine is held where the
+# plain gradient's norm is at least TAN_COS_MIN_NORM: below it bf16's
+# error can turn a short gradient past the bound, and the JAX kernel's
+# own gradient does so at this net and these points
+# (tests/test_torch_parity_sdf_outputs.py::
+# test_flagship_perturbed_matches_pallas_interpret). At perturbed weights
+# K10 and K11 are held to the plain op at their weights rounded to bf16
+# (`_bf16w_plain`), the kernels' operand: there the rounding of the weights
+# alone moves the gradient by about the whole atol, for any bf16 kernel
+# (tests/test_torch_tangent_replay.py), and a few points of thousands land
+# past the bound against the f32 plain op.
+
+TAN_COUNTS = [1, 33, 4800, 155_200]
+TAN_COS_MIN_NORM = 0.5
+NO_PE = mlp.ImplicitNetConfig(feature_vector_size=8, sdf_bounding_sphere=1.5,
+                              dims=(32, 32), geometric_init=False)
+
+
+def _tan_case(dev, n, perturbed=True, sphere=0.0, cfg=None):
+    from test_torch_bwd_replay import points
+    from test_torch_rev_replay import FLAGSHIP, eikonal_points, sdf_net
+    if cfg is not None:
+        net = mlp.ImplicitNet(cfg, torch.Generator().manual_seed(0)).to(dev)
+    elif perturbed:
+        net = sdf_net(**FLAGSHIP, sphere=sphere, device=dev)
+    else:
+        net = mlp.ImplicitNet(dataclasses.replace(ICFG, sdf_bounding_sphere=
+                                                  sphere),
+                              torch.Generator().manual_seed(0)).to(dev)
+    if n > 4800:
+        return net, points(n, n, device=dev)[0].contiguous()
+    return net, eikonal_points(n, n, device=dev)
+
+
+def _sphere_agree(sdf, sdf_r, x, icfg):
+    """Points where K10 and its plain version both took the bounding
+    sphere or both the net: next to the sphere the kernel's bf16 sdf may
+    pick the other side (then the two gradients differ by construction).
+    At least 99% must agree."""
+    agree = torch.ones_like(sdf[:, 0], dtype=torch.bool)
+    if icfg.sdf_bounding_sphere > 0:
+        sphere = icfg.sphere_scale * (icfg.sdf_bounding_sphere
+                                      - torch.linalg.norm(x, dim=-1))
+        agree = (((sdf[:, 0] - sphere).abs() < 1e-5)
+                 == ((sdf_r[:, 0] - sphere).abs() < 1e-5))
+        assert float(agree.float().mean()) > 0.99
+    return agree
+
+
+def _bf16w_plain(net, x, clamp):
+    """(sdf, feat, grad) of the plain sweep at the net's weights rounded to
+    bf16 (f32 biases and arithmetic), clamped to the bounding sphere if
+    `clamp`."""
+    from test_torch_rev_replay import flat_weights
+    ws, bs = flat_weights(net)
+    with torch.no_grad():
+        out, grad = sdf_grad.sdf_tangents(
+            net.cfg, [w.to(torch.bfloat16).float() for w in ws], bs, x)
+        sdf = out[:, :1]
+        if clamp:
+            sdf, grad = render_core._sphere_clamp(net.cfg, x, sdf, grad)
+    return sdf, out[:, 1:], grad
+
+
+def _tan_close(outs, refs):
+    """The JAX bounds for its tangent-stream kernels on (sdf, feat, grad)."""
+    for name, a, b in zip(("sdf", "feat", "grad"), outs, refs):
+        torch.testing.assert_close(
+            a, b.detach(), atol=REV_TOLS[name][0], rtol=REV_TOLS[name][1],
+            msg=lambda m, name=name: f"{name}: {m}")
+    g, gr = outs[2], refs[2].detach()
+    cos = (g * gr).sum(-1) / torch.clamp(g.norm(dim=-1) * gr.norm(dim=-1),
+                                         min=1e-9)
+    held = gr.norm(dim=-1) >= TAN_COS_MIN_NORM
+    if held.any():
+        assert float(cos[held].min()) > 0.995, float(cos[held].min())
+
+
+@pytest.mark.parametrize("perturbed", [False, True], ids=["init", "perturbed"])
+@pytest.mark.parametrize("n", TAN_COUNTS)
+def test_sdf_outputs_kernel(dev, n, perturbed):
+    net, x = _tan_case(dev, n, perturbed, sphere=4.0)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = sdf_outputs.fused_sdf_outputs(net, x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sdf_outputs"] == 1
+    ref = (_bf16w_plain(net, x, True) if perturbed
+           else sdf_outputs.sdf_outputs_plain(net, x))
+    assert [t.shape for t in got] == [t.shape for t in ref]
+    agree = _sphere_agree(got[0], ref[0], x, net.cfg)
+    _tan_close([t[agree] for t in got], [t[agree] for t in ref])
+
+
+@pytest.mark.parametrize("perturbed", [False, True], ids=["init", "perturbed"])
+@pytest.mark.parametrize("n", TAN_COUNTS)
+def test_sdf_grad_fwd_kernel(dev, n, perturbed):
+    from test_torch_rev_replay import flat_weights
+    net, x = _tan_case(dev, n, perturbed)
+    ws, bs = flat_weights(net)
+    with torch.no_grad():
+        k = sdf_grad.SdfGradLayout(net.cfg, ws, bs)
+        kernels.reset_launch_counts()
+        out, grad = sdf_grad.sdf_grad_fwd(k, x)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["sdf_grad_fwd"] == 1
+    if perturbed:
+        ref = _bf16w_plain(net, x, False)
+    else:
+        out_r, grad_r = sdf_grad.sdf_grad_plain(net.cfg, ws, bs, x)
+        ref = (out_r[:, :1], out_r[:, 1:], grad_r)
+    _tan_close((out[:, :1], out[:, 1:], grad), ref)
+
+
+@pytest.mark.parametrize("perturbed", [False, True], ids=["init", "perturbed"])
+@pytest.mark.parametrize("n", TAN_COUNTS)
+def test_sdf_grad_bwd_kernel(dev, n, perturbed):
+    from test_torch_bwd_replay import grad_check
+    from test_torch_tangent_replay import replay_tangent_bwd
+    from test_torch_rev_replay import flat_weights, loss_cotangents
+    net, x = _tan_case(dev, n, perturbed)
+    ws, bs = flat_weights(net)
+    out, grad = sdf_grad.sdf_grad_plain(net.cfg, ws, bs, x)
+    c_out, c_g = loss_cotangents(out, grad, seed=n)
+    ref = list(torch.autograd.grad((out, grad), ws + bs, (c_out, c_g),
+                                   retain_graph=True))
+    # c_g alone: the tangent path, which the loss's other terms can
+    # outweigh in a leaf
+    ref_g = [torch.zeros_like(p) if g is None else g for g, p in zip(
+        torch.autograd.grad(grad, ws + bs, c_g, allow_unused=True), ws + bs)]
+    del out, grad
+    leaf_tol = 0.1 if n >= 4800 else float("inf")
+    with torch.no_grad():
+        k = sdf_grad.SdfGradLayout(net.cfg, ws, bs)
+        kernels.reset_launch_counts()
+        dws, dbs = sdf_grad.sdf_grad_bwd(k, x, c_out.contiguous(),
+                                         c_g.contiguous())
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["sdf_grad_bwd"] == 1
+        got_g = sdf_grad.sdf_grad_bwd(k, x, torch.zeros_like(c_out),
+                                      c_g.contiguous())
+    grad_check(dws + dbs, ref, leaf_tol=leaf_tol)
+    grad_check(got_g[0] + got_g[1], ref_g, leaf_tol=leaf_tol)
+    # and to its bf16 replay, much closer
+    with torch.no_grad():
+        replay = replay_tangent_bwd(net.cfg, [w.detach() for w in ws],
+                                    [b.detach() for b in bs], x, c_out, c_g)
+    grad_check(dws + dbs, replay[0] + replay[1], leaf_tol=0.02,
+               cos_tol=0.9999)
+
+
+def test_sdf_grad_bwd_padding_rows_add_nothing_and_runs_agree(dev):
+    """33 points and the same 33 plus 31 rows with zero cotangents share
+    one padded size (64): the results agree to the bit, and a second run
+    gives the same bits."""
+    from test_torch_rev_replay import flat_weights
+    net, x = _tan_case(dev, 64)
+    gen = torch.Generator().manual_seed(0)
+    c_out = torch.randn((64, 257), generator=gen).to(dev)
+    c_g = torch.randn((64, 3), generator=gen).to(dev)
+    c_out[33:] = 0.0
+    c_g[33:] = 0.0
+    with torch.no_grad():
+        k = sdf_grad.SdfGradLayout(net.cfg, *flat_weights(net))
+        a = sdf_grad.sdf_grad_bwd(k, x[:33].contiguous(),
+                                  c_out[:33].contiguous(),
+                                  c_g[:33].contiguous())
+        b = sdf_grad.sdf_grad_bwd(k, x, c_out, c_g)
+        c = sdf_grad.sdf_grad_bwd(k, x, c_out, c_g)
+    flat = lambda r: [t for g in r for t in g]  # noqa: E731
+    for ga, gb, gc in zip(flat(a), flat(b), flat(c)):
+        assert torch.equal(ga, gb) and torch.equal(gb, gc)
+
+
+@pytest.mark.parametrize("sphere", [0.0, 1.0])
+@pytest.mark.parametrize("n", [33, 4800])
+def test_sdf_grad_op(dev, n, sphere):
+    """The op (K11 forward, K12 backward, the sphere clamp outside) inside a
+    loss's backward against the plain op, through autograd to v, g and b
+    (the values, at these perturbed weights, against the plain op at bf16
+    weights)."""
+    from test_torch_bwd_replay import grad_check
+    from test_torch_rev_replay import loss_cotangents
+    net, x = _tan_case(dev, n, sphere=sphere)
+    leaves = list(net.parameters())
+    res = {}
+    for plain in (True, False):
+        kernels.reset_launch_counts()
+        sdf, feat, grad = sdf_grad.sdf_outputs_fused_grad(net, x, plain=plain)
+        if plain:
+            c_out, c_g = loss_cotangents(torch.cat([sdf, feat], 1), grad)
+        g = torch.autograd.grad((sdf, feat, grad), leaves,
+                                (c_out[:, :1], c_out[:, 1:], c_g))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = 0 if plain else 1
+        assert counts["sdf_grad_fwd"] == counts["sdf_grad_bwd"] == want, counts
+        assert counts["rev_fwd"] == counts["rev_bwd"] == 0
+        res[plain] = ((sdf.detach(), feat.detach(), grad.detach()), list(g))
+    got, ref = res[False][0], _bf16w_plain(net, x, sphere > 0)
+    agree = _sphere_agree(got[0], ref[0], x, net.cfg)
+    _tan_close([t[agree] for t in got], [t[agree] for t in ref])
+    grad_check(res[False][1], res[True][1],
+               leaf_tol=0.1 if n >= 4800 else float("inf"))
+
+
+@pytest.mark.parametrize("n", [33, 4800])
+def test_tangent_kernels_without_encoding(dev, n):
+    """A net with no encoding and a bounding sphere: K10 and K11 against
+    their plain versions, K12 against its bf16 replay
+    (tests/test_torch_tangent_replay.py): this small net's gradient is
+    short at some points, where the loss's normal term weighs bf16's
+    error past the f32 bound (the replay lands on the kernel's numbers
+    there)."""
+    from test_torch_tangent_replay import replay_tangent_bwd
+    from test_torch_bwd_replay import grad_check
+    from test_torch_rev_replay import flat_weights, loss_cotangents
+    net, x = _tan_case(dev, n, cfg=NO_PE)
+    with torch.no_grad():
+        got = sdf_outputs.fused_sdf_outputs(net, x)
+    ref = sdf_outputs.sdf_outputs_plain(net, x)
+    agree = _sphere_agree(got[0], ref[0], x, net.cfg)
+    _tan_close([t[agree] for t in got], [t[agree] for t in ref])
+    ws, bs = flat_weights(net)
+    out_r, grad_r = sdf_grad.sdf_grad_plain(net.cfg, ws, bs, x)
+    c_out, c_g = loss_cotangents(out_r, grad_r, seed=n)
+    with torch.no_grad():
+        k = sdf_grad.SdfGradLayout(net.cfg, ws, bs)
+        out, grad = sdf_grad.sdf_grad_fwd(k, x)
+        dws, dbs = sdf_grad.sdf_grad_bwd(k, x, c_out.contiguous(),
+                                         c_g.contiguous())
+        replay = replay_tangent_bwd(net.cfg, [w.detach() for w in ws],
+                                    [b.detach() for b in bs], x, c_out, c_g)
+    _tan_close((out[:, :1], out[:, 1:], grad),
+               (out_r[:, :1], out_r[:, 1:], grad_r))
+    grad_check(dws + dbs, replay[0] + replay[1], leaf_tol=0.02,
+               cos_tol=0.9999)
+
+
+@pytest.mark.parametrize("n", [4800, 155_200])
+def test_tangent_kernels_agree_with_rev_kernels(dev, n):
+    """Two algorithms for one function: K11 against K5 and K12 against K6
+    on the same points, weights and cotangents, to the same bounds."""
+    from test_torch_bwd_replay import grad_check
+    from test_torch_rev_replay import flat_weights, loss_cotangents
+    net, x = _tan_case(dev, n)
+    ws, bs = flat_weights(net)
+    with torch.no_grad():
+        kt = sdf_grad.SdfGradLayout(net.cfg, ws, bs)
+        kr = rev.RevLayout(net.cfg, ws, bs)
+        out_t, grad_t = sdf_grad.sdf_grad_fwd(kt, x)
+        out_r, grad_r = rev.rev_fwd(kr, x)
+        _tan_close((out_t[:, :1], out_t[:, 1:], grad_t),
+                   (out_r[:, :1], out_r[:, 1:], grad_r))
+        c_out, c_g = (c.contiguous() for c in loss_cotangents(out_r, grad_r))
+        got_t = sdf_grad.sdf_grad_bwd(kt, x, c_out, c_g)
+        got_r = rev.rev_bwd(kr, x, c_out, c_g)
+    grad_check([t for g in got_t for t in g], [t for g in got_r for t in g])
+
+
+def test_tangent_kernels_refuse_cpu_weights(dev):
+    from test_torch_rev_replay import flat_weights
+    net, x = _tan_case(torch.device("cpu"), 8)
+    with torch.no_grad():
+        with pytest.raises(ValueError):
+            sdf_outputs.fused_sdf_outputs(net, x.to(dev))
+        k = sdf_grad.SdfGradLayout(net.cfg, *flat_weights(net))
+        with pytest.raises(ValueError):
+            sdf_grad.sdf_grad_fwd(k, x.to(dev))
+        with pytest.raises(ValueError):
+            sdf_grad.sdf_grad_bwd(k, x.to(dev), torch.zeros((8, 257),
+                                                            device=dev),
+                                  torch.zeros((8, 3), device=dev))
+    with pytest.raises(ValueError):
+        sdf_grad.sdf_grad_fwd(k, x)
