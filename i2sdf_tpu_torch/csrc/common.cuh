@@ -1393,13 +1393,15 @@ inline const long long* read_scratch(const long long* t, int n_fwd,
 // ranges and the blocks' bias rows added in a fixed order into `out` (no
 // atomics: the same result to the bit run to run). `t` is the rest of the
 // table after read_scratch. K12 stacks four streams per SDF layer
-// (`sdf_streams`) and runs 16 points a block (`block_rows`, the rows of
-// one bias row of `dbpart`).
+// (`sdf_streams`) but one in the output layer's product (`out_streams`:
+// its tangent rows' share is summed in the sweep), and runs 16 points a
+// block (`block_rows`, the rows of one bias row of `dbpart`).
 inline cudaError_t launch_wgrad(const Plan& fwd, const Plan* rad,
                                 const LightPlan* light, const Scratch& sc,
                                 const long long* t, float* ws32, float* out,
                                 cudaStream_t st, int sdf_streams = 2,
-                                int block_rows = kSweepRows) {
+                                int block_rows = kSweepRows,
+                                int out_streams = 2) {
   const int n_fwd = fwd.n, n_rad = rad ? rad->n : 0;
   const int n_light = light ? light->n : 0;
   const int jobs_n = n_fwd + n_rad + n_light;
@@ -1422,7 +1424,8 @@ inline cudaError_t launch_wgrad(const Plan& fwd, const Plan* rad,
     J.a = is_sdf ? sc.ax[p] : is_rad ? sc.rx[p - n_fwd] : sc.lx[q];
     J.b = is_sdf ? sc.br[p] : is_rad ? sc.rdz[p - n_fwd] : sc.ldz[q];
     J.part = ws32 + part[p];
-    J.m = is_sdf ? sdf_streams * sc.np : sc.np;
+    J.m = (!is_sdf ? 1 : p == n_fwd - 1 ? out_streams : sdf_streams) *
+          sc.np;
     J.k = L[kK];
     J.n = L[kN];
     J.chunk = (int)chunk[p];

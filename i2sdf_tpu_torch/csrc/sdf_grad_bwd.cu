@@ -10,10 +10,11 @@
 //
 // What bounds it on the H100: operations. At the flagship config a point
 // costs the tangent sweep through the hidden layers again (four streams),
-// the four streams back through every layer transposed but the first, and
-// its share of every layer's weight-gradient product over the four
-// streams, ~12.0 M bf16 flops (`chip_smoke.py::k12_macs`), against 1,052
-// bytes in (x, c_out, c_g).
+// the four streams back through the hidden layers transposed, its share
+// of the hidden layers' weight-gradient products over the four streams,
+// and the output layer's transposed and weight-gradient products for the
+// primal row plus a rank-3 term each, ~11.2 M bf16 flops
+// (`chip_smoke.py::k12_macs`), against 1,052 bytes in (x, c_out, c_g).
 //
 // The math, per layer in reverse (z = h W + b, s = softplus'(z), t_k the
 // layer's input tangents, T_k = scale * s * (t_k W) the next layer's):
@@ -24,7 +25,9 @@
 // (scale * d softplus'/dz * (t_k W) = 100 (1 - s) T_k), the skip's
 // encoding share of dh_in and r_k,in dropped (x is a constant), its
 // hidden share scaled by 1/sqrt(2). The output layer's dz is c_out and its
-// rho_k is c_g[k] in the sdf column.
+// rho_k is c_g[k] in the sdf column alone, so its tangent rows take no
+// matrix product: their r_k,in is c_g[k] times that column of W (rank 1),
+// and their share of dW is c_g[k] t_k in that column (rank 3 a point).
 //
 // Design: K4's machinery (`csrc/common.cuh`) for the weight gradients,
 // which sum over every point. One launch of `tangent_bwd_kernel`, 16
@@ -35,8 +38,9 @@
 // bf16's relative precision); then the reverse sweep through the
 // transposed layers, whose epilogue reads q and the staged T_k (device
 // memory, recently written, from L2) and stages [dz ; rho] in bf16; the
-// bias rows summed over the block's points in f32 in order. Then the
-// split-K A^T B products over 4 np rows and the fixed-order sums
+// bias rows, and the output layer's rank-3 column, summed over the
+// block's points in f32 in order. Then the split-K A^T B products over
+// 4 np rows (np in the output layer) and the fixed-order sums
 // (`launch_wgrad`): no atomics, the same bits run to run. There is no
 // reverse sweep of the primal to keep (K6's stash of d sdf / d h, its
 // upward and downward sweeps): the tangents carry the spatial gradient.
@@ -54,14 +58,15 @@ inline size_t tan_bwd_smem_bytes(int lda, int ldd, int n_q) {
          (size_t)kTanPoints * (lda + 3 + 3) * sizeof(float);
 }
 
-// Copy `cols` (a multiple of 8) columns of the four streams' rows from
-// shared memory (row stride lda) to their staging in device memory (row
-// stride cols): stream s of point p to row s * np + row0 + p.
-__device__ __forceinline__ void store_rows4(const __nv_bfloat16* s, int lda,
-                                            __nv_bfloat16* g, int np,
-                                            int cols, int row0) {
+// Copy `cols` (a multiple of 8) columns of the first `streams` streams'
+// rows from shared memory (row stride lda) to their staging in device
+// memory (row stride cols): stream s of point p to row s * np + row0 + p.
+__device__ __forceinline__ void store_streams(const __nv_bfloat16* s,
+                                              int lda, __nv_bfloat16* g,
+                                              int np, int cols, int row0,
+                                              int streams) {
   const int v = cols >> 3;
-  for (int i = threadIdx.x; i < kTanRows * v; i += kThreads) {
+  for (int i = threadIdx.x; i < streams * kTanPoints * v; i += kThreads) {
     const int r = i / v, c = (i % v) << 3;
     const int row = (r / kTanPoints) * np + row0 + r % kTanPoints;
     *reinterpret_cast<uint4*>(g + (size_t)row * cols + c) =
@@ -125,6 +130,29 @@ struct EpiTanBack {
   }
 };
 
+// The output layer's transposed product takes the primal rows alone
+// (`mma_layer`, v0 and v1 = dL/dh); the tangent rows' dL/dt_k are c_g[k]
+// times the sdf column of W (`wsdf`, bf16 values), handed with them to
+// EpiTanBack.
+struct EpiSdfColBack {
+  EpiTanBack& back;
+  const float* cg;
+  const float* wsdf;
+  __device__ __forceinline__ void operator()(int p, int c, float v0,
+                                             float v1) {
+    float v[kStreams][2];
+    v[0][0] = v0;
+    v[0][1] = v1;
+    const float w0 = __ldg(wsdf + c), w1 = __ldg(wsdf + c + 1);
+#pragma unroll
+    for (int k = 0; k < kStreams - 1; ++k) {
+      v[k + 1][0] = cg[p * 3 + k] * w0;
+      v[k + 1][1] = cg[p * 3 + k] * w1;
+    }
+    back(p, c, v);
+  }
+};
+
 namespace {
 
 __global__ void __launch_bounds__(kThreads)
@@ -133,8 +161,9 @@ tangent_bwd_kernel(const float* __restrict__ x,
                    const float* __restrict__ c_g, int n,
                    const uint2* __restrict__ w_fwd,
                    const float* __restrict__ b_sdf, Plan fwd,
-                   const uint2* __restrict__ w_t, Plan tp, int mx, int lda,
-                   int ldd, Scratch sc) {
+                   const uint2* __restrict__ w_t, Plan tp,
+                   const float* __restrict__ wsdf, int mx, int lda, int ldd,
+                   Scratch sc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ns = fwd.n, nh = ns - 1;
   __nv_bfloat16* buf[2];
@@ -164,7 +193,7 @@ tangent_bwd_kernel(const float* __restrict__ x,
       write_pe4(buf[cur], lda, xs, mx, L[kCol], L[kK], kInvSqrt2);
       __syncthreads();
     }
-    store_rows4(buf[cur], lda, sc.ax[l], np, L[kK], row0);
+    store_streams(buf[cur], lda, sc.ax[l], np, L[kK], row0, kStreams);
     if (l < nh) {
       EpiTangent epi{buf[cur ^ 1], lda, b_sdf + L[kBOff],
                      (L[kFlags] & kScale) ? kInvSqrt2 : 1.f,
@@ -176,24 +205,30 @@ tangent_bwd_kernel(const float* __restrict__ x,
   }
   __syncthreads();
 
-  // ---- 2. the output layer: [dz ; rho] = [c_out ; c_g[k] e_sdf] ----------
+  // ---- 2. the output layer: dz = c_out; the block's rank-3 share of its
+  // sdf column, sum_p sum_k c_g[k] t_k, after the bias rows ---------------
   {
-    const int N = fwd.L[nh][kN];
-    for (int i = threadIdx.x; i < kTanRows * N; i += kThreads) {
-      const int r = i / N, c = i % N;
-      const int s = r / kTanPoints, p = r % kTanPoints;
-      float v = 0.f;
-      if (s == 0) {
-        if (row0 + p < n && c < out_cols)
-          v = c_out[(size_t)(row0 + p) * out_cols + c];
-        dzf[p * lda + c] = v;
-      } else if (c == 0) {
-        v = cg[p * 3 + s - 1];
-      }
-      buf[cur][r * lda + c] = __float2bfloat16_rn(v);
+    const int N = fwd.L[nh][kN], K = fwd.L[nh][kK];
+    for (int c = threadIdx.x; c < K; c += kThreads) {
+      float acc = 0.f;
+      for (int p = 0; p < kTanPoints; ++p)
+#pragma unroll
+        for (int k = 0; k < kStreams - 1; ++k)
+          acc += cg[p * 3 + k] *
+                 bf(buf[cur] + ((k + 1) * kTanPoints + p) * lda + c);
+      dbp[sc.db_sdf[nh] + N + c] = acc;
     }
     __syncthreads();
-    store_rows4(buf[cur], lda, sc.br[nh], np, N, row0);
+    for (int i = threadIdx.x; i < kTanPoints * N; i += kThreads) {
+      const int p = i / N, c = i % N;
+      const float v = row0 + p < n && c < out_cols
+                          ? c_out[(size_t)(row0 + p) * out_cols + c]
+                          : 0.f;
+      dzf[p * lda + c] = v;
+      buf[cur][p * lda + c] = __float2bfloat16_rn(v);
+    }
+    __syncthreads();
+    store_streams(buf[cur], lda, sc.br[nh], np, N, row0, 1);
     put_db_points(dbp + sc.db_sdf[nh], dzf, lda, N);
     __syncthreads();
   }
@@ -213,9 +248,15 @@ tangent_bwd_kernel(const float* __restrict__ x,
                    L[kReal],
                    (L[kFlags] & kScale) ? kInvSqrt2 : 1.f,
                    dzf};
-    tangent_layer(buf[cur], lda, L[kK], w_t + L[kWOff], L[kN], epi);
+    if (l == nh) {
+      EpiSdfColBack eo{epi, cg, wsdf};
+      mma_layer<1, kTanMaxNT>(buf[cur], lda, L[kK], w_t + L[kWOff], L[kN],
+                              eo);
+    } else {
+      tangent_layer(buf[cur], lda, L[kK], w_t + L[kWOff], L[kN], epi);
+    }
     __syncthreads();
-    store_rows4(buf[cur ^ 1], lda, sc.br[l - 1], np, N, row0);
+    store_streams(buf[cur ^ 1], lda, sc.br[l - 1], np, N, row0, kStreams);
     put_db_points(dbp + sc.db_sdf[l - 1], dzf, lda, N);
     __syncthreads();
     cur ^= 1;
@@ -227,16 +268,19 @@ tangent_bwd_kernel(const float* __restrict__ x,
 }  // namespace i2sdf
 
 // The scratch table (int64, element offsets) is built by
-// `i2sdf_tpu_torch/ops/kernels/sdf_grad.py::_BwdPlan` and read in the same
-// order by `read_scratch` (no second-order stash, no radiance or light
-// layers).
+// `i2sdf_tpu_torch/ops/kernels/render_core.py::_BwdPlan` (as
+// `sdf_grad.bwd_plan` asks for it: four streams, no second-order stash,
+// the rank-3 column after the bias rows, no radiance or light layers) and
+// read in the same order by `read_scratch`; `wsdf` is the output layer's
+// sdf column (`sdf_grad.SdfGradLayout.wsdf_col`).
 extern "C" int i2sdf_sdf_grad_bwd(const float* x, const float* c_out,
                                   const float* c_g, int n, int np,
                                   int out_cols, const void* w_fwd,
                                   const float* b_sdf, const int* fwd_desc,
                                   int n_fwd, const void* w_t,
-                                  const int* t_desc, int n_t, int mx, int lda,
-                                  int ldd, void* ws16, float* ws32,
+                                  const int* t_desc, int n_t,
+                                  const float* wsdf, int mx, int lda, int ldd,
+                                  void* ws16, float* ws32,
                                   const long long* table, float* out,
                                   void* stream) {
   using namespace i2sdf;
@@ -253,9 +297,9 @@ extern "C" int i2sdf_sdf_grad_bwd(const float* x, const float* c_out,
   if (err != cudaSuccess) return (int)err;
   tangent_bwd_kernel<<<np / kTanPoints, kThreads, smem, st>>>(
       x, c_out, out_cols, c_g, n, (const uint2*)w_fwd, b_sdf, fwd,
-      (const uint2*)w_t, tp, mx, lda, ldd, sc);
+      (const uint2*)w_t, tp, wsdf, mx, lda, ldd, sc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_wgrad(fwd, nullptr, nullptr, sc, rest, ws32, out, st,
-                           kStreams, kTanPoints);
+                           kStreams, kTanPoints, 1);
 }

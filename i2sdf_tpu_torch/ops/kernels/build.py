@@ -56,7 +56,7 @@ _SIGNATURES = {
                           _P],
     "i2sdf_sdf_grad_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "i2sdf_sdf_grad_bwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P,
-                           _I, _I, _I, _I, _P, _P, _P, _P, _P],
+                           _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -147,22 +147,37 @@ def sdf_chains(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
     encoding), `col` where the encoding starts (skip layers), and SCALE
     marks the 1/sqrt(2) of a skip. `embed_none` also takes a net with no
     encoding (`mma_pack.check_sdf_net`)."""
+    if perm is not None:
+        ws = ws[:-1] + [ws[-1][:, perm]]
+        bs = bs[:-1] + [bs[-1][perm]]
+    fwd = sdf_chain_fwd(icfg, ws, bs, embed_none)
+    return (fwd, *sdf_chain_t(icfg, ws, 0 if perm is None else perm.index(0)))
+
+
+def sdf_chain_fwd(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
+                  embed_none: bool = False):
+    """`sdf_chains`' `fwd` alone, the output layer's columns as in `ws`."""
     mma_pack.check_sdf_net(icfg, embed_none)
     dims = icfg.layer_dims()
     d0, n = dims[0], len(dims) - 1
     if n - 1 in icfg.skip_in:
         raise ValueError("a skip into the SDF net's output layer is not "
                          "supported")
-    if perm is not None:
-        ws = ws[:-1] + [ws[-1][:, perm]]
-        bs = bs[:-1] + [bs[-1][perm]]
     layers = []
     for l in range(n):
         flags = (mma_pack.SKIP_IN if l in icfg.skip_in else 0) | (
             mma_pack.SCALE if l + 1 in icfg.skip_in else 0)
         col = dims[l] - d0 if l in icfg.skip_in else 0
         layers.append(dict(w=ws[l], b=bs[l], flags=flags, col=col))
-    fwd = mma_pack.pack_chain(layers)
+    return mma_pack.pack_chain(layers)
+
+
+def sdf_chain_t(icfg: mlp.ImplicitNetConfig, ws: list, sdf_col: int = 0):
+    """`sdf_chains`' transposed chain: (`sdft`, `rev`, `wsdf_col`) from the
+    materialized weights with the output layer's columns already in the
+    kernel's order, the sdf in column `sdf_col`."""
+    dims = icfg.layer_dims()
+    d0, n = dims[0], len(dims) - 1
     tl = []
     for l in range(n - 1, -1, -1):
         if l == 0:
@@ -175,11 +190,10 @@ def sdf_chains(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
     sdft = mma_pack.pack_chain(tl)
     rev = mma_pack.PackedMlp(sdft.weights, sdft.biases,
                              np.ascontiguousarray(sdft.plan[1:]))
-    sdf_col = 0 if perm is None else perm.index(0)
     wsdf_col = torch.zeros(int(rev.plan[0, 0]), dtype=torch.float32,
                            device=ws[0].device)
     wsdf_col[:ws[-1].shape[0]] = ws[-1][:, sdf_col].to(torch.bfloat16).float()
-    return fwd, sdft, rev, wsdf_col
+    return sdft, rev, wsdf_col
 
 
 class _KernelLayout:
@@ -297,25 +311,35 @@ class _BwdPlan:
     """K4's scratch layout at n points, and the int64 table that tells the
     kernel where everything is (read in this order by `read_scratch` in
     csrc/common.cuh); with no radiance and no light layers (`k.n_rad`,
-    `k.n_light` 0) it is K6's. All sizes in elements; bf16 arrays live in
-    one scratch buffer, f32 arrays in another, each array 16-byte aligned.
+    `k.n_light` 0) it is K6's, and with `streams=4, rows=16, stash=False,
+    sdf_col=True` K12's. All sizes in elements; bf16 arrays live in one
+    scratch buffer, f32 arrays in another, each array 16-byte aligned.
 
-    Per SDF layer l (K_l x N_l padded): `ax` (2 np, K_l) = [da_l ; X_l],
-    `br` (2 np, N_l) = [r_l ; dz_l], so dW_l = ax^T br over 2 np rows;
-    `dzx` (np, N_l) the second-order term injected into z_l; `ah` (np,
-    K_l, f32) d sdf / d h_l. Per radiance layer: `rx` (np, K) its inputs,
+    Per SDF layer l (K_l x N_l padded): `ax` (streams np, K_l) the layer's
+    input in each stream (K4/K6: [da_l ; X_l]; K12: [h ; t_0 ; t_1 ;
+    t_2]), `br` (streams np, N_l) their cotangents ([r_l ; dz_l]; [dz ;
+    rho_0 ; rho_1 ; rho_2]), so dW_l = ax^T br over streams np rows; with
+    `stash`, `dzx` (np, N_l) the second-order term injected into z_l and
+    `ah` (np, K_l, f32) d sdf / d h_l. With `sdf_col`, the output layer's
+    product takes the first stream alone (`br` np rows): its other
+    streams' cotangents live in the sdf column only, and their rank-3
+    share of that column is summed per block after the bias rows (at
+    `col_db`, K_l wide). Per radiance layer: `rx` (np, K) its inputs,
     `rdz` (np, N) its output cotangents; per light layer likewise `lx`
     and `ldz` (a hidden layer's `ldz` holds its activation derivative
     until the backward overwrites it with dz). `dbpart` (blocks, tb) each
-    block's bias-gradient sums. Each weight gradient is summed over
-    `splits[p]` point ranges of `chunk[p]` rows into `part[p]`, then the
-    ranges are added in order (deterministic). `out` (f32): every dW_p
-    (K x N; SDF, radiance, light layers), then the tb bias gradients."""
+    block of `rows` points' bias-gradient sums. Each weight gradient is
+    summed over `splits[p]` point ranges of `chunk[p]` rows into
+    `part[p]`, then the ranges are added in order (deterministic). `out`
+    (f32): every dW_p (K x N; SDF, radiance, light layers), then the tb
+    bias gradients (and with `sdf_col` the column's share)."""
 
-    def __init__(self, k, n: int):
+    def __init__(self, k, n: int, streams: int = 2, rows: int = _ROWS,
+                 stash: bool = True, sdf_col: bool = False):
         ns, nr, nl = k.n_sdf, k.n_rad, k.n_light
+        # the weight-gradient products step over _ROWS (32) rows
         self.np = np_ = mma_pack.round_up(max(n, 1), _ROWS)
-        self.blocks = np_ // _ROWS
+        self.blocks = np_ // rows
         Ks, Ns = [int(v) for v in k.fwd.plan[:, 0]], [int(v) for v in
                                                       k.fwd.plan[:, 1]]
         rad = k.rad.plan if nr else np.zeros((0, 8), np.int32)
@@ -334,21 +358,27 @@ class _BwdPlan:
             o, self.n32 = self.n32, self.n32 + mma_pack.round_up(size, 4)
             return o
 
-        self.ax = [take16(2 * np_ * K) for K in Ks]
-        self.br = [take16(2 * np_ * N) for N in Ns]
-        self.dzx = [take16(np_ * N) for N in Ns[:-1]] + [-1]
-        self.ah = [-1] + [take32(np_ * K) for K in Ks[1:]]
+        m_sdf = [streams * np_] * ns
+        if sdf_col:
+            m_sdf[-1] = np_
+        self.ax = [take16(streams * np_ * K) for K in Ks]
+        self.br = [take16(m * N) for m, N in zip(m_sdf, Ns)]
+        if stash:
+            self.dzx = [take16(np_ * N) for N in Ns[:-1]] + [-1]
+            self.ah = [-1] + [take32(np_ * K) for K in Ks[1:]]
+        else:
+            self.dzx = self.ah = [-1] * ns
         self.rx = [take16(np_ * K) for K in Kr]
         self.rdz = [take16(np_ * N) for N in Nr]
         self.lx = [take16(np_ * K) for K in Kl]
         self.ldz = [take16(np_ * N) for N in Nl]
-        self.tb = sum(Ns) + sum(Nr) + sum(Nl)
+        self.col_db = sum(Ns) + sum(Nr) + sum(Nl)
+        self.tb = self.col_db + (Ks[-1] if sdf_col else 0)
         self.db = list(np.cumsum([0] + Ns + Nr + Nl)[:-1].astype(int))
         self.dbpart = take32(self.blocks * self.tb)
-        rows = [2 * np_] * ns + [np_] * (nr + nl)
         self.splits, self.chunk, self.part, self.out = [], [], [], []
         o = 0
-        for (K, N), m in zip(self.dims, rows):
+        for (K, N), m in zip(self.dims, m_sdf + [np_] * (nr + nl)):
             steps = m // _ROWS
             per = -(-steps // min(_MAX_SPLITS, steps))
             self.splits.append(-(-steps // per))

@@ -72,10 +72,6 @@ class RevLayout:
         self.mx = icfg.multires
         self.shapes = tuple(tuple(t.shape) for t in ws)
 
-    def unpack_grads(self, out: torch.Tensor, plan):
-        """K6's flat output -> (dws, dbs) in the net's own shapes."""
-        return unpack_grads(self.shapes, out, plan)
-
 
 def unpack_grads(shapes, out: torch.Tensor, plan):
     """A weight-gradient launch's flat output (`plan.out[p]`: layer p's
@@ -168,7 +164,7 @@ def rev_bwd(k: RevLayout, x: torch.Tensor, c_out: torch.Tensor,
             out.data_ptr(), mma_pack.stream_of(x))
         build.check(err, "rev_bwd")
         bwd_launches += 1
-    return k.unpack_grads(out, plan)
+    return unpack_grads(k.shapes, out, plan)
 
 
 class RevOp(torch.autograd.Function):

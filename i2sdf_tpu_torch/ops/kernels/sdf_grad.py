@@ -16,8 +16,9 @@ and how it is built; the sweep K10-K12 share is `csrc/tangent_common.cuh`.
   that a check can feed a faulty layout through the same sweep.
 * `SdfGradLayout`: the SDF net in K10-K12's layout (weight norm
   materialized, bf16, mma fragment order), the output layer in the net's
-  own column order [sdf | features]. A net with no encoding runs as
-  frequency count 0: its tangents are e_k.
+  own column order [sdf | features]; K12's transposed chain is built at
+  its first launch. A net with no encoding runs as frequency count 0:
+  its tangents are e_k.
 * `sdf_grad_fwd(k, x)` -> (out (N, 1 + F), grad (N, 3)) and
   `sdf_grad_bwd(k, x, c_out, c_g)` -> (dws, dbs): the launches, CUDA
   tensors only.
@@ -36,7 +37,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from ...models import mlp
@@ -48,7 +48,6 @@ bwd_launches = 0  # K12 launches since the last reset_launch_counts()
 
 _POINTS = 16      # points a block (kTanPoints in csrc/tangent_common.cuh)
 _STREAMS = 4      # the primal rows and the three tangents' (kStreams)
-_MAX_SPLITS = 32  # point-range splits of K12's weight-gradient sums
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -118,9 +117,14 @@ sdf_grad_plain = rev.rev_plain
 
 class SdfGradLayout:
     """The SDF net in K10-K12's layout, from materialized (in, out)
-    weights and biases: `fwd` (layer 0 first) and `sdft` (transposed, last
-    layer first) as `render_core.sdf_chains` builds them, in the net's
-    column order; `mx` the encoding's frequency count (0: no encoding)."""
+    weights and biases: `fwd` (layer 0 first) as `render_core.sdf_chains`
+    builds it, in the net's column order; `mx` the encoding's frequency
+    count (0: no encoding). K12's transposed chain (`sdft`) and the output
+    layer's sdf column (`wsdf_col`) are built at its first launch
+    (`backward`), so K10 and K11 pack and check only what they run."""
+
+    # K12's scratch plan has no radiance and no light layers
+    n_rad, rad, n_light = 0, None, 0
 
     def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs):
         if icfg.d_out != 1 or icfg.output_activation is not None:
@@ -128,24 +132,35 @@ class SdfGradLayout:
                              "activation")
         dims = icfg.layer_dims()
         n = len(dims) - 1
-        self.fwd, self.sdft, _, _ = render_core.sdf_chains(
-            icfg, [t.detach().float() for t in ws],
-            [t.detach().float() for t in bs], embed_none=True)
-        widest = max(self.fwd.max_width, self.sdft.max_width)
-        if widest > render_core._MAX_WIDTH:
+        self.icfg = icfg
+        self.ws = [t.detach().float() for t in ws]
+        self.fwd = render_core.sdf_chain_fwd(
+            icfg, self.ws, [t.detach().float() for t in bs], embed_none=True)
+        if self.fwd.max_width > render_core._MAX_WIDTH:
             raise ValueError(f"sdf_grad: layer width above "
                              f"{render_core._MAX_WIDTH}")
         if n > render_core._MAX_SDF:
             raise ValueError("sdf_grad: too many layers for the kernels")
         self.n_sdf, self.out_cols = n, dims[-1]
-        self.lda = mma_pack.row_stride(widest)
+        self.lda = mma_pack.row_stride(self.fwd.max_width)
         self.ldd = mma_pack.row_stride(int(self.fwd.plan[:-1, 1].max()))
-        for name, smem in (("fwd", fwd_smem(self)), ("bwd", bwd_smem(self))):
-            if smem > render_core._MAX_SMEM:
-                raise ValueError(f"sdf_grad_{name}: needs {smem} bytes of "
-                                 "shared memory")
+        if fwd_smem(self) > render_core._MAX_SMEM:
+            raise ValueError(f"sdf_grad_fwd: needs {fwd_smem(self)} bytes "
+                             "of shared memory")
         self.mx = icfg.multires if icfg.embed_type else 0
         self.shapes = tuple(tuple(t.shape) for t in ws)
+        self.sdft = self.wsdf_col = None
+
+    def backward(self):
+        """Build K12's `sdft` and `wsdf_col` if not yet built; the
+        transposed layers are no wider than the forward's (`lda`)."""
+        if self.sdft is None:
+            self.sdft, _, self.wsdf_col = render_core.sdf_chain_t(self.icfg,
+                                                                  self.ws)
+            if bwd_smem(self) > render_core._MAX_SMEM:
+                raise ValueError(f"sdf_grad_bwd: needs {bwd_smem(self)} "
+                                 "bytes of shared memory")
+        return self
 
 
 def fwd_smem(k) -> int:
@@ -166,58 +181,12 @@ def bwd_smem(k) -> int:
             + 4 * _POINTS * (k.lda + 3 + 3))
 
 
-class _BwdPlan:
-    """K12's scratch layout at n points and the int64 table that tells the
-    kernel where everything is, in the order `read_scratch` in
-    csrc/common.cuh reads it (no second-order stash, no radiance or light
-    layers). Sizes in elements; bf16 arrays in one scratch buffer, f32
-    arrays in another, each 16-byte aligned.
-
-    Per layer l (K_l x N_l padded): `ax` (4 np, K_l) = the layer's input
-    in the four streams [h ; t_0 ; t_1 ; t_2], `br` (4 np, N_l) = [dz ;
-    rho_0 ; rho_1 ; rho_2], so dW_l = ax^T br over 4 np rows. `dbpart`
-    (blocks, tb): each block's bias-gradient sums. Each weight gradient is
-    summed over `splits[p]` point ranges of `chunk[p]` rows into `part[p]`,
-    then the ranges are added in order (deterministic). `out` (f32): every
-    dW_l (K x N), then the tb bias gradients."""
-
-    def __init__(self, k: SdfGradLayout, n: int):
-        self.np = np_ = mma_pack.round_up(max(n, 1), 32)
-        self.blocks = np_ // _POINTS
-        Ks = [int(v) for v in k.fwd.plan[:, 0]]
-        Ns = [int(v) for v in k.fwd.plan[:, 1]]
-        self.dims = list(zip(Ks, Ns))
-        self.n16 = self.n32 = 0
-
-        def take16(size):
-            o, self.n16 = self.n16, self.n16 + mma_pack.round_up(size, 8)
-            return o
-
-        def take32(size):
-            o, self.n32 = self.n32, self.n32 + mma_pack.round_up(size, 4)
-            return o
-
-        ax = [take16(_STREAMS * np_ * K) for K in Ks]
-        br = [take16(_STREAMS * np_ * N) for N in Ns]
-        self.tb = sum(Ns)
-        self.db = list(np.cumsum([0] + Ns)[:-1].astype(int))
-        dbpart = take32(self.blocks * self.tb)
-        steps = _STREAMS * np_ // 32   # atb_kernel's 32-row steps
-        per = -(-steps // min(_MAX_SPLITS, steps))
-        splits, chunk = -(-steps // per), per * 32
-        part, self.out = [], []
-        o = 0
-        for K, N in self.dims:
-            part.append(take32(splits * K * N))
-            self.out.append(o)
-            o += K * N
-        self.out_db = o
-        self.n_out = o + self.tb
-        ns = len(Ks)
-        self.table = np.ascontiguousarray(np.asarray(
-            ax + br + [-1] * (2 * ns) + [dbpart, self.tb] + self.db
-            + [splits] * ns + [chunk] * ns + part + self.out + [self.out_db],
-            np.int64))
+def bwd_plan(k: SdfGradLayout, n: int):
+    """K12's scratch plan at n points (`render_core._BwdPlan`): the four
+    streams, 16 points a block, no second-order stash, and the output
+    layer's tangent cotangents as a rank-3 term of its sdf column."""
+    return render_core._BwdPlan(k, n, streams=_STREAMS, rows=_POINTS,
+                                stash=False, sdf_col=True)
 
 
 # ---- kernels ----------------------------------------------------------------
@@ -264,7 +233,8 @@ def sdf_grad_bwd(k: SdfGradLayout, x: torch.Tensor, c_out: torch.Tensor,
             or c_out.device != x.device or c_g.device != x.device):
         raise ValueError("sdf_grad_bwd: cotangents and points disagree in "
                          "length or device")
-    plan = _BwdPlan(k, n)
+    k.backward()
+    plan = bwd_plan(k, n)
     out = torch.zeros(plan.n_out, dtype=torch.float32, device=x.device)
     if n:
         ws16 = torch.empty(plan.n16, dtype=torch.bfloat16, device=x.device)
@@ -274,12 +244,15 @@ def sdf_grad_bwd(k: SdfGradLayout, x: torch.Tensor, c_out: torch.Tensor,
             k.out_cols, k.fwd.weights.data_ptr(), k.fwd.biases.data_ptr(),
             k.fwd.plan.ctypes.data, k.fwd.n_layers,
             k.sdft.weights.data_ptr(), k.sdft.plan.ctypes.data,
-            k.sdft.n_layers, k.mx, k.lda, k.ldd, ws16.data_ptr(),
-            ws32.data_ptr(), plan.table.ctypes.data, out.data_ptr(),
-            mma_pack.stream_of(x))
+            k.sdft.n_layers, k.wsdf_col.data_ptr(), k.mx, k.lda, k.ldd,
+            ws16.data_ptr(), ws32.data_ptr(), plan.table.ctypes.data,
+            out.data_ptr(), mma_pack.stream_of(x))
         build.check(err, "sdf_grad_bwd")
         bwd_launches += 1
-    return rev.unpack_grads(k.shapes, out, plan)
+    dws, dbs = rev.unpack_grads(k.shapes, out, plan)
+    # the output layer's tangent rows: their rank-3 share of the sdf column
+    dws[-1][:, 0] += out[plan.out_db + plan.col_db:][:dws[-1].shape[0]]
+    return dws, dbs
 
 
 class SdfGradOp(torch.autograd.Function):

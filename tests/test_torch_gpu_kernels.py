@@ -743,9 +743,11 @@ def test_bg_kernels_refuse_cpu_weights(dev):
 # test_flagship_perturbed_matches_pallas_interpret). At perturbed weights
 # K10 and K11 are held to the plain op at their weights rounded to bf16
 # (`_bf16w_plain`), the kernels' operand: there the rounding of the weights
-# alone moves the gradient by about the whole atol, for any bf16 kernel
+# alone moves the gradient by about the whole atol
 # (tests/test_torch_tangent_replay.py), and a few points of thousands land
-# past the bound against the f32 plain op.
+# past the bound against the f32 plain op, for the JAX package's own
+# kernel too (tests/test_torch_parity_sdf_grad.py::
+# test_pallas_op_is_past_the_f32_bound_at_perturbed_weights).
 
 TAN_COUNTS = [1, 33, 4800, 155_200]
 TAN_COS_MIN_NORM = 0.5

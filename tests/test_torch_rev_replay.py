@@ -137,7 +137,7 @@ def emulate_rev_bwd(k: rev.RevLayout, x, c_out, c_g, rnd=bf):
     sc.put_db(plan.db[ns - 1], cy)
     sc.v16(plan.br[ns - 1], 2 * P, n_last)[P:] = rnd(cy)
     out = replay_sdf_backward(k, sc, xs, cs, qs, 0, rnd)
-    return k.unpack_grads(out, plan)
+    return rev.unpack_grads(k.shapes, out, plan)
 
 
 @pytest.mark.parametrize("case,n", [("narrow", 1), ("narrow", 33),

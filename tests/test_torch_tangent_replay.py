@@ -12,7 +12,10 @@ layer's weights, activations and tangents; f32 sums), JAX-free.
   at the same bf16 weights the replay keeps inside the bound.
 
 So at perturbed weights the `gpu` tests and `chip_smoke.py` hold K10 and
-K11 to the plain op at the bf16 weights, the kernels' own operands.
+K11 to the plain op at the bf16 weights, the kernels' own operands (the
+JAX package's own kernel lands past the f32 bound there too:
+tests/test_torch_parity_sdf_grad.py). `replay_tangent_bwd` replays K12,
+the `gpu` tests hold it to that replay.
 """
 
 import math
@@ -78,7 +81,8 @@ def replay_tangent_bwd(icfg, ws, bs, x, c_out, c_g, rnd=bf):
     t] (rounded) and its stash, then per layer in reverse dz = scale s dh +
     100 (1 - s) sum_k r_k T_k and rho_k = scale s r_k (T_k the next
     layer's staged tangent input), the products over the four streams'
-    rounded operands in f32, db from the f32 dz."""
+    rounded operands in f32 (the output layer's rho_k, c_g[k] in the sdf
+    column, unrounded), db from the f32 dz."""
     inv_sqrt2 = 1.0 / math.sqrt(2.0)
     dims = icfg.layer_dims()
     d0, n = dims[0], len(ws)
@@ -104,7 +108,9 @@ def replay_tangent_bwd(icfg, ws, bs, x, c_out, c_g, rnd=bf):
     rho[:, :, 0] = c_g.T
     dws, dbs = [None] * n, [None] * n
     for l in range(n - 1, -1, -1):
-        dzb, rhob = rnd(dz), rnd(rho)
+        # the output layer's tangent cotangents (c_g[k] in the sdf column)
+        # stay f32: K12 takes them as a rank-1 and a rank-3 term
+        dzb, rhob = rnd(dz), rho if l == n - 1 else rnd(rho)
         dws[l] = H[l].T @ dzb + sum(T[l][k].T @ rhob[k] for k in range(3))
         dbs[l] = dz.sum(0)
         if l == 0:
