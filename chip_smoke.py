@@ -22,9 +22,14 @@ Phases, each printed as one JSON line with its wall time:
    K11 and K12 at the normal-off step's 4,800 eikonal points and at
    155,200, each at the init's weights and at weights perturbed by 0.01
    N(0, 1), where three tangent faults planted in the plain op must fail
-   the same check, K11 also against K5 and K12 against K6; each with the
-   stated tolerance; kernel, plain and library-yardstick times by CUDA
-   events;
+   the same check, K11 also against K5 and K12 against K6; K1, K3 and
+   K3-light also at weights perturbed by 0.01 N(0, 1) (against the plain
+   version at the weights rounded to bf16, the f32 reading reported) and
+   at EDGE_COUNTS points, both sides of their blocks' edges; each with
+   the stated tolerance; kernel, plain and library-yardstick times by
+   CUDA events, and K1's and K3's L2 weight traffic as modelled from the
+   pack (`l2_weight_gb_model`: blocks x stage-image bytes, not a reading)
+   and K3's tangent-design work (`design_macs`);
 4. sdf_outputs (the path of K10-K12, whose JAX counterparts only the JAX
    package's public kernel API reaches): `fused_sdf_outputs` under no_grad
    over the first eval chunk's sample points, and `sdf_outputs_fused_grad`
@@ -252,6 +257,10 @@ SAMPLES_P99, SAMPLES_MAX, SAMPLES_RAY_MEAN = 0.08, 0.5, 0.02
 # by ~1e-2 where a surface moves by a bf16 step; 30 dB is an rms error of
 # 0.03.
 SLICE_PSNR_BAR_DB = 30.0
+# K1 and K3 are checked at these counts too: both sides of their blocks'
+# edges (K1 128 points a block, two warpgroups of 64; K3 32)
+EDGE_COUNTS = (1, 31, 33, 127, 129, 4097)
+K1_POINTS, K3_POINTS = 128, 32
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -390,42 +399,40 @@ def chunk_rays(conf, device, n_rays):
     return inputs, dirs, cam.expand(dirs.shape[0], 3)
 
 
+def eval_conf():
+    """`configs/synthetic.yml` on scan1 of the checkout."""
+    conf = load_cfg(str(CONF))
+    conf.dataset.data_dir = "synthetic_quality"
+    conf.dataset.scan_id = 1
+    return conf
+
+
+def seeded_model(conf, device):
+    """The config's model config and its model at the smoke's seed."""
+    cfg = renderer.I2SDFConfig.from_cfgnode(conf.model)
+    return cfg, renderer.I2SDFModel(cfg, seed=SEED).to(device)
+
+
+def k1_points(cfg, conf, device):
+    """K1's points: round 0 of the sampler over one eval chunk, the
+    round's evenly spaced depths on each ray."""
+    _, dirs, cam = chunk_rays(conf, device, conf.train.split_n_pixels)
+    z0 = torch.linspace(0.0, cfg.sampler.far, cfg.sampler.eval_counts[0],
+                        device=device)
+    pts = (cam[:, None] + z0[None, :, None] * dirs[:, None]).reshape(-1, 3)
+    return pts.contiguous()
+
+
 def check_kernels(model, cfg, conf, device) -> list[dict]:
     sc = cfg.sampler
     R = conf.train.split_n_pixels
     _, dirs, cam = chunk_rays(conf, device, R)
     gen = torch.Generator().manual_seed(SEED)
     wk = renderer.KernelWeights.pack(model)
-    iw, ib = _bf16_weights(model.implicit)
-    rw, rb = _bf16_weights(model.rendering)
     rows = []
 
-    # K1: round 0 of the sampler, 128 evenly spaced depths per ray
-    z0 = torch.linspace(0.0, sc.far, sc.eval_counts[0], device=device)
-    pts = (cam[:, None] + z0[None, :, None] * dirs[:, None]).reshape(-1, 3)
-    pts = pts.contiguous()
-    out_k = sdf_mlp.sdf_mlp_nograd(wk.sdf, pts)
-    torch.cuda.synchronize()
-    out_p = sdf_mlp.sdf_mlp_plain(model.implicit, pts)
-    err = float((out_k - out_p).abs().max())
-    ok = close(out_k, out_p, 0.02, 0.02)
-    dims = cfg.implicit.layer_dims()
-    macs = hidden_macs(cfg.implicit) + dims[-2] * 1  # sdf column only
-    wbytes = sum(w.numel() for w in iw) * 2
-    b_ms, b_by = bound(2.0 * macs * len(pts),
-                       len(pts) * 16 + wbytes, PEAK_BF16)
-    rows.append(dict(
-        name="sdf_mlp_nograd", route="cuda",
-        source="i2sdf_tpu_torch/csrc/sdf_mlp.cu",
-        replaces="i2sdf_tpu/ops/pallas/fused_mlp.py:157",
-        shape=list(pts.shape), max_abs_err=err, atol=0.02, rtol=0.02,
-        ms=time_ms(lambda: sdf_mlp.sdf_mlp_nograd(wk.sdf, pts), 10),
-        plain_ms=time_ms(lambda: sdf_mlp.sdf_mlp_plain(model.implicit, pts),
-                         2),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: library_sdf(model.implicit, iw, ib, pts),
-                           5)))
-    emit_row(rows[-1], ok)
+    # K1: round 0 of the sampler
+    rows.append(check_k1(model, cfg, k1_points(cfg, conf, device)))
 
     # K2: the widest set (all 480 samples) in a refinement and the final
     # round; SDF from K1 along the rays, and a wall at depth 3 (what rays
@@ -438,6 +445,7 @@ def check_kernels(model, cfg, conf, device) -> list[dict]:
     noise = 0.1 * torch.randn((R, S), generator=gen).to(device)
     sdf_sets = {"mlp": sdf_mlp_vals.reshape(R, S),
                 "wall": (3.0 - zs + noise).contiguous()}
+    z0 = torch.linspace(0.0, sc.far, sc.eval_counts[0], device=device)
     dz = z0[1:] - z0[:-1]
     beta_init = torch.sqrt((1.0 / (4.0 * math.log(sc.eps + 1.0)))
                            * (dz ** 2).sum()).expand(R).contiguous()
@@ -477,6 +485,68 @@ def check_kernels(model, cfg, conf, device) -> list[dict]:
     return rows
 
 
+def bf16w_sdf(net, pts):
+    """K1's plain version at the net's weights rounded to bf16 (f32 biases
+    and arithmetic), chunked."""
+    ws = [w.float() for w in _bf16_weights(net)[0]]
+    bs = [lin.b.detach().float() for lin in net.layers()]
+    apply = lambda c: mlp.implicit_apply(net.cfg, ws, bs, c)[:, :1]
+    with torch.no_grad():
+        return torch.cat([mlp.clamp_sdf(net.cfg, apply(c), c)[:, 0]
+                          for c in pts.split(1 << 18)])
+
+
+def check_k1(model, cfg, pts) -> dict:
+    """K1 at the sampler's first round (`pts`): at the init's weights
+    against the f32 plain version; at perturbed weights (`perturbed_net`)
+    against the plain version at the weights rounded to bf16, the f32
+    reading reported beside it; and the first n of the points for each
+    n in EDGE_COUNTS (both sides of the block edges), at both weights.
+    Timed at the init's weights."""
+    nets = {"init": model.implicit,
+            "perturbed": perturbed_net(model.implicit, SEED + 10)}
+    fields, ok = {}, True
+    for label, net in nets.items():
+        pack = sdf_mlp.SdfMlpPack(net)
+        got = sdf_mlp.sdf_mlp_nograd(pack, pts)
+        torch.cuda.synchronize()
+        f32 = sdf_mlp.sdf_mlp_plain(net, pts)
+        ref = f32 if label == "init" else bf16w_sdf(net, pts)
+        ok = ok and close(got, ref, 0.02, 0.02)
+        edges = {}
+        for n in EDGE_COUNTS:
+            g = sdf_mlp.sdf_mlp_nograd(pack, pts[:n].contiguous())
+            torch.cuda.synchronize()
+            edges[n] = float((g - ref[:n]).abs().max())
+            ok = ok and close(g, ref[:n], 0.02, 0.02)
+        fields[label] = dict(max_abs_err=float((got - ref).abs().max()),
+                             vs_f32=float((got - f32).abs().max()),
+                             edges=edges)
+    iw, ib = _bf16_weights(model.implicit)
+    macs = hidden_macs(cfg.implicit) + cfg.implicit.layer_dims()[-2]
+    wbytes = sum(w.numel() for w in iw) * 2
+    b_ms, b_by = bound(2.0 * macs * len(pts), len(pts) * 16 + wbytes,
+                       PEAK_BF16)
+    pack = sdf_mlp.SdfMlpPack(model.implicit)
+    stages = sdf_mlp.stage_chain(model.implicit)
+    row = dict(
+        name="sdf_mlp_nograd", route="cuda",
+        source="i2sdf_tpu_torch/csrc/sdf_mlp.cu",
+        replaces="i2sdf_tpu/ops/pallas/fused_mlp.py:157",
+        shape=list(pts.shape), max_abs_err=fields["init"]["max_abs_err"],
+        atol=0.02, rtol=0.02, **fields,
+        l2_weight_gb_model=math.ceil(len(pts) / K1_POINTS)
+        * stages.weights.numel() * 2 / 1e9,
+        ms=time_ms(lambda: sdf_mlp.sdf_mlp_nograd(pack, pts), 10),
+        plain_ms=time_ms(lambda: sdf_mlp.sdf_mlp_plain(model.implicit, pts),
+                         2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: library_sdf(model.implicit, iw, ib, pts),
+                           5))
+    emit_row(row, ok)
+    return row
+
+
 def light_macs(lcfg) -> list:
     """Multiply-adds per point of each light layer at its real width."""
     d = lcfg.layer_dims()
@@ -496,27 +566,92 @@ def eval_chunk_points(cfg, conf, device):
     return x.contiguous(), dd.contiguous()
 
 
-def check_k3(model, cfg, conf, device) -> dict:
-    """K3 (with the light head, if the model has one: its own kernel,
-    `render_core_fwd_light`) on one eval chunk against the plain version."""
-    x, dd = eval_chunk_points(cfg, conf, device)
-    wk = renderer.KernelWeights.pack(model)
-    iw, ib = _bf16_weights(model.implicit)
-    rw, rb = _bf16_weights(model.rendering)
-    light = model.light
-    lw, lb = _bf16_weights(light) if light is not None else (None, None)
-    k_out = render_core.render_core_fwd(wk.core, x, dd)
-    torch.cuda.synchronize()
-    p_out = render_core.render_core_plain(model.implicit, model.rendering,
-                                          x, dd, light)
-    tols = {k: CORE_TOLS[k] for k in list(CORE_TOLS)[:len(k_out)]}
-    errs = {k: float((a - b).abs().max())
-            for k, a, b in zip(tols, k_out, p_out)}
-    ok = all(close(a, b, *tols[k]) for k, a, b in zip(tols, k_out, p_out))
+def core_plain(nets, x, dd, bf16w: bool = False):
+    """K3's plain version over (implicit, rendering, light or None), with
+    `bf16w` at the nets' weights rounded to bf16 (f32 biases and
+    arithmetic), chunked, sphere-clamped."""
+    if not bf16w:
+        return render_core.render_core_plain(*nets[:2], x, dd, nets[2])
+    inet, rnet, lnet = nets
+    w = render_core.CoreWeights.of(inet, rnet, lnet)
+    rnd = lambda ts: tuple(t.detach().to(torch.bfloat16).float()  # noqa
+                           for t in ts)
+    w = render_core.CoreWeights(rnd(w.ws_sdf), w.bs_sdf, rnd(w.ws_rad),
+                                w.bs_rad, rnd(w.ws_l), w.bs_l)
+    outs = []
+    for xc, dc in zip(x.split(1 << 16), dd.split(1 << 16)):
+        sdf, grad, *rest = render_core.render_core_train_plain(
+            inet.cfg, rnet.cfg, w, xc, dc,
+            None if lnet is None else lnet.cfg)
+        sdf, grad = render_core._sphere_clamp(inet.cfg, xc, sdf, grad)
+        outs.append([t.detach() for t in (sdf, grad, *rest)])
+    return [torch.cat(o) for o in zip(*outs)]
+
+
+def k3_design_macs(cfg, light: bool) -> int:
+    """Multiply-adds a point of K3's tangent form at the nets' real widths:
+    four streams through the hidden layers, the features on the primal
+    row, the sdf column on all four, the radiance net (and the light net)
+    on the primal row. Not counted: the t_x rows that ride along in the
+    radiance and light products' m64 tiles."""
     dims = cfg.implicit.layer_dims()
     rdims = cfg.rendering.layer_dims()
-    # forward (full head), reverse sweep (the hidden layers transposed),
-    # radiance net, light net
+    macs = (4 * hidden_macs(cfg.implicit) + dims[-2] * (dims[-1] - 1)
+            + 4 * dims[-2]
+            + sum(rdims[l] * rdims[l + 1] for l in range(len(rdims) - 1)))
+    if light:
+        macs += sum(light_macs(cfg.light))
+    return macs
+
+
+def check_k3(model, cfg, conf, device) -> dict:
+    """K3 (with the light head, if the model has one: its own kernel,
+    `render_core_fwd_light`) on one eval chunk: at the init's weights
+    against the f32 plain version (CORE_TOLS); at perturbed weights
+    (`perturbed_net` of each net) against the plain version at the
+    weights rounded to bf16, the f32 reading reported beside it; and the
+    first n of the points for each n in EDGE_COUNTS, at both weights.
+    Timed at the init's weights."""
+    x, dd = eval_chunk_points(cfg, conf, device)
+    nets0 = (model.implicit, model.rendering, model.light)
+    nets = {"init": nets0,
+            "perturbed": tuple(
+                None if m is None else perturbed_net(m, SEED + 10 + i)
+                for i, m in enumerate(nets0))}
+    fields, ok = {}, True
+    for label, ns in nets.items():
+        pack = render_core.RenderCorePack(*ns)
+        k_out = render_core.render_core_fwd(pack, x, dd)
+        torch.cuda.synchronize()
+        f32 = core_plain(ns, x, dd)
+        ref = f32 if label == "init" else core_plain(ns, x, dd, bf16w=True)
+        tols = {k: CORE_TOLS[k] for k in list(CORE_TOLS)[:len(k_out)]}
+        ok = ok and all(close(a, b, *tols[k])
+                        for k, a, b in zip(tols, k_out, ref))
+        edges = {}
+        for n in EDGE_COUNTS:
+            e_out = render_core.render_core_fwd(pack, x[:n].contiguous(),
+                                                dd[:n].contiguous())
+            torch.cuda.synchronize()
+            edges[n] = max(float((a - b[:n]).abs().max())
+                           for a, b in zip(e_out, ref))
+            ok = ok and all(close(a, b[:n], *tols[k])
+                            for k, a, b in zip(tols, e_out, ref))
+        fields[label] = dict(
+            errs={k: float((a - b).abs().max())
+                  for k, a, b in zip(tols, k_out, ref)},
+            vs_f32={k: float((a - b).abs().max())
+                    for k, a, b in zip(tols, k_out, f32)},
+            edges=edges)
+        del k_out, ref, f32
+    light = model.light
+    iw, ib = _bf16_weights(model.implicit)
+    rw, rb = _bf16_weights(model.rendering)
+    lw, lb = _bf16_weights(light) if light is not None else (None, None)
+    dims = cfg.implicit.layer_dims()
+    rdims = cfg.rendering.layer_dims()
+    # the function's least work: the forward (full head), the reverse
+    # sweep (the hidden layers transposed), the radiance net, the light net
     macs = (2 * hidden_macs(cfg.implicit) + dims[-2] * dims[-1]
             + sum(rdims[l] * rdims[l + 1] for l in range(len(rdims) - 1)))
     wbytes = (sum(w.numel() for w in iw) * 2 * 2
@@ -528,13 +663,24 @@ def check_k3(model, cfg, conf, device) -> dict:
         out_bytes += 4
     b_ms, b_by = bound(2.0 * macs * len(x), len(x) * (24 + out_bytes)
                        + wbytes, PEAK_BF16)
+    wk = render_core.RenderCorePack(*nets0)
+    stages = render_core.CoreStages(
+        cfg.implicit, cfg.rendering, render_core.CoreWeights.of(*nets0),
+        None if light is None else light.cfg)
+    block_bytes = 2 * sum(c.weights.numel() for c in
+                          (stages.sdf, stages.rad, stages.light)
+                          if c is not None)
     row = dict(
         name="render_core_fwd" + ("_light" if light is not None else ""),
         route="cuda", source="i2sdf_tpu_torch/csrc/render_core.cu",
         replaces="i2sdf_tpu/ops/pallas/fused_train.py:449",
-        shape=list(x.shape), max_abs_err=max(errs.values()),
-        errs=errs, tolerances=tols,
-        ms=time_ms(lambda: render_core.render_core_fwd(wk.core, x, dd), 5),
+        shape=list(x.shape), max_abs_err=max(fields["init"]["errs"].values()),
+        errs=fields["init"]["errs"], tolerances=CORE_TOLS,
+        perturbed=fields["perturbed"], edges=fields["init"]["edges"],
+        macs=macs, design_macs=k3_design_macs(cfg, light is not None),
+        l2_weight_gb_model=math.ceil(len(x) / K3_POINTS) * block_bytes
+        / 1e9,
+        ms=time_ms(lambda: render_core.render_core_fwd(wk, x, dd), 5),
         plain_ms=time_ms(lambda: render_core.render_core_plain(
             model.implicit, model.rendering, x, dd, light), 2),
         bound_ms=b_ms, bound_by=b_by,
@@ -1711,15 +1857,16 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
                        tr.loss_cfg.dynamic_weights(s), tr.bubble)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    # K3 and K5 are one kernel template, K4 and K6 another, told apart by
-    # the template arguments (with the radiance net; with the light head);
-    # the products and sums are K4's on the normal-on paths (and K9's too
-    # with the background), K6's on the normal-off path
+    # K3 is one kernel template (with the light head or not), K4 and K6
+    # another, told apart by the template arguments (with the radiance
+    # net; with the light head); the products and sums are K4's on the
+    # normal-on paths (and K9's too with the background), K6's on the
+    # normal-off path
     groups = {"K1 sdf_mlp": "sdf_mlp_kernel", "K2 sampler_round":
               "sampler_round",
-              "K3 render_core_fwd": "fwd_sweep_kernel<true, false>",
-              "K3 render_core_fwd_light": "fwd_sweep_kernel<true, true>",
-              "K5 rev_fwd": "fwd_sweep_kernel<false, false>",
+              "K3 render_core_fwd": "render_core_kernel<false>",
+              "K3 render_core_fwd_light": "render_core_kernel<true>",
+              "K5 rev_fwd": "fwd_sweep_kernel(",
               "K4 sweep": "bwd_sweep_kernel<true, false>",
               "K4 sweep light": "bwd_sweep_kernel<true, true>",
               "K6 sweep": "bwd_sweep_kernel<false, false>",
@@ -1934,8 +2081,7 @@ def run_eval_perray(device) -> dict:
     rays for K2 and K7): after the first compacted round they run on the
     capped rows. Then the first chunk through the plain path."""
     conf = perray_conf(train=False)
-    cfg = renderer.I2SDFConfig.from_cfgnode(conf.model)
-    model = renderer.I2SDFModel(cfg, seed=SEED).to(device)
+    cfg, model = seeded_model(conf, device)
     sizes = {"sdf_mlp_nograd": [], "sampler_round": [], "conv_check": []}
     orig = (sdf_mlp.sdf_mlp_nograd, sampler_round.sampler_round,
             conv_check.conv_check)
@@ -1984,8 +2130,7 @@ def run_eval_bg(device) -> dict:
     point: K8 once a chunk, K9 never; then the first chunk through the
     plain path."""
     conf = bg_conf(train=False)
-    cfg = renderer.I2SDFConfig.from_cfgnode(conf.model)
-    model = renderer.I2SDFModel(cfg, seed=SEED).to(device)
+    cfg, model = seeded_model(conf, device)
     sl = run_slice(model, conf, device, want=EVAL_BG_KERNELS,
                    never=("bg_core_bwd",))
     assert sl["launches"]["bg_core_fwd"] == sl["chunks"], sl["launches"]
@@ -2146,18 +2291,14 @@ def main() -> int:
     build.load_library()
     emit("build", t0, nvcc_seconds=nvcc_s, library=path.name)
 
-    conf = load_cfg(str(CONF))
-    conf.dataset.data_dir = "synthetic_quality"
-    conf.dataset.scan_id = 1
-    cfg = renderer.I2SDFConfig.from_cfgnode(conf.model)
-    model = renderer.I2SDFModel(cfg, seed=SEED).to(device)
+    conf = eval_conf()
+    cfg, model = seeded_model(conf, device)
 
     t0 = time.perf_counter()
     rows = check_kernels(model, cfg, conf, device)
     rows += check_sdf_outputs(model, cfg, conf, device)
     tconf = train_conf()
-    tcfg = renderer.I2SDFConfig.from_cfgnode(tconf.model)
-    tmodel = renderer.I2SDFModel(tcfg, seed=SEED).to(device)
+    tcfg, tmodel = seeded_model(tconf, device)
     rows.append(check_k4(tmodel, tcfg, conf, device))
     torch.cuda.empty_cache()
     rows += check_rev(tmodel, tcfg, conf, device)
@@ -2165,8 +2306,7 @@ def main() -> int:
     del tmodel
     # K3 and K4 with the light head, at the light config's full width
     lconf = light_conf(train=False)
-    lcfg = renderer.I2SDFConfig.from_cfgnode(lconf.model)
-    lmodel = renderer.I2SDFModel(lcfg, seed=SEED).to(device)
+    lcfg, lmodel = seeded_model(lconf, device)
     rows.append(check_k3(lmodel, lcfg, lconf, device))
     torch.cuda.empty_cache()
     for detach in (True, False):
@@ -2175,13 +2315,11 @@ def main() -> int:
     del lmodel
     # K7 at the perray config, K8 and K9 at the bg config (full width)
     pconf = perray_conf(train=False)
-    pcfg = renderer.I2SDFConfig.from_cfgnode(pconf.model)
-    pmodel = renderer.I2SDFModel(pcfg, seed=SEED).to(device)
+    pcfg, pmodel = seeded_model(pconf, device)
     rows += check_conv(pmodel, pcfg, pconf, device)
     del pmodel
     bconf = bg_conf(train=False)
-    bcfg = renderer.I2SDFConfig.from_cfgnode(bconf.model)
-    bmodel = renderer.I2SDFModel(bcfg, seed=SEED).to(device)
+    bcfg, bmodel = seeded_model(bconf, device)
     rows += check_bg(bmodel, bcfg, bconf, device)
     del bmodel
     torch.cuda.empty_cache()
@@ -2215,8 +2353,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lconf = light_conf(train=False)
-    lcfg = renderer.I2SDFConfig.from_cfgnode(lconf.model)
-    lmodel = renderer.I2SDFModel(lcfg, seed=SEED).to(device)
+    lcfg, lmodel = seeded_model(lconf, device)
     sll = run_slice(lmodel, lconf, device, want=EVAL_LIGHT_KERNELS)
     cmpl = compare_chunk(lmodel, lconf, device)
     emit("eval_light", t0, **sll, compare=cmpl)

@@ -1,4 +1,5 @@
 // Shared device code for the port's kernels (sm_90a, plain C interface).
+// K1 and K3 are built on `wgmma_layer.cuh` instead; the rest here.
 //
 // A block of rows flows through a whole MLP with its activations in shared
 // memory. Each layer is a tiled product on the tensor cores with
@@ -25,7 +26,9 @@ constexpr float kInvSqrt2 = 0.70710678118654752f;
 
 // One layer of a packed MLP, as the host builds it
 // (i2sdf_tpu_torch/ops/kernels/mma_pack.py).
-enum LayerField { kK = 0, kN, kReal, kWOff, kBOff, kFlags, kCol, kSpare };
+// kStageRows: for stage images (wgmma_layer.cuh), the rows of W^T a stage
+// holds when fewer than N (the layer comes in passes), else 0.
+enum LayerField { kK = 0, kN, kReal, kWOff, kBOff, kFlags, kCol, kStageRows };
 enum LayerFlags { kSkipIn = 1, kScale = 2 };
 
 struct Plan {
@@ -165,18 +168,18 @@ struct EpiSoftplus {
   }
 };
 
-// ---- the SDF net's sweeps over a block of kSweepRows points (K3-K6) ------
+// ---- the SDF net's sweeps over a block of kSweepRows points (K4-K6) ------
 //
-// K3 and K5 are one kernel body (`fwd_sweep_kernel`): the forward with
-// the activation derivative stashed as bf16 s = softplus100'(z), then
-// d sdf / d x swept back through the net. K4 and K6 are another
+// K5's kernel body (`fwd_sweep_kernel`, rev_fwd.cu) is the forward with the
+// activation derivative stashed as bf16 s = softplus100'(z), then
+// d sdf / d x swept back through the net. K4 and K6 are one kernel body
 // (`bwd_sweep_kernel`): the derivative stashed as q (`stash_q`), the
 // backward's four sweeps staging every layer's weight-gradient operands in
 // device memory (`Scratch`), then the split-K products and the fixed-order
 // sums (`launch_wgrad`, both behind `launch_bwd`). The light head of the
-// light-mask config is a second template flag of K3's and K4's kernels
-// (`kLight`): its code sits under `if constexpr`, so the kernels without
-// it compile as they did before it.
+// light-mask config is a second template flag of K4's kernel (`kLight`):
+// its code sits under `if constexpr`, so the kernel without it compiles
+// as it did before it.
 
 constexpr int kSweepMT = 2;
 constexpr int kSweepRows = kSweepMT * 16;
@@ -269,35 +272,7 @@ struct EpiSoftplusQ {
   }
 };
 
-// ---- K3 and K5: the SDF net's outputs and d sdf / d x ----------------------
-
-// Reverse layer: a = r_l @ W_l^T is d sdf / d (input of layer l). Columns
-// below n_h continue down the net: r_{l-1} = bf16(scale * a * dact_{l-1});
-// columns [gcol, gcol + d0) belong to the encoding and are added, scaled,
-// into gpe (f32). Padding columns are written as zeros.
-struct EpiRev {
-  __nv_bfloat16* out;
-  int lda;
-  const __nv_bfloat16* dact;
-  int ldd;
-  float scale;
-  int n_h, gcol, d0;
-  float* gpe;
-  int ldg;
-  __device__ __forceinline__ float one(int r, int c, float v, float d) {
-    v *= scale;
-    if (c < n_h) return v * d;
-    const int p = c - gcol;
-    if (p >= 0 && p < d0) gpe[r * ldg + p] += v;
-    return 0.f;
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    float2 d = make_float2(0.f, 0.f);
-    if (c < n_h)
-      d = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(dact + r * ldd + c));
-    put2(out + r * lda + c, one(r, c, v0, d.x), one(r, c + 1, v1, d.y));
-  }
-};
+// ---- epilogues of the forward nets (K4, K8, K9) ----------------------------
 
 // The light net's input: relu of the F feature columns of `feat`, zero up
 // to the first light layer's depth K.
@@ -311,7 +286,7 @@ __device__ __forceinline__ void light_input(__nv_bfloat16* dst, int lda,
   }
 }
 
-// K3's output layer, columns [features (F) | sdf]: the features to the
+// K8's output layer, columns [features (F) | sdf]: the features to the
 // radiance input buffer (no activation), sdf to shared memory.
 struct EpiFeatSdf {
   __nv_bfloat16* out;
@@ -329,22 +304,6 @@ struct EpiFeatSdf {
   }
 };
 
-// K5's output layer: columns [0, out_cols) of rows below n to device
-// memory, in the net's own order.
-struct EpiOut {
-  float* out;
-  const float* bias;
-  int row0, n, out_cols;
-  __device__ __forceinline__ void put(int r, int c, float v) {
-    if (c < out_cols && row0 + r < n)
-      out[(size_t)(row0 + r) * out_cols + c] = v + bias[c];
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    put(r, c, v0);
-    put(r, c + 1, v1);
-  }
-};
-
 struct EpiRelu {
   __nv_bfloat16* out;
   int lda;
@@ -355,7 +314,7 @@ struct EpiRelu {
   }
 };
 
-// K3's rgb: sigmoid of the radiance net's output, rows below n.
+// K8's rgb: sigmoid of the radiance net's output, rows below n.
 struct EpiRgbOut {
   float* rgb;
   const float* bias;
@@ -369,237 +328,6 @@ struct EpiRgbOut {
     put(r, c + 1, v1);
   }
 };
-
-// K3's light head: the light net on relu(features) in `in`, ping-ponging
-// with `tmp` (both kSweepRows x lda), its sigmoid output to rows [row0, n)
-// of `lmask_out`. Out of line and at the kernel's end: inlined after the
-// SDF output layer it raised the whole kernel's register spills from 20
-// to 104 bytes and K3's time by ~28% (at its end, 52 bytes and ~19%); out
-// of line K3 keeps its 20 bytes, and the head costs ~10% (H100,
-// scripts/time_render_core.py --light).
-static __device__ __noinline__ void light_forward(
-    __nv_bfloat16* in, __nv_bfloat16* tmp, int lda,
-    const uint2* __restrict__ w_l, const float* __restrict__ b_l,
-    LightPlan lp, float* __restrict__ lmask_out, int row0, int n) {
-  __nv_bfloat16* lbuf[2] = {in, tmp};
-  for (int l = 0; l < lp.n; ++l) {
-    const int* L = lp.L[l];
-    const uint2* W = w_l + L[kWOff];
-    const float* b = b_l + L[kBOff];
-    if (l < lp.n - 1) {
-      EpiSoftplus epi{lbuf[(l & 1) ^ 1], lda, b, 1.f, nullptr, 0};
-      mma_layer<kSweepMT, kSweepMaxNT>(lbuf[l & 1], lda, L[kK], W, L[kN],
-                                       epi);
-    } else {
-      EpiRgbOut epi{lmask_out, b, row0, n, 1};
-      mma_layer<kSweepMT, kSweepMaxNT>(lbuf[l & 1], lda, L[kK], W, L[kN],
-                                       epi);
-    }
-    __syncthreads();
-  }
-}
-
-// Shared memory of `fwd_sweep_kernel` (bytes): two activation buffers,
-// every hidden layer's activation derivative, and per row the point, the
-// view direction, the sdf and the encoding's gradient; with the light
-// head, a third activation buffer at the end.
-inline size_t fwd_smem_bytes(int lda, int ldd, int n_dact, int ldg,
-                             bool light) {
-  return ((2 + light) * (size_t)kSweepRows * lda +
-          (size_t)n_dact * kSweepRows * ldd) *
-             sizeof(__nv_bfloat16) +
-         (size_t)kSweepRows * (3 + 3 + 1 + ldg) * sizeof(float);
-}
-
-namespace {
-
-// K3 (`kRadiance`) and K5 in one kernel body. A block of 32 points runs
-// the SDF net forward with its activations in shared memory, stashing each
-// hidden layer's activation derivative (bf16 s = softplus100'(z)). K3's
-// output layer keeps the features in shared memory for the radiance net
-// on [features | PE(dirs)] and the sdf for its output; K5's writes its
-// columns to device memory. Then d sdf / d h goes back through the
-// transposed hidden layers (`rev`, rev.L[i] is hidden layer
-// n_hidden-1-i), starting from r = W_last[:, sdf] * dact (`wsdf_col`, zero
-// padded to the next layer's depth), the encoding's share gathered at
-// layer 0 and at the skip into gpe (f32), and the closed-form Jacobian of
-// the wide-block encoding, d sin(f x)/dx = f cos(f x), d cos(f x)/dx =
-// -f sin(f x), gives d sdf / d x. The sweeps are written out in one kernel
-// body, in K3's own form (an indexed pair of buffers, restrict-qualified
-// kernel arguments): as device functions shared by two kernels, or with
-// the buffers selected instead of indexed, K3 ran measurably slower on
-// the H100. With `kLight` (K3 of the light-mask config), relu(features)
-// is copied to a third buffer right after the SDF net's output layer, and
-// at the end the light net runs on it (`light_forward`), its sigmoid
-// output to `lmask_out`.
-template <bool kRadiance, bool kLight>
-__global__ void __launch_bounds__(kThreads)
-fwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
-                 int n, const uint2* __restrict__ w_fwd,
-                 const float* __restrict__ b_sdf, Plan fwd,
-                 const uint2* __restrict__ w_rev, Plan rev,
-                 const float* __restrict__ wsdf_col,
-                 const uint2* __restrict__ w_rad,
-                 const float* __restrict__ b_rad, Plan rad,
-                 const uint2* __restrict__ w_l,
-                 const float* __restrict__ b_l, LightPlan lp, int mx, int md,
-                 int lda, int ldd, int ldg, int out_cols,
-                 float* __restrict__ sdf_out, float* __restrict__ grad_out,
-                 float* __restrict__ rgb_out, float* __restrict__ lmask_out,
-                 float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n_hidden = fwd.n - 1;
-  __nv_bfloat16* buf[2];
-  buf[0] = reinterpret_cast<__nv_bfloat16*>(smem);
-  buf[1] = buf[0] + kSweepRows * lda;
-  __nv_bfloat16* dact = buf[1] + kSweepRows * lda;
-  float* xs = reinterpret_cast<float*>(dact + (size_t)n_hidden * kSweepRows *
-                                                  ldd);
-  float* ds = xs + kSweepRows * 3;
-  float* sdf_s = ds + kSweepRows * 3;
-  float* gpe = sdf_s + kSweepRows;
-  const int row0 = blockIdx.x * kSweepRows;
-  const int d0x = 3 + 6 * mx;
-  const int F = fwd.L[fwd.n - 1][kReal] - 1;  // feature width
-
-  for (int i = threadIdx.x; i < kSweepRows * 3; i += kThreads) {
-    const int r = row0 + i / 3;
-    xs[i] = r < n ? x[(size_t)r * 3 + i % 3] : 0.f;
-    if (kRadiance) ds[i] = r < n ? dirs[(size_t)r * 3 + i % 3] : 0.f;
-  }
-  for (int i = threadIdx.x; i < kSweepRows * ldg; i += kThreads) gpe[i] = 0.f;
-  __syncthreads();
-  write_pe(buf[0], lda, kSweepRows, xs, mx, 0, fwd.L[0][kK], 1.f);
-  __syncthreads();
-
-  // ---- SDF forward, stashing activation derivatives --------------------
-  int cur = 0;
-  for (int l = 0; l < fwd.n; ++l) {
-    const int* L = fwd.L[l];
-    if (L[kFlags] & kSkipIn) {
-      write_pe(buf[cur], lda, kSweepRows, xs, mx, L[kCol], L[kK], kInvSqrt2);
-      __syncthreads();
-    }
-    const uint2* W = w_fwd + L[kWOff];
-    const float* b = b_sdf + L[kBOff];
-    if (l < n_hidden) {
-      EpiSoftplus epi{buf[cur ^ 1], lda, b,
-                      (L[kFlags] & kScale) ? kInvSqrt2 : 1.f,
-                      dact + (size_t)l * kSweepRows * ldd, ldd};
-      mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-    } else if (kRadiance) {
-      EpiFeatSdf epi{buf[cur ^ 1], lda, b, sdf_s, F};
-      mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-    } else {
-      EpiOut epi{out, b, row0, n, out_cols};
-      mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  // ---- K3 with the light head: keep relu(features) for the light net ----
-  if constexpr (kLight) {
-    __nv_bfloat16* lb =
-        reinterpret_cast<__nv_bfloat16*>(gpe + kSweepRows * ldg);
-    light_input(lb, lda, buf[cur], F, lp.L[0][kK]);
-  }
-
-  // ---- K3: radiance net on [features | PE(dirs)] --------------------------
-  if (kRadiance) {
-    write_pe(buf[cur], lda, kSweepRows, ds, md, F, rad.L[0][kK], 1.f);
-    __syncthreads();
-    for (int l = 0; l < rad.n; ++l) {
-      const int* L = rad.L[l];
-      const uint2* W = w_rad + L[kWOff];
-      const float* b = b_rad + L[kBOff];
-      if (l < rad.n - 1) {
-        EpiRelu epi{buf[cur ^ 1], lda, b};
-        mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK], W, L[kN],
-                                         epi);
-      } else {
-        EpiRgbOut epi{rgb_out, b, row0, n, L[kReal]};
-        mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK], W, L[kN],
-                                         epi);
-      }
-      __syncthreads();
-      cur ^= 1;
-    }
-  }
-
-  // ---- reverse sweep: d sdf / d x --------------------------------------
-  {
-    const int K = rev.L[0][kK];
-    const __nv_bfloat16* dl = dact + (size_t)(n_hidden - 1) * kSweepRows * ldd;
-    for (int i = threadIdx.x; i < kSweepRows * K; i += kThreads) {
-      const int r = i / K, c = i % K;
-      buf[cur][r * lda + c] =
-          __float2bfloat16_rn(wsdf_col[c] * bf(dl + r * ldd + c));
-    }
-  }
-  __syncthreads();
-  for (int i = 0; i < rev.n; ++i) {
-    const int* L = rev.L[i];
-    const int l = n_hidden - 1 - i;
-    EpiRev epi{buf[cur ^ 1], lda,
-               l > 0 ? dact + (size_t)(l - 1) * kSweepRows * ldd : nullptr,
-               ldd, (L[kFlags] & kScale) ? kInvSqrt2 : 1.f, L[kReal], L[kCol],
-               d0x, gpe, ldg};
-    mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK],
-                                     w_rev + L[kWOff], L[kN], epi);
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  // ---- encoding Jacobian, outputs --------------------------------------
-  for (int i = threadIdx.x; i < kSweepRows * 3; i += kThreads) {
-    const int r = i / 3, d = i % 3;
-    if (row0 + r >= n) continue;
-    const float* gp = gpe + r * ldg;
-    const float xd = xs[3 * r + d];
-    float g = gp[d];
-    for (int j = 0; j < mx; ++j) {
-      const float f = ldexpf(1.f, j);
-      g += f * (gp[3 + d * mx + j] * cosf(xd * f) -
-                gp[3 + 3 * mx + d * mx + j] * sinf(xd * f));
-    }
-    grad_out[(size_t)(row0 + r) * 3 + d] = g;
-    if (kRadiance && d == 0) sdf_out[row0 + r] = sdf_s[r];
-  }
-  // ---- K3 with the light head: the light net ----------------------------
-  if constexpr (kLight) {
-    __syncthreads();
-    light_forward(reinterpret_cast<__nv_bfloat16*>(gpe + kSweepRows * ldg),
-                  buf[0], lda, w_l, b_l, lp, lmask_out, row0, n);
-  }
-}
-
-// Launch `fwd_sweep_kernel` on n points (the arguments as the kernel's);
-// returns the launch's error.
-template <bool kRadiance, bool kLight>
-inline cudaError_t launch_fwd_sweep(
-    const float* x, const float* dirs, int n, const uint2* w_fwd,
-    const float* b_sdf, const Plan& fwd, const uint2* w_rev, const Plan& rev,
-    const float* wsdf_col, const uint2* w_rad, const float* b_rad,
-    const Plan& rad, const uint2* w_l, const float* b_l, const LightPlan& lp,
-    int mx, int md, int lda, int ldd, int ldg, int out_cols, float* sdf_out,
-    float* grad_out, float* rgb_out, float* lmask_out, float* out,
-    void* stream) {
-  const size_t smem = fwd_smem_bytes(lda, ldd, fwd.n - 1, ldg, kLight);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_sweep_kernel<kRadiance, kLight>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (n + kSweepRows - 1) / kSweepRows;
-  fwd_sweep_kernel<kRadiance, kLight>
-      <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-          x, dirs, n, w_fwd, b_sdf, fwd, w_rev, rev, wsdf_col, w_rad, b_rad,
-          rad, w_l, b_l, lp, mx, md, lda, ldd, ldg, out_cols, sdf_out,
-          grad_out, rgb_out, lmask_out, out);
-  return cudaGetLastError();
-}
-
-}  // namespace
 
 // ---- K4 and K6: the backward's sweeps -------------------------------------
 
@@ -914,7 +642,7 @@ namespace {
 // = dr * ah * 100 s (1 - s) to dzx[l]); the downward sweep (dz_l to rows
 // [np, 2 np) of br[l]) with those injections. Each hidden layer's bias
 // row goes to the block's row of `dbpart`. Written out in one body, in
-// K4's own form, as K3's and K5's kernel is.
+// K4's own form, as K5's kernel is.
 //
 // With `kLight` (K4 of the light-mask config), step 1b runs the light net
 // on relu(features) between `lb` and the free buffer of the pair (X_l to

@@ -21,12 +21,12 @@
 // split in three launches:
 //
 // 1. `sweep_kernel`, 32 points a block, one block per SM (shared memory
-//    as K3's: two activation buffers and every hidden layer's activation
+//    as K5's: two activation buffers and every hidden layer's activation
 //    derivative). It recomputes the forward, runs the radiance backward,
 //    the reverse sweep (d sdf / d h), the upward sweep (the transpose of
 //    the reverse sweep, which yields the second-order term dz_extra =
 //    dr * ah * 100 s (1 - s)) and the downward sweep, each layer a tiled
-//    mma.sync product as in K3. For every layer it writes the two bf16
+//    mma.sync product as in K5. For every layer it writes the two bf16
 //    operands of that layer's weight gradient to device memory: for an
 //    SDF layer dW = da^T r + X^T dz = [da ; X]^T [r ; dz], one product
 //    over the two stacked along the points; for a radiance layer

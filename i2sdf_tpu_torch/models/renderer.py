@@ -224,7 +224,8 @@ class I2SDFModel(nn.Module):
 @dataclasses.dataclass
 class KernelWeights:
     """The model's weights in the kernels' layouts, packed once per render
-    (weight norm materialized, bf16, mma fragment order)."""
+    (weight norm materialized, bf16; stage images for K1 and K3, mma
+    fragment order for K8)."""
     sdf: sdf_mlp.SdfMlpPack
     core: render_core.RenderCorePack
     bg: bg_core.BgPack | None = None

@@ -32,12 +32,11 @@ BUILD_TIMEOUT_S = 300
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "i2sdf_sdf_mlp_nograd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "i2sdf_sdf_mlp_nograd": [_P, _P, _I, _P, _P, _P, _I, _I, _P],
     "i2sdf_sampler_round": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F,
                             _F, _I, _P],
-    "i2sdf_render_core_fwd": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P,
-                              _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _P, _P, _P, _P, _P],
+    "i2sdf_render_core_fwd": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P,
+                              _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "i2sdf_render_core_bwd": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
                               _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                               _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,

@@ -1,12 +1,23 @@
-"""Host-side weight packing for the MLP kernels (`csrc/common.cuh`).
+"""Host-side weight packing for the MLP kernels.
 
-A layer's (K, N) weight is zero-padded to multiples of 16, rounded to bf16
-and reordered into `mma.m16n8k16` B-fragment order: for 8-column tile t,
-16-deep k-step kk and lane l = 4*g + i, the four values
-W[16kk + 2i + {0, 1}, 8t + g] and W[16kk + 8 + 2i + {0, 1}, 8t + g] are
-adjacent, so a lane fetches its fragment with one 8-byte load. A `Plan`
-row per layer (8 int32) tells the kernel its padded sizes, offsets and
-flags; the field order is `LayerField` in `common.cuh`.
+Two layouts, each a chain of layers with one `Plan` row per layer (8
+int32: padded sizes, offsets, flags; the field order is `LayerField` in
+`csrc/common.cuh`):
+
+* fragment order (`pack_chain`, the mma.sync kernels of `csrc/common.cuh`
+  and the tangent and background kernels): a layer's (K, N) weight is
+  zero-padded to multiples of 16, rounded to bf16 and reordered into
+  `mma.m16n8k16` B-fragment order: for 8-column tile t, 16-deep k-step kk
+  and lane l = 4*g + i, the four values W[16kk + 2i + {0, 1}, 8t + g] and
+  W[16kk + 8 + 2i + {0, 1}, 8t + g] are adjacent, so a lane fetches its
+  fragment with one 8-byte load;
+* stage images (`pack_stage_chain`, K1 and K3 on `csrc/wgmma_layer.cuh`):
+  per 64-deep chunk of K, W^T's N rows x 64 columns in wgmma's
+  128-byte-swizzle K-major layout, one contiguous block that one bulk
+  copy brings into shared memory. K is padded to 16 and N to one of the
+  kernels' instantiated widths (`WG_WIDTHS`); `kWOff` counts bf16
+  elements, and `kStageRows` (field 7) the rows of W^T a stage holds
+  where a layer comes in passes (0: all N).
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ def pack_b(w: torch.Tensor, K: int, N: int) -> torch.Tensor:
 @dataclasses.dataclass
 class PackedMlp:
     """A chain of layers in kernel layout."""
-    weights: torch.Tensor   # flat bf16 fragment stream of every layer
+    weights: torch.Tensor   # flat bf16: every layer's fragments or stages
     biases: torch.Tensor    # flat f32, each layer padded to its N
     plan: np.ndarray        # (layers, 8) int32, host memory
 
@@ -70,6 +81,70 @@ def pack_chain(layers: list[dict]) -> PackedMlp:
         b_off += N
     return PackedMlp(torch.cat(ws), torch.cat(bs),
                      np.ascontiguousarray(np.asarray(rows, np.int32)))
+
+
+STAGE_K = 64                          # K columns of a stage (128 bytes)
+WG_WIDTHS = (8, 16, 32, 64, 128, 256)  # the wgmma widths the kernels take
+
+
+def wg_width(n: int) -> int:
+    """The narrowest instantiated wgmma width that holds n columns."""
+    for w in WG_WIDTHS:
+        if n <= w:
+            return w
+    raise ValueError(f"a layer of {n} columns is wider than the wgmma "
+                     f"kernels' {WG_WIDTHS[-1]}")
+
+
+def swizzle_groups(rows: int, device=None) -> torch.Tensor:
+    """(rows, 8): the 16-byte group of a 128-byte row held at each
+    position, g ^ (row % 8) (an involution: it maps both ways)."""
+    r = torch.arange(rows, device=device)
+    return torch.arange(8, device=device)[None, :] ^ (r[:, None] % 8)
+
+
+def pack_stages(w: torch.Tensor, K: int, N: int,
+                rows: int = 256) -> torch.Tensor:
+    """(k, n) f32 weight -> its stage images for a (K, N) layer, flat bf16:
+    for each 64-deep chunk c of K (zero past K), rows r of W^T at r * 64
+    elements, 16-byte group q of columns [64 c, 64 c + 64) at position
+    q ^ (r % 8). A layer of N > `rows` comes as stages of `rows` rows, every
+    chunk of W^T's first `rows` rows first (the passes K1 takes)."""
+    k, n = w.shape
+    Kc = round_up(K, STAGE_K)
+    wt = torch.zeros((N, Kc), dtype=torch.float32, device=w.device)
+    wt[:n, :k] = w.t()
+    R = min(N, rows)
+    t = wt.to(torch.bfloat16).reshape(N // R, R, Kc // STAGE_K, 8, 8)
+    t = t.permute(0, 2, 1, 3, 4)           # (pass, chunk, row, group, elt)
+    r = torch.arange(R, device=w.device)[:, None]
+    img = t[:, :, r, swizzle_groups(R, w.device)]
+    return img.reshape(-1).contiguous()
+
+
+def pack_stage_chain(layers: list[dict], rows: int = 256) -> PackedMlp:
+    """`pack_chain`'s layers (w (k, n), b, flags, col, real) as stage
+    images of at most `rows` rows
+    (`pack_stages`, recorded as the plan's kStageRows when below N):
+    K = round_up(k, 16), N = wg_width(n), biases zero-padded to N."""
+    ws, bs, plan = [], [], []
+    w_off = b_off = 0
+    for lay in layers:
+        k, n = lay["w"].shape
+        K, N = round_up(k, 16), wg_width(n)
+        R = min(N, rows)
+        ws.append(pack_stages(lay["w"], K, N, R))
+        b = torch.zeros(N, dtype=torch.float32, device=lay["w"].device)
+        if lay.get("b") is not None:
+            b[:len(lay["b"])] = lay["b"]
+        bs.append(b)
+        plan.append([K, N, lay.get("real", n), w_off, b_off,
+                     lay.get("flags", 0), lay.get("col", 0),
+                     R if R < N else 0])
+        w_off += ws[-1].numel()
+        b_off += N
+    return PackedMlp(torch.cat(ws), torch.cat(bs),
+                     np.ascontiguousarray(np.asarray(plan, np.int32)))
 
 
 def row_stride(width: int) -> int:

@@ -3,17 +3,19 @@ radiance at points (and, with a light head, the light mask), and the
 backward of the same function.
 
 Replaces `i2sdf_tpu/ops/pallas/fused_train.py:449 get_render_core_op`:
-its forward (pallas_call at `:555`) is K3 (`csrc/render_core.cu`), its
+its forward (pallas_call at `:555`) is K3 (`csrc/render_core.cu`, on
+`csrc/wgmma_layer.cuh`, the nets as stage images: `CoreStages`), its
 backward (`:609`, `_make_bwd_kernel` at `:267-446`) is K4
-(`csrc/render_core_bwd.cu`). Each CUDA source's header says what bounds
-it and how it is built.
+(`csrc/render_core_bwd.cu`, the nets in fragment order: `_KernelLayout`).
+Each CUDA source's header says what bounds it and how it is built.
 
 The light head of the light-mask config (the `lcfg` / `detach_light`
 branch of the TPU op: `_light_forward` at `:173-195`, the forward at
 `:252-256`, the backward at `:324-348`) runs inside both kernels: the
 light MLP on relu(features), a sigmoid mask (N, 1) beside sdf, grad and
 rgb. K3 and K4 with the light head are their own kernel instantiations
-(`kLight` in `csrc/common.cuh`), counted apart: `render_core_fwd_light`
+(`kLight` in `csrc/render_core.cu` and `csrc/common.cuh`), counted apart:
+`render_core_fwd_light`
 and `render_core_bwd_light`. The light loss reaches the light net; with
 `detach_light` off, its feature cotangent joins the SDF's through
 relu'(features) (`fused_train.py:345-348`).
@@ -33,10 +35,10 @@ relu'(features) (`fused_train.py:345-348`).
   held to.
 
 The bounding-sphere clamp is applied outside the kernels, as
-`fused_train.py:771-777` does. The SDF net's kernel layout (`sdf_chains`),
-the backward's scratch plan (`_BwdPlan`) and its shared-memory size
-(`bwd_smem`) serve K5 and K6 too (`rev.py`), whose kernels are K3's and
-K4's kernel bodies without the radiance net (`csrc/common.cuh`).
+`fused_train.py:771-777` does. The SDF net's fragment layout
+(`sdf_chains`), the backward's scratch plan (`_BwdPlan`) and its
+shared-memory size (`bwd_smem`) serve K5 and K6 too (`rev.py`); K6's
+kernel is K4's body without the radiance net (`csrc/common.cuh`).
 """
 
 from __future__ import annotations
@@ -54,10 +56,13 @@ bwd_launches = 0  # K4 launches since the last reset_launch_counts()
 light_launches = 0      # K3 with the light head
 light_bwd_launches = 0  # K4 with the light head
 
-_ROWS = 32               # points per block (kRows in both kernels)
-_MAX_WIDTH = 320         # 8 warps x 5 tiles x 8 columns
+_ROWS = 32               # points per block (K3, and kSweepRows in K4)
+_MAX_WIDTH = 320         # K4: 8 warps x 5 tiles x 8 columns
+_K3_WIDTH = 256          # K3: a tile's four 64-column chunks, wgmma's N
+_K3_RAD_K = 320          # K3: tile 0's five chunks, the radiance input
 _MAX_SMEM = 232448       # bytes a block may use on the H100
 _MAX_SDF, _MAX_RAD, _MAX_LIGHT = 12, 8, 4   # layer slots of K4's table
+_MAX_LAYERS = 16         # K3: a `Plan`'s rows (kMaxLayers)
 _MAX_SPLITS = 32         # point-range splits of K4's weight-gradient sums
 _PLAIN_CHUNK = 1 << 17
 
@@ -157,6 +162,13 @@ def sdf_chains(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
 def sdf_chain_fwd(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
                   embed_none: bool = False):
     """`sdf_chains`' `fwd` alone, the output layer's columns as in `ws`."""
+    return mma_pack.pack_chain(sdf_layers(icfg, ws, bs, embed_none))
+
+
+def sdf_layers(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
+               embed_none: bool = False) -> list:
+    """The SDF net's layers for a packer (`mma_pack.pack_chain`,
+    `pack_stage_chain`): weights, biases, the skip's flags and column."""
     mma_pack.check_sdf_net(icfg, embed_none)
     dims = icfg.layer_dims()
     d0, n = dims[0], len(dims) - 1
@@ -169,7 +181,7 @@ def sdf_chain_fwd(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
             mma_pack.SCALE if l + 1 in icfg.skip_in else 0)
         col = dims[l] - d0 if l in icfg.skip_in else 0
         layers.append(dict(w=ws[l], b=bs[l], flags=flags, col=col))
-    return mma_pack.pack_chain(layers)
+    return layers
 
 
 def sdf_chain_t(icfg: mlp.ImplicitNetConfig, ws: list, sdf_col: int = 0):
@@ -197,10 +209,10 @@ def sdf_chain_t(icfg: mlp.ImplicitNetConfig, ws: list, sdf_col: int = 0):
 
 
 class _KernelLayout:
-    """The nets in the kernels' layouts, from materialized weights:
+    """The nets in K4's layout (fragment order), from materialized weights:
 
-    * `fwd`, `sdft`, `rev`, `wsdf_col`: the SDF chain (`sdf_chains`), its
-      output layer as [features | sdf];
+    * `fwd`, `sdft`, `wsdf_col`: the SDF chain (`sdf_chains`), its output
+      layer as [features | sdf];
     * `rad`, `radt`: the radiance chain (first layer's rows as
       [features | PE(view)]) and its transpose, last layer first;
     * with a light head (`lcfg`), `light` and `lightt`: the light chain,
@@ -220,7 +232,7 @@ class _KernelLayout:
         dims = icfg.layer_dims()
         d0 = dims[0]
         n = len(dims) - 1
-        self.fwd, self.sdft, self.rev, self.wsdf_col = sdf_chains(
+        self.fwd, self.sdft, _, self.wsdf_col = sdf_chains(
             icfg, [t.detach().float() for t in w.ws_sdf],
             [t.detach().float() for t in w.bs_sdf], _sdf_perm(F))
         rdims = rcfg.layer_dims()
@@ -256,11 +268,9 @@ class _KernelLayout:
         self.lda = mma_pack.row_stride(widest)
         self.ldd = mma_pack.row_stride(int(self.fwd.plan[:-1, 1].max()))
         self.ldg = mma_pack.round_up(d0, 8)
-        for name, smem in (("fwd", fwd_smem(self)),
-                           ("bwd", bwd_smem(self))):
-            if smem > _MAX_SMEM:
-                raise ValueError(f"render_core_{name}: needs {smem} bytes of "
-                                 "shared memory")
+        if bwd_smem(self) > _MAX_SMEM:
+            raise ValueError(f"render_core_bwd: needs {bwd_smem(self)} "
+                             "bytes of shared memory")
         self.mx, self.md = icfg.multires, rcfg.multires
         self.shapes = (tuple(tuple(t.shape) for t in w.ws_sdf),
                        tuple(tuple(t.shape) for t in w.ws_rad),
@@ -287,15 +297,6 @@ class _KernelLayout:
         dws[n] = dws[n][inv_rad]
         c = n + nr
         return dws[:n], dbs[:n], dws[n:c], dbs[n:c], dws[c:], dbs[c:]
-
-
-def fwd_smem(k) -> int:
-    """The shared memory (bytes) of K3's and K5's kernel (`fwd_smem_bytes`
-    in csrc/common.cuh) for a layout `k` with `n_sdf`, `n_light`, `lda`,
-    `ldd` and `ldg`: with a light head, one more activation buffer."""
-    return (2 * ((2 + (k.n_light > 0)) * _ROWS * k.lda
-                 + (k.n_sdf - 1) * _ROWS * k.ldd)
-            + 4 * _ROWS * (3 + 3 + 1 + k.ldg))
 
 
 def bwd_smem(k) -> int:
@@ -395,9 +396,67 @@ class _BwdPlan:
             + self.part + self.out + [self.out_db], np.int64))
 
 
+class CoreStages:
+    """K3's nets as stage images (`mma_pack.pack_stage_chain`), from
+    materialized weights:
+
+    * `sdf`: the SDF net's hidden layers, then its output layer as two
+      products in the order the kernel takes them: the sdf alone (an
+      N = 8 product whose tangent rows give the gradient), then the
+      features (the first F columns of [features | sdf], `_sdf_perm`);
+    * `rad`: the radiance net, its first layer's rows as [features |
+      PE(view)] (`_rad_perm`);
+    * `light`: with a light head (`lcfg`), the light net on relu(features)
+      (`n_light` layers; None and 0 without)."""
+
+    def __init__(self, icfg: mlp.ImplicitNetConfig,
+                 rcfg: mlp.RenderingNetConfig, w: CoreWeights,
+                 lcfg: mlp.ImplicitNetConfig | None = None):
+        F = icfg.feature_vector_size
+        if icfg.d_out != 1 or F % 2:
+            raise ValueError("render_core: needs d_out 1 and an even "
+                             "feature width")
+        if rcfg.embed_type != "positional" or rcfg.d_in != 3:
+            raise ValueError("render_core: the radiance net takes the "
+                             "positional view encoding")
+        ws = [t.detach().float() for t in w.ws_sdf]
+        bs = [t.detach().float() for t in w.bs_sdf]
+        layers = sdf_layers(icfg, ws, bs)
+        perm = _sdf_perm(F)
+        w_out, b_out = ws[-1][:, perm], bs[-1][perm]
+        layers[-1:] = [dict(w=w_out[:, F:], b=b_out[F:]),
+                       dict(w=w_out[:, :F], b=b_out[:F])]
+        self.sdf = mma_pack.pack_stage_chain(layers)
+        vdim = rcfg.layer_dims()[0] - F
+        wr = [t.detach().float() for t in w.ws_rad]
+        br = [t.detach().float() for t in w.bs_rad]
+        wr[0] = wr[0][_rad_perm(vdim, F)]
+        self.rad = mma_pack.pack_stage_chain(
+            [dict(w=a, b=b) for a, b in zip(wr, br)])
+        self.light, self.n_light = None, n_layers(lcfg)
+        chains = [self.sdf, self.rad]
+        if lcfg is not None:
+            check_light_net(icfg, lcfg)
+            self.light = mma_pack.pack_stage_chain(
+                [dict(w=a.detach().float(), b=b.detach().float())
+                 for a, b in zip(w.ws_l, w.bs_l)])
+            chains.append(self.light)
+        rad = self.rad.plan
+        widest = max([int(self.sdf.plan[:, :2].max()), int(rad[:, 1].max()),
+                      int(rad[1:, 0].max(initial=0))]
+                     + [int(c.plan[:, :2].max()) for c in chains[2:]])
+        if (widest > _K3_WIDTH or F > _K3_WIDTH
+                or int(rad[0, 0]) > _K3_RAD_K):
+            raise ValueError(f"render_core_fwd: a layer wider than "
+                             f"{_K3_WIDTH} (radiance input {_K3_RAD_K})")
+        if max(c.n_layers for c in chains) > _MAX_LAYERS:
+            raise ValueError("render_core_fwd: too many layers")
+        self.F, self.mx, self.md = F, icfg.multires, rcfg.multires
+
+
 class RenderCorePack:
-    """The nets (the light net too, if there is one), plus their kernel
-    layout when they live on the card (packed once, for eval)."""
+    """The nets (the light net too, if there is one), plus K3's layout when
+    they live on the card (packed once, for eval)."""
 
     def __init__(self, implicit: mlp.ImplicitNet, rendering: mlp.RenderingNet,
                  light: mlp.ImplicitNet | None = None):
@@ -405,7 +464,7 @@ class RenderCorePack:
         self.kernel = None
         if next(implicit.parameters()).is_cuda:
             with torch.no_grad():
-                self.kernel = _KernelLayout(
+                self.kernel = CoreStages(
                     implicit.cfg, rendering.cfg,
                     CoreWeights.of(implicit, rendering, light),
                     None if light is None else light.cfg)
@@ -476,18 +535,19 @@ def _check_points(x, dirs, name):
         raise ValueError(f"{name}: x and dirs differ in shape or device")
 
 
-def _light_args(k: _KernelLayout) -> tuple:
-    """The light net's kernel arguments (null pointers without one)."""
+def _light_args(k) -> tuple:
+    """The light net's kernel arguments (null pointers without one), K3's
+    (`CoreStages`) or K4's (`_KernelLayout`)."""
     if not k.n_light:
         return None, None, None, 0
     return (k.light.weights.data_ptr(), k.light.biases.data_ptr(),
             k.light.plan.ctypes.data, k.n_light)
 
 
-def _launch_fwd(k: _KernelLayout, x: torch.Tensor, dirs: torch.Tensor):
+def _launch_fwd(k: CoreStages, x: torch.Tensor, dirs: torch.Tensor):
     global launches, light_launches
     _check_points(x, dirs, "render_core_fwd")
-    if k.fwd.weights.device != x.device:
+    if k.sdf.weights.device != x.device:
         raise ValueError("render_core_fwd: the weights are not on the "
                          "points' device")
     n = x.shape[0]
@@ -499,13 +559,11 @@ def _launch_fwd(k: _KernelLayout, x: torch.Tensor, dirs: torch.Tensor):
     lib = build.load_library()
     err = lib.i2sdf_render_core_fwd(
         x.data_ptr(), dirs.data_ptr(), n,
-        k.fwd.weights.data_ptr(), k.fwd.biases.data_ptr(),
-        k.fwd.plan.ctypes.data, k.fwd.n_layers,
-        k.rev.weights.data_ptr(), k.rev.plan.ctypes.data, k.rev.n_layers,
-        k.wsdf_col.data_ptr(),
+        k.sdf.weights.data_ptr(), k.sdf.biases.data_ptr(),
+        k.sdf.plan.ctypes.data, k.sdf.n_layers,
         k.rad.weights.data_ptr(), k.rad.biases.data_ptr(),
         k.rad.plan.ctypes.data, k.rad.n_layers, *_light_args(k),
-        k.mx, k.md, k.lda, k.ldd, k.ldg,
+        k.mx, k.md, k.F,
         sdf.data_ptr(), grad.data_ptr(), rgb.data_ptr(),
         None if lmask is None else lmask.data_ptr(),
         mma_pack.stream_of(x))
@@ -604,7 +662,7 @@ class RenderCoreTrain(torch.autograd.Function):
     def forward(ctx, icfg, rcfg, lcfg, detach_light, x, dirs, *flat):
         w = CoreWeights.unflat(flat, n_layers(icfg), n_layers(rcfg),
                                n_layers(lcfg))
-        outs = _launch_fwd(_KernelLayout(icfg, rcfg, w, lcfg), x, dirs)
+        outs = _launch_fwd(CoreStages(icfg, rcfg, w, lcfg), x, dirs)
         ctx.save_for_backward(x, dirs, *flat)
         ctx.cfgs = (icfg, rcfg, lcfg, detach_light)
         return outs

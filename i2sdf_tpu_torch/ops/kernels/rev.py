@@ -64,13 +64,22 @@ class RevLayout:
         self.lda = mma_pack.row_stride(widest)
         self.ldd = mma_pack.row_stride(int(self.fwd.plan[:-1, 1].max()))
         self.ldg = mma_pack.round_up(dims[0], 8)
-        for name, smem in (("fwd", render_core.fwd_smem(self)),
+        for name, smem in (("fwd", fwd_smem(self)),
                            ("bwd", render_core.bwd_smem(self))):
             if smem > render_core._MAX_SMEM:
                 raise ValueError(f"rev_{name}: needs {smem} bytes of shared "
                                  "memory")
         self.mx = icfg.multires
         self.shapes = tuple(tuple(t.shape) for t in ws)
+
+
+def fwd_smem(k: RevLayout) -> int:
+    """K5's shared memory (bytes; `fwd_smem_bytes` in csrc/rev_fwd.cu): two
+    activation buffers, every hidden layer's activation derivative, and
+    per row the point and the encoding's gradient."""
+    R = render_core._ROWS
+    return (2 * (2 * R * k.lda + (k.n_sdf - 1) * R * k.ldd)
+            + 4 * R * (3 + k.ldg))
 
 
 def unpack_grads(shapes, out: torch.Tensor, plan):

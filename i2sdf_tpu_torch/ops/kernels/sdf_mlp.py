@@ -15,8 +15,20 @@ from . import build, mma_pack
 
 launches = 0  # kernel launches since the last reset_launch_counts()
 
-_MAX_WIDTH = 256  # 8 warps x 4 tiles x 8 columns
+_MAX_WIDTH = 256  # a 64-row tile of four 64-column chunks
+_PASS_ROWS = 128  # a pass's columns: kPassRows in csrc/sdf_mlp.cu
 _PLAIN_CHUNK = 1 << 18
+
+
+def stage_chain(net: mlp.ImplicitNet) -> mma_pack.PackedMlp:
+    """The implicit net as K1's stage images, the output layer cut to the
+    sdf column (an N = 8 product)."""
+    mma_pack.check_sdf_net(net.cfg)
+    k = mma_pack.pack_stage_chain(mma_pack.sdf_chain(net, last_cols=[0]),
+                                  rows=_PASS_ROWS)
+    if k.max_width > _MAX_WIDTH:
+        raise ValueError(f"sdf_mlp_nograd: layer width above {_MAX_WIDTH}")
+    return k
 
 
 class SdfMlpPack:
@@ -26,15 +38,7 @@ class SdfMlpPack:
         self.net = net
         self.kernel = None
         if next(net.parameters()).is_cuda:
-            cfg = net.cfg
-            mma_pack.check_sdf_net(cfg)
-            # the output layer is cut to the sdf column
-            self.kernel = mma_pack.pack_chain(
-                mma_pack.sdf_chain(net, last_cols=[0]))
-            if self.kernel.max_width > _MAX_WIDTH:
-                raise ValueError(f"sdf_mlp_nograd: layer width above "
-                                 f"{_MAX_WIDTH}")
-            self.lda = mma_pack.row_stride(self.kernel.max_width)
+            self.kernel = stage_chain(net)
 
 
 def sdf_mlp_plain(net: mlp.ImplicitNet, points: torch.Tensor) -> torch.Tensor:
@@ -60,7 +64,7 @@ def sdf_mlp_nograd(p: SdfMlpPack, points: torch.Tensor) -> torch.Tensor:
     err = lib.i2sdf_sdf_mlp_nograd(
         points.data_ptr(), out.data_ptr(), n, k.weights.data_ptr(),
         k.biases.data_ptr(), k.plan.ctypes.data, k.n_layers,
-        p.net.cfg.multires, p.lda, mma_pack.stream_of(points))
+        p.net.cfg.multires, mma_pack.stream_of(points))
     build.check(err, "sdf_mlp_nograd")
     launches += 1
     cfg = p.net.cfg

@@ -1,5 +1,5 @@
 """Registers, spills and stack frames of the port's CUDA kernels, as ptxas
-reports them for sm_90a.
+reports them for sm_90a, and which Hopper instructions their SASS holds.
 
     python scripts/kernel_resources.py [i2sdf_tpu_torch/csrc/FILE.cu ...]
 
@@ -7,8 +7,10 @@ Compiles each source (default: every `i2sdf_tpu_torch/csrc/*.cu`) with the
 build's flags (`i2sdf_tpu_torch/ops/kernels/build.py`) and `-Xptxas -v`
 into a temporary object, all sources in parallel, and prints one JSON line
 per kernel entry: the source, the demangled name, registers, spill stores
-and loads (bytes) and stack frame (bytes). Needs `nvcc`, so it runs on the
-machine with the card.
+and loads (bytes), stack frame (bytes), the SASS's count of `HGMMA`
+(wgmma) and of bulk copies (`UBLKCP`, `cp.async.bulk`) and its highest
+register (`max_reg`) from `cuobjdump -sass`, and ptxas's warnings (a `setmaxnreg` it ignored, wgmma it
+serialized). Needs `nvcc`, so it runs on the machine with the card.
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
+_SASS_FN = re.compile(r"Function : (\S+)")
+_SASS_REG = re.compile(r"\bR(\d+)\b")
+_WARN = re.compile(r"ptxas (?:info|warning)\s*: (.*(?:setmaxnreg|wgmma|"
+                   r"serializ|C7508|C7510|C7515).*)")
 
 
 def demangle(names: list[str]) -> list[str]:
@@ -45,7 +51,7 @@ def report(text: str) -> list[dict]:
     rows, cur = [], None
     for line in text.splitlines():
         if m := _ENTRY.search(line):
-            cur = {"name": m.group(1)}
+            cur = {"name": m.group(1), "mangled": m.group(1)}
             rows.append(cur)
         elif cur is not None and (m := _FRAME.search(line)):
             cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
@@ -55,6 +61,25 @@ def report(text: str) -> list[dict]:
     for row, name in zip(rows, demangle([r["name"] for r in rows])):
         row["name"] = name
     return rows
+
+
+def sass_counts(obj: Path) -> dict:
+    """{mangled kernel name: [HGMMA count, UBLKCP count, highest register
+    R<n>]} of an object."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
+                         text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if m := _SASS_FN.search(line):
+            name = m.group(1)
+            counts[name] = [0, 0, -1]
+        elif name is not None:
+            counts[name][0] += "HGMMA" in line
+            counts[name][1] += "UBLKCP" in line
+            for r in _SASS_REG.findall(line):
+                counts[name][2] = max(counts[name][2], int(r))
+    return counts
 
 
 def main(argv: list[str]) -> int:
@@ -73,8 +98,14 @@ def main(argv: list[str]) -> int:
                 print(out, file=sys.stderr)
                 failed = True
                 continue
+            sass = sass_counts(Path(tmp) / f"{src.stem}.o")
+            warnings = _WARN.findall(out)
             for row in report(out):
-                print(json.dumps({"source": src.name, **row}), flush=True)
+                hg, bulk, top = sass.get(row.pop("mangled"),
+                                         (None, None, None))
+                print(json.dumps({"source": src.name, **row, "hgmma": hg,
+                                  "bulk_copies": bulk, "max_reg": top,
+                                  "warnings": warnings}), flush=True)
     return 1 if failed else 0
 
 

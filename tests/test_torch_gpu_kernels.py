@@ -17,6 +17,7 @@ K6's tests, those of K3 and K4 with the light head, and those of K7-K9
 say theirs beside them.
 """
 
+import copy
 import dataclasses
 import math
 
@@ -60,16 +61,72 @@ def _points(n, dev, seed=1, scale=1.5):
         size=(n, 3)) * scale).astype(np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("n", [1, 63, 64, 4097])
-def test_sdf_mlp_kernel(dev, n):
+# K1 and K3 (csrc/wgmma_layer.cuh) at the init's weights and at weights
+# perturbed by 0.01 N(0, 1) (the init's zero encoding rows of layer 0 and
+# the skip hide layout faults), at counts on both sides of their blocks'
+# edges (K1: 128 points, two warpgroups of 64; K3: 32). At the init they
+# are held to the f32 plain op; perturbed, to the plain op at their
+# weights rounded to bf16, the kernels' operands (there the tangent form
+# of K3 rounds elsewhere than the reverse sweep, as K10/K11 do: see
+# their tests below).
+
+EDGE_COUNTS = [1, 31, 33, 127, 129, 4097]
+WEIGHTS = pytest.mark.parametrize("perturbed", [False, True],
+                                  ids=["init", "perturbed"])
+
+
+def _perturb(*nets, seed=10):
+    """Copies of the nets with every parameter moved by 0.01 N(0, 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for net in nets:
+        net = copy.deepcopy(net)
+        with torch.no_grad():
+            for p in net.parameters():
+                p.add_(0.01 * torch.randn(p.shape, generator=gen).to(p.device))
+        out.append(net)
+    return out
+
+
+def _bf16(ts):
+    return tuple(t.detach().to(torch.bfloat16).float() for t in ts)
+
+
+def _bf16w_sdf(net, pts):
+    """K1's plain version at the net's weights rounded to bf16."""
+    ws = _bf16([lin.weight() for lin in net.layers()])
+    bs = [lin.b.detach() for lin in net.layers()]
+    with torch.no_grad():
+        sdf = mlp.implicit_apply(net.cfg, ws, bs, pts)[:, :1]
+        return mlp.clamp_sdf(net.cfg, sdf, pts)[:, 0]
+
+
+def _bf16w_core(net, rnet, x, d, lnet=None):
+    """K3's plain version (sphere-clamped) at the nets' weights rounded to
+    bf16."""
+    w = render_core.CoreWeights.of(net, rnet, lnet)
+    w = dataclasses.replace(w, ws_sdf=_bf16(w.ws_sdf), ws_rad=_bf16(w.ws_rad),
+                            ws_l=_bf16(w.ws_l))
+    sdf, grad, *rest = render_core.render_core_train_plain(
+        net.cfg, rnet.cfg, w, x, d, None if lnet is None else lnet.cfg)
+    sdf, grad = render_core._sphere_clamp(net.cfg, x, sdf, grad)
+    return tuple(t.detach() for t in (sdf, grad, *rest))
+
+
+@WEIGHTS
+@pytest.mark.parametrize("n", EDGE_COUNTS + [63, 64])
+def test_sdf_mlp_kernel(dev, n, perturbed):
     net, _ = _nets(dev)
+    if perturbed:
+        (net,) = _perturb(net)
     pts = _points(n, dev, seed=n)
     kernels.reset_launch_counts()
     got = sdf_mlp.sdf_mlp_nograd(sdf_mlp.SdfMlpPack(net), pts)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["sdf_mlp_nograd"] == 1
-    torch.testing.assert_close(got, sdf_mlp.sdf_mlp_plain(net, pts),
-                               atol=0.02, rtol=0.02)
+    ref = (_bf16w_sdf(net, pts) if perturbed
+           else sdf_mlp.sdf_mlp_plain(net, pts))
+    torch.testing.assert_close(got, ref, atol=0.02, rtol=0.02)
 
 
 def _round_inputs(R, S, n_out, dev, seed=0):
@@ -97,15 +154,21 @@ def test_sampler_round_kernel(dev, S, final):
     torch.testing.assert_close(s.mean(-1), s_ref.mean(-1), rtol=0, atol=0.02)
 
 
-@pytest.mark.parametrize("n", [33, 1000])
-def test_render_core_kernel(dev, n):
+@WEIGHTS
+@pytest.mark.parametrize("n", EDGE_COUNTS + [1000])
+def test_render_core_kernel(dev, n, perturbed):
     net, rnet = _nets(dev)
+    if perturbed:
+        net, rnet = _perturb(net, rnet)
     x = _points(n, dev, seed=n, scale=0.8)
     d = torch.nn.functional.normalize(_points(n, dev, seed=n + 1), dim=-1)
     pack = render_core.RenderCorePack(net, rnet)
+    kernels.reset_launch_counts()
     got = render_core.render_core_fwd(pack, x, d)
     torch.cuda.synchronize()
-    ref = render_core.render_core_plain(net, rnet, x, d)
+    assert kernels.launch_counts()["render_core_fwd"] == 1
+    ref = (_bf16w_core(net, rnet, x, d) if perturbed
+           else render_core.render_core_plain(net, rnet, x, d))
     for name, g, r, (atol, rtol) in zip(
             ("sdf", "grad", "rgb"), got, ref,
             ((0.02, 0.02), (0.05, 0.08), (0.03, 0.05))):
@@ -234,10 +297,13 @@ LIGHT_TOLS = {"sdf": (0.02, 0.02), "grad": (0.05, 0.08), "rgb": (0.03, 0.05),
               "lmask": (0.02, 0.03)}
 
 
-@pytest.mark.parametrize("n", [1, 33, 12_000])
-def test_render_core_light_kernel(dev, n):
+@WEIGHTS
+@pytest.mark.parametrize("n", EDGE_COUNTS + [12_000])
+def test_render_core_light_kernel(dev, n, perturbed):
     from test_torch_bwd_replay import light_layout, points
     net, rnet, lnet = light_layout("light", device=dev)
+    if perturbed:
+        net, rnet, lnet = _perturb(net, rnet, lnet)
     x, d = points(n, n, device=dev)
     pack = render_core.RenderCorePack(net, rnet, lnet)
     kernels.reset_launch_counts()
@@ -246,7 +312,8 @@ def test_render_core_light_kernel(dev, n):
     counts = kernels.launch_counts()
     assert counts["render_core_fwd_light"] == 1
     assert counts["render_core_fwd"] == 0
-    ref = render_core.render_core_plain(net, rnet, x, d, lnet)
+    ref = (_bf16w_core(net, rnet, x, d, lnet) if perturbed
+           else render_core.render_core_plain(net, rnet, x, d, lnet))
     assert len(got) == len(ref) == 4
     for (name, (atol, rtol)), g, r in zip(LIGHT_TOLS.items(), got, ref):
         torch.testing.assert_close(g, r, atol=atol, rtol=rtol, msg=name)

@@ -31,6 +31,7 @@ from i2sdf_tpu.models.mlp import (ImplicitNetConfig, RenderingNetConfig,
 from i2sdf_tpu.ops.pallas.fused_train import render_core_fused
 from i2sdf_tpu_torch.ops.kernels import render_core
 from test_torch_helpers import implicit_from_jax, rendering_from_jax
+from test_torch_kernel_layout import emulate_render_core
 
 ICFG = ImplicitNetConfig(
     feature_vector_size=16, sdf_bounding_sphere=0.0, dims=(32,) * 4,
@@ -174,6 +175,25 @@ def test_plain_eval_light_matches_xla():
     for name, o, r in zip(("sdf", "grad", "rgb", "lmask"), got, ref):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-5,
                                    atol=1e-6, err_msg=name)
+
+
+def test_k3_light_replay_matches_pallas_interpret():
+    """K3-light's four-stream replay on its stage images (the CUDA
+    kernel's rounding and layout, tests/test_torch_kernel_layout.py)
+    against the Pallas kernel's forward with the light head in interpret
+    mode, at its tolerances."""
+    ps, (net, rnet, lnet), pts, dirs, _ = _setup()
+    ker = _kernel_light(ps, pts, dirs, True)
+    k = render_core.CoreStages(
+        net.cfg, rnet.cfg, render_core.CoreWeights.of(net, rnet, lnet),
+        lnet.cfg)
+    got = emulate_render_core(k, torch.from_numpy(pts),
+                              torch.from_numpy(dirs))
+    for name, g, r, (atol, rtol) in zip(
+            ("sdf", "grad", "rgb", "lmask"), got, ker,
+            ((0.02, 0.02), (0.05, 0.08), (0.03, 0.05), (0.02, 0.03))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=atol,
+                                   rtol=rtol, err_msg=name)
 
 
 def test_light_head_refusals():

@@ -22,6 +22,7 @@ from i2sdf_tpu.ops.pallas.fused_mlp import fused_sdf_mlp
 from i2sdf_tpu_torch.models import mlp as tmlp
 from i2sdf_tpu_torch.ops.kernels import sdf_mlp
 from test_torch_helpers import implicit_from_jax
+from test_torch_kernel_layout import emulate_sdf_mlp
 
 SMALL = ImplicitNetConfig(
     feature_vector_size=16, sdf_bounding_sphere=0.0,
@@ -62,6 +63,23 @@ def test_plain_matches_pallas_interpret(cfg):
                                    interpret=True))
     got = sdf_mlp.sdf_mlp_plain(implicit_from_jax(params, cfg),
                                 torch.from_numpy(pts)).numpy()
+    np.testing.assert_allclose(got, ker, atol=0.02, rtol=0.02)
+
+
+@pytest.mark.parametrize("cfg", [SMALL, FLAGSHIP], ids=["small", "flagship"])
+def test_k1_replay_matches_pallas_interpret(cfg):
+    """K1's byte-level replay on its stage images (the CUDA kernel's
+    rounding and layout, tests/test_torch_kernel_layout.py) against the
+    Pallas kernel in interpret mode, at the JAX kernel's tolerance."""
+    params = implicit_from_jax(implicit_net_init(jax.random.PRNGKey(0), cfg),
+                               cfg)
+    pts = _points(256, seed=2)
+    ker = np.asarray(fused_sdf_mlp(implicit_net_init(jax.random.PRNGKey(0),
+                                                     cfg),
+                                   cfg, pts, block_rows=128, interpret=True))
+    p = sdf_mlp.SdfMlpPack.__new__(sdf_mlp.SdfMlpPack)
+    p.net, p.kernel = params, sdf_mlp.stage_chain(params)
+    got = emulate_sdf_mlp(p, torch.from_numpy(pts)).numpy()
     np.testing.assert_allclose(got, ker, atol=0.02, rtol=0.02)
 
 

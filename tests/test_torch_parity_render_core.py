@@ -25,6 +25,7 @@ from i2sdf_tpu.models.mlp import (ImplicitNetConfig, RenderingNetConfig,
 from i2sdf_tpu.ops.pallas.fused_train import render_core_fused
 from i2sdf_tpu_torch.ops.kernels import render_core
 from test_torch_helpers import implicit_from_jax, rendering_from_jax
+from test_torch_kernel_layout import emulate_render_core
 
 ICFG = ImplicitNetConfig(
     feature_vector_size=16, sdf_bounding_sphere=0.0,
@@ -85,3 +86,25 @@ def test_plain_matches_pallas_interpret():
         np.testing.assert_allclose(g.numpy(), np.asarray(k), atol=atol,
                                    rtol=rtol, err_msg=name)
 
+
+
+@pytest.mark.parametrize("widths", ["small", "flagship"])
+def test_k3_replay_matches_pallas_interpret(widths):
+    """K3's four-stream replay on its stage images (the CUDA kernel's
+    rounding and layout, tests/test_torch_kernel_layout.py) against the
+    Pallas kernel's forward in interpret mode, at its tolerances: the
+    tangent form rounds elsewhere than the TPU kernel's reverse sweep."""
+    icfg, rcfg = ((ICFG, RCFG) if widths == "small"
+                  else (ICFG_FLAG, RCFG_FLAG))
+    p_imp, p_rad, pts, dirs, pack = _setup(icfg, rcfg, 64)
+    ker = render_core_fused(p_imp, icfg, p_rad, rcfg, pts, dirs,
+                            block_rows=32, interpret=True)
+    k = render_core.CoreStages(
+        pack.implicit.cfg, pack.rendering.cfg,
+        render_core.CoreWeights.of(pack.implicit, pack.rendering))
+    got = emulate_render_core(k, torch.from_numpy(pts),
+                              torch.from_numpy(dirs))
+    for name, g, r in zip(TOLS, got, ker):
+        atol, rtol = TOLS[name]
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=atol,
+                                   rtol=rtol, err_msg=name)

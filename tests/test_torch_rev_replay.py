@@ -192,7 +192,7 @@ def test_rev_layout_and_plan():
     W_last = net.layers()[-1].weight().detach()
     torch.testing.assert_close(
         k.wsdf_col[:256], W_last[:, 0].to(torch.bfloat16).float())
-    assert max(render_core.fwd_smem(k), render_core.bwd_smem(k)) <= 232448
+    assert max(rev.fwd_smem(k), render_core.bwd_smem(k)) <= 232448
     plan = render_core._BwdPlan(k, 4800)
     ns = k.n_sdf
     assert plan.np == 4800 and plan.rx == plan.rdz == []
