@@ -22,14 +22,22 @@ Phases, each printed as one JSON line with its wall time:
    K11 and K12 at the normal-off step's 4,800 eikonal points and at
    155,200, each at the init's weights and at weights perturbed by 0.01
    N(0, 1), where three tangent faults planted in the plain op must fail
-   the same check, K11 also against K5 and K12 against K6; K1, K3 and
-   K3-light also at weights perturbed by 0.01 N(0, 1) (against the plain
-   version at the weights rounded to bf16, the f32 reading reported) and
-   at EDGE_COUNTS points, both sides of their blocks' edges; each with
-   the stated tolerance; kernel, plain and library-yardstick times by
-   CUDA events, and K1's and K3's L2 weight traffic as modelled from the
-   pack (`l2_weight_gb_model`: blocks x stage-image bytes, not a reading)
-   and K3's tangent-design work (`design_macs`);
+   the same check, K11 also against K5 and K12 against K6; K1 also at
+   weights perturbed by 0.01 N(0, 1) against the f32 plain version, K3
+   and K3-light also at perturbed weights and on nets with one SDF
+   hidden layer fewer (an odd count, `odd_nets`) against the plain
+   version at the weights rounded to bf16 (the f32 reading and the points
+   past the f32 bound reported; `scripts/witness_perturbed.py` holds the
+   JAX package's own kernels to the same bounds), and at EDGE_COUNTS
+   points, both sides of their blocks' edges; K4 and K4-light also at
+   perturbed weights and on `odd_nets`, all against the f32 plain
+   backward, and twice to the same bits; each with the stated tolerance;
+   kernel, plain and library-yardstick times by CUDA events, K1's and
+   K3's L2 weight traffic as modelled from the pack
+   (`l2_weight_gb_model`: blocks x stage-image bytes, not a reading), K3's
+   tangent-design work (`design_macs`), and K4's scratch (`staging_gb`)
+   and its kernels' registers, spills, HGMMA and bulk copies
+   (`scripts/kernel_resources.py`, started beside the checks);
 4. sdf_outputs (the path of K10-K12, whose JAX counterparts only the JAX
    package's public kernel API reaches): `fused_sdf_outputs` under no_grad
    over the first eval chunk's sample points, and `sdf_outputs_fused_grad`
@@ -50,9 +58,13 @@ Phases, each printed as one JSON line with its wall time:
    bubble point cloud at scan1's shapes (the checkout holds no `depth/`
    or `normal/`), the bubble window open for steps 2-3 with a uniform pdf;
    every loss finite, K1-K4 launched, K4 once a step; a profile
-   of two steps; then one batch through a kernel step and a plain step
-   from the same weights and draws, loss terms and gradients held to the
-   JAX package's gradient tolerance;
+   of two steps; two more steps' wall time split by cause (`host_split`:
+   the host syncs, the weight packing, the Python step, the wait for the
+   device at the step's end), and the median of steps 1-5 and the mean of
+   steps 4-5 (`median_ms`, `steps45_ms`); then one batch through a kernel
+   step and a plain step from the same weights and draws, loss terms and
+   gradients held to the JAX package's gradient tolerance (the other
+   training phases likewise);
 7. train_nonormal (the normal-loss-off training path): the same trainer,
    config and synthetic depth and bubble cloud with `normal_weight: 0`,
    which routes the render points through the plain nets and the
@@ -119,6 +131,7 @@ matmuls and cuDNN; the kernels take bf16 operands with f32 accumulation.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import itertools
 import json
 import math
@@ -497,12 +510,13 @@ def bf16w_sdf(net, pts):
 
 
 def check_k1(model, cfg, pts) -> dict:
-    """K1 at the sampler's first round (`pts`): at the init's weights
-    against the f32 plain version; at perturbed weights (`perturbed_net`)
-    against the plain version at the weights rounded to bf16, the f32
-    reading reported beside it; and the first n of the points for each
-    n in EDGE_COUNTS (both sides of the block edges), at both weights.
-    Timed at the init's weights."""
+    """K1 at the sampler's first round (`pts`), at the init's weights and
+    at perturbed weights (`perturbed_net`), against the f32 plain version
+    (the JAX package's own K1 stays inside that bound at these perturbed
+    weights: `scripts/witness_perturbed.py`), the plain version at the
+    weights rounded to bf16 reported beside it (`vs_bf16w`); and the first
+    n of the points for each n in EDGE_COUNTS (both sides of the block
+    edges), at both weights. Timed at the init's weights."""
     nets = {"init": model.implicit,
             "perturbed": perturbed_net(model.implicit, SEED + 10)}
     fields, ok = {}, True
@@ -510,8 +524,8 @@ def check_k1(model, cfg, pts) -> dict:
         pack = sdf_mlp.SdfMlpPack(net)
         got = sdf_mlp.sdf_mlp_nograd(pack, pts)
         torch.cuda.synchronize()
-        f32 = sdf_mlp.sdf_mlp_plain(net, pts)
-        ref = f32 if label == "init" else bf16w_sdf(net, pts)
+        f32 = ref = sdf_mlp.sdf_mlp_plain(net, pts)
+        bfw = bf16w_sdf(net, pts)
         ok = ok and close(got, ref, 0.02, 0.02)
         edges = {}
         for n in EDGE_COUNTS:
@@ -520,7 +534,9 @@ def check_k1(model, cfg, pts) -> dict:
             edges[n] = float((g - ref[:n]).abs().max())
             ok = ok and close(g, ref[:n], 0.02, 0.02)
         fields[label] = dict(max_abs_err=float((got - ref).abs().max()),
-                             vs_f32=float((got - f32).abs().max()),
+                             vs_bf16w=float((got - bfw).abs().max()),
+                             points_past_f32=int(((got - f32).abs() > 0.02
+                                                  + 0.02 * f32.abs()).sum()),
                              edges=edges)
     iw, ib = _bf16_weights(model.implicit)
     macs = hidden_macs(cfg.implicit) + cfg.implicit.layer_dims()[-2]
@@ -608,16 +624,19 @@ def check_k3(model, cfg, conf, device) -> dict:
     """K3 (with the light head, if the model has one: its own kernel,
     `render_core_fwd_light`) on one eval chunk: at the init's weights
     against the f32 plain version (CORE_TOLS); at perturbed weights
-    (`perturbed_net` of each net) against the plain version at the
-    weights rounded to bf16, the f32 reading reported beside it; and the
-    first n of the points for each n in EDGE_COUNTS, at both weights.
-    Timed at the init's weights."""
+    (`perturbed_net` of each net) and on `odd_nets` (perturbed, one SDF
+    hidden layer fewer) against the plain version at the weights rounded
+    to bf16, the f32 reading and the points past the bound against f32
+    (`points_past_f32`) reported beside it; and the first n of the points
+    for each n in EDGE_COUNTS, at every weight. Timed at the init's
+    weights."""
     x, dd = eval_chunk_points(cfg, conf, device)
     nets0 = (model.implicit, model.rendering, model.light)
     nets = {"init": nets0,
             "perturbed": tuple(
                 None if m is None else perturbed_net(m, SEED + 10 + i)
-                for i, m in enumerate(nets0))}
+                for i, m in enumerate(nets0)),
+            "odd": odd_nets(cfg, device, SEED + 20)}
     fields, ok = {}, True
     for label, ns in nets.items():
         pack = render_core.RenderCorePack(*ns)
@@ -642,6 +661,10 @@ def check_k3(model, cfg, conf, device) -> dict:
                   for k, a, b in zip(tols, k_out, ref)},
             vs_f32={k: float((a - b).abs().max())
                     for k, a, b in zip(tols, k_out, f32)},
+            points_past_f32={k: int(((a - b).abs() > tols[k][0] + tols[k][1]
+                                     * b.abs()).reshape(len(a), -1).any(-1)
+                                    .sum())
+                             for k, a, b in zip(tols, k_out, f32)},
             edges=edges)
         del k_out, ref, f32
     light = model.light
@@ -676,7 +699,8 @@ def check_k3(model, cfg, conf, device) -> dict:
         replaces="i2sdf_tpu/ops/pallas/fused_train.py:449",
         shape=list(x.shape), max_abs_err=max(fields["init"]["errs"].values()),
         errs=fields["init"]["errs"], tolerances=CORE_TOLS,
-        perturbed=fields["perturbed"], edges=fields["init"]["edges"],
+        perturbed=fields["perturbed"], odd=fields["odd"],
+        edges=fields["init"]["edges"],
         macs=macs, design_macs=k3_design_macs(cfg, light is not None),
         l2_weight_gb_model=math.ceil(len(x) / K3_POINTS) * block_bytes
         / 1e9,
@@ -838,11 +862,25 @@ def library_core_grad(icfg, rcfg, w, x, dirs, cot, lcfg=None,
     return torch.autograd.grad(outs, w.flat(), cots[:len(outs)])
 
 
-def check_k4(model, cfg, conf, device, detach_light=True) -> dict:
-    """K4 at one training step's render-core batch: 1600 rays of view 0 at
-    97 depths each, plus 4800 eikonal rows in the scene's cube; with the
-    model's light head (if it has one: its own kernel,
-    `render_core_bwd_light`) at this `detach_light`."""
+def odd_nets(cfg, device, seed):
+    """The model's nets with one SDF hidden layer fewer (an odd count for
+    the flagship's eight and the light config's six), perturbed like
+    `perturbed_net` from a seeded init: a fault that exchanges two tangent
+    streams at every layer cancels over an even depth."""
+    icfg = dataclasses.replace(cfg.implicit,
+                               dims=cfg.implicit.dims[:-1])
+    gen = torch.Generator().manual_seed(seed)
+    nets = [mlp.ImplicitNet(icfg, gen), mlp.RenderingNet(cfg.rendering, gen)]
+    if cfg.light is not None:
+        nets.append(mlp.ImplicitNet(cfg.light, gen))
+    nets = [perturbed_net(m.to(device), seed + 1 + i)
+            for i, m in enumerate(nets)]
+    return tuple(nets) + (None,) * (3 - len(nets))
+
+
+def k4_batch(cfg, conf, device):
+    """K4's points: one training step's render-core batch, 1600 rays of
+    view 0 at 97 depths each plus 4800 eikonal rows in the scene's cube."""
     sc = cfg.sampler
     _, dirs, cam = chunk_rays(conf, device, K4_RAYS)
     S = sc.total_fg_samples - 1
@@ -854,9 +892,17 @@ def check_k4(model, cfg, conf, device, detach_light=True) -> dict:
     x = torch.cat([x, eik]).contiguous()
     d = torch.cat([dirs[:, None].expand(K4_RAYS, S, 3).reshape(-1, 3),
                    torch.zeros_like(eik)]).contiguous()
-    icfg, rcfg, lcfg = cfg.implicit, cfg.rendering, cfg.light
-    w = render_core.CoreWeights.of(model.implicit, model.rendering,
-                                   model.light)
+    return x, d, S
+
+
+def k4_grads(nets, x, d, detach_light):
+    """K4 and the plain f32 backward of the nets (implicit, rendering,
+    light or None) at the cotangents of a seeded loss: (kernel leaves,
+    plain leaves, cotangents, weights, packs)."""
+    inet, rnet, lnet = nets
+    icfg, rcfg = inet.cfg, rnet.cfg
+    lcfg = None if lnet is None else lnet.cfg
+    w = render_core.CoreWeights.of(inet, rnet, lnet)
     outs = render_core.render_core_train_plain(icfg, rcfg, w, x, d, lcfg,
                                                detach_light)
     cot = loss_cotangents(*outs[:3], K4_EIK, SEED + 5,
@@ -865,48 +911,134 @@ def check_k4(model, cfg, conf, device, detach_light=True) -> dict:
     ref = torch.autograd.grad(outs, w.flat(), cots)
     del outs
     with torch.no_grad():
-        k = render_core._KernelLayout(icfg, rcfg, w, lcfg)
-        got = render_core.render_core_bwd(k, x, d, cot, detach_light)
+        packs = (render_core.CoreStages(icfg, rcfg, w, lcfg),
+                 render_core.K4Stages(icfg, rcfg, w, lcfg))
+        got = render_core.render_core_bwd(*packs, x, d, cot, detach_light)
     torch.cuda.synchronize()
-    got = [t for grp in got for t in grp]
-    errs = grad_errors(got, ref)
+    return [t for grp in got for t in grp], list(ref), cot, w, packs
+
+
+def k4_staging_gb(plan) -> float:
+    """The device memory (GB) K4's plan takes beside its output: the
+    scratch (operand and stash regions, bias rows) and the partials."""
+    return (plan.scratch_bytes + 4 * plan.n32) / 1e9
+
+
+class Resources:
+    """`scripts/kernel_resources.py` on one source, started at once in the
+    background (it compiles the source again with `-Xptxas -v`); `get()`
+    waits for it and returns its rows by kernel name."""
+
+    def __init__(self, source: str):
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "scripts" / "kernel_resources.py"),
+             str(ROOT / source)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        self.rows = None
+
+    def get(self) -> dict:
+        if self.rows is None:
+            out, err = self.proc.communicate(timeout=600)
+            if self.proc.returncode != 0:
+                raise RuntimeError(f"kernel_resources failed: {err[-2000:]}")
+            self.rows = {}
+            for line in out.splitlines():
+                row = json.loads(line)
+                self.rows[row["name"]] = {
+                    k: row[k] for k in ("registers", "spill_stores",
+                                        "spill_loads", "stack", "hgmma",
+                                        "bulk_copies", "bulk_ops",
+                                        "warnings")}
+        return self.rows
+
+
+def k4_sass(resources: Resources, light: bool, coupled: bool) -> dict:
+    """K4's kernels' ptxas and SASS counts: its sweep (with the light head
+    or not, coupled or not) and its products."""
+    rows = resources.get()
+    want = (f"k4_sweep_kernel<{str(light).lower()}, {str(coupled).lower()}>",
+            "k4_wgrad_kernel")
+    return {w: next(v for k, v in rows.items() if w in k) for w in want}
+
+
+def check_k4(model, cfg, conf, device, detach_light=True,
+             resources: Resources | None = None) -> dict:
+    """K4 at one training step's render-core batch (`k4_batch`) with the
+    model's light head if it has one (its own kernel,
+    `render_core_bwd_light`, at this `detach_light`): against the plain f32
+    backward (`grads_ok`) at the init's weights, at perturbed weights
+    (`perturbed_net`) and on `odd_nets`; two launches give the same bits.
+    Timed at the init's weights."""
+    x, d, S = k4_batch(cfg, conf, device)
+    icfg, rcfg, lcfg = cfg.implicit, cfg.rendering, cfg.light
+    nets0 = (model.implicit, model.rendering, model.light)
+    cases = {"init": nets0,
+             "perturbed": tuple(None if m is None else
+                                perturbed_net(m, SEED + 10 + i)
+                                for i, m in enumerate(nets0)),
+             "odd": odd_nets(cfg, device, SEED + 20)}
+    fields, ok = {}, True
+    for label, nets in cases.items():
+        got, ref, cot, w, packs = k4_grads(nets, x, d, detach_light)
+        errs = grad_errors(got, ref)
+        ok = ok and grads_ok(errs)
+        fields[label] = errs
+        if label == "init":
+            w0, cot0, packs0 = w, cot, packs
+            again = render_core.render_core_bwd(*packs, x, d, cot,
+                                                detach_light)
+            same = all(torch.equal(a, b) for a, b in zip(
+                got, [t for grp in again for t in grp]))
+            ok = ok and same
+            max_abs = max(float((g - r).abs().max())
+                          for g, r in zip(got, ref))
+        del got, ref
     n = x.shape[0]
-    wbytes = sum(t.numel() for t in w.flat())
+    wbytes = sum(t.numel() for t in w0.flat())
     b_ms, b_by = bound(2.0 * k4_macs(icfg, rcfg, lcfg, detach_light) * n,
-                       n * (24 + 4 * cot.shape[1]) + wbytes * (2 + 4),
+                       n * (24 + 4 * cot0.shape[1]) + wbytes * (2 + 4),
                        PEAK_BF16)
+    cots = (cot0[:, 3:4], cot0[:, :3], cot0[:, 4:7], cot0[:, 7:8])
 
     def kernel():
         with torch.no_grad():
-            render_core.render_core_bwd(k, x, d, cot, detach_light)
+            render_core.render_core_bwd(*packs0, x, d, cot0, detach_light)
 
     def plain():
-        torch.autograd.grad(render_core.render_core_train_plain(
-            icfg, rcfg, w, x, d, lcfg, detach_light), w.flat(), cots)
+        outs = render_core.render_core_train_plain(icfg, rcfg, w0, x, d,
+                                                   lcfg, detach_light)
+        torch.autograd.grad(outs, w0.flat(), cots[:len(outs)])
 
+    plan = render_core.plan_for(*packs0, n, lcfg is not None
+                                and not detach_light)
     row = dict(
         name="render_core_bwd" + ("_light" if lcfg is not None else ""),
         route="cuda", source="i2sdf_tpu_torch/csrc/render_core_bwd.cu",
         replaces="i2sdf_tpu/ops/pallas/fused_train.py:449",
-        shape=list(cot.shape), rays=K4_RAYS, samples=S, eikonal_rows=K4_EIK,
+        shape=list(cot0.shape), rays=K4_RAYS, samples=S,
+        eikonal_rows=K4_EIK,
         detach_light=detach_light if lcfg is not None else None,
-        max_abs_err=max(float((g - r).abs().max()) for g, r in
-                        zip(got, ref)),
-        **errs, leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
+        max_abs_err=max_abs, **fields["init"],
+        perturbed=fields["perturbed"], odd=fields["odd"], bitwise_rerun=same,
+        leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
+        staging_gb=k4_staging_gb(plan),
+        sass=(k4_sass(resources, lcfg is not None,
+                      lcfg is not None and not detach_light)
+              if resources is not None else None),
         ms=time_ms(kernel, 5), plain_ms=time_ms(plain, 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: library_core_grad(
-            icfg, rcfg, w, x, d, cot, lcfg, detach_light), 2))
+            icfg, rcfg, w0, x, d, cot0, lcfg, detach_light), 2))
     if lcfg is not None:
         # the same nets without the head (it ignores cotangent column 7):
         # what the head costs K4
         with torch.no_grad():
-            bare = render_core._KernelLayout(icfg, rcfg, render_core.
-                                             CoreWeights.of(model.implicit,
-                                                            model.rendering))
+            w1 = render_core.CoreWeights.of(model.implicit, model.rendering)
+            bare = (render_core.CoreStages(icfg, rcfg, w1),
+                    render_core.K4Stages(icfg, rcfg, w1))
         row["ms_without_head"] = time_ms(
-            lambda: render_core.render_core_bwd(bare, x, d, cot), 5)
-    emit_row(row, grads_ok(errs))
+            lambda: render_core.render_core_bwd(*bare, x, d, cot0), 5)
+    emit_row(row, ok)
     return row
 
 
@@ -1857,23 +1989,23 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
                        tr.loss_cfg.dynamic_weights(s), tr.bubble)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    # K3 is one kernel template (with the light head or not), K4 and K6
-    # another, told apart by the template arguments (with the radiance
-    # net; with the light head); the products and sums are K4's on the
-    # normal-on paths (and K9's too with the background), K6's on the
-    # normal-off path
+    # K3 and K4 are each one kernel template (with the light head or
+    # not); K4's products are its own kernel, its sums the `sum_kernel`
+    # K6 and K9 share; the mma.sync products are K6's on the normal-off
+    # path and K9's with the background
     groups = {"K1 sdf_mlp": "sdf_mlp_kernel", "K2 sampler_round":
               "sampler_round",
               "K3 render_core_fwd": "render_core_kernel<false>",
               "K3 render_core_fwd_light": "render_core_kernel<true>",
               "K5 rev_fwd": "fwd_sweep_kernel(",
-              "K4 sweep": "bwd_sweep_kernel<true, false>",
-              "K4 sweep light": "bwd_sweep_kernel<true, true>",
-              "K6 sweep": "bwd_sweep_kernel<false, false>",
+              "K4 sweep": "k4_sweep_kernel<false",
+              "K4 sweep light": "k4_sweep_kernel<true",
+              "K4 products": "k4_wgrad_kernel",
+              "K6 sweep": "::bwd_sweep_kernel(",
               "K7 conv_check": "conv_check_kernel",
               "K8 bg_core_fwd": "bg_fwd_kernel",
               "K9 sweep": "bg_bwd_sweep_kernel",
-              "K4/K6/K9 atb": "atb_kernel", "K4/K6/K9 sum": "sum_kernel"}
+              "K6/K9 atb": "atb_kernel", "K4/K6/K9 sum": "sum_kernel"}
     by = {g: 0.0 for g in groups}
     by["other"] = 0.0
     top = []
@@ -1896,6 +2028,67 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
                 device_ms_total_per_step=busy / n,
                 device_busy_share=busy / wall_ms,
                 top=[dict(ms=t / n, name=k, calls=c) for t, k, c in top[:12]])
+
+
+PACKERS = ((render_core, "CoreStages"), (render_core, "K4Stages"),
+           (rev, "RevLayout"), (bg_core, "BgLayout"))
+
+
+def host_split(tr, step0: int, n: int = 2) -> dict:
+    """A step's wall time in four parts (ms a step, n steps from step0, no
+    profiler): `syncs`, the host blocked in the step's syncs on CUDA
+    tensors (`bool`, `float`, `item`: one a sampler round, the step's
+    beta), the device catching up there; `packing`, the host packing the
+    kernels' weights (K3's `CoreStages`, K4's `K4Stages`, K5/K6's
+    `RevLayout`, K8/K9's `BgLayout`; their device work runs behind);
+    `rest`, the wait at the step's end for the device to finish its queue;
+    `python`, the remainder: the Python step, the dispatch of its
+    operations, and any blocking call not wrapped here. The wrappers that time the first two cost the host a few
+    microseconds a call."""
+    spent = {"syncs": 0.0, "packing": 0.0}
+    calls = {"syncs": 0, "packing": 0}
+
+    def timed(kind, fn):
+        def wrapper(*a, **k):
+            if kind == "syncs" and not a[0].is_cuda:
+                return fn(*a, **k)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[kind] += time.perf_counter() - t0
+                calls[kind] += 1
+        return wrapper
+
+    saved = [(torch.Tensor, m, getattr(torch.Tensor, m))
+             for m in ("__bool__", "__float__", "item")]
+    saved += [(getattr(mod, c), "__init__", getattr(mod, c).__init__)
+              for mod, c in PACKERS]
+    wall = tail = 0.0
+    try:
+        for obj, m, fn in saved:
+            setattr(obj, m, timed("syncs" if obj is torch.Tensor
+                                  else "packing", fn))
+        for s in range(step0, step0 + n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.step_fn(tr.state, tr.device_data, tr.draws(s),
+                       tr.loss_cfg.dynamic_weights(s), tr.bubble)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            wall += t2 - t0
+            tail += t2 - t1
+    finally:
+        for obj, m, fn in saved:
+            setattr(obj, m, fn)
+    ms = lambda v: v * 1e3 / n  # noqa: E731
+    return dict(steps=n, wall_ms=ms(wall), syncs_ms=ms(spent["syncs"]),
+                syncs_per_step=calls["syncs"] / n,
+                packing_ms=ms(spent["packing"]),
+                packs_per_step=calls["packing"] / n, rest_ms=ms(tail),
+                python_ms=ms(wall - tail - spent["syncs"]
+                             - spent["packing"]))
 
 
 def images_only_root(tmp, light_masks: bool = False) -> str:
@@ -2049,6 +2242,7 @@ def run_train(device, kind: str = "train") -> dict:
             prof = profile_steps(tr, TRAIN_STEPS)
         except Exception as exc:  # the profiler is a measurement only
             prof = {"error": repr(exc)}
+        split = host_split(tr, TRAIN_STEPS)
         cmp = kernel_vs_plain_step(tr)
         steady = times[1:]
         if "device_ms_total_per_step" in prof:
@@ -2063,7 +2257,12 @@ def run_train(device, kind: str = "train") -> dict:
             points=tr.batch_size * (tr.model_cfg.sampler.total_fg_samples
                                     - 1 + 3),
             step_s=times, step_s_median=statistics.median(steady),
+            # the median of steps 1-5 and the mean of steps 4-5 (after
+            # the bubble window), in ms
+            median_ms=statistics.median(steady) * 1e3,
+            steps45_ms=statistics.mean(times[4:6]) * 1e3,
             rays_per_s=tr.batch_size / statistics.median(steady),
+            host_split=split,
             losses=[m["loss"] for m, _ in seen],
             light_mask_losses=([m["light_mask_loss"] for m, _ in seen]
                                if light else None),
@@ -2290,6 +2489,7 @@ def main() -> int:
     path, nvcc_s = build.build()
     build.load_library()
     emit("build", t0, nvcc_seconds=nvcc_s, library=path.name)
+    k4_res = Resources("i2sdf_tpu_torch/csrc/render_core_bwd.cu")
 
     conf = eval_conf()
     cfg, model = seeded_model(conf, device)
@@ -2299,7 +2499,7 @@ def main() -> int:
     rows += check_sdf_outputs(model, cfg, conf, device)
     tconf = train_conf()
     tcfg, tmodel = seeded_model(tconf, device)
-    rows.append(check_k4(tmodel, tcfg, conf, device))
+    rows.append(check_k4(tmodel, tcfg, conf, device, resources=k4_res))
     torch.cuda.empty_cache()
     rows += check_rev(tmodel, tcfg, conf, device)
     rows += check_sdf_grad(tmodel, tcfg, conf, device)
@@ -2310,7 +2510,8 @@ def main() -> int:
     rows.append(check_k3(lmodel, lcfg, lconf, device))
     torch.cuda.empty_cache()
     for detach in (True, False):
-        rows.append(check_k4(lmodel, lcfg, lconf, device, detach))
+        rows.append(check_k4(lmodel, lcfg, lconf, device, detach,
+                             resources=k4_res))
         torch.cuda.empty_cache()
     del lmodel
     # K7 at the perray config, K8 and K9 at the bg config (full width)

@@ -172,14 +172,12 @@ struct EpiSoftplus {
 //
 // K5's kernel body (`fwd_sweep_kernel`, rev_fwd.cu) is the forward with the
 // activation derivative stashed as bf16 s = softplus100'(z), then
-// d sdf / d x swept back through the net. K4 and K6 are one kernel body
-// (`bwd_sweep_kernel`): the derivative stashed as q (`stash_q`), the
-// backward's four sweeps staging every layer's weight-gradient operands in
-// device memory (`Scratch`), then the split-K products and the fixed-order
-// sums (`launch_wgrad`, both behind `launch_bwd`). The light head of the
-// light-mask config is a second template flag of K4's kernel (`kLight`):
-// its code sits under `if constexpr`, so the kernel without it compiles
-// as it did before it.
+// d sdf / d x swept back through the net. K6's (`bwd_sweep_kernel`): the
+// derivative stashed as q (`stash_q`), the backward's four sweeps staging
+// every layer's weight-gradient operands in device memory (`Scratch`),
+// then the split-K products and the fixed-order sums (`launch_wgrad`, both
+// behind `launch_bwd`). K4 (render_core_bwd.cu) runs the same sweeps on
+// `wgmma_layer.cuh`.
 
 constexpr int kSweepMT = 2;
 constexpr int kSweepRows = kSweepMT * 16;
@@ -191,15 +189,6 @@ constexpr int kMaxJobs = kMaxSdf + kMaxRad + kMaxLight;
 // a row's cotangents [c_grad | c_sdf | c_rgb | c_lm], in device memory
 // and in shared memory
 constexpr int kCot = 8;
-
-// The light net's plan rows (`L`, layer 0 first) and those of its
-// transpose (`T`, last layer first), kept apart from `Plan` so that the
-// kernels' parameters stay small.
-struct LightPlan {
-  int n;
-  int L[kMaxLight][8];
-  int T[kMaxLight][8];
-};
 
 __device__ __forceinline__ float bf(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
@@ -272,19 +261,7 @@ struct EpiSoftplusQ {
   }
 };
 
-// ---- epilogues of the forward nets (K4, K8, K9) ----------------------------
-
-// The light net's input: relu of the F feature columns of `feat`, zero up
-// to the first light layer's depth K.
-__device__ __forceinline__ void light_input(__nv_bfloat16* dst, int lda,
-                                            const __nv_bfloat16* feat, int F,
-                                            int K) {
-  for (int i = threadIdx.x; i < kSweepRows * K; i += kThreads) {
-    const int r = i / K, c = i % K;
-    dst[r * lda + c] = __float2bfloat16_rn(
-        c < F ? fmaxf(bf(feat + r * lda + c), 0.f) : 0.f);
-  }
-}
+// ---- epilogues of the forward nets (K8, K9) --------------------------------
 
 // K8's output layer, columns [features (F) | sdf]: the features to the
 // radiance input buffer (no activation), sdf to shared memory.
@@ -329,7 +306,7 @@ struct EpiRgbOut {
   }
 };
 
-// ---- K4 and K6: the backward's sweeps -------------------------------------
+// ---- K6: the backward's sweep ----------------------------------------------
 
 // Where the backward stages each layer's operands (element pointers into
 // the bf16 and f32 scratch), as the host's table lays them out
@@ -339,27 +316,18 @@ struct Scratch {
   __nv_bfloat16* br[kMaxSdf];   // (2 np, N_l): [r_l ; dz_l]
   __nv_bfloat16* dzx[kMaxSdf];  // (np, N_l): dz_extra into z_l
   float* ah[kMaxSdf];           // (np, K_l): d sdf / d h_l
-  __nv_bfloat16* rx[kMaxRad];   // (np, K_L): radiance layer inputs
-  __nv_bfloat16* rdz[kMaxRad];  // (np, N_L): radiance output cotangents
-  __nv_bfloat16* lx[kMaxLight];   // (np, K): light layer inputs
-  __nv_bfloat16* ldz[kMaxLight];  // (np, N): light output cotangents (a
-                                  // hidden layer's s until they replace it)
   float* dbpart;                // (blocks, tb): bias-gradient rows
   int tb, np;
   int db_sdf[kMaxSdf];
-  int db_rad[kMaxRad];
-  int db_light[kMaxLight];
 };
 
-// The block's shared memory in the backward's sweep: two activation
-// buffers, every hidden layer's stash q, the points, the view directions,
-// the cotangents [c_grad | c_sdf | c_rgb | c_lm] (kCot a row), the rgb,
-// the encoding's gradient cotangent dge and the f32 dz the bias sums
-// take; with the light head, a third activation buffer `lb` at the end.
+// The block's shared memory in K6's sweep: two activation buffers, every
+// hidden layer's stash q, the points, room for view directions, the
+// cotangents (kCot a row, c_grad in the first three) and an rgb, the
+// encoding's gradient cotangent dge and the f32 dz the bias sums take.
 struct BwdSmem {
   __nv_bfloat16 *buf0, *buf1, *q;
   float *xs, *ds, *cot, *rgb, *dge, *dzf;
-  __nv_bfloat16* lb;
 };
 
 __device__ __forceinline__ BwdSmem carve_bwd(unsigned char* p, int lda,
@@ -374,14 +342,12 @@ __device__ __forceinline__ BwdSmem carve_bwd(unsigned char* p, int lda,
   s.rgb = s.cot + kSweepRows * kCot;
   s.dge = s.rgb + kSweepRows * 4;
   s.dzf = s.dge + kSweepRows * ldg;
-  s.lb = reinterpret_cast<__nv_bfloat16*>(s.dzf + kSweepRows * lda);
   return s;
 }
 
 // Bytes of BwdSmem (the host mirrors it in `bwd_smem`).
-inline size_t bwd_smem_bytes(int lda, int ldd, int n_q, int ldg,
-                             bool light) {
-  return ((2 + light) * (size_t)kSweepRows * lda +
+inline size_t bwd_smem_bytes(int lda, int ldd, int n_q, int ldg) {
+  return (2 * (size_t)kSweepRows * lda +
           (size_t)n_q * kSweepRows * ldd) *
              sizeof(__nv_bfloat16) +
          (size_t)kSweepRows * (3 + 3 + kCot + 4 + ldg + lda) * sizeof(float);
@@ -397,7 +363,7 @@ __device__ __forceinline__ void put_db(float* dst, const float* dzf, int lda,
   }
 }
 
-// K4's output layer, columns [features | sdf]: the features become the
+// K9's output layer, columns [features | sdf]: the features become the
 // radiance input; the sdf value itself is not needed here.
 struct EpiFeat {
   __nv_bfloat16* out;
@@ -409,7 +375,7 @@ struct EpiFeat {
   }
 };
 
-// K4's rgb, to shared memory (kSweepRows x 4).
+// K9's rgb, to shared memory (kSweepRows x 4).
 struct EpiRgbShared {
   float* rgb;
   const float* bias;
@@ -453,101 +419,6 @@ struct EpiFeatCot {
     put2(out + (size_t)(row0 + r) * ld + c, v0, v1);
     dzf[r * lda + c] = v0;
     dzf[r * lda + c + 1] = v1;
-  }
-};
-
-// ---- K4's light head ---------------------------------------------------
-
-// A hidden light layer in K4's forward: bf16(softplus100(acc + b)) to
-// shared memory, and its first-order derivative s = softplus100'(z) to
-// the layer's dz staging in device memory, where the backward reads it
-// (the light net's input is not differentiated with respect to x, so no
-// second-order stash is needed).
-struct EpiSoftplusS {
-  __nv_bfloat16* out;
-  int lda;
-  const float* bias;
-  __nv_bfloat16* s;
-  int lds, row0;
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    const float z0 = v0 + bias[c], z1 = v1 + bias[c + 1];
-    put2(out + r * lda + c, softplus100(z0), softplus100(z1));
-    put2(s + (size_t)(row0 + r) * lds + c, dsoftplus100(z0),
-         dsoftplus100(z1));
-  }
-};
-
-// K4's light output layer: lm = sigmoid(acc + b) in column 0 and its
-// cotangent dz = c_lm lm (1 - lm), zero elsewhere: bf16 to shared memory
-// (the transposed layer's operand) and to the layer's dz staging, f32 to
-// dzf for the bias sums.
-struct EpiLightDz {
-  __nv_bfloat16* out;
-  int lda;
-  const float* bias;
-  const float* cot;
-  float* dzf;
-  __nv_bfloat16* dz;
-  int ldz, row0;
-  __device__ __forceinline__ float one(int r, int c, float v) {
-    float d = 0.f;
-    if (c == 0) {
-      const float lm = 1.f / (1.f + expf(-(v + bias[0])));
-      d = cot[r * kCot + 7] * lm * (1.f - lm);
-    }
-    dzf[r * lda + c] = d;
-    return d;
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    const float d0 = one(r, c, v0), d1 = one(r, c + 1, v1);
-    put2(out + r * lda + c, d0, d1);
-    put2(dz + (size_t)(row0 + r) * ldz + c, d0, d1);
-  }
-};
-
-// Light backward through a hidden layer's activation: dz = dh * s, s read
-// from the layer's dz staging and dz written back in its place; bf16 to
-// shared memory for the next transposed layer, f32 to dzf.
-struct EpiLightBack {
-  __nv_bfloat16* out;
-  int lda;
-  __nv_bfloat16* dz;
-  int ldz, row0;
-  float* dzf;
-  __device__ __forceinline__ float one(int r, int c, float v) {
-    const float d = v * bf(dz + (size_t)(row0 + r) * ldz + c);
-    dzf[r * lda + c] = d;
-    return d;
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    const float d0 = one(r, c, v0), d1 = one(r, c + 1, v1);
-    put2(out + r * lda + c, d0, d1);
-    put2(dz + (size_t)(row0 + r) * ldz + c, d0, d1);
-  }
-};
-
-// With the light features not detached: the light net's input cotangent
-// dz_0 W_0^T, gated by relu'(features) (read back from the radiance net's
-// stored input [features | PE]), joins the features' cotangent from the
-// radiance net in f32 (dzf), and the sum replaces the bf16 cotangent of
-// the SDF output layer in device memory.
-struct EpiLightFeat {
-  __nv_bfloat16* out;
-  int ld, row0, F;
-  float* dzf;
-  int lda;
-  const __nv_bfloat16* x;
-  int ldx;
-  __device__ __forceinline__ float one(int r, int c, float v) {
-    const bool on = bf(x + (size_t)(row0 + r) * ldx + c) > 0.f;
-    const float d = dzf[r * lda + c] + (on ? v : 0.f);
-    dzf[r * lda + c] = d;
-    return d;
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    if (c >= F) return;
-    const float d0 = one(r, c, v0), d1 = one(r, c + 1, v1);
-    put2(out + (size_t)(row0 + r) * ld + c, d0, d1);
   }
 };
 
@@ -631,70 +502,44 @@ struct EpiDown {
 
 namespace {
 
-// K4 (`kRadiance`) and K6 in one kernel body, 32 points a block: the SDF
-// forward recompute (X_l to rows [np, 2 np) of ax[l], the stash q_l);
-// K4's radiance forward and backward, which give the output layer's dz
-// (K6 reads it from c_out, in the net's own column order); the reverse
-// sweep (r_l to rows [0, np) of br[l], ah_l to ah[l], from e_sdf in the
-// output layer's sdf column); dg_emb from c_grad by the encoding's
-// closed-form Jacobian; the upward sweep, the transpose of the reverse
-// sweep (da_l to rows [0, np) of ax[l], the second-order term dz_extra_l
-// = dr * ah * 100 s (1 - s) to dzx[l]); the downward sweep (dz_l to rows
-// [np, 2 np) of br[l]) with those injections. Each hidden layer's bias
-// row goes to the block's row of `dbpart`. Written out in one body, in
-// K4's own form, as K5's kernel is.
-//
-// With `kLight` (K4 of the light-mask config), step 1b runs the light net
-// on relu(features) between `lb` and the free buffer of the pair (X_l to
-// lx[l], a hidden layer's s to ldz[l]), its output's cotangent dz = c_lm
-// lm (1 - lm), and the light backward through its hidden layers (dz_l to
-// ldz[l]), before the radiance net needs the features. Unless
-// `detach_light`, the light net's input cotangent, gated by relu'(feat),
-// joins the features' cotangent at the end of step 3.
-template <bool kRadiance, bool kLight>
+// K6's kernel body, 32 points a block: the SDF forward recompute (X_l to
+// rows [np, 2 np) of ax[l], the stash q_l); the output layer's dz is
+// c_out, in the net's own column order; the reverse sweep (r_l to rows
+// [0, np) of br[l], ah_l to ah[l], from e_sdf in the output layer's sdf
+// column 0); dg_emb from c_grad by the encoding's closed-form Jacobian;
+// the upward sweep, the transpose of the reverse sweep (da_l to rows
+// [0, np) of ax[l], the second-order term dz_extra_l = dr * ah * 100 s
+// (1 - s) to dzx[l]); the downward sweep (dz_l to rows [np, 2 np) of
+// br[l]) with those injections. Each hidden layer's bias row goes to the
+// block's row of `dbpart`. Written out in one body, as K5's kernel is.
 __global__ void __launch_bounds__(kThreads)
-bwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
-                 const float* __restrict__ cot,
+bwd_sweep_kernel(const float* __restrict__ x,
                  const float* __restrict__ c_out, int out_cols,
                  const float* __restrict__ c_g, int n,
                  const uint2* __restrict__ w_fwd,
                  const float* __restrict__ b_sdf, Plan fwd,
                  const uint2* __restrict__ w_t, Plan tp,
-                 const float* __restrict__ wsdf_col,
-                 const uint2* __restrict__ w_rad,
-                 const float* __restrict__ b_rad, Plan rad,
-                 const uint2* __restrict__ w_radt, Plan radt,
-                 const uint2* __restrict__ w_l,
-                 const float* __restrict__ b_l,
-                 const uint2* __restrict__ w_lt, LightPlan lp,
-                 int detach_light, int mx, int md, int lda, int ldd, int ldg,
-                 Scratch sc) {
+                 const float* __restrict__ wsdf_col, int mx, int lda,
+                 int ldd, int ldg, Scratch sc) {
   constexpr int kMT = kSweepMT, kMaxNT = kSweepMaxNT, kRows = kSweepRows;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ns = fwd.n, nh = ns - 1, nr = rad.n;
+  const int ns = fwd.n, nh = ns - 1;
   const BwdSmem s = carve_bwd(smem, lda, ldd, nh, ldg);
   __nv_bfloat16* buf[2] = {s.buf0, s.buf1};
   const int row0 = blockIdx.x * kRows;
   const int np = sc.np;
   const int d0 = 3 + 6 * mx;
-  const int F = fwd.L[ns - 1][kReal] - 1;
-  // the output layer's sdf column: K4's layout is [features | sdf], K6's
-  // the net's own [sdf | features]
-  const int sdf_col = kRadiance ? F : 0;
+  const int sdf_col = 0;  // the output layer in the net's order [sdf | feat]
   float* dbp = sc.dbpart + (size_t)blockIdx.x * sc.tb;
 
   for (int i = threadIdx.x; i < kRows * 3; i += kThreads) {
     const int r = row0 + i / 3;
     s.xs[i] = r < n ? x[(size_t)r * 3 + i % 3] : 0.f;
-    if (kRadiance) s.ds[i] = r < n ? dirs[(size_t)r * 3 + i % 3] : 0.f;
   }
-  // [c_grad | c_sdf | c_rgb | c_lm] a row (K6: c_g only)
+  // c_g in the cotangent rows' first three columns
   for (int i = threadIdx.x; i < kRows * kCot; i += kThreads) {
     const int r = row0 + i / kCot, c = i % kCot;
-    if (kRadiance)
-      s.cot[i] = r < n ? cot[(size_t)r * kCot + c] : 0.f;
-    else
-      s.cot[i] = (r < n && c < 3) ? c_g[(size_t)r * 3 + c] : 0.f;
+    s.cot[i] = (r < n && c < 3) ? c_g[(size_t)r * 3 + c] : 0.f;
   }
   __syncthreads();
   write_pe(buf[0], lda, kRows, s.xs, mx, 0, fwd.L[0][kK], 1.f);
@@ -717,132 +562,15 @@ bwd_sweep_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
                        (L[kFlags] & kScale) ? kInvSqrt2 : 1.f,
                        s.q + (size_t)l * kRows * ldd, ldd};
       mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-    } else if (kRadiance) {
-      EpiFeat epi{buf[cur ^ 1], lda, b, F};
-      mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-    }  // K6 needs only the output layer's input
+    }  // the output layer's input is all the backward needs of it
     __syncthreads();
     cur ^= 1;
   }
 
-  // ---- 1b. the light head: forward, and backward to its input ----------
-  if constexpr (kLight) {
-    const int nl = lp.n;
-    light_input(s.lb, lda, buf[cur], F, lp.L[0][kK]);
-    __syncthreads();
-    // layer l reads lbuf[l & 1] and writes lbuf[(l & 1) ^ 1]
-    __nv_bfloat16* lbuf[2] = {s.lb, buf[cur ^ 1]};
-    for (int l = 0; l < nl; ++l) {
-      const int* L = lp.L[l];
-      const uint2* W = w_l + L[kWOff];
-      const float* b = b_l + L[kBOff];
-      store_rows(lbuf[l & 1], lda, sc.lx[l], L[kK], L[kK], row0);
-      if (l < nl - 1) {
-        EpiSoftplusS epi{lbuf[(l & 1) ^ 1], lda, b, sc.ldz[l], L[kN], row0};
-        mma_layer<kMT, kMaxNT>(lbuf[l & 1], lda, L[kK], W, L[kN], epi);
-      } else {
-        EpiLightDz epi{lbuf[(l & 1) ^ 1], lda, b, s.cot, s.dzf, sc.ldz[l],
-                       L[kN], row0};
-        mma_layer<kMT, kMaxNT>(lbuf[l & 1], lda, L[kK], W, L[kN], epi);
-      }
-      __syncthreads();
-    }
-    put_db(dbp + sc.db_light[nl - 1], s.dzf, lda, lp.L[nl - 1][kN]);
-    __syncthreads();
-    // dz_l sits in lbuf[(l & 1) ^ 1]; dz_{l-1} goes to lbuf[l & 1]
-    for (int l = nl - 1; l >= 1; --l) {
-      const int* L = lp.T[nl - 1 - l];  // W_l^T
-      const int N = lp.L[l - 1][kN];
-      EpiLightBack epi{lbuf[l & 1], lda, sc.ldz[l - 1], N, row0, s.dzf};
-      mma_layer<kMT, kMaxNT>(lbuf[(l & 1) ^ 1], lda, L[kK], w_lt + L[kWOff],
-                             L[kN], epi);
-      __syncthreads();
-      put_db(dbp + sc.db_light[l - 1], s.dzf, lda, N);
-      __syncthreads();
-    }
-  }
-
   const int n_last = fwd.L[ns - 1][kN];
   __nv_bfloat16* cy = sc.br[ns - 1] + (size_t)np * n_last;
-  if (kRadiance) {
-    // ---- 2. radiance forward: X_L to rx[L], rgb to shared memory --------
-    write_pe(buf[cur], lda, kRows, s.ds, md, F, rad.L[0][kK], 1.f);
-    __syncthreads();
-    for (int l = 0; l < nr; ++l) {
-      const int* L = rad.L[l];
-      store_rows(buf[cur], lda, sc.rx[l], L[kK], L[kK], row0);
-      const uint2* W = w_rad + L[kWOff];
-      const float* b = b_rad + L[kBOff];
-      if (l < nr - 1) {
-        EpiRelu epi{buf[cur ^ 1], lda, b};
-        mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-      } else {
-        EpiRgbShared epi{s.rgb, b, L[kReal]};
-        mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-      }
-      __syncthreads();
-      cur ^= 1;
-    }
-
-    // ---- 3. radiance backward -------------------------------------------
-    {
-      const int N = rad.L[nr - 1][kN], d_out = rad.L[nr - 1][kReal];
-      for (int i = threadIdx.x; i < kRows * N; i += kThreads) {
-        const int r = i / N, c = i % N;
-        float v = 0.f;
-        if (c < d_out) {
-          const float g = s.rgb[r * 4 + c];
-          v = s.cot[r * kCot + 4 + c] * g * (1.f - g);
-        }
-        s.dzf[r * lda + c] = v;
-        buf[cur][r * lda + c] = __float2bfloat16_rn(v);
-      }
-      __syncthreads();
-      store_rows(buf[cur], lda, sc.rdz[nr - 1], N, N, row0);
-      put_db(dbp + sc.db_rad[nr - 1], s.dzf, lda, N);
-      __syncthreads();
-    }
-    for (int l = nr - 1; l >= 0; --l) {
-      const int* L = radt.L[nr - 1 - l];  // W_l^T
-      const uint2* W = w_radt + L[kWOff];
-      if (l > 0) {
-        EpiRadBack epi{buf[cur ^ 1], lda, sc.rx[l], L[kN], row0, s.dzf};
-        mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-        __syncthreads();
-        const int N = rad.L[l - 1][kN];
-        store_rows(buf[cur ^ 1], lda, sc.rdz[l - 1], N, N, row0);
-        put_db(dbp + sc.db_rad[l - 1], s.dzf, lda, N);
-        __syncthreads();
-        cur ^= 1;
-      } else {
-        EpiFeatCot epi{cy, n_last, row0, F, s.dzf, lda};
-        mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-        // the sdf column carries c_sdf; padding columns are zero
-        for (int i = threadIdx.x; i < kRows * (n_last - F); i += kThreads) {
-          const int r = i / (n_last - F), c = F + i % (n_last - F);
-          const float v = c == F ? s.cot[r * kCot + 3] : 0.f;
-          cy[(size_t)(row0 + r) * n_last + c] = __float2bfloat16_rn(v);
-          s.dzf[r * lda + c] = v;
-        }
-        __syncthreads();
-        if constexpr (kLight) {
-          if (!detach_light) {
-            const int* L = lp.T[lp.n - 1];  // W_0^T
-            load_rows(buf[cur ^ 1], lda, sc.ldz[0], L[kK], L[kK], row0);
-            __syncthreads();
-            EpiLightFeat epi{cy,     n_last,    row0, F, s.dzf,
-                             lda,    sc.rx[0],  rad.L[0][kK]};
-            mma_layer<kMT, kMaxNT>(buf[cur ^ 1], lda, L[kK], w_lt + L[kWOff],
-                                   L[kN], epi);
-            __syncthreads();
-          }
-        }
-        put_db(dbp + sc.db_sdf[ns - 1], s.dzf, lda, n_last);
-        __syncthreads();
-      }
-    }
-  } else {
-    // ---- 2-3. K6: the output layer's dz is c_out, from memory ----------
+  {
+    // ---- 2-3. the output layer's dz is c_out, from memory ----------------
     for (int i = threadIdx.x; i < kRows * n_last; i += kThreads) {
       const int r = i / n_last, c = i % n_last;
       const float v = (row0 + r < n && c < out_cols)
@@ -1091,48 +819,39 @@ __global__ void __launch_bounds__(kThreads) sum_kernel(SumJobs jobs) {
 }
 
 // The scratch table (int64, element offsets), read in the order
-// `_BwdPlan` writes it: ax, br, dzx, ah (SDF layers), rx, rdz (radiance
-// layers), lx, ldz (light layers), dbpart, tb, the bias offsets; returns
-// the rest (the products' splits, chunks, partials and outputs).
-inline const long long* read_scratch(const long long* t, int n_fwd,
-                                     int n_rad, int n_light, int np,
+// `_BwdPlan` writes it: ax, br, dzx, ah (SDF layers), dbpart, tb, the bias
+// offsets; returns the rest (the products' splits, chunks, partials and
+// outputs).
+inline const long long* read_scratch(const long long* t, int n_fwd, int np,
                                      void* ws16, float* ws32, Scratch& sc) {
   __nv_bfloat16* b16 = (__nv_bfloat16*)ws16;
   for (int l = 0; l < n_fwd; ++l) sc.ax[l] = b16 + *t++;
   for (int l = 0; l < n_fwd; ++l) sc.br[l] = b16 + *t++;
   for (int l = 0; l < n_fwd; ++l, ++t) sc.dzx[l] = *t < 0 ? nullptr : b16 + *t;
   for (int l = 0; l < n_fwd; ++l, ++t) sc.ah[l] = *t < 0 ? nullptr : ws32 + *t;
-  for (int l = 0; l < n_rad; ++l) sc.rx[l] = b16 + *t++;
-  for (int l = 0; l < n_rad; ++l) sc.rdz[l] = b16 + *t++;
-  for (int l = 0; l < n_light; ++l) sc.lx[l] = b16 + *t++;
-  for (int l = 0; l < n_light; ++l) sc.ldz[l] = b16 + *t++;
   sc.dbpart = ws32 + *t++;
   sc.tb = (int)*t++;
   sc.np = np;
   for (int l = 0; l < n_fwd; ++l) sc.db_sdf[l] = (int)*t++;
-  for (int l = 0; l < n_rad; ++l) sc.db_rad[l] = (int)*t++;
-  for (int l = 0; l < n_light; ++l) sc.db_light[l] = (int)*t++;
   return t;
 }
 
 // The weight gradients from the staged operands: every dW_p = A^T B over
-// the points (SDF layer: [da ; X]^T [r ; dz] over 2 np rows; radiance and
-// light layer: X^T dz over np rows), split over point ranges, then the
-// ranges and the blocks' bias rows added in a fixed order into `out` (no
-// atomics: the same result to the bit run to run). `t` is the rest of the
-// table after read_scratch. K12 stacks four streams per SDF layer
-// (`sdf_streams`) but one in the output layer's product (`out_streams`:
-// its tangent rows' share is summed in the sweep), and runs 16 points a
-// block (`block_rows`, the rows of one bias row of `dbpart`).
-inline cudaError_t launch_wgrad(const Plan& fwd, const Plan* rad,
-                                const LightPlan* light, const Scratch& sc,
-                                const long long* t, float* ws32, float* out,
-                                cudaStream_t st, int sdf_streams = 2,
+// the points ([da ; X]^T [r ; dz] over 2 np rows), split over point
+// ranges, then the ranges and the blocks' bias rows added in a fixed order
+// into `out` (no atomics: the same result to the bit run to run). `t` is
+// the rest of the table after read_scratch. K12 stacks four streams per
+// SDF layer (`sdf_streams`) but one in the output layer's product
+// (`out_streams`: its tangent rows' share is summed in the sweep), and
+// runs 16 points a block (`block_rows`, the rows of one bias row of
+// `dbpart`).
+inline cudaError_t launch_wgrad(const Plan& fwd, const Scratch& sc,
+                                const long long* t, float* ws32,
+                                float* out, cudaStream_t st,
+                                int sdf_streams = 2,
                                 int block_rows = kSweepRows,
                                 int out_streams = 2) {
-  const int n_fwd = fwd.n, n_rad = rad ? rad->n : 0;
-  const int n_light = light ? light->n : 0;
-  const int jobs_n = n_fwd + n_rad + n_light;
+  const int n_fwd = fwd.n, jobs_n = n_fwd;
   const long long* splits = t;
   const long long* chunk = t + jobs_n;
   const long long* part = t + 2 * jobs_n;
@@ -1145,15 +864,12 @@ inline cudaError_t launch_wgrad(const Plan& fwd, const Plan* rad,
   int gemm_blocks = 0;
   long long total = 0;
   for (int p = 0; p < jobs_n; ++p) {
-    const bool is_sdf = p < n_fwd, is_rad = !is_sdf && p < n_fwd + n_rad;
-    const int q = p - n_fwd - n_rad;  // light layer
-    const int* L = is_sdf ? fwd.L[p] : is_rad ? rad->L[p - n_fwd] : light->L[q];
+    const int* L = fwd.L[p];
     GemmJob& J = gj.j[p];
-    J.a = is_sdf ? sc.ax[p] : is_rad ? sc.rx[p - n_fwd] : sc.lx[q];
-    J.b = is_sdf ? sc.br[p] : is_rad ? sc.rdz[p - n_fwd] : sc.ldz[q];
+    J.a = sc.ax[p];
+    J.b = sc.br[p];
     J.part = ws32 + part[p];
-    J.m = (!is_sdf ? 1 : p == n_fwd - 1 ? out_streams : sdf_streams) *
-          sc.np;
+    J.m = (p == n_fwd - 1 ? out_streams : sdf_streams) * sc.np;
     J.k = L[kK];
     J.n = L[kN];
     J.chunk = (int)chunk[p];
@@ -1177,38 +893,31 @@ inline cudaError_t launch_wgrad(const Plan& fwd, const Plan* rad,
   return cudaGetLastError();
 }
 
-// K4 or K6: the sweep, then the weight-gradient products and sums, on n
-// points padded to np (the arguments as `bwd_sweep_kernel`'s; `table` is
-// the host's scratch table, read by `read_scratch`).
-template <bool kRadiance, bool kLight>
-inline cudaError_t launch_bwd(
-    const float* x, const float* dirs, const float* cot, const float* c_out,
-    int out_cols, const float* c_g, int n, int np, const uint2* w_fwd,
-    const float* b_sdf, const Plan& fwd, const uint2* w_t, const Plan& tp,
-    const float* wsdf_col, const uint2* w_rad, const float* b_rad,
-    const Plan& rad, const uint2* w_radt, const Plan& radt,
-    const uint2* w_l, const float* b_l, const uint2* w_lt,
-    const LightPlan& lp, int detach_light, int mx, int md, int lda, int ldd,
-    int ldg, void* ws16, float* ws32, const long long* table, float* out,
-    void* stream) {
+// K6: the sweep, then the weight-gradient products and sums, on n points
+// padded to np (the arguments as `bwd_sweep_kernel`'s; `table` is the
+// host's scratch table, read by `read_scratch`).
+inline cudaError_t launch_bwd(const float* x, const float* c_out,
+                              int out_cols, const float* c_g, int n, int np,
+                              const uint2* w_fwd, const float* b_sdf,
+                              const Plan& fwd, const uint2* w_t,
+                              const Plan& tp, const float* wsdf_col, int mx,
+                              int lda, int ldd, int ldg, void* ws16,
+                              float* ws32, const long long* table,
+                              float* out, void* stream) {
   Scratch sc;
-  const long long* rest =
-      read_scratch(table, fwd.n, kRadiance ? rad.n : 0, kLight ? lp.n : 0,
-                   np, ws16, ws32, sc);
+  const long long* rest = read_scratch(table, fwd.n, np, ws16, ws32, sc);
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = bwd_smem_bytes(lda, ldd, fwd.n - 1, ldg, kLight);
+  const size_t smem = bwd_smem_bytes(lda, ldd, fwd.n - 1, ldg);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_sweep_kernel<kRadiance, kLight>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
-  bwd_sweep_kernel<kRadiance, kLight><<<np / kSweepRows, kThreads, smem, st>>>(
-      x, dirs, cot, c_out, out_cols, c_g, n, w_fwd, b_sdf, fwd, w_t, tp,
-      wsdf_col, w_rad, b_rad, rad, w_radt, radt, w_l, b_l, w_lt, lp,
-      detach_light, mx, md, lda, ldd, ldg, sc);
+  bwd_sweep_kernel<<<np / kSweepRows, kThreads, smem, st>>>(
+      x, c_out, out_cols, c_g, n, w_fwd, b_sdf, fwd, w_t, tp, wsdf_col, mx,
+      lda, ldd, ldg, sc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_wgrad(fwd, kRadiance ? &rad : nullptr,
-                      kLight ? &lp : nullptr, sc, rest, ws32, out, st);
+  return launch_wgrad(fwd, sc, rest, ws32, out, st);
 }
 
 }  // namespace
@@ -1224,18 +933,6 @@ inline Plan read_plan(const int* desc, int n) {
   p.n = n;
   for (int l = 0; l < n && l < kMaxLayers; ++l)
     for (int f = 0; f < 8; ++f) p.L[l][f] = desc[l * 8 + f];
-  return p;
-}
-
-// The light net's plan from its rows and its transpose's (n 0: none).
-inline LightPlan read_light_plan(const int* desc, const int* t_desc, int n) {
-  LightPlan p{};
-  p.n = n;
-  for (int l = 0; l < n && l < kMaxLight; ++l)
-    for (int f = 0; f < 8; ++f) {
-      p.L[l][f] = desc[l * 8 + f];
-      if (t_desc) p.T[l][f] = t_desc[l * 8 + f];
-    }
   return p;
 }
 

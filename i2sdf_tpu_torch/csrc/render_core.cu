@@ -220,26 +220,6 @@ __device__ __forceinline__ void net_layer(float* acc, unsigned char* tile,
   }
 }
 
-// How a layer of N columns splits over the two warpgroups: halves, or
-// below 16 columns all to both, written by the first (`active`).
-struct Split {
-  int nw, col0;
-  bool active;
-  __device__ __forceinline__ Split(int N, int cw)
-      : nw(N >= 16 ? N / 2 : N),
-        col0(N >= 16 ? cw * (N / 2) : 0),
-        active(N >= 16 || cw == 0) {}
-};
-
-#define I2SDF_BY_WIDTH(nw, CALL)        \
-  switch (nw) {                         \
-    case 8: CALL(8); break;             \
-    case 16: CALL(16); break;           \
-    case 32: CALL(32); break;           \
-    case 64: CALL(64); break;           \
-    default: CALL(128); break;          \
-  }
-
 template <bool kLight>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 render_core_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
@@ -330,8 +310,6 @@ render_core_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
     }
   }
 }
-
-#undef I2SDF_BY_WIDTH
 
 template <bool kLight>
 cudaError_t launch(const float* x, const float* dirs, int n,

@@ -15,16 +15,15 @@
 // (two per layer), ~5.9 M bf16 flops at the net's real widths
 // (`chip_smoke.py::k6_macs`), against 1,052 bytes in (x, c_out, c_g).
 //
-// Design: K4 without the radiance net, in the same three launches and in
-// K4's own kernel body (`bwd_sweep_kernel<false>` and `launch_bwd` in
-// common.cuh): a per-point sweep (forward recompute with the q stash,
+// Design: the render core's backward without the radiance net, in three
+// launches (`bwd_sweep_kernel` and `launch_bwd` in common.cuh, the body
+// K4 had before it moved onto wgmma): a per-point sweep (forward recompute with the q stash,
 // reverse sweep, upward sweep with the second-order term dz_extra =
 // dr * ah * 100 s (1 - s), downward sweep) that stages each layer's two
 // bf16 weight-gradient operands [da ; X] and [r ; dz] in device memory,
 // then the split-K A^T B products and the fixed-order sums; no atomics,
-// so the result is the same to the bit run to run. Where K4 takes the
-// output layer's cotangent from its in-kernel radiance backward, K6 reads
-// it from memory: dz of the output layer is c_out, in the net's own column
+// so the result is the same to the bit run to run. The output layer's
+// cotangent comes from memory: dz of the output layer is c_out, in the net's own column
 // order [sdf | features] (the kernel's weights keep that order), and the
 // reverse sweep starts from e_sdf in column 0.
 #include "common.cuh"
@@ -45,12 +44,8 @@ extern "C" int i2sdf_rev_bwd(const float* x, const float* c_out,
   if (n <= 0) return 0;
   if (n_fwd > kMaxSdf || n_t != n_fwd || n_fwd < 2)
     return (int)cudaErrorInvalidValue;
-  const Plan none{};        // no radiance net
-  const LightPlan no_l{};  // no light net
-  return (int)launch_bwd<false, false>(
-      x, nullptr, nullptr, c_out, out_cols, c_g, n, np, (const uint2*)w_fwd,
-      b_sdf, read_plan(fwd_desc, n_fwd), (const uint2*)w_t,
-      read_plan(t_desc, n_t), wsdf_col, nullptr, nullptr, none, nullptr,
-      none, nullptr, nullptr, nullptr, no_l, 1, mx, 0, lda, ldd, ldg, ws16,
-      ws32, table, out, stream);
+  return (int)launch_bwd(x, c_out, out_cols, c_g, n, np, (const uint2*)w_fwd,
+                         b_sdf, read_plan(fwd_desc, n_fwd), (const uint2*)w_t,
+                         read_plan(t_desc, n_t), wsdf_col, mx, lda, ldd, ldg,
+                         ws16, ws32, table, out, stream);
 }

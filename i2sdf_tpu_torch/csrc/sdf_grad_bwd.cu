@@ -289,8 +289,7 @@ extern "C" int i2sdf_sdf_grad_bwd(const float* x, const float* c_out,
     return (int)cudaErrorInvalidValue;
   const Plan fwd = read_plan(fwd_desc, n_fwd), tp = read_plan(t_desc, n_t);
   Scratch sc;
-  const long long* rest =
-      read_scratch(table, n_fwd, 0, 0, np, ws16, ws32, sc);
+  const long long* rest = read_scratch(table, n_fwd, np, ws16, ws32, sc);
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = tan_bwd_smem_bytes(lda, ldd, n_fwd - 1);
   cudaError_t err = set_smem((const void*)tangent_bwd_kernel, smem);
@@ -300,6 +299,6 @@ extern "C" int i2sdf_sdf_grad_bwd(const float* x, const float* c_out,
       (const uint2*)w_t, tp, wsdf, mx, lda, ldd, sc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_wgrad(fwd, nullptr, nullptr, sc, rest, ws32, out, st,
-                           kStreams, kTanPoints, 1);
+  return (int)launch_wgrad(fwd, sc, rest, ws32, out, st, kStreams,
+                           kTanPoints, 1);
 }

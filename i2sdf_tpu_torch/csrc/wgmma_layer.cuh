@@ -203,6 +203,40 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from shared memory to device memory, in this
+// thread's current bulk group (`bulk_commit` closes it).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This thread's bulk stores have read their shared memory (it may be
+// written again).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// This thread's bulk stores are complete in device memory.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// `count` arrivals at once.
+__device__ __forceinline__ void mbar_arrive_n(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
 // Generic-proxy stores to shared memory become visible to wgmma and bulk
 // copies (the async proxy).
 __device__ __forceinline__ void fence_async() {
@@ -353,23 +387,33 @@ __device__ __forceinline__ void wgmma<128>(float* d, uint64_t da,
 
 // ---- the ring -------------------------------------------------------------
 
-struct Ring {
-  unsigned char* slot;  // kRing slots of kSlotBytes
-  uint64_t* full;       // kRing barriers: the stage has landed
-  uint64_t* empty;      // kRing barriers: every consumer warp is done
+template <int kSlots>
+struct RingN {
+  unsigned char* slot;  // kSlots slots of kSlotBytes
+  uint64_t* full;       // kSlots barriers: the stage has landed
+  uint64_t* empty;      // kSlots barriers: every consumer warp is done
   int it;               // stages taken so far (each thread its own count)
 };
+using Ring = RingN<kRing>;
 
-// Carve the ring from shared memory at `at` (1024-byte aligned); thread 0
-// initialises the barriers. The caller syncs the block before use.
-__device__ __forceinline__ Ring make_ring(unsigned char* at) {
-  Ring r;
+template <int kSlots>
+__host__ __device__ constexpr int ring_bytes() {
+  return kSlots * kSlotBytes + 2 * kSlots * 8;
+}
+constexpr int kRingBytes = ring_bytes<kRing>();
+
+// Carve a ring of kSlots from shared memory at `at` (1024-byte aligned);
+// thread 0 initialises the barriers. The caller syncs the block before
+// use.
+template <int kSlots = kRing>
+__device__ __forceinline__ RingN<kSlots> make_ring(unsigned char* at) {
+  RingN<kSlots> r;
   r.slot = at;
-  r.full = reinterpret_cast<uint64_t*>(at + kRing * kSlotBytes);
-  r.empty = r.full + kRing;
+  r.full = reinterpret_cast<uint64_t*>(at + kSlots * kSlotBytes);
+  r.empty = r.full + kSlots;
   r.it = 0;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kRing; ++s) {
+    for (int s = 0; s < kSlots; ++s) {
       mbar_init(&r.full[s], 1);
       mbar_init(&r.empty[s], kConsumerWarps);
     }
@@ -378,8 +422,6 @@ __device__ __forceinline__ Ring make_ring(unsigned char* at) {
   }
   return r;
 }
-
-constexpr int kRingBytes = kRing * kSlotBytes + 2 * kRing * 8;
 
 // The producer: every stage of every layer of `p`, in order, into the
 // ring; a layer with kStageRows set as stages of that many rows of W^T,
@@ -410,18 +452,18 @@ __device__ __forceinline__ void produce(Ring& r,
 // columns of its own recomputes another's and writes nothing): wgmma
 // under a branch that depends on the thread makes ptxas serialize it.
 // Returns with the products retired.
-template <int NW, int NT>
+template <int NW, int NT, int kSlots>
 __device__ __forceinline__ void products(float* d0, float* d1, uint32_t a0,
                                          uint32_t a1, int b_row0, int K,
-                                         Ring& r) {
+                                         RingN<kSlots>& r) {
   const bool leader = (threadIdx.x & 31) == 0;
   int prev = -1;
   fence_regs<NW / 2>(d0);
   if constexpr (NT == 2) fence_regs<NW / 2>(d1);
   wgmma_fence();
   for (int c = 0; c * 64 < K; ++c, ++r.it) {
-    const int s = r.it % kRing;
-    mbar_wait(&r.full[s], (r.it / kRing) & 1);
+    const int s = r.it % kSlots;
+    mbar_wait(&r.full[s], (r.it / kSlots) & 1);
     const uint64_t db =
         desc_sw128(smem_addr(r.slot + s * kSlotBytes) + b_row0 * 128);
     const uint64_t da0 = desc_sw128(a0 + c * kChunkBytes);
@@ -456,6 +498,28 @@ struct Frag {
         tig(threadIdx.x & 3) {}
   __device__ __forceinline__ int row() const { return 16 * w + g; }
 };
+
+// How a layer of N columns splits over the two consumer warpgroups:
+// halves, or below 16 columns all to both, written by the first
+// (`active`).
+struct Split {
+  int nw, col0;
+  bool active;
+  __device__ __forceinline__ Split(int N, int cw)
+      : nw(N >= 16 ? N / 2 : N),
+        col0(N >= 16 ? cw * (N / 2) : 0),
+        active(N >= 16 || cw == 0) {}
+};
+
+// CALL(W) at a warpgroup's instantiated width W >= nw.
+#define I2SDF_BY_WIDTH(nw, CALL) \
+  switch (nw) {                  \
+    case 8: CALL(8); break;      \
+    case 16: CALL(16); break;    \
+    case 32: CALL(32); break;    \
+    case 64: CALL(64); break;    \
+    default: CALL(128); break;   \
+  }
 
 }  // namespace wg
 }  // namespace i2sdf

@@ -37,10 +37,10 @@ _SIGNATURES = {
                             _F, _I, _P],
     "i2sdf_render_core_fwd": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P,
                               _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "i2sdf_render_core_bwd": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
-                              _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
-                              _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                              _P, _P, _P, _P],
+    "i2sdf_render_core_bwd": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P,
+                              _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
+                              _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,
+                              _P, _P, _P],
     "i2sdf_rev_fwd": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,
                       _I, _P, _P, _P],
     "i2sdf_rev_bwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P,

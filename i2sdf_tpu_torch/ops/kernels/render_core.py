@@ -6,8 +6,10 @@ Replaces `i2sdf_tpu/ops/pallas/fused_train.py:449 get_render_core_op`:
 its forward (pallas_call at `:555`) is K3 (`csrc/render_core.cu`, on
 `csrc/wgmma_layer.cuh`, the nets as stage images: `CoreStages`), its
 backward (`:609`, `_make_bwd_kernel` at `:267-446`) is K4
-(`csrc/render_core_bwd.cu`, the nets in fragment order: `_KernelLayout`).
-Each CUDA source's header says what bounds it and how it is built.
+(`csrc/render_core_bwd.cu`, on the same primitive: K3's `CoreStages` and
+the transposed chains of `K4Stages`; its scratch, ring table and
+weight-gradient jobs: `K4Plan`). Each CUDA source's header says what
+bounds it and how it is built.
 
 The light head of the light-mask config (the `lcfg` / `detach_light`
 branch of the TPU op: `_light_forward` at `:173-195`, the forward at
@@ -26,7 +28,8 @@ relu'(features) (`fused_train.py:345-348`).
   too. On the card it is `RenderCoreTrain`, a `torch.autograd.Function`
   whose forward launches K3 and whose backward launches K4; it takes the
   *materialized* weights (weight norm applied outside by autograd) and
-  saves only its inputs, as `op_fwd` does (`fused_train.py:647-650`).
+  saves its inputs and K3's pack, as `op_fwd` saves its inputs
+  (`fused_train.py:647-650`).
 * `render_core_plain` / `render_core_train_plain`: the same functions in
   plain f32 PyTorch (the gradient by autograd, with `create_graph` for
   training; the light head as `_ref_light` in
@@ -36,9 +39,9 @@ relu'(features) (`fused_train.py:345-348`).
 
 The bounding-sphere clamp is applied outside the kernels, as
 `fused_train.py:771-777` does. The SDF net's fragment layout
-(`sdf_chains`), the backward's scratch plan (`_BwdPlan`) and its
-shared-memory size (`bwd_smem`) serve K5 and K6 too (`rev.py`); K6's
-kernel is K4's body without the radiance net (`csrc/common.cuh`).
+(`sdf_chains`), the mma.sync backward's scratch plan (`_BwdPlan`) and its
+shared-memory size (`bwd_smem`) serve K5, K6 and K12 (`rev.py`,
+`sdf_grad.py`; K6's sweep is `bwd_sweep_kernel` in `csrc/common.cuh`).
 """
 
 from __future__ import annotations
@@ -56,15 +59,19 @@ bwd_launches = 0  # K4 launches since the last reset_launch_counts()
 light_launches = 0      # K3 with the light head
 light_bwd_launches = 0  # K4 with the light head
 
-_ROWS = 32               # points per block (K3, and kSweepRows in K4)
-_MAX_WIDTH = 320         # K4: 8 warps x 5 tiles x 8 columns
+_ROWS = 32               # points per block (K3, and kSweepRows in K6)
+_MAX_WIDTH = 320         # K6, K9, K12: 8 warps x 5 tiles x 8 columns
+_MAX_SDF = 12            # K6, K12: SDF layer slots of the scratch table
 _K3_WIDTH = 256          # K3: a tile's four 64-column chunks, wgmma's N
-_K3_RAD_K = 320          # K3: tile 0's five chunks, the radiance input
+_K3_RAD_K = 320          # K3 and K4: five chunks, the radiance input
 _MAX_SMEM = 232448       # bytes a block may use on the H100
-_MAX_SDF, _MAX_RAD, _MAX_LIGHT = 12, 8, 4   # layer slots of K4's table
-_MAX_LAYERS = 16         # K3: a `Plan`'s rows (kMaxLayers)
-_MAX_SPLITS = 32         # point-range splits of K4's weight-gradient sums
+_MAX_LAYERS = 16         # K3, K4: a `Plan`'s rows (kMaxLayers)
+_MAX_SPLITS = 32         # point-range splits of the weight-gradient sums
 _PLAIN_CHUNK = 1 << 17
+_K4_POINTS = 64          # K4: points a block (kPts)
+_K4_REG_LAYERS = 16      # K4: layer slots of a region kind (kRegLayers)
+_K4_JOBS = 24            # K4: weight gradients (kMaxWJobs)
+_CHUNK = 64 * 128        # bytes of a 64-row, 64-column bf16 chunk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,147 +215,46 @@ def sdf_chain_t(icfg: mlp.ImplicitNetConfig, ws: list, sdf_col: int = 0):
     return sdft, rev, wsdf_col
 
 
-class _KernelLayout:
-    """The nets in K4's layout (fragment order), from materialized weights:
-
-    * `fwd`, `sdft`, `wsdf_col`: the SDF chain (`sdf_chains`), its output
-      layer as [features | sdf];
-    * `rad`, `radt`: the radiance chain (first layer's rows as
-      [features | PE(view)]) and its transpose, last layer first;
-    * with a light head (`lcfg`), `light` and `lightt`: the light chain,
-      its first layer's rows the features in the net's order, and its
-      transpose, last layer first (`n_light` layers; 0 without)."""
-
-    def __init__(self, icfg: mlp.ImplicitNetConfig,
-                 rcfg: mlp.RenderingNetConfig, w: CoreWeights,
-                 lcfg: mlp.ImplicitNetConfig | None = None):
-        F = icfg.feature_vector_size
-        if icfg.d_out != 1 or F % 2:
-            raise ValueError("render_core: needs d_out 1 and an even "
-                             "feature width")
-        if rcfg.embed_type != "positional" or rcfg.d_in != 3:
-            raise ValueError("render_core: the radiance net takes the "
-                             "positional view encoding")
-        dims = icfg.layer_dims()
-        d0 = dims[0]
-        n = len(dims) - 1
-        self.fwd, self.sdft, _, self.wsdf_col = sdf_chains(
-            icfg, [t.detach().float() for t in w.ws_sdf],
-            [t.detach().float() for t in w.bs_sdf], _sdf_perm(F))
-        rdims = rcfg.layer_dims()
-        vdim = rdims[0] - F
-        wr = [t.detach().float() for t in w.ws_rad]
-        br = [t.detach().float() for t in w.bs_rad]
-        wr[0] = wr[0][_rad_perm(vdim, F)]
-        nr = len(wr)
-        self.rad = mma_pack.pack_chain(
-            [dict(w=wr[l], b=br[l]) for l in range(nr)])
-        self.radt = mma_pack.pack_chain(
-            [dict(w=wr[l].t(), b=None, real=F if l == 0 else rdims[l])
-             for l in range(nr - 1, -1, -1)])
-        chains = [self.fwd, self.sdft, self.rad, self.radt]
-        self.light = self.lightt = None
-        nl = n_layers(lcfg)
-        if lcfg is not None:
-            check_light_net(icfg, lcfg)
-            wl = [t.detach().float() for t in w.ws_l]
-            bl = [t.detach().float() for t in w.bs_l]
-            self.light = mma_pack.pack_chain(
-                [dict(w=wl[l], b=bl[l]) for l in range(nl)])
-            self.lightt = mma_pack.pack_chain(
-                [dict(w=wl[l].t(), b=None) for l in range(nl - 1, -1, -1)])
-            chains += [self.light, self.lightt]
-        widest = max(p.max_width for p in chains)
-        if widest > _MAX_WIDTH:
-            raise ValueError(f"render_core: layer width above {_MAX_WIDTH}")
-        if n > _MAX_SDF or nr > _MAX_RAD or nl > _MAX_LIGHT:
-            raise ValueError("render_core: too many layers for the kernels")
-        self.n_sdf, self.n_rad, self.n_light = n, nr, nl
-        self.F, self.vdim = F, vdim
-        self.lda = mma_pack.row_stride(widest)
-        self.ldd = mma_pack.row_stride(int(self.fwd.plan[:-1, 1].max()))
-        self.ldg = mma_pack.round_up(d0, 8)
-        if bwd_smem(self) > _MAX_SMEM:
-            raise ValueError(f"render_core_bwd: needs {bwd_smem(self)} "
-                             "bytes of shared memory")
-        self.mx, self.md = icfg.multires, rcfg.multires
-        self.shapes = (tuple(tuple(t.shape) for t in w.ws_sdf),
-                       tuple(tuple(t.shape) for t in w.ws_rad),
-                       tuple(tuple(t.shape) for t in w.ws_l[:nl]))
-
-    def unpack_grads(self, out: torch.Tensor, plan: "_BwdPlan"):
-        """K4's flat output -> (dws_sdf, dbs_sdf, dws_rad, dbs_rad, dws_l,
-        dbs_l) in the nets' own layouts (the light lists empty without a
-        light head): padding cut, the SDF output layer's columns and the
-        radiance input layer's rows put back in order (the gather's
-        transpose, as autodiff of `fused_train.py:737-754` does)."""
-        (w_sdf, w_rad, w_l), n, nr = self.shapes, self.n_sdf, self.n_rad
-        dws, dbs = [], []
-        for p, (k, m) in enumerate(list(w_sdf) + list(w_rad) + list(w_l)):
-            K, N = plan.dims[p]
-            dws.append(out[plan.out[p]:plan.out[p] + K * N].view(K, N)[:k,
-                                                                        :m])
-            o = plan.out_db + plan.db[p]
-            dbs.append(out[o:o + m])
-        inv_sdf = np.argsort(_sdf_perm(self.F))
-        dws[n - 1] = dws[n - 1][:, inv_sdf]
-        dbs[n - 1] = dbs[n - 1][inv_sdf]
-        inv_rad = np.argsort(_rad_perm(self.vdim, self.F))
-        dws[n] = dws[n][inv_rad]
-        c = n + nr
-        return dws[:n], dbs[:n], dws[n:c], dbs[n:c], dws[c:], dbs[c:]
-
-
 def bwd_smem(k) -> int:
-    """The shared memory (bytes) of K4's and K6's sweep kernel
-    (`bwd_smem_bytes` in csrc/common.cuh) for a layout `k` with
-    `n_sdf`, `n_light`, `lda`, `ldd` and `ldg`."""
-    return (2 * ((2 + (k.n_light > 0)) * _ROWS * k.lda
-                 + (k.n_sdf - 1) * _ROWS * k.ldd)
+    """The shared memory (bytes) of K6's sweep kernel (`bwd_smem_bytes` in
+    csrc/common.cuh) for a layout `k` with `n_sdf`, `lda`, `ldd` and
+    `ldg`."""
+    return (2 * (2 * _ROWS * k.lda + (k.n_sdf - 1) * _ROWS * k.ldd)
             + 4 * _ROWS * (3 + 3 + 8 + 4 + k.ldg + k.lda))
 
 
 class _BwdPlan:
-    """K4's scratch layout at n points, and the int64 table that tells the
-    kernel where everything is (read in this order by `read_scratch` in
-    csrc/common.cuh); with no radiance and no light layers (`k.n_rad`,
-    `k.n_light` 0) it is K6's, and with `streams=4, rows=16, stash=False,
-    sdf_col=True` K12's. All sizes in elements; bf16 arrays live in one
-    scratch buffer, f32 arrays in another, each array 16-byte aligned.
+    """The mma.sync backward's scratch layout at n points, and the int64
+    table that tells the kernel where everything is (read in this order by
+    `read_scratch` in csrc/common.cuh): K6's, and with `streams=4, rows=16,
+    stash=False, sdf_col=True` K12's. All sizes in elements; bf16 arrays
+    live in one scratch buffer, f32 arrays in another, each array 16-byte
+    aligned.
 
     Per SDF layer l (K_l x N_l padded): `ax` (streams np, K_l) the layer's
-    input in each stream (K4/K6: [da_l ; X_l]; K12: [h ; t_0 ; t_1 ;
-    t_2]), `br` (streams np, N_l) their cotangents ([r_l ; dz_l]; [dz ;
-    rho_0 ; rho_1 ; rho_2]), so dW_l = ax^T br over streams np rows; with
-    `stash`, `dzx` (np, N_l) the second-order term injected into z_l and
-    `ah` (np, K_l, f32) d sdf / d h_l. With `sdf_col`, the output layer's
-    product takes the first stream alone (`br` np rows): its other
-    streams' cotangents live in the sdf column only, and their rank-3
-    share of that column is summed per block after the bias rows (at
-    `col_db`, K_l wide). Per radiance layer: `rx` (np, K) its inputs,
-    `rdz` (np, N) its output cotangents; per light layer likewise `lx`
-    and `ldz` (a hidden layer's `ldz` holds its activation derivative
-    until the backward overwrites it with dz). `dbpart` (blocks, tb) each
-    block of `rows` points' bias-gradient sums. Each weight gradient is
-    summed over `splits[p]` point ranges of `chunk[p]` rows into
-    `part[p]`, then the ranges are added in order (deterministic). `out`
-    (f32): every dW_p (K x N; SDF, radiance, light layers), then the tb
-    bias gradients (and with `sdf_col` the column's share)."""
+    input in each stream (K6: [da_l ; X_l]; K12: [h ; t_0 ; t_1 ; t_2]),
+    `br` (streams np, N_l) their cotangents ([r_l ; dz_l]; [dz ; rho_0 ;
+    rho_1 ; rho_2]), so dW_l = ax^T br over streams np rows; with `stash`,
+    `dzx` (np, N_l) the second-order term injected into z_l and `ah` (np,
+    K_l, f32) d sdf / d h_l. With `sdf_col`, the output layer's product
+    takes the first stream alone (`br` np rows): its other streams'
+    cotangents live in the sdf column only, and their rank-3 share of that
+    column is summed per block after the bias rows (at `col_db`, K_l
+    wide). `dbpart` (blocks, tb) each block of `rows` points' bias-gradient
+    sums. Each weight gradient is summed over `splits[p]` point ranges of
+    `chunk[p]` rows into `part[p]`, then the ranges are added in order
+    (deterministic). `out` (f32): every dW_p (K x N), then the tb bias
+    gradients (and with `sdf_col` the column's share)."""
 
     def __init__(self, k, n: int, streams: int = 2, rows: int = _ROWS,
                  stash: bool = True, sdf_col: bool = False):
-        ns, nr, nl = k.n_sdf, k.n_rad, k.n_light
+        ns = k.n_sdf
         # the weight-gradient products step over _ROWS (32) rows
         self.np = np_ = mma_pack.round_up(max(n, 1), _ROWS)
         self.blocks = np_ // rows
         Ks, Ns = [int(v) for v in k.fwd.plan[:, 0]], [int(v) for v in
                                                       k.fwd.plan[:, 1]]
-        rad = k.rad.plan if nr else np.zeros((0, 8), np.int32)
-        Kr, Nr = [int(v) for v in rad[:, 0]], [int(v) for v in rad[:, 1]]
-        light = k.light.plan if nl else np.zeros((0, 8), np.int32)
-        Kl, Nl = [int(v) for v in light[:, 0]], [int(v) for v in light[:, 1]]
-        self.dims = (list(zip(Ks, Ns)) + list(zip(Kr, Nr))
-                     + list(zip(Kl, Nl)))
+        self.dims = list(zip(Ks, Ns))
         self.n16 = self.n32 = 0
 
         def take16(size):
@@ -369,17 +275,13 @@ class _BwdPlan:
             self.ah = [-1] + [take32(np_ * K) for K in Ks[1:]]
         else:
             self.dzx = self.ah = [-1] * ns
-        self.rx = [take16(np_ * K) for K in Kr]
-        self.rdz = [take16(np_ * N) for N in Nr]
-        self.lx = [take16(np_ * K) for K in Kl]
-        self.ldz = [take16(np_ * N) for N in Nl]
-        self.col_db = sum(Ns) + sum(Nr) + sum(Nl)
+        self.col_db = sum(Ns)
         self.tb = self.col_db + (Ks[-1] if sdf_col else 0)
-        self.db = list(np.cumsum([0] + Ns + Nr + Nl)[:-1].astype(int))
+        self.db = list(np.cumsum([0] + Ns)[:-1].astype(int))
         self.dbpart = take32(self.blocks * self.tb)
         self.splits, self.chunk, self.part, self.out = [], [], [], []
         o = 0
-        for (K, N), m in zip(self.dims, m_sdf + [np_] * (nr + nl)):
+        for (K, N), m in zip(self.dims, m_sdf):
             steps = m // _ROWS
             per = -(-steps // min(_MAX_SPLITS, steps))
             self.splits.append(-(-steps // per))
@@ -390,10 +292,8 @@ class _BwdPlan:
         self.out_db = o
         self.n_out = o + self.tb
         self.table = np.ascontiguousarray(np.asarray(
-            self.ax + self.br + self.dzx + self.ah + self.rx + self.rdz
-            + self.lx + self.ldz
-            + [self.dbpart, self.tb] + self.db + self.splits + self.chunk
-            + self.part + self.out + [self.out_db], np.int64))
+            self.ax + self.br + self.dzx + self.ah + [self.dbpart, self.tb]
+            + self.db + self.splits + self.chunk + self.part + self.out + [self.out_db], np.int64))
 
 
 class CoreStages:
@@ -536,8 +436,8 @@ def _check_points(x, dirs, name):
 
 
 def _light_args(k) -> tuple:
-    """The light net's kernel arguments (null pointers without one), K3's
-    (`CoreStages`) or K4's (`_KernelLayout`)."""
+    """The light net's kernel arguments for K3 (null pointers without
+    one)."""
     if not k.n_light:
         return None, None, None, 0
     return (k.light.weights.data_ptr(), k.light.biases.data_ptr(),
@@ -602,11 +502,352 @@ def pack_cotangents(n: int, c_sdf, c_grad, c_rgb, device,
     return cot
 
 
-def render_core_bwd(k: _KernelLayout, x: torch.Tensor, dirs: torch.Tensor,
-                    cot: torch.Tensor, detach_light: bool = True):
+class K4Stages:
+    """What K4 needs beside K3's `CoreStages`: the transposed products' stage
+    images, in one blob (`t`, `mma_pack.pack_stage_chain` of W_l^T, so
+    each stage holds W's rows over a 64-deep chunk of the product's
+    reduction, a layer's output columns), and the sdf column of the SDF
+    output layer:
+
+    * `t.plan[:n_sdf - 1]` (`tsdf`): the SDF net's layers n-1 .. 1, the
+      output layer's input rows as [features | sdf] (`_sdf_perm`); each
+      row's `real` is the width that continues down the net (the hidden
+      part before a skip's encoding) and SCALE marks a skip's 1/sqrt(2),
+      as `sdf_chain_t`'s rows;
+    * then (`trad`) the radiance net's layers n_r-1 .. 0, layer 0's output
+      cut to the F feature columns;
+    * then (`tlight`) the light net's layers n_l-1 .. 0 (none without a
+      light head);
+    * `wsdf`: W_{n-1}[:, sdf] rounded to bf16 (f32, zero-padded), d sdf /
+      d h of the last hidden layer."""
+
+    def __init__(self, icfg: mlp.ImplicitNetConfig,
+                 rcfg: mlp.RenderingNetConfig, w: CoreWeights,
+                 lcfg: mlp.ImplicitNetConfig | None = None):
+        F = icfg.feature_vector_size
+        dims, rdims = icfg.layer_dims(), rcfg.layer_dims()
+        d0, n = dims[0], len(dims) - 1
+        ws = [t.detach().float() for t in w.ws_sdf]
+        ws[-1] = ws[-1][:, _sdf_perm(F)]
+        layers = []
+        for l in range(n - 1, 0, -1):
+            if l in icfg.skip_in:
+                real, col, flags = dims[l] - d0, dims[l] - d0, mma_pack.SCALE
+            else:
+                real, col, flags = dims[l], mma_pack.NO_COL, 0
+            layers.append(dict(w=ws[l].t(), real=real, col=col, flags=flags))
+        wr = [t.detach().float() for t in w.ws_rad]
+        wr[0] = wr[0][_rad_perm(rdims[0] - F, F)][:F]
+        nr = len(wr)
+        layers += [dict(w=wr[l].t(), real=F if l == 0 else rdims[l])
+                   for l in range(nr - 1, -1, -1)]
+        wl = [t.detach().float() for t in w.ws_l]
+        layers += [dict(w=wl[l].t()) for l in range(len(wl) - 1, -1, -1)]
+        self.t = mma_pack.pack_stage_chain(layers)
+        self.n_sdf, self.n_rad, self.n_light = n, nr, len(wl)
+        self.tsdf = np.ascontiguousarray(self.t.plan[:n - 1])
+        self.trad = np.ascontiguousarray(self.t.plan[n - 1:n - 1 + nr])
+        self.tlight = np.ascontiguousarray(self.t.plan[n - 1 + nr:])
+        K = ws[-1].shape[0]
+        self.wsdf = torch.zeros(mma_pack.round_up(K, 64) + 8,
+                                dtype=torch.float32, device=ws[0].device)
+        self.wsdf[:K] = ws[-1][:, F].to(torch.bfloat16).float()
+        if int(self.t.plan[:, 1].max()) > _K3_WIDTH or (
+                int(self.t.plan[:, 0].max()) > _K3_RAD_K):
+            raise ValueError("render_core_bwd: a layer wider than "
+                             f"{_K3_WIDTH}")
+        if F % 8:
+            raise ValueError("render_core_bwd: needs a feature width that "
+                             "is a multiple of 8")
+
+
+def _chunks(cols: int) -> int:
+    return -(-int(cols) // 64)
+
+
+# ring table items (`ItemKind`, `Bases` in csrc/render_core_bwd.cu)
+_LOAD, _STAGE, _WAIT = 0, 1, 2
+_B_SCRATCH, _B_SDF, _B_RAD, _B_LIGHT, _B_T = range(5)
+# region kinds (`RegionKind`)
+(REG_X, REG_DZ, REG_DA, REG_R, REG_Q, REG_AH, REG_DZX, REG_RX, REG_RDZ,
+ REG_LX, REG_LDZ, REG_LS, REG_CLG) = range(13)
+_REG_KINDS = 13
+_SLOT = 4 * _CHUNK       # a ring slot: 32 KB
+
+
+class K4Plan:
+    """K4's scratch at n points (bytes), the ring table its producer walks
+    and its weight-gradient jobs, from K3's `CoreStages` (`st`) and
+    `K4Stages` (`t`); `coupled`: the light head with `detach_light` off.
+    All of it depends only on the shapes (`plan_for` caches it).
+
+    * `regions[kind][l]` = (byte offset of block 0's tile, bytes a
+      block): each 64-point block's tiles as the sweep stores them, 64-row
+      chunks of 64 columns in the 128-byte swizzle (8 KB each; the f32
+      `REG_AH` and `REG_CLG` tiles two 32 KB slots in accumulator order).
+      The operands of the weight gradients: `REG_X`, `REG_DZ`, `REG_DA`,
+      `REG_R` per SDF layer, `REG_RX`, `REG_RDZ` per radiance layer,
+      `REG_LX`, `REG_LDZ` per light layer; the stash: `REG_Q` (q_l),
+      `REG_AH` (ah_l, f32), `REG_DZX` (dz_extra_l), `REG_LS` (a hidden
+      light layer's s), `REG_CLG` (the light's gated feature cotangent).
+      Then every block's bias-gradient row (`dbpart`, `tb` f32 columns;
+      weight gradient p's at `db[p]`), and 32 KB of slack that the
+      products' 256-column B reads may run into.
+    * `script`: (items, 4) int64, the ring's items in the order the
+      consumers take them (`i2sdf_render_core_bwd`'s sweeps): [kind |
+      base << 8, byte offset, bytes a block, bytes]; a load (weight
+      stages from a chain's blob, a stash tile from the scratch), a
+      staging slot handed out empty, or a wait until the consumers have
+      completed that many sweeps' stores.
+    * `jobs`: (p, 18) int64 per weight gradient, `WJob`'s fields: the
+      operand pairs' regions, the partials' f32 offset in `ws32`, the
+      pairs, K, N (the weight in kernel order), A's chunks, the blocks,
+      blocks a split, splits, the output's offset in `out`; `dims` its
+      (K, N)."""
+
+    def __init__(self, st: CoreStages, t: K4Stages, n: int, coupled: bool):
+        self.blocks = B = -(-max(n, 1) // _K4_POINTS)
+        fwd, rad = st.sdf.plan, st.rad.plan
+        light = st.light.plan if st.n_light else np.zeros((0, 8), np.int32)
+        ns, nr, nl = t.n_sdf, t.n_rad, t.n_light
+        out_k = int(t.tsdf[0, 0])
+        # the weights' (K, N) in kernel order and their A, B chunks
+        Ks = [int(v) for v in fwd[:ns - 1, 0]] + [int(fwd[ns, 0])]
+        Ns = [int(v) for v in fwd[:ns - 1, 1]] + [out_k]
+        self.scratch_bytes = 0
+        self.regions = [[(0, 0)] * _K4_REG_LAYERS for _ in range(_REG_KINDS)]
+
+        def take(kind, l, chunks):
+            self.regions[kind][l] = (self.scratch_bytes, chunks * _CHUNK)
+            self.scratch_bytes += B * chunks * _CHUNK
+
+        for l in range(ns):
+            take(REG_X, l, _chunks(Ks[l]))
+            take(REG_DZ, l, _chunks(Ns[l]))
+            take(REG_DA, l, _chunks(Ks[l]))
+            take(REG_R, l, _chunks(Ns[l]))
+        for l in range(ns - 1):
+            take(REG_Q, l, _chunks(Ns[l]))
+            take(REG_DZX, l, _chunks(Ns[l]))
+            if l:
+                take(REG_AH, l, 8)
+        for l in range(nr):
+            take(REG_RX, l, _chunks(rad[l, 0]))
+            take(REG_RDZ, l, _chunks(rad[l, 1]))
+        for l in range(nl):
+            take(REG_LX, l, _chunks(light[l, 0]))
+            take(REG_LDZ, l, _chunks(light[l, 1]))
+            if l < nl - 1:
+                take(REG_LS, l, _chunks(light[l, 1]))
+        if coupled:
+            take(REG_CLG, 0, 8)
+        # the weight gradients: SDF (output layer [features | sdf]),
+        # radiance (layer 0's rows [features | PE(view)]), light
+        real_n = ([int(v) for v in fwd[:ns - 1, 2]] + [st.F + 1]
+                  + [int(v) for v in rad[:, 2]] + [int(v) for v in light[:, 2]])
+        self.db = list(np.cumsum([0] + real_n)[:-1].astype(int))
+        self.tb = int(sum(real_n))
+        self.dbpart = self.scratch_bytes
+        self.scratch_bytes += mma_pack.round_up(B * self.tb * 4, 1024)
+        self.scratch_bytes += _SLOT
+        self.script = self._script(st, t, coupled)
+        self.jobs, self.dims, self.n32, self.out = self._jobs(st, t, real_n)
+        self.out_db = int(sum(k * n for k, n in self.dims))
+        self.n_out = self.out_db + self.tb
+        reg = np.zeros(_REG_KINDS * _K4_REG_LAYERS * 2 + 2 + len(real_n),
+                       np.int64)
+        for kind in range(_REG_KINDS):
+            for l, (off, stride) in enumerate(self.regions[kind]):
+                reg[2 * (kind * _K4_REG_LAYERS + l):][:2] = (off, stride)
+        o = _REG_KINDS * _K4_REG_LAYERS * 2
+        reg[o:o + 2] = (self.dbpart, self.tb)
+        reg[o + 2:] = self.db
+        self.reg = reg
+        self.db_host = np.asarray([self.dbpart, self.tb, self.out_db],
+                                  np.int64)
+        self.dev = None   # (reg, script) on the card, at first launch
+
+    def _script(self, st, t, coupled) -> np.ndarray:
+        items, state = [], {"done": 0, "waited": 0}
+        ns, nr, nl = t.n_sdf, t.n_rad, t.n_light
+        fwd, rad = st.sdf.plan, st.rad.plan
+        light = st.light.plan if nl else None
+
+        def weights(base, row):
+            K, N, woff = int(row[0]), int(row[1]), int(row[3])
+            for c in range(_chunks(K)):
+                items.append((_LOAD | base << 8, 2 * woff + c * N * 128, 0,
+                              N * 128))
+
+        def load(kind, l, nbytes, extra=0):
+            if state["waited"] < state["done"]:
+                items.append((_WAIT, state["done"], 0, 0))
+                state["waited"] = state["done"]
+            off, stride = self.regions[kind][l]
+            items.append((_LOAD | _B_SCRATCH << 8, off + extra, stride,
+                          nbytes))
+
+        def stage():
+            items.append((_STAGE, 0, 0, 0))
+
+        def done():
+            state["done"] += 1
+
+        def tile(cols):
+            return _chunks(cols) * _CHUNK
+
+        for l in range(ns - 1):                      # 1. SDF forward
+            weights(_B_SDF, fwd[l])
+            stage()
+        weights(_B_SDF, fwd[ns])
+        done()
+        if nl:                                       # 1b. the light head
+            for l in range(nl):
+                weights(_B_LIGHT, light[l])
+                if l < nl - 1:
+                    stage()
+            done()
+            for l in range(nl - 1, 0, -1):
+                weights(_B_T, t.tlight[nl - 1 - l])
+                load(REG_LS, l - 1, tile(light[l - 1, 1]))
+            if coupled:
+                weights(_B_T, t.tlight[nl - 1])
+                load(REG_LX, 0, tile(light[0, 0]))
+                stage()
+                stage()
+            done()
+        for l in range(nr):                          # 2. radiance forward
+            weights(_B_RAD, rad[l])
+        done()
+        for l in range(nr - 1, 0, -1):               # 3. radiance backward
+            weights(_B_T, t.trad[nr - 1 - l])
+            load(REG_RX, l, tile(rad[l, 0]))
+        weights(_B_T, t.trad[nr - 1])
+        if coupled:
+            load(REG_CLG, 0, _SLOT)
+            load(REG_CLG, 0, _SLOT, _SLOT)
+        load(REG_Q, ns - 2, tile(fwd[ns - 2, 1]))    # 4. reverse sweep
+        for l in range(ns - 2, 0, -1):
+            weights(_B_T, t.tsdf[ns - 1 - l])
+            load(REG_Q, l - 1, tile(fwd[l - 1, 1]))
+            stage()
+            stage()
+        done()
+        for l in range(ns - 1):                      # 5-6. upward sweep
+            weights(_B_SDF, fwd[l])
+            load(REG_Q, l, tile(fwd[l, 1]))
+            if l < ns - 2:
+                load(REG_AH, l + 1, _SLOT)
+                load(REG_AH, l + 1, _SLOT, _SLOT)
+            stage()
+        done()
+        for l in range(ns - 1, 0, -1):               # 7. downward sweep
+            weights(_B_T, t.tsdf[ns - 1 - l])
+            load(REG_Q, l - 1, tile(fwd[l - 1, 1]))
+            load(REG_DZX, l - 1, tile(fwd[l - 1, 1]))
+        return np.ascontiguousarray(np.asarray(items, np.int64))
+
+    def _jobs(self, st, t, real_n):
+        ns, nr, nl = t.n_sdf, t.n_rad, t.n_light
+        fwd, rad = st.sdf.plan, st.rad.plan
+        light = st.light.plan if nl else np.zeros((0, 8), np.int32)
+        R, B = self.regions, self.blocks
+        per = -(-B // min(_MAX_SPLITS, B))
+        splits = -(-B // per)
+        rows, dims, outs = [], [], []
+        n32 = o = 0
+        # the weights' K (their A side, padded to 16) in kernel order
+        real_k = [int(v) for v in fwd[:ns - 1, 0]] + [int(fwd[ns, 0])]
+        for p in range(ns + nr + nl):
+            if p < ns:
+                l = p
+                pairs = [(R[REG_X][l], R[REG_DZ][l]),
+                         (R[REG_DA][l], R[REG_R][l])]
+                K = real_k[l]
+            elif p < ns + nr:
+                l = p - ns
+                pairs = [(R[REG_RX][l], R[REG_RDZ][l])]
+                K = int(rad[l, 0])
+            else:
+                l = p - ns - nr
+                pairs = [(R[REG_LX][l], R[REG_LDZ][l])]
+                K = int(light[l, 0])
+            N = real_n[p]
+            ka = pairs[0][0][1] // _CHUNK
+            pairs = pairs + [pairs[0]] * (2 - len(pairs))
+            row = ([pairs[0][0][0], pairs[1][0][0], pairs[0][0][1],
+                    pairs[1][0][1], pairs[0][1][0], pairs[1][1][0],
+                    pairs[0][1][1], pairs[1][1][1], n32,
+                    2 if p < ns else 1, K, N, ka, B, per, splits, o, 0])
+            rows.append(row)
+            dims.append((K, N))
+            outs.append(o)
+            n32 += splits * K * N
+            o += K * N
+        if len(rows) > _K4_JOBS:
+            raise ValueError("render_core_bwd: too many layers")
+        return (np.ascontiguousarray(np.asarray(rows, np.int64)), dims,
+                n32, outs)
+
+
+_PLANS: dict = {}
+
+
+def plan_for(st: CoreStages, t: K4Stages, n: int,
+             coupled: bool) -> K4Plan:
+    """K4's plan for these shapes, built once."""
+    key = (st.sdf.plan.tobytes(), st.rad.plan.tobytes(),
+           None if st.light is None else st.light.plan.tobytes(),
+           t.t.plan.tobytes(), -(-max(n, 1) // _K4_POINTS), coupled)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = K4Plan(st, t, n, coupled)
+    return plan
+
+
+def unpack_grads(st: CoreStages, t: K4Stages, out: torch.Tensor,
+                 plan: K4Plan):
+    """K4's flat output -> (dws_sdf, dbs_sdf, dws_rad, dbs_rad, dws_l,
+    dbs_l) in the nets' own layouts (the light lists empty without a light
+    head): padding cut (the real widths from the plans' rows), the SDF
+    output layer's columns and the radiance input layer's rows put back in
+    order (the gather's transpose, as autodiff of `fused_train.py:737-754`
+    does)."""
+    F, ns, nr = st.F, t.n_sdf, t.n_rad
+    fwd, rad = st.sdf.plan, st.rad.plan
+    shapes = []
+    for l in range(ns):
+        k = (3 + 6 * st.mx if l == 0 else int(fwd[l - 1, 2])
+             + (3 + 6 * st.mx if fwd[l, 5] & mma_pack.SKIP_IN else 0))
+        shapes.append((k, int(fwd[l, 2]) if l < ns - 1 else F + 1))
+    vdim = 3 + 6 * st.md
+    shapes += [(F + vdim if l == 0 else int(rad[l - 1, 2]), int(rad[l, 2]))
+               for l in range(nr)]
+    if t.n_light:
+        lp = st.light.plan
+        shapes += [(F if l == 0 else int(lp[l - 1, 2]), int(lp[l, 2]))
+                   for l in range(t.n_light)]
+    dws, dbs = [], []
+    for p, (k, m) in enumerate(shapes):
+        K, N = plan.dims[p]
+        dws.append(out[plan.out[p]:plan.out[p] + K * N].view(K, N)[:k, :m])
+        o = plan.out_db + plan.db[p]
+        dbs.append(out[o:o + m])
+    inv_sdf = np.argsort(_sdf_perm(F))
+    dws[ns - 1] = dws[ns - 1][:, inv_sdf]
+    dbs[ns - 1] = dbs[ns - 1][inv_sdf]
+    dws[ns] = dws[ns][np.argsort(_rad_perm(vdim, F))]
+    c = ns + nr
+    return dws[:ns], dbs[:ns], dws[ns:c], dbs[ns:c], dws[c:], dbs[c:]
+
+
+def render_core_bwd(st: CoreStages, t: K4Stages, x: torch.Tensor,
+                    dirs: torch.Tensor, cot: torch.Tensor,
+                    detach_light: bool = True):
     """K4: the gradients of <cot, [grad | sdf | rgb | lmask]> with respect
     to the materialized weights and biases of the nets (unclamped
-    outputs), as (dws_sdf, dbs_sdf, dws_rad, dbs_rad, dws_l, dbs_l) lists
+    outputs), from K3's pack `st` and `t` (`K4Stages` of the same
+    weights), as (dws_sdf, dbs_sdf, dws_rad, dbs_rad, dws_l, dbs_l) lists
     of f32 tensors (the light lists empty without a light head; with one,
     `detach_light` off lets the light cotangent reach the SDF net through
     the features). CUDA tensors only: the plain backward is autograd of
@@ -618,36 +859,42 @@ def render_core_bwd(k: _KernelLayout, x: torch.Tensor, dirs: torch.Tensor,
                          "render_core_train_plain")
     _check_points(x, dirs, "render_core_bwd")
     mma_pack.check_input(cot, "cot", cols=8)
-    if cot.shape[0] != x.shape[0] or k.fwd.weights.device != x.device:
+    if cot.shape[0] != x.shape[0] or st.sdf.weights.device != x.device:
         raise ValueError("render_core_bwd: cotangents, points and weights "
                          "disagree in length or device")
     n = x.shape[0]
-    plan = _BwdPlan(k, n)
-    ws16 = torch.empty(plan.n16, dtype=torch.bfloat16, device=x.device)
+    coupled = bool(st.n_light) and not detach_light
+    plan = plan_for(st, t, n, coupled)
+    if plan.dev is None or plan.dev[0].device != x.device:
+        plan.dev = (torch.from_numpy(plan.reg).to(x.device),
+                    torch.from_numpy(plan.script).to(x.device))
+    reg, script = plan.dev
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=x.device)
     ws32 = torch.empty(plan.n32, dtype=torch.float32, device=x.device)
     out = torch.empty(plan.n_out, dtype=torch.float32, device=x.device)
-    lightt = ((k.lightt.weights.data_ptr(), k.lightt.plan.ctypes.data,
-               k.n_light) if k.n_light else (None, None, 0))
+    nl = st.n_light
     lib = build.load_library()
     err = lib.i2sdf_render_core_bwd(
-        x.data_ptr(), dirs.data_ptr(), cot.data_ptr(), n, plan.np,
-        k.fwd.weights.data_ptr(), k.fwd.biases.data_ptr(),
-        k.fwd.plan.ctypes.data, k.fwd.n_layers,
-        k.sdft.weights.data_ptr(), k.sdft.plan.ctypes.data,
-        k.sdft.n_layers, k.wsdf_col.data_ptr(),
-        k.rad.weights.data_ptr(), k.rad.biases.data_ptr(),
-        k.rad.plan.ctypes.data, k.rad.n_layers,
-        k.radt.weights.data_ptr(), k.radt.plan.ctypes.data,
-        k.radt.n_layers, *_light_args(k), *lightt, int(bool(detach_light)),
-        k.mx, k.md, k.lda, k.ldd, k.ldg,
-        ws16.data_ptr(), ws32.data_ptr(), plan.table.ctypes.data,
-        out.data_ptr(), mma_pack.stream_of(x))
+        x.data_ptr(), dirs.data_ptr(), cot.data_ptr(), n, plan.blocks,
+        st.sdf.weights.data_ptr(), st.sdf.biases.data_ptr(),
+        st.sdf.plan.ctypes.data, st.sdf.n_layers,
+        st.rad.weights.data_ptr(), st.rad.biases.data_ptr(),
+        st.rad.plan.ctypes.data, st.rad.n_layers,
+        *((st.light.weights.data_ptr(), st.light.biases.data_ptr(),
+           st.light.plan.ctypes.data) if nl else (None, None, None)), nl,
+        t.t.weights.data_ptr(), t.tsdf.ctypes.data, t.tsdf.shape[0],
+        t.trad.ctypes.data, t.tlight.ctypes.data if nl else None,
+        t.wsdf.data_ptr(), int(bool(detach_light)), st.mx, st.md, st.F,
+        scratch.data_ptr(), ws32.data_ptr(), reg.data_ptr(),
+        script.data_ptr(), plan.script.shape[0], plan.jobs.ctypes.data,
+        plan.jobs.shape[0], plan.db_host.ctypes.data, out.data_ptr(),
+        mma_pack.stream_of(x))
     build.check(err, "render_core_bwd")
-    if k.n_light:
+    if nl:
         light_bwd_launches += 1
     else:
         bwd_launches += 1
-    return k.unpack_grads(out, plan)
+    return unpack_grads(st, t, out, plan)
 
 
 class RenderCoreTrain(torch.autograd.Function):
@@ -656,13 +903,16 @@ class RenderCoreTrain(torch.autograd.Function):
     apply(icfg, rcfg, lcfg, detach_light, x, dirs, *weights.flat()) ->
     (sdf, grad, rgb), and the light mask with a light head (`lcfg`),
     unclamped. Gradients flow to the weights and biases only (x and dirs
-    are constants: sampler depths and cameras)."""
+    are constants: sampler depths and cameras). The forward's pack
+    (`CoreStages`) stays in `ctx` for the backward, which packs only the
+    transposed chains (`K4Stages`)."""
 
     @staticmethod
     def forward(ctx, icfg, rcfg, lcfg, detach_light, x, dirs, *flat):
         w = CoreWeights.unflat(flat, n_layers(icfg), n_layers(rcfg),
                                n_layers(lcfg))
-        outs = _launch_fwd(CoreStages(icfg, rcfg, w, lcfg), x, dirs)
+        ctx.stages = CoreStages(icfg, rcfg, w, lcfg)
+        outs = _launch_fwd(ctx.stages, x, dirs)
         ctx.save_for_backward(x, dirs, *flat)
         ctx.cfgs = (icfg, rcfg, lcfg, detach_light)
         return outs
@@ -676,8 +926,8 @@ class RenderCoreTrain(torch.autograd.Function):
                                n_layers(lcfg))
         cot = pack_cotangents(x.shape[0], c_sdf, c_grad, c_rgb, x.device,
                               c_lm)
-        grads = render_core_bwd(_KernelLayout(icfg, rcfg, w, lcfg), x, dirs,
-                                cot, detach_light)
+        grads = render_core_bwd(ctx.stages, K4Stages(icfg, rcfg, w, lcfg),
+                                x, dirs, cot, detach_light)
         return (None,) * 6 + tuple(t for g in grads for t in g)
 
 

@@ -43,9 +43,6 @@ class RevLayout:
     weights and biases: `fwd`, `sdft`, `rev` and `wsdf_col` as
     `render_core.sdf_chains` builds them, in the net's column order."""
 
-    # K6's scratch plan has no radiance and no light layers
-    n_rad, rad, n_light = 0, None, 0
-
     def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs):
         if icfg.d_out != 1:
             raise ValueError("rev: needs d_out 1")

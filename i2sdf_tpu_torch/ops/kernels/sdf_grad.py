@@ -123,9 +123,6 @@ class SdfGradLayout:
     layer's sdf column (`wsdf_col`) are built at its first launch
     (`backward`), so K10 and K11 pack and check only what they run."""
 
-    # K12's scratch plan has no radiance and no light layers
-    n_rad, rad, n_light = 0, None, 0
-
     def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs):
         if icfg.d_out != 1 or icfg.output_activation is not None:
             raise ValueError("sdf_grad: needs d_out 1 and no output "

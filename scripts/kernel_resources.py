@@ -8,8 +8,9 @@ build's flags (`i2sdf_tpu_torch/ops/kernels/build.py`) and `-Xptxas -v`
 into a temporary object, all sources in parallel, and prints one JSON line
 per kernel entry: the source, the demangled name, registers, spill stores
 and loads (bytes), stack frame (bytes), the SASS's count of `HGMMA`
-(wgmma) and of bulk copies (`UBLKCP`, `cp.async.bulk`) and its highest
-register (`max_reg`) from `cuobjdump -sass`, and ptxas's warnings (a `setmaxnreg` it ignored, wgmma it
+(wgmma) and of bulk copies (`UBLKCP`, `cp.async.bulk`; `bulk_ops` by
+opcode, whose suffix names the direction) and its highest register
+(`max_reg`) from `cuobjdump -sass`, and ptxas's warnings (a `setmaxnreg` it ignored, wgmma it
 serialized). Needs `nvcc`, so it runs on the machine with the card.
 """
 
@@ -32,6 +33,7 @@ _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
 _SASS_FN = re.compile(r"Function : (\S+)")
+_BULK = re.compile(r"\b(UBLKCP\S*)")
 _SASS_REG = re.compile(r"\bR(\d+)\b")
 _WARN = re.compile(r"ptxas (?:info|warning)\s*: (.*(?:setmaxnreg|wgmma|"
                    r"serializ|C7508|C7510|C7515).*)")
@@ -65,7 +67,8 @@ def report(text: str) -> list[dict]:
 
 def sass_counts(obj: Path) -> dict:
     """{mangled kernel name: [HGMMA count, UBLKCP count, highest register
-    R<n>]} of an object."""
+    R<n>, {bulk-copy opcode with its direction suffix: count}]} of an
+    object."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
                          text=True, check=True).stdout
@@ -73,10 +76,12 @@ def sass_counts(obj: Path) -> dict:
     for line in out.splitlines():
         if m := _SASS_FN.search(line):
             name = m.group(1)
-            counts[name] = [0, 0, -1]
+            counts[name] = [0, 0, -1, {}]
         elif name is not None:
             counts[name][0] += "HGMMA" in line
             counts[name][1] += "UBLKCP" in line
+            for op in _BULK.findall(line):
+                counts[name][3][op] = counts[name][3].get(op, 0) + 1
             for r in _SASS_REG.findall(line):
                 counts[name][2] = max(counts[name][2], int(r))
     return counts
@@ -101,11 +106,12 @@ def main(argv: list[str]) -> int:
             sass = sass_counts(Path(tmp) / f"{src.stem}.o")
             warnings = _WARN.findall(out)
             for row in report(out):
-                hg, bulk, top = sass.get(row.pop("mangled"),
-                                         (None, None, None))
+                hg, bulk, top, ops = sass.get(row.pop("mangled"),
+                                              (None, None, None, None))
                 print(json.dumps({"source": src.name, **row, "hgmma": hg,
-                                  "bulk_copies": bulk, "max_reg": top,
-                                  "warnings": warnings}), flush=True)
+                                  "bulk_copies": bulk, "bulk_ops": ops,
+                                  "max_reg": top, "warnings": warnings}),
+                      flush=True)
     return 1 if failed else 0
 
 

@@ -1,13 +1,15 @@
-"""Plant faults in copies of the tree and show that the smoke's K1 and K3
-checks catch each one.
+"""Plant faults in copies of the tree and show that the smoke's K1, K3 and
+K4 checks catch each one.
 
     python scripts/plant_faults.py [FAULT ...]
 
 For each fault (default: all of `FAULTS`), copies the package and
 `chip_smoke.py` into a temporary directory, changes one or two lines of
-the copy, builds the copy's kernels there and runs `chip_smoke.check_k1`
-and `chip_smoke.check_k3` (the flagship config's K3 and the light
-config's K3-light) from the copy, each in its own process. A check that
+the copy, builds the copy's kernels there and runs, each in its own
+process, the checks the fault must fail: `chip_smoke.check_k1`,
+`chip_smoke.check_k3` (the flagship config's K3, `k3`, and the light
+config's K3-light, `k3_light`; both also on a net of odd depth) and
+`chip_smoke.check_k4` (the training config's K4, `k4`). A check that
 raises has caught the fault. Prints one JSON line per fault, and exits
 nonzero if a check named in the fault's `must_fail` passed. Needs a CUDA
 device and `nvcc`; the repository itself is not touched.
@@ -32,7 +34,7 @@ FAULTS = {
         "return torch.arange(8, device=device)[None, :] ^ (r[:, None] % 8)",
         "return torch.arange(8, device=device)[None, :] ^ ((r[:, None] + 1)"
         " % 8)",
-        ("k1", "k3", "k3_light")),
+        ("k1", "k3", "k3_light", "k4")),
     # K3 writes the encoding's x tangent into t_y's rows and its y tangent
     # into t_x's, at layer 0 and at the skip (exchanging the two streams at
     # every layer's epilogue instead cancels out after an even number of
@@ -54,6 +56,23 @@ FAULTS = {
          "    pe_streams(t0, t1, enc, next[kCol], next[kK], kInvSqrt2);\n",
          ""),
         ("k1", "k3", "k3_light")),
+    # K3 exchanges t_x and t_y at every hidden layer's epilogue (over an
+    # even number of layers the exchange cancels: the checks' odd-depth
+    # nets show it)
+    "epilogue_tangents_exchanged": (
+        ("i2sdf_tpu_torch/csrc/render_core.cu",
+         "      put_pair(t0, r + 8, col, s0 * p0[2], s1 * p0[3]);\n"
+         "      put_pair(t1, r, col, s0 * p1[0], s1 * p1[1]);\n",
+         "      put_pair(t0, r + 8, col, s0 * p1[0], s1 * p1[1]);\n"
+         "      put_pair(t1, r, col, s0 * p0[2], s1 * p0[3]);\n"),
+        ("k3", "k3_light")),
+    # K4's upward sweep reads back layer l - 1's stash q where it needs
+    # layer l's (the ring table's item)
+    "k4_stash_one_layer_off": (
+        "i2sdf_tpu_torch/ops/kernels/render_core.py",
+        "            load(REG_Q, l, tile(fwd[l, 1]))\n",
+        "            load(REG_Q, max(l - 1, 0), tile(fwd[l, 1]))\n",
+        ("k4",)),
 }
 
 CHECK = """
@@ -63,10 +82,13 @@ from i2sdf_tpu_torch.ops.kernels import build
 build.build()
 device = torch.device("cuda", 0)
 which = sys.argv[1]
-conf = cs.light_conf(train=False) if which == "k3_light" else cs.eval_conf()
+conf = (cs.light_conf(train=False) if which == "k3_light"
+        else cs.train_conf() if which == "k4" else cs.eval_conf())
 cfg, model = cs.seeded_model(conf, device)
 if which == "k1":
     cs.check_k1(model, cfg, cs.k1_points(cfg, conf, device))
+elif which == "k4":
+    cs.check_k4(model, cfg, conf, device)
 else:
     cs.check_k3(model, cfg, conf, device)
 """
@@ -103,7 +125,7 @@ def main(argv: list[str]) -> int:
         for fault in faults:
             tree = copy_tree(fault, patches(fault), Path(tmp))
             caught = {}
-            for check in ("k1", "k3", "k3_light"):
+            for check in FAULTS[fault][-1]:
                 proc = subprocess.run(
                     [sys.executable, "-c", CHECK, check], cwd=tree,
                     capture_output=True, text=True, timeout=900)

@@ -39,3 +39,13 @@ def rendering_from_jax(jparams, jcfg) -> tmlp.RenderingNet:
                          for leaf, v in leaves.items()})
     return net
 
+
+
+def perturbed(jparams, seed):
+    """The JAX parameters with every leaf moved by 0.01 N(0, 1), drawn with
+    numpy (`chip_smoke.perturbed_net`'s perturbation): off the init's zero
+    encoding rows of layer 0 and the skip, which hide layout faults."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda v: np.asarray(v) + 0.01 * rng.normal(size=np.shape(v)).astype(
+            np.float32), to_numpy(jparams))

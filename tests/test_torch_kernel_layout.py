@@ -365,6 +365,10 @@ CASES = {"flagship": (256, 4, 256, 256, 6, 4),
 # light 256 -> 128 -> 1) and a narrow one with two light hidden layers
 LIGHT_CASES = {"light": ((256, 3, 256, 256, 6, 4), 6, 3, (128,)),
                "narrow": ((64, 2, 32, 48, 4, 2), 4, 2, (24, 16))}
+# the light config with an odd number of SDF hidden layers (5: a fault
+# that exchanges two tangent streams at every layer cancels over an even
+# depth), for the card's tests
+LIGHT_ODD = {"odd": ((256, 3, 256, 256, 6, 4), 5, 3, (128,))}
 
 
 def _points(n, seed):
@@ -434,11 +438,12 @@ def test_render_core_light_plan_replays_to_plain(case):
     x, d = _points(200, 3)
     _core_close(emulate_render_core(k, x, d),
                 render_core.render_core_plain(net, rnet, x, d, lnet))
-    # K4's layers fit the shared memory its kernel is given
-    k4 = render_core._KernelLayout(
+    # K4's transposed chains of the same nets fit its kernel's widths
+    k4 = render_core.K4Stages(
         net.cfg, rnet.cfg, render_core.CoreWeights.of(net, rnet, lnet),
         lnet.cfg)
-    assert render_core.bwd_smem(k4) <= render_core._MAX_SMEM
+    assert (k4.n_sdf, k4.n_light) == (depth + 1, len(ldims) + 1)
+    assert int(k4.t.plan[:, 1].max()) <= render_core._K3_WIDTH
 
 
 def _expect_wt(w, K, N):

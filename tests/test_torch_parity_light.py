@@ -30,7 +30,8 @@ from i2sdf_tpu.models.mlp import (ImplicitNetConfig, RenderingNetConfig,
                                   sdf_outputs)
 from i2sdf_tpu.ops.pallas.fused_train import render_core_fused
 from i2sdf_tpu_torch.ops.kernels import render_core
-from test_torch_helpers import implicit_from_jax, rendering_from_jax
+from test_torch_helpers import (implicit_from_jax, perturbed,
+                                rendering_from_jax)
 from test_torch_kernel_layout import emulate_render_core
 
 ICFG = ImplicitNetConfig(
@@ -47,11 +48,14 @@ DETACH = pytest.mark.parametrize("detach", [True, False],
                                  ids=["detached", "coupled"])
 
 
-def _setup():
+def _setup(perturb=False):
     rng = np.random.default_rng(0)
     p_imp = implicit_net_init(jax.random.PRNGKey(0), ICFG)
     p_rad = rendering_net_init(jax.random.PRNGKey(1), RCFG)
     p_l = implicit_net_init(jax.random.PRNGKey(7), LCFG)
+    if perturb:
+        p_imp, p_rad, p_l = (perturbed(p, 10 + i)
+                             for i, p in enumerate((p_imp, p_rad, p_l)))
     pts = (rng.normal(size=(N, 3)) * 0.8).astype(np.float32)
     dirs = rng.normal(size=(N, 3)).astype(np.float32)
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
@@ -165,6 +169,46 @@ def test_plain_light_matches_pallas_interpret(detach):
         assert np.abs(kv - got[k]).max() / denom < 0.35, k
 
 
+@DETACH
+def test_k4_light_replay_matches_pallas_interpret(detach):
+    """K4-light's replay (`test_torch_bwd_replay.emulate_bwd`: the CUDA
+    kernel's stage images, ring table, scratch and bf16 rounding) against
+    the Pallas op's backward with the light head in interpret mode, on the
+    gradient of the loss with its light term: each leaf to 0.35 of its
+    largest entry (the bound above) and cosine > 0.999 over all leaves.
+    The replay's gradients of the materialized weights reach v, g and b
+    through the weight norm by autograd."""
+    from test_torch_bwd_replay import emulate_bwd
+    ps, nets, pts, dirs, gt = _setup()
+    net, rnet, lnet = nets
+    _, g_ker = _jax_value_and_grads(_kernel_light, ps, pts, dirs, gt, detach)
+    w = render_core.CoreWeights.of(net, rnet, lnet)
+    x, d = torch.from_numpy(pts), torch.from_numpy(dirs)
+    outs = [t.detach().requires_grad_(True) for t in
+            render_core.render_core_train_plain(net.cfg, rnet.cfg, w, x, d,
+                                                lnet.cfg, detach)]
+    tgt = {k: torch.from_numpy(v) for k, v in gt.items()}
+    cs, cg, cr, cm = torch.autograd.grad(_loss(torch, *outs, tgt), outs)
+    cot = torch.cat([cg, cs, cr, cm], 1)
+    rep = [t for grp in emulate_bwd(net.cfg, rnet.cfg, w, x, d, cot,
+                                    detach_light=detach, lcfg=lnet.cfg)
+           for t in grp]
+    names, leaves = [], []
+    for key, m in zip("irl", nets):
+        for k, p in m.named_parameters():
+            names.append(f"{key}.{k}")
+            leaves.append(p)
+    gs = torch.autograd.grad(w.flat(), leaves, rep)
+    got = {k: g.numpy() for k, g in zip(names, gs)}
+    keys = [k for k in g_ker]
+    a = np.concatenate([g_ker[k].ravel() for k in keys]).astype(np.float64)
+    b = np.concatenate([got[k].ravel() for k in keys]).astype(np.float64)
+    assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.999
+    for k in keys:
+        denom = max(np.abs(got[k]).max(), 1e-3)
+        assert np.abs(g_ker[k] - got[k]).max() / denom < 0.35, k
+
+
 def test_plain_eval_light_matches_xla():
     """The eval forward (`render_core_plain` with the light net, no
     gradient) against the XLA reference."""
@@ -177,12 +221,14 @@ def test_plain_eval_light_matches_xla():
                                    atol=1e-6, err_msg=name)
 
 
-def test_k3_light_replay_matches_pallas_interpret():
+@pytest.mark.parametrize("weights", ["init", "perturbed"])
+def test_k3_light_replay_matches_pallas_interpret(weights):
     """K3-light's four-stream replay on its stage images (the CUDA
     kernel's rounding and layout, tests/test_torch_kernel_layout.py)
     against the Pallas kernel's forward with the light head in interpret
-    mode, at its tolerances."""
-    ps, (net, rnet, lnet), pts, dirs, _ = _setup()
+    mode, at its tolerances: at the init's weights and at weights
+    perturbed by 0.01 N(0, 1)."""
+    ps, (net, rnet, lnet), pts, dirs, _ = _setup(weights == "perturbed")
     ker = _kernel_light(ps, pts, dirs, True)
     k = render_core.CoreStages(
         net.cfg, rnet.cfg, render_core.CoreWeights.of(net, rnet, lnet),

@@ -21,7 +21,7 @@ from i2sdf_tpu.models.mlp import (ImplicitNetConfig, implicit_net_init,
 from i2sdf_tpu.ops.pallas.fused_mlp import fused_sdf_mlp
 from i2sdf_tpu_torch.models import mlp as tmlp
 from i2sdf_tpu_torch.ops.kernels import sdf_mlp
-from test_torch_helpers import implicit_from_jax
+from test_torch_helpers import implicit_from_jax, perturbed
 from test_torch_kernel_layout import emulate_sdf_mlp
 
 SMALL = ImplicitNetConfig(
@@ -66,17 +66,20 @@ def test_plain_matches_pallas_interpret(cfg):
     np.testing.assert_allclose(got, ker, atol=0.02, rtol=0.02)
 
 
+@pytest.mark.parametrize("weights", ["init", "perturbed"])
 @pytest.mark.parametrize("cfg", [SMALL, FLAGSHIP], ids=["small", "flagship"])
-def test_k1_replay_matches_pallas_interpret(cfg):
+def test_k1_replay_matches_pallas_interpret(cfg, weights):
     """K1's byte-level replay on its stage images (the CUDA kernel's
     rounding and layout, tests/test_torch_kernel_layout.py) against the
-    Pallas kernel in interpret mode, at the JAX kernel's tolerance."""
-    params = implicit_from_jax(implicit_net_init(jax.random.PRNGKey(0), cfg),
-                               cfg)
+    Pallas kernel in interpret mode, at the JAX kernel's tolerance: at the
+    init's weights and at weights perturbed by 0.01 N(0, 1)."""
+    jp = implicit_net_init(jax.random.PRNGKey(0), cfg)
+    if weights == "perturbed":
+        jp = perturbed(jp, 10)
+    params = implicit_from_jax(jp, cfg)
     pts = _points(256, seed=2)
-    ker = np.asarray(fused_sdf_mlp(implicit_net_init(jax.random.PRNGKey(0),
-                                                     cfg),
-                                   cfg, pts, block_rows=128, interpret=True))
+    ker = np.asarray(fused_sdf_mlp(jp, cfg, pts, block_rows=128,
+                                   interpret=True))
     p = sdf_mlp.SdfMlpPack.__new__(sdf_mlp.SdfMlpPack)
     p.net, p.kernel = params, sdf_mlp.stage_chain(params)
     got = emulate_sdf_mlp(p, torch.from_numpy(pts)).numpy()

@@ -24,7 +24,8 @@ from i2sdf_tpu.models.mlp import (ImplicitNetConfig, RenderingNetConfig,
                                   rendering_net_init, sdf_outputs)
 from i2sdf_tpu.ops.pallas.fused_train import render_core_fused
 from i2sdf_tpu_torch.ops.kernels import render_core
-from test_torch_helpers import implicit_from_jax, rendering_from_jax
+from test_torch_helpers import (implicit_from_jax, perturbed,
+                                rendering_from_jax)
 from test_torch_kernel_layout import emulate_render_core
 
 ICFG = ImplicitNetConfig(
@@ -43,9 +44,11 @@ RCFG_FLAG = RenderingNetConfig(
 TOLS = {"sdf": (0.02, 0.02), "grad": (0.05, 0.08), "rgb": (0.03, 0.05)}
 
 
-def _setup(icfg, rcfg, n, seed=0):
+def _setup(icfg, rcfg, n, seed=0, perturb=False):
     p_imp = implicit_net_init(jax.random.PRNGKey(seed), icfg)
     p_rad = rendering_net_init(jax.random.PRNGKey(seed + 1), rcfg)
+    if perturb:
+        p_imp, p_rad = perturbed(p_imp, seed + 10), perturbed(p_rad, seed + 11)
     rng = np.random.default_rng(seed)
     pts = (rng.normal(size=(n, 3)) * 0.8).astype(np.float32)
     dirs = rng.normal(size=(n, 3)).astype(np.float32)
@@ -88,15 +91,18 @@ def test_plain_matches_pallas_interpret():
 
 
 
+@pytest.mark.parametrize("weights", ["init", "perturbed"])
 @pytest.mark.parametrize("widths", ["small", "flagship"])
-def test_k3_replay_matches_pallas_interpret(widths):
+def test_k3_replay_matches_pallas_interpret(widths, weights):
     """K3's four-stream replay on its stage images (the CUDA kernel's
     rounding and layout, tests/test_torch_kernel_layout.py) against the
-    Pallas kernel's forward in interpret mode, at its tolerances: the
-    tangent form rounds elsewhere than the TPU kernel's reverse sweep."""
+    Pallas kernel's forward in interpret mode, at its tolerances (the
+    tangent form rounds elsewhere than the TPU kernel's reverse sweep): at
+    the init's weights and at weights perturbed by 0.01 N(0, 1)."""
     icfg, rcfg = ((ICFG, RCFG) if widths == "small"
                   else (ICFG_FLAG, RCFG_FLAG))
-    p_imp, p_rad, pts, dirs, pack = _setup(icfg, rcfg, 64)
+    p_imp, p_rad, pts, dirs, pack = _setup(icfg, rcfg, 64,
+                                           perturb=weights == "perturbed")
     ker = render_core_fused(p_imp, icfg, p_rad, rcfg, pts, dirs,
                             block_rows=32, interpret=True)
     k = render_core.CoreStages(

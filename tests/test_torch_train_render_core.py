@@ -129,3 +129,43 @@ def test_plain_backward_matches_pallas_interpret():
     assert _cos(got, ker) > 0.999
     for k in ker:
         assert _leaf_err(got[k], ker[k]) <= _leaf_err(xla[k], ker[k]) + 1e-3, k
+
+
+def test_k4_replay_matches_pallas_interpret():
+    """K4's replay (`test_torch_bwd_replay.emulate_bwd`: the CUDA kernel's
+    stage images, ring table, scratch and bf16 rounding) against the
+    Pallas op's backward in interpret mode, two bf16 kernels rounding in
+    different places, with the cotangents of the JAX package's kernel-test
+    loss at the plain outputs: that test's gradient check for its bf16
+    kernel (`tests/test_pallas_train.py:81-111`: per leaf
+    max|d|/max|ref| < 0.1, cosine > 0.999). The replay's gradients of the
+    materialized weights reach v, g and b through the weight norm by
+    autograd."""
+    from test_torch_bwd_replay import emulate_bwd, loss_cotangents
+    p_imp, p_rad, net, rnet = _jax_setup(ICFG, RCFG)
+    pts, dirs, _ = _inputs(256, 4, eik=64)
+    x, d = torch.from_numpy(pts), torch.from_numpy(dirs)
+    w = render_core.CoreWeights.of(net, rnet)
+    cot = loss_cotangents(*render_core.render_core_train_plain(
+        net.cfg, rnet.cfg, w, x, d))
+    cot[-64:, 3:] = 0.0   # eikonal rows: only the gradient's cotangent
+    c = cot.numpy()
+
+    def f(pi, pr):
+        s, g, rgb = render_core_fused(pi, ICFG, pr, RCFG, pts, dirs,
+                                      block_rows=64, interpret=True)
+        return g, s, rgb
+
+    _, vjp = jax.vjp(f, p_imp, p_rad)
+    gi, gr = vjp((c[:, :3], c[:, 3:4], c[:, 4:7]))
+    ker = _jax_grads_by_name({"implicit": gi, "rendering": gr})
+    rep = [t for grp in emulate_bwd(net.cfg, rnet.cfg, w, x, d, cot)
+           for t in grp]
+    names = ([f"implicit.{k}" for k, _ in net.named_parameters()]
+             + [f"rendering.{k}" for k, _ in rnet.named_parameters()])
+    leaves = list(net.parameters()) + list(rnet.parameters())
+    gs = torch.autograd.grad(w.flat(), leaves, rep)
+    got = {k: g.numpy() for k, g in zip(names, gs)}
+    assert _cos(got, ker) > 0.999
+    for k in ker:
+        assert _leaf_err(got[k], ker[k]) < 0.1, k
