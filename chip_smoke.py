@@ -17,7 +17,10 @@ Phases, each printed as one JSON line with its wall time:
    training batch (both `detach_light` values for K4), K7 at the perray
    config's training shape (1600 x 416) and an eval chunk (12,000 x 416),
    K8 at the bg config's training batch (51,200 points) and eval chunk
-   (384,000), K9 at the training batch with a seeded loss's cotangents,
+   (384,000), K9 at the training batch with a seeded loss's cotangents
+   (both also at perturbed and odd-depth nets and at the block-edge
+   counts, K9 twice to the same bits, `check_bg`), K2 also at the
+   training step's 1,600 rays,
    and K10 at the first eval chunk's 1,164,000 sample points,
    K11 and K12 at the normal-off step's 4,800 eikonal points and at
    155,200, each at the init's weights and at weights perturbed by 0.01
@@ -221,6 +224,9 @@ CONV_BAND, CONV_BAND_SHARE = 1e-4, 0.01
 BG_SPREAD_TOL = 0.05
 BG_SIGNAL_GAIN = math.sqrt(6.0)
 BG_MIN_SPREAD = 0.25
+# K8 and K9 are checked at these counts too: both sides of their blocks'
+# edges (K8 128 points a block, two warpgroups of 64; K9 64)
+BG_EDGE_COUNTS = (1, 63, 64, 65, 127, 128, 129, 4800)
 # f32 operations per sample of the convergence check (d*, the Laplace
 # density, two scan steps, the bound, the max), counted from
 # csrc/ray_common.cuh
@@ -480,6 +486,11 @@ def check_kernels(model, cfg, conf, device) -> list[dict]:
         ops = R * S * SAMPLER_OPS_PER_SAMPLE_EVAL * (sc.beta_iters + 2)
         nbytes = 4 * R * (2 * S + 2 * n_out + 2)
         b_ms, b_by = bound(ops, nbytes, PEAK_F32)
+        # the training step's shape: K4_RAYS rays a round
+        Rt = K4_RAYS
+        args_t = (sc, zs[:Rt].contiguous(), sdf2[:Rt].contiguous(),
+                  beta_init[:Rt].contiguous(), beta0, u[:Rt].contiguous(),
+                  final)
         rows.append(dict(
             name="sampler_round", route="cuda",
             source="i2sdf_tpu_torch/csrc/sampler_round.cu",
@@ -489,6 +500,10 @@ def check_kernels(model, cfg, conf, device) -> list[dict]:
             ray_mean_err=mean_err,
             beta_max_abs_err=float((b_k - b_p).abs().max()),
             ms=time_ms(lambda: sampler_round.sampler_round(*args), 10),
+            train_shape=[Rt, S, n_out],
+            ms_train_shape=time_ms(
+                lambda: sampler_round.sampler_round(*args_t), 20),
+            bound_ms_train_shape=b_ms * Rt / R,
             plain_ms=time_ms(
                 lambda: sampler_round.sampler_round_plain(*args), 3),
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
@@ -919,8 +934,9 @@ def k4_grads(nets, x, d, detach_light):
 
 
 def k4_staging_gb(plan) -> float:
-    """The device memory (GB) K4's plan takes beside its output: the
-    scratch (operand and stash regions, bias rows) and the partials."""
+    """The device memory (GB) K4's plan (or K9's) takes beside its
+    output: the scratch (operand and stash regions, bias rows) and the
+    partials."""
     return (plan.scratch_bytes + 4 * plan.n32) / 1e9
 
 
@@ -957,7 +973,7 @@ def k4_sass(resources: Resources, light: bool, coupled: bool) -> dict:
     or not, coupled or not) and its products."""
     rows = resources.get()
     want = (f"k4_sweep_kernel<{str(light).lower()}, {str(coupled).lower()}>",
-            "k4_wgrad_kernel")
+            "wgrad_kernel<4>")
     return {w: next(v for k, v in rows.items() if w in k) for w in want}
 
 
@@ -1818,16 +1834,64 @@ def check_bg_signal(implicit, rendering, x4, d, faults: bool) -> tuple:
     return dict(spread=spread, spread_errs=rel, fault_spread_errs=bad), ok
 
 
-def check_bg(model, cfg, conf, device) -> list[dict]:
+def bg_nets(model, cfg, device) -> dict:
+    """The background nets K8 and K9 are checked on: the init's, perturbed
+    (`perturbed_net`, seeds SEED + 30 and SEED + 31), and of odd depth
+    (seven hidden layers, the skip one layer earlier, from a seeded init,
+    perturbed): the init's zero encoding rows hide layout faults, and an
+    exchange at every layer cancels over an even depth."""
+    icfg, rcfg = cfg.bg_implicit, cfg.bg_rendering
+    init = (model.bg_implicit, model.bg_rendering)
+    odd = dataclasses.replace(icfg, dims=icfg.dims[:-1],
+                              skip_in=tuple(s - 1 for s in icfg.skip_in))
+    gen = torch.Generator().manual_seed(SEED + 32)
+    raw = (mlp.ImplicitNet(odd, gen), mlp.RenderingNet(rcfg, gen))
+    return {"init": init,
+            "perturbed": tuple(perturbed_net(m, SEED + 30 + i)
+                               for i, m in enumerate(init)),
+            "odd": tuple(perturbed_net(m.to(device), SEED + 33 + i)
+                         for i, m in enumerate(raw))}
+
+
+def k8_errors(got, ref, spread=None) -> tuple[dict, bool]:
+    """K8's outputs against its plain version: max errors, CORE_TOLS's sdf
+    and rgb bounds, and the spread rule (over `spread`, the plain outputs
+    of the whole point set, or `ref`'s own)."""
+    tols = {"sigma": CORE_TOLS["sdf"], "rgb": CORE_TOLS["rgb"]}
+    errs = {k: float((a - b).abs().max()) for k, a, b in zip(tols, got, ref)}
+    spread = spread or {k: float(b.max() - b.min()) for k, b in zip(tols,
+                                                                    ref)}
+    rel = {k: errs[k] / spread[k] for k in tols}
+    ok = (all(close(a, b, *tols[k]) for k, a, b in zip(tols, got, ref))
+          and max(rel.values()) <= BG_SPREAD_TOL)
+    return dict(errs=errs, spread_errs=rel), ok
+
+
+def check_bg(model, cfg, conf, device,
+             resources: dict | None = None) -> list[dict]:
     """K8 at an eval chunk (12,000 rays x 32 = 384,000 points) and a
     training batch (1600 x 32 = 51,200), K9 at the training batch with a
-    seeded loss's cotangents, each against its plain version. K8 is held
-    at the model's weights to CORE_TOLS and to the spread rule
-    (BG_SPREAD_TOL), and at the signal-scaled copies to the spread rule,
-    the planted faults failing it at the training batch."""
+    seeded loss's cotangents, each against its plain version in f32 (at
+    perturbed nets too: the JAX package's own pair stays inside the f32
+    bounds there, `scripts/witness_perturbed.py bg`), on every net of
+    `bg_nets`. K8 is held to CORE_TOLS and to
+    the spread rule (BG_SPREAD_TOL), and at signal-scaled copies of the
+    init's nets to the spread rule, the planted faults failing it at the
+    training batch; K9 to the gradient check (`grads_ok`), two launches
+    giving the same bits and padding rows adding nothing. Both also at the
+    block-edge counts `BG_EDGE_COUNTS` (the training batch's first points,
+    a few rays below 4,800): K8 by its rules, K9 by the gradient check
+    from 4,800 points and below that to the same bits on a rerun, its
+    errors recorded (on 2-4 rays a few bf16 flips outweigh the signal, as
+    for K4: the kernel's replay, rounding as it does, reads the same
+    errors there). Timed at the init's nets. `resources`: the
+    `Resources` of `bg_core.cu` and `bg_core_bwd.cu`, for the rows'
+    `sass`."""
     icfg, rcfg = cfg.bg_implicit, cfg.bg_rendering
-    pack = bg_core.BgPack(model.bg_implicit, model.bg_rendering)
-    w = bg_core.BgWeights.of(model.bg_implicit, model.bg_rendering)
+    cases = bg_nets(model, cfg, device)
+    init = cases["init"]
+    pack = bg_core.BgPack(*init)
+    w = bg_core.BgWeights.of(*init)
     iw, ib = _bf16_weights(model.bg_implicit)
     rw, rb = _bf16_weights(model.bg_rendering)
     sd, rr = bg_layer_macs(icfg, rcfg)
@@ -1838,18 +1902,31 @@ def check_bg(model, cfg, conf, device) -> list[dict]:
     for label, (x4, d) in (("train", (x4_t, d_t)), ("eval", bg_points(
             cfg, conf, device, conf.train.split_n_pixels))):
         n = x4.shape[0]
-        got = bg_core.bg_core_eval(pack, x4, d)
-        torch.cuda.synchronize()
-        with torch.no_grad():
-            ref = bg_core.bg_core_plain(icfg, rcfg, w, x4, d)
-        tols = {"sigma": CORE_TOLS["sdf"], "rgb": CORE_TOLS["rgb"]}
-        errs = {k: float((a - b).abs().max())
-                for k, a, b in zip(tols, got, ref)}
-        rel = spread_errors(got, ref)
+        fields, ok = {}, True
+        for which, nets in cases.items():
+            got = bg_core.bg_core_eval(bg_core.BgPack(*nets), x4, d)
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                ref = bg_core.bg_core_plain(nets[0].cfg, rcfg,
+                                            bg_core.BgWeights.of(*nets), x4,
+                                            d)
+            fields[which], case_ok = k8_errors(got, ref)
+            ok = ok and case_ok
+            if label == "train" and which != "odd":
+                spread = {k: float(b.max() - b.min())
+                          for k, b in zip(("sigma", "rgb"), ref)}
+                edges = {}
+                for m in BG_EDGE_COUNTS:
+                    sub = (x4[:m].contiguous(), d[:m].contiguous())
+                    e, e_ok = k8_errors(
+                        bg_core.bg_core_eval(bg_core.BgPack(*nets), *sub),
+                        tuple(t[:m] for t in ref), spread)
+                    edges[m] = max(e["spread_errs"].values())
+                    ok = ok and e_ok
+                fields[which]["edges_spread_err"] = edges
         signal, signal_ok = check_bg_signal(
             model.bg_implicit, model.bg_rendering, x4, d, label == "train")
-        ok = (all(close(a, b, *tols[k]) for k, a, b in zip(tols, got, ref))
-              and max(rel.values()) <= BG_SPREAD_TOL and signal_ok)
+        ok = ok and signal_ok
         b_ms, b_by = bound(2.0 * (sum(sd) + sum(rr)) * n,
                            n * (16 + 12 + 16) + 2 * n_w, PEAK_BF16)
 
@@ -1861,11 +1938,13 @@ def check_bg(model, cfg, conf, device) -> list[dict]:
             name="bg_core_fwd", route="cuda",
             source="i2sdf_tpu_torch/csrc/bg_core.cu",
             replaces="i2sdf_tpu/ops/pallas/fused_bg.py:209",
-            points=label, shape=[n, 4], max_abs_err=max(errs.values()),
-            errs=errs, tolerances=tols, spread_errs=rel,
-            spread_tol=BG_SPREAD_TOL,
-            spread={k: float(b.max() - b.min()) for k, b in zip(tols, ref)},
-            signal=signal,
+            points=label, shape=[n, 4],
+            max_abs_err=max(fields["init"]["errs"].values()),
+            **fields["init"], perturbed=fields["perturbed"],
+            odd=fields["odd"], tolerances={"sigma": CORE_TOLS["sdf"], "rgb": CORE_TOLS["rgb"]},
+            spread_tol=BG_SPREAD_TOL, signal=signal,
+            sass=(resources["bg_core.cu"].get()
+                  if resources and label == "train" else None),
             ms=time_ms(lambda: bg_core.bg_core_eval(pack, x4, d), 5),
             plain_ms=time_ms(plain_fwd, 2), bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: library_bg(icfg, rcfg, iw, ib, rw, rb,
@@ -1873,24 +1952,67 @@ def check_bg(model, cfg, conf, device) -> list[dict]:
         emit_row(rows[-1], ok)
     # K9 at the training batch
     x4, d = x4_t, d_t
-    sigma, rgb = bg_core.bg_core_plain(icfg, rcfg, w, x4, d)
-    cot = bg_cotangents(sigma, rgb, SEED + 12)
-    cots = (cot[:, :1], cot[:, 1:])
-    ref = torch.autograd.grad((sigma, rgb), w.flat(), cots)
+    fields, ok = {}, True
+    for which, nets in cases.items():
+        wr = bg_core.BgWeights.of(*nets)
+        sigma, rgb = bg_core.bg_core_plain(nets[0].cfg, rcfg, wr, x4, d)
+        cot = bg_cotangents(sigma, rgb, SEED + 12)
+        ref = torch.autograd.grad((sigma, rgb), wr.flat(),
+                                  (cot[:, :1], cot[:, 1:]))
+        with torch.no_grad():
+            st = bg_core.BgStages(nets[0].cfg, rcfg, wr)
+            got = [t for g in bg_core.bg_core_bwd(st, x4, d, cot) for t in g]
+            again = [t for g in bg_core.bg_core_bwd(st, x4, d, cot)
+                     for t in g]
+        torch.cuda.synchronize()
+        fields[which] = grad_errors(got, ref)
+        fields[which]["bitwise_rerun"] = all(
+            torch.equal(a, b) for a, b in zip(got, again))
+        ok = (ok and grads_ok(fields[which])
+              and fields[which]["bitwise_rerun"])
+        if which == "init":
+            k, cot0 = st, cot
+            max_abs = max(float((g - r).abs().max())
+                          for g, r in zip(got, ref))
+        if which != "odd":
+            edges = {}
+            for m in BG_EDGE_COUNTS:
+                sub = (x4[:m].contiguous(), d[:m].contiguous())
+                s_m, r_m = bg_core.bg_core_plain(nets[0].cfg, rcfg, wr, *sub)
+                c_m = bg_cotangents(s_m, r_m, SEED + 13)
+                ref_m = torch.autograd.grad((s_m, r_m), wr.flat(),
+                                            (c_m[:, :1], c_m[:, 1:]))
+                with torch.no_grad():
+                    got_m = [t for g in bg_core.bg_core_bwd(st, *sub, c_m)
+                             for t in g]
+                    again_m = [t for g in bg_core.bg_core_bwd(st, *sub, c_m)
+                               for t in g]
+                e = grad_errors(got_m, ref_m)
+                e["bitwise_rerun"] = all(torch.equal(a, b)
+                                         for a, b in zip(got_m, again_m))
+                edges[m] = e
+                ok = ok and e["bitwise_rerun"] and (m < 4800 or grads_ok(e))
+            fields[which]["edges"] = edges
+    # padding rows: 33 points, and the same 33 plus 31 rows with zero
+    # cotangents (one block of 64), to the bit
     with torch.no_grad():
-        k = bg_core.BgLayout(icfg, rcfg, w)
-        got = [t for g in bg_core.bg_core_bwd(k, x4, d, cot) for t in g]
-        again = [t for g in bg_core.bg_core_bwd(k, x4, d, cot) for t in g]
-    torch.cuda.synchronize()
-    stable = all(torch.equal(a, b) for a, b in zip(got, again))
-    errs = grad_errors(got, ref)
+        c64 = cot0[:64].clone()
+        c64[33:] = 0.0
+        a33 = bg_core.bg_core_bwd(k, x4[:33].contiguous(),
+                                  d[:33].contiguous(), c64[:33].contiguous())
+        a64 = bg_core.bg_core_bwd(k, x4[:64].contiguous(),
+                                  d[:64].contiguous(), c64)
+    padding_ok = all(torch.equal(p, q) for g, h in zip(a33, a64)
+                     for p, q in zip(g, h))
+    ok = ok and padding_ok
     n = x4.shape[0]
     b_ms, b_by = bound(2.0 * k9_macs(icfg, rcfg) * n,
                        n * (16 + 12 + 16) + 2 * n_w + 4 * n_p, PEAK_BF16)
+    cots = (cot0[:, :1], cot0[:, 1:])
 
     def kernel():
         with torch.no_grad():
-            bg_core.bg_core_bwd(k, x4, d, cot)
+            bg_core.bg_core_bwd(k, x4, d, cot0)
 
     def plain():
         torch.autograd.grad(bg_core.bg_core_plain(icfg, rcfg, w, x4, d),
@@ -1901,16 +2023,21 @@ def check_bg(model, cfg, conf, device) -> list[dict]:
             outs = bg_core.bg_core_plain(icfg, rcfg, w, x4, d)
         torch.autograd.grad(outs, w.flat(), cots)
 
+    plan = bg_core.plan_for(k, n)
     rows.append(dict(
         name="bg_core_bwd", route="cuda",
         source="i2sdf_tpu_torch/csrc/bg_core_bwd.cu",
         replaces="i2sdf_tpu/ops/pallas/fused_bg.py:209",
-        points="train", shape=[n, 4],
-        max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got, ref)),
-        **errs, leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
-        bit_stable=stable, ms=time_ms(kernel, 5), plain_ms=time_ms(plain, 2),
+        points="train", shape=[n, 4], max_abs_err=max_abs,
+        **{k_: v for k_, v in fields["init"].items() if k_ != "edges"},
+        edges=fields["init"]["edges"], perturbed=fields["perturbed"],
+        odd=fields["odd"], padding_rows_add_nothing=padding_ok,
+        leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
+        staging_gb=k4_staging_gb(plan),
+        sass=resources["bg_core_bwd.cu"].get() if resources else None,
+        ms=time_ms(kernel, 5), plain_ms=time_ms(plain, 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 2)))
-    emit_row(rows[-1], grads_ok(errs) and stable)
+    emit_row(rows[-1], ok)
     return rows
 
 
@@ -1990,9 +2117,9 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     # K3 and K4 are each one kernel template (with the light head or
-    # not); K4's products are its own kernel, its sums the `sum_kernel`
-    # K6 and K9 share; the mma.sync products are K6's on the normal-off
-    # path and K9's with the background
+    # not); K4's and K9's products are `wgrad_kernel<4>` and `<9>`, their
+    # sums the `sum_kernel` K6 shares; the mma.sync products are K6's on
+    # the normal-off path
     groups = {"K1 sdf_mlp": "sdf_mlp_kernel", "K2 sampler_round":
               "sampler_round",
               "K3 render_core_fwd": "render_core_kernel<false>",
@@ -2000,12 +2127,13 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
               "K5 rev_fwd": "fwd_sweep_kernel(",
               "K4 sweep": "k4_sweep_kernel<false",
               "K4 sweep light": "k4_sweep_kernel<true",
-              "K4 products": "k4_wgrad_kernel",
+              "K4 products": "wgrad_kernel<4>",
               "K6 sweep": "::bwd_sweep_kernel(",
               "K7 conv_check": "conv_check_kernel",
               "K8 bg_core_fwd": "bg_fwd_kernel",
-              "K9 sweep": "bg_bwd_sweep_kernel",
-              "K6/K9 atb": "atb_kernel", "K4/K6/K9 sum": "sum_kernel"}
+              "K9 sweep": "bg_sweep_kernel",
+              "K9 products": "wgrad_kernel<9>",
+              "K6 atb": "atb_kernel", "K4/K6/K9 sum": "sum_kernel"}
     by = {g: 0.0 for g in groups}
     by["other"] = 0.0
     top = []
@@ -2031,7 +2159,10 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
 
 
 PACKERS = ((render_core, "CoreStages"), (render_core, "K4Stages"),
-           (rev, "RevLayout"), (bg_core, "BgLayout"))
+           (rev, "RevLayout"), (bg_core, "BgStages"))
+# packing that finishes a pack later (K9's transposed chain, packed in the
+# backward): timed with the packing, not counted as a pack
+LATE_PACKERS = ((bg_core.BgStages, "pack_t"),)
 
 
 def host_split(tr, step0: int, n: int = 2) -> dict:
@@ -2040,7 +2171,8 @@ def host_split(tr, step0: int, n: int = 2) -> dict:
     tensors (`bool`, `float`, `item`: one a sampler round, the step's
     beta), the device catching up there; `packing`, the host packing the
     kernels' weights (K3's `CoreStages`, K4's `K4Stages`, K5/K6's
-    `RevLayout`, K8/K9's `BgLayout`; their device work runs behind);
+    `RevLayout`, K8/K9's `BgStages` and its `pack_t`; their device work
+    runs behind);
     `rest`, the wait at the step's end for the device to finish its queue;
     `python`, the remainder: the Python step, the dispatch of its
     operations, and any blocking call not wrapped here. The wrappers that time the first two cost the host a few
@@ -2048,7 +2180,7 @@ def host_split(tr, step0: int, n: int = 2) -> dict:
     spent = {"syncs": 0.0, "packing": 0.0}
     calls = {"syncs": 0, "packing": 0}
 
-    def timed(kind, fn):
+    def timed(kind, fn, count=True):
         def wrapper(*a, **k):
             if kind == "syncs" and not a[0].is_cuda:
                 return fn(*a, **k)
@@ -2057,18 +2189,21 @@ def host_split(tr, step0: int, n: int = 2) -> dict:
                 return fn(*a, **k)
             finally:
                 spent[kind] += time.perf_counter() - t0
-                calls[kind] += 1
+                calls[kind] += count
         return wrapper
 
     saved = [(torch.Tensor, m, getattr(torch.Tensor, m))
              for m in ("__bool__", "__float__", "item")]
     saved += [(getattr(mod, c), "__init__", getattr(mod, c).__init__)
               for mod, c in PACKERS]
+    late = [(obj, m, getattr(obj, m)) for obj, m in LATE_PACKERS]
     wall = tail = 0.0
     try:
         for obj, m, fn in saved:
             setattr(obj, m, timed("syncs" if obj is torch.Tensor
                                   else "packing", fn))
+        for obj, m, fn in late:
+            setattr(obj, m, timed("packing", fn, count=False))
         for s in range(step0, step0 + n):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2080,7 +2215,7 @@ def host_split(tr, step0: int, n: int = 2) -> dict:
             wall += t2 - t0
             tail += t2 - t1
     finally:
-        for obj, m, fn in saved:
+        for obj, m, fn in saved + late:
             setattr(obj, m, fn)
     ms = lambda v: v * 1e3 / n  # noqa: E731
     return dict(steps=n, wall_ms=ms(wall), syncs_ms=ms(spent["syncs"]),
@@ -2490,6 +2625,8 @@ def main() -> int:
     build.load_library()
     emit("build", t0, nvcc_seconds=nvcc_s, library=path.name)
     k4_res = Resources("i2sdf_tpu_torch/csrc/render_core_bwd.cu")
+    bg_res = {src: Resources(f"i2sdf_tpu_torch/csrc/{src}")
+              for src in ("bg_core.cu", "bg_core_bwd.cu")}
 
     conf = eval_conf()
     cfg, model = seeded_model(conf, device)
@@ -2521,7 +2658,7 @@ def main() -> int:
     del pmodel
     bconf = bg_conf(train=False)
     bcfg, bmodel = seeded_model(bconf, device)
-    rows += check_bg(bmodel, bcfg, bconf, device)
+    rows += check_bg(bmodel, bcfg, bconf, device, resources=bg_res)
     del bmodel
     torch.cuda.empty_cache()
     emit("kernels", t0, n=len(rows))

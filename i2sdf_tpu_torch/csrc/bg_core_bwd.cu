@@ -13,320 +13,488 @@
 // bytes a point (x4, dirs and the four cotangents in) and the gradients
 // out once.
 //
-// Design: K4's, without the second order. The TPU kernel carries dW in
-// its output blocks from one grid step to the next; on the H100 blocks run
-// in parallel, so the work is split as in K4 (`common.cuh`):
-//   1. a sweep kernel, 32 points a block: the forward recomputed (the
-//      stash K8 could write would cost as many bytes as it saves flops),
-//      each layer's input X_l staged in bf16 in device memory and each
-//      hidden implicit layer's s = softplus100'(z) in the place its dz
-//      will take; sigmoid's cotangent at the radiance output; the
-//      radiance net backward through its transposed layers (the ReLU
-//      mask read back from the stored inputs), whose first layer gives the
-//      features' cotangent, joined by c_sigma in the implicit output
-//      layer's dz; the implicit net backward (dz_{l-1} = (dz_l W_l^T) s,
-//      the skip's encoding columns dropped and its 1/sqrt(2) applied);
-//      each layer's dz staged in bf16 and each block's bias rows in f32;
-//   2. the split-K products dW_l = X_l^T dz_l over the points;
-//   3. the fixed-order sums of the products' partials and the blocks'
-//      bias rows: no atomics, the same result to the bit run to run.
-// The chain rule to weight norm's (v, g) stays in PyTorch, outside.
+// Design: K4's (`render_core_bwd.cu`) without the second order, two
+// launches and the fixed-order sums on `wgmma_layer.cuh`:
+//
+// 1. `bg_sweep_kernel`: 64 points a block, one 64-row tile T (five
+//    64-column chunks) in shared memory, two consumer warpgroups that
+//    split each layer's columns and a producer warp that walks the ring
+//    table the host builds (`bg_core.BgPlan.script`, `wgmma_sweep.cuh`'s
+//    `run_script`): weight stages, staging slots handed out empty, stash
+//    and mask tiles, and a wait until the sweep's stores are complete.
+//    Every step is a wgmma product of T with a layer's stage images,
+//    written in place after both warpgroups retire:
+//    - the forward recompute on K8's stages (`BgStages.imp`, a 256-wide
+//      layer's two 128-row passes of a chunk copied side by side into one
+//      slot), the features product but not sigma's; each hidden layer's
+//      s = softplus100'(z) is written into a staging slot and leaves the
+//      block by one bulk copy (eight layers' s at 64 rows are 256 KB,
+//      more than fits beside the ring);
+//    - the radiance net forward, rgb to shared memory;
+//    - sigmoid's cotangent at the radiance output, then the radiance
+//      backward through W^T stage images (`BgStages.t`), the ReLU mask
+//      read back from the layer's stored input;
+//    - the features' cotangent from the radiance input layer joined by
+//      c_sigma in the implicit output layer's dz [features | sigma];
+//    - the implicit backward, dz_{l-1} = (dz_l W_l^T) * s_{l-1} on the
+//      hidden part of layer l's input (a skip's encoding rows dropped,
+//      its 1/sqrt(2) applied), s_{l-1} brought back as a ring stage.
+//    Before each product T, the layer's weight-gradient operand (its input
+//    X_l or its output cotangent dz_l), is bulk-copied to the block's
+//    operand region as it sits. The bias gradients are summed in f32 over
+//    the block's rows in a fixed order (warp shuffles, then four warps in
+//    order) into the block's bias row.
+// 2. `wgrad_kernel<9>` (`wgmma_sweep.cuh`, K4's products): every dW_l =
+//    X_l^T dz_l over the points on wgmma with both operands MN-major.
+// 3. `sum_kernel` (common.cuh): the partials and the blocks' bias rows
+//    added in a fixed order, so the result does not change from run to
+//    run.
+//
+// The forward recompute's activations, the encodings and rgb take the
+// accurate expf, log1pf, sinf and cosf (common.cuh), as the plain op does.
+// Padding rows carry zero cotangents, so every weight-gradient pair has a
+// zero side there and they add nothing. The chain rule to weight norm's
+// (v, g) stays in PyTorch, outside.
 #include "bg_common.cuh"
+#include "wgmma_sweep.cuh"
 
 namespace i2sdf {
 namespace {
 
-// Where the sweep stages each layer's operands (element pointers into the
-// bf16 and f32 scratch), as the host's table lays them out
-// (i2sdf_tpu_torch/ops/kernels/bg_core.py::_BgBwdPlan).
-struct BgScratch {
-  __nv_bfloat16* x[kMaxLayers];   // (np, K_l): implicit layer inputs
-  __nv_bfloat16* dz[kMaxLayers];  // (np, N_l): their output cotangents (a
-                                  // hidden layer's s until dz replaces it)
-  __nv_bfloat16* rx[kMaxRad];     // (np, K_l): radiance layer inputs
-  __nv_bfloat16* rdz[kMaxRad];    // (np, N_l): their output cotangents
-  float* dbpart;                  // (blocks, tb): bias-gradient rows
-  int tb;
-  int db[kMaxLayers + kMaxRad];   // each layer's bias row offset
+using namespace wg;
+
+constexpr int kBgCot = 4;                    // [c_sigma | c_rgb]
+
+struct Args {
+  const float* x4;
+  const float* dirs;
+  const float* cot;
+  int n;
+  Bases w;                 // [scratch, implicit, radiance, -, transposed]
+  const float* b_imp;      // the implicit stage chain's biases
+  const float* b_rad;      // the radiance chain's
+  Plan imp, timp, rad, trad;
+  int d_in, fx, fv, F;
+  const long long* reg;    // regions, then the bias rows' offsets
+  const long long* script;
+  int n_items;
+  unsigned char* scratch;
 };
 
-inline size_t bg_bwd_smem_bytes(int lda, int d_in) {
-  return 2 * (size_t)kSweepRows * lda * sizeof(__nv_bfloat16) +
-         (size_t)kSweepRows * (d_in + 3 + 4 + 4 + lda) * sizeof(float);
+// The consumers' state and shared memory (`SweepCtx`): after the ring,
+// the points, directions, cotangents and rgb.
+constexpr int kRest = kPts * (4 + 3 + kBgCot + 8);
+using Ctx = SweepCtx<Args, kRest>;
+constexpr size_t kSmemBytes = Ctx::kSmemBytes;
+
+struct Smem {
+  static __device__ __forceinline__ float* xs(const Ctx& c) {
+    return c.rest();
+  }
+  static __device__ __forceinline__ float* ds(const Ctx& c) {
+    return xs(c) + kPts * 4;
+  }
+  static __device__ __forceinline__ float* cot(const Ctx& c) {
+    return ds(c) + kPts * 3;
+  }
+  static __device__ __forceinline__ float* rgb(const Ctx& c) {
+    return cot(c) + kPts * kBgCot;
+  }
+};
+
+// scale * PE(x4) or PE(dirs) into columns [col0, kend) of T.
+__device__ __forceinline__ void fill_T(Ctx& c, bool view, int col0, int kend,
+                                       float scale) {
+  const Args& a = *c.a;
+  if (view)
+    fill_pe(c.T, Smem::ds(c), 3, a.fv, col0, kend, scale, threadIdx.x,
+            kConsumers);
+  else
+    fill_pe(c.T, Smem::xs(c), a.d_in, a.fx, col0, kend, scale, threadIdx.x,
+            kConsumers);
 }
 
-// A hidden implicit layer: bf16(scale * softplus100(acc + b)) to shared
-// memory, and s = softplus100'(acc + b) to the layer's dz staging.
-struct EpiStashS {
-  __nv_bfloat16* out;
-  int lda;
-  const float* bias;
-  float scale;
-  __nv_bfloat16* s;
-  int lds, row0;
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    const float z0 = v0 + bias[c], z1 = v1 + bias[c + 1];
-    put2(out + r * lda + c, softplus100(z0) * scale, softplus100(z1) * scale);
-    put2(s + (size_t)(row0 + r) * lds + c, dsoftplus100(z0),
-         dsoftplus100(z1));
-  }
-};
+// ---- the sweeps, one layer each -------------------------------------------
 
-// Implicit backward through W_l^T (its rows cut to the hidden part of the
-// layer's input): dz_{l-1} = scale * v * s_{l-1} on the first n_h columns,
-// zero on the padding; s read from the layer's dz staging and dz written
-// back in its place, bf16 to shared memory, f32 to dzf for the bias sums.
-struct EpiBgBack {
-  __nv_bfloat16* out;
-  int lda;
-  __nv_bfloat16* dz;
-  int ldz, row0;
-  float* dzf;
-  float scale;
-  int n_h;
-  __device__ __forceinline__ float one(int r, int c, float v) {
-    const float d =
-        c < n_h ? v * scale * bf(dz + (size_t)(row0 + r) * ldz + c) : 0.f;
-    dzf[r * lda + c] = d;
-    return d;
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    const float d0 = one(r, c, v0), d1 = one(r, c + 1, v1);
-    put2(out + r * lda + c, d0, d1);
-    put2(dz + (size_t)(row0 + r) * ldz + c, d0, d1);
-  }
-};
-
-// The sweep (see the header), 32 points a block. cot rows are
-// [c_sigma | c_rgb (3)]. `pit` holds the implicit layers n_i-1 .. 1
-// transposed, `prt` the radiance layers n_r-1 .. 0 (layer 0 cut to the
-// feature rows).
-__global__ void __launch_bounds__(kThreads)
-bg_bwd_sweep_kernel(const float* __restrict__ x4,
-                    const float* __restrict__ dirs,
-                    const float* __restrict__ cot, int n,
-                    const uint2* __restrict__ wi,
-                    const float* __restrict__ bi, Plan pi,
-                    const uint2* __restrict__ wit, Plan pit,
-                    const uint2* __restrict__ wr,
-                    const float* __restrict__ br, Plan pr,
-                    const uint2* __restrict__ wrt, Plan prt, int d_in,
-                    int fx, int fv, int F, int lda, BgScratch sc) {
-  constexpr int kMT = kSweepMT, kMaxNT = kSweepMaxNT, kRows = kSweepRows;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* buf[2];
-  buf[0] = reinterpret_cast<__nv_bfloat16*>(smem);
-  buf[1] = buf[0] + kRows * lda;
-  float* xs = reinterpret_cast<float*>(buf[1] + kRows * lda);
-  float* ds = xs + kRows * d_in;
-  float* ct = ds + kRows * 3;
-  float* rgb = ct + kRows * 4;
-  float* dzf = rgb + kRows * 4;
-  const int ni = pi.n, nr = pr.n;
-  const int row0 = blockIdx.x * kRows;
-  float* dbp = sc.dbpart + (size_t)blockIdx.x * sc.tb;
-
-  load_points(xs, x4, d_in, kRows, row0, n);
-  load_points(ds, dirs, 3, kRows, row0, n);
-  load_points(ct, cot, 4, kRows, row0, n);
-  __syncthreads();
-  write_pe_d(buf[0], lda, kRows, xs, d_in, fx, 0, pi.L[0][kK], 1.f);
-  __syncthreads();
-
-  // ---- 1. implicit forward: X_l to x[l], s_l to dz[l] --------------------
-  int cur = 0;
-  for (int l = 0; l < ni; ++l) {
-    const int* L = pi.L[l];
-    if (L[kFlags] & kSkipIn) {
-      write_pe_d(buf[cur], lda, kRows, xs, d_in, fx, L[kCol], L[kK],
-                 kInvSqrt2);
-      __syncthreads();
+// Forward recompute, hidden implicit layer l: h into T (the encoding at
+// the next layer's skip columns), s to its stash.
+template <int NW>
+__device__ __forceinline__ void fwd_hidden(Ctx& c, float* acc, int l,
+                                           const Split& sp) {
+  const int* L = c.a->imp.L[l];
+  const int* nx = c.a->imp.L[l + 1];
+  product<NW>(c, acc, L, sp.col0);
+  const int s = take(c);
+  unsigned char* S = c.slot(s);
+  if (sp.active) {
+    const Frag f;
+    const float scale = (L[kFlags] & kScale) ? kInvSqrt2 : 1.f;
+    const float* b = c.a->b_imp + L[kBOff];
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j) {
+      const int col = sp.col0 + 8 * j + 2 * f.tig;
+      const float2 bb = *reinterpret_cast<const float2*>(b + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float z0 = acc[4 * j + 2 * h] + bb.x;
+        const float z1 = acc[4 * j + 2 * h + 1] + bb.y;
+        put_pair(c.T, f.row() + 8 * h, col, softplus100(z0) * scale,
+                 softplus100(z1) * scale);
+        put_pair(S, f.row() + 8 * h, col, dsoftplus100(z0),
+                 dsoftplus100(z1));
+      }
     }
-    store_rows(buf[cur], lda, sc.x[l], L[kK], L[kK], row0);
-    const uint2* W = wi + L[kWOff];
-    const float* b = bi + L[kBOff];
-    if (l < ni - 1) {
-      EpiStashS epi{buf[cur ^ 1], lda, b,
-                    (L[kFlags] & kScale) ? kInvSqrt2 : 1.f, sc.dz[l], L[kN],
-                    row0};
-      mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-    } else {
-      EpiFeat epi{buf[cur ^ 1], lda, b, F};
-      mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-    }
-    __syncthreads();
-    cur ^= 1;
   }
-
-  // ---- 2. radiance forward: X_l to rx[l], rgb to shared memory ----------
-  write_pe_d(buf[cur], lda, kRows, ds, 3, fv, F, pr.L[0][kK], 1.f);
-  __syncthreads();
-  for (int l = 0; l < nr; ++l) {
-    const int* L = pr.L[l];
-    store_rows(buf[cur], lda, sc.rx[l], L[kK], L[kK], row0);
-    const uint2* W = wr + L[kWOff];
-    const float* b = br + L[kBOff];
-    if (l < nr - 1) {
-      EpiRelu epi{buf[cur ^ 1], lda, b};
-      mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-    } else {
-      EpiRgbShared epi{rgb, b, L[kReal]};
-      mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-    }
-    __syncthreads();
-    cur ^= 1;
+  if (nx[kFlags] & kSkipIn) {
+    bar_sync(1, kConsumers);
+    fill_T(c, false, nx[kCol], nx[kK], kInvSqrt2);
   }
+  fence_async();
+  stage_out(c, s, -1, kRegQ, l, (uint32_t)chunks(L[kN]) * kChunkBytes);
+}
 
-  // ---- 3. the radiance output's dz = c_rgb rgb (1 - rgb) ----------------
+// Forward recompute, the output layer's feature columns into T.
+template <int NW>
+__device__ __forceinline__ void fwd_features(Ctx& c, float* acc, const int* L,
+                                             const Split& sp) {
+  product<NW>(c, acc, L, sp.col0);
+  if (sp.active) {
+    const Frag f;
+    const float* b = c.a->b_imp + L[kBOff];
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j) {
+      const int col = sp.col0 + 8 * j + 2 * f.tig;
+      const float2 bb = *reinterpret_cast<const float2*>(b + col);
+      put_pair(c.T, f.row(), col, acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y);
+      put_pair(c.T, f.row() + 8, col, acc[4 * j + 2] + bb.x,
+               acc[4 * j + 3] + bb.y);
+    }
+  }
+  fence_async();
+  bar_sync(1, kConsumers);
+}
+
+// A radiance layer forward: a hidden layer's relu into T, the last
+// layer's rgb (all eight columns of its N = 8 product) to shared memory.
+template <int NW, bool last>
+__device__ __forceinline__ void rad_fwd(Ctx& c, float* acc, int l,
+                                        const Split& sp) {
+  const int* L = c.a->rad.L[l];
+  const float* b = c.a->b_rad + L[kBOff];
+  product<NW>(c, acc, L, sp.col0);
+  if (sp.active) {
+    const Frag f;
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j) {
+      const int col = sp.col0 + 8 * j + 2 * f.tig;
+      const float2 bb = *reinterpret_cast<const float2*>(b + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = f.row() + 8 * h;
+        const float z0 = acc[4 * j + 2 * h] + bb.x;
+        const float z1 = acc[4 * j + 2 * h + 1] + bb.y;
+        if constexpr (last)
+          *reinterpret_cast<float2*>(Smem::rgb(c) + row * 8 + col) =
+              make_float2(1.f / (1.f + expf(-z0)), 1.f / (1.f + expf(-z1)));
+        else
+          put_pair(c.T, row, col, fmaxf(z0, 0.f), fmaxf(z1, 0.f));
+      }
+    }
+  }
+  fence_async();
+  bar_sync(1, kConsumers);
+}
+
+// A radiance layer backward (l >= 1): dz_{l-1} = (dz_l W_l^T) * relu'
+// (the mask from layer l's input, brought back) into T; its bias row.
+template <int NW>
+__device__ __forceinline__ void rad_bwd(Ctx& c, float* acc, int l,
+                                        const Split& sp) {
+  const Args& a = *c.a;
+  product<NW>(c, acc, a.trad.L[a.rad.n - 1 - l], sp.col0);
+  const int s = take(c);
+  const unsigned char* M = c.slot(s);
+  if (sp.active) {
+    const Frag f;
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j) {
+      const int col = sp.col0 + 8 * j + 2 * f.tig;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = f.row() + 8 * h;
+        const float2 m = get_pair(M, row, col);
+        v[2 * h] = m.x > 0.f ? acc[4 * j + 2 * h] : 0.f;
+        v[2 * h + 1] = m.y > 0.f ? acc[4 * j + 2 * h + 1] : 0.f;
+        put_pair(c.T, row, col, v[2 * h], v[2 * h + 1]);
+      }
+      col_sums(c.wsum(), f, col, v[0], v[1], v[2], v[3]);
+    }
+  }
+  release(c, s);
+  bias_row(c, c.db_off(a.imp.n - 1 + l - 1), a.rad.L[l - 1][kReal]);
+  fence_async();
+  bar_sync(1, kConsumers);
+}
+
+// The radiance net's first layer backward: c_feat = dz_0 W_0^T on the
+// feature columns, then the implicit output layer's cotangent [c_feat |
+// c_sigma | 0] into T and its bias row.
+template <int NW>
+__device__ __forceinline__ void rad_first_bwd(Ctx& c, float* acc,
+                                              const Split& sp) {
+  const Args& a = *c.a;
+  const int F = a.F;
+  product<NW>(c, acc, a.trad.L[a.rad.n - 1], sp.col0);
+  if (sp.active) {
+    const Frag f;
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j) {
+      const int col = sp.col0 + 8 * j + 2 * f.tig;
+      const float* v = acc + 4 * j;
+      put_pair(c.T, f.row(), col, v[0], v[1]);
+      put_pair(c.T, f.row() + 8, col, v[2], v[3]);
+      col_sums(c.wsum(), f, col, v[0], v[1], v[2], v[3]);
+    }
+  }
+  // the sigma column carries c_sigma; the padding columns are zero
+  // (written after the product's columns past F)
+  bar_sync(1, kConsumers);
+  for (int i = threadIdx.x; i < kPts * (kWsumCols - F); i += kConsumers) {
+    const int r = i / (kWsumCols - F), col = F + i % (kWsumCols - F);
+    put1(c.T, r, col, col == F ? Smem::cot(c)[r * kBgCot] : 0.f);
+  }
+  const int ni = a.imp.n - 1;   // the implicit net's layers
+  bias_row(c, c.db_off(ni - 1), F);
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int r = 0; r < kPts; ++r) s += Smem::cot(c)[r * kBgCot];
+    c.dbrow()[c.db_off(ni - 1) + F] = s;
+  }
+  fence_async();
+  bar_sync(1, kConsumers);
+}
+
+// Implicit backward through W_l^T (l = ni-1 .. 1, its rows cut to the
+// hidden part of the layer's input): dz_{l-1} = scale (dz_l W_l^T)
+// s_{l-1} on the hidden columns into T; its bias row.
+template <int NW>
+__device__ __forceinline__ void imp_bwd(Ctx& c, float* acc, int l,
+                                        const Split& sp) {
+  const Args& a = *c.a;
+  const int nh = a.imp.n - 2;
+  const int* Lt = a.timp.L[nh - l];
+  product<NW>(c, acc, Lt, sp.col0);
+  const int sq = take(c);
+  if (sp.active) {
+    const Frag f;
+    const float scale = (Lt[kFlags] & kScale) ? kInvSqrt2 : 1.f;
+    const int n_h = Lt[kReal];
+    const unsigned char* S = c.slot(sq);
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j) {
+      const int col = sp.col0 + 8 * j + 2 * f.tig;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = f.row() + 8 * h;
+        // no branch on a value of the accumulators (ptxas would serialize
+        // the wgmma): the stash is read whole, masked by select
+        const float2 s = get_pair(S, row, col);
+        v[2 * h] = col < n_h ? acc[4 * j + 2 * h] * scale * s.x : 0.f;
+        v[2 * h + 1] =
+            col + 1 < n_h ? acc[4 * j + 2 * h + 1] * scale * s.y : 0.f;
+        put_pair(c.T, row, col, v[2 * h], v[2 * h + 1]);
+      }
+      col_sums(c.wsum(), f, col, v[0], v[1], v[2], v[3]);
+    }
+  }
+  release(c, sq);
+  bias_row(c, c.db_off(l - 1), a.imp.L[l - 1][kReal]);
+  fence_async();
+  bar_sync(1, kConsumers);
+}
+
+__device__ __forceinline__ void consume(Ctx& c) {
+  const Args& a = *c.a;
+  // one accumulator array for every product of the kernel (a warpgroup's
+  // N <= 128 half of a layer), as K4's
+  float acc[64];
+  const int ni = a.imp.n - 1, nh = ni - 1, nr = a.rad.n, F = a.F;
+
+  // ---- 1. implicit forward: X_l stored, s_l staged; the features in T ---
+  fill_T(c, false, 0, a.imp.L[0][kK], 1.f);
+  fence_async();
+  bar_sync(1, kConsumers);
+  for (int l = 0; l < nh; ++l) {
+    store_T(c, kRegX, l, chunks(a.imp.L[l][kK]));
+    const Split sp(a.imp.L[l][kN], c.cw);
+#define CALL(W) fwd_hidden<W>(c, acc, l, sp)
+    I2SDF_BY_WIDTH(sp.nw, CALL)
+#undef CALL
+  }
   {
-    const int N = pr.L[nr - 1][kN], d_out = pr.L[nr - 1][kReal];
-    for (int i = threadIdx.x; i < kRows * N; i += kThreads) {
-      const int r = i / N, c = i % N;
-      float v = 0.f;
-      if (c < d_out) {
-        const float g = rgb[r * 4 + c];
-        v = ct[r * 4 + 1 + c] * g * (1.f - g);
-      }
-      dzf[r * lda + c] = v;
-      buf[cur][r * lda + c] = __float2bfloat16_rn(v);
-    }
-    __syncthreads();
-    store_rows(buf[cur], lda, sc.rdz[nr - 1], N, N, row0);
-    put_db(dbp + sc.db[ni + nr - 1], dzf, lda, N);
-    __syncthreads();
+    const int* L = a.imp.L[ni];   // imp.L[nh] is sigma's, not needed here
+    store_T(c, kRegX, nh, chunks(L[kK]));
+    const Split sp(L[kN], c.cw);
+#define CALL(W) fwd_features<W>(c, acc, L, sp)
+    I2SDF_BY_WIDTH(sp.nw, CALL)
+#undef CALL
   }
+  sweep_done(c);
 
-  // ---- 4. radiance backward; its first layer gives the features' dz ------
-  const int n_last = pi.L[ni - 1][kN];
-  __nv_bfloat16* cy = sc.dz[ni - 1];
-  for (int l = nr - 1; l >= 0; --l) {
-    const int* L = prt.L[nr - 1 - l];  // W_l^T
-    const uint2* W = wrt + L[kWOff];
-    if (l > 0) {
-      EpiRadBack epi{buf[cur ^ 1], lda, sc.rx[l], L[kN], row0, dzf};
-      mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-      __syncthreads();
-      const int N = pr.L[l - 1][kN];
-      store_rows(buf[cur ^ 1], lda, sc.rdz[l - 1], N, N, row0);
-      put_db(dbp + sc.db[ni + l - 1], dzf, lda, N);
-      __syncthreads();
-      cur ^= 1;
+  // ---- 2. radiance forward: its inputs stored, rgb to shared memory ------
+  fill_T(c, true, F, a.rad.L[0][kK], 1.f);
+  fence_async();
+  bar_sync(1, kConsumers);
+  for (int l = 0; l < nr; ++l) {
+    store_T(c, kRegRx, l, chunks(a.rad.L[l][kK]));
+    const Split sp(a.rad.L[l][kN], c.cw);
+    if (l < nr - 1) {
+#define CALL(W) rad_fwd<W, false>(c, acc, l, sp)
+      I2SDF_BY_WIDTH(sp.nw, CALL)
+#undef CALL
     } else {
-      EpiFeatCot epi{cy, n_last, row0, F, dzf, lda};
-      mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-      // the sigma column carries c_sigma; padding columns are zero
-      for (int i = threadIdx.x; i < kRows * (n_last - F); i += kThreads) {
-        const int r = i / (n_last - F), c = F + i % (n_last - F);
-        const float v = c == F ? ct[r * 4] : 0.f;
-        cy[(size_t)(row0 + r) * n_last + c] = __float2bfloat16_rn(v);
-        dzf[r * lda + c] = v;
-      }
-      __syncthreads();
-      put_db(dbp + sc.db[ni - 1], dzf, lda, n_last);
-      __syncthreads();
+#define CALL(W) rad_fwd<W, true>(c, acc, l, sp)
+      I2SDF_BY_WIDTH(sp.nw, CALL)
+#undef CALL
     }
   }
+  sweep_done(c);
 
-  // ---- 5. implicit backward: dz_{l-1} to dz[l-1] in place of s_{l-1} -----
-  load_rows(buf[cur], lda, cy, n_last, n_last, row0);
-  __syncthreads();
-  for (int l = ni - 1; l >= 1; --l) {
-    const int* L = pit.L[ni - 1 - l];  // W_l^T, rows cut to the hidden part
-    const int N = pi.L[l - 1][kN];
-    EpiBgBack epi{buf[cur ^ 1], lda, sc.dz[l - 1], N, row0, dzf,
-                  (L[kFlags] & kScale) ? kInvSqrt2 : 1.f, L[kReal]};
-    mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], wit + L[kWOff], L[kN], epi);
-    __syncthreads();
-    put_db(dbp + sc.db[l - 1], dzf, lda, N);
-    __syncthreads();
-    cur ^= 1;
+  // ---- 3. the radiance output's dz = c_rgb rgb (1 - rgb), its backward ---
+  {
+    const int d_out = a.rad.L[nr - 1][kReal];
+    for (int i = threadIdx.x; i < kPts * 64; i += kConsumers) {
+      const int r = i >> 6, col = i & 63;
+      float v = 0.f;
+      if (col < d_out) {
+        const float g = Smem::rgb(c)[r * 8 + col];
+        v = Smem::cot(c)[r * kBgCot + 1 + col] * g * (1.f - g);
+      }
+      put1(c.T, r, col, v);
+    }
+    if (threadIdx.x < d_out) {
+      const int k = threadIdx.x;
+      float s = 0.f;
+      for (int r = 0; r < kPts; ++r) {
+        const float g = Smem::rgb(c)[r * 8 + k];
+        s += Smem::cot(c)[r * kBgCot + 1 + k] * g * (1.f - g);
+      }
+      c.dbrow()[c.db_off(ni + nr - 1) + k] = s;
+    }
+    fence_async();
+    bar_sync(1, kConsumers);
   }
+  for (int l = nr - 1; l >= 1; --l) {
+    store_T(c, kRegRdz, l, chunks(a.rad.L[l][kN]));
+    const Split sp(a.trad.L[nr - 1 - l][kN], c.cw);
+#define CALL(W) rad_bwd<W>(c, acc, l, sp)
+    I2SDF_BY_WIDTH(sp.nw, CALL)
+#undef CALL
+  }
+  store_T(c, kRegRdz, 0, chunks(a.rad.L[0][kN]));
+  {
+    const Split sp(a.trad.L[nr - 1][kN], c.cw);
+#define CALL(W) rad_first_bwd<W>(c, acc, sp)
+    I2SDF_BY_WIDTH(sp.nw, CALL)
+#undef CALL
+  }
+  store_T(c, kRegDz, nh, chunks(F + 1));
+
+  // ---- 4. implicit backward: dz_l stored, bias rows ----------------------
+  for (int l = nh; l >= 1; --l) {
+    const Split sp(a.timp.L[nh - l][kN], c.cw);
+#define CALL(W) imp_bwd<W>(c, acc, l, sp)
+    I2SDF_BY_WIDTH(sp.nw, CALL)
+#undef CALL
+    store_T(c, kRegDz, l - 1, chunks(a.imp.L[l - 1][kN]));
+  }
+  if (threadIdx.x == 0) bulk_wait_all();
+}
+
+__global__ void __launch_bounds__(kBlockThreads, 1)
+bg_sweep_kernel(const __grid_constant__ Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  Ctx c;
+  c.T = align1024(smem_raw);
+  c.a = &a;
+  c.it = c.tphase = c.done = 0;
+  c.cw = threadIdx.x >> 7;
+  KRing ring = make_ring<kSlots>(c.slots());
+  if (threadIdx.x == 0) *c.stored() = 0;
+  const int row0 = blockIdx.x * kPts;
+  load_rows_f32(Smem::xs(c), a.x4, a.d_in, kPts, row0, a.n, threadIdx.x,
+                kBlockThreads);
+  load_rows_f32(Smem::ds(c), a.dirs, 3, kPts, row0, a.n, threadIdx.x,
+                kBlockThreads);
+  load_rows_f32(Smem::cot(c), a.cot, kBgCot, kPts, row0, a.n, threadIdx.x,
+                kBlockThreads);
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers)
+      run_script(ring, a.script, a.n_items, a.w, c.stored());
+    return;
+  }
+  consume(c);
 }
 
 }  // namespace
 }  // namespace i2sdf
 
-// The table (int64, element offsets into ws16 / ws32 and out), in the
-// order `_BgBwdPlan` writes it: x, dz (implicit layers), rx, rdz
-// (radiance layers), dbpart, tb, the bias row offsets, then per product
-// (implicit layers, then radiance layers) its splits, chunk, partials and
-// output offset, and last the bias gradients' offset in `out`.
+// `reg`, `script` and `jobs` (int64, device memory except `jobs`) are
+// built by `i2sdf_tpu_torch/ops/kernels/bg_core.py::BgPlan`; the plans are
+// `BgStages`' `imp` (the hidden layers, then sigma's and the features'
+// products), `rad` and the transposed chains `timp` and `trad` (stage
+// images in `w_t`). `jobs` (host memory) as K4's (`read_jobs`).
 extern "C" int i2sdf_bg_core_bwd(
-    const float* x4, const float* dirs, const float* cot, int n, int np,
-    const void* wi, const float* bi, const int* plan_i, int n_i,
-    const void* wit, const int* plan_it, const void* wr, const float* br,
-    const int* plan_r, int n_r, const void* wrt, const int* plan_rt,
-    int d_in, int fx, int fv, int F, int lda, void* ws16, float* ws32,
-    const long long* table, float* out, void* stream) {
+    const float* x4, const float* dirs, const float* cot, int n, int blocks,
+    const void* w_imp, const float* b_imp, const int* imp_desc, int n_imp,
+    const void* w_rad, const float* b_rad, const int* rad_desc, int n_rad,
+    const void* w_t, const int* timp_desc, int n_timp, const int* trad_desc,
+    int d_in, int fx, int fv, int F, void* scratch, float* ws32,
+    const long long* reg, const long long* script, int n_items,
+    const long long* jobs, int n_jobs, const long long* db_host, float* out,
+    void* stream) {
   using namespace i2sdf;
   if (n <= 0) return 0;
-  const int jobs_n = n_i + n_r;
-  if (n_i < 2 || n_i > kMaxLayers || n_r < 1 || n_r > kMaxRad ||
-      jobs_n > kMaxJobs || np % kSweepRows != 0)
+  if (n_imp < 3 || n_imp > kMaxLayers || n_timp != n_imp - 2 || n_rad < 1 ||
+      n_rad > kMaxLayers || n_jobs > kMaxWJobs || n_imp - 1 > kRegLayers ||
+      n_rad > kRegLayers || d_in < 1 || d_in > 4 || F + 1 > kWsumCols)
     return (int)cudaErrorInvalidValue;
-  const Plan pi = read_plan(plan_i, n_i), pit = read_plan(plan_it, n_i - 1);
-  const Plan pr = read_plan(plan_r, n_r), prt = read_plan(plan_rt, n_r);
-  __nv_bfloat16* b16 = (__nv_bfloat16*)ws16;
-  BgScratch sc;
-  const long long* t = table;
-  for (int l = 0; l < n_i; ++l) sc.x[l] = b16 + *t++;
-  for (int l = 0; l < n_i; ++l) sc.dz[l] = b16 + *t++;
-  for (int l = 0; l < n_r; ++l) sc.rx[l] = b16 + *t++;
-  for (int l = 0; l < n_r; ++l) sc.rdz[l] = b16 + *t++;
-  sc.dbpart = ws32 + *t++;
-  sc.tb = (int)*t++;
-  for (int p = 0; p < jobs_n; ++p) sc.db[p] = (int)*t++;
-  const long long* splits = t;
-  const long long* chunk = t + jobs_n;
-  const long long* part = t + 2 * jobs_n;
-  const long long* outp = t + 3 * jobs_n;
-  const long long out_db = t[4 * jobs_n];
-
-  const cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = bg_bwd_smem_bytes(lda, d_in);
-  cudaError_t err = set_smem((const void*)bg_bwd_sweep_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = np / kSweepRows;
-  bg_bwd_sweep_kernel<<<blocks, kThreads, smem, st>>>(
-      x4, dirs, cot, n, (const uint2*)wi, bi, pi, (const uint2*)wit, pit,
-      (const uint2*)wr, br, pr, (const uint2*)wrt, prt, d_in, fx, fv, F, lda,
-      sc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  // the weight gradients: X_l^T dz_l over np rows, split, then summed
-  GemmJobs gj;
+  Args a;
+  a.x4 = x4;
+  a.dirs = dirs;
+  a.cot = cot;
+  a.n = n;
+  a.w.p[0] = (const unsigned char*)scratch;
+  a.w.p[1] = (const unsigned char*)w_imp;
+  a.w.p[2] = (const unsigned char*)w_rad;
+  a.w.p[3] = nullptr;
+  a.w.p[4] = (const unsigned char*)w_t;
+  a.b_imp = b_imp;
+  a.b_rad = b_rad;
+  a.imp = read_plan(imp_desc, n_imp);
+  a.timp = read_plan(timp_desc, n_timp);
+  a.rad = read_plan(rad_desc, n_rad);
+  a.trad = read_plan(trad_desc, n_rad);
+  a.d_in = d_in;
+  a.fx = fx;
+  a.fv = fv;
+  a.F = F;
+  a.reg = reg;
+  a.script = script;
+  a.n_items = n_items;
+  a.scratch = (unsigned char*)scratch;
+  WJobs wj;
   SumJobs sj;
-  gj.n = jobs_n;
-  sj.n = jobs_n + 1;
-  int gemm_blocks = 0;
-  long long total = 0;
-  for (int p = 0; p < jobs_n; ++p) {
-    const bool imp = p < n_i;
-    const int* L = imp ? pi.L[p] : pr.L[p - n_i];
-    GemmJob& J = gj.j[p];
-    J.a = imp ? sc.x[p] : sc.rx[p - n_i];
-    J.b = imp ? sc.dz[p] : sc.rdz[p - n_i];
-    J.part = ws32 + part[p];
-    J.m = np;
-    J.k = L[kK];
-    J.n = L[kN];
-    J.chunk = (int)chunk[p];
-    J.tiles_k = (J.k + kTK - 1) / kTK;
-    J.tiles_n = (J.n + kTN - 1) / kTN;
-    J.blocks = J.tiles_k * J.tiles_n * (int)splits[p];
-    gemm_blocks += J.blocks;
-    sj.j[p] = SumJob{J.part, out + outp[p], (long long)J.k * J.n,
-                     (int)splits[p]};
-    total += sj.j[p].e;
-  }
-  sj.j[jobs_n] = SumJob{sc.dbpart, out + out_db, (long long)sc.tb, blocks};
-  sj.total = total + sc.tb;
-  atb_kernel<<<gemm_blocks, kThreads, 0, st>>>(gj);
+  const int grid =
+      read_jobs(jobs, n_jobs, db_host, scratch, blocks, ws32, out, wj, sj);
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = set_smem((const void*)bg_sweep_kernel, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  bg_sweep_kernel<<<blocks, kBlockThreads, kSmemBytes, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long sum_blocks = (sj.total + kThreads - 1) / kThreads;
-  sum_kernel<<<(int)(sum_blocks < 4096 ? sum_blocks : 4096), kThreads, 0,
-               st>>>(sj);
-  return (int)cudaGetLastError();
+  return (int)launch_products<9>(wj, grid, sj, a.scratch, ws32, st);
 }

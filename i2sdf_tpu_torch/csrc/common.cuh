@@ -261,51 +261,6 @@ struct EpiSoftplusQ {
   }
 };
 
-// ---- epilogues of the forward nets (K8, K9) --------------------------------
-
-// K8's output layer, columns [features (F) | sdf]: the features to the
-// radiance input buffer (no activation), sdf to shared memory.
-struct EpiFeatSdf {
-  __nv_bfloat16* out;
-  int lda;
-  const float* bias;
-  float* sdf_s;
-  int F;
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    const float z0 = v0 + bias[c], z1 = v1 + bias[c + 1];
-    if (c < F) {
-      put2(out + r * lda + c, z0, z1);
-    } else if (c == F) {
-      sdf_s[r] = z0;
-    }
-  }
-};
-
-struct EpiRelu {
-  __nv_bfloat16* out;
-  int lda;
-  const float* bias;
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    put2(out + r * lda + c, fmaxf(v0 + bias[c], 0.f),
-         fmaxf(v1 + bias[c + 1], 0.f));
-  }
-};
-
-// K8's rgb: sigmoid of the radiance net's output, rows below n.
-struct EpiRgbOut {
-  float* rgb;
-  const float* bias;
-  int row0, n, d_out;
-  __device__ __forceinline__ void put(int r, int c, float v) {
-    if (c < d_out && row0 + r < n)
-      rgb[(size_t)(row0 + r) * d_out + c] = 1.f / (1.f + expf(-(v + bias[c])));
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    put(r, c, v0);
-    put(r, c + 1, v1);
-  }
-};
-
 // ---- K6: the backward's sweep ----------------------------------------------
 
 // Where the backward stages each layer's operands (element pointers into
@@ -362,65 +317,6 @@ __device__ __forceinline__ void put_db(float* dst, const float* dzf, int lda,
     dst[c] = acc;
   }
 }
-
-// K9's output layer, columns [features | sdf]: the features become the
-// radiance input; the sdf value itself is not needed here.
-struct EpiFeat {
-  __nv_bfloat16* out;
-  int lda;
-  const float* bias;
-  int F;
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    if (c < F) put2(out + r * lda + c, v0 + bias[c], v1 + bias[c + 1]);
-  }
-};
-
-// K9's rgb, to shared memory (kSweepRows x 4).
-struct EpiRgbShared {
-  float* rgb;
-  const float* bias;
-  int d_out;
-  __device__ __forceinline__ void put(int r, int c, float v) {
-    if (c < d_out) rgb[r * 4 + c] = 1.f / (1.f + expf(-(v + bias[c])));
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    put(r, c, v0);
-    put(r, c + 1, v1);
-  }
-};
-
-// Radiance backward through a hidden layer's input: dz = dh * (x > 0),
-// the ReLU mask read back from the layer's stored input.
-struct EpiRadBack {
-  __nv_bfloat16* out;
-  int lda;
-  const __nv_bfloat16* x;
-  int ldx, row0;
-  float* dzf;  // kSweepRows x lda f32, shared: the values the bias sums take
-  __device__ __forceinline__ float one(int r, int c, float v) {
-    const float d = bf(x + (size_t)(row0 + r) * ldx + c) > 0.f ? v : 0.f;
-    dzf[r * lda + c] = d;
-    return d;
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    put2(out + r * lda + c, one(r, c, v0), one(r, c + 1, v1));
-  }
-};
-
-// Radiance backward into its first layer's input [features | PE(view)]:
-// the feature columns are the cotangent of the SDF output's features.
-struct EpiFeatCot {
-  __nv_bfloat16* out;  // device memory: dz of the last SDF layer
-  int ld, row0, F;
-  float* dzf;
-  int lda;
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    if (c >= F) return;
-    put2(out + (size_t)(row0 + r) * ld + c, v0, v1);
-    dzf[r * lda + c] = v0;
-    dzf[r * lda + c + 1] = v1;
-  }
-};
 
 // Reverse sweep through W_l^T: ah = scale * (r_l W_l^T) on the hidden
 // columns (stored in f32), r_{l-1} = bf16(ah * s_{l-1}); zero elsewhere.

@@ -45,13 +45,14 @@
 //    swizzle. The bias gradients are summed in f32 over the block's rows
 //    in a fixed order (warp shuffles, then four warps in order) into the
 //    block's bias row.
-// 2. `k4_wgrad_kernel`: every dW = A^T B over the points (SDF layers:
-//    X^T dz + da^T r; radiance and light layers X^T dz) on wgmma with
-//    both operands MN-major (the transpose bits), read straight from the
-//    operand regions the sweep wrote: a block takes 128 rows of dW (two
-//    A chunks, one a warpgroup) by 256 columns (four B chunks) over one
-//    range of points, the producer bulk-copying each 64-point block's
-//    chunks into a four-slot ring; the partial sums go to device memory.
+// 2. `wgrad_kernel<4>` (`wgmma_sweep.cuh`, K9's too): every dW = A^T B
+//    over the points (SDF layers: X^T dz + da^T r; radiance and light
+//    layers X^T dz) on wgmma with both operands MN-major (the transpose
+//    bits), read straight from the operand regions the sweep wrote: a
+//    block takes 128 rows of dW (two A chunks, one a warpgroup) by 256
+//    columns (four B chunks) over one range of points, the producer
+//    bulk-copying each 64-point block's chunks into a four-slot ring; the
+//    partial sums go to device memory.
 // 3. `sum_kernel` (common.cuh): the ranges' partial sums and the blocks'
 //    bias rows added in a fixed order, so the result does not change from
 //    run to run.
@@ -75,104 +76,12 @@
 // then the features come back into T and the radiance net runs, its
 // feature cotangent joined by the light's in f32 before the SDF output
 // layer's cotangent is stored.
-#include "wgmma_layer.cuh"
+#include "wgmma_sweep.cuh"
 
 namespace i2sdf {
 namespace {
 
 using namespace wg;
-
-constexpr int kPts = 64;                     // points a block
-constexpr int kSlots = 5;                    // the sweep's ring
-constexpr int kTChunks = 5;                  // T: 64 rows x 320 columns
-constexpr int kTBytes = kTChunks * kChunkBytes;
-constexpr int kWsumCols = 320;
-using KRing = RingN<kSlots>;
-constexpr size_t kSmemBytes =
-    1024 + kTBytes + ring_bytes<kSlots>() + 16 +
-    (size_t)(kPts * (3 + 3 + kCot + 8) + 4 * kWsumCols) * sizeof(float);
-
-// ring table items (`render_core.K4Plan.script`): four int64 each,
-// [kind | base << 8, byte offset, bytes a block (added per block), bytes]
-enum ItemKind { kItemLoad = 0, kItemStage = 1, kItemWait = 2 };
-constexpr int kBases = 5;   // scratch, sdf, radiance, light, transposed
-struct Bases {
-  const unsigned char* p[kBases];
-};
-
-// The scratch regions (`render_core.K4Plan.regions`): byte offset of
-// block 0's tile and bytes a block, for each kind and layer.
-enum RegionKind {
-  kRegX = 0, kRegDz, kRegDa, kRegR,        // SDF layers' operands
-  kRegQ, kRegAh, kRegDzx,                  // the SDF stash
-  kRegRx, kRegRdz,                         // radiance layers' operands
-  kRegLx, kRegLdz, kRegLs, kRegClg,        // the light net's
-  kRegKinds
-};
-constexpr int kRegLayers = 16;
-constexpr int kRegDb = kRegKinds * kRegLayers * 2;   // then the bias rows
-
-// ---- the transposed products (`k4_wgrad_kernel`) ----------------------------
-
-// Descriptor of an MN-major operand in the 128-byte swizzle: 64-element
-// atoms along M or N 8 KB apart (a chunk of an operand region), 8-row
-// groups along K 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_mn(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(8192 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// d[64, 256] (+)= A[16, 64]^T B[16, 256], both operands MN-major.
-__device__ __forceinline__ void wgmma_mn256(float* d, uint64_t da, uint64_t db,
-                                            int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-
 
 // ---- the sweep's consumer side --------------------------------------------
 
@@ -194,41 +103,15 @@ struct Args {
   unsigned char* scratch;
 };
 
-// The consumers' state: the tile (everything else in shared memory sits
-// at fixed offsets from it, `Smem`), the arguments, the ring's count of
-// items taken, the tile barrier's phase, the sweeps stored so far, this
-// thread's warpgroup. Kept this small so the accumulators have the
-// registers.
-struct Ctx {
-  unsigned char* T;
-  const Args* a;
-  int it, tphase, done, cw;
-};
+// The consumers' state and shared memory (`SweepCtx`): after the ring,
+// the points, directions, cotangents and rgb.
+constexpr int kRest = kPts * (3 + 3 + kCot + 8);
+using Ctx = SweepCtx<Args, kRest>;
+constexpr size_t kSmemBytes = Ctx::kSmemBytes;
 
-// Shared memory after the tile: the ring's slots and barriers, the tile
-// barrier, the stored-sweeps count, the points, directions, cotangents,
-// rgb and the warps' column sums.
 struct Smem {
-  static __device__ __forceinline__ unsigned char* slots(const Ctx& c) {
-    return c.T + kTBytes;
-  }
-  static __device__ __forceinline__ uint64_t* full(const Ctx& c) {
-    return reinterpret_cast<uint64_t*>(c.T + kTBytes + kSlots * kSlotBytes);
-  }
-  static __device__ __forceinline__ uint64_t* empty(const Ctx& c) {
-    return full(c) + kSlots;
-  }
-  static __device__ __forceinline__ unsigned char* after(const Ctx& c) {
-    return c.T + kTBytes + ring_bytes<kSlots>();
-  }
-  static __device__ __forceinline__ uint64_t* tbar(const Ctx& c) {
-    return reinterpret_cast<uint64_t*>(after(c));
-  }
-  static __device__ __forceinline__ volatile int* stored(const Ctx& c) {
-    return reinterpret_cast<volatile int*>(after(c) + 8);
-  }
   static __device__ __forceinline__ float* xs(const Ctx& c) {
-    return reinterpret_cast<float*>(after(c) + 16);
+    return c.rest();
   }
   static __device__ __forceinline__ float* ds(const Ctx& c) {
     return xs(c) + kPts * 3;
@@ -239,81 +122,7 @@ struct Smem {
   static __device__ __forceinline__ float* rgb(const Ctx& c) {
     return cot(c) + kPts * kCot;
   }
-  static __device__ __forceinline__ float* wsum(const Ctx& c) {
-    return rgb(c) + kPts * 8;
-  }
-  static __device__ __forceinline__ float* dbrow(const Ctx& c) {
-    return reinterpret_cast<float*>(c.a->scratch + c.a->reg[kRegDb]) +
-           (size_t)blockIdx.x * c.a->reg[kRegDb + 1];
-  }
 };
-
-__device__ __forceinline__ unsigned char* region(const Ctx& c, int kind,
-                                                 int l) {
-  const long long* r = c.a->reg + 2 * (kind * kRegLayers + l);
-  return c.a->scratch + r[0] + (long long)blockIdx.x * r[1];
-}
-
-__device__ __forceinline__ int chunks(int cols) { return (cols + 63) >> 6; }
-
-__device__ __forceinline__ unsigned char* slot_at(const Ctx& c, int s) {
-  return Smem::slots(c) + s * kSlotBytes;
-}
-
-// The next ring item, once it has landed: its slot.
-__device__ __forceinline__ int take(Ctx& c) {
-  const int s = c.it % kSlots;
-  mbar_wait(&Smem::full(c)[s], (c.it / kSlots) & 1);
-  ++c.it;
-  return s;
-}
-
-// A loaded item read by every consumer warp: each warp's leader frees it.
-__device__ __forceinline__ void release(Ctx& c, int s) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(&Smem::empty(c)[s]);
-}
-
-// T (its first `ch` chunks, written and fenced) to an operand region.
-__device__ __forceinline__ void store_T(Ctx& c, int kind, int l, int ch) {
-  if (threadIdx.x == 0) {
-    bulk_store(region(c, kind, l), c.T, (uint32_t)ch * kChunkBytes);
-    bulk_commit();
-  }
-}
-
-// T may be written again: its bulk store has read it.
-__device__ __forceinline__ void wait_T(Ctx& c) {
-  if (threadIdx.x == 0) bulk_wait_read();
-  bar_sync(1, kConsumers);
-}
-
-// Staging slots s (and s2 if >= 0), written and fenced, to a stash region;
-// freed once the copy has read them.
-__device__ __forceinline__ void stage_out(Ctx& c, int s, int s2, int kind,
-                                          int l, uint32_t bytes) {
-  bar_sync(1, kConsumers);
-  if (threadIdx.x == 0) {
-    unsigned char* dst = region(c, kind, l);
-    bulk_store(dst, slot_at(c, s), bytes);
-    if (s2 >= 0) bulk_store(dst + kSlotBytes, slot_at(c, s2), kSlotBytes);
-    bulk_commit();
-    bulk_wait_read();
-    mbar_arrive_n(&Smem::empty(c)[s], kConsumerWarps);
-    if (s2 >= 0) mbar_arrive_n(&Smem::empty(c)[s2], kConsumerWarps);
-  }
-}
-
-// The consumers' stores so far are complete in device memory; the
-// producer may bring them back (its table's waits count these).
-__device__ __forceinline__ void sweep_done(Ctx& c) {
-  ++c.done;
-  if (threadIdx.x == 0) {
-    bulk_wait_all();
-    __threadfence_block();
-    *Smem::stored(c) = c.done;
-  }
-}
 
 // T's first `ch` chunks from a region of the scratch (complete: stored
 // before the last sweep_done).
@@ -321,17 +130,11 @@ __device__ __forceinline__ void load_T(Ctx& c, const unsigned char* src,
                                        int ch) {
   if (threadIdx.x == 0) {
     bulk_wait_read();
-    mbar_expect_tx(Smem::tbar(c), (uint32_t)ch * kChunkBytes);
-    bulk_copy(c.T, src, (uint32_t)ch * kChunkBytes, Smem::tbar(c));
+    mbar_expect_tx(c.tbar(), (uint32_t)ch * kChunkBytes);
+    bulk_copy(c.T, src, (uint32_t)ch * kChunkBytes, c.tbar());
   }
-  mbar_wait(Smem::tbar(c), c.tphase);
+  mbar_wait(c.tbar(), c.tphase);
   c.tphase ^= 1;
-}
-
-__device__ __forceinline__ float2 get_pair(const unsigned char* tile, int row,
-                                           int col) {
-  return unpack_bf16x2(
-      *reinterpret_cast<const uint32_t*>(tile + act_off(row, col)));
 }
 
 __device__ __forceinline__ float get1(const unsigned char* tile, int row,
@@ -351,38 +154,6 @@ __device__ __forceinline__ float2* f32_at(unsigned char* s0,
   const int idx = ((((j & 15) * 4 + (row >> 4)) * 2 + ((row >> 3) & 1)) * 32 +
                    (row & 7) * 4 + ((col >> 1) & 3));
   return reinterpret_cast<float2*>(base) + idx;
-}
-
-// Column sums of a warpgroup's 64 rows: each warp's 16 rows by shuffles,
-// into wsum[w][col]; `bias_row` then adds the four warps in order.
-__device__ __forceinline__ void col_sums(float* wsum, const Frag& f, int col,
-                                         float a0, float a1, float b0,
-                                         float b1) {
-  float v0 = a0 + b0, v1 = a1 + b1;
-#pragma unroll
-  for (int m = 4; m < 32; m <<= 1) {
-    v0 += __shfl_xor_sync(0xffffffffu, v0, m);
-    v1 += __shfl_xor_sync(0xffffffffu, v1, m);
-  }
-  if (f.g == 0) {
-    wsum[f.w * kWsumCols + col] = v0;
-    wsum[f.w * kWsumCols + col + 1] = v1;
-  }
-}
-
-// The block's bias-gradient row at `off`: cols columns of wsum (after a
-// barrier), the four warps added in order.
-__device__ __forceinline__ void bias_row(Ctx& c, int off, int cols) {
-  bar_sync(1, kConsumers);
-  const float* w = Smem::wsum(c);
-  for (int k = threadIdx.x; k < cols; k += kConsumers)
-    Smem::dbrow(c)[off + k] = ((w[k] + w[kWsumCols + k]) +
-                               w[2 * kWsumCols + k]) +
-                              w[3 * kWsumCols + k];
-}
-
-__device__ __forceinline__ int db_off(const Ctx& c, int p) {
-  return (int)c.a->reg[kRegDb + 2 + p];
 }
 
 // Column p of dg_emb = (c_grad Sel^T) * d PE / dx: c_grad itself in the
@@ -417,22 +188,6 @@ __device__ __forceinline__ void fill_T(Ctx& c, int what, int col0, int kend,
   }
 }
 
-// After a layer's products: T's bulk store has read it; both warpgroups'
-// products have retired.
-__device__ __forceinline__ void after_products(Ctx& c) {
-  if (threadIdx.x == 0) bulk_wait_read();
-  bar_sync(1, kConsumers);
-}
-
-template <int NW>
-__device__ __forceinline__ void product(Ctx& c, float* acc, const int* L,
-                                        int col0) {
-  KRing r{Smem::slots(c), Smem::full(c), Smem::empty(c), c.it};
-  products<NW, 1>(acc, nullptr, smem_addr(c.T), 0, col0, L[kK], r);
-  c.it = r.it;
-  after_products(c);
-}
-
 // ---- the sweeps, one layer each -------------------------------------------
 
 // Forward recompute, hidden layer l: h into T (columns below the next
@@ -444,7 +199,7 @@ __device__ __forceinline__ void fwd_hidden(Ctx& c, float* acc, int l,
   const int* nx = c.a->fwd.L[l + 1];
   product<NW>(c, acc, L, sp.col0);
   const int s = take(c);
-  unsigned char* S = slot_at(c, s);
+  unsigned char* S = c.slot(s);
   if (sp.active) {
     const Frag f;
     const float scale = (L[kFlags] & kScale) ? kInvSqrt2 : 1.f;
@@ -524,7 +279,7 @@ __device__ __forceinline__ void net_fwd(Ctx& c, float* acc, int l,
           put_pair(c.T, row, col, fmaxf(z0, 0.f), fmaxf(z1, 0.f));
         } else if constexpr (!last) {
           put_pair(c.T, row, col, softplus100(z0), softplus100(z1));
-          put_pair(slot_at(c, s), row, col, dsoftplus100(z0),
+          put_pair(c.slot(s), row, col, dsoftplus100(z0),
                    dsoftplus100(z1));
         } else if constexpr (kNet == kNetRad) {
           // all eight columns of the N = 8 product, the real ones first
@@ -539,14 +294,14 @@ __device__ __forceinline__ void net_fwd(Ctx& c, float* acc, int l,
         }
       }
       if constexpr (last && kNet == kNetLight)
-        col_sums(Smem::wsum(c), f, col, v[0], v[1], v[2], v[3]);
+        col_sums(c.wsum(), f, col, v[0], v[1], v[2], v[3]);
     }
   }
   if constexpr (last && kNet == kNetLight) {
     // the light net's dz: zero past the product's columns, its bias row
     for (int i = threadIdx.x; i < kPts * (64 - L[kN]); i += kConsumers)
       put1(c.T, i / (64 - L[kN]), L[kN] + i % (64 - L[kN]), 0.f);
-    bias_row(c, db_off(c, c.a->fwd.n - 1 + c.a->rad.n + l), L[kReal]);
+    bias_row(c, c.db_off(c.a->fwd.n - 1 + c.a->rad.n + l), L[kReal]);
   }
   fence_async();
   if constexpr (stage)
@@ -566,7 +321,7 @@ __device__ __forceinline__ void net_bwd(Ctx& c, float* acc, int l,
   const int* Lt = PT.L[P.n - 1 - l];
   product<NW>(c, acc, Lt, sp.col0);
   const int s = take(c);
-  const unsigned char* M = slot_at(c, s);
+  const unsigned char* M = c.slot(s);
   if (sp.active) {
     const Frag f;
     float v[4];
@@ -582,13 +337,13 @@ __device__ __forceinline__ void net_bwd(Ctx& c, float* acc, int l,
         v[2 * h + 1] = kNet == kNetRad ? (m.y > 0.f ? d1 : 0.f) : d1 * m.y;
         put_pair(c.T, row, col, v[2 * h], v[2 * h + 1]);
       }
-      col_sums(Smem::wsum(c), f, col, v[0], v[1], v[2], v[3]);
+      col_sums(c.wsum(), f, col, v[0], v[1], v[2], v[3]);
     }
   }
   release(c, s);
   const int base =
       kNet == kNetRad ? c.a->fwd.n - 1 : c.a->fwd.n - 1 + c.a->rad.n;
-  bias_row(c, db_off(c, base + l - 1), P.L[l - 1][kReal]);
+  bias_row(c, c.db_off(base + l - 1), P.L[l - 1][kReal]);
   fence_async();
   bar_sync(1, kConsumers);
 }
@@ -621,13 +376,13 @@ __device__ __forceinline__ void rad_first_bwd(Ctx& c, float* acc,
         v[2 * h] = acc[4 * j + 2 * h];
         v[2 * h + 1] = acc[4 * j + 2 * h + 1];
         if constexpr (coupled) {
-          const float2 g = *f32_at(slot_at(c, sa), slot_at(c, sb), row, col);
+          const float2 g = *f32_at(c.slot(sa), c.slot(sb), row, col);
           v[2 * h] += g.x;
           v[2 * h + 1] += g.y;
         }
         put_pair(c.T, row, col, v[2 * h], v[2 * h + 1]);
       }
-      col_sums(Smem::wsum(c), f, col, v[0], v[1], v[2], v[3]);
+      col_sums(c.wsum(), f, col, v[0], v[1], v[2], v[3]);
     }
   }
   if constexpr (coupled) {
@@ -643,11 +398,11 @@ __device__ __forceinline__ void rad_first_bwd(Ctx& c, float* acc,
   }
   const int ns = c.a->fwd.n - 1;   // the SDF net's layers (fwd has the
                                    // sdf tile and the features apart)
-  bias_row(c, db_off(c, ns - 1), F);
+  bias_row(c, c.db_off(ns - 1), F);
   if (threadIdx.x == 0) {
     float s = 0.f;
     for (int r = 0; r < kPts; ++r) s += Smem::cot(c)[r * kCot + 3];
-    Smem::dbrow(c)[db_off(c, ns - 1) + F] = s;
+    c.dbrow()[c.db_off(ns - 1) + F] = s;
   }
   fence_async();
   bar_sync(1, kConsumers);
@@ -666,7 +421,7 @@ __device__ __forceinline__ void rev_layer(Ctx& c, float* acc, int l,
     const Frag f;
     const float scale = (Lt[kFlags] & kScale) ? kInvSqrt2 : 1.f;
     const int n_h = Lt[kReal];
-    const unsigned char* Q = slot_at(c, sq);
+    const unsigned char* Q = c.slot(sq);
 #pragma unroll
     for (int j = 0; j < NW / 8; ++j) {
       const int col = sp.col0 + 8 * j + 2 * f.tig;
@@ -675,7 +430,7 @@ __device__ __forceinline__ void rev_layer(Ctx& c, float* acc, int l,
         const int row = f.row() + 8 * h;
         const float a0 = col < n_h ? acc[4 * j + 2 * h] * scale : 0.f;
         const float a1 = col + 1 < n_h ? acc[4 * j + 2 * h + 1] * scale : 0.f;
-        *f32_at(slot_at(c, sa), slot_at(c, sb), row, col) = make_float2(a0, a1);
+        *f32_at(c.slot(sa), c.slot(sb), row, col) = make_float2(a0, a1);
         // no branch on a value of the accumulators (ptxas would
         // serialize the wgmma): the stash is read whole, masked by select
         const float2 q = get_pair(Q, row, col);
@@ -711,7 +466,7 @@ __device__ __forceinline__ void up_layer(Ctx& c, float* acc, int l,
     const Frag f;
     const float scale = (L[kFlags] & kScale) ? kInvSqrt2 : 1.f;
     const int n_h = L[kReal];
-    const unsigned char* Q = slot_at(c, sq);
+    const unsigned char* Q = c.slot(sq);
 #pragma unroll
     for (int j = 0; j < NW / 8; ++j) {
       const int col = sp.col0 + 8 * j + 2 * f.tig;
@@ -723,12 +478,12 @@ __device__ __forceinline__ void up_layer(Ctx& c, float* acc, int l,
         if constexpr (vec)
           ah = *reinterpret_cast<const float2*>(c.a->wsdf + col);
         else
-          ah = *f32_at(slot_at(c, sa), slot_at(c, sb), row, col);
+          ah = *f32_at(c.slot(sa), c.slot(sb), row, col);
         const float r0 = acc[4 * j + 2 * h], r1 = acc[4 * j + 2 * h + 1];
         const bool k0 = col < n_h, k1 = col + 1 < n_h;
         put_pair(c.T, row, col, k0 ? r0 * stash_s(q.x) * scale : 0.f,
                  k1 ? r1 * stash_s(q.y) * scale : 0.f);
-        put_pair(slot_at(c, ss), row, col,
+        put_pair(c.slot(ss), row, col,
                  k0 ? r0 * ah.x * stash_d2(q.x) : 0.f,
                  k1 ? r1 * ah.y * stash_d2(q.y) : 0.f);
       }
@@ -761,8 +516,8 @@ __device__ __forceinline__ void down_layer(Ctx& c, float* acc, int l,
     const Frag f;
     const float scale = (Lt[kFlags] & kScale) ? kInvSqrt2 : 1.f;
     const int n_h = Lt[kReal];
-    const unsigned char* Q = slot_at(c, sq);
-    const unsigned char* Z = slot_at(c, sz);
+    const unsigned char* Q = c.slot(sq);
+    const unsigned char* Z = c.slot(sz);
     float v[4];
 #pragma unroll
     for (int j = 0; j < NW / 8; ++j) {
@@ -781,12 +536,12 @@ __device__ __forceinline__ void down_layer(Ctx& c, float* acc, int l,
                 : 0.f;
         put_pair(c.T, row, col, v[2 * h], v[2 * h + 1]);
       }
-      col_sums(Smem::wsum(c), f, col, v[0], v[1], v[2], v[3]);
+      col_sums(c.wsum(), f, col, v[0], v[1], v[2], v[3]);
     }
   }
   release(c, sq);
   release(c, sz);
-  bias_row(c, db_off(c, l - 1), c.a->fwd.L[l - 1][kReal]);
+  bias_row(c, c.db_off(l - 1), c.a->fwd.L[l - 1][kReal]);
   fence_async();
   bar_sync(1, kConsumers);
 }
@@ -803,7 +558,7 @@ __device__ __forceinline__ void light_input_cot(Ctx& c, float* acc,
   const int sx = take(c), sa = take(c), sb = take(c);
   if (sp.active) {
     const Frag f;
-    const unsigned char* X = slot_at(c, sx);
+    const unsigned char* X = c.slot(sx);
 #pragma unroll
     for (int j = 0; j < NW / 8; ++j) {
       const int col = sp.col0 + 8 * j + 2 * f.tig;
@@ -811,7 +566,7 @@ __device__ __forceinline__ void light_input_cot(Ctx& c, float* acc,
       for (int h = 0; h < 2; ++h) {
         const int row = f.row() + 8 * h;
         const float2 m = get_pair(X, row, col);
-        *f32_at(slot_at(c, sa), slot_at(c, sb), row, col) =
+        *f32_at(c.slot(sa), c.slot(sb), row, col) =
             make_float2(m.x > 0.f ? acc[4 * j + 2 * h] : 0.f,
                         m.y > 0.f ? acc[4 * j + 2 * h + 1] : 0.f);
       }
@@ -871,36 +626,7 @@ __device__ __forceinline__ void light_head(Ctx& c, float* acc) {
 #undef CALL
     }
     sweep_done(c);
-    load_T(c, region(c, kRegRx, 0), chunks(F));
-  }
-}
-
-// The producer: the ring table in order (`render_core.K4Plan.script`).
-__device__ __forceinline__ void run_script(KRing& r, const Args& a,
-                                           volatile int* stored) {
-  for (int i = 0; i < a.n_items; ++i) {
-    const long long* it = a.script + 4 * i;
-    const int kind = (int)(it[0] & 255), base = (int)(it[0] >> 8);
-    if (kind == kItemWait) {
-      uint32_t spins = 0;
-      while (*stored < it[1])
-        if (++spins == (1u << 28)) __trap();
-      __threadfence_block();
-      asm volatile("fence.proxy.async;\n" ::: "memory");
-      continue;
-    }
-    const int s = r.it % kSlots;
-    mbar_wait(&r.empty[s], ((r.it / kSlots) & 1) ^ 1);
-    if (kind == kItemLoad) {
-      const uint32_t bytes = (uint32_t)it[3];
-      mbar_expect_tx(&r.full[s], bytes);
-      bulk_copy(r.slot + s * kSlotBytes,
-                a.w.p[base] + it[1] + (long long)blockIdx.x * it[2], bytes,
-                &r.full[s]);
-    } else {
-      mbar_arrive(&r.full[s]);   // a staging slot: handed out empty
-    }
-    ++r.it;
+    load_T(c, c.region(kRegRx, 0), chunks(F));
   }
 }
 
@@ -976,7 +702,7 @@ __device__ __forceinline__ void consume(Ctx& c) {
         const float g = Smem::rgb(c)[r * 8 + k];
         s += Smem::cot(c)[r * kCot + 4 + k] * g * (1.f - g);
       }
-      Smem::dbrow(c)[db_off(c, ns + nr - 1) + k] = s;
+      c.dbrow()[c.db_off(ns + nr - 1) + k] = s;
     }
     fence_async();
     bar_sync(1, kConsumers);
@@ -1012,7 +738,7 @@ __device__ __forceinline__ void consume(Ctx& c) {
     wait_T(c);
     const int* L = a.fwd.L[ns - 2];
     const int n_h = L[kReal], N = 64 * chunks(L[kN]);
-    const unsigned char* Q = slot_at(c, sq);
+    const unsigned char* Q = c.slot(sq);
     for (int i = threadIdx.x; i < kPts * N; i += kConsumers) {
       const int r = i / N, col = i % N;
       put1(c.T, r, col,
@@ -1054,7 +780,7 @@ __device__ __forceinline__ void consume(Ctx& c) {
   sweep_done(c);
 
   // ---- 7. downward sweep: dz_l stored, bias rows --------------------------
-  load_T(c, region(c, kRegDz, ns - 1), chunks(out_k));
+  load_T(c, c.region(kRegDz, ns - 1), chunks(out_k));
   for (int l = ns - 1; l >= 1; --l) {
     if (l < ns - 1) store_T(c, kRegDz, l, chunks(a.fwd.L[l][kN]));
     const Split sp(a.tsdf.L[ns - 1 - l][kN], c.cw);
@@ -1075,10 +801,10 @@ k4_sweep_kernel(const __grid_constant__ Args a) {
   c.a = &a;
   c.it = c.tphase = c.done = 0;
   c.cw = threadIdx.x >> 7;
-  KRing ring = make_ring<kSlots>(Smem::slots(c));
+  KRing ring = make_ring<kSlots>(c.slots());
   if (threadIdx.x == 0) {
-    mbar_init(Smem::tbar(c), 1);
-    *Smem::stored(c) = 0;
+    mbar_init(c.tbar(), 1);
+    *c.stored() = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   const int row0 = blockIdx.x * kPts;
@@ -1096,125 +822,13 @@ k4_sweep_kernel(const __grid_constant__ Args a) {
   }
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
-    if (threadIdx.x == kConsumers) run_script(ring, a, Smem::stored(c));
+    if (threadIdx.x == kConsumers)
+      run_script(ring, a.script, a.n_items, a.w, c.stored());
     return;
   }
   consume<kLight, kCoupled>(c);
 }
 
-
-// ---- 2. the weight-gradient products ---------------------------------------
-
-constexpr int kWSlots = 4;
-constexpr int kWSlotBytes = 6 * kChunkBytes;   // two A chunks, four B chunks
-constexpr int kMaxWJobs = 24;
-constexpr size_t kWSmemBytes = 1024 + kWSlots * kWSlotBytes + 2 * kWSlots * 8;
-
-// One weight gradient (`render_core.K4Plan.jobs`): dW (K x N) = sum over
-// its `pairs` operand pairs and the point blocks of A^T B; the regions'
-// byte offsets (block 0) and bytes a block; the grid's tiles of 128 rows
-// x 256 columns, each over `per` blocks of one of `splits` ranges; the
-// partials (splits, K, N) at f32 element `part`.
-struct WJob {
-  long long a_off[2], a_stride[2], b_off[2], b_stride[2], part;
-  int pairs, K, N, ka, nblk, per, splits, tiles_k, tiles_n, first;
-};
-struct WJobs {
-  WJob j[kMaxWJobs];
-  int n;
-};
-
-__global__ void __launch_bounds__(kBlockThreads, 1)
-k4_wgrad_kernel(const __grid_constant__ WJobs jobs,
-                const unsigned char* __restrict__ scratch,
-                float* __restrict__ ws32) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* slots = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(slots + kWSlots * kWSlotBytes);
-  uint64_t* empty = full + kWSlots;
-  int ji = 0;
-  while (ji < jobs.n - 1 && (int)blockIdx.x >= jobs.j[ji + 1].first) ++ji;
-  const WJob& J = jobs.j[ji];
-  int t = blockIdx.x - J.first;
-  const int tn = t % J.tiles_n;
-  t /= J.tiles_n;
-  const int tk = t % J.tiles_k, split = t / J.tiles_k;
-  const int b0 = split * J.per, b1 = min(J.nblk, b0 + J.per);
-  const int ka = min(2, J.ka - 2 * tk);
-  const int items = J.pairs * (b1 - b0);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kWSlots; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    fence_async();
-  }
-  __syncthreads();
-  if (threadIdx.x >= kConsumers) {
-    if (threadIdx.x == kConsumers) {
-      for (int i = 0; i < items; ++i) {
-        const int p = i / (b1 - b0), b = b0 + i % (b1 - b0), s = i % kWSlots;
-        mbar_wait(&empty[s], ((i / kWSlots) & 1) ^ 1);
-        const uint32_t abytes = (uint32_t)ka * kChunkBytes;
-        mbar_expect_tx(&full[s], abytes + 4 * kChunkBytes);
-        unsigned char* dst = slots + s * kWSlotBytes;
-        bulk_copy(dst, scratch + J.a_off[p] + (long long)b * J.a_stride[p] +
-                           (long long)tk * 2 * kChunkBytes,
-                  abytes, &full[s]);
-        bulk_copy(dst + 2 * kChunkBytes,
-                  scratch + J.b_off[p] + (long long)b * J.b_stride[p] +
-                      (long long)tn * 4 * kChunkBytes,
-                  4 * kChunkBytes, &full[s]);
-      }
-    }
-    return;
-  }
-  // consumer warpgroup cw: rows [64 (2 tk + cw), +64) of dW, its A chunk
-  // (the first again, unwritten, where the layer has no second)
-  const int cw = threadIdx.x >> 7;
-  const bool active = cw < ka;
-  const int ac = active ? cw : 0;
-  const bool leader = (threadIdx.x & 31) == 0;
-  float acc[128];
-  fence_regs<128>(acc);
-  wgmma_fence();
-  int prev = -1;
-  for (int i = 0; i < items; ++i) {
-    const int s = i % kWSlots;
-    mbar_wait(&full[s], (i / kWSlots) & 1);
-    const uint32_t base = smem_addr(slots + s * kWSlotBytes);
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wgmma_mn256(acc, desc_mn(base + ac * kChunkBytes + ks * 2048),
-                  desc_mn(base + 2 * kChunkBytes + ks * 2048),
-                  (i | ks) != 0);
-    wgmma_commit();
-    if (prev >= 0) {
-      wgmma_wait<1>();
-      if (leader) mbar_arrive(&empty[prev]);
-    }
-    prev = s;
-  }
-  wgmma_wait<0>();
-  fence_regs<128>(acc);
-  if (leader && prev >= 0) mbar_arrive(&empty[prev]);
-  if (!active) return;
-  const Frag f;
-  float* P = ws32 + J.part + (size_t)split * J.K * J.N;
-  const int k = 64 * (2 * tk + cw) + f.row();
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int n = 256 * tn + 8 * j + 2 * f.tig;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kk = k + 8 * h;
-      if (kk >= J.K) continue;
-      if (n < J.N) P[(size_t)kk * J.N + n] = acc[4 * j + 2 * h];
-      if (n + 1 < J.N) P[(size_t)kk * J.N + n + 1] = acc[4 * j + 2 * h + 1];
-    }
-  }
-}
 
 template <bool kLight, bool kCoupled>
 cudaError_t launch(const Args& a, int blocks, const WJobs& jobs, int grid,
@@ -1226,16 +840,7 @@ cudaError_t launch(const Args& a, int blocks, const WJobs& jobs, int grid,
       <<<blocks, kBlockThreads, kSmemBytes, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = set_smem((const void*)k4_wgrad_kernel, kWSmemBytes);
-  if (err != cudaSuccess) return err;
-  k4_wgrad_kernel<<<grid, kBlockThreads, kWSmemBytes, st>>>(jobs, a.scratch,
-                                                            ws32);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long sum_blocks = (sums.total + kThreads - 1) / kThreads;
-  sum_kernel<<<(int)(sum_blocks < 4096 ? sum_blocks : 4096), kThreads, 0,
-               st>>>(sums);
-  return cudaGetLastError();
+  return launch_products<4>(jobs, grid, sums, a.scratch, ws32, st);
 }
 
 }  // namespace
@@ -1294,41 +899,8 @@ extern "C" int i2sdf_render_core_bwd(
   a.scratch = (unsigned char*)scratch;
   WJobs wj;
   SumJobs sj;
-  wj.n = n_jobs;
-  sj.n = n_jobs + 1;
-  int grid = 0;
-  long long total = 0;
-  const long long* t = jobs;
-  for (int p = 0; p < n_jobs; ++p, t += 18) {
-    WJob& J = wj.j[p];
-    for (int q = 0; q < 2; ++q) {
-      J.a_off[q] = t[q];
-      J.a_stride[q] = t[2 + q];
-      J.b_off[q] = t[4 + q];
-      J.b_stride[q] = t[6 + q];
-    }
-    J.part = t[8];
-    J.pairs = (int)t[9];
-    J.K = (int)t[10];
-    J.N = (int)t[11];
-    J.ka = (int)t[12];
-    J.nblk = (int)t[13];
-    J.per = (int)t[14];
-    J.splits = (int)t[15];
-    J.tiles_k = (J.ka + 1) / 2;
-    J.tiles_n = (J.N + 255) / 256;
-    J.first = grid;
-    grid += J.tiles_k * J.tiles_n * J.splits;
-    sj.j[p] = SumJob{ws32 + J.part, out + t[16], (long long)J.K * J.N,
-                     J.splits};
-    total += sj.j[p].e;
-  }
-  // the blocks' bias rows: db_host = [byte offset in the scratch, tb,
-  // out offset]
-  sj.j[n_jobs] = SumJob{(const float*)((const unsigned char*)scratch +
-                                       db_host[0]),
-                        out + db_host[2], db_host[1], blocks};
-  sj.total = total + db_host[1];
+  const int grid =
+      read_jobs(jobs, n_jobs, db_host, scratch, blocks, ws32, out, wj, sj);
   const cudaStream_t st = (cudaStream_t)stream;
   if (n_l > 0 && !detach_light)
     return (int)launch<true, true>(a, blocks, wj, grid, sj, ws32, st);

@@ -47,10 +47,10 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "i2sdf_conv_check": [_P, _P, _P, _F, _P, _I, _I, _P],
     "i2sdf_bg_core_fwd": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _I, _P, _P, _P],
-    "i2sdf_bg_core_bwd": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
-                          _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                          _P],
+                          _I, _I, _P, _P, _P],
+    "i2sdf_bg_core_bwd": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
+                          _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                          _P, _I, _P, _P, _P],
     "i2sdf_sdf_outputs": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P,
                           _P],
     "i2sdf_sdf_grad_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],

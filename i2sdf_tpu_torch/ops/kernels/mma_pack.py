@@ -103,38 +103,43 @@ def swizzle_groups(rows: int, device=None) -> torch.Tensor:
     return torch.arange(8, device=device)[None, :] ^ (r[:, None] % 8)
 
 
-def pack_stages(w: torch.Tensor, K: int, N: int,
-                rows: int = 256) -> torch.Tensor:
-    """(k, n) f32 weight -> its stage images for a (K, N) layer, flat bf16:
-    for each 64-deep chunk c of K (zero past K), rows r of W^T at r * 64
-    elements, 16-byte group q of columns [64 c, 64 c + 64) at position
-    q ^ (r % 8). A layer of N > `rows` comes as stages of `rows` rows, every
-    chunk of W^T's first `rows` rows first (the passes K1 takes)."""
+def pack_stages(w: torch.Tensor, K: int, N: int, rows: int = 256,
+                dtype=torch.bfloat16) -> torch.Tensor:
+    """(k, n) f32 weight -> its stage images for a (K, N) layer, flat bf16
+    (`dtype`): for each 64-deep chunk c of K (zero past K), rows r of W^T
+    at r * 64 elements, 16-byte group q of columns [64 c, 64 c + 64) at
+    position q ^ (r % 8). A layer of N > `rows` comes as stages of `rows`
+    rows, every chunk of W^T's first `rows` rows first (the passes K1
+    takes)."""
     k, n = w.shape
     Kc = round_up(K, STAGE_K)
-    wt = torch.zeros((N, Kc), dtype=torch.float32, device=w.device)
+    wt = torch.zeros((N, Kc), dtype=dtype, device=w.device)
     wt[:n, :k] = w.t()
     R = min(N, rows)
-    t = wt.to(torch.bfloat16).reshape(N // R, R, Kc // STAGE_K, 8, 8)
+    t = wt.reshape(N // R, R, Kc // STAGE_K, 8, 8)
     t = t.permute(0, 2, 1, 3, 4)           # (pass, chunk, row, group, elt)
     r = torch.arange(R, device=w.device)[:, None]
     img = t[:, :, r, swizzle_groups(R, w.device)]
     return img.reshape(-1).contiguous()
 
 
-def pack_stage_chain(layers: list[dict], rows: int = 256) -> PackedMlp:
+def pack_stage_chain(layers: list[dict], rows: int = 256,
+                     dtype=torch.bfloat16) -> PackedMlp:
     """`pack_chain`'s layers (w (k, n), b, flags, col, real) as stage
     images of at most `rows` rows
     (`pack_stages`, recorded as the plan's kStageRows when below N):
-    K = round_up(k, 16), N = wg_width(n), biases zero-padded to N."""
+    K = round_up(k, 16), N = wg_width(n), biases zero-padded to N. With
+    an integer `dtype` the layers hold positions and the chain is their
+    layout (`gather_chain`)."""
+    bdtype = torch.float32 if dtype.is_floating_point else dtype
     ws, bs, plan = [], [], []
     w_off = b_off = 0
     for lay in layers:
         k, n = lay["w"].shape
         K, N = round_up(k, 16), wg_width(n)
         R = min(N, rows)
-        ws.append(pack_stages(lay["w"], K, N, R))
-        b = torch.zeros(N, dtype=torch.float32, device=lay["w"].device)
+        ws.append(pack_stages(lay["w"], K, N, R, dtype))
+        b = torch.zeros(N, dtype=bdtype, device=lay["w"].device)
         if lay.get("b") is not None:
             b[:len(lay["b"])] = lay["b"]
         bs.append(b)
@@ -145,6 +150,16 @@ def pack_stage_chain(layers: list[dict], rows: int = 256) -> PackedMlp:
         b_off += N
     return PackedMlp(torch.cat(ws), torch.cat(bs),
                      np.ascontiguousarray(np.asarray(plan, np.int32)))
+
+
+def gather_chain(index: PackedMlp, w_src: torch.Tensor,
+                 b_src: torch.Tensor) -> PackedMlp:
+    """The chain whose layout `index` holds (`pack_stage_chain` of int64
+    positions, 0 for zero and p for element p of the sources), packed from
+    flat f32 weights and biases (`w_src`, `b_src`, a zero first) in two
+    gathers: the same bits as `pack_stage_chain` of the weights."""
+    return PackedMlp(w_src[index.weights].to(torch.bfloat16),
+                     b_src[index.biases], index.plan)
 
 
 def row_stride(width: int) -> int:

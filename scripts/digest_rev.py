@@ -1,5 +1,5 @@
-"""SHA-256 digests of K5's and K6's outputs at the smoke's seeded inputs,
-so that two trees' kernels can be held to the same bits.
+"""SHA-256 digests of K5's, K6's and K4's outputs at the smoke's seeded
+inputs, so that two trees' kernels can be held to the same bits.
 
     python scripts/digest_rev.py [TREE]
 
@@ -9,7 +9,10 @@ repository; e.g. a `git archive` of another commit unpacked under
 set of `chip_smoke.check_rev` (the eikonal batch's 4,800 points and the
 155,200 render points) with the digests of K5's outputs (sdf and
 features, gradient) and of K6's weight gradients at the init of the
-training config's SDF net (seed `SEED`). Needs a CUDA device and nvcc.
+training config's SDF net (seed `SEED`), then one line with the digest of
+K4's weight gradients at `chip_smoke.check_k4`'s inputs (the training
+config's init, `k4_batch`'s 160,000 points, the seeded loss's
+cotangents). Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ sys.path.insert(0, str(TREE))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from i2sdf_tpu_torch.ops.kernels import build, rev  # noqa: E402
+from i2sdf_tpu_torch.ops.kernels import build, render_core, rev  # noqa: E402
 
 
 def digest(ts) -> str:
@@ -59,6 +62,21 @@ def main() -> int:
         print(json.dumps({"tree": str(TREE), "points": label,
                           "n": x.shape[0], "k5": digest([out, grad]),
                           "k6": digest(dws + dbs)}), flush=True)
+    x, d, _ = cs.k4_batch(cfg, cs.eval_conf(), device)
+    w = render_core.CoreWeights.of(model.implicit, model.rendering)
+    outs = render_core.render_core_train_plain(cfg.implicit, cfg.rendering,
+                                               w, x, d)
+    cot = cs.loss_cotangents(*outs, cs.K4_EIK, cs.SEED + 5)
+    del outs
+    with torch.no_grad():
+        packs = (render_core.CoreStages(cfg.implicit, cfg.rendering, w),
+                 render_core.K4Stages(cfg.implicit, cfg.rendering, w))
+        grads = render_core.render_core_bwd(*packs, x, d, cot)
+    torch.cuda.synchronize()
+    print(json.dumps({"tree": str(TREE), "points": "k4_batch",
+                      "n": x.shape[0],
+                      "k4": digest([t for g in grads for t in g])}),
+          flush=True)
     return 0
 
 

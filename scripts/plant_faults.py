@@ -1,5 +1,5 @@
-"""Plant faults in copies of the tree and show that the smoke's K1, K3 and
-K4 checks catch each one.
+"""Plant faults in copies of the tree and show that the smoke's K1, K3, K4
+and K8/K9 checks catch each one.
 
     python scripts/plant_faults.py [FAULT ...]
 
@@ -9,7 +9,8 @@ the copy, builds the copy's kernels there and runs, each in its own
 process, the checks the fault must fail: `chip_smoke.check_k1`,
 `chip_smoke.check_k3` (the flagship config's K3, `k3`, and the light
 config's K3-light, `k3_light`; both also on a net of odd depth) and
-`chip_smoke.check_k4` (the training config's K4, `k4`). A check that
+`chip_smoke.check_k4` (the training config's K4, `k4`) and
+`chip_smoke.check_bg` (the bg config's K8 and K9, `bg`). A check that
 raises has caught the fault. Prints one JSON line per fault, and exits
 nonzero if a check named in the fault's `must_fail` passed. Needs a CUDA
 device and `nvcc`; the repository itself is not touched.
@@ -73,6 +74,22 @@ FAULTS = {
         "            load(REG_Q, l, tile(fwd[l, 1]))\n",
         "            load(REG_Q, max(l - 1, 0), tile(fwd[l, 1]))\n",
         ("k4",)),
+    # K8's output layer packed with its columns in the nets' own order
+    # [sigma | features], where the kernel's output epilogue takes
+    # [features | sigma]: sigma comes out of the last feature's column
+    "bg_features_sigma_swapped": (
+        "i2sdf_tpu_torch/ops/kernels/bg_core.py",
+        "    perm = render_core._sdf_perm(F)\n    wi[-1], bi[-1] =",
+        "    perm = list(range(F + 1))\n    wi[-1], bi[-1] =",
+        ("bg",)),
+    # K9's implicit backward reads back layer l - 2's stash s where it
+    # needs layer l - 1's (the ring table's item)
+    "k9_stash_one_layer_off": (
+        "i2sdf_tpu_torch/ops/kernels/bg_core.py",
+        "            load(REG_Q, l - 1, _chunks(imp[l - 1, 1]) * _CHUNK)\n",
+        "            load(REG_Q, max(l - 2, 0), _chunks(imp[l - 1, 1]) * _CHUNK)"
+        "\n",
+        ("bg",)),
 }
 
 CHECK = """
@@ -83,10 +100,13 @@ build.build()
 device = torch.device("cuda", 0)
 which = sys.argv[1]
 conf = (cs.light_conf(train=False) if which == "k3_light"
-        else cs.train_conf() if which == "k4" else cs.eval_conf())
+        else cs.train_conf() if which == "k4"
+        else cs.bg_conf(train=False) if which == "bg" else cs.eval_conf())
 cfg, model = cs.seeded_model(conf, device)
 if which == "k1":
     cs.check_k1(model, cfg, cs.k1_points(cfg, conf, device))
+elif which == "bg":
+    cs.check_bg(model, cfg, conf, device)
 elif which == "k4":
     cs.check_k4(model, cfg, conf, device)
 else:

@@ -1,0 +1,96 @@
+"""Host time of packing the NeRF++ background pair's weights for K8 and
+K9 on one card, at the smoke's bg config (its seeded init).
+
+    python scripts/time_packing.py [TREE ...]
+
+For each TREE in the order given (default: this repository; e.g. a `git
+archive` of another commit unpacked under `exps/`; a tree may come more
+than once, to time trees in turns), in a process of its own: imports
+TREE's package and `chip_smoke.py`, builds the bg config's nets on the
+card and times on the host clock, after a warm-up, `REPS` times each:
+
+* `train_ms`: the pack a training step makes for K8 and K9 from the
+  materialized weights (`bg_core.BgStages`, with the transposed chain
+  that K9's backward reads; a tree without `BgStages` packs
+  `bg_core.BgLayout`);
+* `eval_ms`: the pack an eval render makes (`bg_core.BgPack`).
+
+Each pack starts with the device idle and ends when the host returns (its
+device work runs behind, as in a step); `synced_ms` adds the wait for the
+device. Prints one JSON line per run: medians and minima in ms. Builds
+no kernel. Without a card it times the packs on the CPU (`device`).
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+REPS = 50
+
+
+def one(tree: Path) -> dict:
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import chip_smoke as cs
+    from i2sdf_tpu_torch.ops.kernels import bg_core
+    assert Path(cs.__file__).resolve().parent == tree, cs.__file__
+    cuda = torch.cuda.is_available()
+    device = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    conf = cs.bg_conf(train=True)
+    cfg, model = cs.seeded_model(conf, device)
+    nets = (model.bg_implicit, model.bg_rendering)
+    packer = getattr(bg_core, "BgStages", None) or bg_core.BgLayout
+    with torch.no_grad():
+        w = bg_core.BgWeights.of(*nets)
+
+    def train_pack():
+        with torch.no_grad():
+            st = packer(cfg.bg_implicit, cfg.bg_rendering, w)
+            if hasattr(type(st), "pack_t"):
+                st.t   # noqa: B018 (packs the transposed chain)
+
+    def eval_pack():
+        bg_core.BgPack(*nets)
+
+    out = dict(tree=str(tree), device=str(device), packer=packer.__name__,
+               reps=REPS)
+    for name, fn in (("train", train_pack), ("eval", eval_pack)):
+        host, synced = [], []
+        for i in range(REPS + 3):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            sync()
+            t2 = time.perf_counter()
+            if i >= 3:
+                host.append((t1 - t0) * 1e3)
+                synced.append((t2 - t0) * 1e3)
+        out[f"{name}_ms"] = statistics.median(host)
+        out[f"{name}_ms_min"] = min(host)
+        out[f"{name}_synced_ms"] = statistics.median(synced)
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--one":
+        print(json.dumps(one(Path(sys.argv[2]).resolve())), flush=True)
+        return 0
+    trees = [Path(t).resolve() for t in sys.argv[1:]] or [ROOT]
+    rc = 0
+    for tree in trees:
+        rc |= subprocess.run([sys.executable, __file__, "--one",
+                              str(tree)]).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,7 +3,7 @@ the f32 bound the port's kernels are gated on there. CPU only: the Pallas
 kernels run in interpret mode.
 
     JAX_PLATFORMS=cpu python scripts/witness_perturbed.py \
-        [k1 k3 k4 k3_light k4_light ...]
+        [k1 k3 k4 k3_light k4_light bg ...]
 
 At `chip_smoke.py`'s perturbed nets (`perturbed_net` of the seeded init,
 seeds SEED + 10 + i; the flagship's, and the light config's with
@@ -17,13 +17,20 @@ cotangents. Prints one JSON line each: the points past the bound the smoke
 gates K1 (0.02 + 0.02 |ref|) and K3 (`CORE_TOLS`) on, or K4's gradient
 check (`grad_errors`, the gate: worst leaf < 0.1, cosine > 0.999),
 against the plain f32 op and against the plain op at the weights rounded
-to bf16. Runs in chunks of 65,536 points; K3 takes about ten minutes.
+to bf16. `bg`: the NeRF++ background pair (`get_bg_core_op` through
+`bg_core_fused`) at the smoke's perturbed background nets
+(`chip_smoke.bg_nets`), its forward (K8's) over the smoke's training
+batch (51,200 points) and eval chunk (384,000) against `CORE_TOLS`' sigma
+and rgb bounds and the spread rule (`k8_errors`), its backward (K9's) over
+the training batch with the smoke's loss cotangents (`grad_errors`). Runs
+in chunks of 65,536 points; K3 takes about ten minutes.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -38,17 +45,25 @@ import jax.numpy as jnp  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from i2sdf_tpu.config import load_cfg as jax_load_cfg  # noqa: E402
 from i2sdf_tpu.models import renderer as jrenderer  # noqa: E402
+from i2sdf_tpu.ops.pallas.fused_bg import bg_core_fused  # noqa: E402
 from i2sdf_tpu.ops.pallas.fused_mlp import fused_sdf_mlp  # noqa: E402
 from i2sdf_tpu.ops.pallas.fused_train import (  # noqa: E402
     get_render_core_op, render_core_fused)
-from i2sdf_tpu_torch.ops.kernels import render_core, sdf_mlp  # noqa: E402
+from i2sdf_tpu_torch.ops.kernels import (bg_core, render_core,  # noqa: E402
+                                         sdf_mlp)
 
 CHUNK = 1 << 16
 CPU = torch.device("cpu")
 
 
-def jax_params(net) -> dict:
-    """A port net's parameters as the JAX package's {lin: {v, g, b}}."""
+def jax_params(net, ws=None, bs=None) -> dict:
+    """A port net's parameters as the JAX package's {lin: {v, g, b}}; with
+    `ws` and `bs` (a net without weight norm) its {lin: {w, b}} at those
+    weights and biases."""
+    if ws is not None:
+        return {f"lin{l}": {"w": jnp.asarray(w.detach().numpy()),
+                            "b": jnp.asarray(b.detach().numpy())}
+                for l, (w, b) in enumerate(zip(ws, bs))}
     out = {}
     for k, v in net.state_dict().items():
         lin, leaf = k.split(".")
@@ -174,10 +189,89 @@ def k4(conf_path=cs.TRAIN_CONF, detach_light=True) -> dict:
     return row
 
 
+def bg_weights(nets, bf16w: bool) -> bg_core.BgWeights:
+    """The nets' materialized weights; with `bf16w` rounded to bf16 (the
+    kernels' operands), biases as they are."""
+    w = bg_core.BgWeights.of(*nets)
+    if not bf16w:
+        return w
+    rnd = lambda ts: tuple(t.detach().to(torch.bfloat16).float()  # noqa
+                           for t in ts)
+    return bg_core.BgWeights(rnd(w.ws_i), w.bs_i, rnd(w.ws_r), w.bs_r)
+
+
+def bg() -> list:
+    conf = cs.bg_conf(train=False)
+    cfg, model = cs.seeded_model(conf, CPU)
+    with tempfile.TemporaryDirectory() as tmp:
+        jcfg = jrenderer.I2SDFConfig.from_cfgnode(
+            jax_load_cfg(cs.bg_conf_path(tmp)).model)
+    icfg, rcfg = jcfg.bg_implicit, jcfg.bg_rendering
+    nets = cs.bg_nets(model, cfg, CPU)["perturbed"]
+    rows = []
+    for label, n_rays in (("train", cs.K4_RAYS),
+                          ("eval", conf.train.split_n_pixels)):
+        x4, d = cs.bg_points(cfg, conf, CPU, n_rays)
+        row = dict(op="forward", points=label, n=len(x4))
+        for gate in ("f32", "bf16w"):
+            w = bg_weights(nets, gate == "bf16w")
+            pi, pr = (jax_params(m, ws, bs) for m, ws, bs in (
+                (nets[0], w.ws_i, w.bs_i), (nets[1], w.ws_r, w.bs_r)))
+            ker = [torch.cat(t) for t in zip(*(
+                [torch.from_numpy(np.array(o)) for o in bg_core_fused(
+                    pi, icfg, pr, rcfg, xc.numpy(), dc.numpy(),
+                    block_rows=256, interpret=True)]
+                for xc, dc in zip(x4.split(CHUNK), d.split(CHUNK))))]
+            with torch.no_grad():
+                ref = bg_core.bg_core_plain(cfg.bg_implicit, cfg.bg_rendering,
+                                            w, x4, d)
+            errs, ok = cs.k8_errors(ker, ref)
+            row[gate] = dict(errs, ok=ok, past={
+                k: past(a, b, *tol) for k, a, b, tol in zip(
+                    ("sigma", "rgb"), ker, ref,
+                    (cs.CORE_TOLS["sdf"], cs.CORE_TOLS["rgb"]))})
+        rows.append(row)
+    x4, d = cs.bg_points(cfg, conf, CPU, cs.K4_RAYS)
+    row = dict(op="backward", points="train", n=len(x4))
+    for gate in ("f32", "bf16w"):
+        w0 = bg_weights(nets, gate == "bf16w")
+        w = bg_core.BgWeights(*(tuple(t.detach().requires_grad_(True)
+                                      for t in g)
+                                for g in (w0.ws_i, w0.bs_i, w0.ws_r,
+                                          w0.bs_r)))
+        sigma, rgb = bg_core.bg_core_plain(cfg.bg_implicit, cfg.bg_rendering,
+                                           w, x4, d)
+        cot = cs.bg_cotangents(sigma, rgb, cs.SEED + 12)
+        ref = torch.autograd.grad((sigma, rgb), w.flat(),
+                                  (cot[:, :1], cot[:, 1:]))
+        pi, pr = (jax_params(m, ws, bs) for m, ws, bs in (
+            (nets[0], w.ws_i, w.bs_i), (nets[1], w.ws_r, w.bs_r)))
+        got = None
+        for sl in range(0, len(x4), CHUNK):
+            xc = x4[sl:sl + CHUNK].numpy()
+            dc = d[sl:sl + CHUNK].numpy()
+            c = cot[sl:sl + CHUNK].numpy()
+            _, vjp = jax.vjp(lambda a, b: bg_core_fused(
+                a, icfg, b, rcfg, xc, dc, block_rows=256, interpret=True),
+                pi, pr)
+            gi, gr = vjp((jnp.asarray(c[:, :1]), jnp.asarray(c[:, 1:])))
+            g = [torch.from_numpy(np.array(t[f"lin{l}"][leaf]))
+                 for t, n, leaf in ((gi, len(w.ws_i), "w"),
+                                    (gi, len(w.ws_i), "b"),
+                                    (gr, len(w.ws_r), "w"),
+                                    (gr, len(w.ws_r), "b"))
+                 for l in range(n)]
+            got = g if got is None else [a + b for a, b in zip(got, g)]
+        row[gate] = cs.grad_errors(got, list(ref))
+    rows.append(row)
+    return rows
+
+
 WITNESSES = {
     "k1": k1, "k3": k3, "k4": k4,
     "k3_light": lambda: k3(cs.LIGHT_CONF),
     "k4_light": lambda: [k4(cs.LIGHT_CONF, d) for d in (True, False)],
+    "bg": bg,
 }
 
 

@@ -533,7 +533,7 @@ class K4Replay:
         return self.scr[off][:, (addr // 2).flatten()].view(self.B, 64, cols)
 
     def products(self):
-        """`k4_wgrad_kernel` and the fixed-order sums: every dW over its
+        """`wgrad_kernel` and the fixed-order sums: every dW over its
         operand pairs and point ranges, then the blocks' bias rows."""
         plan = self.plan
         out = torch.full((plan.n_out,), float("nan"), device=self.T.device)

@@ -669,28 +669,38 @@ def test_conv_check_kernel(dev, S):
 
 
 # ---- K8 bg_core_fwd and K9 bg_core_bwd ------------------------------------
-# The background config's nets (VolSDF's BlendedMVS widths). K8 against the
-# plain pair at CORE_TOLS's sdf and rgb tolerances (bf16 operands, f32
-# accumulation) and by the spread rule: each output's max error at most
-# BG_SPREAD_TOL of the plain output's spread (max - min) over 4096 seeded
-# points. At init the outputs vary little from point to point, so the
-# spread rule also runs on nets whose weights are scaled by sqrt(6) (the
-# uniform init's std then is He's sqrt(2 / fan_in)), where each spread is
-# at least BG_MIN_SPREAD. K9 with a loss's cotangents against autograd of
-# the plain pair (f32): cosine > 0.999 at every count and per leaf < 0.1
-# from 4,800 points up (below that a few bf16 mask flips weigh on a leaf
-# as much as the signal does, as for K4), and against its bf16 replay
-# (test_torch_bg_replay.replay_bwd, on the CPU) at the JAX package's
-# gradient tolerance; two runs agree to the bit.
+# The background config's nets (VolSDF's BlendedMVS widths) at the init's
+# weights, at weights perturbed by 0.01 N(0, 1) (the init's zero encoding
+# rows of layer 0 and the skip hide layout faults) and on a net of odd
+# depth (seven hidden layers, the skip at 3, perturbed too), at counts on
+# both sides of the blocks' edges (K8: 128 points, two warpgroups of 64;
+# K9: 64). K8 against the plain pair at CORE_TOLS's sdf and rgb
+# tolerances (bf16 operands, f32 accumulation) and by the spread rule:
+# each output's max error at most BG_SPREAD_TOL of the plain output's
+# spread (max - min) over 4096 seeded points. At init the outputs vary
+# little from point to point, so the spread rule also runs on nets whose
+# weights are scaled by sqrt(6) (the uniform init's std then is He's
+# sqrt(2 / fan_in)), where each spread is at least BG_MIN_SPREAD. Every
+# gate is against the f32 plain pair: the JAX package's own kernel stays
+# inside it at the smoke's perturbed weights (`scripts/witness_perturbed.py
+# bg`). K9 with a loss's cotangents against autograd of the plain pair
+# (f32): cosine > 0.999 at every count and per leaf < 0.1 from 4,800
+# points up (below that a few bf16 mask flips weigh on a leaf as much as
+# the signal does, as for K4), and against its bf16 replay
+# (test_torch_bg_replay.replay_bwd, on the CPU) by the same rule; two runs
+# agree to the bit.
 
 BG_SPREAD_TOL, BG_MIN_SPREAD = 0.05, 0.25
 BG_ICFG = mlp.ImplicitNetConfig(
     feature_vector_size=256, sdf_bounding_sphere=0.0, d_in=4,
     dims=(256,) * 8, skip_in=(4,), geometric_init=False, weight_norm=False,
     embed_type="positional", multires=10)
+BG_ICFG_ODD = dataclasses.replace(BG_ICFG, dims=(256,) * 7, skip_in=(3,))
 BG_RCFG = mlp.RenderingNetConfig(
     feature_vector_size=256, dims=(128,), weight_norm=False,
     embed_type="positional", multires=4)
+BG_EDGE = [1, 63, 64, 65, 127, 128, 129, 4800, 51_200]
+BG_NETS = pytest.mark.parametrize("nets", ["init", "perturbed", "odd"])
 
 
 def _bg_points(n, gen):
@@ -702,13 +712,17 @@ def _bg_points(n, gen):
     return x4, d
 
 
-def _bg_case(dev, n, seed=0, wn=False, signal=False):
-    import dataclasses
+def _bg_case(dev, n, seed=0, wn=False, signal=False, nets="init"):
+    """The nets (`nets`: the init's, perturbed, or of odd depth and
+    perturbed; with `signal` their weights scaled by sqrt(6)) and n seeded
+    points."""
     gen = torch.Generator().manual_seed(seed)
-    net_i = mlp.ImplicitNet(dataclasses.replace(BG_ICFG, weight_norm=wn),
-                            gen)
+    icfg = BG_ICFG_ODD if nets == "odd" else BG_ICFG
+    net_i = mlp.ImplicitNet(dataclasses.replace(icfg, weight_norm=wn), gen)
     net_r = mlp.RenderingNet(dataclasses.replace(BG_RCFG, weight_norm=wn),
                              gen)
+    if nets != "init":
+        net_i, net_r = _perturb(net_i, net_r, seed=seed + 1)
     if signal:
         with torch.no_grad():
             for lin in net_i.layers() + net_r.layers():
@@ -749,12 +763,20 @@ def _bg_cotangents(sigma, rgb, seed):
     return torch.cat([cs, cr], 1).contiguous()
 
 
-@pytest.mark.parametrize("n", [1, 63, 64, 4097, 51_200])
-def test_bg_core_fwd_kernel(dev, n):
-    """At the init's weights (CORE_TOLS and the spread rule) and at the
+def _bg_stages(net_i, net_r, w=None):
+    with torch.no_grad():
+        return bg_core.BgStages(net_i.cfg, net_r.cfg,
+                                w or bg_core.BgWeights.of(net_i, net_r))
+
+
+@BG_NETS
+@pytest.mark.parametrize("n", BG_EDGE + [384_000])
+def test_bg_core_fwd_kernel(dev, n, nets):
+    """At the nets' weights (CORE_TOLS and the spread rule) and at the
     scaled ones (the spread rule, each spread at least BG_MIN_SPREAD)."""
     for signal in (False, True):
-        net_i, net_r, x4, d = _bg_case(dev, n, seed=n, signal=signal)
+        net_i, net_r, x4, d = _bg_case(dev, n, seed=n, signal=signal,
+                                       nets=nets)
         pack = bg_core.BgPack(net_i, net_r)
         kernels.reset_launch_counts()
         sigma, rgb = bg_core.bg_core_eval(pack, x4, d)
@@ -773,21 +795,22 @@ def test_bg_core_fwd_kernel(dev, n):
             torch.testing.assert_close(rgb, rgb_ref, atol=0.03, rtol=0.05)
 
 
-@pytest.mark.parametrize("n", [1, 70, 4800, 51_200])
-def test_bg_core_bwd_kernel(dev, n):
+@BG_NETS
+@pytest.mark.parametrize("n", BG_EDGE)
+def test_bg_core_bwd_kernel(dev, n, nets):
     from test_torch_bg_replay import replay_bwd
     from test_torch_bwd_replay import grad_check
-    net_i, net_r, x4, d = _bg_case(dev, n, seed=n)
+    net_i, net_r, x4, d = _bg_case(dev, n, seed=n, nets=nets)
     w = bg_core.BgWeights.of(net_i, net_r)
     sigma, rgb = bg_core.bg_core_plain(net_i.cfg, net_r.cfg, w, x4, d)
     cot = _bg_cotangents(sigma, rgb, seed=n)
     ref = list(torch.autograd.grad((sigma, rgb), w.flat(),
                                    (cot[:, :1], cot[:, 1:])))
+    st = _bg_stages(net_i, net_r, w)
     with torch.no_grad():
-        k = bg_core.BgLayout(net_i.cfg, net_r.cfg, w)
         kernels.reset_launch_counts()
-        got = bg_core.bg_core_bwd(k, x4, d, cot)
-        again = bg_core.bg_core_bwd(k, x4, d, cot)
+        got = bg_core.bg_core_bwd(st, x4, d, cot)
+        again = bg_core.bg_core_bwd(st, x4, d, cot)
         torch.cuda.synchronize()
         assert kernels.launch_counts()["bg_core_bwd"] == 2
     got = [t for g in got for t in g]
@@ -797,7 +820,7 @@ def test_bg_core_bwd_kernel(dev, n):
     if n <= 4800:
         cpu = lambda t: t.detach().cpu()  # noqa: E731
         with torch.no_grad():
-            kc = bg_core.BgLayout(net_i.cfg, net_r.cfg, bg_core.BgWeights(
+            kc = bg_core.BgStages(net_i.cfg, net_r.cfg, bg_core.BgWeights(
                 *(tuple(cpu(t) for t in g)
                   for g in (w.ws_i, w.bs_i, w.ws_r, w.bs_r))))
         replay = [t for g in replay_bwd(kc, cpu(x4), cpu(d), cpu(cot))
@@ -807,17 +830,16 @@ def test_bg_core_bwd_kernel(dev, n):
 
 def test_bg_core_bwd_padding_rows_add_nothing(dev):
     """33 points and the same 33 plus 31 rows with zero cotangents share
-    one padded size (64): the results agree to the bit."""
+    one block (64 points): the results agree to the bit."""
     net_i, net_r, x4, d = _bg_case(dev, 64, seed=3)
     cot = torch.randn((64, 4), generator=torch.Generator().manual_seed(0))
     cot = cot.to(dev)
     cot[33:] = 0.0
+    st = _bg_stages(net_i, net_r)
     with torch.no_grad():
-        k = bg_core.BgLayout(net_i.cfg, net_r.cfg,
-                             bg_core.BgWeights.of(net_i, net_r))
-        a = bg_core.bg_core_bwd(k, x4[:33].contiguous(), d[:33].contiguous(),
+        a = bg_core.bg_core_bwd(st, x4[:33].contiguous(), d[:33].contiguous(),
                                 cot[:33].contiguous())
-        b = bg_core.bg_core_bwd(k, x4, d, cot)
+        b = bg_core.bg_core_bwd(st, x4, d, cot)
     flat = lambda r: [t for g in r for t in g]  # noqa: E731
     for ga, gb in zip(flat(a), flat(b)):
         assert torch.equal(ga, gb)

@@ -256,10 +256,10 @@ def test_bg_kernel_replay_matches_jax_bf16(pe):
                  np.float32)
     net_i, net_r = implicit_from_jax(pi, icfg), rendering_from_jax(pr, rcfg)
     with torch.no_grad():
-        k = bg_core.BgLayout(net_i.cfg, net_r.cfg,
+        k = bg_core.BgStages(net_i.cfg, net_r.cfg,
                              bg_core.BgWeights.of(net_i, net_r))
     x4, dirs, cot = (torch.from_numpy(a) for a in (x, d, c))
-    s, rgb, _, _ = replay_fwd(k, x4, dirs)
+    s, rgb = replay_fwd(k, x4, dirs)
 
     def pair(icfg_, rcfg_):
         def f(both):
@@ -290,5 +290,55 @@ def test_bg_kernel_replay_matches_jax_bf16(pe):
         assert np.abs(g.numpy() - r16).max() / scale < 0.05, (net, lin, leaf)
         a.append(g.numpy().ravel())
         b.append(np.asarray(g32[net][lin][leaf]).ravel())
+    a, b = np.concatenate(a), np.concatenate(b)
+    assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.999
+
+
+def test_bg_kernel_replay_matches_pallas_interpret():
+    """K8/K9's replay, rounding where the kernels round, against the JAX
+    package's own kernel (`bg_core_fused` in interpret mode) on the
+    replay's narrow nets (a hidden layer in passes, a skip): the forward
+    to `tests/test_pallas_bg.py`'s bounds for that kernel (sigma 0.02 +
+    0.02 relative, rgb 0.01 + 0.02 relative), the gradients of a seeded
+    cotangent over all leaves by a cosine above 0.999."""
+    from test_torch_bg_replay import ICFG as T_ICFG
+    from test_torch_bg_replay import RCFG as T_RCFG
+    from test_torch_bg_replay import replay_bwd, replay_fwd
+    jfields = lambda c, cls: cls(**{  # noqa: E731
+        f.name: getattr(c, f.name) for f in dataclasses.fields(c)})
+    icfg = jfields(T_ICFG, ImplicitNetConfig)
+    rcfg = jfields(T_RCFG, RenderingNetConfig)
+    pi = implicit_net_init(jax.random.PRNGKey(5), icfg)
+    pr = rendering_net_init(jax.random.PRNGKey(6), rcfg)
+    x, d = (np.array(a, np.float32) for a in bg_inputs())
+    c = np.array(jax.random.normal(jax.random.PRNGKey(7), (70, 4)),
+                 np.float32)
+
+    def pallas(both):
+        return bg_core_fused(both["i"], icfg, both["r"], rcfg, x, d,
+                             block_rows=32, interpret=True)
+
+    both = {"i": pi, "r": pr}
+    s_ker, rgb_ker = jax.jit(pallas)(both)
+    g_ker = jax.jit(jax.grad(lambda b: jnp.sum(pallas(b)[0] * c[:, :1])
+                             + jnp.sum(pallas(b)[1] * c[:, 1:])))(both)
+    net_i, net_r = implicit_from_jax(pi, icfg), rendering_from_jax(pr, rcfg)
+    with torch.no_grad():
+        k = bg_core.BgStages(net_i.cfg, net_r.cfg,
+                             bg_core.BgWeights.of(net_i, net_r))
+    x4, dirs, cot = (torch.from_numpy(a) for a in (x, d, c))
+    s, rgb = replay_fwd(k, x4, dirs)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ker), atol=0.02,
+                               rtol=0.02)
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(rgb_ker), atol=0.01,
+                               rtol=0.02)
+    dwi, dbi, dwr, dbr = replay_bwd(k, x4, dirs, cot)
+    a, b = [], []
+    for net, ws, bs in (("i", dwi, dbi), ("r", dwr, dbr)):
+        for l, (gw, gb) in enumerate(zip(ws, bs)):
+            leaves = g_ker[net][f"lin{l}"]   # no weight norm: w and b
+            a += [gw.numpy().ravel(), gb.numpy().ravel()]
+            b += [np.asarray(leaves["w"]).ravel(),
+                  np.asarray(leaves["b"]).ravel()]
     a, b = np.concatenate(a), np.concatenate(b)
     assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.999
