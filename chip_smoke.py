@@ -20,7 +20,11 @@ Phases, each printed as one JSON line with its wall time:
    (384,000), K9 at the training batch with a seeded loss's cotangents
    (both also at perturbed and odd-depth nets and at the block-edge
    counts, K9 twice to the same bits, `check_bg`), K2 also at the
-   training step's 1,600 rays,
+   training step's 1,600 rays (its checks at both shapes, both scenes
+   and both `final`), K6 also at a perturbed net and a net of odd depth
+   and against its bf16 replay (`ops/kernels/replay.py`, on the card's
+   tensors), twice to the same bits, with zero-cotangent rows that
+   add nothing (`check_rev`),
    and K10 at the first eval chunk's 1,164,000 sample points,
    K11 and K12 at the normal-off step's 4,800 eikonal points and at
    155,200, each at the init's weights and at weights perturbed by 0.01
@@ -38,9 +42,12 @@ Phases, each printed as one JSON line with its wall time:
    kernel, plain and library-yardstick times by CUDA events, K1's and
    K3's L2 weight traffic as modelled from the pack
    (`l2_weight_gb_model`: blocks x stage-image bytes, not a reading), K3's
-   tangent-design work (`design_macs`), and K4's scratch (`staging_gb`)
-   and its kernels' registers, spills, HGMMA and bulk copies
-   (`scripts/kernel_resources.py`, started beside the checks);
+   tangent-design work (`design_macs`), K4's and K6's scratch
+   (`staging_gb`), the profiler's device time of K2 and K6 (`device_ms`),
+   K2's and K7's bounds with the exponentials on the SFU (`bound_f32`),
+   and K2's, K4's and K6's kernels' registers, spills, HGMMA, MUFU and
+   bulk copies (`scripts/kernel_resources.py`, started beside the
+   checks);
 4. sdf_outputs (the path of K10-K12, whose JAX counterparts only the JAX
    package's public kernel API reaches): `fused_sdf_outputs` under no_grad
    over the first eval chunk's sample points, and `sdf_outputs_fused_grad`
@@ -158,8 +165,9 @@ from i2sdf_tpu_torch.ops.activations import softplus_beta
 from i2sdf_tpu_torch.ops import kernels
 from i2sdf_tpu_torch.models import sampler as tsampler
 from i2sdf_tpu_torch.ops.kernels import (bg_core, build, conv_check,
-                                         render_core, rev, sampler_round,
-                                         sdf_grad, sdf_mlp, sdf_outputs)
+                                         render_core, replay, rev,
+                                         sampler_round, sdf_grad, sdf_mlp,
+                                         sdf_outputs)
 from i2sdf_tpu_torch.train import step as train_step
 from i2sdf_tpu_torch.train.state import create_train_state
 from i2sdf_tpu_torch.train.trainer import ReconstructionTrainer
@@ -266,6 +274,14 @@ PEAK_BYTES = 3.35e12
 # csrc/sampler_round.cu; a round does beta_iters + 1 evaluations plus the
 # weights / pdf / CDF pass, counted as one more.
 SAMPLER_OPS_PER_SAMPLE_EVAL = 22
+# ... and the exponentials among them, which run on the special-function
+# units (MUFU.EX2), not the FMA pipes: the Laplace density's expm1f, the d*
+# term's expf and the bound's two expf (the pdf pass: three or four);
+# the same four in K7's evaluation (csrc/ray_common.cuh)
+EXP_PER_SAMPLE_EVAL = 4
+# the H100's SFU rate: 16 results a clock an SM on 132 SMs, at the SM
+# clock `nvidia-smi` reports (clocks.max.sm)
+SFU_PER_CLOCK_SM, N_SMS = 16, 132
 # Sampler round, kernel vs plain: the JAX package's own tolerance for its
 # kernel against round_update (tests/test_pallas_sampler.py). The inverse
 # CDF jumps where a bin's mass is under the 1e-5 guard, so f32 rounding in
@@ -312,6 +328,55 @@ def nvidia_smi() -> str:
 def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+_SFU_RATE: list = []
+
+
+def sfu_rate() -> float:
+    """Exponentials a second the card's special-function units give."""
+    if not _SFU_RATE:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30, check=True)
+        mhz = float(out.stdout.strip().splitlines()[0])
+        _SFU_RATE.append(SFU_PER_CLOCK_SM * N_SMS * mhz * 1e6)
+    return _SFU_RATE[0]
+
+
+def bound_f32(flops: float, exps: float,
+              nbytes: float) -> tuple[float, str]:
+    """`bound` for f32 kernels whose exponentials run on the SFU: the
+    operations' time is the larger of the FMA pipes' (flops over the f32
+    peak) and the SFU's (exponentials over `sfu_rate`)."""
+    t_ops = max(flops / PEAK_F32, exps / sfu_rate()) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def device_ms(fn, reps: int, key) -> float:
+    """The profiler's device time a call of fn of the kernels whose names
+    hold `key` (or one of a tuple of keys, the first naming the kernel fn
+    launches once a call), over reps calls after one more: the total over
+    the calls the trace holds, each counted by its first kernel (a trace
+    late in a long process has been seen to hold 2 of 5 calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    keys = (key,) if isinstance(key, str) else tuple(key)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, calls = 0.0, 0
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.key for k in keys)):
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+            calls += e.count if keys[0] in e.key else 0
+    return total / 1e3 / max(calls, 1)
 
 
 def close(a: torch.Tensor, b: torch.Tensor, atol: float, rtol: float) -> bool:
@@ -442,7 +507,32 @@ def k1_points(cfg, conf, device):
     return pts.contiguous()
 
 
-def check_kernels(model, cfg, conf, device) -> list[dict]:
+def k2_errors(got, ref) -> tuple[dict, bool]:
+    """K2's outputs (samples, beta) against the plain round's: beta at rtol
+    1e-4 / atol 1e-6, the samples' p99, max and per-ray mean error."""
+    (s_k, b_k), (s_p, b_p) = got, ref
+    d = (s_k - s_p).abs()
+    errs = dict(max_abs_err=float(d.max()),
+                p99=float(torch.quantile(d.flatten(), 0.99)),
+                ray_mean_err=float((s_k.mean(-1) - s_p.mean(-1)).abs().max()),
+                beta_max_abs_err=float((b_k - b_p).abs().max()))
+    ok = (close(b_k, b_p, 1e-6, 1e-4) and errs["p99"] < SAMPLES_P99
+          and errs["max_abs_err"] < SAMPLES_MAX
+          and errs["ray_mean_err"] < SAMPLES_RAY_MEAN)
+    return errs, ok
+
+
+def k2_sass(resources) -> dict | None:
+    """K2's instances on the main path's rounds (S = 128 and 256: E <= 2;
+    S = 352 to 480: E <= 4): ptxas's and the SASS's counts."""
+    if resources is None:
+        return None
+    rows = resources.get()
+    return {w: next(v for k, v in rows.items() if w in k)
+            for w in ("sampler_round_kernel<2>", "sampler_round_kernel<4>")}
+
+
+def check_kernels(model, cfg, conf, device, k2_res=None) -> list[dict]:
     sc = cfg.sampler
     R = conf.train.split_n_pixels
     _, dirs, cam = chunk_rays(conf, device, R)
@@ -475,39 +565,43 @@ def check_kernels(model, cfg, conf, device) -> list[dict]:
         u = torch.linspace(0, 1, n_out, device=device).expand(R, n_out)
         u = u.contiguous()
         args = (sc, zs, sdf2, beta_init, beta0, u, final)
-        s_k, b_k = sampler_round.sampler_round(*args)
+        got = sampler_round.sampler_round(*args)
         torch.cuda.synchronize()
-        s_p, b_p = sampler_round.sampler_round_plain(*args)
-        d = (s_k - s_p).abs()
-        err, p99 = float(d.max()), float(torch.quantile(d.flatten(), 0.99))
-        mean_err = float((s_k.mean(-1) - s_p.mean(-1)).abs().max())
-        ok = (close(b_k, b_p, 1e-6, 1e-4) and p99 < SAMPLES_P99
-              and err < SAMPLES_MAX and mean_err < SAMPLES_RAY_MEAN)
-        ops = R * S * SAMPLER_OPS_PER_SAMPLE_EVAL * (sc.beta_iters + 2)
-        nbytes = 4 * R * (2 * S + 2 * n_out + 2)
-        b_ms, b_by = bound(ops, nbytes, PEAK_F32)
+        errs, ok = k2_errors(got, sampler_round.sampler_round_plain(*args))
         # the training step's shape: K4_RAYS rays a round
         Rt = K4_RAYS
         args_t = (sc, zs[:Rt].contiguous(), sdf2[:Rt].contiguous(),
                   beta_init[:Rt].contiguous(), beta0, u[:Rt].contiguous(),
                   final)
+        got = sampler_round.sampler_round(*args_t)
+        torch.cuda.synchronize()
+        errs_t, ok_t = k2_errors(
+            got, sampler_round.sampler_round_plain(*args_t))
+        evals = sc.beta_iters + 2
+        b_ms, b_by = bound_f32(
+            R * S * SAMPLER_OPS_PER_SAMPLE_EVAL * evals,
+            R * S * EXP_PER_SAMPLE_EVAL * evals,
+            4 * R * (2 * S + 2 * n_out + 2))
+        kern = lambda: sampler_round.sampler_round(*args)  # noqa: E731
+        kern_t = lambda: sampler_round.sampler_round(*args_t)  # noqa: E731
         rows.append(dict(
             name="sampler_round", route="cuda",
             source="i2sdf_tpu_torch/csrc/sampler_round.cu",
             replaces="i2sdf_tpu/ops/pallas/sampler_round.py:218",
-            sdf=scene, final=final, shape=[R, S, n_out], max_abs_err=err,
-            p99=p99,
-            ray_mean_err=mean_err,
-            beta_max_abs_err=float((b_k - b_p).abs().max()),
-            ms=time_ms(lambda: sampler_round.sampler_round(*args), 10),
-            train_shape=[Rt, S, n_out],
-            ms_train_shape=time_ms(
-                lambda: sampler_round.sampler_round(*args_t), 20),
+            sdf=scene, final=final, shape=[R, S, n_out], **errs,
+            train_shape=[Rt, S, n_out], train_shape_errs=errs_t,
+            ms=time_ms(kern, 10),
+            device_ms=device_ms(kern, 10, "sampler_round_kernel"),
+            ms_train_shape=time_ms(kern_t, 20),
+            device_ms_train_shape=device_ms(kern_t, 20,
+                                            "sampler_round_kernel"),
             bound_ms_train_shape=b_ms * Rt / R,
+            exp_per_sample_eval=EXP_PER_SAMPLE_EVAL, sfu_per_s=sfu_rate(),
+            sass=k2_sass(k2_res),
             plain_ms=time_ms(
                 lambda: sampler_round.sampler_round_plain(*args), 3),
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
-        emit_row(rows[-1], ok)
+        emit_row(rows[-1], ok and ok_t)
 
     rows.append(check_k3(model, cfg, conf, device))
     return rows
@@ -1130,10 +1224,43 @@ def rev_cotangents(out, grad, seed):
     return c_out.contiguous(), c_g.contiguous()
 
 
-def check_rev(model, cfg, conf, device) -> list[dict]:
+# K6's kernels in a profile: its sweep, its products, the fixed-order sums
+K6_KERNELS = ("k6_sweep_kernel", "wgrad_kernel<6>", "sum_kernel")
+
+
+def flat(groups) -> list:
+    return [t for g in groups for t in g]
+
+
+def rev_nets(model, cfg, device) -> dict:
+    """K6's nets: the model's SDF net at the init, perturbed
+    (`perturbed_net`, seed SEED + 10) and of odd depth (`odd_nets`)."""
+    return {"init": model.implicit,
+            "perturbed": perturbed_net(model.implicit, SEED + 10),
+            "odd": odd_nets(cfg, device, SEED + 20)[0]}
+
+
+def k6_sass(resources) -> dict | None:
+    """K6's kernels' ptxas and SASS counts: its sweep and its products."""
+    if resources is None:
+        return None
+    rows = resources.get()
+    return {w: next(v for k, v in rows.items() if w in k)
+            for w in ("k6_sweep_kernel", "wgrad_kernel<6>")}
+
+
+def check_rev(model, cfg, conf, device, resources=None) -> list[dict]:
     """K5 and K6 at the normal-off step's eikonal batch (4,800 points) and
     at 155,200 points, against the plain op (`rev_plain`: f32 autograd
-    with create_graph)."""
+    with create_graph). K6 (K4's wgmma sweeps, `rev.RevStages`) also at
+    the perturbed net (`perturbed_net`, seed SEED + 10; gated on f32: the
+    JAX package's own rev backward stays inside that bound there,
+    `scripts/witness_perturbed.py rev`) and on the odd-depth net
+    (`odd_nets`: seven hidden layers), each against the f32 plain backward
+    and against its bf16 replay (`replay.RevReplay`, run on the card's
+    tensors) at `grads_ok`'s bounds; at the eikonal
+    batch a rerun gives the same bits and rows with zero cotangents in
+    the same blocks add nothing. Timed at the init's net."""
     icfg = cfg.implicit
     net = model.implicit
     lins = net.layers()
@@ -1179,44 +1306,80 @@ def check_rev(model, cfg, conf, device) -> list[dict]:
             plain_ms=time_ms(lambda: rev.rev_plain(icfg, ws, bs, x), 2),
             bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib5, 3)))
         emit_row(rows[-1], ok)
+        del out_p, grad_p, pairs
         # K6
-        c_out, c_g = rev_cotangents(out_p, grad_p, SEED + 9)
-        ref = torch.autograd.grad((out_p, grad_p), ws + bs, (c_out, c_g))
-        del out_p, grad_p
-        with torch.no_grad():
-            dws, dbs = rev.rev_bwd(k, x, c_out, c_g)
-        torch.cuda.synchronize()
-        gerrs = grad_errors(dws + dbs, ref)
+        fields, ok = {}, True
+        for case, m in rev_nets(model, cfg, device).items():
+            lm = m.layers()
+            ws_, bs_ = [l.weight() for l in lm], [l.b for l in lm]
+            out_p, grad_p = rev.rev_plain(m.cfg, ws_, bs_, x)
+            c_out, c_g = rev_cotangents(out_p, grad_p, SEED + 9)
+            ref = torch.autograd.grad((out_p, grad_p), ws_ + bs_,
+                                      (c_out, c_g))
+            del out_p, grad_p
+            with torch.no_grad():
+                k6 = rev.RevStages(m.cfg, ws_, bs_)
+                got = flat(rev.rev_bwd(k6, x, c_out, c_g))
+                torch.cuda.synchronize()
+                rep = flat(replay.emulate_rev_bwd(k6, x, c_out, c_g))
+            errs, rerrs = grad_errors(got, ref), grad_errors(got, rep)
+            del rep
+            ok = ok and grads_ok(errs) and grads_ok(rerrs)
+            fields[case] = dict(errs, replay=rerrs)
+            if case == "init":
+                k60, c_out0, c_g0 = k6, c_out, c_g
+                max_abs = max(float((g - r).abs().max())
+                              for g, r in zip(got, ref))
+                with torch.no_grad():
+                    same = all(torch.equal(a, b) for a, b in zip(
+                        got, flat(rev.rev_bwd(k6, x, c_out, c_g))))
+                    pad = None
+                    if label == "eikonal":
+                        # the last 10 rows' cotangents zeroed: the same
+                        # 75 blocks as the first n - 10 rows alone
+                        m0 = n - 10
+                        cz, gz = c_out.clone(), c_g.clone()
+                        cz[m0:], gz[m0:] = 0.0, 0.0
+                        pad = all(torch.equal(a, b) for a, b in zip(
+                            flat(rev.rev_bwd(k6, x, cz, gz)),
+                            flat(rev.rev_bwd(k6, x[:m0].contiguous(),
+                                             c_out[:m0].contiguous(),
+                                             c_g[:m0].contiguous()))))
+                ok = ok and same and pad is not False
+            del ref, got
         b_ms, b_by = bound(2.0 * k6_macs(icfg) * n,
                            n * (12 + 4 * k.out_cols + 12) + 2 * 2 * n_w
                            + 4 * n_p, PEAK_BF16)
 
         def k6():
             with torch.no_grad():
-                rev.rev_bwd(k, x, c_out, c_g)
+                rev.rev_bwd(k60, x, c_out0, c_g0)
 
         def plain6():
             torch.autograd.grad(rev.rev_plain(icfg, ws, bs, x), ws + bs,
-                                (c_out, c_g))
+                                (c_out0, c_g0))
 
         def lib6():
             with torch.autocast("cuda", dtype=torch.bfloat16):
                 outs = rev.rev_plain(icfg, ws, bs, x)
-            torch.autograd.grad(outs, ws + bs, (c_out, c_g))
+            torch.autograd.grad(outs, ws + bs, (c_out0, c_g0))
 
         rows.append(dict(
             name="rev_bwd", route="cuda",
             source="i2sdf_tpu_torch/csrc/rev_bwd.cu",
             replaces="i2sdf_tpu/ops/pallas/fused_rev.py:213",
             points=label, shape=[n, 3], cotangents=[k.out_cols, 3],
-            staging_gb=staging_gb(render_core._BwdPlan(k, n)),
-            max_abs_err=max(float((g - r).abs().max())
-                            for g, r in zip(dws + dbs, ref)),
-            **gerrs, leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
-            ms=time_ms(k6, 5), plain_ms=time_ms(plain6, 2),
+            staging_gb=k4_staging_gb(rev.plan_for(k60, n)),
+            max_abs_err=max_abs, **fields["init"],
+            perturbed=fields["perturbed"], odd=fields["odd"],
+            bitwise_rerun=same, padding_adds_nothing=pad,
+            leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
+            sass=k6_sass(resources),
+            ms=time_ms(k6, 5), device_ms=device_ms(k6, 5, K6_KERNELS),
+            plain_ms=time_ms(plain6, 2),
             bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib6, 2)))
-        emit_row(rows[-1], grads_ok(gerrs))
-        del ref, c_out, c_g
+        emit_row(rows[-1], ok)
+        del c_out0, c_g0
         torch.cuda.empty_cache()
     return rows
 
@@ -1510,7 +1673,8 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
             got_g = [t for g in sdf_grad.sdf_grad_bwd(k, x, no_out, c_g)
                      for t in g]
             torch.cuda.synchronize()
-            got6 = [t for g in rev.rev_bwd(kr, x, c_out, c_g) for t in g]
+            got6 = flat(rev.rev_bwd(rev.RevStages(icfg, ws, bs), x, c_out,
+                                    c_g))
         stable = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
         gerrs = grad_errors(got, ref)
@@ -1693,8 +1857,8 @@ def check_conv(model, cfg, conf, device) -> list[dict]:
         mixed = 0 < int(truth.sum()) < R and 0 < int(got.sum()) < R
         ok = (not bool((flips & outside).any())
               and in_band < CONV_BAND_SHARE * R and mixed)
-        ops = R * S * CONV_OPS_PER_SAMPLE
-        b_ms, b_by = bound(ops, R * S * 8 + R, PEAK_F32)
+        b_ms, b_by = bound_f32(R * S * CONV_OPS_PER_SAMPLE,
+                               R * S * EXP_PER_SAMPLE_EVAL, R * S * 8 + R)
         rows.append(dict(
             name="conv_check", route="cuda",
             source="i2sdf_tpu_torch/csrc/conv_check.cu",
@@ -2117,9 +2281,9 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     # K3 and K4 are each one kernel template (with the light head or
-    # not); K4's and K9's products are `wgrad_kernel<4>` and `<9>`, their
-    # sums the `sum_kernel` K6 shares; the mma.sync products are K6's on
-    # the normal-off path
+    # not); K4's, K6's and K9's products are `wgrad_kernel<4>`, `<6>` and
+    # `<9>`, their sums the `sum_kernel` K12 shares; the mma.sync products
+    # are K12's
     groups = {"K1 sdf_mlp": "sdf_mlp_kernel", "K2 sampler_round":
               "sampler_round",
               "K3 render_core_fwd": "render_core_kernel<false>",
@@ -2128,12 +2292,13 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
               "K4 sweep": "k4_sweep_kernel<false",
               "K4 sweep light": "k4_sweep_kernel<true",
               "K4 products": "wgrad_kernel<4>",
-              "K6 sweep": "::bwd_sweep_kernel(",
+              "K6 sweep": "k6_sweep_kernel",
+              "K6 products": "wgrad_kernel<6>",
               "K7 conv_check": "conv_check_kernel",
               "K8 bg_core_fwd": "bg_fwd_kernel",
               "K9 sweep": "bg_sweep_kernel",
               "K9 products": "wgrad_kernel<9>",
-              "K6 atb": "atb_kernel", "K4/K6/K9 sum": "sum_kernel"}
+              "K12 atb": "atb_kernel", "K4/K6/K9/K12 sum": "sum_kernel"}
     by = {g: 0.0 for g in groups}
     by["other"] = 0.0
     top = []
@@ -2159,7 +2324,7 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
 
 
 PACKERS = ((render_core, "CoreStages"), (render_core, "K4Stages"),
-           (rev, "RevLayout"), (bg_core, "BgStages"))
+           (rev, "RevLayout"), (rev, "RevStages"), (bg_core, "BgStages"))
 # packing that finishes a pack later (K9's transposed chain, packed in the
 # backward): timed with the packing, not counted as a pack
 LATE_PACKERS = ((bg_core.BgStages, "pack_t"),)
@@ -2170,8 +2335,9 @@ def host_split(tr, step0: int, n: int = 2) -> dict:
     profiler): `syncs`, the host blocked in the step's syncs on CUDA
     tensors (`bool`, `float`, `item`: one a sampler round, the step's
     beta), the device catching up there; `packing`, the host packing the
-    kernels' weights (K3's `CoreStages`, K4's `K4Stages`, K5/K6's
-    `RevLayout`, K8/K9's `BgStages` and its `pack_t`; their device work
+    kernels' weights (K3's `CoreStages`, K4's `K4Stages`, K5's
+    `RevLayout`, K6's `RevStages`, K8/K9's `BgStages` and its `pack_t`;
+    their device work
     runs behind);
     `rest`, the wait at the step's end for the device to finish its queue;
     `python`, the remainder: the Python step, the dispatch of its
@@ -2625,6 +2791,8 @@ def main() -> int:
     build.load_library()
     emit("build", t0, nvcc_seconds=nvcc_s, library=path.name)
     k4_res = Resources("i2sdf_tpu_torch/csrc/render_core_bwd.cu")
+    k2_res = Resources("i2sdf_tpu_torch/csrc/sampler_round.cu")
+    k6_res = Resources("i2sdf_tpu_torch/csrc/rev_bwd.cu")
     bg_res = {src: Resources(f"i2sdf_tpu_torch/csrc/{src}")
               for src in ("bg_core.cu", "bg_core_bwd.cu")}
 
@@ -2632,13 +2800,13 @@ def main() -> int:
     cfg, model = seeded_model(conf, device)
 
     t0 = time.perf_counter()
-    rows = check_kernels(model, cfg, conf, device)
+    rows = check_kernels(model, cfg, conf, device, k2_res)
     rows += check_sdf_outputs(model, cfg, conf, device)
     tconf = train_conf()
     tcfg, tmodel = seeded_model(tconf, device)
     rows.append(check_k4(tmodel, tcfg, conf, device, resources=k4_res))
     torch.cuda.empty_cache()
-    rows += check_rev(tmodel, tcfg, conf, device)
+    rows += check_rev(tmodel, tcfg, conf, device, k6_res)
     rows += check_sdf_grad(tmodel, tcfg, conf, device)
     del tmodel
     # K3 and K4 with the light head, at the light config's full width

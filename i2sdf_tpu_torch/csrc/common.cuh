@@ -168,16 +168,15 @@ struct EpiSoftplus {
   }
 };
 
-// ---- the SDF net's sweeps over a block of kSweepRows points (K4-K6) ------
+// ---- the SDF net's sweeps over a block of kSweepRows points (K5, K12) ----
 //
 // K5's kernel body (`fwd_sweep_kernel`, rev_fwd.cu) is the forward with the
 // activation derivative stashed as bf16 s = softplus100'(z), then
-// d sdf / d x swept back through the net. K6's (`bwd_sweep_kernel`): the
-// derivative stashed as q (`stash_q`), the backward's four sweeps staging
-// every layer's weight-gradient operands in device memory (`Scratch`),
-// then the split-K products and the fixed-order sums (`launch_wgrad`, both
-// behind `launch_bwd`). K4 (render_core_bwd.cu) runs the same sweeps on
-// `wgmma_layer.cuh`.
+// d sdf / d x swept back through the net. K12 (sdf_grad_bwd.cu) stages
+// every layer's weight-gradient operands in device memory (`Scratch`), then
+// runs the split-K products and the fixed-order sums (`launch_wgrad`). K4
+// and K6 run their sweeps on `wgmma_layer.cuh` (sdf_sweep.cuh), with
+// `stash_q` below.
 
 constexpr int kSweepMT = 2;
 constexpr int kSweepRows = kSweepMT * 16;
@@ -220,372 +219,16 @@ __device__ __forceinline__ float stash_d2(float v) {
   return 100.f * q * (1.f - q);
 }
 
-// Copy `cols` (a multiple of 8) columns of the block's rows between shared
-// memory (row stride lda) and device memory (row stride ld), 16 bytes a
-// thread.
-__device__ __forceinline__ void store_rows(const __nv_bfloat16* s, int lda,
-                                           __nv_bfloat16* g, int ld, int cols,
-                                           int row0) {
-  const int v = cols >> 3;
-  for (int i = threadIdx.x; i < kSweepRows * v; i += kThreads) {
-    const int r = i / v, c = (i % v) << 3;
-    *reinterpret_cast<uint4*>(g + (size_t)(row0 + r) * ld + c) =
-        *reinterpret_cast<const uint4*>(s + r * lda + c);
-  }
-}
-
-__device__ __forceinline__ void load_rows(__nv_bfloat16* s, int lda,
-                                          const __nv_bfloat16* g, int ld,
-                                          int cols, int row0) {
-  const int v = cols >> 3;
-  for (int i = threadIdx.x; i < kSweepRows * v; i += kThreads) {
-    const int r = i / v, c = (i % v) << 3;
-    *reinterpret_cast<uint4*>(s + r * lda + c) =
-        *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * ld + c);
-  }
-}
-
-// Hidden SDF layer of the backward's recompute: bf16(scale *
-// softplus100(acc + b)), and the stash q of its derivative.
-struct EpiSoftplusQ {
-  __nv_bfloat16* out;
-  int lda;
-  const float* bias;
-  float scale;
-  __nv_bfloat16* q;
-  int ldd;
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    const float z0 = v0 + bias[c], z1 = v1 + bias[c + 1];
-    put2(out + r * lda + c, softplus100(z0) * scale, softplus100(z1) * scale);
-    put2(q + r * ldd + c, stash_q(z0), stash_q(z1));
-  }
-};
-
-// ---- K6: the backward's sweep ----------------------------------------------
-
 // Where the backward stages each layer's operands (element pointers into
 // the bf16 and f32 scratch), as the host's table lays them out
 // (i2sdf_tpu_torch/ops/kernels/render_core.py::_BwdPlan).
 struct Scratch {
-  __nv_bfloat16* ax[kMaxSdf];   // (2 np, K_l): [da_l ; X_l]
-  __nv_bfloat16* br[kMaxSdf];   // (2 np, N_l): [r_l ; dz_l]
-  __nv_bfloat16* dzx[kMaxSdf];  // (np, N_l): dz_extra into z_l
-  float* ah[kMaxSdf];           // (np, K_l): d sdf / d h_l
+  __nv_bfloat16* ax[kMaxSdf];   // (streams np, K_l): the layer's inputs
+  __nv_bfloat16* br[kMaxSdf];   // (streams np, N_l): their cotangents
   float* dbpart;                // (blocks, tb): bias-gradient rows
   int tb, np;
   int db_sdf[kMaxSdf];
 };
-
-// The block's shared memory in K6's sweep: two activation buffers, every
-// hidden layer's stash q, the points, room for view directions, the
-// cotangents (kCot a row, c_grad in the first three) and an rgb, the
-// encoding's gradient cotangent dge and the f32 dz the bias sums take.
-struct BwdSmem {
-  __nv_bfloat16 *buf0, *buf1, *q;
-  float *xs, *ds, *cot, *rgb, *dge, *dzf;
-};
-
-__device__ __forceinline__ BwdSmem carve_bwd(unsigned char* p, int lda,
-                                             int ldd, int n_q, int ldg) {
-  BwdSmem s;
-  s.buf0 = reinterpret_cast<__nv_bfloat16*>(p);
-  s.buf1 = s.buf0 + kSweepRows * lda;
-  s.q = s.buf1 + kSweepRows * lda;
-  s.xs = reinterpret_cast<float*>(s.q + (size_t)n_q * kSweepRows * ldd);
-  s.ds = s.xs + kSweepRows * 3;
-  s.cot = s.ds + kSweepRows * 3;
-  s.rgb = s.cot + kSweepRows * kCot;
-  s.dge = s.rgb + kSweepRows * 4;
-  s.dzf = s.dge + kSweepRows * ldg;
-  return s;
-}
-
-// Bytes of BwdSmem (the host mirrors it in `bwd_smem`).
-inline size_t bwd_smem_bytes(int lda, int ldd, int n_q, int ldg) {
-  return (2 * (size_t)kSweepRows * lda +
-          (size_t)n_q * kSweepRows * ldd) *
-             sizeof(__nv_bfloat16) +
-         (size_t)kSweepRows * (3 + 3 + kCot + 4 + ldg + lda) * sizeof(float);
-}
-
-// The block's bias-gradient row: column c summed over the rows in order.
-__device__ __forceinline__ void put_db(float* dst, const float* dzf, int lda,
-                                       int n) {
-  for (int c = threadIdx.x; c < n; c += kThreads) {
-    float acc = 0.f;
-    for (int r = 0; r < kSweepRows; ++r) acc += dzf[r * lda + c];
-    dst[c] = acc;
-  }
-}
-
-// Reverse sweep through W_l^T: ah = scale * (r_l W_l^T) on the hidden
-// columns (stored in f32), r_{l-1} = bf16(ah * s_{l-1}); zero elsewhere.
-struct EpiRevQ {
-  __nv_bfloat16* out;
-  int lda;
-  const __nv_bfloat16* q;
-  int ldd;
-  float scale;
-  int n_h;
-  float* ah;
-  int ldah, row0;
-  __device__ __forceinline__ float one(int r, int c, float v) {
-    float a = 0.f, o = 0.f;
-    if (c < n_h) {
-      a = v * scale;
-      o = a * stash_s(bf(q + r * ldd + c));
-    }
-    ah[(size_t)(row0 + r) * ldah + c] = a;
-    return o;
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    put2(out + r * lda + c, one(r, c, v0), one(r, c + 1, v1));
-  }
-};
-
-// Upward sweep: dr = da_l W_l is the cotangent of r_l. On the hidden
-// columns, da_{l+1} = scale * dr * s_l (scale 1/sqrt(2) into a skip) and
-// dz_extra_l = bf16(dr * ah_{l+1} * 100 s_l (1 - s_l)).
-struct EpiUp {
-  __nv_bfloat16* out;
-  int lda;
-  const __nv_bfloat16* q;
-  int ldd;
-  const float* ah;
-  int ldah;
-  __nv_bfloat16* dzx;
-  int lddz, row0, n_h;
-  float scale;
-  __device__ __forceinline__ float one(int r, int c, float v, float& x) {
-    if (c >= n_h) {
-      x = 0.f;
-      return 0.f;
-    }
-    const float st = bf(q + r * ldd + c);
-    x = v * ah[(size_t)(row0 + r) * ldah + c] * stash_d2(st);
-    return v * stash_s(st) * scale;
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    float x0, x1;
-    const float a0 = one(r, c, v0, x0), a1 = one(r, c + 1, v1, x1);
-    put2(out + r * lda + c, a0, a1);
-    put2(dzx + (size_t)(row0 + r) * lddz + c, x0, x1);
-  }
-};
-
-// Downward sweep through W_l^T: on the hidden columns,
-// dz_{l-1} = scale * (dz_l W_l^T) * s_{l-1} + dz_extra_{l-1}.
-struct EpiDown {
-  __nv_bfloat16* out;
-  int lda;
-  const __nv_bfloat16* q;
-  int ldd;
-  const __nv_bfloat16* dzx;
-  int lddz, row0, n_h;
-  float scale;
-  float* dzf;
-  __device__ __forceinline__ float one(int r, int c, float v) {
-    const float d = c < n_h ? v * scale * stash_s(bf(q + r * ldd + c)) +
-                                  bf(dzx + (size_t)(row0 + r) * lddz + c)
-                            : 0.f;
-    dzf[r * lda + c] = d;
-    return d;
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    put2(out + r * lda + c, one(r, c, v0), one(r, c + 1, v1));
-  }
-};
-
-namespace {
-
-// K6's kernel body, 32 points a block: the SDF forward recompute (X_l to
-// rows [np, 2 np) of ax[l], the stash q_l); the output layer's dz is
-// c_out, in the net's own column order; the reverse sweep (r_l to rows
-// [0, np) of br[l], ah_l to ah[l], from e_sdf in the output layer's sdf
-// column 0); dg_emb from c_grad by the encoding's closed-form Jacobian;
-// the upward sweep, the transpose of the reverse sweep (da_l to rows
-// [0, np) of ax[l], the second-order term dz_extra_l = dr * ah * 100 s
-// (1 - s) to dzx[l]); the downward sweep (dz_l to rows [np, 2 np) of
-// br[l]) with those injections. Each hidden layer's bias row goes to the
-// block's row of `dbpart`. Written out in one body, as K5's kernel is.
-__global__ void __launch_bounds__(kThreads)
-bwd_sweep_kernel(const float* __restrict__ x,
-                 const float* __restrict__ c_out, int out_cols,
-                 const float* __restrict__ c_g, int n,
-                 const uint2* __restrict__ w_fwd,
-                 const float* __restrict__ b_sdf, Plan fwd,
-                 const uint2* __restrict__ w_t, Plan tp,
-                 const float* __restrict__ wsdf_col, int mx, int lda,
-                 int ldd, int ldg, Scratch sc) {
-  constexpr int kMT = kSweepMT, kMaxNT = kSweepMaxNT, kRows = kSweepRows;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ns = fwd.n, nh = ns - 1;
-  const BwdSmem s = carve_bwd(smem, lda, ldd, nh, ldg);
-  __nv_bfloat16* buf[2] = {s.buf0, s.buf1};
-  const int row0 = blockIdx.x * kRows;
-  const int np = sc.np;
-  const int d0 = 3 + 6 * mx;
-  const int sdf_col = 0;  // the output layer in the net's order [sdf | feat]
-  float* dbp = sc.dbpart + (size_t)blockIdx.x * sc.tb;
-
-  for (int i = threadIdx.x; i < kRows * 3; i += kThreads) {
-    const int r = row0 + i / 3;
-    s.xs[i] = r < n ? x[(size_t)r * 3 + i % 3] : 0.f;
-  }
-  // c_g in the cotangent rows' first three columns
-  for (int i = threadIdx.x; i < kRows * kCot; i += kThreads) {
-    const int r = row0 + i / kCot, c = i % kCot;
-    s.cot[i] = (r < n && c < 3) ? c_g[(size_t)r * 3 + c] : 0.f;
-  }
-  __syncthreads();
-  write_pe(buf[0], lda, kRows, s.xs, mx, 0, fwd.L[0][kK], 1.f);
-  __syncthreads();
-
-  // ---- 1. SDF forward: X_l to ax[l] rows [np, 2np), stash q_l ----------
-  int cur = 0;
-  for (int l = 0; l < ns; ++l) {
-    const int* L = fwd.L[l];
-    if (L[kFlags] & kSkipIn) {
-      write_pe(buf[cur], lda, kRows, s.xs, mx, L[kCol], L[kK], kInvSqrt2);
-      __syncthreads();
-    }
-    store_rows(buf[cur], lda, sc.ax[l] + (size_t)np * L[kK], L[kK], L[kK],
-               row0);
-    const uint2* W = w_fwd + L[kWOff];
-    const float* b = b_sdf + L[kBOff];
-    if (l < nh) {
-      EpiSoftplusQ epi{buf[cur ^ 1], lda, b,
-                       (L[kFlags] & kScale) ? kInvSqrt2 : 1.f,
-                       s.q + (size_t)l * kRows * ldd, ldd};
-      mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-    }  // the output layer's input is all the backward needs of it
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  const int n_last = fwd.L[ns - 1][kN];
-  __nv_bfloat16* cy = sc.br[ns - 1] + (size_t)np * n_last;
-  {
-    // ---- 2-3. the output layer's dz is c_out, from memory ----------------
-    for (int i = threadIdx.x; i < kRows * n_last; i += kThreads) {
-      const int r = i / n_last, c = i % n_last;
-      const float v = (row0 + r < n && c < out_cols)
-                          ? c_out[(size_t)(row0 + r) * out_cols + c]
-                          : 0.f;
-      cy[(size_t)(row0 + r) * n_last + c] = __float2bfloat16_rn(v);
-      s.dzf[r * lda + c] = v;
-    }
-    __syncthreads();
-    put_db(dbp + sc.db_sdf[ns - 1], s.dzf, lda, n_last);
-    __syncthreads();
-  }
-
-  // ---- 4. reverse sweep: r_l to br[l] rows [0, np), ah_l to ah[l] -------
-  {
-    for (int i = threadIdx.x; i < kRows * n_last; i += kThreads) {
-      const int r = i / n_last, c = i % n_last;
-      sc.br[ns - 1][(size_t)(row0 + r) * n_last + c] =
-          __float2bfloat16_rn(c == sdf_col ? 1.f : 0.f);
-    }
-    // ah_{n-1} = W_{n-1}[:, sdf]; r_{n-2} = bf16(ah_{n-1} * s_{n-2})
-    const int K = fwd.L[ns - 1][kK];
-    const __nv_bfloat16* ql = s.q + (size_t)(nh - 1) * kRows * ldd;
-    for (int i = threadIdx.x; i < kRows * K; i += kThreads) {
-      const int r = i / K, c = i % K;
-      const float a = wsdf_col[c];
-      sc.ah[ns - 1][(size_t)(row0 + r) * K + c] = a;
-      buf[cur][r * lda + c] =
-          __float2bfloat16_rn(a * stash_s(bf(ql + r * ldd + c)));
-    }
-    __syncthreads();
-    store_rows(buf[cur], lda, sc.br[ns - 2], K, K, row0);
-  }
-  for (int l = ns - 2; l >= 1; --l) {
-    const int* L = tp.L[ns - 1 - l];  // W_l^T
-    EpiRevQ epi{buf[cur ^ 1], lda, s.q + (size_t)(l - 1) * kRows * ldd, ldd,
-                (L[kFlags] & kScale) ? kInvSqrt2 : 1.f, L[kReal], sc.ah[l],
-                L[kN], row0};
-    mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], w_t + L[kWOff], L[kN], epi);
-    __syncthreads();
-    const int N = fwd.L[l - 1][kN];
-    store_rows(buf[cur ^ 1], lda, sc.br[l - 1], N, N, row0);
-    cur ^= 1;
-  }
-
-  // ---- 5. dg_emb = (c_grad Sel^T) * tilde, f32 --------------------------
-  for (int i = threadIdx.x; i < kRows * ldg; i += kThreads) {
-    const int r = i / ldg, j = i % ldg;
-    float v = 0.f;
-    if (j < 3) {
-      v = s.cot[r * kCot + j];
-    } else if (j < d0) {
-      int p = j - 3;
-      const bool is_cos = p >= 3 * mx;
-      if (is_cos) p -= 3 * mx;
-      const int k = p / mx;
-      const float f = ldexpf(1.f, p % mx);
-      const float arg = s.xs[3 * r + k] * f;
-      v = s.cot[r * kCot + k] * (is_cos ? -f * sinf(arg) : f * cosf(arg));
-    }
-    s.dge[i] = v;
-  }
-  __syncthreads();
-
-  // ---- 6. upward sweep: da_l to ax[l] rows [0, np), dz_extra_l to dzx ---
-  {
-    const int K = fwd.L[0][kK];
-    for (int i = threadIdx.x; i < kRows * K; i += kThreads) {
-      const int r = i / K, c = i % K;
-      buf[cur][r * lda + c] =
-          __float2bfloat16_rn(c < d0 ? s.dge[r * ldg + c] : 0.f);
-    }
-    __syncthreads();
-    store_rows(buf[cur], lda, sc.ax[0], K, K, row0);
-  }
-  for (int l = 0; l < nh; ++l) {
-    const int* L = fwd.L[l];
-    const int* L1 = fwd.L[l + 1];
-    EpiUp epi{buf[cur ^ 1], lda, s.q + (size_t)l * kRows * ldd, ldd,
-              sc.ah[l + 1], L1[kK], sc.dzx[l], L[kN], row0, L[kReal],
-              (L[kFlags] & kScale) ? kInvSqrt2 : 1.f};
-    mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], w_fwd + L[kWOff], L[kN],
-                           epi);
-    __syncthreads();
-    if (L1[kFlags] & kSkipIn) {
-      const int col = L1[kCol], w = L1[kK] - col;
-      for (int i = threadIdx.x; i < kRows * w; i += kThreads) {
-        const int r = i / w, p = i % w;
-        buf[cur ^ 1][r * lda + col + p] = __float2bfloat16_rn(
-            p < d0 ? s.dge[r * ldg + p] * kInvSqrt2 : 0.f);
-      }
-      __syncthreads();
-    }
-    store_rows(buf[cur ^ 1], lda, sc.ax[l + 1], L1[kK], L1[kK], row0);
-    cur ^= 1;
-  }
-
-  // ---- 7. downward sweep: dz_l to br[l] rows [np, 2np) ------------------
-  __syncthreads();
-  load_rows(buf[cur], lda, cy, n_last, n_last, row0);
-  __syncthreads();
-  for (int l = ns - 1; l >= 1; --l) {
-    const int* L = tp.L[ns - 1 - l];  // W_l^T
-    const int N = fwd.L[l - 1][kN];
-    EpiDown epi{buf[cur ^ 1], lda, s.q + (size_t)(l - 1) * kRows * ldd, ldd,
-                sc.dzx[l - 1], N, row0, L[kReal],
-                (L[kFlags] & kScale) ? kInvSqrt2 : 1.f, s.dzf};
-    mma_layer<kMT, kMaxNT>(buf[cur], lda, L[kK], w_t + L[kWOff], L[kN], epi);
-    __syncthreads();
-    store_rows(buf[cur ^ 1], lda, sc.br[l - 1] + (size_t)np * N, N, N, row0);
-    put_db(dbp + sc.db_sdf[l - 1], s.dzf, lda, N);
-    __syncthreads();
-    cur ^= 1;
-  }
-}
-
-// ---- weight gradients: C = A^T B over the points, split K ----------------
-
-}  // namespace
 
 // ---- weight gradients: C = A^T B over the points, split K ----------------
 
@@ -715,7 +358,7 @@ __global__ void __launch_bounds__(kThreads) sum_kernel(SumJobs jobs) {
 }
 
 // The scratch table (int64, element offsets), read in the order
-// `_BwdPlan` writes it: ax, br, dzx, ah (SDF layers), dbpart, tb, the bias
+// `_BwdPlan` writes it: ax, br (SDF layers), dbpart, tb, the bias
 // offsets; returns the rest (the products' splits, chunks, partials and
 // outputs).
 inline const long long* read_scratch(const long long* t, int n_fwd, int np,
@@ -723,8 +366,6 @@ inline const long long* read_scratch(const long long* t, int n_fwd, int np,
   __nv_bfloat16* b16 = (__nv_bfloat16*)ws16;
   for (int l = 0; l < n_fwd; ++l) sc.ax[l] = b16 + *t++;
   for (int l = 0; l < n_fwd; ++l) sc.br[l] = b16 + *t++;
-  for (int l = 0; l < n_fwd; ++l, ++t) sc.dzx[l] = *t < 0 ? nullptr : b16 + *t;
-  for (int l = 0; l < n_fwd; ++l, ++t) sc.ah[l] = *t < 0 ? nullptr : ws32 + *t;
   sc.dbpart = ws32 + *t++;
   sc.tb = (int)*t++;
   sc.np = np;
@@ -787,33 +428,6 @@ inline cudaError_t launch_wgrad(const Plan& fwd, const Scratch& sc,
   sum_kernel<<<(int)(sum_blocks < 4096 ? sum_blocks : 4096), kThreads, 0,
                st>>>(sj);
   return cudaGetLastError();
-}
-
-// K6: the sweep, then the weight-gradient products and sums, on n points
-// padded to np (the arguments as `bwd_sweep_kernel`'s; `table` is the
-// host's scratch table, read by `read_scratch`).
-inline cudaError_t launch_bwd(const float* x, const float* c_out,
-                              int out_cols, const float* c_g, int n, int np,
-                              const uint2* w_fwd, const float* b_sdf,
-                              const Plan& fwd, const uint2* w_t,
-                              const Plan& tp, const float* wsdf_col, int mx,
-                              int lda, int ldd, int ldg, void* ws16,
-                              float* ws32, const long long* table,
-                              float* out, void* stream) {
-  Scratch sc;
-  const long long* rest = read_scratch(table, fwd.n, np, ws16, ws32, sc);
-  const cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = bwd_smem_bytes(lda, ldd, fwd.n - 1, ldg);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  bwd_sweep_kernel<<<np / kSweepRows, kThreads, smem, st>>>(
-      x, c_out, out_cols, c_g, n, w_fwd, b_sdf, fwd, w_t, tp, wsdf_col, mx,
-      lda, ldd, ldg, sc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_wgrad(fwd, sc, rest, ws32, out, st);
 }
 
 }  // namespace

@@ -1,7 +1,9 @@
-// Per-ray device code shared by K2 (`sampler_round.cu`) and K7
-// (`conv_check.cu`): one warp holds one ray, each lane E = ceil(S / 32)
-// consecutive samples in registers; prefix sums are a sequential f32 sum
-// within the lane plus a warp scan of the lane totals.
+// Per-ray device code of K7 (`conv_check.cu`), some of it shared with K2
+// (`sampler_round.cu`: the warp reductions, the Laplace density's sign,
+// each section's d*): in K7 one warp holds one ray, each lane E =
+// ceil(S / 32) consecutive samples in registers; prefix sums are a
+// sequential f32 sum within the lane plus a warp scan of the lane totals.
+// K2 spreads a ray over a group of warps instead.
 #pragma once
 
 #include <float.h>
@@ -46,6 +48,24 @@ __device__ __forceinline__ float laplace(float s, float beta) {
   return (1.f / beta) * (0.5f + 0.5f * sgn(s) * expm1f(-fabsf(s) / beta));
 }
 
+// Theorem-1 triangle bound d* on the distance to the surface within a
+// section of width a whose ends have sdf s0 and s1 (0 where they differ in
+// sign).
+__device__ __forceinline__ float section_dstar(float a, float s0, float s1) {
+  const float b = fabsf(s0), c = fabsf(s1);
+  const bool first = a * a + b * b <= c * c;
+  const bool second = a * a + c * c <= b * b;
+  const float h = (a + b + c) / 2.f;
+  const float area = h * (h - a) * (h - b) * (h - c);
+  const bool tri = !first && !second && (b + c - a > 0.f);
+  float heron = 2.f * sqrtf(fmaxf(area, 0.f)) / fmaxf(a, 1e-12f);
+  if (isnan(heron)) heron = 0.f;
+  if (isinf(heron)) heron = FLT_MAX;
+  const float dstar = (first && !second ? b : 0.f) + (second ? c : 0.f) +
+                      (tri ? heron : 0.f);
+  return sgn(s1) * sgn(s0) != 1.f ? 0.f : dstar;
+}
+
 template <int MAXE>
 struct Ray {
   int lane, base, E, S;  // this lane owns samples [base, base + E)
@@ -76,21 +96,8 @@ struct Ray {
       d[k] = 0.f;
       ds[k] = 0.f;
       if (sec(k)) {
-        const float a = zs[j + 1] - z[k], b = fabsf(s[k]);
-        const float c = fabsf(ss[j + 1]);
-        const bool first = a * a + b * b <= c * c;
-        const bool second = a * a + c * c <= b * b;
-        const float h = (a + b + c) / 2.f;
-        const float area = h * (h - a) * (h - b) * (h - c);
-        const bool tri = !first && !second && (b + c - a > 0.f);
-        float heron = 2.f * sqrtf(fmaxf(area, 0.f)) / fmaxf(a, 1e-12f);
-        if (isnan(heron)) heron = 0.f;
-        if (isinf(heron)) heron = FLT_MAX;
-        float dstar = (first && !second ? b : 0.f) + (second ? c : 0.f) +
-                      (tri ? heron : 0.f);
-        if (sgn(ss[j + 1]) * sgn(s[k]) != 1.f) dstar = 0.f;
-        d[k] = a;
-        ds[k] = dstar;
+        d[k] = zs[j + 1] - z[k];
+        ds[k] = section_dstar(d[k], s[k], ss[j + 1]);
       }
     }
   }

@@ -5,93 +5,236 @@
 // sampler_round_pallas` (pallas_call at :249), the sampler's `round_impl`
 // (`i2sdf_tpu/models/sampler.py:432-446`, final round `:407-418`).
 //
-// What bounds it on the H100: bytes, by a wide margin at these shapes. A
+// What bounds it on the H100: operations, on the special-function units. A
 // ray reads 2*S + n_out + 1 floats and writes n_out + 1 (at S = 480,
-// n_out = 64: ~4.5 KB) and computes ~12 passes of a few transcendentals
-// over its S samples. The work per byte is ~15 flops, far below the
-// ~295 flops per byte at which the card's compute would become the limit;
-// what a simple kernel loses instead is latency: the bisection is 10
-// dependent steps of two scans and a max each.
+// n_out = 64: ~4.5 KB), and evaluates the error bound beta_iters + 1 times
+// (the beta0 check and the bisection) plus the pdf pass, each over its S
+// samples: four exponentials a sample-evaluation (the Laplace density's
+// expm1f, the d* term's expf and the bound's two expf), ~22 other f32
+// operations. The exponentials run on the SFU at 16 a clock an SM, so they
+// bound the kernel before its FMAs and its bytes do (`chip_smoke.py`
+// counts both). What a simple kernel loses is latency instead: the
+// bisection is 11 dependent evaluations, each a scan and a max over the
+// ray.
 //
-// Design: one warp per ray, 4 rays per block. The ray's z and sdf rows are
-// staged in shared memory (coalesced); each lane then owns E = ceil(S/32)
-// consecutive samples in registers. Every prefix sum is a sequential sum
-// within the lane plus a warp scan of the lane totals, in f32; the TPU
-// kernel's hi/lo-split bf16 triangular matmuls were a workaround for its
-// matrix unit and are not carried over. The CDF's lane offsets are summed
-// in one fixed order on every lane, so the CDF is exactly nondecreasing and
-// the inverse-CDF bracket is a binary search over it in shared memory.
+// Design: a group of kGroupWarps warps (128 threads, one block) per ray, so
+// each thread owns E = ceil(S / 128) <= 8 consecutive samples in registers
+// (4 at S = 480, where one warp a ray held 15): a short chain a thread,
+// small per-thread arrays, and many resident blocks. The ray's z and sdf
+// rows are staged in shared memory (coalesced); each thread then keeps for
+// its sections only what every evaluation reads and beta does not change:
+// d, d^2, d*, |s| and sign(s). An evaluation takes 1/beta once and
+// multiplies; its two prefix sums (the free energy and the d* term) are one
+// scan of pairs: sequential within the thread, a warp scan of the thread
+// totals (shuffles), and the warps' totals added in one fixed order through
+// shared memory, so every thread sees the same offsets; the max over the
+// ray's sections is a warp max and the warps' maxima in shared memory. The
+// bisection keeps `round_update`'s midpoints 0.5 (lo + hi), so its
+// decisions are the plain version's up to f32 rounding of the bound. The
+// pdf's total is a warp sum and the warps' sums in order; the CDF's
+// offsets are the same group scan of the normalized pdf, made exactly
+// nondecreasing by a running max over the group (exact, so no order can
+// break it), and the inverse-CDF bracket is a binary search over it in
+// shared memory. The TPU kernel's hi/lo-split bf16 triangular matmuls were
+// a workaround for its matrix unit and are not carried over. The
+// exponentials are the accurate expf / expm1f, as the plain version's.
 #include "ray_common.cuh"
 
 namespace i2sdf {
 namespace {
 
+constexpr int kGroupWarps = 4;
+constexpr int kGroupThreads = kGroupWarps * 32;
+
+// The group's shared scratch: the warps' scan totals (pairs) and their
+// maxima / sums. One buffer is enough: a thread reads the totals before the
+// barrier that precedes any thread's next write of the maxima, and the
+// maxima before the barrier that precedes the next write of the totals.
+struct GroupScratch {
+  float tot[2][kGroupWarps];
+  float red[kGroupWarps];
+};
+
+// Exclusive scan of (a, b) over the group's threads in thread order: the
+// warp's inclusive scan shifted up one lane, plus the earlier warps'
+// totals added in order (the same sum on every thread).
+__device__ __forceinline__ void group_excl_scan2(float& a, float& b,
+                                                 GroupScratch& g, int warp,
+                                                 int lane) {
+  float ia = a, ib = b;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float ta = __shfl_up_sync(kFull, ia, o);
+    const float tb = __shfl_up_sync(kFull, ib, o);
+    if (lane >= o) {
+      ia += ta;
+      ib += tb;
+    }
+  }
+  float ea = __shfl_up_sync(kFull, ia, 1), eb = __shfl_up_sync(kFull, ib, 1);
+  if (lane == 0) ea = eb = 0.f;
+  if (lane == 31) {
+    g.tot[0][warp] = ia;
+    g.tot[1][warp] = ib;
+  }
+  __syncthreads();
+  float oa = 0.f, ob = 0.f;
+  for (int v = 0; v < warp; ++v) {
+    oa += g.tot[0][v];
+    ob += g.tot[1][v];
+  }
+  a = oa + ea;
+  b = ob + eb;
+}
+
+__device__ __forceinline__ float group_max(float v, GroupScratch& g, int warp,
+                                           int lane) {
+  v = warp_max(v);
+  if (lane == 0) g.red[warp] = v;
+  __syncthreads();
+  float m = g.red[0];
+#pragma unroll
+  for (int w = 1; w < kGroupWarps; ++w) m = fmaxf(m, g.red[w]);
+  return m;
+}
+
+__device__ __forceinline__ float group_sum(float v, GroupScratch& g, int warp,
+                                           int lane) {
+  v = warp_sum(v);
+  if (lane == 0) g.red[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kGroupWarps; ++w) s += g.red[w];
+  return s;
+}
+
+// A thread's samples [base, base + E) of one ray, with what every
+// evaluation reads of each section (sample j < S - 1).
 template <int MAXE>
-__global__ void __launch_bounds__(kRayWarps * 32)
+struct Sections {
+  int base, E, S;
+  float d[MAXE], d2[MAXE], ds[MAXE], as[MAXE], sg[MAXE];
+
+  __device__ __forceinline__ bool sec(int k) const {
+    return k < E && base + k < S - 1;
+  }
+
+  __device__ __forceinline__ void load(const float* zs, const float* ss,
+                                       int tid, int S_) {
+    S = S_;
+    E = (S + kGroupThreads - 1) / kGroupThreads;
+    base = tid * E;
+#pragma unroll
+    for (int k = 0; k < MAXE; ++k) {
+      const int j = base + k;
+      d[k] = d2[k] = ds[k] = as[k] = sg[k] = 0.f;
+      if (sec(k)) {
+        d[k] = zs[j + 1] - zs[j];
+        d2[k] = d[k] * d[k];
+        ds[k] = section_dstar(d[k], ss[j], ss[j + 1]);
+        as[k] = fabsf(ss[j]);
+        sg[k] = sgn(ss[j]);
+      }
+    }
+  }
+
+  // The Laplace density at section k, 1/beta = ib.
+  __device__ __forceinline__ float density(int k, float ib) const {
+    return ib * (0.5f + 0.5f * sg[k] * expm1f(-as[k] * ib));
+  }
+
+  // This thread's exclusive free-energy prefix e_ex and inclusive d*-term
+  // prefix r_in at each sample, and their totals.
+  __device__ __forceinline__ void prefixes(float ib, float* e_ex, float* r_in,
+                                           float* fe, float& et,
+                                           float& rt) const {
+    const float q = 0.25f * ib * ib;
+    et = rt = 0.f;
+#pragma unroll
+    for (int k = 0; k < MAXE; ++k) {
+      e_ex[k] = et;
+      fe[k] = 0.f;
+      if (sec(k)) {
+        fe[k] = d[k] * density(k, ib);
+        et += fe[k];
+        rt += expf(-ds[k] * ib) * d2[k] * q;
+      }
+      r_in[k] = rt;
+    }
+  }
+};
+
+// Max over the ray's sections of the opacity error bound at beta.
+template <int MAXE>
+__device__ __forceinline__ float error_bound(const Sections<MAXE>& q,
+                                             float beta, GroupScratch& g,
+                                             int warp, int lane) {
+  float e_ex[MAXE], r_in[MAXE], fe[MAXE], eo, ro;
+  q.prefixes(1.f / beta, e_ex, r_in, fe, eo, ro);
+  group_excl_scan2(eo, ro, g, warp, lane);
+  float m = -FLT_MAX;
+#pragma unroll
+  for (int k = 0; k < MAXE; ++k)
+    if (q.sec(k))
+      m = fmaxf(m, (fminf(expf(ro + r_in[k]), 1e6f) - 1.f) *
+                       expf(-(eo + e_ex[k])));
+  return group_max(m, g, warp, lane);
+}
+
+template <int MAXE>
+__global__ void __launch_bounds__(kGroupThreads)
 sampler_round_kernel(const float* __restrict__ z, const float* __restrict__ sdf,
                      const float* __restrict__ beta_in,
                      const float* __restrict__ u, float* __restrict__ samples,
-                     float* __restrict__ beta_out, int R, int S, int n_out,
+                     float* __restrict__ beta_out, int S, int n_out,
                      const float* __restrict__ beta0_p, int beta_iters,
                      float eps, float add_tiny, int is_final) {
   extern __shared__ float sm[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ray = blockIdx.x * kRayWarps + warp;
-  if (ray >= R) return;  // whole warp; only warp-level sync below
-  float* zs = sm + warp * 3 * S;
+  __shared__ GroupScratch g;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ray = blockIdx.x;
+  float* zs = sm;
   float* ss = zs + S;
   float* cs = ss + S;
-  for (int j = lane; j < S; j += 32) {
+  for (int j = tid; j < S; j += kGroupThreads) {
     zs[j] = z[(size_t)ray * S + j];
     ss[j] = sdf[(size_t)ray * S + j];
   }
-  __syncwarp();
+  __syncthreads();
 
-  Ray<MAXE> q;
-  q.load(zs, ss, lane, S);
+  Sections<MAXE> q;
+  q.load(zs, ss, tid, S);
 
   // ---- beta: converged rays take beta0, the rest bisect ------------------
   const float beta0 = *beta0_p;
   float beta = beta_in[ray];
-  if (q.error_bound(beta0) <= eps) beta = beta0;
+  if (error_bound(q, beta0, g, warp, lane) <= eps) beta = beta0;
   float lo = beta0, hi = beta;
   for (int it = 0; it < beta_iters; ++it) {
     const float mid = 0.5f * (lo + hi);
-    if (q.error_bound(mid) <= eps) hi = mid; else lo = mid;
+    if (error_bound(q, mid, g, warp, lane) <= eps) hi = mid; else lo = mid;
   }
   beta = hi;
 
   // ---- weights, pdf ---------------------------------------------------
-  float pdf[MAXE], fe_ex[MAXE], r_in[MAXE];
-  float ft = 0.f, rt = 0.f;
-  const float inv4b2 = 1.f / (4.f * beta * beta);
-#pragma unroll
-  for (int k = 0; k < MAXE; ++k) {
-    fe_ex[k] = ft;
-    pdf[k] = 0.f;
-    if (q.smp(k)) {
-      const float fe = (q.sec(k) ? q.d[k] : 1e10f) * laplace(q.s[k], beta);
-      pdf[k] = fe;  // free energy, until the pass below
-      ft += fe;
-      if (q.sec(k)) rt += expf(-q.ds[k] / beta) * q.d[k] * q.d[k] * inv4b2;
-    }
-    r_in[k] = rt;
-  }
-  const float fo = warp_excl_scan(ft, lane);
-  const float ro = is_final ? 0.f : warp_excl_scan(rt, lane);
+  float e_ex[MAXE], r_in[MAXE], pdf[MAXE], fo, ro;
+  q.prefixes(1.f / beta, e_ex, r_in, pdf, fo, ro);
+  group_excl_scan2(fo, ro, g, warp, lane);
   float tot = 0.f;
 #pragma unroll
   for (int k = 0; k < MAXE; ++k) {
     float p = 0.f;
     if (q.sec(k)) {
-      const float trans = expf(-(fo + fe_ex[k]));
+      const float trans = expf(-(fo + e_ex[k]));
       p = is_final ? (1.f - expf(-pdf[k])) * trans + 1e-5f
-                : (fminf(expf(ro + r_in[k]), 1e6f) - 1.f) * trans + add_tiny;
+                   : (fminf(expf(ro + r_in[k]), 1e6f) - 1.f) * trans +
+                         add_tiny;
     }
     pdf[k] = p;
     tot += p;
   }
-  const float total = warp_sum(tot);
+  const float total = group_sum(tot, g, warp, lane);
 
   // ---- CDF (exactly nondecreasing), inverse-CDF draws ------------------
   float lt = 0.f;
@@ -101,21 +244,38 @@ sampler_round_kernel(const float* __restrict__ z, const float* __restrict__ sdf,
       pdf[k] = total > 0.f ? pdf[k] / fmaxf(total, 1e-30f)
                            : 1.f / (float)(S - 1);
       lt += pdf[k];
-      pdf[k] = lt;  // lane-local inclusive sum
+      pdf[k] = lt;  // thread-local inclusive sum
     }
   }
-  float off = 0.f;
-  for (int src = 0; src < 31; ++src) {
-    const float t = __shfl_sync(kFull, lt, src);
-    if (lane > src) off += t;
-  }
-  if (lane == 0) cs[0] = 0.f;
+  float off = lt, unused = 0.f;
+  group_excl_scan2(off, unused, g, warp, lane);
+  // the running max: the thread's last value, then the group's exclusive
+  // max scan of those, taken into every value
+  float last = -FLT_MAX;
 #pragma unroll
   for (int k = 0; k < MAXE; ++k)
-    if (q.sec(k)) cs[q.base + k + 1] = off + pdf[k];
-  __syncwarp();
+    if (q.sec(k)) {
+      pdf[k] += off;
+      last = pdf[k];
+    }
+  float carry = last;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(kFull, carry, o);
+    if (lane >= o) carry = fmaxf(carry, t);
+  }
+  float excl = __shfl_up_sync(kFull, carry, 1);
+  if (lane == 0) excl = -FLT_MAX;
+  if (lane == 31) g.red[warp] = carry;
+  __syncthreads();
+  for (int v = 0; v < warp; ++v) excl = fmaxf(excl, g.red[v]);
+  if (tid == 0) cs[0] = 0.f;
+#pragma unroll
+  for (int k = 0; k < MAXE; ++k)
+    if (q.sec(k)) cs[q.base + k + 1] = fmaxf(pdf[k], excl);
+  __syncthreads();
 
-  for (int i = lane; i < n_out; i += 32) {
+  for (int i = tid; i < n_out; i += kGroupThreads) {
     const float uq = u[(size_t)ray * n_out + i];
     int a = 0, b = S;  // count of cdf entries <= uq
     while (a < b) {
@@ -128,7 +288,7 @@ sampler_round_kernel(const float* __restrict__ z, const float* __restrict__ sdf,
     const float t = (uq - cs[below]) / denom;
     samples[(size_t)ray * n_out + i] = zs[below] + t * (zs[above] - zs[below]);
   }
-  if (lane == 0) beta_out[ray] = beta;
+  if (tid == 0) beta_out[ray] = beta;
 }
 
 }  // namespace
@@ -142,18 +302,19 @@ extern "C" int i2sdf_sampler_round(const float* z, const float* sdf,
                                    int is_final, void* stream) {
   using namespace i2sdf;
   if (R <= 0) return 0;
-  if (S < 2 || S > 32 * 32) return (int)cudaErrorInvalidValue;
-  const int blocks = (R + kRayWarps - 1) / kRayWarps;
-  const size_t smem = (size_t)kRayWarps * 3 * S * sizeof(float);
+  if (S < 2 || S > 8 * kGroupThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)3 * S * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  if (S <= 32 * 16) {
-    sampler_round_kernel<16><<<blocks, kRayWarps * 32, smem, st>>>(
-        z, sdf, beta_in, u, samples, beta_out, R, S, n_out, beta0,
-        beta_iters, eps, add_tiny, is_final);
-  } else {
-    sampler_round_kernel<32><<<blocks, kRayWarps * 32, smem, st>>>(
-        z, sdf, beta_in, u, samples, beta_out, R, S, n_out, beta0,
-        beta_iters, eps, add_tiny, is_final);
-  }
+#define LAUNCH(E)                                                          \
+  sampler_round_kernel<E><<<R, kGroupThreads, smem, st>>>(                 \
+      z, sdf, beta_in, u, samples, beta_out, S, n_out, beta0, beta_iters, \
+      eps, add_tiny, is_final)
+  if (S <= 2 * kGroupThreads)
+    LAUNCH(2);
+  else if (S <= 4 * kGroupThreads)
+    LAUNCH(4);
+  else
+    LAUNCH(8);
+#undef LAUNCH
   return (int)cudaGetLastError();
 }

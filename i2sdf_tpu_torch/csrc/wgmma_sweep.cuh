@@ -1,5 +1,5 @@
-// Shared by K4 (`render_core_bwd.cu`) and K9 (`bg_core_bwd.cu`), the
-// backward sweeps on `wgmma_layer.cuh`: the layout of the host-built ring
+// Shared by K4 (`render_core_bwd.cu`), K6 (`rev_bwd.cu`) and K9
+// (`bg_core_bwd.cu`), the backward sweeps on `wgmma_layer.cuh`: the layout of the host-built ring
 // table and scratch regions, the producer that walks the table, the
 // consumers' side of the ring (the shared-memory layout after the tile,
 // taking and freeing items, storing the tile and staging slots, the
@@ -19,8 +19,8 @@ namespace wg {
 // copies of half the bytes, the second from the offset plus the third
 // field
 enum ItemKind { kItemLoad = 0, kItemStage = 1, kItemWait = 2, kItemLoad2 = 3 };
-// K4: scratch, sdf, radiance, light, transposed; K9: scratch, implicit,
-// radiance, unused, transposed
+// K4: scratch, sdf, radiance, light, transposed (K6: the radiance and
+// light bases unused); K9: scratch, implicit, radiance, unused, transposed
 constexpr int kBases = 5;
 struct Bases {
   const unsigned char* p[kBases];
@@ -345,8 +345,8 @@ struct WJobs {
 // wrote: a block takes 128 rows of dW (two A chunks, one a warpgroup) by
 // 256 columns (four B chunks) over one range of points, the producer
 // bulk-copying each 64-point block's chunks into a four-slot ring; the
-// partial sums go to device memory. `kOp` names the kernel (4: K4's, 9:
-// K9's) in a profile.
+// partial sums go to device memory. `kOp` names the kernel (4: K4's, 6:
+// K6's, 9: K9's) in a profile.
 template <int kOp>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 wgrad_kernel(const __grid_constant__ WJobs jobs,

@@ -27,9 +27,10 @@ kernel launch (`launches` in `sdf_mlp.py`, `sampler_round.py`,
 
 With K10-K12 every `pl.pallas_call` site of the JAX package has its
 counterpart here. K10-K12 share the tangent sweep in
-`csrc/tangent_common.cuh`; K1, K3, K4, K8 and K9 the wgmma layer
-primitive `csrc/wgmma_layer.cuh`, and K4 and K9 its backward-sweep
-pieces, `csrc/wgmma_sweep.cuh`.
+`csrc/tangent_common.cuh`; K1, K3, K4, K6, K8 and K9 the wgmma layer
+primitive `csrc/wgmma_layer.cuh`, K4, K6 and K9 its backward-sweep
+pieces, `csrc/wgmma_sweep.cuh`, and K4 and K6 the SDF net's sweeps,
+`csrc/sdf_sweep.cuh`.
 """
 
 from . import (bg_core, conv_check, render_core, rev, sampler_round,

@@ -135,51 +135,6 @@ def _bg_chains(icfg: mlp.ImplicitNetConfig, rcfg: mlp.RenderingNetConfig,
     return imp, rad, t
 
 
-class _BgIndex:
-    """`BgStages`' layout for one pair of nets and their weights' shapes
-    (`shapes`, implicit then radiance), built once (`_bg_index`): each
-    chain packed from the weights' and biases' positions
-    (`mma_pack.gather_chain`), on the host and on each device it has been
-    asked for."""
-
-    def __init__(self, icfg: mlp.ImplicitNetConfig,
-                 rcfg: mlp.RenderingNetConfig, shapes: tuple):
-        def positions(shapes):
-            out, first = [], 1
-            for shape in shapes:
-                n = int(np.prod(shape))
-                out.append(torch.arange(first, first + n).view(shape))
-                first += n
-            return out
-
-        ws = positions(shapes)
-        bs = positions([(m,) for _, m in shapes])
-        ni = n_layers(icfg)
-        chains = _bg_chains(icfg, rcfg, ws[:ni], bs[:ni], ws[ni:], bs[ni:])
-        self.host = [mma_pack.pack_stage_chain(c, rows=r, dtype=torch.int64)
-                     for c, r in zip(chains, (_PASS_ROWS, _PASS_ROWS, 256))]
-        self._on = {}
-
-    def on(self, device) -> list:
-        device = torch.device(device)
-        if device not in self._on:
-            self._on[device] = [mma_pack.PackedMlp(
-                c.weights.to(device), c.biases.to(device), c.plan)
-                for c in self.host]
-        return self._on[device]
-
-
-_INDEX: dict = {}
-
-
-def _bg_index(icfg: mlp.ImplicitNetConfig, rcfg: mlp.RenderingNetConfig,
-              shapes: tuple) -> _BgIndex:
-    key = (icfg, rcfg, shapes)
-    if key not in _INDEX:
-        _INDEX[key] = _BgIndex(icfg, rcfg, shapes)
-    return _INDEX[key]
-
-
 class BgStages:
     """The background nets as stage images, from materialized weights:
 
@@ -201,25 +156,28 @@ class BgStages:
 
     The layers are `_bg_chains`'; each chain is gathered from the nets'
     flat weights by a layout built once for the nets' shapes
-    (`_bg_index`), the same bits as `mma_pack.pack_stage_chain` of the
-    layers. K9 takes the forward stages whole: a stage of a layer in
+    (`mma_pack.chain_index`), the same bits as `mma_pack.pack_stage_chain`
+    of the layers. K9 takes the forward stages whole: a stage of a layer in
     passes is its passes' stages of one chunk side by side
     (`BgPlan.script`)."""
 
     def __init__(self, icfg: mlp.ImplicitNetConfig,
                  rcfg: mlp.RenderingNetConfig, w: BgWeights):
         check_bg_nets(icfg, rcfg)
-        self._index = _bg_index(icfg, rcfg, tuple(
-            tuple(t.shape) for t in (*w.ws_i, *w.ws_r)))
+        ni = n_layers(icfg)
+
+        def chains(ws, bs):
+            return _bg_chains(icfg, rcfg, ws[:ni], bs[:ni], ws[ni:], bs[ni:])
+
+        shapes = tuple(tuple(t.shape) for t in (*w.ws_i, *w.ws_r))
+        self._index = mma_pack.chain_index(
+            ("bg", icfg, rcfg, shapes), chains, shapes,
+            (_PASS_ROWS, _PASS_ROWS, 256))
         ix = self._index.host
-        dev = w.ws_i[0].device
-        zero = torch.zeros(1, dtype=torch.float32, device=dev)
         with torch.no_grad():
-            self._w = torch.cat([zero] + [t.detach().reshape(-1).float()
-                                          for t in (*w.ws_i, *w.ws_r)])
-            self._b = torch.cat([zero] + [t.detach().reshape(-1).float()
-                                          for t in (*w.bs_i, *w.bs_r)])
-            on = self._index.on(dev)
+            self._w, self._b = mma_pack.flat_sources(
+                (*w.ws_i, *w.ws_r), (*w.bs_i, *w.bs_r))
+            on = self._index.on(self._w.device)
             self.imp = mma_pack.gather_chain(on[0], self._w, self._b)
             self.rad = mma_pack.gather_chain(on[1], self._w, self._b)
         self._t = None

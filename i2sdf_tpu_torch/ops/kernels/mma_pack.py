@@ -162,6 +162,58 @@ def gather_chain(index: PackedMlp, w_src: torch.Tensor,
                      b_src[index.biases], index.plan)
 
 
+def flat_sources(ws, bs) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flat f32 weights and biases `gather_chain` reads (a zero
+    first, then each leaf's elements in order), on the leaves' device."""
+    zero = torch.zeros(1, dtype=torch.float32, device=ws[0].device)
+    return tuple(torch.cat([zero] + [t.detach().reshape(-1).float()
+                                     for t in ts]) for ts in (ws, bs))
+
+
+class ChainIndex:
+    """The layout of stage chains built once for one set of (in, out)
+    weight shapes (`chain_index` keeps one a key): `chains(ws, bs)` makes
+    the chains' layers from position tensors (`ws[i]` of `shapes[i]`,
+    `bs[i]` of its output width, numbered as `flat_sources` lays the
+    leaves out), each packed as int64 positions in stages of at most
+    `rows[i]` rows (`pack_stage_chain`); `host` holds them, and `on`
+    moves them once to each device it is asked for."""
+
+    def __init__(self, chains, shapes: tuple, rows: tuple):
+        def positions(shapes):
+            out, first = [], 1
+            for shape in shapes:
+                n = int(np.prod(shape))
+                out.append(torch.arange(first, first + n).view(shape))
+                first += n
+            return out
+
+        layers = chains(positions(shapes),
+                        positions([(m,) for _, m in shapes]))
+        self.host = [pack_stage_chain(c, rows=r, dtype=torch.int64)
+                     for c, r in zip(layers, rows)]
+        self._on = {}
+
+    def on(self, device) -> list[PackedMlp]:
+        device = torch.device(device)
+        if device not in self._on:
+            self._on[device] = [PackedMlp(c.weights.to(device),
+                                          c.biases.to(device), c.plan)
+                                for c in self.host]
+        return self._on[device]
+
+
+_INDEX: dict = {}
+
+
+def chain_index(key, chains, shapes: tuple, rows: tuple) -> ChainIndex:
+    """The `ChainIndex` kept under `key` (the pack's name, the nets'
+    configs and `shapes`), built at its first use."""
+    if key not in _INDEX:
+        _INDEX[key] = ChainIndex(chains, shapes, rows)
+    return _INDEX[key]
+
+
 def row_stride(width: int) -> int:
     """Shared-memory row length (bf16) >= width + 8 with a row stride of
     4 banks mod 32, so a warp's fragment loads hit 32 distinct banks."""

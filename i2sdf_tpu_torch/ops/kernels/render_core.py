@@ -39,9 +39,9 @@ relu'(features) (`fused_train.py:345-348`).
 
 The bounding-sphere clamp is applied outside the kernels, as
 `fused_train.py:771-777` does. The SDF net's fragment layout
-(`sdf_chains`), the mma.sync backward's scratch plan (`_BwdPlan`) and its
-shared-memory size (`bwd_smem`) serve K5, K6 and K12 (`rev.py`,
-`sdf_grad.py`; K6's sweep is `bwd_sweep_kernel` in `csrc/common.cuh`).
+(`sdf_chains`) serves K5 and K12, the mma.sync backward's scratch plan
+(`_BwdPlan`) K12 (`rev.py`, `sdf_grad.py`); K6 runs K4's sweeps on K4's
+plan (`core_sdf_layers`, `t_sdf_layers`, `K4Plan`; `rev.RevStages`).
 """
 
 from __future__ import annotations
@@ -59,9 +59,9 @@ bwd_launches = 0  # K4 launches since the last reset_launch_counts()
 light_launches = 0      # K3 with the light head
 light_bwd_launches = 0  # K4 with the light head
 
-_ROWS = 32               # points per block (K3, and kSweepRows in K6)
-_MAX_WIDTH = 320         # K6, K9, K12: 8 warps x 5 tiles x 8 columns
-_MAX_SDF = 12            # K6, K12: SDF layer slots of the scratch table
+_ROWS = 32               # the products' row step (kTM), K5's block
+_MAX_WIDTH = 320         # K5, K12: 8 warps x 5 tiles x 8 columns
+_MAX_SDF = 12            # K5, K12: SDF layer slots (kMaxSdf)
 _K3_WIDTH = 256          # K3: a tile's four 64-column chunks, wgmma's N
 _K3_RAD_K = 320          # K3 and K4: five chunks, the radiance input
 _MAX_SMEM = 232448       # bytes a block may use on the H100
@@ -142,13 +142,13 @@ def _rad_perm(vdim: int, F: int) -> list:
 
 def sdf_chains(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
                perm: list | None = None, embed_none: bool = False):
-    """The SDF net in the sweep kernels' layouts (K3-K6), from materialized
+    """The SDF net in the mma.sync sweep kernels' layouts, from materialized
     (detached, f32) weights and biases, the output layer's columns in the
     order `perm` (the net's own order if None):
 
     * `fwd`: the chain, layer 0 first;
     * `sdft`: the chain transposed, last layer first (K3/K5's reverse
-      sweep takes its rows 1.., K4/K6's downward sweep rows 0..n-2);
+      sweep takes its rows 1..);
     * `rev`: `sdft`'s rows 1.. (the plan rows hold absolute offsets into
       the same weight stream);
     * `wsdf_col`: the output layer's sdf column in bf16, zero-padded to
@@ -215,39 +215,28 @@ def sdf_chain_t(icfg: mlp.ImplicitNetConfig, ws: list, sdf_col: int = 0):
     return sdft, rev, wsdf_col
 
 
-def bwd_smem(k) -> int:
-    """The shared memory (bytes) of K6's sweep kernel (`bwd_smem_bytes` in
-    csrc/common.cuh) for a layout `k` with `n_sdf`, `lda`, `ldd` and
-    `ldg`."""
-    return (2 * (2 * _ROWS * k.lda + (k.n_sdf - 1) * _ROWS * k.ldd)
-            + 4 * _ROWS * (3 + 3 + 8 + 4 + k.ldg + k.lda))
-
-
 class _BwdPlan:
-    """The mma.sync backward's scratch layout at n points, and the int64
+    """K12's mma.sync backward's scratch layout at n points, and the int64
     table that tells the kernel where everything is (read in this order by
-    `read_scratch` in csrc/common.cuh): K6's, and with `streams=4, rows=16,
-    stash=False, sdf_col=True` K12's. All sizes in elements; bf16 arrays
+    `read_scratch` in csrc/common.cuh; `sdf_grad.bwd_plan` gives it
+    `streams=4, rows=16`). All sizes in elements; bf16 arrays
     live in one scratch buffer, f32 arrays in another, each array 16-byte
     aligned.
 
     Per SDF layer l (K_l x N_l padded): `ax` (streams np, K_l) the layer's
-    input in each stream (K6: [da_l ; X_l]; K12: [h ; t_0 ; t_1 ; t_2]),
-    `br` (streams np, N_l) their cotangents ([r_l ; dz_l]; [dz ; rho_0 ;
-    rho_1 ; rho_2]), so dW_l = ax^T br over streams np rows; with `stash`,
-    `dzx` (np, N_l) the second-order term injected into z_l and `ah` (np,
-    K_l, f32) d sdf / d h_l. With `sdf_col`, the output layer's product
-    takes the first stream alone (`br` np rows): its other streams'
-    cotangents live in the sdf column only, and their rank-3 share of that
-    column is summed per block after the bias rows (at `col_db`, K_l
-    wide). `dbpart` (blocks, tb) each block of `rows` points' bias-gradient
-    sums. Each weight gradient is summed over `splits[p]` point ranges of
-    `chunk[p]` rows into `part[p]`, then the ranges are added in order
+    input in each stream ([h ; t_0 ; t_1 ; t_2]), `br` (streams np, N_l)
+    their cotangents ([dz ; rho_0 ; rho_1 ; rho_2]), so dW_l = ax^T br over
+    streams np rows. The output layer's product takes the
+    first stream alone (`br` np rows): its other streams' cotangents live
+    in the sdf column only, and their rank-3 share of that column is summed
+    per block after the bias rows (at `col_db`, K_l wide). `dbpart`
+    (blocks, tb) each block of `rows` points' bias-gradient sums. Each
+    weight gradient is summed over `splits[p]` point ranges of `chunk[p]`
+    rows into `part[p]`, then the ranges are added in order
     (deterministic). `out` (f32): every dW_p (K x N), then the tb bias
-    gradients (and with `sdf_col` the column's share)."""
+    gradients and the column's share."""
 
-    def __init__(self, k, n: int, streams: int = 2, rows: int = _ROWS,
-                 stash: bool = True, sdf_col: bool = False):
+    def __init__(self, k, n: int, streams: int, rows: int):
         ns = k.n_sdf
         # the weight-gradient products step over _ROWS (32) rows
         self.np = np_ = mma_pack.round_up(max(n, 1), _ROWS)
@@ -265,18 +254,11 @@ class _BwdPlan:
             o, self.n32 = self.n32, self.n32 + mma_pack.round_up(size, 4)
             return o
 
-        m_sdf = [streams * np_] * ns
-        if sdf_col:
-            m_sdf[-1] = np_
+        m_sdf = [streams * np_] * (ns - 1) + [np_]
         self.ax = [take16(streams * np_ * K) for K in Ks]
         self.br = [take16(m * N) for m, N in zip(m_sdf, Ns)]
-        if stash:
-            self.dzx = [take16(np_ * N) for N in Ns[:-1]] + [-1]
-            self.ah = [-1] + [take32(np_ * K) for K in Ks[1:]]
-        else:
-            self.dzx = self.ah = [-1] * ns
         self.col_db = sum(Ns)
-        self.tb = self.col_db + (Ks[-1] if sdf_col else 0)
+        self.tb = self.col_db + Ks[-1]
         self.db = list(np.cumsum([0] + Ns)[:-1].astype(int))
         self.dbpart = take32(self.blocks * self.tb)
         self.splits, self.chunk, self.part, self.out = [], [], [], []
@@ -292,8 +274,39 @@ class _BwdPlan:
         self.out_db = o
         self.n_out = o + self.tb
         self.table = np.ascontiguousarray(np.asarray(
-            self.ax + self.br + self.dzx + self.ah + [self.dbpart, self.tb]
-            + self.db + self.splits + self.chunk + self.part + self.out + [self.out_db], np.int64))
+            self.ax + self.br + [self.dbpart, self.tb] + self.db
+            + self.splits + self.chunk + self.part + self.out
+            + [self.out_db], np.int64))
+
+
+def core_sdf_layers(icfg: mlp.ImplicitNetConfig, ws: list, bs: list) -> list:
+    """`CoreStages.sdf`'s layers (K3's, K4's and K6's SDF chain) from the
+    net's (in, out) weights and biases: the hidden layers, then the output
+    layer as the sdf alone and then the features (`_sdf_perm`)."""
+    F = icfg.feature_vector_size
+    layers = sdf_layers(icfg, ws, bs)
+    perm = _sdf_perm(F)
+    w_out, b_out = ws[-1][:, perm], bs[-1][perm]
+    layers[-1:] = [dict(w=w_out[:, F:], b=b_out[F:]),
+                   dict(w=w_out[:, :F], b=b_out[:F])]
+    return layers
+
+
+def t_sdf_layers(icfg: mlp.ImplicitNetConfig, ws: list) -> list:
+    """`K4Stages`' transposed SDF layers n-1 .. 1 (K4's and K6's) from the
+    net's (in, out) weights, the output layer's input rows as [features |
+    sdf] (`_sdf_perm`)."""
+    dims = icfg.layer_dims()
+    d0, n = dims[0], len(dims) - 1
+    ws = ws[:-1] + [ws[-1][:, _sdf_perm(icfg.feature_vector_size)]]
+    layers = []
+    for l in range(n - 1, 0, -1):
+        if l in icfg.skip_in:
+            real, col, flags = dims[l] - d0, dims[l] - d0, mma_pack.SCALE
+        else:
+            real, col, flags = dims[l], mma_pack.NO_COL, 0
+        layers.append(dict(w=ws[l].t(), real=real, col=col, flags=flags))
+    return layers
 
 
 class CoreStages:
@@ -319,14 +332,9 @@ class CoreStages:
         if rcfg.embed_type != "positional" or rcfg.d_in != 3:
             raise ValueError("render_core: the radiance net takes the "
                              "positional view encoding")
-        ws = [t.detach().float() for t in w.ws_sdf]
-        bs = [t.detach().float() for t in w.bs_sdf]
-        layers = sdf_layers(icfg, ws, bs)
-        perm = _sdf_perm(F)
-        w_out, b_out = ws[-1][:, perm], bs[-1][perm]
-        layers[-1:] = [dict(w=w_out[:, F:], b=b_out[F:]),
-                       dict(w=w_out[:, :F], b=b_out[:F])]
-        self.sdf = mma_pack.pack_stage_chain(layers)
+        self.sdf = mma_pack.pack_stage_chain(core_sdf_layers(
+            icfg, [t.detach().float() for t in w.ws_sdf],
+            [t.detach().float() for t in w.bs_sdf]))
         vdim = rcfg.layer_dims()[0] - F
         wr = [t.detach().float() for t in w.ws_rad]
         br = [t.detach().float() for t in w.bs_rad]
@@ -526,16 +534,9 @@ class K4Stages:
                  lcfg: mlp.ImplicitNetConfig | None = None):
         F = icfg.feature_vector_size
         dims, rdims = icfg.layer_dims(), rcfg.layer_dims()
-        d0, n = dims[0], len(dims) - 1
+        n = len(dims) - 1
         ws = [t.detach().float() for t in w.ws_sdf]
-        ws[-1] = ws[-1][:, _sdf_perm(F)]
-        layers = []
-        for l in range(n - 1, 0, -1):
-            if l in icfg.skip_in:
-                real, col, flags = dims[l] - d0, dims[l] - d0, mma_pack.SCALE
-            else:
-                real, col, flags = dims[l], mma_pack.NO_COL, 0
-            layers.append(dict(w=ws[l].t(), real=real, col=col, flags=flags))
+        layers = t_sdf_layers(icfg, ws)
         wr = [t.detach().float() for t in w.ws_rad]
         wr[0] = wr[0][_rad_perm(rdims[0] - F, F)][:F]
         nr = len(wr)
@@ -551,7 +552,7 @@ class K4Stages:
         K = ws[-1].shape[0]
         self.wsdf = torch.zeros(mma_pack.round_up(K, 64) + 8,
                                 dtype=torch.float32, device=ws[0].device)
-        self.wsdf[:K] = ws[-1][:, F].to(torch.bfloat16).float()
+        self.wsdf[:K] = ws[-1][:, 0].to(torch.bfloat16).float()
         if int(self.t.plan[:, 1].max()) > _K3_WIDTH or (
                 int(self.t.plan[:, 0].max()) > _K3_RAD_K):
             raise ValueError("render_core_bwd: a layer wider than "
@@ -579,7 +580,9 @@ class K4Plan:
     """K4's scratch at n points (bytes), the ring table its producer walks
     and its weight-gradient jobs, from K3's `CoreStages` (`st`) and
     `K4Stages` (`t`); `coupled`: the light head with `detach_light` off.
-    All of it depends only on the shapes (`plan_for` caches it).
+    All of it depends only on the shapes (`plan_for` caches it). K6's plan
+    is the same with `rev.RevStages` as both packs: no radiance or light
+    layers, and the forward recompute stops at the output layer's input.
 
     * `regions[kind][l]` = (byte offset of block 0's tile, bytes a
       block): each 64-point block's tiles as the sweep stores them, 64-row
@@ -607,7 +610,7 @@ class K4Plan:
 
     def __init__(self, st: CoreStages, t: K4Stages, n: int, coupled: bool):
         self.blocks = B = -(-max(n, 1) // _K4_POINTS)
-        fwd, rad = st.sdf.plan, st.rad.plan
+        fwd, rad = st.sdf.plan, _rad_plan(st)
         light = st.light.plan if st.n_light else np.zeros((0, 8), np.int32)
         ns, nr, nl = t.n_sdf, t.n_rad, t.n_light
         out_k = int(t.tsdf[0, 0])
@@ -670,7 +673,7 @@ class K4Plan:
     def _script(self, st, t, coupled) -> np.ndarray:
         items, state = [], {"done": 0, "waited": 0}
         ns, nr, nl = t.n_sdf, t.n_rad, t.n_light
-        fwd, rad = st.sdf.plan, st.rad.plan
+        fwd, rad = st.sdf.plan, _rad_plan(st)
         light = st.light.plan if nl else None
 
         def weights(base, row):
@@ -699,7 +702,8 @@ class K4Plan:
         for l in range(ns - 1):                      # 1. SDF forward
             weights(_B_SDF, fwd[l])
             stage()
-        weights(_B_SDF, fwd[ns])
+        if nr:   # the features, for the radiance net (K6 has none)
+            weights(_B_SDF, fwd[ns])
         done()
         if nl:                                       # 1b. the light head
             for l in range(nl):
@@ -716,13 +720,14 @@ class K4Plan:
                 stage()
                 stage()
             done()
-        for l in range(nr):                          # 2. radiance forward
-            weights(_B_RAD, rad[l])
-        done()
-        for l in range(nr - 1, 0, -1):               # 3. radiance backward
-            weights(_B_T, t.trad[nr - 1 - l])
-            load(REG_RX, l, tile(rad[l, 0]))
-        weights(_B_T, t.trad[nr - 1])
+        if nr:
+            for l in range(nr):                      # 2. radiance forward
+                weights(_B_RAD, rad[l])
+            done()
+            for l in range(nr - 1, 0, -1):           # 3. radiance backward
+                weights(_B_T, t.trad[nr - 1 - l])
+                load(REG_RX, l, tile(rad[l, 0]))
+            weights(_B_T, t.trad[nr - 1])
         if coupled:
             load(REG_CLG, 0, _SLOT)
             load(REG_CLG, 0, _SLOT, _SLOT)
@@ -749,7 +754,7 @@ class K4Plan:
 
     def _jobs(self, st, t, real_n):
         ns, nr, nl = t.n_sdf, t.n_rad, t.n_light
-        fwd, rad = st.sdf.plan, st.rad.plan
+        fwd, rad = st.sdf.plan, _rad_plan(st)
         light = st.light.plan if nl else np.zeros((0, 8), np.int32)
         R, B = self.regions, self.blocks
         per = -(-B // min(_MAX_SPLITS, B))
@@ -790,13 +795,19 @@ class K4Plan:
                 n32, outs)
 
 
+def _rad_plan(st) -> np.ndarray:
+    """The radiance chain's plan rows (none for K6's `rev.RevStages`)."""
+    return np.zeros((0, 8), np.int32) if st.rad is None else st.rad.plan
+
+
 _PLANS: dict = {}
 
 
 def plan_for(st: CoreStages, t: K4Stages, n: int,
              coupled: bool) -> K4Plan:
-    """K4's plan for these shapes, built once."""
-    key = (st.sdf.plan.tobytes(), st.rad.plan.tobytes(),
+    """K4's plan for these shapes, built once (K6's too: `rev.RevStages`
+    as both packs)."""
+    key = (st.sdf.plan.tobytes(), _rad_plan(st).tobytes(),
            None if st.light is None else st.light.plan.tobytes(),
            t.t.plan.tobytes(), -(-max(n, 1) // _K4_POINTS), coupled)
     plan = _PLANS.get(key)

@@ -4,15 +4,19 @@ through that gradient too.
 
 Replaces `i2sdf_tpu/ops/pallas/fused_rev.py:213 get_rev_op`: its forward
 (pallas_call at `:244`) is K5 (`csrc/rev_fwd.cu`), its backward (`:294`)
-is K6 (`csrc/rev_bwd.cu`). Each CUDA source's header says what bounds it
-and how it is built.
+is K6 (`csrc/rev_bwd.cu`, K4's wgmma sweeps without the radiance net).
+Each CUDA source's header says what bounds it and how it is built.
 
-* `RevLayout`: the SDF net alone in the kernels' layout (weight norm
-  materialized, bf16, mma fragment order). Its output layer keeps the
-  net's own column order [sdf | features], so neither kernel nor wrapper
-  permutes anything.
+* `RevLayout`: K5's pack, the SDF net alone in the mma.sync kernels'
+  layout (weight norm materialized, bf16, mma fragment order). Its output
+  layer keeps the net's own column order [sdf | features].
+* `RevStages`: K6's pack, the SDF net as K4 packs it (K3's stage chain
+  `render_core.core_sdf_layers` and K4's transposed one
+  `render_core.t_sdf_layers`), gathered from the net's flat weights
+  through a layout built once for its shapes; K6's plan is K4's
+  (`render_core.plan_for` with this pack as both packs).
 * `rev_fwd(k, x)` -> (out (N, 1 + F), grad (N, 3)) and
-  `rev_bwd(k, x, c_out, c_g)` -> (dws, dbs): the launches, CUDA tensors
+  `rev_bwd(k6, x, c_out, c_g)` -> (dws, dbs): the launches, CUDA tensors
   only.
 * `rev_plain(icfg, ws, bs, x)`: the same function in plain f32 PyTorch,
   the gradient by autograd with `create_graph`, so that autograd gives
@@ -29,6 +33,9 @@ and how it is built.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ...models import mlp
@@ -39,8 +46,8 @@ bwd_launches = 0  # K6 launches since the last reset_launch_counts()
 
 
 class RevLayout:
-    """The SDF net in K5's and K6's layout, from materialized (in, out)
-    weights and biases: `fwd`, `sdft`, `rev` and `wsdf_col` as
+    """The SDF net in K5's layout, from materialized (in, out) weights and
+    biases: `fwd`, `sdft`, `rev` and `wsdf_col` as
     `render_core.sdf_chains` builds them, in the net's column order."""
 
     def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs):
@@ -61,11 +68,9 @@ class RevLayout:
         self.lda = mma_pack.row_stride(widest)
         self.ldd = mma_pack.row_stride(int(self.fwd.plan[:-1, 1].max()))
         self.ldg = mma_pack.round_up(dims[0], 8)
-        for name, smem in (("fwd", fwd_smem(self)),
-                           ("bwd", render_core.bwd_smem(self))):
-            if smem > render_core._MAX_SMEM:
-                raise ValueError(f"rev_{name}: needs {smem} bytes of shared "
-                                 "memory")
+        if fwd_smem(self) > render_core._MAX_SMEM:
+            raise ValueError(f"rev_fwd: needs {fwd_smem(self)} bytes of "
+                             "shared memory")
         self.mx = icfg.multires
         self.shapes = tuple(tuple(t.shape) for t in ws)
 
@@ -82,7 +87,8 @@ def fwd_smem(k: RevLayout) -> int:
 def unpack_grads(shapes, out: torch.Tensor, plan):
     """A weight-gradient launch's flat output (`plan.out[p]`: layer p's
     padded (K, N) gradient; `plan.out_db + plan.db[p]`: its bias's) ->
-    (dws, dbs) cut to the (in, out) `shapes` of the net's layers."""
+    (dws, dbs) cut to the (in, out) `shapes` of the net's layers (K6's
+    and K12's)."""
     dws, dbs = [], []
     for p, (k, m) in enumerate(shapes):
         K, N = plan.dims[p]
@@ -90,6 +96,85 @@ def unpack_grads(shapes, out: torch.Tensor, plan):
         o = plan.out_db + plan.db[p]
         dbs.append(out[o:o + m])
     return dws, dbs
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_perm(F: int, device: torch.device) -> torch.Tensor:
+    """The kernel's output-layer columns [features | sdf] back to the
+    net's order, as an index on `device` (the unpack copies nothing from
+    the host)."""
+    return torch.from_numpy(np.argsort(render_core._sdf_perm(F))).to(device)
+
+
+class RevStages:
+    """K6's pack of the SDF net from materialized (in, out) weights and
+    biases, as K4 packs the same net (so K6 takes K4's `K4Plan`, with this
+    pack as both of K4's):
+
+    * `sdf`: K3's SDF stage chain (`render_core.core_sdf_layers`: the
+      hidden layers, then the output layer as the sdf alone and the
+      features; K6 loads the hidden layers' stages only);
+    * `t`: K4's transposed SDF layers n-1 .. 1 (`render_core.t_sdf_layers`,
+      the output layer's input rows as [features | sdf]); `tsdf` its plan;
+    * `wsdf`: W_{n-1}[:, sdf] rounded to bf16 (f32, zero-padded), d sdf /
+      d h of the last hidden layer.
+
+    Both chains are gathered from the net's flat weights by a layout
+    built once for the net's shapes (`mma_pack.chain_index`): the same
+    bits as `mma_pack.pack_stage_chain` of the layers, in two gathers a
+    chain."""
+
+    rad = light = None
+    n_rad = n_light = 0
+    trad = tlight = np.zeros((0, 8), np.int32)
+
+    def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs):
+        if icfg.d_out != 1 or icfg.feature_vector_size % 8:
+            raise ValueError("rev_bwd: needs d_out 1 and a feature width "
+                             "that is a multiple of 8")
+        self.shapes = tuple(tuple(t.shape) for t in ws)
+
+        def chains(ws, bs):
+            return (render_core.core_sdf_layers(icfg, ws, bs),
+                    render_core.t_sdf_layers(icfg, ws))
+
+        ix = mma_pack.chain_index(("rev", icfg, self.shapes), chains,
+                                  self.shapes, (256, 256))
+        dev = ws[0].device
+        K = self.shapes[-1][0]
+        with torch.no_grad():
+            w, b = mma_pack.flat_sources(ws, bs)
+            sdf, t = ix.on(dev)
+            self.sdf = mma_pack.gather_chain(sdf, w, b)
+            self.t = mma_pack.gather_chain(t, w, b)
+            self.wsdf = torch.zeros(mma_pack.round_up(K, 64) + 8,
+                                    dtype=torch.float32, device=dev)
+            self.wsdf[:K] = ws[-1].detach()[:, 0].float().to(torch.bfloat16)
+        self._inv = _inv_perm(icfg.feature_vector_size, torch.device(dev))
+        self.tsdf = self.t.plan
+        self.n_sdf = len(ws)
+        self.F, self.mx = icfg.feature_vector_size, icfg.multires
+        plans = (self.sdf.plan, self.t.plan)
+        if (max(int(p[:, 1].max()) for p in plans) > render_core._K3_WIDTH
+                or max(int(p[:, 0].max()) for p in plans)
+                > render_core._K3_RAD_K):
+            raise ValueError("rev_bwd: a layer wider than "
+                             f"{render_core._K3_WIDTH}")
+        if self.sdf.n_layers > render_core._MAX_LAYERS:
+            raise ValueError("rev_bwd: too many layers")
+
+    def unpack_grads(self, out: torch.Tensor, plan):
+        """K6's flat output -> (dws, dbs) in the net's shapes, the output
+        layer's columns back in the net's order [sdf | features]."""
+        dws, dbs = unpack_grads(self.shapes, out, plan)
+        dws[-1] = dws[-1].index_select(1, self._inv)
+        dbs[-1] = dbs[-1].index_select(0, self._inv)
+        return dws, dbs
+
+
+def plan_for(k: RevStages, n: int) -> render_core.K4Plan:
+    """K6's plan at n points: K4's, for this pack (cached by shapes)."""
+    return render_core.plan_for(k, k, n, False)
 
 
 # ---- plain version ----------------------------------------------------------
@@ -140,37 +225,49 @@ def rev_fwd(k: RevLayout, x: torch.Tensor):
     return out, grad
 
 
-def rev_bwd(k: RevLayout, x: torch.Tensor, c_out: torch.Tensor,
+def rev_bwd(k: RevStages, x: torch.Tensor, c_out: torch.Tensor,
             c_g: torch.Tensor):
     """K6: the gradients of <c_out, out> + <c_g, grad> (unclamped outputs)
     with respect to the materialized weights and biases, as (dws, dbs)
     lists of f32 tensors in the net's shapes."""
     global bwd_launches
-    _check(k, x, "rev_bwd")
-    mma_pack.check_input(c_out, "c_out", cols=k.out_cols)
+    if not x.is_cuda:
+        raise ValueError("rev_bwd: the kernel takes CUDA tensors; the plain "
+                         "version is rev_plain")
+    mma_pack.check_input(x, "x", cols=3)
+    mma_pack.check_input(c_out, "c_out", cols=k.F + 1)
     mma_pack.check_input(c_g, "c_g", cols=3)
     n = x.shape[0]
     if (c_out.shape[0] != n or c_g.shape[0] != n
-            or c_out.device != x.device or c_g.device != x.device):
-        raise ValueError("rev_bwd: cotangents and points disagree in length "
-                         "or device")
-    plan = render_core._BwdPlan(k, n)
-    ws16 = torch.empty(plan.n16, dtype=torch.bfloat16, device=x.device)
+            or c_out.device != x.device or c_g.device != x.device
+            or k.sdf.weights.device != x.device):
+        raise ValueError("rev_bwd: cotangents, points and weights disagree "
+                         "in length or device")
+    plan = plan_for(k, n)
+    if plan.dev is None or plan.dev[0].device != x.device:
+        plan.dev = (torch.from_numpy(plan.reg).to(x.device),
+                    torch.from_numpy(plan.script).to(x.device))
+    reg, script = plan.dev
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
     ws32 = torch.empty(plan.n32, dtype=torch.float32, device=x.device)
-    out = torch.zeros(plan.n_out, dtype=torch.float32, device=x.device)
+    out = torch.empty(plan.n_out, dtype=torch.float32, device=x.device)
     if n:
         lib = build.load_library()
         err = lib.i2sdf_rev_bwd(
-            x.data_ptr(), c_out.data_ptr(), c_g.data_ptr(), n, plan.np,
-            k.out_cols, k.fwd.weights.data_ptr(), k.fwd.biases.data_ptr(),
-            k.fwd.plan.ctypes.data, k.fwd.n_layers,
-            k.sdft.weights.data_ptr(), k.sdft.plan.ctypes.data,
-            k.sdft.n_layers, k.wsdf_col.data_ptr(), k.mx, k.lda, k.ldd,
-            k.ldg, ws16.data_ptr(), ws32.data_ptr(), plan.table.ctypes.data,
-            out.data_ptr(), mma_pack.stream_of(x))
+            x.data_ptr(), c_out.data_ptr(), c_g.data_ptr(), n, plan.blocks,
+            k.F + 1, k.sdf.weights.data_ptr(), k.sdf.biases.data_ptr(),
+            k.sdf.plan.ctypes.data, k.sdf.n_layers, k.t.weights.data_ptr(),
+            k.tsdf.ctypes.data, k.tsdf.shape[0], k.wsdf.data_ptr(), k.mx,
+            k.F, scratch.data_ptr(), ws32.data_ptr(), reg.data_ptr(),
+            script.data_ptr(), plan.script.shape[0], plan.jobs.ctypes.data,
+            plan.jobs.shape[0], plan.db_host.ctypes.data, out.data_ptr(),
+            mma_pack.stream_of(x))
         build.check(err, "rev_bwd")
         bwd_launches += 1
-    return unpack_grads(k.shapes, out, plan)
+    else:
+        out.zero_()
+    return k.unpack_grads(out, plan)
 
 
 class RevOp(torch.autograd.Function):
@@ -182,17 +279,18 @@ class RevOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, icfg, x, *flat):
         n = len(flat) // 2
-        k = RevLayout(icfg, flat[:n], flat[n:])
-        out, grad = rev_fwd(k, x)
-        ctx.save_for_backward(x)
-        ctx.layout = k
+        out, grad = rev_fwd(RevLayout(icfg, flat[:n], flat[n:]), x)
+        ctx.save_for_backward(x, *flat)
+        ctx.icfg = icfg
         return out, grad
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, c_out, c_g):
-        (x,) = ctx.saved_tensors
-        dws, dbs = rev_bwd(ctx.layout, x, c_out.float().contiguous(),
+        x, *flat = ctx.saved_tensors
+        n = len(flat) // 2
+        dws, dbs = rev_bwd(RevStages(ctx.icfg, flat[:n], flat[n:]), x,
+                           c_out.float().contiguous(),
                            c_g.float().contiguous())
         return (None, None, *dws, *dbs)
 

@@ -16,7 +16,7 @@ from . import build, mma_pack
 
 launches = 0  # kernel launches since the last reset_launch_counts()
 
-MAX_SAMPLES = 1024  # 32 lanes x 32 samples in registers
+MAX_SAMPLES = 1024  # a ray's 128 threads x 8 samples in registers
 
 
 def sampler_round_plain(cfg: SamplerConfig, z_vals, sdf, beta, beta0, u,

@@ -182,8 +182,7 @@ def bwd_plan(k: SdfGradLayout, n: int):
     """K12's scratch plan at n points (`render_core._BwdPlan`): the four
     streams, 16 points a block, no second-order stash, and the output
     layer's tangent cotangents as a rank-3 term of its sdf column."""
-    return render_core._BwdPlan(k, n, streams=_STREAMS, rows=_POINTS,
-                                stash=False, sdf_col=True)
+    return render_core._BwdPlan(k, n, streams=_STREAMS, rows=_POINTS)
 
 
 # ---- kernels ----------------------------------------------------------------

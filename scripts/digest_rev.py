@@ -57,7 +57,11 @@ def main() -> int:
         out_p, grad_p = rev.rev_plain(cfg.implicit, ws, bs, x)
         c_out, c_g = cs.rev_cotangents(out_p, grad_p, cs.SEED + 9)
         with torch.no_grad():
-            dws, dbs = rev.rev_bwd(k, x, c_out, c_g)
+            # K6's pack: `RevStages` since K6 runs K4's sweeps, K5's
+            # `RevLayout` before
+            k6 = (rev.RevStages(cfg.implicit, ws, bs)
+                  if hasattr(rev, "RevStages") else k)
+            dws, dbs = rev.rev_bwd(k6, x, c_out, c_g)
         torch.cuda.synchronize()
         print(json.dumps({"tree": str(TREE), "points": label,
                           "n": x.shape[0], "k5": digest([out, grad]),

@@ -8,10 +8,14 @@ build's flags (`i2sdf_tpu_torch/ops/kernels/build.py`) and `-Xptxas -v`
 into a temporary object, all sources in parallel, and prints one JSON line
 per kernel entry: the source, the demangled name, registers, spill stores
 and loads (bytes), stack frame (bytes), the SASS's count of `HGMMA`
-(wgmma) and of bulk copies (`UBLKCP`, `cp.async.bulk`; `bulk_ops` by
-opcode, whose suffix names the direction) and its highest register
-(`max_reg`) from `cuobjdump -sass`, and ptxas's warnings (a `setmaxnreg` it ignored, wgmma it
-serialized). Needs `nvcc`, so it runs on the machine with the card.
+(wgmma), of bulk copies (`UBLKCP`, `cp.async.bulk`; `bulk_ops` by
+opcode, whose suffix names the direction) and of special-function-unit
+instructions (`MUFU`, by opcode in `mufu_ops`: the exponentials' `EX2`,
+reciprocals' `RCP`; static counts, a loop body once) and its highest
+register (`max_reg`) from `cuobjdump -sass`, and ptxas's warnings (a
+`setmaxnreg` it ignored, wgmma it serialized). Needs `nvcc`, so it runs
+on the machine with the card. K2's and K6's rows are the smoke's `sass`
+for them, as K4's, K8's and K9's are.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
 _REGS = re.compile(r"Used (\d+) registers")
 _SASS_FN = re.compile(r"Function : (\S+)")
 _BULK = re.compile(r"\b(UBLKCP\S*)")
+_MUFU = re.compile(r"\b(MUFU\.\w+)")
 _SASS_REG = re.compile(r"\bR(\d+)\b")
 _WARN = re.compile(r"ptxas (?:info|warning)\s*: (.*(?:setmaxnreg|wgmma|"
                    r"serializ|C7508|C7510|C7515).*)")
@@ -67,8 +72,8 @@ def report(text: str) -> list[dict]:
 
 def sass_counts(obj: Path) -> dict:
     """{mangled kernel name: [HGMMA count, UBLKCP count, highest register
-    R<n>, {bulk-copy opcode with its direction suffix: count}]} of an
-    object."""
+    R<n>, {bulk-copy opcode with its direction suffix: count}, {MUFU
+    opcode: count}]} of an object."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
                          text=True, check=True).stdout
@@ -76,12 +81,14 @@ def sass_counts(obj: Path) -> dict:
     for line in out.splitlines():
         if m := _SASS_FN.search(line):
             name = m.group(1)
-            counts[name] = [0, 0, -1, {}]
+            counts[name] = [0, 0, -1, {}, {}]
         elif name is not None:
             counts[name][0] += "HGMMA" in line
             counts[name][1] += "UBLKCP" in line
             for op in _BULK.findall(line):
                 counts[name][3][op] = counts[name][3].get(op, 0) + 1
+            for op in _MUFU.findall(line):
+                counts[name][4][op] = counts[name][4].get(op, 0) + 1
             for r in _SASS_REG.findall(line):
                 counts[name][2] = max(counts[name][2], int(r))
     return counts
@@ -106,11 +113,12 @@ def main(argv: list[str]) -> int:
             sass = sass_counts(Path(tmp) / f"{src.stem}.o")
             warnings = _WARN.findall(out)
             for row in report(out):
-                hg, bulk, top, ops = sass.get(row.pop("mangled"),
-                                              (None, None, None, None))
+                hg, bulk, top, ops, mufu = sass.get(
+                    row.pop("mangled"), (None, None, None, None, None))
                 print(json.dumps({"source": src.name, **row, "hgmma": hg,
                                   "bulk_copies": bulk, "bulk_ops": ops,
-                                  "max_reg": top, "warnings": warnings}),
+                                  "mufu_ops": mufu, "max_reg": top,
+                                  "warnings": warnings}),
                       flush=True)
     return 1 if failed else 0
 

@@ -1,4 +1,4 @@
-"""Plant faults in copies of the tree and show that the smoke's K1, K3, K4
+"""Plant faults in copies of the tree and show that the smoke's K1-K4, K6
 and K8/K9 checks catch each one.
 
     python scripts/plant_faults.py [FAULT ...]
@@ -9,8 +9,10 @@ the copy, builds the copy's kernels there and runs, each in its own
 process, the checks the fault must fail: `chip_smoke.check_k1`,
 `chip_smoke.check_k3` (the flagship config's K3, `k3`, and the light
 config's K3-light, `k3_light`; both also on a net of odd depth) and
-`chip_smoke.check_k4` (the training config's K4, `k4`) and
-`chip_smoke.check_bg` (the bg config's K8 and K9, `bg`). A check that
+`chip_smoke.check_k4` (the training config's K4, `k4`),
+`chip_smoke.check_bg` (the bg config's K8 and K9, `bg`), the K2 rows of
+`chip_smoke.check_kernels` (`k2`: they come before its K3 check) and
+`chip_smoke.check_rev` (K5 and K6 at the training config, `rev`). A check that
 raises has caught the fault. Prints one JSON line per fault, and exits
 nonzero if a check named in the fault's `must_fail` passed. Needs a CUDA
 device and `nvcc`; the repository itself is not touched.
@@ -82,6 +84,29 @@ FAULTS = {
         "    perm = render_core._sdf_perm(F)\n    wi[-1], bi[-1] =",
         "    perm = list(range(F + 1))\n    wi[-1], bi[-1] =",
         ("bg",)),
+    # K6's downward sweep reads back layer l - 2's stash q where it needs
+    # layer l - 1's (K4's ring table, which K6's plan shares)
+    "k6_stash_one_layer_off": (
+        "i2sdf_tpu_torch/ops/kernels/render_core.py",
+        "            load(REG_Q, l - 1, tile(fwd[l - 1, 1]))\n"
+        "            load(REG_DZX,",
+        "            load(REG_Q, max(l - 2, 0), tile(fwd[l - 1, 1]))\n"
+        "            load(REG_DZX,",
+        ("rev",)),
+    # K6 reads the features' cotangent from c_out's column col, not
+    # col + 1 (column 0 is the sdf's)
+    "k6_feature_cotangent_column": (
+        "i2sdf_tpu_torch/csrc/rev_bwd.cu",
+        "(size_t)(row0 + r) * a.out_cols + (col < F ? col + 1 : 0)];",
+        "(size_t)(row0 + r) * a.out_cols + (col < F ? col : 0)];",
+        ("rev",)),
+    # K2's group scan adds warps 1 .. w where warp w's offset is warps
+    # 0 .. w - 1 (a group offset taken from the wrong warp)
+    "k2_group_offset_wrong_warp": (
+        "i2sdf_tpu_torch/csrc/sampler_round.cu",
+        "    oa += g.tot[0][v];\n    ob += g.tot[1][v];\n",
+        "    oa += g.tot[0][v + 1];\n    ob += g.tot[1][v + 1];\n",
+        ("k2",)),
     # K9's implicit backward reads back layer l - 2's stash s where it
     # needs layer l - 1's (the ring table's item)
     "k9_stash_one_layer_off": (
@@ -100,11 +125,15 @@ build.build()
 device = torch.device("cuda", 0)
 which = sys.argv[1]
 conf = (cs.light_conf(train=False) if which == "k3_light"
-        else cs.train_conf() if which == "k4"
+        else cs.train_conf() if which in ("k4", "rev")
         else cs.bg_conf(train=False) if which == "bg" else cs.eval_conf())
 cfg, model = cs.seeded_model(conf, device)
 if which == "k1":
     cs.check_k1(model, cfg, cs.k1_points(cfg, conf, device))
+elif which == "k2":
+    cs.check_kernels(model, cfg, conf, device)
+elif which == "rev":
+    cs.check_rev(model, cfg, cs.eval_conf(), device)
 elif which == "bg":
     cs.check_bg(model, cfg, conf, device)
 elif which == "k4":

@@ -1,5 +1,6 @@
 """Host time of packing the NeRF++ background pair's weights for K8 and
-K9 on one card, at the smoke's bg config (its seeded init).
+K9, and the SDF net's for K5 and K6, on one card, at the smoke's bg and
+training configs (their seeded inits).
 
     python scripts/time_packing.py [TREE ...]
 
@@ -13,7 +14,15 @@ card and times on the host clock, after a warm-up, `REPS` times each:
   materialized weights (`bg_core.BgStages`, with the transposed chain
   that K9's backward reads; a tree without `BgStages` packs
   `bg_core.BgLayout`);
-* `eval_ms`: the pack an eval render makes (`bg_core.BgPack`).
+* `eval_ms`: the pack an eval render makes (`bg_core.BgPack`);
+* `rev_fwd_ms`: K5's pack of the training config's SDF net, once a
+  normal-off step (`rev.RevLayout`; before K6 moved onto K4's sweeps it
+  served K6 too);
+* `rev_bwd_ms`: K6's pack (`rev.RevStages`, gathered through a layout
+  built once for the net's shapes; absent where the tree has none), and
+  `rev_bwd_stagewise_ms` the same chains packed stage by stage
+  (`mma_pack.pack_stage_chain` of `render_core.core_sdf_layers` and
+  `t_sdf_layers`, the bits `RevStages` must equal).
 
 Each pack starts with the device idle and ends when the host returns (its
 device work runs behind, as in a step); `synced_ms` adds the wait for the
@@ -60,9 +69,27 @@ def one(tree: Path) -> dict:
     def eval_pack():
         bg_core.BgPack(*nets)
 
+    from i2sdf_tpu_torch.ops.kernels import mma_pack, render_core, rev
+    tcfg, tmodel = cs.seeded_model(cs.train_conf(), device)
+    lins = tmodel.implicit.layers()
+    with torch.no_grad():
+        ws, bs = [l.weight() for l in lins], [l.b for l in lins]
+    icfg = tcfg.implicit
+    packs = [("train", train_pack), ("eval", eval_pack),
+             ("rev_fwd", lambda: rev.RevLayout(icfg, ws, bs))]
+    if hasattr(rev, "RevStages"):
+        def stagewise():
+            with torch.no_grad():
+                mma_pack.pack_stage_chain(render_core.core_sdf_layers(
+                    icfg, [t.float() for t in ws], [t.float() for t in bs]))
+                mma_pack.pack_stage_chain(render_core.t_sdf_layers(
+                    icfg, [t.float() for t in ws]))
+        packs += [("rev_bwd", lambda: rev.RevStages(icfg, ws, bs)),
+                  ("rev_bwd_stagewise", stagewise)]
+
     out = dict(tree=str(tree), device=str(device), packer=packer.__name__,
                reps=REPS)
-    for name, fn in (("train", train_pack), ("eval", eval_pack)):
+    for name, fn in packs:
         host, synced = [], []
         for i in range(REPS + 3):
             sync()

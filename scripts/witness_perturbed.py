@@ -3,7 +3,7 @@ the f32 bound the port's kernels are gated on there. CPU only: the Pallas
 kernels run in interpret mode.
 
     JAX_PLATFORMS=cpu python scripts/witness_perturbed.py \
-        [k1 k3 k4 k3_light k4_light bg ...]
+        [k1 k3 k4 k3_light k4_light bg rev ...]
 
 At `chip_smoke.py`'s perturbed nets (`perturbed_net` of the seeded init,
 seeds SEED + 10 + i; the flagship's, and the light config's with
@@ -22,8 +22,14 @@ to bf16. `bg`: the NeRF++ background pair (`get_bg_core_op` through
 (`chip_smoke.bg_nets`), its forward (K8's) over the smoke's training
 batch (51,200 points) and eval chunk (384,000) against `CORE_TOLS`' sigma
 and rgb bounds and the spread rule (`k8_errors`), its backward (K9's) over
-the training batch with the smoke's loss cotangents (`grad_errors`). Runs
-in chunks of 65,536 points; K3 takes about ten minutes.
+the training batch with the smoke's loss cotangents (`grad_errors`).
+`rev`: the backward of `get_rev_op` (K6's TPU kernel, `jax.vjp` of the op
+on the materialized weights) at the smoke's perturbed SDF net of the
+training config (`perturbed_net`, seed SEED + 10, as `check_rev` takes
+it), over the normal-off step's 4,800 eikonal points and the 155,200
+render points with `rev_cotangents` (`grad_errors` against `rev_plain`
+at the f32 weights and at the weights rounded to bf16). Runs in chunks of
+65,536 points; K3 takes about ten minutes.
 """
 
 from __future__ import annotations
@@ -47,10 +53,11 @@ from i2sdf_tpu.config import load_cfg as jax_load_cfg  # noqa: E402
 from i2sdf_tpu.models import renderer as jrenderer  # noqa: E402
 from i2sdf_tpu.ops.pallas.fused_bg import bg_core_fused  # noqa: E402
 from i2sdf_tpu.ops.pallas.fused_mlp import fused_sdf_mlp  # noqa: E402
+from i2sdf_tpu.ops.pallas.fused_rev import get_rev_op  # noqa: E402
 from i2sdf_tpu.ops.pallas.fused_train import (  # noqa: E402
     get_render_core_op, render_core_fused)
 from i2sdf_tpu_torch.ops.kernels import (bg_core, render_core,  # noqa: E402
-                                         sdf_mlp)
+                                         rev, sdf_mlp)
 
 CHUNK = 1 << 16
 CPU = torch.device("cpu")
@@ -267,11 +274,50 @@ def bg() -> list:
     return rows
 
 
+def rev_witness() -> list:
+    conf = cs.train_conf()
+    cfg, model = cs.seeded_model(conf, CPU)
+    jcfg = jrenderer.I2SDFConfig.from_cfgnode(
+        jax_load_cfg(str(cs.TRAIN_CONF)).model)
+    net = cs.perturbed_net(model.implicit, cs.SEED + 10)
+    op = get_rev_op(jcfg.implicit, 256, True)
+    rows = []
+    for label, x in (("eikonal", cs.eikonal_batch(cfg, conf, CPU,
+                                                  cs.SEED + 8)),
+                     ("render", cs.render_batch(cfg, conf, CPU))):
+        lins = net.layers()
+        ws = [l.weight().detach() for l in lins]
+        bs = [l.b.detach() for l in lins]
+        out_p, grad_p = rev.rev_plain(cfg.implicit, ws, bs, x)
+        c_out, c_g = cs.rev_cotangents(out_p, grad_p, cs.SEED + 9)
+        jw = (tuple(jnp.asarray(w.numpy()) for w in ws),
+              tuple(jnp.asarray(b.numpy()) for b in bs))
+        got = None
+        for sl in range(0, len(x), CHUNK):
+            xc = jnp.asarray(x[sl:sl + CHUNK].numpy())
+            _, vjp = jax.vjp(lambda w, b: op(w, b, xc), *jw)
+            g = vjp((jnp.asarray(c_out[sl:sl + CHUNK].numpy()),
+                     jnp.asarray(c_g[sl:sl + CHUNK].numpy())))
+            g = [torch.from_numpy(np.array(t)) for grp in g for t in grp]
+            got = g if got is None else [a + b for a, b in zip(got, g)]
+        row = dict(points=label, n=len(x))
+        for wl, bf16w in (("f32", False), ("bf16w", True)):
+            wr = [(w.to(torch.bfloat16).float() if bf16w else w.clone()
+                   ).requires_grad_() for w in ws]
+            br = [b.clone().requires_grad_() for b in bs]
+            ref = torch.autograd.grad(rev.rev_plain(cfg.implicit, wr, br, x),
+                                      wr + br, (c_out, c_g))
+            row[wl] = cs.grad_errors(got, list(ref))
+        rows.append(row)
+    return rows
+
+
 WITNESSES = {
     "k1": k1, "k3": k3, "k4": k4,
     "k3_light": lambda: k3(cs.LIGHT_CONF),
     "k4_light": lambda: [k4(cs.LIGHT_CONF, d) for d in (True, False)],
     "bg": bg,
+    "rev": rev_witness,
 }
 
 

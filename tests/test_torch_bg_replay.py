@@ -38,7 +38,7 @@ from i2sdf_tpu_torch.ops.activations import softplus_beta
 from i2sdf_tpu_torch.ops.kernels import bg_core, mma_pack, render_core
 from i2sdf_tpu_torch.ops.kernels.render_core import (REG_DZ, REG_Q, REG_RDZ,
                                                      REG_RX, REG_X)
-from test_torch_bwd_replay import CHUNK, K4Replay, pad_rows
+from i2sdf_tpu_torch.ops.kernels.replay import CHUNK, K4Replay, pad_rows
 from test_torch_kernel_layout import bf, dsoftplus, stage_images
 
 INV_SQRT2 = 1.0 / math.sqrt(2.0)

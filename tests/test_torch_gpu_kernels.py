@@ -143,10 +143,14 @@ def _round_inputs(R, S, n_out, dev, seed=0):
     return [torch.from_numpy(a).to(dev) for a in (z, sdf, beta, u)]
 
 
-@pytest.mark.parametrize("S", [97, 128, 480, 600])
+# K2 spreads a ray over a block of 128 threads (E = ceil(S / 128) samples
+# a thread, E <= 2, 4 or 8 by S): S at 2, both sides of 128 and 512 and at
+# 1,024, the kernel's range; R at 1 and 2 rays (one and two blocks) and 333.
+@pytest.mark.parametrize("S", [2, 97, 128, 480, 600, 1024])
 @pytest.mark.parametrize("final", [False, True])
-def test_sampler_round_kernel(dev, S, final):
-    z, sdf, beta, u = _round_inputs(333, S, 64, dev, seed=S)
+@pytest.mark.parametrize("R", [1, 2, 333])
+def test_sampler_round_kernel(dev, S, final, R):
+    z, sdf, beta, u = _round_inputs(R, S, 64, dev, seed=S)
     beta0 = torch.tensor(0.1, device=dev)
     s, b = sampler_round.sampler_round(SCFG, z, sdf, beta, beta0, u, final)
     torch.cuda.synchronize()
@@ -499,21 +503,31 @@ def test_render_core_light_train_op(dev, n, eik, detach):
 # on its other training route (`renderer.py:383-386`). K5 is held to
 # `rev_plain` with the JAX package's tolerances for its rev kernel
 # (tests/test_pallas_rev.py: sdf 0.02, features 0.05, grad 0.05 / rtol
-# 0.08). K6 takes the cotangents of that test's loss,
-# which reads the sdf, the features and the gradient (so c_out and c_g are
-# both non-zero), and is held to its bf16 replay with the JAX package's
-# gradient tolerance at every count, and to the plain f32 backward by
-# cosine > 0.999 at every count and per leaf (< 0.1) from 4,800 points up,
-# as K4 is.
+# 0.08). K6 (K4's wgmma sweeps, 64-point blocks: REV_COUNTS has both
+# sides of one, two and three blocks) takes the cotangents of that test's
+# loss, which reads the sdf, the features and the gradient (so c_out and
+# c_g are both non-zero), at the init's net, at weights perturbed by 0.01
+# N(0, 1) and on a net of odd depth (seven hidden layers, perturbed), and
+# is held to its bf16 replay (test_torch_rev_replay.RevReplay) with the
+# JAX package's gradient tolerance at every count (per leaf < 0.1 and
+# cosine > 0.999), and to the plain f32 backward by cosine > 0.999 at
+# every count and per leaf (< 0.1) from 4,800 points up, as K4 is. The
+# perturbed net is gated on f32, as K4's: the JAX package's own rev
+# backward stays inside that bound at the smoke's perturbed net
+# (`scripts/witness_perturbed.py rev`).
 
-REV_COUNTS = [1, 31, 33, 4800, 155_200]
+REV_COUNTS = [1, 31, 33, 63, 65, 127, 129, 4800, 155_200]
+REV_NETS = pytest.mark.parametrize("nets", ["init", "perturbed", "odd"])
 REV_TOLS = {"sdf": (0.02, 0.02), "feat": (0.05, 0.05), "grad": (0.05, 0.08)}
 
 
-def _rev_case(dev, n, sphere=0.0):
+def _rev_case(dev, n, sphere=0.0, nets="init"):
     from test_torch_bwd_replay import points
     from test_torch_rev_replay import FLAGSHIP, eikonal_points, sdf_net
-    net = sdf_net(**FLAGSHIP, sphere=sphere, device=dev)
+    net = sdf_net(**{**FLAGSHIP, "depth": 7 if nets == "odd" else 8},
+                  sphere=sphere, device=dev)
+    if nets != "init":
+        (net,) = _perturb(net)
     if n > 4800:
         return net, points(n, n, device=dev)[0].contiguous()
     return net, eikonal_points(n, n, device=dev)
@@ -542,12 +556,13 @@ def test_rev_fwd_kernel(dev, n):
     _rev_close(got, rev.rev_plain(net.cfg, ws, bs, x))
 
 
+@REV_NETS
 @pytest.mark.parametrize("n", REV_COUNTS)
-def test_rev_bwd_kernel(dev, n):
+def test_rev_bwd_kernel(dev, n, nets):
     from test_torch_bwd_replay import grad_check
     from test_torch_rev_replay import (emulate_rev_bwd, flat_weights,
                                        loss_cotangents)
-    net, x = _rev_case(dev, n)
+    net, x = _rev_case(dev, n, nets=nets)
     ws, bs = flat_weights(net)
     out, grad = rev.rev_plain(net.cfg, ws, bs, x)
     c_out, c_g = loss_cotangents(out, grad, seed=n)
@@ -555,7 +570,7 @@ def test_rev_bwd_kernel(dev, n):
     ref = list(torch.autograd.grad((out, grad), ws + bs, (c_out, c_g)))
     del out, grad
     with torch.no_grad():
-        k = rev.RevLayout(net.cfg, ws, bs)
+        k = rev.RevStages(net.cfg, ws, bs)
         kernels.reset_launch_counts()
         got = rev.rev_bwd(k, x, c_out.contiguous(), c_g.contiguous())
         torch.cuda.synchronize()
@@ -563,6 +578,7 @@ def test_rev_bwd_kernel(dev, n):
         got = [t for grp in got for t in grp]
         replay = [t for grp in emulate_rev_bwd(k, x, c_out, c_g) for t in grp]
     grad_check(got, replay)
+    del replay
     grad_check(got, ref, leaf_tol=0.1 if n >= 4800 else float("inf"))
 
 
@@ -578,7 +594,7 @@ def test_rev_bwd_padding_rows_add_nothing_and_runs_agree(dev):
     c_out[33:] = 0.0
     c_g[33:] = 0.0
     with torch.no_grad():
-        k = rev.RevLayout(net.cfg, *flat_weights(net))
+        k = rev.RevStages(net.cfg, *flat_weights(net))
         a = rev.rev_bwd(k, x[:33].contiguous(), c_out[:33].contiguous(),
                         c_g[:33].contiguous())
         b = rev.rev_bwd(k, x, c_out, c_g)
@@ -1150,7 +1166,7 @@ def test_tangent_kernels_agree_with_rev_kernels(dev, n):
                    (out_r[:, :1], out_r[:, 1:], grad_r))
         c_out, c_g = (c.contiguous() for c in loss_cotangents(out_r, grad_r))
         got_t = sdf_grad.sdf_grad_bwd(kt, x, c_out, c_g)
-        got_r = rev.rev_bwd(kr, x, c_out, c_g)
+        got_r = rev.rev_bwd(rev.RevStages(net.cfg, ws, bs), x, c_out, c_g)
     grad_check([t for g in got_t for t in g], [t for g in got_r for t in g])
 
 

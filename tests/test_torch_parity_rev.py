@@ -15,7 +15,11 @@ op against the JAX package on the same parameters and points.
 The loss is `test_pallas_rev.py::_loss_terms`, which reads the sdf, the
 features and the gradient, so both cotangents of the op (`c_out` and
 `c_g`) are non-zero. The CUDA kernels are held to this plain version on
-the card in tests/test_torch_gpu_kernels.py.
+the card in tests/test_torch_gpu_kernels.py. K6's bf16 replay
+(`test_torch_rev_replay.RevReplay`, the order of K4's wgmma sweeps) is
+held to the Pallas backward (`get_rev_op` in interpret mode) on the same
+weights and cotangents, with the JAX package's bound for bf16 kernel
+gradients.
 """
 
 import jax
@@ -26,7 +30,7 @@ import torch
 
 from i2sdf_tpu.models.mlp import (ImplicitNetConfig, implicit_net_init,
                                   sdf_outputs)
-from i2sdf_tpu.ops.pallas.fused_rev import sdf_outputs_fused_rev
+from i2sdf_tpu.ops.pallas.fused_rev import get_rev_op, sdf_outputs_fused_rev
 from i2sdf_tpu_torch.ops.kernels import rev
 from test_pallas_rev import _loss_terms
 from test_torch_helpers import implicit_from_jax, to_numpy
@@ -130,3 +134,26 @@ def test_rev_plain_matches_pallas_interpret():
     a = np.concatenate([r_grads[k].ravel() for k in sorted(r_grads)])
     b = np.concatenate([grads[k].ravel() for k in sorted(r_grads)])
     assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.999
+
+
+def test_k6_replay_matches_pallas_interpret():
+    from test_torch_bwd_replay import grad_check
+    from test_torch_rev_replay import emulate_rev_bwd, loss_cotangents
+    params, pts, _ = _inputs(SMALL, 96, 0, 1.0)
+    net = implicit_from_jax(params, SMALL)
+    lins = net.layers()
+    ws = [lin.weight().detach() for lin in lins]
+    bs = [lin.b.detach() for lin in lins]
+    x = torch.from_numpy(pts)
+    c_out, c_g = loss_cotangents(*rev.rev_plain(net.cfg, ws, bs, x))
+    with torch.no_grad():
+        got = [t for grp in emulate_rev_bwd(rev.RevStages(net.cfg, ws, bs),
+                                            x, c_out, c_g) for t in grp]
+    op = get_rev_op(SMALL, 32, True)
+    _, vjp = jax.vjp(lambda w, b: op(w, b, jnp.asarray(pts)),
+                     tuple(jnp.asarray(w.numpy()) for w in ws),
+                     tuple(jnp.asarray(b.numpy()) for b in bs))
+    ref = [torch.from_numpy(np.array(t)) for grp in vjp(
+        (jnp.asarray(c_out.numpy()), jnp.asarray(c_g.numpy()))) for t in grp]
+    assert [g.shape for g in got] == [r.shape for r in ref]
+    grad_check(got, ref)

@@ -1,15 +1,18 @@
 """K5 (`csrc/rev_fwd.cu`) and K6 (`csrc/rev_bwd.cu`) replayed in torch from
-exactly what their wrappers hand the kernels (the packed bf16 weights and
-plan rows of `RevLayout`, K6's `_BwdPlan` scratch table; K6 has no radiance
-layers), and held to the plain version `rev_plain`.
+exactly what their wrappers hand the kernels (K5: the packed bf16 weights
+and plan rows of `RevLayout`; K6: `RevStages`' stage images and the ring
+table, regions and jobs of its `K4Plan`), and held to the plain version
+`rev_plain`.
 
-The replays reuse K3's and K4's (`test_torch_kernel_layout.py`,
-`test_torch_bwd_replay.py`), since K5 and K6 are K3's and K4's kernel
-bodies without the radiance net (csrc/common.cuh); what is K5's and K6's
-own is replayed here: the
-output layer in the net's column order [sdf | features], K5's output
-rows, and K6's output-layer cotangent read from `c_out`. `rnd` says
-where the kernels round to bf16:
+K5's replay reuses K3's (`test_torch_kernel_layout.py`), since K5 is K3's
+mma.sync body without the radiance net; K6's (`RevReplay`, in
+`i2sdf_tpu_torch/ops/kernels/replay.py`) is K4's (`K4Replay`: the tile,
+the ring's slots, the table consumed item by item, the scratch regions,
+the MN-major products) with what is K6's own: the forward recompute stops at the output layer's
+input, and the output layer's cotangent is `c_out`, read in the net's
+column order [sdf | features] into the kernel's [features | sdf], its
+bias row summed from it in f32. `rnd` says where the kernels round to
+bf16:
 
 * with no rounding the replay is the kernels' algorithm in f32 on their
   bf16 weights, and it must equal `rev_plain` on the same bf16-rounded
@@ -35,173 +38,11 @@ import pytest
 import torch
 
 from i2sdf_tpu_torch.models import mlp
-from i2sdf_tpu_torch.ops.kernels import render_core, rev
-from i2sdf_tpu_torch.models.embedder import positional_encoding
 from i2sdf_tpu_torch.ops import kernels  # noqa: F401
-from i2sdf_tpu_torch.ops.activations import softplus_beta
-from i2sdf_tpu_torch.ops.kernels import mma_pack
-from test_torch_bwd_replay import INV_SQRT2, grad_check, pad_rows, pe_cols
-from test_torch_kernel_layout import (bf, replay_grad_sweep, run_sdf_chain,
-                                      unpack)
-
-# ---- the mma.sync backward's sweeps (K6's body in csrc/common.cuh) -------
-
-def stash_q(z, rnd):
-    """`stash_q` (csrc/common.cuh), rounded."""
-    t = 100 * z
-    q = 1 / (1 + torch.exp(t.abs()))
-    v = torch.where(t > 0, -q, q)
-    return rnd(torch.where(t > 20, torch.full_like(z, -0.0), v))
-
-
-def stash_s(v):
-    return torch.where(torch.signbit(v), 1 + v, v)
-
-
-def stash_d2(v):
-    return 100 * v.abs() * (1 - v.abs())
-
-
-def _block_rows_sum(t, rows=32):
-    return t.reshape(-1, rows, t.shape[1]).sum(1)
-
-
-class ReplayScratch:
-    """The backward's two scratch buffers at a `_BwdPlan` (bf16 values
-    held as f32), every element NaN at first, so a region the
-    weight-gradient products read but the sweep never wrote shows up."""
-
-    def __init__(self, plan, dev):
-        self.plan = plan
-        self.ws16 = torch.full((plan.n16,), float("nan"), device=dev)
-        self.ws32 = torch.full((plan.n32,), float("nan"), device=dev)
-        self.dbp = self.v32(plan.dbpart, plan.blocks, plan.tb)
-
-    def v16(self, off, rows, cols):
-        return self.ws16[off:off + rows * cols].view(rows, cols)
-
-    def v32(self, off, rows, cols):
-        return self.ws32[off:off + rows * cols].view(rows, cols)
-
-    def put_db(self, off, dz):
-        self.dbp[:, off:off + dz.shape[1]] = _block_rows_sum(dz)
-
-
-def _pad_cols(t, cols):
-    out = t.new_zeros((t.shape[0], max(cols, t.shape[1])))
-    out[:, :t.shape[1]] = t
-    return out
-
-
-def replay_sdf_forward(k, sc: ReplayScratch, xs, rnd, last=True):
-    """Step 1 of K6's `bwd_sweep_kernel` (csrc/common.cuh), the forward
-    recompute with the q stash: X_l to rows [np, 2 np) of ax[l]; returns
-    the stashes q_l and, with `last`, the output layer's accumulator."""
-    plan, P = sc.plan, sc.plan.np
-    h = rnd(pe_cols(xs, k.mx, int(k.fwd.plan[0, 0])))
-    qs, z = [], None
-    for l in range(k.n_sdf):
-        K, N, real, flags, col, W, b = unpack(k.fwd, l)
-        if flags & mma_pack.SKIP_IN:
-            h = torch.cat([h[:, :col], rnd(pe_cols(xs, k.mx, K - col)
-                                            * INV_SQRT2)], 1)
-        sc.v16(plan.ax[l], 2 * P, K)[P:] = h[:, :K]
-        if l < k.n_sdf - 1:
-            z = h[:, :K] @ W + b
-            scale = INV_SQRT2 if flags & mma_pack.SCALE else 1.0
-            h = rnd(softplus_beta(z) * scale)
-            qs.append(stash_q(z, rnd))
-        elif last:
-            z = h[:, :K] @ W + b
-    return qs, z
-
-
-def replay_sdf_backward(k, sc: ReplayScratch, xs, cs, qs, sdf_col, rnd):
-    """Steps 4-7 of K6's `bwd_sweep_kernel` (csrc/common.cuh: the reverse,
-    upward and downward sweeps), once the output layer's dz is in rows
-    [np, 2 np) of br[n-1] with its bias row, then the split-K products and
-    the fixed-order sums (`launch_wgrad`).
-    cs: (np, 8) cotangents, c_grad in columns 0..2. Returns the kernel's
-    flat output."""
-    plan, P, ns = sc.plan, sc.plan.np, k.n_sdf
-    dev = xs.device
-    Ks = [int(v) for v in k.fwd.plan[:, 0]]
-    Ns = [int(v) for v in k.fwd.plan[:, 1]]
-    v16, v32 = sc.v16, sc.v32
-    # 4. reverse sweep
-    r1 = xs.new_zeros((P, Ns[-1]))
-    r1[:, sdf_col] = 1.0
-    v16(plan.br[ns - 1], 2 * P, Ns[-1])[:P] = r1
-    K = Ks[-1]
-    ah = k.wsdf_col[:K].expand(P, K)
-    v32(plan.ah[ns - 1], P, K)[:] = ah
-    r = rnd(ah * stash_s(qs[ns - 2][:, :K]))
-    v16(plan.br[ns - 2], 2 * P, Ns[ns - 2])[:P] = r
-    for l in range(ns - 2, 0, -1):
-        K, N, n_h, flags, _, W, _ = unpack(k.sdft, ns - 1 - l)
-        scale = INV_SQRT2 if flags & mma_pack.SCALE else 1.0
-        hid = torch.arange(N, device=dev) < n_h
-        a = torch.where(hid, (r[:, :K] @ W) * scale, xs.new_zeros(()))
-        v32(plan.ah[l], P, N)[:] = a
-        s_prev = xs.new_zeros((P, N))
-        s_prev[:, :n_h] = stash_s(qs[l - 1][:, :n_h])
-        r = rnd(a * s_prev)
-        v16(plan.br[l - 1], 2 * P, Ns[l - 1])[:P] = r[:, :Ns[l - 1]]
-    # 5. dg_emb, closed form
-    f = 2.0 ** torch.arange(k.mx, dtype=torch.float32, device=dev)
-    xf = xs[:, :, None] * f
-    cg = cs[:, :3, None]
-    dge = torch.cat([cs[:, :3],
-                     (cg * f * torch.cos(xf)).reshape(P, -1),
-                     (-cg * f * torch.sin(xf)).reshape(P, -1)], 1)
-    # 6. upward sweep
-    da = rnd(_pad_cols(dge, Ks[0]))
-    v16(plan.ax[0], 2 * P, Ks[0])[:P] = da
-    for l in range(ns - 1):
-        K, N, n_h, flags, _, W, _ = unpack(k.fwd, l)
-        scale = INV_SQRT2 if flags & mma_pack.SCALE else 1.0
-        dr = da[:, :K] @ W
-        hid = torch.arange(N, device=dev) < n_h
-        q = qs[l][:, :N]
-        ahn = v32(plan.ah[l + 1], P, Ks[l + 1])[:, :N]
-        dzx = torch.where(hid, dr * ahn * stash_d2(q), xs.new_zeros(()))
-        v16(plan.dzx[l], P, N)[:] = rnd(dzx)
-        nxt = xs.new_zeros((P, Ks[l + 1]))
-        nxt[:, :N] = rnd(torch.where(hid, dr * stash_s(q) * scale,
-                                    xs.new_zeros(())))
-        _, _, _, flags1, col1, _, _ = unpack(k.fwd, l + 1)
-        if flags1 & mma_pack.SKIP_IN:
-            w1 = Ks[l + 1] - col1
-            nxt[:, col1:] = rnd(_pad_cols(dge * INV_SQRT2, w1)[:, :w1])
-        v16(plan.ax[l + 1], 2 * P, Ks[l + 1])[:P] = nxt
-        da = nxt
-    # 7. downward sweep
-    a = v16(plan.br[ns - 1], 2 * P, Ns[-1])[P:].clone()
-    for l in range(ns - 1, 0, -1):
-        K, N, n_h, flags, _, W, _ = unpack(k.sdft, ns - 1 - l)
-        scale = INV_SQRT2 if flags & mma_pack.SCALE else 1.0
-        v = (a[:, :K] @ W)[:, :Ns[l - 1]] * scale
-        hid = torch.arange(Ns[l - 1], device=dev) < n_h
-        s_prev = stash_s(qs[l - 1][:, :Ns[l - 1]])
-        dzx = v16(plan.dzx[l - 1], P, Ns[l - 1])
-        dz = torch.where(hid, v * s_prev + dzx, xs.new_zeros(()))
-        sc.put_db(plan.db[l - 1], dz)
-        a = rnd(dz)
-        v16(plan.br[l - 1], 2 * P, Ns[l - 1])[P:] = a
-    # weight-gradient products, split over point ranges, then fixed-order sums
-    out = torch.full((plan.n_out,), float("nan"), device=dev)
-    for p, (K, N) in enumerate(plan.dims):
-        M = 2 * P
-        A, B = v16(plan.ax[p], M, K), v16(plan.br[p], M, N)
-        assert not (torch.isnan(A).any() or torch.isnan(B).any()), p
-        parts = v32(plan.part[p], plan.splits[p], K * N)
-        for s in range(plan.splits[p]):
-            rows = slice(s * plan.chunk[p], min(M, (s + 1) * plan.chunk[p]))
-            parts[s] = (A[rows].T @ B[rows]).reshape(-1)
-        out[plan.out[p]:plan.out[p] + K * N] = parts.sum(0)
-    assert not torch.isnan(sc.dbp).any()
-    out[plan.out_db:] = sc.dbp.sum(0)
-    return out
+from i2sdf_tpu_torch.ops.kernels import mma_pack, render_core, rev
+from i2sdf_tpu_torch.ops.kernels.replay import bf, emulate_rev_bwd
+from test_torch_bwd_replay import grad_check
+from test_torch_kernel_layout import replay_grad_sweep, run_sdf_chain
 
 
 FLAGSHIP = dict(width=256, depth=8, skip=4, feat=256, mx=6)
@@ -288,24 +129,13 @@ def emulate_rev_fwd(k: rev.RevLayout, x, rnd=bf):
     return z[:, :k.out_cols], grad
 
 
-def emulate_rev_bwd(k: rev.RevLayout, x, c_out, c_g, rnd=bf):
-    """`csrc/rev_bwd.cu` in torch: (dws, dbs) as the wrapper returns."""
-    plan = render_core._BwdPlan(k, x.shape[0])
-    P, ns = plan.np, k.n_sdf
-    sc = ReplayScratch(plan, x.device)
-    xs, cs = pad_rows(x, P), pad_rows(c_g, P, 8)
-    qs, _ = replay_sdf_forward(k, sc, xs, rnd, last=False)
-    # the output layer's dz is c_out, in the net's column order
-    n_last = int(k.fwd.plan[-1, 1])
-    cy = pad_rows(c_out, P, n_last)
-    sc.put_db(plan.db[ns - 1], cy)
-    sc.v16(plan.br[ns - 1], 2 * P, n_last)[P:] = rnd(cy)
-    out = replay_sdf_backward(k, sc, xs, cs, qs, 0, rnd)
-    return rev.unpack_grads(k.shapes, out, plan)
+def stages(net):
+    ws, bs = flat_weights(net)
+    return rev.RevStages(net.cfg, ws, bs)
 
 
 @pytest.mark.parametrize("case,n", [("narrow", 1), ("narrow", 33),
-                                    ("flagship", 96)])
+                                    ("narrow", 129), ("flagship", 96)])
 def test_rev_replay_in_f32_equals_plain(case, n):
     net = sdf_net(**(FLAGSHIP if case == "flagship" else NARROW))
     x = eikonal_points(n, n)
@@ -318,8 +148,8 @@ def test_rev_replay_in_f32_equals_plain(case, n):
         torch.testing.assert_close(g, r.detach(), rtol=0,
                                    atol=1e-5 * float(r.detach().abs().max()),
                                    msg=name)
-    got = [t for grp in emulate_rev_bwd(k, x, c_out, c_g, rnd=lambda t: t)
-           for t in grp]
+    got = [t for grp in emulate_rev_bwd(stages(net), x, c_out, c_g,
+                                        rnd=lambda t: t) for t in grp]
     ref = plain_vjp(net.cfg, ws, bs, x, c_out, c_g)
     assert [g.shape for g in got] == [r.shape for r in ref]
     for i, (g, r) in enumerate(zip(got, ref)):
@@ -342,37 +172,56 @@ def test_rev_replay_with_its_rounding_meets_the_kernel_tolerance():
     torch.testing.assert_close(grad, grad_ref.detach(), atol=0.05, rtol=0.08)
     c_out, c_g = loss_cotangents(out_ref, grad_ref)
     assert c_out.abs().max() > 0 and c_g.abs().max() > 0
-    got = [t for grp in emulate_rev_bwd(k, x, c_out, c_g) for t in grp]
+    got = [t for grp in emulate_rev_bwd(stages(net), x, c_out, c_g)
+           for t in grp]
     grad_check(got, plain_vjp(net.cfg, ws, bs, x, c_out, c_g))
 
 
 def test_rev_layout_and_plan():
-    """The net's own column order, K6's table without radiance layers,
-    every array 16-byte aligned and disjoint, and the shared memory both
-    kernels ask for within the card's 227 KB."""
+    """K5's pack in the net's own column order within the card's 227 KB;
+    K6's pack (`RevStages`) the same bits as packing its layers stage by
+    stage, and its plan K4's without radiance or light items: the
+    forward's weight stages stop at the last hidden layer, the stash
+    comes back as K4's does, one weight gradient a layer."""
+    from test_torch_bwd_replay import _check_plan
     net = sdf_net(**FLAGSHIP)
     k = layout(net)
     assert k.out_cols == 257 and k.n_sdf == 9 and k.rev.n_layers == 8
     W_last = net.layers()[-1].weight().detach()
     torch.testing.assert_close(
         k.wsdf_col[:256], W_last[:, 0].to(torch.bfloat16).float())
-    assert max(rev.fwd_smem(k), render_core.bwd_smem(k)) <= 232448
-    plan = render_core._BwdPlan(k, 4800)
-    ns = k.n_sdf
-    assert plan.np == 4800 and plan.dims == [
-        (int(K), int(N)) for K, N in k.fwd.plan[:, :2]]
-    assert len(plan.table) == 4 * ns + 2 + 5 * ns + 1
+    assert rev.fwd_smem(k) <= 232448
+    ws, bs = flat_weights(net)
+    k6 = stages(net)
+    with torch.no_grad():
+        wd, bd = [w.detach() for w in ws], [b.detach() for b in bs]
+        for got, want in (
+                (k6.sdf, mma_pack.pack_stage_chain(
+                    render_core.core_sdf_layers(net.cfg, wd, bd))),
+                (k6.t, mma_pack.pack_stage_chain(
+                    render_core.t_sdf_layers(net.cfg, wd)))):
+            assert torch.equal(got.weights, want.weights)
+            assert torch.equal(got.biases, want.biases)
+            assert (got.plan == want.plan).all()
+    torch.testing.assert_close(k6.wsdf[:256],
+                               W_last[:, 0].to(torch.bfloat16).float())
+    assert not k6.wsdf[256:].any()
+    ns = k6.n_sdf
+    assert (ns, k6.sdf.n_layers, k6.tsdf.shape[0]) == (9, 10, 8)
+    plan = rev.plan_for(k6, 4800)
+    assert plan.blocks == 75 and plan is rev.plan_for(k6, 4800)
+    _check_plan(plan, k6, k6)
+    fwd = k6.sdf.plan
+    chunks = lambda rows: sum(-(-int(K) // 64) for K in rows[:, 0])  # noqa
+    assert sum(1 for it in plan.script if it[0] >> 8 and it[0] & 255 == 0) \
+        == (chunks(fwd[:ns - 1]) + chunks(k6.tsdf[1:]) + chunks(fwd[:ns - 1])
+            + chunks(k6.tsdf))
+    assert {int(it[0]) >> 8 for it in plan.script} <= {
+        render_core._B_SCRATCH, render_core._B_SDF, render_core._B_T}
+    assert sum(1 for it in plan.script if it[0] == render_core._STAGE) == (
+        (ns - 1) + 2 * (ns - 2) + (ns - 1))
+    assert len(plan.jobs) == ns and plan.dims[ns - 1] == (256, 257)
     assert plan.tb == sum(N for _, N in plan.dims)
-    spans = []
-    for l, (K, N) in enumerate(plan.dims):
-        spans += [(plan.ax[l], 2 * plan.np * K), (plan.br[l], 2 * plan.np * N)]
-        if l < ns - 1:
-            spans.append((plan.dzx[l], plan.np * N))
-    spans.sort()
-    for (o1, s1), (o2, _) in zip(spans, spans[1:]):
-        assert o1 % 8 == 0 and o1 + s1 <= o2
-    for s, c in zip(plan.splits, plan.chunk):
-        assert c % 32 == 0 and (s - 1) * c < 2 * plan.np <= s * c
 
 
 def test_rev_op_on_cpu_is_the_plain_version_clamped():
@@ -389,9 +238,9 @@ def test_rev_op_on_cpu_is_the_plain_version_clamped():
     torch.testing.assert_close(grad[take], -x[take] / torch.linalg.norm(
         x[take], dim=-1, keepdim=True))
     torch.testing.assert_close(grad[~take], g0[~take])
-    k = layout(net)
+    k, k6 = layout(net), stages(net)
     for call in (lambda: rev.rev_fwd(k, x),
-                 lambda: rev.rev_bwd(k, x, torch.zeros(60, 17),
+                 lambda: rev.rev_bwd(k6, x, torch.zeros(60, 17),
                                      torch.zeros(60, 3))):
         with pytest.raises(ValueError):
             call()
