@@ -81,19 +81,6 @@ __device__ __forceinline__ float pe_value(const float* x, int F, int p) {
   return is_cos ? cosf(arg) : sinf(arg);
 }
 
-// Write scale * PE(points) into columns [col0, kend) of a bf16 row buffer,
-// zero beyond the encoding's 3 + 6F columns.
-__device__ __forceinline__ void write_pe(__nv_bfloat16* buf, int lda, int rows,
-                                         const float* pts, int F, int col0,
-                                         int kend, float scale) {
-  const int width = kend - col0, d0 = 3 + 6 * F;
-  for (int i = threadIdx.x; i < rows * width; i += kThreads) {
-    const int r = i / width, p = i % width;
-    const float v = p < d0 ? pe_value(pts + 3 * r, F, p) * scale : 0.f;
-    buf[r * lda + col0 + p] = __float2bfloat16_rn(v);
-  }
-}
-
 // out[rows, N] = A[rows, K] @ W[K, N] for a block of MT*16 rows, then
 // epi(row, col, v(col), v(col+1)) for every accumulator pair. A is bf16 in
 // shared memory with leading dimension lda; W is the packed fragment
@@ -149,38 +136,13 @@ __device__ __forceinline__ void mma_layer(const __nv_bfloat16* A, int lda,
   }
 }
 
-// Hidden layer of the SDF net: bf16(scale * softplus100(acc + b)); with
-// `dact` set, also stash bf16(softplus100'(acc + b)) for a reverse sweep.
-struct EpiSoftplus {
-  __nv_bfloat16* out;
-  int lda;
-  const float* bias;
-  float scale;
-  __nv_bfloat16* dact;
-  int ldd;
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    const float z0 = v0 + bias[c], z1 = v1 + bias[c + 1];
-    *reinterpret_cast<uint32_t*>(out + r * lda + c) =
-        pack_bf16x2(softplus100(z0) * scale, softplus100(z1) * scale);
-    if (dact)
-      *reinterpret_cast<uint32_t*>(dact + r * ldd + c) =
-          pack_bf16x2(dsoftplus100(z0), dsoftplus100(z1));
-  }
-};
-
-// ---- the SDF net's sweeps over a block of kSweepRows points (K5, K12) ----
+// ---- the SDF net's mma.sync backward (K12) ---------------------------------
 //
-// K5's kernel body (`fwd_sweep_kernel`, rev_fwd.cu) is the forward with the
-// activation derivative stashed as bf16 s = softplus100'(z), then
-// d sdf / d x swept back through the net. K12 (sdf_grad_bwd.cu) stages
-// every layer's weight-gradient operands in device memory (`Scratch`), then
-// runs the split-K products and the fixed-order sums (`launch_wgrad`). K4
-// and K6 run their sweeps on `wgmma_layer.cuh` (sdf_sweep.cuh), with
-// `stash_q` below.
+// K12 (sdf_grad_bwd.cu) stages every layer's weight-gradient operands in
+// device memory (`Scratch`), then runs the split-K products and the
+// fixed-order sums (`launch_wgrad`). K4, K5 and K6 run their sweeps on
+// `wgmma_layer.cuh` (sdf_sweep.cuh), with `stash_q` below.
 
-constexpr int kSweepMT = 2;
-constexpr int kSweepRows = kSweepMT * 16;
-constexpr int kSweepMaxNT = 5;  // up to 8 warps * 5 tiles * 8 = 320 cols
 constexpr int kMaxSdf = 12;
 constexpr int kMaxRad = 8;
 constexpr int kMaxLight = 4;
@@ -385,9 +347,8 @@ inline const long long* read_scratch(const long long* t, int n_fwd, int np,
 inline cudaError_t launch_wgrad(const Plan& fwd, const Scratch& sc,
                                 const long long* t, float* ws32,
                                 float* out, cudaStream_t st,
-                                int sdf_streams = 2,
-                                int block_rows = kSweepRows,
-                                int out_streams = 2) {
+                                int sdf_streams, int block_rows,
+                                int out_streams) {
   const int n_fwd = fwd.n, jobs_n = n_fwd;
   const long long* splits = t;
   const long long* chunk = t + jobs_n;

@@ -6,42 +6,45 @@
 // `conv_impl` (`i2sdf_tpu/models/sampler.py:447-462`).
 //
 // What bounds it on the H100: bytes. A ray reads 2 S floats and writes one
-// byte, for ~25 flops a sample (d*, the Laplace density, two prefix sums,
-// the bound): ~3 flops per byte, two orders below the card's balance
-// point. At the per-ray training shapes (1600 rays, S up to 416) the bound
-// is ~1.6 us, so a launch costs more than the work.
+// byte, for ~25 flops and four exponentials a sample (d*, the Laplace
+// density, two prefix sums, the bound): ~3 flops per byte, two orders
+// below the card's balance point. At the per-ray training shape (1,600
+// rays, S = 416) the bound is ~1.6 us and at the eval chunk's (12,000
+// rays) ~12 us, so at the first a launch costs more than the work.
 //
-// Design: K2's first step alone. One warp per ray, 4 rays per block; the
-// ray's rows are staged in shared memory, and `Ray::load` / `error_bound`
-// (`ray_common.cuh`, shared with K2) give d* and the bound's max over the
-// sections with f32 scans: the flag is exactly K2's own convergence test.
-// The TPU kernel's hi/lo-split bf16 triangular matmuls for the two
-// exclusive prefix sums were a workaround for its matrix unit.
+// Design: K2's beta0 evaluation alone (`sampler_round.cu`). One ray to a
+// block of 128 threads (K2's group of warps, E = ceil(S / 128) samples a
+// thread, at most 8); the ray's rows staged in shared memory as K2 stages
+// them; `Sections::load` and `error_bound` (`ray_common.cuh`) give d* and
+// the bound's max over the sections with K2's scans and reductions in
+// K2's fixed order. So the flag equals K2's decision to keep beta0 for
+// the ray, bit for bit, and each thread's chain is E samples (4 at
+// S = 416), not a warp's 13. The TPU kernel's hi/lo-split bf16 triangular
+// matmuls for the two exclusive prefix sums were a workaround for its
+// matrix unit.
 #include "ray_common.cuh"
 
 namespace i2sdf {
 namespace {
 
 template <int MAXE>
-__global__ void __launch_bounds__(kRayWarps * 32)
+__global__ void __launch_bounds__(kGroupThreads)
 conv_check_kernel(const float* __restrict__ z, const float* __restrict__ sdf,
                   const float* __restrict__ beta0_p, float eps,
-                  unsigned char* __restrict__ conv, int R, int S) {
+                  unsigned char* __restrict__ conv, int S) {
   extern __shared__ float sm[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ray = blockIdx.x * kRayWarps + warp;
-  if (ray >= R) return;  // whole warp; only warp-level sync below
-  float* zs = sm + warp * 2 * S;
+  __shared__ GroupScratch g;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ray = blockIdx.x;
+  float* zs = sm;
   float* ss = zs + S;
-  for (int j = lane; j < S; j += 32) {
-    zs[j] = z[(size_t)ray * S + j];
-    ss[j] = sdf[(size_t)ray * S + j];
-  }
-  __syncwarp();
-  Ray<MAXE> q;
-  q.load(zs, ss, lane, S);
-  const float bound = q.error_bound(*beta0_p);
-  if (lane == 0) conv[ray] = bound <= eps ? 1 : 0;
+  stage_ray(z, sdf, ray, S, zs, ss);
+  __syncthreads();
+  Sections<MAXE> q;
+  q.load(zs, ss, tid, S);
+  const float beta0 = *beta0_p;
+  const float bound = error_bound(q, beta0, g, warp, lane);
+  if (tid == 0) conv[ray] = bound <= eps ? 1 : 0;
 }
 
 }  // namespace
@@ -53,16 +56,13 @@ extern "C" int i2sdf_conv_check(const float* z, const float* sdf,
                                 void* stream) {
   using namespace i2sdf;
   if (R <= 0) return 0;
-  if (S < 2 || S > 32 * 32) return (int)cudaErrorInvalidValue;
-  const int blocks = (R + kRayWarps - 1) / kRayWarps;
-  const size_t smem = (size_t)kRayWarps * 2 * S * sizeof(float);
+  if (S < 2 || S > kMaxSamples) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * S * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  if (S <= 32 * 16) {
-    conv_check_kernel<16><<<blocks, kRayWarps * 32, smem, st>>>(
-        z, sdf, beta0, eps, conv, R, S);
-  } else {
-    conv_check_kernel<32><<<blocks, kRayWarps * 32, smem, st>>>(
-        z, sdf, beta0, eps, conv, R, S);
-  }
+#define LAUNCH(E)                                                   \
+  conv_check_kernel<E><<<R, kGroupThreads, smem, st>>>(z, sdf, beta0, \
+                                                       eps, conv, S)
+  I2SDF_BY_SAMPLES(S, LAUNCH)
+#undef LAUNCH
   return (int)cudaGetLastError();
 }

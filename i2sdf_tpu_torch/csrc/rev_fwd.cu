@@ -11,172 +11,133 @@
 //
 // What bounds it on the H100: operations. At the flagship config a point
 // costs the SDF forward with the 257-wide head and the reverse sweep
-// through the hidden layers, ~2.0 M bf16 flops at the net's real widths
-// (`chip_smoke.py::k5_macs`), against 12 bytes in and 1,040 out, ~1.9 k
-// flops a byte, far above the card's ~295 balance point.
+// through the hidden layers down to the encoding, ~2.0 M bf16 flops at the
+// net's real widths (`chip_smoke.py::k5_macs`), against 12 bytes in and
+// 1,040 out, ~1.9 k flops a byte, far above the card's ~295 balance point.
+// What a block loses is latency instead: 18 dependent layer products, and
+// at the normal-off step's 4,800 points the launch is one partial wave (75
+// blocks), so one block's time is the kernel's.
 //
-// Design (`fwd_sweep_kernel` below): a block of 32 points runs
-// the SDF net forward with its activations in shared memory, stashing each
-// hidden layer's activation derivative (bf16) for the reverse sweep; the
-// output layer writes its 257 columns straight to device memory in the
-// net's own order (the kernel's weights keep it, so nothing is permuted);
-// the reverse sweep carries d sdf / d h back through the transposed hidden
-// layers, the encoding's share gathered at layer 0 and at the skip, and
-// the closed-form Jacobian of the encoding gives d sdf / d x. mma.sync
-// bf16 tiles with f32 accumulation.
-#include "common.cuh"
+// Design: K6's sweep (`rev_bwd.cu`) without its backward, on the same
+// pack (`rev.RevStages`: K3's SDF stage chain, K4's transposed chain, and
+// W_0^T as that chain's last row) and the same device code
+// (`sdf_sweep.cuh`, `wgmma_sweep.cuh`, `wgmma_layer.cuh`). A block holds 64
+// points in one activation tile; two consumer warpgroups split each
+// layer's columns and run wgmma from shared memory on weight stages that
+// a producer warp bulk-copies into a five-slot ring in the order of a
+// host-built table (`rev.K5Plan.script`):
+//
+// 1. the hidden layers (`sdf_forward_hidden<true>`): h into the tile,
+//    each layer's stash q of s = softplus'(z) (K6's, `stash_q`, but in
+//    f32, as the TPU kernel holds s) to a scratch region through the ring
+//    (no operand stores: nothing here takes a weight gradient). Layer 0
+//    reads the encoding as a hi/lo pair, [bf16(PE) | PE - bf16(PE)] on
+//    W_0's stages twice (K = 64 + 64): PE's rounding in z_0, which the
+//    encoding's high frequencies carry into the gradient, is the share of
+//    the gradient's error at points of the scene cube that one more
+//    64-deep chunk removes (without it K5 was past the TPU kernel's
+//    tolerance at one of 4,800 such points). Layers 1 .. n-1 are K6's
+//    code, but from layer 0 on K5's activations are not K6's bits;
+// 2. the output layer as K3 takes it, the sdf alone (N = 8) and the
+//    features, the accumulators plus bias written to device memory in
+//    the net's order [sdf | features] (`out_layer`);
+// 3. the reverse sweep (`rev_first<true>`, `rev_layer<W, true>`): r = W_last
+//    [:, sdf] s through the transposed hidden layers, each layer's q
+//    brought back through the ring, down to layer 0; the encoding's
+//    columns of the skip layer and all of layer 0's product added into
+//    d sdf / d PE (f32, shared memory);
+// 4. the encoding's closed-form Jacobian, d sin(f x)/dx = f cos(f x),
+//    d cos(f x)/dx = -f sin(f x) (accurate sinf / cosf), gives grad.
+#include "sdf_sweep.cuh"
 
 namespace i2sdf {
 namespace {
 
-// Reverse layer: a = r_l @ W_l^T is d sdf / d (input of layer l). Columns
-// below n_h continue down the net: r_{l-1} = bf16(scale * a * dact_{l-1});
-// columns [gcol, gcol + d0) belong to the encoding and are added, scaled,
-// into gpe (f32). Padding columns are written as zeros.
-struct EpiRev {
-  __nv_bfloat16* out;
-  int lda;
-  const __nv_bfloat16* dact;
-  int ldd;
-  float scale;
-  int n_h, gcol, d0;
-  float* gpe;
-  int ldg;
-  __device__ __forceinline__ float one(int r, int c, float v, float d) {
-    v *= scale;
-    if (c < n_h) return v * d;
-    const int p = c - gcol;
-    if (p >= 0 && p < d0) gpe[r * ldg + p] += v;
-    return 0.f;
+// K5's output layer, one of its two products over T (the last hidden
+// layer's h): the sdf alone (kSdf; column 0 real) or the features; each
+// real column of the block's rows, plus its bias, to device memory in the
+// net's order [sdf | features].
+template <int NW, bool kSdf>
+__device__ __forceinline__ void out_layer(Ctx& c, float* acc, const int* L,
+                                          const Split& sp) {
+  product<NW>(c, acc, L, sp.col0);
+  if (!sp.active) return;
+  const Args& a = *c.a;
+  const Frag f;
+  const float* b = a.b_sdf + L[kBOff];
+  const int row0 = blockIdx.x * kPts;
+  const int width = kSdf ? 1 : a.F;
+  const int first = kSdf ? 0 : 1;  // [sdf | features]
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int col = sp.col0 + 8 * j + 2 * f.tig;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = f.row() + 8 * h;
+      if (row0 + row >= a.n) continue;
+      float* o = a.out + (size_t)(row0 + row) * a.out_cols + first;
+      if (col < width) o[col] = acc[4 * j + 2 * h] + b[col];
+      if (col + 1 < width) o[col + 1] = acc[4 * j + 2 * h + 1] + b[col + 1];
+    }
   }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    float2 d = make_float2(0.f, 0.f);
-    if (c < n_h)
-      d = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(dact + r * ldd + c));
-    put2(out + r * lda + c, one(r, c, v0, d.x), one(r, c + 1, v1, d.y));
-  }
-};
-
-// K5's output layer: columns [0, out_cols) of rows below n to device
-// memory, in the net's own order.
-struct EpiOut {
-  float* out;
-  const float* bias;
-  int row0, n, out_cols;
-  __device__ __forceinline__ void put(int r, int c, float v) {
-    if (c < out_cols && row0 + r < n)
-      out[(size_t)(row0 + r) * out_cols + c] = v + bias[c];
-  }
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) {
-    put(r, c, v0);
-    put(r, c + 1, v1);
-  }
-};
-
-// Shared memory of `fwd_sweep_kernel` (bytes): two activation buffers,
-// every hidden layer's activation derivative, and per row the point and
-// the encoding's gradient.
-inline size_t fwd_smem_bytes(int lda, int ldd, int n_dact, int ldg) {
-  return (2 * (size_t)kSweepRows * lda +
-          (size_t)n_dact * kSweepRows * ldd) *
-             sizeof(__nv_bfloat16) +
-         (size_t)kSweepRows * (3 + ldg) * sizeof(float);
 }
 
-// K5's kernel body. A block of 32 points runs the SDF net forward with its
-// activations in shared memory, stashing each hidden layer's activation
-// derivative (bf16 s = softplus100'(z)); the output layer writes its
-// columns to device memory. Then d sdf / d h goes back through the
-// transposed hidden layers (`rev`, rev.L[i] is hidden layer
-// n_hidden-1-i), starting from r = W_last[:, sdf] * dact (`wsdf_col`, zero
-// padded to the next layer's depth), the encoding's share gathered at
-// layer 0 and at the skip into gpe (f32), and the closed-form Jacobian of
-// the wide-block encoding, d sin(f x)/dx = f cos(f x), d cos(f x)/dx =
-// -f sin(f x), gives d sdf / d x. The sweeps are written out in one kernel
-// body (an indexed pair of buffers, restrict-qualified kernel arguments):
-// as device functions, or with the buffers selected instead of indexed,
-// the sweep ran measurably slower on the H100.
-__global__ void __launch_bounds__(kThreads)
-fwd_sweep_kernel(const float* __restrict__ x, int n,
-                 const uint2* __restrict__ w_fwd,
-                 const float* __restrict__ b_sdf, Plan fwd,
-                 const uint2* __restrict__ w_rev, Plan rev,
-                 const float* __restrict__ wsdf_col, int mx, int lda, int ldd,
-                 int ldg, int out_cols, float* __restrict__ grad_out,
-                 float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n_hidden = fwd.n - 1;
-  __nv_bfloat16* buf[2];
-  buf[0] = reinterpret_cast<__nv_bfloat16*>(smem);
-  buf[1] = buf[0] + kSweepRows * lda;
-  __nv_bfloat16* dact = buf[1] + kSweepRows * lda;
-  float* xs = reinterpret_cast<float*>(dact + (size_t)n_hidden * kSweepRows *
-                                                  ldd);
-  float* gpe = xs + kSweepRows * 3;
-  const int row0 = blockIdx.x * kSweepRows;
-  const int d0x = 3 + 6 * mx;
-
-  for (int i = threadIdx.x; i < kSweepRows * 3; i += kThreads) {
+__global__ void __launch_bounds__(kBlockThreads, 1)
+k5_sweep_kernel(const __grid_constant__ Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  Ctx c;
+  c.T = align1024(smem_raw);
+  c.a = &a;
+  c.it = c.tphase = c.done = 0;
+  c.cw = threadIdx.x >> 7;
+  KRing ring = make_ring<kSlots>(c.slots());
+  if (threadIdx.x == 0) {
+    mbar_init(c.tbar(), 1);
+    *c.stored() = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int row0 = blockIdx.x * kPts;
+  float* xs = Smem::xs(c);
+  float* gpe = Smem::gpe(c);
+  for (int i = threadIdx.x; i < kPts * 3; i += kBlockThreads) {
     const int r = row0 + i / 3;
-    xs[i] = r < n ? x[(size_t)r * 3 + i % 3] : 0.f;
+    xs[i] = r < a.n ? a.x[(size_t)r * 3 + i % 3] : 0.f;
   }
-  for (int i = threadIdx.x; i < kSweepRows * ldg; i += kThreads) gpe[i] = 0.f;
+  for (int i = threadIdx.x; i < kPts * kPeStride; i += kBlockThreads)
+    gpe[i] = 0.f;
   __syncthreads();
-  write_pe(buf[0], lda, kSweepRows, xs, mx, 0, fwd.L[0][kK], 1.f);
-  __syncthreads();
-
-  // ---- SDF forward, stashing activation derivatives --------------------
-  int cur = 0;
-  for (int l = 0; l < fwd.n; ++l) {
-    const int* L = fwd.L[l];
-    if (L[kFlags] & kSkipIn) {
-      write_pe(buf[cur], lda, kSweepRows, xs, mx, L[kCol], L[kK], kInvSqrt2);
-      __syncthreads();
-    }
-    const uint2* W = w_fwd + L[kWOff];
-    const float* b = b_sdf + L[kBOff];
-    if (l < n_hidden) {
-      EpiSoftplus epi{buf[cur ^ 1], lda, b,
-                      (L[kFlags] & kScale) ? kInvSqrt2 : 1.f,
-                      dact + (size_t)l * kSweepRows * ldd, ldd};
-      mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-    } else {
-      EpiOut epi{out, b, row0, n, out_cols};
-      mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK], W, L[kN], epi);
-    }
-    __syncthreads();
-    cur ^= 1;
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers)
+      run_script(ring, a.script, a.n_items, a.w, c.stored());
+    return;
   }
-
-  // ---- reverse sweep: d sdf / d x --------------------------------------
+  float acc[64];
+  const int ns = a.fwd.n - 1;
+  // 1. the hidden layers; their q stash complete in device memory
+  sdf_forward_hidden<true>(c, acc);
+  sweep_done(c);
+  // 2. the output layer: the sdf alone (N = 8), then the features
+  out_layer<8, true>(c, acc, a.fwd.L[ns - 1], Split(8, c.cw));
   {
-    const int K = rev.L[0][kK];
-    const __nv_bfloat16* dl = dact + (size_t)(n_hidden - 1) * kSweepRows * ldd;
-    for (int i = threadIdx.x; i < kSweepRows * K; i += kThreads) {
-      const int r = i / K, c = i % K;
-      buf[cur][r * lda + c] =
-          __float2bfloat16_rn(wsdf_col[c] * bf(dl + r * ldd + c));
-    }
+    const Split sp(a.fwd.L[ns][kN], c.cw);
+#define CALL(W) out_layer<W, false>(c, acc, a.fwd.L[ns], sp)
+    I2SDF_BY_WIDTH(sp.nw, CALL)
+#undef CALL
   }
-  __syncthreads();
-  for (int i = 0; i < rev.n; ++i) {
-    const int* L = rev.L[i];
-    const int l = n_hidden - 1 - i;
-    EpiRev epi{buf[cur ^ 1], lda,
-               l > 0 ? dact + (size_t)(l - 1) * kSweepRows * ldd : nullptr,
-               ldd, (L[kFlags] & kScale) ? kInvSqrt2 : 1.f, L[kReal], L[kCol],
-               d0x, gpe, ldg};
-    mma_layer<kSweepMT, kSweepMaxNT>(buf[cur], lda, L[kK],
-                                     w_rev + L[kWOff], L[kN], epi);
-    __syncthreads();
-    cur ^= 1;
+  // 3. the reverse sweep down to the encoding
+  rev_first<true>(c);
+  for (int l = ns - 2; l >= 0; --l) {
+    const Split sp(a.tsdf.L[ns - 1 - l][kN], c.cw);
+#define CALL(W) rev_layer<W, true>(c, acc, l, sp)
+    I2SDF_BY_WIDTH(sp.nw, CALL)
+#undef CALL
   }
-
-  // ---- encoding Jacobian, outputs --------------------------------------
-  for (int i = threadIdx.x; i < kSweepRows * 3; i += kThreads) {
+  // 4. the encoding's Jacobian
+  const int mx = a.mx;
+  for (int i = threadIdx.x; i < kPts * 3; i += kConsumers) {
     const int r = i / 3, d = i % 3;
-    if (row0 + r >= n) continue;
-    const float* gp = gpe + r * ldg;
+    if (row0 + r >= a.n) continue;
+    const float* gp = gpe + r * kPeStride;
     const float xd = xs[3 * r + d];
     float g = gp[d];
     for (int j = 0; j < mx; ++j) {
@@ -184,47 +145,59 @@ fwd_sweep_kernel(const float* __restrict__ x, int n,
       g += f * (gp[3 + d * mx + j] * cosf(xd * f) -
                 gp[3 + 3 * mx + d * mx + j] * sinf(xd * f));
     }
-    grad_out[(size_t)(row0 + r) * 3 + d] = g;
+    a.grad[(size_t)(row0 + r) * 3 + d] = g;
   }
-}
-
-// Launch `fwd_sweep_kernel` on n points (the arguments as the kernel's);
-// returns the launch's error.
-inline cudaError_t launch_fwd_sweep(const float* x, int n, const uint2* w_fwd,
-                                    const float* b_sdf, const Plan& fwd,
-                                    const uint2* w_rev, const Plan& rev,
-                                    const float* wsdf_col, int mx, int lda,
-                                    int ldd, int ldg, int out_cols,
-                                    float* grad_out, float* out,
-                                    void* stream) {
-  const size_t smem = fwd_smem_bytes(lda, ldd, fwd.n - 1, ldg);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (n + kSweepRows - 1) / kSweepRows;
-  fwd_sweep_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, n, w_fwd, b_sdf, fwd, w_rev, rev, wsdf_col, mx, lda, ldd, ldg,
-      out_cols, grad_out, out);
-  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace i2sdf
 
-extern "C" int i2sdf_rev_fwd(const float* x, int n, const void* w_fwd,
+// `fwd_desc`, `reg` and `script` as `rev.K5Plan` builds them from
+// `rev.RevStages`: the SDF chain's rows with 64 added to layer 0's K (the
+// encoding's hi/lo pair, the low half from column 64), the q stash's regions of the scratch, and the
+// ring table (weight stages from the SDF chain, base 1, layer 0's twice,
+// and the transposed chain, base 4; the stash from the scratch, base 0).
+// `t_desc` holds the transposed chain's rows, the SDF net's layers n-1 ..
+// 0.
+extern "C" int i2sdf_rev_fwd(const float* x, int n, int blocks,
+                             int out_cols, const void* w_sdf,
                              const float* b_sdf, const int* fwd_desc,
-                             int n_fwd, const void* w_rev,
-                             const int* rev_desc, int n_rev,
-                             const float* wsdf_col, int mx, int lda, int ldd,
-                             int ldg, int out_cols, float* out,
-                             float* grad_out, void* stream) {
+                             int n_fwd, const void* w_t, const int* t_desc,
+                             int n_t, const float* wsdf, int mx, int F,
+                             void* scratch, const long long* reg,
+                             const long long* script, int n_items,
+                             float* out, float* grad, void* stream) {
   using namespace i2sdf;
+  using namespace i2sdf::wg;
   if (n <= 0) return 0;
-  if (n_fwd > kMaxLayers || n_rev != n_fwd - 1 || n_fwd < 2)
+  if (n_fwd < 3 || n_fwd > kMaxLayers || n_t != n_fwd - 1 ||
+      n_fwd - 2 > kRegLayers || 3 + 6 * mx > 64 || out_cols != F + 1 ||
+      fwd_desc[(n_fwd - 2) * 8 + kN] != 8 || fwd_desc[kK] <= 64 ||
+      fwd_desc[kK] > 128 ||
+      blocks * kPts < n)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_fwd_sweep(
-      x, n, (const uint2*)w_fwd, b_sdf, read_plan(fwd_desc, n_fwd),
-      (const uint2*)w_rev, read_plan(rev_desc, n_rev), wsdf_col, mx, lda, ldd,
-      ldg, out_cols, grad_out, out, stream);
+  Args a = {};
+  a.x = x;
+  a.out = out;
+  a.grad = grad;
+  a.out_cols = out_cols;
+  a.n = n;
+  a.w.p[0] = (const unsigned char*)scratch;
+  a.w.p[1] = (const unsigned char*)w_sdf;
+  a.w.p[4] = (const unsigned char*)w_t;
+  a.b_sdf = b_sdf;
+  a.wsdf = wsdf;
+  a.fwd = read_plan(fwd_desc, n_fwd);
+  a.tsdf = read_plan(t_desc, n_t);
+  a.mx = mx;
+  a.F = F;
+  a.reg = reg;
+  a.script = script;
+  a.n_items = n_items;
+  a.scratch = (unsigned char*)scratch;
+  cudaError_t err = set_smem((const void*)k5_sweep_kernel, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  k5_sweep_kernel<<<blocks, kBlockThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      a);
+  return (int)cudaGetLastError();
 }

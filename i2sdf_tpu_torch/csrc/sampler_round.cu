@@ -38,149 +38,12 @@
 // shared memory. The TPU kernel's hi/lo-split bf16 triangular matmuls were
 // a workaround for its matrix unit and are not carried over. The
 // exponentials are the accurate expf / expm1f, as the plain version's.
+// The group's scans and reductions, `Sections` and `error_bound` live in
+// `ray_common.cuh`, which K7 (`conv_check.cu`) shares.
 #include "ray_common.cuh"
 
 namespace i2sdf {
 namespace {
-
-constexpr int kGroupWarps = 4;
-constexpr int kGroupThreads = kGroupWarps * 32;
-
-// The group's shared scratch: the warps' scan totals (pairs) and their
-// maxima / sums. One buffer is enough: a thread reads the totals before the
-// barrier that precedes any thread's next write of the maxima, and the
-// maxima before the barrier that precedes the next write of the totals.
-struct GroupScratch {
-  float tot[2][kGroupWarps];
-  float red[kGroupWarps];
-};
-
-// Exclusive scan of (a, b) over the group's threads in thread order: the
-// warp's inclusive scan shifted up one lane, plus the earlier warps'
-// totals added in order (the same sum on every thread).
-__device__ __forceinline__ void group_excl_scan2(float& a, float& b,
-                                                 GroupScratch& g, int warp,
-                                                 int lane) {
-  float ia = a, ib = b;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float ta = __shfl_up_sync(kFull, ia, o);
-    const float tb = __shfl_up_sync(kFull, ib, o);
-    if (lane >= o) {
-      ia += ta;
-      ib += tb;
-    }
-  }
-  float ea = __shfl_up_sync(kFull, ia, 1), eb = __shfl_up_sync(kFull, ib, 1);
-  if (lane == 0) ea = eb = 0.f;
-  if (lane == 31) {
-    g.tot[0][warp] = ia;
-    g.tot[1][warp] = ib;
-  }
-  __syncthreads();
-  float oa = 0.f, ob = 0.f;
-  for (int v = 0; v < warp; ++v) {
-    oa += g.tot[0][v];
-    ob += g.tot[1][v];
-  }
-  a = oa + ea;
-  b = ob + eb;
-}
-
-__device__ __forceinline__ float group_max(float v, GroupScratch& g, int warp,
-                                           int lane) {
-  v = warp_max(v);
-  if (lane == 0) g.red[warp] = v;
-  __syncthreads();
-  float m = g.red[0];
-#pragma unroll
-  for (int w = 1; w < kGroupWarps; ++w) m = fmaxf(m, g.red[w]);
-  return m;
-}
-
-__device__ __forceinline__ float group_sum(float v, GroupScratch& g, int warp,
-                                           int lane) {
-  v = warp_sum(v);
-  if (lane == 0) g.red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kGroupWarps; ++w) s += g.red[w];
-  return s;
-}
-
-// A thread's samples [base, base + E) of one ray, with what every
-// evaluation reads of each section (sample j < S - 1).
-template <int MAXE>
-struct Sections {
-  int base, E, S;
-  float d[MAXE], d2[MAXE], ds[MAXE], as[MAXE], sg[MAXE];
-
-  __device__ __forceinline__ bool sec(int k) const {
-    return k < E && base + k < S - 1;
-  }
-
-  __device__ __forceinline__ void load(const float* zs, const float* ss,
-                                       int tid, int S_) {
-    S = S_;
-    E = (S + kGroupThreads - 1) / kGroupThreads;
-    base = tid * E;
-#pragma unroll
-    for (int k = 0; k < MAXE; ++k) {
-      const int j = base + k;
-      d[k] = d2[k] = ds[k] = as[k] = sg[k] = 0.f;
-      if (sec(k)) {
-        d[k] = zs[j + 1] - zs[j];
-        d2[k] = d[k] * d[k];
-        ds[k] = section_dstar(d[k], ss[j], ss[j + 1]);
-        as[k] = fabsf(ss[j]);
-        sg[k] = sgn(ss[j]);
-      }
-    }
-  }
-
-  // The Laplace density at section k, 1/beta = ib.
-  __device__ __forceinline__ float density(int k, float ib) const {
-    return ib * (0.5f + 0.5f * sg[k] * expm1f(-as[k] * ib));
-  }
-
-  // This thread's exclusive free-energy prefix e_ex and inclusive d*-term
-  // prefix r_in at each sample, and their totals.
-  __device__ __forceinline__ void prefixes(float ib, float* e_ex, float* r_in,
-                                           float* fe, float& et,
-                                           float& rt) const {
-    const float q = 0.25f * ib * ib;
-    et = rt = 0.f;
-#pragma unroll
-    for (int k = 0; k < MAXE; ++k) {
-      e_ex[k] = et;
-      fe[k] = 0.f;
-      if (sec(k)) {
-        fe[k] = d[k] * density(k, ib);
-        et += fe[k];
-        rt += expf(-ds[k] * ib) * d2[k] * q;
-      }
-      r_in[k] = rt;
-    }
-  }
-};
-
-// Max over the ray's sections of the opacity error bound at beta.
-template <int MAXE>
-__device__ __forceinline__ float error_bound(const Sections<MAXE>& q,
-                                             float beta, GroupScratch& g,
-                                             int warp, int lane) {
-  float e_ex[MAXE], r_in[MAXE], fe[MAXE], eo, ro;
-  q.prefixes(1.f / beta, e_ex, r_in, fe, eo, ro);
-  group_excl_scan2(eo, ro, g, warp, lane);
-  float m = -FLT_MAX;
-#pragma unroll
-  for (int k = 0; k < MAXE; ++k)
-    if (q.sec(k))
-      m = fmaxf(m, (fminf(expf(ro + r_in[k]), 1e6f) - 1.f) *
-                       expf(-(eo + e_ex[k])));
-  return group_max(m, g, warp, lane);
-}
 
 template <int MAXE>
 __global__ void __launch_bounds__(kGroupThreads)
@@ -197,10 +60,7 @@ sampler_round_kernel(const float* __restrict__ z, const float* __restrict__ sdf,
   float* zs = sm;
   float* ss = zs + S;
   float* cs = ss + S;
-  for (int j = tid; j < S; j += kGroupThreads) {
-    zs[j] = z[(size_t)ray * S + j];
-    ss[j] = sdf[(size_t)ray * S + j];
-  }
+  stage_ray(z, sdf, ray, S, zs, ss);
   __syncthreads();
 
   Sections<MAXE> q;
@@ -302,19 +162,14 @@ extern "C" int i2sdf_sampler_round(const float* z, const float* sdf,
                                    int is_final, void* stream) {
   using namespace i2sdf;
   if (R <= 0) return 0;
-  if (S < 2 || S > 8 * kGroupThreads) return (int)cudaErrorInvalidValue;
+  if (S < 2 || S > kMaxSamples) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)3 * S * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
 #define LAUNCH(E)                                                          \
   sampler_round_kernel<E><<<R, kGroupThreads, smem, st>>>(                 \
       z, sdf, beta_in, u, samples, beta_out, S, n_out, beta0, beta_iters, \
       eps, add_tiny, is_final)
-  if (S <= 2 * kGroupThreads)
-    LAUNCH(2);
-  else if (S <= 4 * kGroupThreads)
-    LAUNCH(4);
-  else
-    LAUNCH(8);
+  I2SDF_BY_SAMPLES(S, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,7 @@
 //
 // Design: K10's kernel body without the clamp (`tangent_fwd_kernel<false>`
 // in tangent_common.cuh). Where K5 stashes every hidden layer's activation
-// derivative in shared memory for a reverse sweep, the three tangents ride
+// derivative for a reverse sweep, the three tangents ride
 // beside the activations as three more 16-row tiles against each weight
 // fragment, scaled by softplus'(z) in registers; the output layer's
 // tangent rows compute the sdf column alone.

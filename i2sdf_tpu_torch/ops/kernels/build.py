@@ -6,9 +6,12 @@ C interface, loaded with `ctypes` (no PyTorch headers, so the build takes
 seconds, not minutes). The library lands in
 `build/i2sdf_tpu_torch/` beside the package, named by a hash of the
 sources and flags: a changed source builds a new file, and a finished
-file is never rebuilt. The compiler writes to a temporary name that is
-renamed into place, so an interrupted build leaves no lock and no
-half-written library behind.
+file is never rebuilt. Each object is kept there too (`obj/`), named by a
+hash of the flags, its source and the headers it includes, so a library
+that differs from a built one in a few sources compiles only those (the
+planted faults of `scripts/plant_faults.py` share one build directory).
+The compiler writes to temporary names that are renamed into place, so an
+interrupted build leaves no lock and no half-written file behind.
 
 Nothing here runs at import: the CPU-only test machine imports every
 module of the package and has no `nvcc`.
@@ -41,8 +44,8 @@ _SIGNATURES = {
                               _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                               _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,
                               _P, _P, _P],
-    "i2sdf_rev_fwd": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,
-                      _I, _P, _P, _P],
+    "i2sdf_rev_fwd": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I,
+                      _P, _P, _P, _I, _P, _P, _P],
     "i2sdf_rev_bwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P,
                       _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     "i2sdf_conv_check": [_P, _P, _P, _F, _P, _I, _I, _P],
@@ -73,6 +76,27 @@ def nvcc_path() -> str:
     return path
 
 
+def _closure(src: Path, seen: set) -> set:
+    """The headers of `csrc/` that src includes, directly or not."""
+    for line in src.read_text().splitlines():
+        if line.startswith('#include "'):
+            dep = CSRC / line.split('"')[1]
+            if dep.exists() and dep not in seen:
+                seen.add(dep)
+                _closure(dep, seen)
+    return seen
+
+
+def object_path(src: Path) -> Path:
+    """Where src's object is kept: named by the flags, src and its
+    headers."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(_closure(src, set()))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / "obj" / f"{src.stem}_{h.hexdigest()[:16]}.o"
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources():
@@ -83,23 +107,25 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float]:
     """Compile the library if it is not there yet: one `nvcc -c` per
-    source, run in parallel, then one link.
+    source whose object is not kept yet, run in parallel, then one link.
 
     Returns (path, seconds spent compiling)."""
     out = library_path()
     if out.exists():
         return out, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    (BUILD_DIR / "obj").mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    srcs = sorted(CSRC.glob("*.cu"))
-    objs = [BUILD_DIR / f".{tag}.{src.stem}.o" for src in srcs]
+    objs = [object_path(src) for src in sorted(CSRC.glob("*.cu"))]
+    todo = [(src, obj, obj.with_name(f".{tag}.{obj.name}"))
+            for src, obj in zip(sorted(CSRC.glob("*.cu")), objs)
+            if not obj.exists()]
     tmp = out.with_name(f".{tag}.so.tmp")
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     procs = []
     try:
-        for src, obj in zip(srcs, objs):
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        for src, _, part in todo:
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(part), str(src)]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
@@ -110,6 +136,8 @@ def build() -> tuple[Path, float]:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                    f"{' '.join(cmd)}\n{err}")
+        for _, obj, part in todo:
+            os.replace(part, obj)
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                *[str(o) for o in objs]]
         proc = subprocess.run(cmd, capture_output=True, text=True,
@@ -123,7 +151,7 @@ def build() -> tuple[Path, float]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        for path in [*objs, tmp]:
+        for path in [*(part for *_, part in todo), tmp]:
             if path.exists():
                 path.unlink()
     return out, time.perf_counter() - t0

@@ -1,9 +1,11 @@
 """K7 `conv_check`: the per-ray sampler's convergence flags.
 
 Replaces `i2sdf_tpu/ops/pallas/sampler_round.py:355 conv_check_pallas`.
-The CUDA kernel is `csrc/conv_check.cu` (its header says what bounds it);
-the plain version is `i2sdf_tpu_torch.models.sampler.converged_rays`
-(f32 scans), which the CPU path and the tests use.
+The CUDA kernel is `csrc/conv_check.cu` (its header says what bounds it):
+K2's beta0 evaluation alone, so a ray's flag is K2's decision to keep
+beta0 for it. The plain version is
+`i2sdf_tpu_torch.models.sampler.converged_rays` (f32 scans), which the
+CPU path and the tests use.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from . import build, mma_pack
 
 launches = 0  # kernel launches since the last reset_launch_counts()
 
-MAX_SAMPLES = 1024  # 32 lanes x 32 samples in registers, as K2
+MAX_SAMPLES = 1024  # a ray's 128 threads x 8 samples in registers, as K2
 
 
 def conv_check(cfg: SamplerConfig, z_vals: torch.Tensor, sdf: torch.Tensor,

@@ -39,9 +39,10 @@ relu'(features) (`fused_train.py:345-348`).
 
 The bounding-sphere clamp is applied outside the kernels, as
 `fused_train.py:771-777` does. The SDF net's fragment layout
-(`sdf_chains`) serves K5 and K12, the mma.sync backward's scratch plan
-(`_BwdPlan`) K12 (`rev.py`, `sdf_grad.py`); K6 runs K4's sweeps on K4's
-plan (`core_sdf_layers`, `t_sdf_layers`, `K4Plan`; `rev.RevStages`).
+(`sdf_chains`) and the mma.sync backward's scratch plan (`_BwdPlan`)
+serve K12 (`sdf_grad.py`); K5 and K6 run K4's sweeps on K4's packs
+(`core_sdf_layers`, `t_sdf_layers`; `rev.RevStages`), K6 on K4's plan
+(`K4Plan`), K5 on its own table of the same items (`rev.K5Plan`).
 """
 
 from __future__ import annotations
@@ -59,9 +60,9 @@ bwd_launches = 0  # K4 launches since the last reset_launch_counts()
 light_launches = 0      # K3 with the light head
 light_bwd_launches = 0  # K4 with the light head
 
-_ROWS = 32               # the products' row step (kTM), K5's block
-_MAX_WIDTH = 320         # K5, K12: 8 warps x 5 tiles x 8 columns
-_MAX_SDF = 12            # K5, K12: SDF layer slots (kMaxSdf)
+_ROWS = 32               # the mma.sync products' row step (kTM)
+_MAX_WIDTH = 320         # K12: 8 warps x 5 tiles x 8 columns
+_MAX_SDF = 12            # K12: SDF layer slots (kMaxSdf)
 _K3_WIDTH = 256          # K3: a tile's four 64-column chunks, wgmma's N
 _K3_RAD_K = 320          # K3 and K4: five chunks, the radiance input
 _MAX_SMEM = 232448       # bytes a block may use on the H100
@@ -147,8 +148,8 @@ def sdf_chains(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
     order `perm` (the net's own order if None):
 
     * `fwd`: the chain, layer 0 first;
-    * `sdft`: the chain transposed, last layer first (K3/K5's reverse
-      sweep takes its rows 1..);
+    * `sdft`: the chain transposed, last layer first (a reverse sweep
+      takes its rows 1..);
     * `rev`: `sdft`'s rows 1.. (the plan rows hold absolute offsets into
       the same weight stream);
     * `wsdf_col`: the output layer's sdf column in bf16, zero-padded to
@@ -292,16 +293,20 @@ def core_sdf_layers(icfg: mlp.ImplicitNetConfig, ws: list, bs: list) -> list:
     return layers
 
 
-def t_sdf_layers(icfg: mlp.ImplicitNetConfig, ws: list) -> list:
+def t_sdf_layers(icfg: mlp.ImplicitNetConfig, ws: list,
+                 first: bool = False) -> list:
     """`K4Stages`' transposed SDF layers n-1 .. 1 (K4's and K6's) from the
     net's (in, out) weights, the output layer's input rows as [features |
-    sdf] (`_sdf_perm`)."""
+    sdf] (`_sdf_perm`); with `first` also layer 0 (K5's last product:
+    all its columns are the encoding's, `real` 0 and `col` 0)."""
     dims = icfg.layer_dims()
     d0, n = dims[0], len(dims) - 1
     ws = ws[:-1] + [ws[-1][:, _sdf_perm(icfg.feature_vector_size)]]
     layers = []
-    for l in range(n - 1, 0, -1):
-        if l in icfg.skip_in:
+    for l in range(n - 1, -1 if first else 0, -1):
+        if l == 0:
+            real, col, flags = 0, 0, 0
+        elif l in icfg.skip_in:
             real, col, flags = dims[l] - d0, dims[l] - d0, mma_pack.SCALE
         else:
             real, col, flags = dims[l], mma_pack.NO_COL, 0
@@ -576,6 +581,14 @@ _REG_KINDS = 13
 _SLOT = 4 * _CHUNK       # a ring slot: 32 KB
 
 
+def weight_items(base: int, row) -> list:
+    """A layer's ring-table items (`K4Plan.script`'s format): a load of
+    each 64-deep chunk's stage image from the blob at `base`."""
+    K, N, woff = int(row[0]), int(row[1]), int(row[3])
+    return [(_LOAD | base << 8, 2 * woff + c * N * 128, 0, N * 128)
+            for c in range(_chunks(K))]
+
+
 class K4Plan:
     """K4's scratch at n points (bytes), the ring table its producer walks
     and its weight-gradient jobs, from K3's `CoreStages` (`st`) and
@@ -677,10 +690,7 @@ class K4Plan:
         light = st.light.plan if nl else None
 
         def weights(base, row):
-            K, N, woff = int(row[0]), int(row[1]), int(row[3])
-            for c in range(_chunks(K)):
-                items.append((_LOAD | base << 8, 2 * woff + c * N * 128, 0,
-                              N * 128))
+            items.extend(weight_items(base, row))
 
         def load(kind, l, nbytes, extra=0):
             if state["waited"] < state["done"]:

@@ -1,7 +1,7 @@
-"""K4 (`csrc/render_core_bwd.cu`) and K6 (`csrc/rev_bwd.cu`) replayed in
-torch from exactly what their wrappers hand the kernels, for the checks
-that hold the kernels to a replay of their own rounding (the CPU tests,
-and the card's tests and smoke on CUDA tensors).
+"""K4 (`csrc/render_core_bwd.cu`), K6 (`csrc/rev_bwd.cu`) and K5
+(`csrc/rev_fwd.cu`) replayed in torch from exactly what their wrappers hand
+the kernels, for the checks that hold the kernels to a replay of their own
+rounding (the CPU tests, and the card's tests and smoke on CUDA tensors).
 
 `K4Replay` follows K4 step by step: K3's stage images and `K4Stages`'
 transposed ones read as wgmma reads them, the 64-point tile and the
@@ -13,9 +13,12 @@ weight-gradient products reading the operand regions MN-major, and the
 split sums. Every shared-memory and scratch element starts as NaN, so a
 region read but never written shows up. `RevReplay` is K6: K4's replay
 of the SDF sweeps, with the forward recompute stopping at the output
-layer's input and `c_out` as the output layer's cotangent. `rnd` says
-where a kernel rounds to bf16; the identity replays the algorithm in f32
-on the kernel's bf16 weights.
+layer's input and `c_out` as the output layer's cotangent. `K5Replay` is
+K5: the same forward (no operand stores), the output layer's two
+products, and the reverse sweep down to layer 0 gathering d sdf / d PE
+in f32, on `rev.K5Plan`'s table. `rnd` says where a kernel rounds to
+bf16; the identity replays the algorithm in f32 on the kernel's bf16
+weights.
 """
 
 import functools
@@ -125,6 +128,8 @@ class K4Replay:
         self.done = self.waited = 0
         self.dbrow = torch.full((B, plan.tb), float("nan"), device=dev)
         self.coupled = bool(st.n_light) and not detach_light
+        self.hidden = None     # a list to collect each hidden layer's h
+        self.pe_lo = True      # K5: layer 0 adds the encoding's low half
         self.blobs = [None, st.sdf.weights.float(),
                       None if st.rad is None else st.rad.weights.float(),
                       None if st.light is None else st.light.weights.float(),
@@ -214,23 +219,28 @@ class K4Replay:
 
     # ---- products -------------------------------------------------------------
 
-    def product(self, row):
-        """T[:, :K] @ the layer's stage images (slot c holding chunk c,
-        N * 128 bytes): (B, 64, N) f32."""
+    def product(self, row, col0=0):
+        """T[:, col0:col0 + K] @ the layer's stage images (slot c holding
+        chunk c, N * 128 bytes; col0 a multiple of 64): (B, 64, N) f32."""
         K, N = int(row[0]), int(row[1])
         stages = torch.cat([s[0] for s in self.take_weights(row)])
-        a = self.T[:, self.k_major(64, K, CHUNK).flatten()].view(
+        a = self.T[:, (col0 // 64) * CHUNK // 2
+                   + self.k_major(64, K, CHUNK).flatten()].view(
             self.B, 64, K)
         b = stages[self.k_major(N, K, N * 128)]
         return a @ b.t()
 
     def fill(self, what, col0, kend, scale=1.0):
+        """`fill_T`: what is "x", "dirs", "dge" or "x_lo" (PE(x)'s low
+        half, PE - bf16(PE): zero without rounding)."""
         F = self.st.md if what == "dirs" else self.st.mx
         src = self.ds if what == "dirs" else self.xs
         w = kend - col0
         flat = src.reshape(-1, 3)
         v = (dge_cols(flat, self.cot.reshape(-1, 8)[:, :3], F, w)
              if what == "dge" else pe_cols(flat, F, w))
+        if what == "x_lo":
+            v = v - self.rnd(v)
         self.put(self.T, torch.arange(col0, kend),
                  (v * scale).view(self.B, 64, w))
 
@@ -240,26 +250,54 @@ class K4Replay:
 
     # ---- the sweeps -----------------------------------------------------------
 
-    def forward_hidden(self):
+    def forward_hidden(self, grad=False):
         """`sdf_forward_hidden` (csrc/sdf_sweep.cuh): PE(x) into T, each
-        hidden layer's input stored, h into T, q staged."""
+        hidden layer's input stored, h into T, q staged (`grad`, K5's: no
+        input stored, q in f32 over two slots, and layer 0 on the
+        encoding's hi/lo pair, K5's plan's K: the products of the two
+        halves summed, the low half's left out with `pe_lo` off)."""
         st, t = self.st, self.t
-        fwd, ns = st.sdf.plan, t.n_sdf
+        fwd, ns = (self.plan.fwd if grad else st.sdf.plan), t.n_sdf
         ch = lambda c: -(-int(c) // 64)  # noqa: E731
         inv = 1.0 / math.sqrt(2.0)
-        self.fill("x", 0, int(fwd[0, 0]))
+        k0 = int(fwd[0, 0]) - (64 if grad else 0)
+        self.fill("x", 0, 64 if grad else k0)
+        if grad:
+            self.fill("x_lo", 64, 64 + k0)
         for l in range(ns - 1):
             K, N, real, woff, boff, flags, col, _ = (int(v) for v in fwd[l])
-            self.store_T(REG_X, l, ch(K))
-            z = self.product(fwd[l]) + st.sdf.biases[boff:boff + N]
-            S = self.take_stage()
+            if not grad:
+                self.store_T(REG_X, l, ch(K))
+            if grad and l == 0:
+                row = fwd[0].copy()
+                row[0] = k0
+                z = self.product(row)
+                lo = self.product(row, 64)
+                if self.pe_lo:
+                    z = z + lo
+            else:
+                z = self.product(fwd[l])
+            z = z + st.sdf.biases[boff:boff + N]
+            S = self.take_stage(grad)
+            if grad:
+                S = torch.cat([S, self.take_stage(True)], 1)
             scale = inv if flags & mma_pack.SCALE else 1.0
             self.put(self.T, torch.arange(N), softplus_beta(z) * scale)
-            self.put(S, torch.arange(N), stash_q(z))
+            if self.hidden is not None:
+                self.hidden.append(self.get(self.T, torch.arange(N)))
+            if grad:
+                r_, c_ = torch.arange(64)[:, None], torch.arange(N)[None, :]
+                S[:, f32_idx(r_, c_).flatten()] = stash_q(z).reshape(
+                    self.B, -1)
+            else:
+                self.put(S, torch.arange(N), stash_q(z))
             nx = fwd[l + 1]
             if nx[5] & mma_pack.SKIP_IN:
                 self.fill("x", int(nx[6]), int(nx[0]), inv)
-            self.store(REG_Q, l, S, ch(N) * CHUNK)
+            if grad:
+                self.store(REG_Q, l, S, 2 * SLOT, f32=True)
+            else:
+                self.store(REG_Q, l, S, ch(N) * CHUNK)
 
     def run(self):
         st, t = self.st, self.t
@@ -319,6 +357,25 @@ class K4Replay:
         self.backward_sdf()
         return self.products()
 
+    def take_q(self, cols, grad=False):
+        """A hidden layer's stash q (B, 64, cols) from the ring: one bf16
+        tile, or with `grad` (K5's) two f32 slots in accumulator order."""
+        if not grad:
+            return self.get(self.take_stash(), torch.arange(cols))
+        S = torch.cat([self.take_stash(True), self.take_stash(True)], 1)
+        r_, c_ = torch.arange(64)[:, None], torch.arange(cols)[None, :]
+        return S[:, f32_idx(r_, c_).flatten()].view(self.B, 64, cols)
+
+    def rev_first(self, grad=False):
+        """`rev_first`: r of the last hidden layer, W_last[:, sdf] s, into
+        T."""
+        fwd, ns = self.st.sdf.plan, self.t.n_sdf
+        n_h, N = int(fwd[ns - 2, 2]), 64 * -(-int(fwd[ns - 2, 1]) // 64)
+        q = self.take_q(n_h, grad)
+        r = self.T.new_zeros((self.B, 64, N))
+        r[..., :n_h] = self.t.wsdf[:n_h] * stash_s(q)
+        self.put(self.T, torch.arange(N), r)
+
     def backward_sdf(self):
         """`sdf_backward` (csrc/sdf_sweep.cuh): the reverse, upward and
         downward sweeps once the output layer's cotangent is stored."""
@@ -332,12 +389,7 @@ class K4Replay:
         onehot[..., F] = 1.0
         self.put(self.T, torch.arange(64 * ch(out_k)), onehot)
         self.store_T(REG_R, ns - 1, ch(out_k))
-        Q = self.take_stash()
-        n_h, N = int(fwd[ns - 2, 2]), 64 * ch(fwd[ns - 2, 1])
-        r = self.T.new_zeros((self.B, 64, N))
-        r[..., :n_h] = (t.wsdf[:n_h]
-                        * stash_s(self.get(Q, torch.arange(n_h))))
-        self.put(self.T, torch.arange(N), r)
+        self.rev_first()
         for l in range(ns - 2, 0, -1):
             self.store_T(REG_R, l, ch(fwd[l, 1]))
             row = t.tsdf[ns - 1 - l]
@@ -539,3 +591,67 @@ def emulate_rev_bwd(k: rev.RevStages, x, c_out, c_g, rnd=bf):
         plan = render_core.K4Plan(k, k, x.shape[0], False)
         out = RevReplay(k, plan, x, c_out, c_g, rnd).run()
         return k.unpack_grads(out, plan)
+
+
+class K5Replay(K4Replay):
+    """`csrc/rev_fwd.cu` in torch, all blocks at once, on `RevStages` and
+    its `rev.K5Plan`: K4's replay of the forward (no operand stores, the
+    q stash in f32 through the ring, layer 0 on the encoding's hi/lo
+    pair), the output layer's two products
+    (the sdf alone, then the features) written in the net's order [sdf |
+    features], and the reverse sweep through the transposed chain down
+    to layer 0: on the hidden columns r = scale (r W^T) s into T, the
+    encoding's columns (from a row's `col`: a skip's, all of layer 0's)
+    of scale (r W^T) added into d sdf / d PE in f32; then the encoding's
+    closed-form Jacobian."""
+
+    def __init__(self, k: rev.RevStages, plan, x, rnd):
+        super().__init__(k, k, plan, x, torch.zeros_like(x),
+                         x.new_zeros((x.shape[0], 8)), rnd, True)
+        self.n = x.shape[0]
+
+    def run(self):
+        k, F, mx = self.st, self.st.F, self.st.mx
+        fwd, tp, ns = k.sdf.plan, k.t.plan, k.n_sdf
+        inv = 1.0 / math.sqrt(2.0)
+        d0 = 3 + 6 * mx
+        self.forward_hidden(grad=True)
+        self.sweep_done()
+        outs = []
+        for row in (fwd[ns - 1], fwd[ns]):
+            boff, N = int(row[4]), int(row[1])
+            outs.append(self.product(row) + k.sdf.biases[boff:boff + N])
+        out = torch.cat([outs[0][..., :1], outs[1][..., :F]], -1)
+        self.rev_first(grad=True)
+        gpe = self.T.new_zeros((self.B, 64, d0))
+        for l in range(ns - 2, -1, -1):
+            row = tp[ns - 1 - l]
+            acc = self.product(row)
+            N, n_h, e0 = acc.shape[-1], int(row[2]), int(row[6])
+            scale = inv if row[5] & mma_pack.SCALE else 1.0
+            a = acc * scale
+            lo, hi = max(e0, 0), min(e0 + d0, N)
+            if lo < hi:
+                gpe[..., lo - e0:hi - e0] = gpe[..., lo - e0:hi - e0] \
+                    + a[..., lo:hi]
+            if l > 0:
+                q = self.take_q(n_h, grad=True)
+                r = torch.zeros_like(a)
+                r[..., :n_h] = a[..., :n_h] * stash_s(q)
+                self.put(self.T, torch.arange(N), r)
+        assert self.pos == len(self.items), "ring items left over"
+        x = self.xs
+        grad = gpe[..., :3].clone()
+        for j in range(mx):
+            f = 2.0 ** j
+            gs = gpe[..., 3 + j:3 + 3 * mx:mx]
+            gc = gpe[..., 3 + 3 * mx + j::mx]
+            grad = grad + f * (gs * torch.cos(x * f) - gc * torch.sin(x * f))
+        return (out.reshape(-1, F + 1)[:self.n],
+                grad.reshape(-1, 3)[:self.n])
+
+
+def emulate_rev_fwd(k: rev.RevStages, x, rnd=bf):
+    """`csrc/rev_fwd.cu` in torch: (out, grad) as the wrapper returns."""
+    with torch.no_grad():
+        return K5Replay(k, rev.K5Plan(k, x.shape[0]), x, rnd).run()

@@ -3,29 +3,29 @@ gradient of its sdf at points, and the backward of the same function,
 through that gradient too.
 
 Replaces `i2sdf_tpu/ops/pallas/fused_rev.py:213 get_rev_op`: its forward
-(pallas_call at `:244`) is K5 (`csrc/rev_fwd.cu`), its backward (`:294`)
-is K6 (`csrc/rev_bwd.cu`, K4's wgmma sweeps without the radiance net).
-Each CUDA source's header says what bounds it and how it is built.
+(pallas_call at `:244`) is K5 (`csrc/rev_fwd.cu`: the forward and the
+reverse sweep of K6's sweeps), its backward (`:294`) is K6
+(`csrc/rev_bwd.cu`, K4's wgmma sweeps without the radiance net). Each
+CUDA source's header says what bounds it and how it is built.
 
-* `RevLayout`: K5's pack, the SDF net alone in the mma.sync kernels'
-  layout (weight norm materialized, bf16, mma fragment order). Its output
-  layer keeps the net's own column order [sdf | features].
-* `RevStages`: K6's pack, the SDF net as K4 packs it (K3's stage chain
-  `render_core.core_sdf_layers` and K4's transposed one
-  `render_core.t_sdf_layers`), gathered from the net's flat weights
-  through a layout built once for its shapes; K6's plan is K4's
-  (`render_core.plan_for` with this pack as both packs).
+* `RevStages`: K5's and K6's one pack, the SDF net as K4 packs it (K3's
+  stage chain `render_core.core_sdf_layers` and K4's transposed one
+  `render_core.t_sdf_layers`, here down to layer 0), gathered from the
+  net's flat weights through a layout built once for its shapes. K6's
+  plan is K4's (`render_core.plan_for` with this pack as both packs),
+  K5's its own table of the same items (`K5Plan`).
 * `rev_fwd(k, x)` -> (out (N, 1 + F), grad (N, 3)) and
-  `rev_bwd(k6, x, c_out, c_g)` -> (dws, dbs): the launches, CUDA tensors
+  `rev_bwd(k, x, c_out, c_g)` -> (dws, dbs): the launches, CUDA tensors
   only.
 * `rev_plain(icfg, ws, bs, x)`: the same function in plain f32 PyTorch,
   the gradient by autograd with `create_graph`, so that autograd gives
   the second order. The CPU path and the tests use it; on the card it
   only serves as the yardstick the kernels are held to.
 * `RevOp`: the `torch.autograd.Function` on the card, K5 forward, K6
-  backward. It takes the materialized weights (the gradients to v and g
-  come from autograd of the materialization) and gives no gradient to x,
-  as `fused_rev.py:319-324` does.
+  backward, both on the forward's `RevStages` (one pack a step). It takes
+  the materialized weights (the gradients to v and g come from autograd
+  of the materialization) and gives no gradient to x, as
+  `fused_rev.py:319-324` does.
 * `sdf_outputs_rev(implicit, x, plain=False)` -> (sdf, feat, grad), the
   bounding-sphere clamp composed outside the kernels: the counterpart of
   `fused_rev.py:329 sdf_outputs_fused_rev`.
@@ -43,45 +43,6 @@ from . import build, mma_pack, render_core
 
 launches = 0      # K5 launches since the last reset_launch_counts()
 bwd_launches = 0  # K6 launches since the last reset_launch_counts()
-
-
-class RevLayout:
-    """The SDF net in K5's layout, from materialized (in, out) weights and
-    biases: `fwd`, `sdft`, `rev` and `wsdf_col` as
-    `render_core.sdf_chains` builds them, in the net's column order."""
-
-    def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs):
-        if icfg.d_out != 1:
-            raise ValueError("rev: needs d_out 1")
-        dims = icfg.layer_dims()
-        n = len(dims) - 1
-        self.fwd, self.sdft, self.rev, self.wsdf_col = render_core.sdf_chains(
-            icfg, [t.detach().float() for t in ws],
-            [t.detach().float() for t in bs])
-        widest = max(self.fwd.max_width, self.sdft.max_width)
-        if widest > render_core._MAX_WIDTH:
-            raise ValueError(f"rev: layer width above "
-                             f"{render_core._MAX_WIDTH}")
-        if n > render_core._MAX_SDF:
-            raise ValueError("rev: too many layers for the kernels")
-        self.n_sdf, self.out_cols = n, dims[-1]
-        self.lda = mma_pack.row_stride(widest)
-        self.ldd = mma_pack.row_stride(int(self.fwd.plan[:-1, 1].max()))
-        self.ldg = mma_pack.round_up(dims[0], 8)
-        if fwd_smem(self) > render_core._MAX_SMEM:
-            raise ValueError(f"rev_fwd: needs {fwd_smem(self)} bytes of "
-                             "shared memory")
-        self.mx = icfg.multires
-        self.shapes = tuple(tuple(t.shape) for t in ws)
-
-
-def fwd_smem(k: RevLayout) -> int:
-    """K5's shared memory (bytes; `fwd_smem_bytes` in csrc/rev_fwd.cu): two
-    activation buffers, every hidden layer's activation derivative, and
-    per row the point and the encoding's gradient."""
-    R = render_core._ROWS
-    return (2 * (2 * R * k.lda + (k.n_sdf - 1) * R * k.ldd)
-            + 4 * R * (3 + k.ldg))
 
 
 def unpack_grads(shapes, out: torch.Tensor, plan):
@@ -107,15 +68,16 @@ def _inv_perm(F: int, device: torch.device) -> torch.Tensor:
 
 
 class RevStages:
-    """K6's pack of the SDF net from materialized (in, out) weights and
-    biases, as K4 packs the same net (so K6 takes K4's `K4Plan`, with this
-    pack as both of K4's):
+    """K5's and K6's pack of the SDF net from materialized (in, out) weights
+    and biases, as K4 packs the same net (so K6 takes K4's `K4Plan`, with
+    this pack as both of K4's):
 
     * `sdf`: K3's SDF stage chain (`render_core.core_sdf_layers`: the
       hidden layers, then the output layer as the sdf alone and the
-      features; K6 loads the hidden layers' stages only);
+      features; K6 loads the hidden layers' stages only, K5 all);
     * `t`: K4's transposed SDF layers n-1 .. 1 (`render_core.t_sdf_layers`,
-      the output layer's input rows as [features | sdf]); `tsdf` its plan;
+      the output layer's input rows as [features | sdf]), then layer 0
+      (K5's last product); `tsdf` the plan of layers n-1 .. 1 (K6's);
     * `wsdf`: W_{n-1}[:, sdf] rounded to bf16 (f32, zero-padded), d sdf /
       d h of the last hidden layer.
 
@@ -130,13 +92,13 @@ class RevStages:
 
     def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs):
         if icfg.d_out != 1 or icfg.feature_vector_size % 8:
-            raise ValueError("rev_bwd: needs d_out 1 and a feature width "
+            raise ValueError("rev: needs d_out 1 and a feature width "
                              "that is a multiple of 8")
         self.shapes = tuple(tuple(t.shape) for t in ws)
 
         def chains(ws, bs):
             return (render_core.core_sdf_layers(icfg, ws, bs),
-                    render_core.t_sdf_layers(icfg, ws))
+                    render_core.t_sdf_layers(icfg, ws, first=True))
 
         ix = mma_pack.chain_index(("rev", icfg, self.shapes), chains,
                                   self.shapes, (256, 256))
@@ -151,17 +113,17 @@ class RevStages:
                                     dtype=torch.float32, device=dev)
             self.wsdf[:K] = ws[-1].detach()[:, 0].float().to(torch.bfloat16)
         self._inv = _inv_perm(icfg.feature_vector_size, torch.device(dev))
-        self.tsdf = self.t.plan
         self.n_sdf = len(ws)
+        self.tsdf = np.ascontiguousarray(self.t.plan[:self.n_sdf - 1])
         self.F, self.mx = icfg.feature_vector_size, icfg.multires
         plans = (self.sdf.plan, self.t.plan)
         if (max(int(p[:, 1].max()) for p in plans) > render_core._K3_WIDTH
                 or max(int(p[:, 0].max()) for p in plans)
                 > render_core._K3_RAD_K):
-            raise ValueError("rev_bwd: a layer wider than "
+            raise ValueError("rev: a layer wider than "
                              f"{render_core._K3_WIDTH}")
         if self.sdf.n_layers > render_core._MAX_LAYERS:
-            raise ValueError("rev_bwd: too many layers")
+            raise ValueError("rev: too many layers")
 
     def unpack_grads(self, out: torch.Tensor, plan):
         """K6's flat output -> (dws, dbs) in the net's shapes, the output
@@ -175,6 +137,88 @@ class RevStages:
 def plan_for(k: RevStages, n: int) -> render_core.K4Plan:
     """K6's plan at n points: K4's, for this pack (cached by shapes)."""
     return render_core.plan_for(k, k, n, False)
+
+
+class K5Plan:
+    """K5's scratch at n points (bytes) and the ring table its producer
+    walks, from `RevStages` (depends only on the shapes: `k5_plan_for`
+    caches it), in `render_core.K4Plan`'s formats:
+
+    * `fwd`: the SDF chain's rows (`k.sdf.plan`) with 64 added to layer
+      0's K: layer 0 reads the encoding as a hi/lo pair of bf16 tiles, the
+      low half from column 64, on W_0's stages twice;
+    * `regions[REG_Q][l]` = (byte offset of block 0's tile, bytes a
+      block): hidden layer l's stash q in f32, two 32 KB slots in
+      accumulator order (`f32_at`), the only scratch K5 takes (`reg`:
+      the kernel's copy);
+    * `script`: (items, 4) int64, the ring's items in the order the
+      consumers take them: each hidden layer's weight stages (layer 0's
+      twice) and two staging slots for its q; the output layer's two
+      products (the sdf
+      alone, then the features); a wait for the forward's stores; q of
+      the last hidden layer; each transposed hidden layer's stages
+      (layers n-2 .. 1) with the q of the layer below; layer 0's
+      transposed stages."""
+
+    tb = 0   # no bias rows
+
+    def __init__(self, k: RevStages, n: int):
+        R = render_core
+        self.blocks = B = -(-max(n, 1) // R._K4_POINTS)
+        fwd, t, ns = k.sdf.plan, k.t.plan, k.n_sdf
+        self.fwd = fwd.copy()
+        self.fwd[0, 0] += 64
+        self.regions = [[(0, 0)] * R._K4_REG_LAYERS
+                        for _ in range(R._REG_KINDS)]
+        self.scratch_bytes = 0
+        for l in range(ns - 1):
+            self.regions[R.REG_Q][l] = (self.scratch_bytes, 2 * R._SLOT)
+            self.scratch_bytes += B * 2 * R._SLOT
+        reg = np.zeros(R._REG_KINDS * R._K4_REG_LAYERS * 2 + 2, np.int64)
+        for l in range(ns - 1):
+            reg[2 * (R.REG_Q * R._K4_REG_LAYERS + l):][:2] = \
+                self.regions[R.REG_Q][l]
+        self.reg = reg
+
+        def q(l):
+            off, stride = self.regions[R.REG_Q][l]
+            return [(R._LOAD | R._B_SCRATCH << 8, off + h, stride, R._SLOT)
+                    for h in (0, R._SLOT)]
+
+        items = []
+        for l in range(ns - 1):
+            items += R.weight_items(R._B_SDF, fwd[l]) * (2 if l == 0 else 1)
+            items += [(R._STAGE, 0, 0, 0)] * 2
+        items += R.weight_items(R._B_SDF, fwd[ns - 1])
+        items += R.weight_items(R._B_SDF, fwd[ns])
+        items += [(R._WAIT, 1, 0, 0)] + q(ns - 2)
+        for l in range(ns - 2, 0, -1):
+            items += R.weight_items(R._B_T, t[ns - 1 - l]) + q(l - 1)
+        items += R.weight_items(R._B_T, t[ns - 1])
+        self.script = np.ascontiguousarray(np.asarray(items, np.int64))
+        self.dev = None   # (reg, script) on the card, at first launch
+
+
+_K5_PLANS: dict = {}
+
+
+def k5_plan_for(k: RevStages, n: int) -> K5Plan:
+    """K5's plan for these shapes at n points, built once."""
+    key = (k.sdf.plan.tobytes(), k.t.plan.tobytes(),
+           -(-max(n, 1) // render_core._K4_POINTS))
+    plan = _K5_PLANS.get(key)
+    if plan is None:
+        plan = _K5_PLANS[key] = K5Plan(k, n)
+    return plan
+
+
+def _on_device(plan, device):
+    """The plan's (reg, script) on `device`, copied at its first launch
+    there."""
+    if plan.dev is None or plan.dev[0].device != device:
+        plan.dev = (torch.from_numpy(plan.reg).to(device),
+                    torch.from_numpy(plan.script).to(device))
+    return plan.dev
 
 
 # ---- plain version ----------------------------------------------------------
@@ -194,31 +238,32 @@ def rev_plain(icfg: mlp.ImplicitNetConfig, ws, bs, x: torch.Tensor):
 
 # ---- kernels ----------------------------------------------------------------
 
-def _check(k: RevLayout, x: torch.Tensor, name: str):
+def rev_fwd(k: RevStages, x: torch.Tensor):
+    """K5: (out (N, 1 + F) = [sdf | features], grad (N, 3)), unclamped."""
+    global launches
     if not x.is_cuda:
-        raise ValueError(f"{name}: the kernel takes CUDA tensors; the plain "
+        raise ValueError("rev_fwd: the kernel takes CUDA tensors; the plain "
                          "version is rev_plain")
     mma_pack.check_input(x, "x", cols=3)
-    if k.fwd.weights.device != x.device:
-        raise ValueError(f"{name}: the weights are not on the points' "
+    if k.sdf.weights.device != x.device:
+        raise ValueError("rev_fwd: the weights are not on the points' "
                          "device")
-
-
-def rev_fwd(k: RevLayout, x: torch.Tensor):
-    """K5: (out (N, 1 + F), grad (N, 3)), unclamped."""
-    global launches
-    _check(k, x, "rev_fwd")
     n = x.shape[0]
-    out = torch.empty((n, k.out_cols), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, k.F + 1), dtype=torch.float32, device=x.device)
     grad = torch.empty((n, 3), dtype=torch.float32, device=x.device)
     if n == 0:
         return out, grad
+    plan = k5_plan_for(k, n)
+    reg, script = _on_device(plan, x.device)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
     lib = build.load_library()
     err = lib.i2sdf_rev_fwd(
-        x.data_ptr(), n, k.fwd.weights.data_ptr(), k.fwd.biases.data_ptr(),
-        k.fwd.plan.ctypes.data, k.fwd.n_layers, k.rev.weights.data_ptr(),
-        k.rev.plan.ctypes.data, k.rev.n_layers, k.wsdf_col.data_ptr(),
-        k.mx, k.lda, k.ldd, k.ldg, k.out_cols, out.data_ptr(),
+        x.data_ptr(), n, plan.blocks, k.F + 1, k.sdf.weights.data_ptr(),
+        k.sdf.biases.data_ptr(), plan.fwd.ctypes.data, k.sdf.n_layers,
+        k.t.weights.data_ptr(), k.t.plan.ctypes.data, k.t.n_layers,
+        k.wsdf.data_ptr(), k.mx, k.F, scratch.data_ptr(), reg.data_ptr(),
+        script.data_ptr(), plan.script.shape[0], out.data_ptr(),
         grad.data_ptr(), mma_pack.stream_of(x))
     build.check(err, "rev_fwd")
     launches += 1
@@ -244,10 +289,7 @@ def rev_bwd(k: RevStages, x: torch.Tensor, c_out: torch.Tensor,
         raise ValueError("rev_bwd: cotangents, points and weights disagree "
                          "in length or device")
     plan = plan_for(k, n)
-    if plan.dev is None or plan.dev[0].device != x.device:
-        plan.dev = (torch.from_numpy(plan.reg).to(x.device),
-                    torch.from_numpy(plan.script).to(x.device))
-    reg, script = plan.dev
+    reg, script = _on_device(plan, x.device)
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
                           device=x.device)
     ws32 = torch.empty(plan.n32, dtype=torch.float32, device=x.device)
@@ -271,7 +313,8 @@ def rev_bwd(k: RevStages, x: torch.Tensor, c_out: torch.Tensor,
 
 
 class RevOp(torch.autograd.Function):
-    """The op on the card: K5 forward, K6 backward.
+    """The op on the card: K5 forward, K6 backward. The forward's pack
+    (`RevStages`) stays in `ctx` for the backward: one pack a step.
 
     apply(icfg, x, *ws, *bs) -> (out, grad), unclamped. Gradients flow to
     the weights and biases only; x is a constant (eikonal points)."""
@@ -279,18 +322,15 @@ class RevOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, icfg, x, *flat):
         n = len(flat) // 2
-        out, grad = rev_fwd(RevLayout(icfg, flat[:n], flat[n:]), x)
-        ctx.save_for_backward(x, *flat)
-        ctx.icfg = icfg
-        return out, grad
+        ctx.stages = RevStages(icfg, flat[:n], flat[n:])
+        ctx.save_for_backward(x)
+        return rev_fwd(ctx.stages, x)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, c_out, c_g):
-        x, *flat = ctx.saved_tensors
-        n = len(flat) // 2
-        dws, dbs = rev_bwd(RevStages(ctx.icfg, flat[:n], flat[n:]), x,
-                           c_out.float().contiguous(),
+        (x,) = ctx.saved_tensors
+        dws, dbs = rev_bwd(ctx.stages, x, c_out.float().contiguous(),
                            c_g.float().contiguous())
         return (None, None, *dws, *dbs)
 

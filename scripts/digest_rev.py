@@ -1,5 +1,5 @@
-"""SHA-256 digests of K5's, K6's and K4's outputs at the smoke's seeded
-inputs, so that two trees' kernels can be held to the same bits.
+"""SHA-256 digests of K5's, K6's, K4's and K2's outputs at the smoke's
+seeded inputs, so that two trees' kernels can be held to the same bits.
 
     python scripts/digest_rev.py [TREE]
 
@@ -12,7 +12,12 @@ features, gradient) and of K6's weight gradients at the init of the
 training config's SDF net (seed `SEED`), then one line with the digest of
 K4's weight gradients at `chip_smoke.check_k4`'s inputs (the training
 config's init, `k4_batch`'s 160,000 points, the seeded loss's
-cotangents). Needs a CUDA device and nvcc.
+cotangents), then one line with the digest of K2's betas and draws at
+`check_kernels`' inputs (`chip_smoke.k2_inputs` of this repository's
+smoke, through `time_kernels.k2_cases`: both scenes, both `final` values,
+R 12,000 and 1,600). K5 runs on its own pack where the
+tree's K5 has one (`RevLayout`), else on K6's (`RevStages`). Needs a CUDA
+device and nvcc.
 """
 
 from __future__ import annotations
@@ -25,11 +30,14 @@ from pathlib import Path
 TREE = Path(sys.argv[1] if len(sys.argv) > 1 else
             Path(__file__).resolve().parents[1]).resolve()
 sys.path.insert(0, str(TREE))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from i2sdf_tpu_torch.ops.kernels import build, render_core, rev  # noqa: E402
+from i2sdf_tpu_torch.ops.kernels import (build, render_core, rev,  # noqa
+                                         sampler_round)
+from time_kernels import inputs, k2_cases  # noqa: E402
 
 
 def digest(ts) -> str:
@@ -48,7 +56,9 @@ def main() -> int:
     lins = model.implicit.layers()
     ws, bs = [l.weight() for l in lins], [l.b for l in lins]
     with torch.no_grad():
-        k = rev.RevLayout(cfg.implicit, ws, bs)
+        k6 = rev.RevStages(cfg.implicit, ws, bs)
+        k = (rev.RevLayout(cfg.implicit, ws, bs)
+             if hasattr(rev, "RevLayout") else k6)
     for label, x in (("eikonal", cs.eikonal_batch(cfg, conf, device,
                                                   cs.SEED + 8)),
                      ("render", cs.render_batch(cfg, conf, device))):
@@ -57,10 +67,6 @@ def main() -> int:
         out_p, grad_p = rev.rev_plain(cfg.implicit, ws, bs, x)
         c_out, c_g = cs.rev_cotangents(out_p, grad_p, cs.SEED + 9)
         with torch.no_grad():
-            # K6's pack: `RevStages` since K6 runs K4's sweeps, K5's
-            # `RevLayout` before
-            k6 = (rev.RevStages(cfg.implicit, ws, bs)
-                  if hasattr(rev, "RevStages") else k)
             dws, dbs = rev.rev_bwd(k6, x, c_out, c_g)
         torch.cuda.synchronize()
         print(json.dumps({"tree": str(TREE), "points": label,
@@ -81,6 +87,14 @@ def main() -> int:
                       "n": x.shape[0],
                       "k4": digest([t for g in grads for t in g])}),
           flush=True)
+    del grads, packs, x, d, cot
+    torch.cuda.empty_cache()
+    outs = []
+    for *_, args in k2_cases(inputs(), device)[-1]:
+        outs += list(sampler_round.sampler_round(*args))
+    torch.cuda.synchronize()
+    print(json.dumps({"tree": str(TREE), "points": "k2_inputs",
+                      "k2": digest(outs)}), flush=True)
     return 0
 
 

@@ -14,8 +14,8 @@ instructions (`MUFU`, by opcode in `mufu_ops`: the exponentials' `EX2`,
 reciprocals' `RCP`; static counts, a loop body once) and its highest
 register (`max_reg`) from `cuobjdump -sass`, and ptxas's warnings (a
 `setmaxnreg` it ignored, wgmma it serialized). Needs `nvcc`, so it runs
-on the machine with the card. K2's and K6's rows are the smoke's `sass`
-for them, as K4's, K8's and K9's are.
+on the machine with the card. K2's, K5's, K6's and K7's rows are the
+smoke's `sass` for them, as K4's, K8's and K9's are.
 """
 
 from __future__ import annotations

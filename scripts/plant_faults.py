@@ -1,21 +1,26 @@
-"""Plant faults in copies of the tree and show that the smoke's K1-K4, K6
-and K8/K9 checks catch each one.
+"""Plant faults in copies of the tree and show that the smoke's K1-K9
+checks catch each one.
 
-    python scripts/plant_faults.py [FAULT ...]
+    python scripts/plant_faults.py [--log DIR] [FAULT ...]
 
 For each fault (default: all of `FAULTS`), copies the package and
 `chip_smoke.py` into a temporary directory, changes one or two lines of
-the copy, builds the copy's kernels there and runs, each in its own
+the copy, builds the copies' kernels, all at once (in this repository's
+`build/`, which the copies share: only the sources a fault changes, or
+whose headers it changes, compile again), and runs, each in its own
 process, the checks the fault must fail: `chip_smoke.check_k1`,
 `chip_smoke.check_k3` (the flagship config's K3, `k3`, and the light
 config's K3-light, `k3_light`; both also on a net of odd depth) and
 `chip_smoke.check_k4` (the training config's K4, `k4`),
 `chip_smoke.check_bg` (the bg config's K8 and K9, `bg`), the K2 rows of
-`chip_smoke.check_kernels` (`k2`: they come before its K3 check) and
-`chip_smoke.check_rev` (K5 and K6 at the training config, `rev`). A check that
-raises has caught the fault. Prints one JSON line per fault, and exits
-nonzero if a check named in the fault's `must_fail` passed. Needs a CUDA
-device and `nvcc`; the repository itself is not touched.
+`chip_smoke.check_kernels` (`k2`: they come before its K3 check),
+`chip_smoke.check_rev` (K5 and K6 at the training config, `rev`) and
+`chip_smoke.check_conv` (K7 at the perray config, `conv`). A check that
+raises has caught the fault. Prints one JSON line per fault (with the
+seconds it took), and exits nonzero if a check named in the fault's
+`must_fail` passed; with `--log DIR`, each check's output goes to
+DIR/FAULT.CHECK.out (its rows: the gaps the fault opened). Needs a CUDA
+device and `nvcc`; the repository's sources are not touched.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -103,7 +109,7 @@ FAULTS = {
     # K2's group scan adds warps 1 .. w where warp w's offset is warps
     # 0 .. w - 1 (a group offset taken from the wrong warp)
     "k2_group_offset_wrong_warp": (
-        "i2sdf_tpu_torch/csrc/sampler_round.cu",
+        "i2sdf_tpu_torch/csrc/ray_common.cuh",
         "    oa += g.tot[0][v];\n    ob += g.tot[1][v];\n",
         "    oa += g.tot[0][v + 1];\n    ob += g.tot[1][v + 1];\n",
         ("k2",)),
@@ -115,6 +121,28 @@ FAULTS = {
         "            load(REG_Q, max(l - 2, 0), _chunks(imp[l - 1, 1]) * _CHUNK)"
         "\n",
         ("bg",)),
+    # K5's reverse sweep drops the skip layer's share of d sdf / d PE
+    # (layer 0's alone reaches the gradient; the init's zero encoding rows
+    # hide it, the perturbed and odd-depth nets show it)
+    "k5_skip_pe_dropped": (
+        "i2sdf_tpu_torch/csrc/sdf_sweep.cuh",
+        "    [[maybe_unused]] const int e0 = Lt[kCol];\n",
+        "    [[maybe_unused]] const int e0 = l > 0 ? (1 << 20) : Lt[kCol];\n",
+        ("rev",)),
+    # K5 writes its output layer's columns in the kernel's order [features
+    # | sdf], not the net's [sdf | features]
+    "k5_output_kernel_order": (
+        "i2sdf_tpu_torch/csrc/rev_fwd.cu",
+        "  const int first = kSdf ? 0 : 1;  // [sdf | features]\n",
+        "  const int first = kSdf ? a.F : 0;  // [features | sdf]\n",
+        ("rev",)),
+    # K7 takes its first warp's maximum of the bound, not the group's
+    "k7_one_warp_max": (
+        "i2sdf_tpu_torch/csrc/conv_check.cu",
+        "  const float bound = error_bound(q, beta0, g, warp, lane);\n",
+        "  const float bound = warp_max(sections_max(q, beta0, g, warp, "
+        "lane));\n",
+        ("conv",)),
 }
 
 CHECK = """
@@ -126,6 +154,7 @@ device = torch.device("cuda", 0)
 which = sys.argv[1]
 conf = (cs.light_conf(train=False) if which == "k3_light"
         else cs.train_conf() if which in ("k4", "rev")
+        else cs.perray_conf(train=False) if which == "conv"
         else cs.bg_conf(train=False) if which == "bg" else cs.eval_conf())
 cfg, model = cs.seeded_model(conf, device)
 if which == "k1":
@@ -134,6 +163,8 @@ elif which == "k2":
     cs.check_kernels(model, cfg, conf, device)
 elif which == "rev":
     cs.check_rev(model, cfg, cs.eval_conf(), device)
+elif which == "conv":
+    cs.check_conv(model, cfg, conf, device)
 elif which == "bg":
     cs.check_bg(model, cfg, conf, device)
 elif which == "k4":
@@ -155,7 +186,8 @@ def copy_tree(name: str, edits: list, tmp: Path) -> Path:
     shutil.copytree(ROOT / "i2sdf_tpu_torch", tree / "i2sdf_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", tree / "chip_smoke.py")
-    for link in ("configs", "data"):
+    (ROOT / "build").mkdir(exist_ok=True)
+    for link in ("configs", "data", "build"):
         (tree / link).symlink_to(ROOT / link)
     for rel, old, new in edits:
         path = tree / rel
@@ -167,17 +199,38 @@ def copy_tree(name: str, edits: list, tmp: Path) -> Path:
     return tree
 
 
+BUILD = "from i2sdf_tpu_torch.ops.kernels import build; build.build()"
+
+
 def main(argv: list[str]) -> int:
+    log = None
+    if argv[:1] == ["--log"]:
+        log, argv = Path(argv[1]), argv[2:]
+        log.mkdir(parents=True, exist_ok=True)
     faults = argv or list(FAULTS)
     bad = False
     with tempfile.TemporaryDirectory() as tmp:
-        for fault in faults:
-            tree = copy_tree(fault, patches(fault), Path(tmp))
+        trees = {f: copy_tree(f, patches(f), Path(tmp)) for f in faults}
+        t0 = time.monotonic()
+        builds = [subprocess.Popen([sys.executable, "-c", BUILD], cwd=tree,
+                                   stdout=subprocess.DEVNULL,
+                                   stderr=subprocess.DEVNULL)
+                  for tree in trees.values()]
+        for proc in builds:
+            proc.wait(timeout=900)
+        print(json.dumps({"built": len(builds),
+                          "seconds": round(time.monotonic() - t0)}),
+              flush=True)
+        for fault, tree in trees.items():
+            t0 = time.monotonic()
             caught = {}
             for check in FAULTS[fault][-1]:
                 proc = subprocess.run(
                     [sys.executable, "-c", CHECK, check], cwd=tree,
                     capture_output=True, text=True, timeout=900)
+                if log is not None:
+                    (log / f"{fault}.{check}.out").write_text(
+                        proc.stdout + proc.stderr[-3000:])
                 caught[check] = proc.returncode != 0
                 last = (proc.stderr.strip().splitlines() or [""])[-1]
                 if caught[check] and "AssertionError" not in last:
@@ -186,7 +239,8 @@ def main(argv: list[str]) -> int:
             ok = all(caught[c] is True for c in must)
             bad = bad or not ok
             print(json.dumps({"fault": fault, "caught": caught,
-                              "must_fail": list(must), "ok": ok}),
+                              "must_fail": list(must), "ok": ok,
+                              "seconds": round(time.monotonic() - t0)}),
                   flush=True)
     return 1 if bad else 0
 

@@ -15,14 +15,16 @@ card and times on the host clock, after a warm-up, `REPS` times each:
   that K9's backward reads; a tree without `BgStages` packs
   `bg_core.BgLayout`);
 * `eval_ms`: the pack an eval render makes (`bg_core.BgPack`);
-* `rev_fwd_ms`: K5's pack of the training config's SDF net, once a
-  normal-off step (`rev.RevLayout`; before K6 moved onto K4's sweeps it
-  served K6 too);
+* `rev_fwd_ms`: K5's own pack of the training config's SDF net, where
+  the tree has one (`rev.RevLayout`, the mma.sync K5's; since K5 moved
+  onto K6's sweeps it reads K6's pack);
 * `rev_bwd_ms`: K6's pack (`rev.RevStages`, gathered through a layout
   built once for the net's shapes; absent where the tree has none), and
   `rev_bwd_stagewise_ms` the same chains packed stage by stage
   (`mma_pack.pack_stage_chain` of `render_core.core_sdf_layers` and
-  `t_sdf_layers`, the bits `RevStages` must equal).
+  `t_sdf_layers`, the bits `RevStages` must equal);
+* `rev_step_ms`: the SDF packs one normal-off step makes (`RevOp`: K5's
+  and K6's, or the one both read).
 
 Each pack starts with the device idle and ends when the host returns (its
 device work runs behind, as in a step); `synced_ms` adds the wait for the
@@ -75,17 +77,29 @@ def one(tree: Path) -> dict:
     with torch.no_grad():
         ws, bs = [l.weight() for l in lins], [l.b for l in lins]
     icfg = tcfg.implicit
-    packs = [("train", train_pack), ("eval", eval_pack),
-             ("rev_fwd", lambda: rev.RevLayout(icfg, ws, bs))]
+    packs = [("train", train_pack), ("eval", eval_pack)]
+    own5 = getattr(rev, "RevLayout", None)
+    if own5 is not None:
+        packs.append(("rev_fwd", lambda: own5(icfg, ws, bs)))
     if hasattr(rev, "RevStages"):
+        import inspect
+        first = ({"first": True} if "first" in inspect.signature(
+            render_core.t_sdf_layers).parameters else {})
+
         def stagewise():
             with torch.no_grad():
                 mma_pack.pack_stage_chain(render_core.core_sdf_layers(
                     icfg, [t.float() for t in ws], [t.float() for t in bs]))
                 mma_pack.pack_stage_chain(render_core.t_sdf_layers(
-                    icfg, [t.float() for t in ws]))
+                    icfg, [t.float() for t in ws], **first))
+
+        def step():
+            with torch.no_grad():
+                if own5 is not None:
+                    own5(icfg, ws, bs)
+                rev.RevStages(icfg, ws, bs)
         packs += [("rev_bwd", lambda: rev.RevStages(icfg, ws, bs)),
-                  ("rev_bwd_stagewise", stagewise)]
+                  ("rev_bwd_stagewise", stagewise), ("rev_step", step)]
 
     out = dict(tree=str(tree), device=str(device), packer=packer.__name__,
                reps=REPS)

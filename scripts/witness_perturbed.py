@@ -23,17 +23,22 @@ to bf16. `bg`: the NeRF++ background pair (`get_bg_core_op` through
 batch (51,200 points) and eval chunk (384,000) against `CORE_TOLS`' sigma
 and rgb bounds and the spread rule (`k8_errors`), its backward (K9's) over
 the training batch with the smoke's loss cotangents (`grad_errors`).
-`rev`: the backward of `get_rev_op` (K6's TPU kernel, `jax.vjp` of the op
-on the materialized weights) at the smoke's perturbed SDF net of the
-training config (`perturbed_net`, seed SEED + 10, as `check_rev` takes
-it), over the normal-off step's 4,800 eikonal points and the 155,200
-render points with `rev_cotangents` (`grad_errors` against `rev_plain`
-at the f32 weights and at the weights rounded to bf16). Runs in chunks of
+`rev`: `get_rev_op` (K5's and K6's TPU kernels) at the smoke's perturbed
+SDF net of the training config (`perturbed_net`, seed SEED + 10, as
+`check_rev` takes it) and at its odd-depth net (`odd_nets`, seed SEED +
+20: seven hidden layers), over the normal-off step's 4,800 eikonal points
+and the 155,200 render points: its forward (K5's) against `rev_plain`
+at the f32 weights and at the weights rounded to bf16 (`fwd`: the points
+past `REV_TOLS` for the sdf, the features and the gradient), its
+backward (K6's, `jax.vjp` of the op on the materialized weights) with
+`rev_cotangents` (`grad_errors`, against the same two). Runs in chunks of
 65,536 points; K3 takes about ten minutes.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import sys
 import tempfile
@@ -278,35 +283,46 @@ def rev_witness() -> list:
     conf = cs.train_conf()
     cfg, model = cs.seeded_model(conf, CPU)
     jcfg = jrenderer.I2SDFConfig.from_cfgnode(
-        jax_load_cfg(str(cs.TRAIN_CONF)).model)
-    net = cs.perturbed_net(model.implicit, cs.SEED + 10)
-    op = get_rev_op(jcfg.implicit, 256, True)
+        jax_load_cfg(str(cs.TRAIN_CONF)).model).implicit
+    nets = {"perturbed": (cs.perturbed_net(model.implicit, cs.SEED + 10),
+                          jcfg),
+            "odd": (cs.odd_nets(cfg, CPU, cs.SEED + 20)[0],
+                    dataclasses.replace(jcfg, dims=tuple(jcfg.dims[:-1])))}
+    batches = (("eikonal", cs.eikonal_batch(cfg, conf, CPU, cs.SEED + 8)),
+               ("render", cs.render_batch(cfg, conf, CPU)))
     rows = []
-    for label, x in (("eikonal", cs.eikonal_batch(cfg, conf, CPU,
-                                                  cs.SEED + 8)),
-                     ("render", cs.render_batch(cfg, conf, CPU))):
+    for (case, (net, jc)), (label, x) in itertools.product(nets.items(),
+                                                          batches):
+        op = get_rev_op(jc, 256, True)
         lins = net.layers()
         ws = [l.weight().detach() for l in lins]
         bs = [l.b.detach() for l in lins]
-        out_p, grad_p = rev.rev_plain(cfg.implicit, ws, bs, x)
+        out_p, grad_p = rev.rev_plain(net.cfg, ws, bs, x)
         c_out, c_g = cs.rev_cotangents(out_p, grad_p, cs.SEED + 9)
         jw = (tuple(jnp.asarray(w.numpy()) for w in ws),
               tuple(jnp.asarray(b.numpy()) for b in bs))
-        got = None
+        got, fwd = None, []
         for sl in range(0, len(x), CHUNK):
             xc = jnp.asarray(x[sl:sl + CHUNK].numpy())
-            _, vjp = jax.vjp(lambda w, b: op(w, b, xc), *jw)
+            outs, vjp = jax.vjp(lambda w, b: op(w, b, xc), *jw)
+            fwd.append([torch.from_numpy(np.array(t)) for t in outs])
             g = vjp((jnp.asarray(c_out[sl:sl + CHUNK].numpy()),
                      jnp.asarray(c_g[sl:sl + CHUNK].numpy())))
             g = [torch.from_numpy(np.array(t)) for grp in g for t in grp]
             got = g if got is None else [a + b for a, b in zip(got, g)]
-        row = dict(points=label, n=len(x))
+        out_k, grad_k = (torch.cat(t) for t in zip(*fwd))
+        row = dict(net=case, points=label, n=len(x), fwd={})
         for wl, bf16w in (("f32", False), ("bf16w", True)):
             wr = [(w.to(torch.bfloat16).float() if bf16w else w.clone()
                    ).requires_grad_() for w in ws]
             br = [b.clone().requires_grad_() for b in bs]
-            ref = torch.autograd.grad(rev.rev_plain(cfg.implicit, wr, br, x),
-                                      wr + br, (c_out, c_g))
+            out_r, grad_r = rev.rev_plain(net.cfg, wr, br, x)
+            row["fwd"][wl] = {
+                name: past(a, b.detach(), *cs.REV_TOLS[name])
+                for name, a, b in (("sdf", out_k[:, :1], out_r[:, :1]),
+                                   ("feat", out_k[:, 1:], out_r[:, 1:]),
+                                   ("grad", grad_k, grad_r))}
+            ref = torch.autograd.grad((out_r, grad_r), wr + br, (c_out, c_g))
             row[wl] = cs.grad_errors(got, list(ref))
         rows.append(row)
     return rows

@@ -503,7 +503,15 @@ def test_render_core_light_train_op(dev, n, eik, detach):
 # on its other training route (`renderer.py:383-386`). K5 is held to
 # `rev_plain` with the JAX package's tolerances for its rev kernel
 # (tests/test_pallas_rev.py: sdf 0.02, features 0.05, grad 0.05 / rtol
-# 0.08). K6 (K4's wgmma sweeps, 64-point blocks: REV_COUNTS has both
+# 0.08), and to its bf16 replay (`replay.K5Replay`) at the same bounds and
+# at `chip_smoke.REPLAY_GATE` (the share of points past 0.003 and 0.01), at
+# the nets K6 takes (below) and at K5_COUNTS (K6's 64-point blocks, both
+# sides and the edge); at the perturbed and odd nets against the plain op
+# at the weights rounded to bf16, as K3: there the JAX package's own rev
+# forward is past the f32 bound at a few of the smoke's 155,200 points at
+# both nets, none against bf16 weights (`scripts/witness_perturbed.py
+# rev`). A rerun
+# gives the same bits and padding rows change no real row's. K6 (K4's wgmma sweeps, 64-point blocks: REV_COUNTS has both
 # sides of one, two and three blocks) takes the cotangents of that test's
 # loss, which reads the sdf, the features and the gradient (so c_out and
 # c_g are both non-zero), at the init's net, at weights perturbed by 0.01
@@ -517,6 +525,7 @@ def test_render_core_light_train_op(dev, n, eik, detach):
 # (`scripts/witness_perturbed.py rev`).
 
 REV_COUNTS = [1, 31, 33, 63, 65, 127, 129, 4800, 155_200]
+K5_COUNTS = [1, 63, 64, 65, 4800, 155_200]
 REV_NETS = pytest.mark.parametrize("nets", ["init", "perturbed", "odd"])
 REV_TOLS = {"sdf": (0.02, 0.02), "feat": (0.05, 0.05), "grad": (0.05, 0.08)}
 
@@ -542,18 +551,42 @@ def _rev_close(outs, refs):
                                    rtol=REV_TOLS[name][1], msg=name)
 
 
-@pytest.mark.parametrize("n", REV_COUNTS)
-def test_rev_fwd_kernel(dev, n):
+@REV_NETS
+@pytest.mark.parametrize("n", K5_COUNTS)
+def test_rev_fwd_kernel(dev, n, nets):
+    import chip_smoke as cs
+    from i2sdf_tpu_torch.ops.kernels.replay import emulate_rev_fwd
     from test_torch_rev_replay import flat_weights
-    net, x = _rev_case(dev, n)
+    net, x = _rev_case(dev, n, nets=nets)
     ws, bs = flat_weights(net)
     with torch.no_grad():
-        k = rev.RevLayout(net.cfg, ws, bs)
+        k = rev.RevStages(net.cfg, ws, bs)
         kernels.reset_launch_counts()
         got = rev.rev_fwd(k, x)
         torch.cuda.synchronize()
         assert kernels.launch_counts()["rev_fwd"] == 1
+        rep = emulate_rev_fwd(k, x)
+        _rev_close(got, rep)
+        gaps = cs.replay_gaps(got, rep)
+        assert cs.replay_ok(gaps, n), gaps
+        del rep
+    if nets != "init":
+        ws = [w.detach().to(torch.bfloat16).float() for w in ws]
     _rev_close(got, rev.rev_plain(net.cfg, ws, bs, x))
+
+
+def test_rev_fwd_reruns_and_padding_rows(dev):
+    """A second K5 launch gives the same bits, and 33 points alone give
+    the bits of the same 33 in a block with 31 more rows."""
+    from test_torch_rev_replay import flat_weights
+    net, x = _rev_case(dev, 64)
+    with torch.no_grad():
+        k = rev.RevStages(net.cfg, *flat_weights(net))
+        a = rev.rev_fwd(k, x[:33].contiguous())
+        b = rev.rev_fwd(k, x)
+        c = rev.rev_fwd(k, x)
+    for ta, tb, tc in zip(a, b, c):
+        assert torch.equal(tb, tc) and torch.equal(ta, tb[:33])
 
 
 @REV_NETS
@@ -682,6 +715,27 @@ def test_conv_check_kernel(dev, S):
         in_band += int((~outside).sum())
     assert in_band < 0.01 * 3 * R
     assert mixed  # both flags at some beta0: a constant output fails
+
+
+@pytest.mark.parametrize("S", [416, 480])
+@pytest.mark.parametrize("R", [1600, 12_000])
+def test_conv_check_is_k2s_beta0_decision(dev, R, S):
+    """K7 is K2's beta0 evaluation: its flag equals, ray by ray and to the
+    bit, K2's decision to keep beta0 (beta out == beta0 from one launch on
+    the same rows with beta in above beta0)."""
+    z64, s64 = _conv_inputs(R, S, S)
+    z, s = z64.float().to(dev), s64.float().to(dev)
+    u = torch.linspace(0, 1, 8, device=dev).expand(R, 8).contiguous()
+    beta_in = torch.ones(R, device=dev)
+    seen = set()
+    for beta0 in (0.02, 0.05, 0.2):
+        b0 = torch.tensor(beta0, device=dev)
+        got = conv_check.conv_check(SCFG, z, s, b0)
+        _, beta = sampler_round.sampler_round(SCFG, z, s, beta_in, b0, u,
+                                              False)
+        assert torch.equal(got, beta == b0)
+        seen |= set(got.tolist())
+    assert seen == {True, False}
 
 
 # ---- K8 bg_core_fwd and K9 bg_core_bwd ------------------------------------
@@ -1159,14 +1213,14 @@ def test_tangent_kernels_agree_with_rev_kernels(dev, n):
     ws, bs = flat_weights(net)
     with torch.no_grad():
         kt = sdf_grad.SdfGradLayout(net.cfg, ws, bs)
-        kr = rev.RevLayout(net.cfg, ws, bs)
+        kr = rev.RevStages(net.cfg, ws, bs)
         out_t, grad_t = sdf_grad.sdf_grad_fwd(kt, x)
         out_r, grad_r = rev.rev_fwd(kr, x)
         _tan_close((out_t[:, :1], out_t[:, 1:], grad_t),
                    (out_r[:, :1], out_r[:, 1:], grad_r))
         c_out, c_g = (c.contiguous() for c in loss_cotangents(out_r, grad_r))
         got_t = sdf_grad.sdf_grad_bwd(kt, x, c_out, c_g)
-        got_r = rev.rev_bwd(rev.RevStages(net.cfg, ws, bs), x, c_out, c_g)
+        got_r = rev.rev_bwd(kr, x, c_out, c_g)
     grad_check([t for g in got_t for t in g], [t for g in got_r for t in g])
 
 

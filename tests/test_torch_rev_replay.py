@@ -1,18 +1,20 @@
 """K5 (`csrc/rev_fwd.cu`) and K6 (`csrc/rev_bwd.cu`) replayed in torch from
-exactly what their wrappers hand the kernels (K5: the packed bf16 weights
-and plan rows of `RevLayout`; K6: `RevStages`' stage images and the ring
-table, regions and jobs of its `K4Plan`), and held to the plain version
+exactly what their wrappers hand the kernels (both: `RevStages`' stage
+images; K5 the ring table and regions of its `K5Plan`, K6 the ring table,
+regions and jobs of its `K4Plan`), and held to the plain version
 `rev_plain`.
 
-K5's replay reuses K3's (`test_torch_kernel_layout.py`), since K5 is K3's
-mma.sync body without the radiance net; K6's (`RevReplay`, in
-`i2sdf_tpu_torch/ops/kernels/replay.py`) is K4's (`K4Replay`: the tile,
-the ring's slots, the table consumed item by item, the scratch regions,
-the MN-major products) with what is K6's own: the forward recompute stops at the output layer's
-input, and the output layer's cotangent is `c_out`, read in the net's
-column order [sdf | features] into the kernel's [features | sdf], its
-bias row summed from it in f32. `rnd` says where the kernels round to
-bf16:
+Both replays live in `i2sdf_tpu_torch/ops/kernels/replay.py` and are
+K4's (`K4Replay`: the tile, the ring's slots, the table consumed item by
+item, the scratch regions, the MN-major products) with what is each
+kernel's own. K6 (`RevReplay`): the forward recompute stops at the
+output layer's input, and the output layer's cotangent is `c_out`, read
+in the net's column order [sdf | features] into the kernel's [features |
+sdf], its bias row summed from it in f32. K5 (`K5Replay`): the same
+forward without the operand stores, the output layer's two products
+written in the net's order, and the reverse sweep down to layer 0 with
+the encoding's share gathered in f32. `rnd` says where the kernels round
+to bf16:
 
 * with no rounding the replay is the kernels' algorithm in f32 on their
   bf16 weights, and it must equal `rev_plain` on the same bf16-rounded
@@ -40,9 +42,12 @@ import torch
 from i2sdf_tpu_torch.models import mlp
 from i2sdf_tpu_torch.ops import kernels  # noqa: F401
 from i2sdf_tpu_torch.ops.kernels import mma_pack, render_core, rev
-from i2sdf_tpu_torch.ops.kernels.replay import bf, emulate_rev_bwd
+from i2sdf_tpu_torch.ops.kernels.replay import (K5Replay, RevReplay,
+                                                act_off, bf,
+                                                emulate_rev_bwd,
+                                                emulate_rev_fwd, f32_idx,
+                                                pe_cols, stash_q)
 from test_torch_bwd_replay import grad_check
-from test_torch_kernel_layout import replay_grad_sweep, run_sdf_chain
 
 
 FLAGSHIP = dict(width=256, depth=8, skip=4, feat=256, mx=6)
@@ -84,12 +89,6 @@ def flat_weights(net):
     return [l.weight() for l in lins], [l.b for l in lins]
 
 
-def layout(net):
-    ws, bs = flat_weights(net)
-    with torch.no_grad():
-        return rev.RevLayout(net.cfg, ws, bs)
-
-
 def bf16_leaves(ws, bs):
     """The weights rounded to bf16 as the kernels' packs hold them (biases
     stay f32), as fresh leaves."""
@@ -121,17 +120,10 @@ def plain_vjp(cfg, ws, bs, x, c_out, c_g):
     return list(torch.autograd.grad((out, grad), ws + bs, (c_out, c_g)))
 
 
-def emulate_rev_fwd(k: rev.RevLayout, x, rnd=bf):
-    """`csrc/rev_fwd.cu` in torch: (out, grad) as the wrapper returns."""
-    dact = []
-    bufs, cur, z = run_sdf_chain(k.fwd, x, k.mx, k.lda, dact, rnd)
-    grad = replay_grad_sweep(k, bufs, cur ^ 1, dact, x, rnd)
-    return z[:, :k.out_cols], grad
-
-
 def stages(net):
     ws, bs = flat_weights(net)
-    return rev.RevStages(net.cfg, ws, bs)
+    with torch.no_grad():
+        return rev.RevStages(net.cfg, ws, bs)
 
 
 @pytest.mark.parametrize("case,n", [("narrow", 1), ("narrow", 33),
@@ -139,7 +131,7 @@ def stages(net):
 def test_rev_replay_in_f32_equals_plain(case, n):
     net = sdf_net(**(FLAGSHIP if case == "flagship" else NARROW))
     x = eikonal_points(n, n)
-    k = layout(net)
+    k = stages(net)
     ws, bs = bf16_leaves(*flat_weights(net))
     out_ref, grad_ref = rev.rev_plain(net.cfg, ws, bs, x)
     c_out, c_g = loss_cotangents(out_ref, grad_ref, seed=n)
@@ -148,7 +140,7 @@ def test_rev_replay_in_f32_equals_plain(case, n):
         torch.testing.assert_close(g, r.detach(), rtol=0,
                                    atol=1e-5 * float(r.detach().abs().max()),
                                    msg=name)
-    got = [t for grp in emulate_rev_bwd(stages(net), x, c_out, c_g,
+    got = [t for grp in emulate_rev_bwd(k, x, c_out, c_g,
                                         rnd=lambda t: t) for t in grp]
     ref = plain_vjp(net.cfg, ws, bs, x, c_out, c_g)
     assert [g.shape for g in got] == [r.shape for r in ref]
@@ -161,7 +153,7 @@ def test_rev_replay_in_f32_equals_plain(case, n):
 def test_rev_replay_with_its_rounding_meets_the_kernel_tolerance():
     net = sdf_net(**FLAGSHIP)
     x = eikonal_points(1024, 5)
-    k = layout(net)
+    k = stages(net)
     ws, bs = flat_weights(net)
     out_ref, grad_ref = rev.rev_plain(net.cfg, ws, bs, x)
     out, grad = emulate_rev_fwd(k, x)
@@ -172,25 +164,25 @@ def test_rev_replay_with_its_rounding_meets_the_kernel_tolerance():
     torch.testing.assert_close(grad, grad_ref.detach(), atol=0.05, rtol=0.08)
     c_out, c_g = loss_cotangents(out_ref, grad_ref)
     assert c_out.abs().max() > 0 and c_g.abs().max() > 0
-    got = [t for grp in emulate_rev_bwd(stages(net), x, c_out, c_g)
-           for t in grp]
+    got = [t for grp in emulate_rev_bwd(k, x, c_out, c_g) for t in grp]
     grad_check(got, plain_vjp(net.cfg, ws, bs, x, c_out, c_g))
 
 
 def test_rev_layout_and_plan():
-    """K5's pack in the net's own column order within the card's 227 KB;
-    K6's pack (`RevStages`) the same bits as packing its layers stage by
-    stage, and its plan K4's without radiance or light items: the
-    forward's weight stages stop at the last hidden layer, the stash
-    comes back as K4's does, one weight gradient a layer."""
+    """`RevStages`, K5's and K6's one pack: the same bits as packing its
+    layers stage by stage (the transposed chain down to layer 0, K6's
+    rows its first n-1). K6's plan is K4's without radiance or light
+    items: the forward's weight stages stop at the last hidden layer, the
+    stash comes back as K4's does, one weight gradient a layer. K5's plan
+    (`K5Plan`) takes every stage of the forward chain (the hidden layers,
+    layer 0's twice for the encoding's hi/lo pair, its K 64 more than the
+    chain's, the sdf alone, the features) and of the transposed chain but
+    its output layer's, stages and loads back one q tile a hidden layer
+    after one wait, and stores nothing else; the sweeps' shared memory
+    (`SweepCtx::kSmemBytes`, csrc/wgmma_sweep.cuh, with sdf_sweep.cuh's
+    `kRest`) fits the card's 227 KB."""
     from test_torch_bwd_replay import _check_plan
     net = sdf_net(**FLAGSHIP)
-    k = layout(net)
-    assert k.out_cols == 257 and k.n_sdf == 9 and k.rev.n_layers == 8
-    W_last = net.layers()[-1].weight().detach()
-    torch.testing.assert_close(
-        k.wsdf_col[:256], W_last[:, 0].to(torch.bfloat16).float())
-    assert rev.fwd_smem(k) <= 232448
     ws, bs = flat_weights(net)
     k6 = stages(net)
     with torch.no_grad():
@@ -199,15 +191,18 @@ def test_rev_layout_and_plan():
                 (k6.sdf, mma_pack.pack_stage_chain(
                     render_core.core_sdf_layers(net.cfg, wd, bd))),
                 (k6.t, mma_pack.pack_stage_chain(
-                    render_core.t_sdf_layers(net.cfg, wd)))):
+                    render_core.t_sdf_layers(net.cfg, wd, first=True)))):
             assert torch.equal(got.weights, want.weights)
             assert torch.equal(got.biases, want.biases)
             assert (got.plan == want.plan).all()
+    W_last = net.layers()[-1].weight().detach()
     torch.testing.assert_close(k6.wsdf[:256],
                                W_last[:, 0].to(torch.bfloat16).float())
     assert not k6.wsdf[256:].any()
     ns = k6.n_sdf
-    assert (ns, k6.sdf.n_layers, k6.tsdf.shape[0]) == (9, 10, 8)
+    assert (ns, k6.sdf.n_layers, k6.t.n_layers) == (9, 10, 9)
+    assert (k6.tsdf == k6.t.plan[:ns - 1]).all()
+    assert list(k6.t.plan[ns - 1, [0, 1, 2, 5, 6]]) == [256, 64, 0, 0, 0]
     plan = rev.plan_for(k6, 4800)
     assert plan.blocks == 75 and plan is rev.plan_for(k6, 4800)
     _check_plan(plan, k6, k6)
@@ -222,6 +217,101 @@ def test_rev_layout_and_plan():
         (ns - 1) + 2 * (ns - 2) + (ns - 1))
     assert len(plan.jobs) == ns and plan.dims[ns - 1] == (256, 257)
     assert plan.tb == sum(N for _, N in plan.dims)
+    # K5: the stash q in f32, two slots a hidden layer
+    p5 = rev.k5_plan_for(k6, 4800)
+    assert p5.blocks == 75 and p5 is rev.k5_plan_for(k6, 4800)
+    kinds = [int(it[0]) & 255 for it in p5.script]
+    bases = [int(it[0]) >> 8 for it in p5.script]
+    loads = lambda base: sum(1 for k, b in zip(kinds, bases)  # noqa: E731
+                             if k == render_core._LOAD and b == base)
+    assert loads(render_core._B_SDF) == chunks(fwd) + chunks(fwd[:1])
+    assert p5.fwd[0, 0] == fwd[0, 0] + 64 and (p5.fwd[0, 1:] == fwd[0, 1:]).all()
+    assert (p5.fwd[1:] == fwd[1:]).all()
+    sdf_items = [tuple(it) for it in p5.script
+                 if it[0] == render_core._LOAD | render_core._B_SDF << 8]
+    assert sdf_items[0] == sdf_items[1] == tuple(
+        render_core.weight_items(render_core._B_SDF, fwd[0])[0])
+    assert loads(render_core._B_T) == chunks(k6.t.plan[1:])
+    assert loads(render_core._B_SCRATCH) == 2 * (ns - 1)
+    assert kinds.count(render_core._STAGE) == 2 * (ns - 1)
+    assert kinds.count(render_core._WAIT) == 1
+    first_q = next(i for i, (k, b) in enumerate(zip(kinds, bases))
+                   if k == render_core._LOAD and b == render_core._B_SCRATCH)
+    assert kinds.index(render_core._WAIT) + 1 == first_q
+    assert p5.scratch_bytes == 75 * (ns - 1) * 2 * 32768
+    used = [(kind, l) for kind, rows in enumerate(p5.regions)
+            for l, (_, stride) in enumerate(rows) if stride]
+    assert used == [(render_core.REG_Q, l) for l in range(ns - 1)]
+    # 1024 (alignment) + T (5 chunks) + the ring (5 slots, 10 barriers) +
+    # 16 + (kRest = 64 x (3 + kPeStride) + 4 x 320 column sums) floats
+    assert 1024 + 5 * 8192 + 5 * 32768 + 80 + 16 + 4 * (
+        64 * (3 + 65) + 4 * 320) <= 232448
+
+
+def test_k5_replay_runs_k6s_forward():
+    """K5's forward is K6's but for layer 0, which K5 takes on the
+    encoding's hi/lo pair: with the low half's product left out
+    (`pe_lo`), K5's replayed hidden activations are bit-equal to those
+    `RevReplay` recomputes for K6 from the same pack and its f32 stash q
+    rounds to K6's bf16 one; with it, layer 0's stash is nearer the one
+    of the f32 encoding on the same bf16 weights."""
+    net = sdf_net(**NARROW)
+    x = eikonal_points(70, 3)
+    k = stages(net)
+    c_out, c_g = torch.randn((70, 17)), torch.randn((70, 3))
+    with torch.no_grad():
+        r5 = K5Replay(k, rev.K5Plan(k, 70), x, bf)
+        r5.pe_lo = False
+        r5lo = K5Replay(k, rev.K5Plan(k, 70), x, bf)
+        r6 = RevReplay(k, render_core.K4Plan(k, k, 70, False), x, c_out,
+                       c_g, bf)
+        for r in (r5, r5lo, r6):
+            r.hidden = []
+            r.run()
+    assert len(r5.hidden) == len(r6.hidden) == k.n_sdf - 1
+    for a, b in zip(r5.hidden, r6.hidden):
+        assert torch.equal(a, b)
+    assert not torch.equal(r5lo.hidden[0], r5.hidden[0])
+    fwd = k.sdf.plan
+    rows = torch.arange(64)[:, None]
+
+    def q_of(r, l, f32=True):
+        cols = torch.arange(int(fwd[l, 1]))[None, :]
+        idx = f32_idx(rows, cols) if f32 else act_off(rows, cols) // 2
+        return r.scr[r.plan.regions[render_core.REG_Q][l][0]][:, idx.flatten()]
+
+    for l in range(k.n_sdf - 1):
+        assert torch.equal(bf(q_of(r5, l)), q_of(r6, l, f32=False))
+    w0, b0 = (t.detach() for t in (net.layers()[0].weight(),
+                                    net.layers()[0].b))
+    q0 = stash_q(pe_cols(x, k.mx, w0.shape[0]) @ bf(w0) + b0)
+    err = [float((q_of(r, 0).view(-1, int(fwd[0, 1]))[:70] - q0).abs()
+                 .mean()) for r in (r5, r5lo)]
+    assert err[1] < 0.25 * err[0], err
+
+
+def test_k5_replay_matches_pallas_interpret():
+    """K5's bf16 replay against the JAX package's rev forward
+    (`get_rev_op`'s `pallas_call` in interpret mode) on the same weights
+    and points (the narrow net, `test_torch_parity_rev.SMALL`'s shapes),
+    at `tests/test_torch_parity_rev.py`'s tolerances (sdf 0.02, features
+    0.05, grad 0.05 / rtol 0.08)."""
+    import jax.numpy as jnp
+    from i2sdf_tpu.ops.pallas.fused_rev import get_rev_op
+    from test_torch_parity_rev import SMALL
+    net = sdf_net(**NARROW)
+    x = eikonal_points(96, 11)
+    ws, bs = (tuple(jnp.asarray(t.detach().numpy()) for t in ts)
+              for ts in flat_weights(net))
+    out_k, grad_k = get_rev_op(SMALL, 96, True)(ws, bs, jnp.asarray(
+        x.numpy()))
+    out, grad = emulate_rev_fwd(stages(net), x)
+    for name, a, b, (atol, rtol) in (
+            ("sdf", out[:, :1], np.asarray(out_k)[:, :1], (0.02, 0.02)),
+            ("feat", out[:, 1:], np.asarray(out_k)[:, 1:], (0.05, 0.05)),
+            ("grad", grad, np.asarray(grad_k), (0.05, 0.08))):
+        np.testing.assert_allclose(a.numpy(), b, atol=atol, rtol=rtol,
+                                   err_msg=name)
 
 
 def test_rev_op_on_cpu_is_the_plain_version_clamped():
@@ -238,9 +328,9 @@ def test_rev_op_on_cpu_is_the_plain_version_clamped():
     torch.testing.assert_close(grad[take], -x[take] / torch.linalg.norm(
         x[take], dim=-1, keepdim=True))
     torch.testing.assert_close(grad[~take], g0[~take])
-    k, k6 = layout(net), stages(net)
+    k = stages(net)
     for call in (lambda: rev.rev_fwd(k, x),
-                 lambda: rev.rev_bwd(k6, x, torch.zeros(60, 17),
+                 lambda: rev.rev_bwd(k, x, torch.zeros(60, 17),
                                      torch.zeros(60, 3))):
         with pytest.raises(ValueError):
             call()

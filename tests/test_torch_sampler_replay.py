@@ -1,6 +1,8 @@
 """K2 (`csrc/sampler_round.cu`) replayed in f32 torch in the kernel's own
 order, and held to the plain round (`models/sampler.round_update`) and to
-the JAX package's Pallas kernel (`sampler_round_pallas`, interpret mode).
+the JAX package's Pallas kernel (`sampler_round_pallas`, interpret mode);
+K7 (`csrc/conv_check.cu`) replayed as K2's beta0 evaluation alone
+(`replay_conv`), and held to K2's decision and to `converged_rays`.
 
 `replay_round` follows the kernel's group of 128 threads a ray: each
 thread's E = ceil(S / 128) consecutive samples, its sequential f32 sums,
@@ -74,8 +76,13 @@ def group_sum(v):
     return s
 
 
-def replay_round(z, sdf, beta, beta0, u, final, cfg=CFG):
-    """(samples (R, n_out), beta (R,), cdf (R, S)) as K2 computes them."""
+def replay_sections(z, sdf):
+    """K2's (and K7's) `Sections` of each ray: (sec, E, pad, prefixes,
+    bound), thread t of the group holding samples [t E, t E + E) (`sec`
+    (128, E): which are sections); `prefixes(bt)` each thread's free-energy
+    and d*-term prefixes with the group's offsets, and `bound(bt)` the
+    group's max over the sections of the error bound (`error_bound`), at
+    (R,) betas."""
     R, S = z.shape
     E = -(-S // THREADS)
     pad = THREADS * E + 1
@@ -128,6 +135,20 @@ def replay_round(z, sdf, beta, beta0, u, final, cfg=CFG):
         m = torch.where(sec, m, torch.full_like(m, -torch.inf))
         return m.amax((-1, -2))
 
+    return sec, E, pad, prefixes, bound
+
+
+def replay_conv(z, sdf, beta0, cfg=CFG):
+    """K7's flags (R,) as the kernel computes them: K2's beta0 evaluation
+    alone (`error_bound(q, beta0) <= eps`)."""
+    *_, bound = replay_sections(z, sdf)
+    return bound(beta0.expand(z.shape[0])) <= cfg.eps
+
+
+def replay_round(z, sdf, beta, beta0, u, final, cfg=CFG):
+    """(samples (R, n_out), beta (R,), cdf (R, S)) as K2 computes them."""
+    R, S = z.shape
+    sec, E, pad, prefixes, bound = replay_sections(z, sdf)
     beta = torch.where(bound(beta0.expand(R)) <= cfg.eps, beta0, beta)
     lo, hi = beta0.expand(R), beta
     for _ in range(cfg.beta_iters):
@@ -244,3 +265,40 @@ def test_group_scan_and_sums():
                                atol=1e-6)
     torch.testing.assert_close(group_sum(v).double(), v.double().sum(-1),
                                rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("S", [416, 480])
+def test_k7_replay_is_k2s_beta0_decision(S):
+    """K7 replayed as K2's beta0 evaluation (`replay_conv`): its flag is
+    K2's replayed decision to keep beta0 (beta out == beta0 from a beta in
+    above it) on every ray, and it agrees with the plain check
+    (`converged_rays`) and with the f64 bound wherever the f64 bound is
+    more than 1e-4 relative from eps, fewer than 1 % of the rays lying in
+    that band; both flags appear."""
+    R = 64
+    rng = np.random.default_rng(S)
+    z64 = torch.from_numpy(np.sort(rng.uniform(0.0, 6.0, (R, S)), -1))
+    s64 = ((torch.from_numpy(rng.uniform(1.0, 8.0, (R, 1))) - z64)
+           * torch.from_numpy(rng.uniform(0.3, 1.0, (R, 1)))
+           + torch.from_numpy(rng.uniform(0.0, 0.05, (R, 1))
+                              * rng.normal(size=(R, S))))
+    z, sdf = z64.float(), s64.float()
+    u = torch.linspace(0, 1, 8).expand(R, 8).contiguous()
+    in_band, seen = 0, set()
+    for b0 in (0.02, 0.05, 0.2):
+        beta0 = torch.tensor(b0)
+        flags = replay_conv(z, sdf, beta0)
+        _, b, _ = replay_round(z, sdf, torch.full((R,), 1.0), beta0, u,
+                               False)
+        assert torch.equal(flags, b == beta0)
+        d_star, dists = tsampler._d_star(z64, s64)
+        bound = tsampler._error_bound(torch.tensor(b0, dtype=torch.float64),
+                                      s64, dists, d_star)
+        outside = (bound - CFG.eps).abs() > 1e-4 * CFG.eps
+        plain = tsampler.converged_rays(CFG, z, sdf, beta0)
+        assert bool(((flags == plain) | ~outside).all())
+        assert bool(((flags == (bound <= CFG.eps)) | ~outside).all())
+        in_band += int((~outside).sum())
+        seen |= set(flags.tolist())
+    assert in_band < 0.01 * 3 * R
+    assert seen == {True, False}
