@@ -29,11 +29,15 @@ Phases, each printed as one JSON line with its wall time:
    the card's tensors), twice to the same bits, with padding rows that
    change no real row of K5's output and zero-cotangent rows that add
    nothing to K6's (`check_rev`),
-   and K10 at the first eval chunk's 1,164,000 sample points,
-   K11 and K12 at the normal-off step's 4,800 eikonal points and at
-   155,200, each at the init's weights and at weights perturbed by 0.01
-   N(0, 1), where three tangent faults planted in the plain op must fail
-   the same check, K11 also against K5 and K12 against K6; K1 also at
+   K10 at the first eval chunk's 1,164,000 sample points (both sides of
+   the bounding-sphere clamp) at the init's weights, at weights perturbed
+   by 0.01 N(0, 1) and on perturbed nets of seven and five hidden layers,
+   against its bf16 replay and at block-edge counts to the full run's
+   bits (`check_sdf_outputs`), K11 and K12 at the normal-off step's 4,800
+   eikonal points and at 155,200, each at the init's and the perturbed
+   weights, where three tangent faults planted in the plain op must fail
+   the same check, K11 also against K5 and K12 (K6 under its own name)
+   against K6 bit for bit; K1 also at
    weights perturbed by 0.01 N(0, 1) against the f32 plain version, K3
    and K3-light also at perturbed weights and on nets with one SDF
    hidden layer fewer (an odd count, `odd_nets`) against the plain
@@ -45,13 +49,14 @@ Phases, each printed as one JSON line with its wall time:
    backward, and twice to the same bits; each with the stated tolerance;
    kernel, plain and library-yardstick times by CUDA events, K1's and
    K3's L2 weight traffic as modelled from the pack
-   (`l2_weight_gb_model`: blocks x stage-image bytes, not a reading), K3's
-   tangent-design work (`design_macs`), K4's, K5's and K6's scratch
-   (`staging_gb`), the profiler's device time of K2, K5, K6 and K7
-   (`device_ms`), K2's and K7's bounds with the exponentials on the SFU
-   (`bound_f32`), and K2's, K4's, K5's, K6's and K7's kernels' registers,
-   spills, HGMMA, MUFU and bulk copies (`scripts/kernel_resources.py`,
-   started beside the checks);
+   (`l2_weight_gb_model`: blocks x stage-image bytes, not a reading), K3's,
+   K10's, K11's and K12's design work (`design_macs`) beside the
+   function's least work that their bounds count (`macs`), K4's, K5's,
+   K6's and K12's scratch (`staging_gb`), the profiler's device time of
+   K2, K5, K6, K7, K10 and K12 (`device_ms`), K2's and K7's bounds with
+   the exponentials on the SFU (`bound_f32`), and K2's, K4's, K5's, K6's,
+   K7's and K10's kernels' registers, spills, HGMMA, MUFU and bulk copies
+   (`scripts/kernel_resources.py`, started beside the checks);
 4. sdf_outputs (the path of K10-K12, whose JAX counterparts only the JAX
    package's public kernel API reaches): `fused_sdf_outputs` under no_grad
    over the first eval chunk's sample points, and `sdf_outputs_fused_grad`
@@ -312,6 +317,9 @@ SLICE_PSNR_BAR_DB = 30.0
 # edges (K1 128 points a block, two warpgroups of 64; K3 32)
 EDGE_COUNTS = (1, 31, 33, 127, 129, 4097)
 K1_POINTS, K3_POINTS = 128, 32
+# K10 is checked at these counts too: both sides of its blocks' edges (32
+# points a block, K3's) and one count that is not a multiple of 32
+K10_EDGE_COUNTS = (1, 31, 32, 33, 4097)
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -1208,12 +1216,6 @@ def k6_macs(icfg) -> int:
             + sum(sd[1:]) + 2 * sum(sd))
 
 
-def staging_gb(plan) -> float:
-    """The device memory (GB) a weight-gradient kernel's scratch plan
-    takes: its bf16 and f32 buffers."""
-    return (2 * plan.n16 + 4 * plan.n32) / 1e9
-
-
 def eikonal_batch(cfg, conf, device, seed):
     """One training step's 4,800 eikonal points as `render_rays_train` makes
     them: a third uniform in the scene's cube, a third at a depth drawn
@@ -1503,23 +1505,13 @@ def check_rev(model, cfg, conf, device, resources=None) -> list[dict]:
 
 # ---- K10-K12: the tangent-stream ops (fused_outputs.py, fused_grad.py) -----
 
-def k10_macs(icfg) -> int:
-    """K10 and K11 per point: the forward with the full head, and three
-    tangent streams through the hidden layers and the head's sdf column."""
-    sd = sdf_layer_macs(icfg)
-    return sum(sd) + 3 * (sum(sd[:-1]) + icfg.layer_dims()[-2])
-
-
-def k12_macs(icfg) -> int:
-    """K12 per point: four streams through the hidden layers in the
-    tangent sweep, the reverse sweep (layers n-2 .. 1 transposed) and the
-    hidden layers' weight-gradient products; in the output layer, whose
-    tangent rows' cotangent is c_g[k] in the sdf column alone, the primal
-    row plus a rank-3 term of that column, both in its transposed product
-    and in its weight-gradient product."""
-    sd = sdf_layer_macs(icfg)
-    out = sd[-1] + 3 * icfg.layer_dims()[-2]
-    return 4 * (2 * sum(sd[:-1]) + sum(sd[1:-1])) + 2 * out
+def tangent_design_macs(icfg) -> int:
+    """Multiply-adds a point of the tangent form (K10's and K11's design):
+    four streams through the hidden layers, the features on the primal
+    row, the sdf column on all four (K10's t_x rows that ride along in
+    the features' m64 tile not counted, as in K3's `k3_design_macs`)."""
+    d = icfg.layer_dims()
+    return 4 * hidden_macs(icfg) + d[-2] * (d[-1] - 1) + 4 * d[-2]
 
 
 def perturbed_net(net, seed):
@@ -1587,24 +1579,37 @@ def fault_vjp(net, x, c_out, c_g, fault):
     return total
 
 
+def took_sphere(icfg, x, out) -> torch.Tensor:
+    """The points where (sdf, feat, grad) `out` took the bounding sphere's
+    branch of the clamp: the sdf the sphere's and the gradient the
+    sphere's (the sdf alone can sit within a rounding of the sphere on
+    the net's branch)."""
+    norm = torch.linalg.norm(x, dim=-1)
+    sphere = icfg.sphere_scale * (icfg.sdf_bounding_sphere - norm)
+    grad = -icfg.sphere_scale * x / torch.clamp(norm, min=1e-12)[:, None]
+    return (((out[0][:, 0] - sphere).abs() < 1e-5)
+            & ((out[2] - grad).abs().amax(-1) < 1e-5))
+
+
 def tangent_check(got, ref, x, icfg, clamped: bool,
                   where: bool = False) -> tuple[dict, bool]:
     """(sdf, feat, grad) of a tangent kernel against the plain op's, by
     the JAX package's bounds for its tangent kernels (TAN_TOLS, and the
     gradient's cosine > TAN_COS_TOL at each point where the plain
     gradient's norm is at least TAN_COS_MIN_NORM; `cos_min_all` is over
-    every point). For `clamped` outputs (K10)
-    with a bounding sphere, the points where the two took different sides
-    (next to the sphere, where the kernel's bf16 sdf may pick the other)
-    are left out; at most 1% may be. `points_past` counts the points past
-    a bound; with `where`, `past_x` lists the first 64 of them (x, y, z
-    and the bound each fails), so that another kernel can be run there."""
+    every point). For `clamped` outputs (K10) with a bounding sphere,
+    the points where the two took different branches of the clamp
+    (`took_sphere`: next to the sphere the kernel's bf16 sdf may pick the
+    other) are left out; at most 1% may be. `points_past` counts the
+    points past a bound; with `where`, `past_x` lists the first 64 of
+    them (x, y, z and the bound each fails), so that another kernel can be
+    run there."""
     agree = torch.ones_like(ref[0][:, 0], dtype=torch.bool)
     if clamped and icfg.sdf_bounding_sphere > 0:
-        sphere = icfg.sphere_scale * (icfg.sdf_bounding_sphere
-                                      - torch.linalg.norm(x, dim=-1))
-        agree = (((got[0][:, 0] - sphere).abs() < 1e-5)
-                 == ((ref[0][:, 0] - sphere).abs() < 1e-5))
+        agree = took_sphere(icfg, x, got) == took_sphere(icfg, x, ref)
+    if not bool(agree.any()):  # every point on the other branch
+        return dict(errs={k: None for k in TAN_TOLS}, sphere_agree=0.0,
+                    points_past=len(agree)), False
     got = [t[agree] for t in got]
     ref = [t.detach()[agree] for t in ref]
     g, gr = got[2], ref[2]
@@ -1618,7 +1623,8 @@ def tangent_check(got, ref, x, icfg, clamped: bool,
             for k, a, b in zip(TAN_TOLS, got, ref)}
     past["cos"] = held & (cos <= TAN_COS_TOL)
     any_past = torch.stack(list(past.values())).any(0)
-    fields = dict(errs=errs, cos_min=float(cos[held].min()),
+    fields = dict(errs=errs,
+                  cos_min=float(cos[held].min()) if held.any() else 1.0,
                   cos_held=float(held.float().mean()),
                   cos_min_all=float(cos.min()),
                   sphere_agree=float(agree.float().mean()),
@@ -1635,66 +1641,157 @@ def tangent_check(got, ref, x, icfg, clamped: bool,
     return fields, ok
 
 
-def check_sdf_outputs(model, cfg, conf, device) -> list[dict]:
-    """K10 at the first eval chunk's 1,164,000 sample points
-    (`eval_chunk_points`), at the init's weights and at perturbed weights,
-    against the plain op (`sdf_outputs_plain`, the tangent sweep in f32);
-    at the perturbed weights against the plain op at the weights rounded to
-    bf16 (there the JAX package's own kernel, too, lands past the bound
-    against f32 at a few points:
-    tests/test_torch_parity_sdf_grad.py::
-    test_pallas_op_is_past_the_f32_bound_at_perturbed_weights; the f32
-    comparison is reported as `vs_f32`, with the points past it), and each
-    planted tangent fault in the plain op must fail the same check."""
+def k10_nets(model, cfg, device) -> dict:
+    """K10's nets: the model's SDF net at the init (no bounding sphere:
+    the renderer's nets take none), perturbed (`perturbed_net`, seed
+    SEED + 10), and perturbed nets of odd depth: K3's (`odd_nets`, seven
+    hidden layers) and one of five (the light config's odd depth; a fault
+    that exchanges two tangent streams at every layer cancels over an
+    even depth). The perturbed net and K3's odd one are clamped to the
+    scene's bounding sphere (`scene_bounding_sphere`, radius 3: about a
+    third of the eval chunk's points lie past it)."""
+    icfg = dataclasses.replace(cfg.implicit, dims=cfg.implicit.dims[:5])
+    gen = torch.Generator().manual_seed(SEED + 30)
+    nets = {"init": model.implicit,
+            "perturbed": perturbed_net(model.implicit, SEED + 10),
+            "odd": odd_nets(cfg, device, SEED + 20)[0],
+            "odd5": perturbed_net(mlp.ImplicitNet(icfg, gen).to(device),
+                                  SEED + 31)}
+    for label in ("perturbed", "odd"):  # new nets: their own configs
+        nets[label].cfg = dataclasses.replace(
+            nets[label].cfg, sdf_bounding_sphere=cfg.scene_bounding_sphere)
+    return nets
+
+
+def sphere_share(net, x, out) -> float:
+    """The share of the points where the clamped (sdf, feat, grad) `out`
+    took the bounding sphere (`took_sphere`; 0 without one)."""
+    if net.cfg.sdf_bounding_sphere <= 0:
+        return 0.0
+    return float(took_sphere(net.cfg, x, out).float().mean())
+
+
+def k10_sass(resources) -> dict | None:
+    """K10's kernel's ptxas and SASS counts."""
+    if resources is None:
+        return None
+    rows = resources.get()
+    return {"sdf_outputs_kernel": next(v for k, v in rows.items()
+                                       if "sdf_outputs_kernel" in k)}
+
+
+def check_sdf_outputs(model, cfg, conf, device,
+                      resources=None) -> list[dict]:
+    """K10 (K3's wgmma tangent form on the SDF net, `OutputStages`) at the
+    first eval chunk's 1,164,000 sample points (`eval_chunk_points`), the
+    bounding sphere, where a net has one, below the net's sdf at a share
+    of them and above it at the rest (both sides of the clamp;
+    `sphere_share`), at the nets of `k10_nets`: against the plain op
+    (`sdf_outputs_plain`, the tangent sweep in f32) at the init, and at
+    the plain op at the weights rounded
+    to bf16 at the perturbed and odd-depth nets, as K3 is (the JAX
+    package's own K3 is past the f32 bound at 12 of these points there,
+    `scripts/witness_perturbed.py`; the f32 reading is reported as
+    `vs_f32`, with the points past it); against its bf16 replay
+    (`replay.emulate_sdf_outputs`, on the card's tensors) at the same
+    bounds and at `REPLAY_GATE`; the first n points for n in
+    K10_EDGE_COUNTS, inside the same bounds and equal to the full run's
+    rows bit for bit, and a rerun to the same bits; at the perturbed net
+    each planted tangent fault in the plain op must fail the check. Timed
+    at the init's net on its pack."""
     icfg = cfg.implicit
     x, _ = eval_chunk_points(cfg, conf, device)
     n = x.shape[0]
-    rows = []
-    for label, net in (("init", model.implicit),
-                       ("perturbed", perturbed_net(model.implicit,
-                                                   SEED + 10))):
+    fields, ok = {}, True
+    for label, net in k10_nets(model, cfg, device).items():
         with torch.no_grad():
-            got = sdf_outputs.fused_sdf_outputs(net, x)
+            k = sdf_outputs.OutputStages(net.cfg, *net_weights(net))
+            got = sdf_outputs.sdf_outputs_fwd(k, net.cfg, x)
             torch.cuda.synchronize()
-            ref = sdf_outputs.sdf_outputs_plain(net, x)
-            vs_f32 = None
+            f32 = sdf_outputs.sdf_outputs_plain(net, x)
+            ref = (f32 if label == "init"
+                   else sweep_outputs(net, x, True, bf16w=True))
+            f, ok_p = tangent_check(got, ref, x, net.cfg, True)
+            if label != "init":
+                f["vs_f32"] = tangent_check(got, f32, x, net.cfg, True,
+                                            True)[0]
+            del f32
+            # with a sphere, both sides of the clamp are taken
+            f["sphere_share"] = sphere_share(net, x, ref)
+            ok_p = ok_p and (0.0 < f["sphere_share"] < 1.0
+                             if net.cfg.sdf_bounding_sphere > 0
+                             else f["sphere_share"] == 0.0)
+            rep = replay.emulate_sdf_outputs(k, net.cfg, x)
+            rf, ok_r = tangent_check(got, rep, x, net.cfg, True)
+            rf["past_gap"] = replay_gaps(
+                (torch.cat(got[:2], 1), got[2]),
+                (torch.cat(rep[:2], 1), rep[2]))
+            ok_r = ok_r and replay_ok(rf["past_gap"], n)
+            f["replay"] = rf
+            del rep
+            edges, same = {}, True
+            for m in K10_EDGE_COUNTS:
+                e = sdf_outputs.sdf_outputs_fwd(k, net.cfg,
+                                                x[:m].contiguous())
+                ef, ok_e = tangent_check(e, [t[:m] for t in ref], x[:m],
+                                         net.cfg, True)
+                same = same and all(torch.equal(a, b[:m])
+                                    for a, b in zip(e, got))
+                edges[m] = ef["errs"]
+                ok_p = ok_p and ok_e
+            rerun = all(torch.equal(a, b) for a, b in zip(
+                got, sdf_outputs.sdf_outputs_fwd(k, net.cfg, x)))
+            f.update(edges=edges, edges_bitwise=same, bitwise_rerun=rerun)
             if label == "perturbed":
-                vs_f32 = tangent_check(got, ref, x, icfg, True, True)[0]
-                ref = sweep_outputs(net, x, True, bf16w=True)
-            fields, ok = tangent_check(got, ref, x, icfg, True)
-            fields["vs_f32"] = vs_f32
-            if label == "perturbed":
-                bad = {f: tangent_check(sweep_outputs(net, x, True, f), ref,
-                                        x, icfg, True)
-                       for f in tangent_faults(icfg, x[:1])}
-                fields["fault_errs"] = {f: v[0] for f, v in bad.items()}
-                fields["faults_caught"] = not any(v[1] for v in bad.values())
-                ok = ok and fields["faults_caught"]
-            ws, _ = net_weights(net)
-            n_w = sum(w.numel() for w in ws)
-            b_ms, b_by = bound(2.0 * k10_macs(icfg) * n,
-                               n * (12 + 4 * icfg.layer_dims()[-1] + 12)
-                               + 2 * n_w, PEAK_BF16)
-
-            def library():
-                with torch.autocast("cuda", dtype=torch.bfloat16):
-                    sdf_outputs.sdf_outputs_plain(net, x)
-
-            rows.append(dict(
-                name="sdf_outputs", route="cuda",
-                source="i2sdf_tpu_torch/csrc/sdf_outputs.cu",
-                replaces="i2sdf_tpu/ops/pallas/fused_outputs.py:95",
-                weights=label, shape=[n, 3],
-                max_abs_err=max(fields["errs"].values()), **fields,
-                tolerances=TAN_TOLS, cos_tol=TAN_COS_TOL,
-                ms=time_ms(lambda: sdf_outputs.fused_sdf_outputs(net, x), 5),
-                plain_ms=time_ms(lambda: sdf_outputs.sdf_outputs_plain(net,
-                                                                       x), 2),
-                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 2)))
-        emit_row(rows[-1], ok)
-        del got, ref
+                bad = {fl: tangent_check(sweep_outputs(net, x, True, fl),
+                                         ref, x, net.cfg, True)
+                       for fl in tangent_faults(icfg, x[:1])}
+                f["fault_errs"] = {fl: v[0] for fl, v in bad.items()}
+                f["faults_caught"] = not any(v[1] for v in bad.values())
+                ok_p = ok_p and f["faults_caught"]
+            ok = ok and ok_p and ok_r and same and rerun
+            fields[label] = f
+            if label == "init":
+                k0 = k
+            del got, ref
         torch.cuda.empty_cache()
-    return rows
+    net = model.implicit
+    ws, _ = net_weights(net)
+    n_w = sum(w.numel() for w in ws)
+    # the function's least work: K5's (the forward with the full head,
+    # the reverse sweep through the hidden layers transposed)
+    macs = k5_macs(icfg)
+    b_ms, b_by = bound(2.0 * macs * n,
+                       n * (12 + 4 * icfg.layer_dims()[-1] + 12) + 2 * n_w,
+                       PEAK_BF16)
+
+    def k10():
+        with torch.no_grad():
+            sdf_outputs.sdf_outputs_fwd(k0, icfg, x)
+
+    def library():
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            sdf_outputs.sdf_outputs_plain(net, x)
+
+    with torch.no_grad():
+        row = dict(
+            name="sdf_outputs", route="cuda",
+            source="i2sdf_tpu_torch/csrc/sdf_outputs.cu",
+            replaces="i2sdf_tpu/ops/pallas/fused_outputs.py:95",
+            shape=[n, 3], max_abs_err=max(fields["init"]["errs"].values()),
+            **fields["init"], perturbed=fields["perturbed"],
+            odd=fields["odd"], odd5=fields["odd5"], tolerances=TAN_TOLS,
+            cos_tol=TAN_COS_TOL, sass=k10_sass(resources), macs=macs,
+            design_macs=tangent_design_macs(icfg),
+            l2_weight_gb_model=math.ceil(n / K3_POINTS) * 2
+            * k0.sdf.weights.numel() / 1e9,
+            ms=time_ms(k10, 5),
+            device_ms=device_ms(k10, 5, "sdf_outputs_kernel"),
+            plain_ms=time_ms(lambda: sdf_outputs.sdf_outputs_plain(net, x),
+                             2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 2))
+    emit_row(row, ok)
+    return [row]
 
 
 def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
@@ -1702,15 +1799,17 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
     and at 155,200 points, at the init's weights and at perturbed weights,
     against the plain op (`sdf_grad_plain`: f32 autograd with
     create_graph), K11 at the perturbed weights against the plain sweep at
-    the weights rounded to bf16 as K10 is (the f32 comparison reported as
+    the weights rounded to bf16 as K3 is (the f32 comparison reported as
     `vs_f32`), K12 with the cotangents of the JAX package's kernel-test
     loss (`rev_cotangents`) and with their c_g alone; at the perturbed
     weights each planted tangent fault in the plain op must fail the same
     check (K12's with c_g alone). Each row also holds
     K11 against K5 (at the perturbed weights past the bounds at no more
     points than against the f32 op: K5's layer 0 is the more exact) and
-    K12 against K6 on the same points, weights and cotangents, to the same
-    bounds."""
+    K12, which is K6 on its own pack (`sdf_grad.bwd_stages`), against K6
+    on another on the same points, weights and cotangents: bit for bit
+    (`vs_rev_bwd`). Both rows' bounds count the function's least work
+    (K5's and K6's), `design_macs` the design's own."""
     icfg = cfg.implicit
     rows = []
     nets = (("init", model.implicit),
@@ -1756,7 +1855,7 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
             fields["fault_errs"] = {f: v[0] for f, v in bad.items()}
             fields["faults_caught"] = not any(v[1] for v in bad.values())
             ok = ok and fields["faults_caught"]
-        b_ms, b_by = bound(2.0 * k10_macs(icfg) * n,
+        b_ms, b_by = bound(2.0 * k5_macs(icfg) * n,
                            n * (12 + 4 * k.out_cols + 12) + 2 * n_w,
                            PEAK_BF16)
 
@@ -1774,7 +1873,8 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
             replaces="i2sdf_tpu/ops/pallas/fused_grad.py:250",
             points=label, weights=wlabel, shape=[n, 3],
             max_abs_err=max(fields["errs"].values()), **fields,
-            tolerances=TAN_TOLS, cos_tol=TAN_COS_TOL, ms=time_ms(k11, 5),
+            tolerances=TAN_TOLS, cos_tol=TAN_COS_TOL, macs=k5_macs(icfg),
+            design_macs=tangent_design_macs(icfg), ms=time_ms(k11, 5),
             plain_ms=time_ms(lambda: sdf_grad.sdf_grad_plain(icfg, ws, bs,
                                                              x), 2),
             bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib11, 3)))
@@ -1792,23 +1892,24 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
             ws + bs)]
         del out_p, grad_p
         with torch.no_grad():
-            got = [t for g in sdf_grad.sdf_grad_bwd(k, x, c_out, c_g)
+            k12p = sdf_grad.bwd_stages(icfg, ws, bs)
+            got = [t for g in sdf_grad.sdf_grad_bwd(k12p, x, c_out, c_g)
                    for t in g]
-            again = [t for g in sdf_grad.sdf_grad_bwd(k, x, c_out, c_g)
+            again = [t for g in sdf_grad.sdf_grad_bwd(k12p, x, c_out, c_g)
                      for t in g]
-            got_g = [t for g in sdf_grad.sdf_grad_bwd(k, x, no_out, c_g)
+            got_g = [t for g in sdf_grad.sdf_grad_bwd(k12p, x, no_out, c_g)
                      for t in g]
             torch.cuda.synchronize()
-            got6 = flat(rev.rev_bwd(rev.RevStages(icfg, ws, bs), x, c_out,
-                                    c_g))
+            got6 = flat(rev.rev_bwd(kr, x, c_out, c_g))
         stable = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
         gerrs = grad_errors(got, ref)
-        vs_k6 = grad_errors(got, got6)
+        is_k6 = all(torch.equal(a, b) for a, b in zip(got, got6))
         only_g = grad_errors(got_g, ref_g)
-        ok = (grads_ok(gerrs) and grads_ok(vs_k6) and grads_ok(only_g)
-              and stable)
-        fields = dict(**gerrs, grad_cotangent_only=only_g, vs_rev_bwd=vs_k6,
+        ok = grads_ok(gerrs) and is_k6 and grads_ok(only_g) and stable
+        fields = dict(**gerrs, grad_cotangent_only=only_g,
+                      vs_rev_bwd=dict(grad_errors(got, got6),
+                                      bitwise=is_k6),
                       bit_stable=stable)
         if wlabel == "perturbed":
             bad = {f: grad_errors(fault_vjp(net, x, no_out, c_g, f), ref_g)
@@ -1818,13 +1919,13 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
                                               for e in bad.values())
             ok = ok and fields["faults_caught"]
         del got6, got_g, ref_g
-        b_ms, b_by = bound(2.0 * k12_macs(icfg) * n,
+        b_ms, b_by = bound(2.0 * k6_macs(icfg) * n,
                            n * (12 + 4 * k.out_cols + 12) + 2 * 2 * n_w
                            + 4 * n_p, PEAK_BF16)
 
         def k12():
             with torch.no_grad():
-                sdf_grad.sdf_grad_bwd(k, x, c_out, c_g)
+                sdf_grad.sdf_grad_bwd(k12p, x, c_out, c_g)
 
         def plain12():
             torch.autograd.grad(sdf_grad.sdf_grad_plain(icfg, ws, bs, x),
@@ -1841,14 +1942,16 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
             replaces="i2sdf_tpu/ops/pallas/fused_grad.py:250",
             points=label, weights=wlabel, shape=[n, 3],
             cotangents=[k.out_cols, 3],
-            staging_gb=staging_gb(sdf_grad.bwd_plan(k, n)),
+            staging_gb=k4_staging_gb(rev.plan_for(k12p, n)),
             max_abs_err=max(float((g - r).abs().max())
                             for g, r in zip(got, ref)),
             **fields, leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
-            ms=time_ms(k12, 5), plain_ms=time_ms(plain12, 2),
+            macs=k6_macs(icfg), design_macs=k6_macs(icfg),
+            ms=time_ms(k12, 5), device_ms=device_ms(k12, 5, K6_KERNELS),
+            plain_ms=time_ms(plain12, 2),
             bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib12, 2)))
         emit_row(rows[-1], ok)
-        del ref, got, c_out, c_g, k, kr
+        del ref, got, c_out, c_g, k, kr, k12p
         torch.cuda.empty_cache()
     return rows
 
@@ -2452,8 +2555,7 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     # K3 and K4 are each one kernel template (with the light head or
     # not); K4's, K6's and K9's products are `wgrad_kernel<4>`, `<6>` and
-    # `<9>`, their sums the `sum_kernel` K12 shares; the mma.sync products
-    # are K12's
+    # `<9>`, their sums `sum_kernel` (K12, which is K6, runs on no step)
     groups = {"K1 sdf_mlp": "sdf_mlp_kernel", "K2 sampler_round":
               "sampler_round",
               "K3 render_core_fwd": "render_core_kernel<false>",
@@ -2468,7 +2570,7 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
               "K8 bg_core_fwd": "bg_fwd_kernel",
               "K9 sweep": "bg_sweep_kernel",
               "K9 products": "wgrad_kernel<9>",
-              "K12 atb": "atb_kernel", "K4/K6/K9/K12 sum": "sum_kernel"}
+              "K4/K6/K9 sum": "sum_kernel"}
     by = {g: 0.0 for g in groups}
     by["other"] = 0.0
     top = []
@@ -2966,13 +3068,14 @@ def main() -> int:
                         "i2sdf_tpu_torch/csrc/rev_bwd.cu")
     bg_res = {src: Resources(f"i2sdf_tpu_torch/csrc/{src}")
               for src in ("bg_core.cu", "bg_core_bwd.cu")}
+    k10_res = Resources("i2sdf_tpu_torch/csrc/sdf_outputs.cu")
 
     conf = eval_conf()
     cfg, model = seeded_model(conf, device)
 
     t0 = time.perf_counter()
     rows = check_kernels(model, cfg, conf, device, k2_res)
-    rows += check_sdf_outputs(model, cfg, conf, device)
+    rows += check_sdf_outputs(model, cfg, conf, device, k10_res)
     tconf = train_conf()
     tcfg, tmodel = seeded_model(tconf, device)
     rows.append(check_k4(tmodel, tcfg, conf, device, resources=k4_res))

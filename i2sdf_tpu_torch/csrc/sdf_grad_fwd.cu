@@ -9,13 +9,15 @@
 // contract (`fused_rev.py:217`). Nothing in the JAX package's program
 // calls it; its public kernel API exports `sdf_outputs_fused_grad`.
 //
-// What bounds it on the H100: operations, ~3.8 M bf16 flops a point at
-// the flagship config (`chip_smoke.py::k10_macs`, as K10), against 12
-// bytes in and 1,040 out.
+// What bounds it on the H100: operations. The function's least work at
+// the flagship config is the SDF forward with its 257-wide head and the
+// reverse sweep of d sdf / d x, ~0.98 M multiply-adds a point
+// (`chip_smoke.py::k5_macs`, as K5), against 12 bytes in and 1,040 out;
+// the tangent form does ~1.9 M (`tangent_design_macs`).
 //
-// Design: K10's kernel body without the clamp (`tangent_fwd_kernel<false>`
-// in tangent_common.cuh). Where K5 stashes every hidden layer's activation
-// derivative for a reverse sweep, the three tangents ride
+// Design: the mma.sync tangent sweep of `tangent_common.cuh`
+// (`tangent_fwd_kernel`). Where K5 stashes every hidden layer's
+// activation derivative for a reverse sweep, the three tangents ride
 // beside the activations as three more 16-row tiles against each weight
 // fragment, scaled by softplus'(z) in registers; the output layer's
 // tangent rows compute the sdf column alone.
@@ -29,7 +31,7 @@ extern "C" int i2sdf_sdf_grad_fwd(const float* x, int n, const void* w,
   if (n <= 0) return 0;
   if (n_layers > kMaxLayers || n_layers < 2)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_tangent_fwd<false>(
-      x, n, (const uint2*)w, b, read_plan(desc, n_layers), mx, lda, out_cols,
-      0.f, 0.f, out, grad_out, stream);
+  return (int)launch_tangent_fwd(x, n, (const uint2*)w, b,
+                                 read_plan(desc, n_layers), mx, lda, out_cols,
+                                 out, grad_out, stream);
 }

@@ -1,5 +1,5 @@
-// Shared device code of K10-K12: the SDF net swept forward with its three
-// spatial tangents (sm_90a, plain C interface).
+// K11's device code: the SDF net swept forward with its three spatial
+// tangents on mma.sync (sm_90a, plain C interface).
 //
 // Forward mode through a layer y = act(h W + b): z = h W + b, y =
 // softplus100(z) and, for the tangent t_k = d h / d x_k,
@@ -116,15 +116,12 @@ __device__ __forceinline__ void tangent_layer(const __nv_bfloat16* A, int lda,
 }
 
 // Hidden layer of the tangent sweep: h' = bf16(scale * softplus100(z)),
-// t_k' = bf16(scale * softplus100'(z) * (t_k W)); with `q` set (K12),
-// also the stash q of softplus'(z) (`stash_q`) for the backward.
+// t_k' = bf16(scale * softplus100'(z) * (t_k W)).
 struct EpiTangent {
   __nv_bfloat16* out;
   int lda;
   const float* bias;
   float scale;
-  __nv_bfloat16* q;
-  int ldd;
   __device__ __forceinline__ void operator()(int p, int c,
                                              const float (&v)[kStreams][2]) {
     const float z0 = v[0][0] + bias[c], z1 = v[0][1] + bias[c + 1];
@@ -134,7 +131,6 @@ struct EpiTangent {
 #pragma unroll
     for (int k = 1; k < kStreams; ++k)
       put2(out + (k * kTanPoints + p) * lda + c, s0 * v[k][0], s1 * v[k][1]);
-    if (q) put2(q + p * ldd + c, stash_q(z0), stash_q(z1));
   }
 };
 
@@ -179,20 +175,16 @@ inline size_t tan_fwd_smem_bytes(int lda) {
 
 namespace {
 
-// K10 (`kClamp`) and K11 in one kernel body: the tangent sweep through
-// the hidden layers (the encoding and its tangents written again, scaled
-// by 1/sqrt(2), at a skip), the output layer's columns for the activation
-// rows and its sdf column alone for the tangent rows (one warp: the
-// other columns of a tangent are never read), then per point the sdf
-// and its gradient; K10 takes the bounding sphere's where it is below
-// the net's sdf (`fused_outputs.py:159-166`), K11 writes them unclamped.
-template <bool kClamp>
+// K11: the tangent sweep through the hidden layers (the encoding and its
+// tangents written again, scaled by 1/sqrt(2), at a skip), the output
+// layer's columns for the activation rows and its sdf column alone for
+// the tangent rows (one warp: the other columns of a tangent are never
+// read), then per point the sdf and its gradient, unclamped.
 __global__ void __launch_bounds__(kThreads)
 tangent_fwd_kernel(const float* __restrict__ x, int n,
                    const uint2* __restrict__ w, const float* __restrict__ b,
-                   Plan fwd, int mx, int lda, int out_cols, float sphere_r,
-                   float sphere_scale, float* __restrict__ out,
-                   float* __restrict__ grad_out) {
+                   Plan fwd, int mx, int lda, int out_cols,
+                   float* __restrict__ out, float* __restrict__ grad_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* buf[2];
   buf[0] = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -219,7 +211,7 @@ tangent_fwd_kernel(const float* __restrict__ x, int n,
       __syncthreads();
     }
     EpiTangent epi{buf[cur ^ 1], lda, b + L[kBOff],
-                   (L[kFlags] & kScale) ? kInvSqrt2 : 1.f, nullptr, 0};
+                   (L[kFlags] & kScale) ? kInvSqrt2 : 1.f};
     tangent_layer(buf[cur], lda, L[kK], w + L[kWOff], L[kN], epi);
     __syncthreads();
     cur ^= 1;
@@ -235,42 +227,26 @@ tangent_fwd_kernel(const float* __restrict__ x, int n,
   __syncthreads();
   if (threadIdx.x < kTanPoints && row0 + threadIdx.x < n) {
     const int p = threadIdx.x;
-    const float* xp = xs + 3 * p;
-    float sdf = sdf_s[p];
-    float g[3] = {grad_s[3 * p], grad_s[3 * p + 1], grad_s[3 * p + 2]};
-    if (kClamp && sphere_r > 0.f) {
-      const float norm =
-          sqrtf(xp[0] * xp[0] + xp[1] * xp[1] + xp[2] * xp[2]);
-      const float sphere = sphere_scale * (sphere_r - norm);
-      if (sphere < sdf) {
-        sdf = sphere;
-        const float inv = -sphere_scale / fmaxf(norm, 1e-12f);
-        for (int d = 0; d < 3; ++d) g[d] = xp[d] * inv;
-      }
-    }
     const size_t r = row0 + p;
-    out[r * out_cols] = sdf;
-    for (int d = 0; d < 3; ++d) grad_out[r * 3 + d] = g[d];
+    out[r * out_cols] = sdf_s[p];
+    for (int d = 0; d < 3; ++d) grad_out[r * 3 + d] = grad_s[3 * p + d];
   }
 }
 
 // Launch `tangent_fwd_kernel` on n points (the arguments as the
 // kernel's); returns the launch's error.
-template <bool kClamp>
 inline cudaError_t launch_tangent_fwd(const float* x, int n, const uint2* w,
                                       const float* b, const Plan& fwd, int mx,
-                                      int lda, int out_cols, float sphere_r,
-                                      float sphere_scale, float* out,
+                                      int lda, int out_cols, float* out,
                                       float* grad_out, void* stream) {
   const size_t smem = tan_fwd_smem_bytes(lda);
   cudaError_t err = cudaFuncSetAttribute(
-      tangent_fwd_kernel<kClamp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tangent_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n + kTanPoints - 1) / kTanPoints;
-  tangent_fwd_kernel<kClamp><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, n, w, b, fwd, mx, lda, out_cols, sphere_r, sphere_scale, out,
-      grad_out);
+  tangent_fwd_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      x, n, w, b, fwd, mx, lda, out_cols, out, grad_out);
   return cudaGetLastError();
 }
 

@@ -45,7 +45,7 @@
 // layer's wgmma (the async proxy) before a barrier.
 #pragma once
 
-#include "tangent_common.cuh"
+#include "common.cuh"
 
 namespace i2sdf {
 namespace wg {

@@ -26,11 +26,13 @@ kernel launch (`launches` in `sdf_mlp.py`, `sampler_round.py`,
 `light_launches` and `light_bwd_launches` in `render_core.py`).
 
 With K10-K12 every `pl.pallas_call` site of the JAX package has its
-counterpart here. K10-K12 share the tangent sweep in
-`csrc/tangent_common.cuh`; K1, K3, K4, K6, K8 and K9 the wgmma layer
-primitive `csrc/wgmma_layer.cuh`, K4, K6 and K9 its backward-sweep
-pieces, `csrc/wgmma_sweep.cuh`, and K4 and K6 the SDF net's sweeps,
-`csrc/sdf_sweep.cuh`.
+counterpart here. K1, K3, K4, K5, K6, K8, K9 and K10 are built on the
+wgmma layer primitive `csrc/wgmma_layer.cuh`; K3 and K10 share its
+four-stream tangent form, `csrc/tangent_form.cuh`; K4, K5, K6 and K9 its
+backward-sweep pieces, `csrc/wgmma_sweep.cuh`, and K4, K5 and K6 the SDF
+net's sweeps, `csrc/sdf_sweep.cuh`. K12 is K6 (its kernels on its pack,
+through K12's own C entry and counter). K11 still runs the mma.sync
+tangent sweep of `csrc/tangent_common.cuh`.
 """
 
 from . import (bg_core, conv_check, render_core, rev, sampler_round,

@@ -39,10 +39,11 @@ relu'(features) (`fused_train.py:345-348`).
 
 The bounding-sphere clamp is applied outside the kernels, as
 `fused_train.py:771-777` does. The SDF net's fragment layout
-(`sdf_chains`) and the mma.sync backward's scratch plan (`_BwdPlan`)
-serve K12 (`sdf_grad.py`); K5 and K6 run K4's sweeps on K4's packs
-(`core_sdf_layers`, `t_sdf_layers`; `rev.RevStages`), K6 on K4's plan
-(`K4Plan`), K5 on its own table of the same items (`rev.K5Plan`).
+(`sdf_chain_fwd`) serves K11 (`sdf_grad.py`); K5 and K6 (and K12, which
+is K6) run K4's sweeps on K4's packs (`core_sdf_layers`, `t_sdf_layers`;
+`rev.RevStages`), K6 on K4's plan (`K4Plan`), K5 on its own table of the
+same items (`rev.K5Plan`); K10 runs K3's tangent form on K3's SDF chain
+(`core_sdf_layers`; `sdf_outputs.OutputStages`).
 """
 
 from __future__ import annotations
@@ -60,9 +61,8 @@ bwd_launches = 0  # K4 launches since the last reset_launch_counts()
 light_launches = 0      # K3 with the light head
 light_bwd_launches = 0  # K4 with the light head
 
-_ROWS = 32               # the mma.sync products' row step (kTM)
-_MAX_WIDTH = 320         # K12: 8 warps x 5 tiles x 8 columns
-_MAX_SDF = 12            # K12: SDF layer slots (kMaxSdf)
+_MAX_WIDTH = 320         # K11: 8 warps x 5 tiles x 8 columns
+_MAX_SDF = 12            # K11: SDF layer slots (kMaxSdf)
 _K3_WIDTH = 256          # K3: a tile's four 64-column chunks, wgmma's N
 _K3_RAD_K = 320          # K3 and K4: five chunks, the radiance input
 _MAX_SMEM = 232448       # bytes a block may use on the H100
@@ -141,35 +141,11 @@ def _rad_perm(vdim: int, F: int) -> list:
     return list(range(vdim, vdim + F)) + list(range(vdim))
 
 
-def sdf_chains(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
-               perm: list | None = None, embed_none: bool = False):
-    """The SDF net in the mma.sync sweep kernels' layouts, from materialized
-    (detached, f32) weights and biases, the output layer's columns in the
-    order `perm` (the net's own order if None):
-
-    * `fwd`: the chain, layer 0 first;
-    * `sdft`: the chain transposed, last layer first (a reverse sweep
-      takes its rows 1..);
-    * `rev`: `sdft`'s rows 1.. (the plan rows hold absolute offsets into
-      the same weight stream);
-    * `wsdf_col`: the output layer's sdf column in bf16, zero-padded to
-      the depth of the first transposed hidden layer.
-
-    Each transposed plan row's `real` is the width that continues down the
-    net (the hidden width of the layer's input, the part before the skip's
-    encoding), `col` where the encoding starts (skip layers), and SCALE
-    marks the 1/sqrt(2) of a skip. `embed_none` also takes a net with no
-    encoding (`mma_pack.check_sdf_net`)."""
-    if perm is not None:
-        ws = ws[:-1] + [ws[-1][:, perm]]
-        bs = bs[:-1] + [bs[-1][perm]]
-    fwd = sdf_chain_fwd(icfg, ws, bs, embed_none)
-    return (fwd, *sdf_chain_t(icfg, ws, 0 if perm is None else perm.index(0)))
-
-
 def sdf_chain_fwd(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
                   embed_none: bool = False):
-    """`sdf_chains`' `fwd` alone, the output layer's columns as in `ws`."""
+    """K11's SDF chain in mma.sync fragment order (`mma_pack.pack_chain`),
+    layer 0 first, the output layer's columns as in `ws`; `embed_none`
+    also takes a net with no encoding (`mma_pack.check_sdf_net`)."""
     return mma_pack.pack_chain(sdf_layers(icfg, ws, bs, embed_none))
 
 
@@ -192,100 +168,15 @@ def sdf_layers(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
     return layers
 
 
-def sdf_chain_t(icfg: mlp.ImplicitNetConfig, ws: list, sdf_col: int = 0):
-    """`sdf_chains`' transposed chain: (`sdft`, `rev`, `wsdf_col`) from the
-    materialized weights with the output layer's columns already in the
-    kernel's order, the sdf in column `sdf_col`."""
-    dims = icfg.layer_dims()
-    d0, n = dims[0], len(dims) - 1
-    tl = []
-    for l in range(n - 1, -1, -1):
-        if l == 0:
-            real, col, flags = 0, 0, 0
-        elif l in icfg.skip_in:
-            real, col, flags = dims[l] - d0, dims[l] - d0, mma_pack.SCALE
-        else:
-            real, col, flags = dims[l], mma_pack.NO_COL, 0
-        tl.append(dict(w=ws[l].t(), b=None, real=real, col=col, flags=flags))
-    sdft = mma_pack.pack_chain(tl)
-    rev = mma_pack.PackedMlp(sdft.weights, sdft.biases,
-                             np.ascontiguousarray(sdft.plan[1:]))
-    wsdf_col = torch.zeros(int(rev.plan[0, 0]), dtype=torch.float32,
-                           device=ws[0].device)
-    wsdf_col[:ws[-1].shape[0]] = ws[-1][:, sdf_col].to(torch.bfloat16).float()
-    return sdft, rev, wsdf_col
-
-
-class _BwdPlan:
-    """K12's mma.sync backward's scratch layout at n points, and the int64
-    table that tells the kernel where everything is (read in this order by
-    `read_scratch` in csrc/common.cuh; `sdf_grad.bwd_plan` gives it
-    `streams=4, rows=16`). All sizes in elements; bf16 arrays
-    live in one scratch buffer, f32 arrays in another, each array 16-byte
-    aligned.
-
-    Per SDF layer l (K_l x N_l padded): `ax` (streams np, K_l) the layer's
-    input in each stream ([h ; t_0 ; t_1 ; t_2]), `br` (streams np, N_l)
-    their cotangents ([dz ; rho_0 ; rho_1 ; rho_2]), so dW_l = ax^T br over
-    streams np rows. The output layer's product takes the
-    first stream alone (`br` np rows): its other streams' cotangents live
-    in the sdf column only, and their rank-3 share of that column is summed
-    per block after the bias rows (at `col_db`, K_l wide). `dbpart`
-    (blocks, tb) each block of `rows` points' bias-gradient sums. Each
-    weight gradient is summed over `splits[p]` point ranges of `chunk[p]`
-    rows into `part[p]`, then the ranges are added in order
-    (deterministic). `out` (f32): every dW_p (K x N), then the tb bias
-    gradients and the column's share."""
-
-    def __init__(self, k, n: int, streams: int, rows: int):
-        ns = k.n_sdf
-        # the weight-gradient products step over _ROWS (32) rows
-        self.np = np_ = mma_pack.round_up(max(n, 1), _ROWS)
-        self.blocks = np_ // rows
-        Ks, Ns = [int(v) for v in k.fwd.plan[:, 0]], [int(v) for v in
-                                                      k.fwd.plan[:, 1]]
-        self.dims = list(zip(Ks, Ns))
-        self.n16 = self.n32 = 0
-
-        def take16(size):
-            o, self.n16 = self.n16, self.n16 + mma_pack.round_up(size, 8)
-            return o
-
-        def take32(size):
-            o, self.n32 = self.n32, self.n32 + mma_pack.round_up(size, 4)
-            return o
-
-        m_sdf = [streams * np_] * (ns - 1) + [np_]
-        self.ax = [take16(streams * np_ * K) for K in Ks]
-        self.br = [take16(m * N) for m, N in zip(m_sdf, Ns)]
-        self.col_db = sum(Ns)
-        self.tb = self.col_db + Ks[-1]
-        self.db = list(np.cumsum([0] + Ns)[:-1].astype(int))
-        self.dbpart = take32(self.blocks * self.tb)
-        self.splits, self.chunk, self.part, self.out = [], [], [], []
-        o = 0
-        for (K, N), m in zip(self.dims, m_sdf):
-            steps = m // _ROWS
-            per = -(-steps // min(_MAX_SPLITS, steps))
-            self.splits.append(-(-steps // per))
-            self.chunk.append(per * _ROWS)
-            self.part.append(take32(self.splits[-1] * K * N))
-            self.out.append(o)
-            o += K * N
-        self.out_db = o
-        self.n_out = o + self.tb
-        self.table = np.ascontiguousarray(np.asarray(
-            self.ax + self.br + [self.dbpart, self.tb] + self.db
-            + self.splits + self.chunk + self.part + self.out
-            + [self.out_db], np.int64))
-
-
-def core_sdf_layers(icfg: mlp.ImplicitNetConfig, ws: list, bs: list) -> list:
-    """`CoreStages.sdf`'s layers (K3's, K4's and K6's SDF chain) from the
-    net's (in, out) weights and biases: the hidden layers, then the output
-    layer as the sdf alone and then the features (`_sdf_perm`)."""
+def core_sdf_layers(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
+                    embed_none: bool = False) -> list:
+    """`CoreStages.sdf`'s layers (K3's, K4's, K5's, K6's and K10's SDF
+    chain) from the net's (in, out) weights and biases: the hidden layers,
+    then the output layer as the sdf alone and then the features
+    (`_sdf_perm`); `embed_none` also takes a net with no encoding (K10's
+    and K12's, run as frequency count 0)."""
     F = icfg.feature_vector_size
-    layers = sdf_layers(icfg, ws, bs)
+    layers = sdf_layers(icfg, ws, bs, embed_none)
     perm = _sdf_perm(F)
     w_out, b_out = ws[-1][:, perm], bs[-1][perm]
     layers[-1:] = [dict(w=w_out[:, F:], b=b_out[F:]),
@@ -525,8 +416,8 @@ class K4Stages:
     * `t.plan[:n_sdf - 1]` (`tsdf`): the SDF net's layers n-1 .. 1, the
       output layer's input rows as [features | sdf] (`_sdf_perm`); each
       row's `real` is the width that continues down the net (the hidden
-      part before a skip's encoding) and SCALE marks a skip's 1/sqrt(2),
-      as `sdf_chain_t`'s rows;
+      part before a skip's encoding), `col` where the encoding starts
+      (a skip's) and SCALE marks a skip's 1/sqrt(2) (`t_sdf_layers`);
     * then (`trad`) the radiance net's layers n_r-1 .. 0, layer 0's output
       cut to the F feature columns;
     * then (`tlight`) the light net's layers n_l-1 .. 0 (none without a

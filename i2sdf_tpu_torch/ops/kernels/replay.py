@@ -1,7 +1,8 @@
-"""K4 (`csrc/render_core_bwd.cu`), K6 (`csrc/rev_bwd.cu`) and K5
-(`csrc/rev_fwd.cu`) replayed in torch from exactly what their wrappers hand
-the kernels, for the checks that hold the kernels to a replay of their own
-rounding (the CPU tests, and the card's tests and smoke on CUDA tensors).
+"""K4 (`csrc/render_core_bwd.cu`), K6 (`csrc/rev_bwd.cu`, which K12 runs),
+K5 (`csrc/rev_fwd.cu`) and K10 (`csrc/sdf_outputs.cu`) replayed in torch
+from exactly what their wrappers hand the kernels, for the checks that
+hold the kernels to a replay of their own rounding (the CPU tests, and the
+card's tests and smoke on CUDA tensors).
 
 `K4Replay` follows K4 step by step: K3's stage images and `K4Stages`'
 transposed ones read as wgmma reads them, the 64-point tile and the
@@ -16,9 +17,12 @@ of the SDF sweeps, with the forward recompute stopping at the output
 layer's input and `c_out` as the output layer's cotangent. `K5Replay` is
 K5: the same forward (no operand stores), the output layer's two
 products, and the reverse sweep down to layer 0 gathering d sdf / d PE
-in f32, on `rev.K5Plan`'s table. `rnd` says where a kernel rounds to
-bf16; the identity replays the algorithm in f32 on the kernel's bf16
-weights.
+in f32, on `rev.K5Plan`'s table. `K10Replay` is K10: K3's tangent form
+(`csrc/tangent_form.cuh`) on its two 64-row tiles of 32 points' four
+streams, written through `act_off` and read as wgmma reads them, on the
+SDF chain's stage images, the sdf and its gradient clamped as the
+kernel's epilogue clamps. `rnd` says where a kernel rounds to bf16; the
+identity replays the algorithm in f32 on the kernel's bf16 weights.
 """
 
 import functools
@@ -28,7 +32,8 @@ import torch
 
 from i2sdf_tpu_torch.models.embedder import positional_encoding
 from i2sdf_tpu_torch.ops.activations import softplus_beta
-from i2sdf_tpu_torch.ops.kernels import mma_pack, render_core, rev
+from i2sdf_tpu_torch.ops.kernels import (mma_pack, render_core, rev,
+                                         sdf_grad, sdf_outputs)
 from i2sdf_tpu_torch.ops.kernels.render_core import (
     REG_AH, REG_CLG, REG_DA, REG_DZ, REG_DZX, REG_LDZ, REG_LS, REG_LX, REG_Q,
     REG_R, REG_RDZ, REG_RX, REG_X)
@@ -655,3 +660,117 @@ def emulate_rev_fwd(k: rev.RevStages, x, rnd=bf):
     """`csrc/rev_fwd.cu` in torch: (out, grad) as the wrapper returns."""
     with torch.no_grad():
         return K5Replay(k, rev.K5Plan(k, x.shape[0]), x, rnd).run()
+
+
+def stream_row(s, p):
+    """K3's and K10's row of stream s (0 the activations, 1-3 d/dx_k) of
+    point p, in tile 0 (s < 2) or tile 1 (`csrc/tangent_form.cuh`)."""
+    return 16 * (p // 8) + p % 8 + 8 * (s % 2)
+
+
+class K10Replay:
+    """`csrc/sdf_outputs.cu` in torch, all blocks of 32 points at once: the
+    two tiles of 64 rows x 256 columns are shared memory (bf16 elements
+    held as f32, NaN where nothing was written), the epilogues write
+    through `act_off`, every product reads the tiles and the layer's stage
+    images as wgmma reads its descriptors. The encoding and its tangents
+    go in at layer 0 and, scaled by 1/sqrt(2), at the skip; each hidden
+    layer writes h = softplus(z) and t_k = softplus'(z) (t_k W), scaled at
+    a skip's input, over its own input; the sdf product over both tiles
+    gives sdf and d sdf / d x, the features product over tile 0 the
+    features, both f32. `rnd` is where the kernel rounds to bf16."""
+
+    def __init__(self, k: sdf_outputs.OutputStages, icfg, x, rnd):
+        self.k, self.icfg, self.rnd = k, icfg, rnd
+        self.B = B = -(-max(x.shape[0], 1) // 32)
+        self.xs = pad_rows(x, B * 32).view(B, 32, 3)
+        self.T = torch.full((B, 2, 4 * CHUNK // 2), float("nan"),
+                            device=x.device)
+        self.w = k.sdf.weights.float()
+        pts = torch.arange(32)
+        self.rows = [stream_row(s, pts) for s in range(4)]
+
+    def put_streams(self, cols, vals):
+        """bf16 stores of the four streams' (B, 32, len(cols)) values."""
+        cols = torch.as_tensor(cols)
+        for s, v in enumerate(vals):
+            off = act_off(self.rows[s][:, None], cols[None, :]) // 2
+            self.T[:, s // 2, off.flatten()] = self.rnd(v).reshape(
+                self.B, -1)
+
+    def pe(self, col0, kend, scale):
+        """`pe_streams`: scale * PE(x) and scale * d PE / d x_k in columns
+        [col0, kend), zero past the encoding's."""
+        flat, w, mx = self.xs.reshape(-1, 3), kend - col0, self.k.mx
+        eye = torch.eye(3, device=flat.device)
+        vals = [pe_cols(flat, mx, w)] + [
+            dge_cols(flat, eye[j].expand_as(flat), mx, w) for j in range(3)]
+        self.put_streams(torch.arange(col0, kend),
+                         [(v * scale).view(self.B, 32, w) for v in vals])
+
+    def product(self, i, tiles):
+        """Layer i's product over each tile, summed 16 deep at a time as
+        wgmma's steps take it: (B, 64, N) f32 each."""
+        K, N, woff = (int(v) for v in self.k.sdf.plan[i, [0, 1, 3]])
+        stages = self.w[woff:woff + -(-K // 64) * N * 64]
+        b = stages[K4Replay.k_major(N, K, N * 128)]
+        idx = K4Replay.k_major(64, K, CHUNK).flatten()
+        outs = []
+        for t in tiles:
+            a = self.T[:, t, idx].view(self.B, 64, K)
+            acc = a[..., :16] @ b[:, :16].t()
+            for k0 in range(16, K, 16):
+                acc = acc + a[..., k0:k0 + 16] @ b[:, k0:k0 + 16].t()
+            outs.append(acc)
+        return outs
+
+    def run(self):
+        k, icfg = self.k, self.icfg
+        plan, bias = k.sdf.plan, k.sdf.biases
+        r0, r1, r2, r3 = self.rows
+        inv = 1.0 / math.sqrt(2.0)
+        nh = k.sdf.n_layers - 2
+        self.pe(0, int(plan[0, 0]), 1.0)
+        for i in range(nh):
+            K, N, real, woff, boff, flags, col, _ = (int(v)
+                                                     for v in plan[i])
+            a0, a1 = self.product(i, (0, 1))
+            z = a0[:, r0] + bias[boff:boff + N]
+            scale = inv if flags & mma_pack.SCALE else 1.0
+            ds = sdf_grad.dsoftplus(z) * scale
+            self.put_streams(torch.arange(N), [
+                softplus_beta(z) * scale, ds * a0[:, r1], ds * a1[:, r2],
+                ds * a1[:, r3]])
+            nx = plan[i + 1]
+            if nx[5] & mma_pack.SKIP_IN:
+                self.pe(int(nx[6]), int(nx[0]), inv)
+        s0, s1 = self.product(nh, (0, 1))
+        sdf = s0[:, r0, 0] + bias[int(plan[nh, 4])]
+        grad = torch.stack([s0[:, r1, 0], s1[:, r2, 0], s1[:, r3, 0]], -1)
+        (af,) = self.product(nh + 1, (0,))
+        boff = int(plan[nh + 1, 4])
+        feat = (af[:, r0] + bias[boff:boff + af.shape[-1]])[..., :k.F]
+        if icfg.sdf_bounding_sphere > 0:
+            x, sc = self.xs, icfg.sphere_scale
+            norm = torch.sqrt(x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]
+                              + x[..., 2] * x[..., 2])
+            sphere = sc * (icfg.sdf_bounding_sphere - norm)
+            take = sphere < sdf
+            ginv = -sc / torch.clamp(norm, min=1e-12)
+            grad = torch.where(take[..., None], x * ginv[..., None], grad)
+            sdf = torch.where(take, sphere, sdf)
+        return sdf[..., None], feat, grad
+
+
+def emulate_sdf_outputs(k: sdf_outputs.OutputStages, icfg, x, rnd=bf,
+                        chunk: int = 1 << 16):
+    """`csrc/sdf_outputs.cu` in torch: (sdf (N, 1), feat (N, F), grad (N,
+    3)) as the wrapper returns them, `chunk` points (whole blocks) at a
+    time."""
+    outs = []
+    with torch.no_grad():
+        for xc in x.split(chunk):
+            o = K10Replay(k, icfg, xc, rnd).run()
+            outs.append([t.reshape(-1, t.shape[-1])[:xc.shape[0]]
+                         for t in o])
+    return tuple(torch.cat(t) for t in zip(*outs))

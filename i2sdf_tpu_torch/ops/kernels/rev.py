@@ -84,20 +84,24 @@ class RevStages:
     Both chains are gathered from the net's flat weights by a layout
     built once for the net's shapes (`mma_pack.chain_index`): the same
     bits as `mma_pack.pack_stage_chain` of the layers, in two gathers a
-    chain."""
+    chain. K12 (`sdf_grad.py`), which is K6, takes this pack too, and with
+    `embed_none` a net with no encoding (frequency count 0)."""
 
     rad = light = None
     n_rad = n_light = 0
     trad = tlight = np.zeros((0, 8), np.int32)
 
-    def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs):
+    def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs,
+                 embed_none: bool = False):
         if icfg.d_out != 1 or icfg.feature_vector_size % 8:
             raise ValueError("rev: needs d_out 1 and a feature width "
                              "that is a multiple of 8")
+        # here, not only in the layout's first build, which is kept
+        mma_pack.check_sdf_net(icfg, embed_none)
         self.shapes = tuple(tuple(t.shape) for t in ws)
 
         def chains(ws, bs):
-            return (render_core.core_sdf_layers(icfg, ws, bs),
+            return (render_core.core_sdf_layers(icfg, ws, bs, embed_none),
                     render_core.t_sdf_layers(icfg, ws, first=True))
 
         ix = mma_pack.chain_index(("rev", icfg, self.shapes), chains,
@@ -115,7 +119,8 @@ class RevStages:
         self._inv = _inv_perm(icfg.feature_vector_size, torch.device(dev))
         self.n_sdf = len(ws)
         self.tsdf = np.ascontiguousarray(self.t.plan[:self.n_sdf - 1])
-        self.F, self.mx = icfg.feature_vector_size, icfg.multires
+        self.F = icfg.feature_vector_size
+        self.mx = icfg.multires if icfg.embed_type else 0
         plans = (self.sdf.plan, self.t.plan)
         if (max(int(p[:, 1].max()) for p in plans) > render_core._K3_WIDTH
                 or max(int(p[:, 0].max()) for p in plans)
@@ -276,8 +281,20 @@ def rev_bwd(k: RevStages, x: torch.Tensor, c_out: torch.Tensor,
     with respect to the materialized weights and biases, as (dws, dbs)
     lists of f32 tensors in the net's shapes."""
     global bwd_launches
+    grads, launched = bwd_launch("i2sdf_rev_bwd", "rev_bwd", k, x, c_out,
+                                 c_g)
+    bwd_launches += launched
+    return grads
+
+
+def bwd_launch(symbol: str, name: str, k: RevStages, x: torch.Tensor,
+               c_out: torch.Tensor, c_g: torch.Tensor):
+    """K6's sweep, products and sums through the C entry `symbol` (K6's
+    `i2sdf_rev_bwd`, or K12's `i2sdf_sdf_grad_bwd`, which is K6 under its
+    own name) on K6's plan: ((dws, dbs), 1 if it launched, 0 at no
+    points)."""
     if not x.is_cuda:
-        raise ValueError("rev_bwd: the kernel takes CUDA tensors; the plain "
+        raise ValueError(f"{name}: the kernel takes CUDA tensors; the plain "
                          "version is rev_plain")
     mma_pack.check_input(x, "x", cols=3)
     mma_pack.check_input(c_out, "c_out", cols=k.F + 1)
@@ -286,7 +303,7 @@ def rev_bwd(k: RevStages, x: torch.Tensor, c_out: torch.Tensor,
     if (c_out.shape[0] != n or c_g.shape[0] != n
             or c_out.device != x.device or c_g.device != x.device
             or k.sdf.weights.device != x.device):
-        raise ValueError("rev_bwd: cotangents, points and weights disagree "
+        raise ValueError(f"{name}: cotangents, points and weights disagree "
                          "in length or device")
     plan = plan_for(k, n)
     reg, script = _on_device(plan, x.device)
@@ -295,8 +312,7 @@ def rev_bwd(k: RevStages, x: torch.Tensor, c_out: torch.Tensor,
     ws32 = torch.empty(plan.n32, dtype=torch.float32, device=x.device)
     out = torch.empty(plan.n_out, dtype=torch.float32, device=x.device)
     if n:
-        lib = build.load_library()
-        err = lib.i2sdf_rev_bwd(
+        err = getattr(build.load_library(), symbol)(
             x.data_ptr(), c_out.data_ptr(), c_g.data_ptr(), n, plan.blocks,
             k.F + 1, k.sdf.weights.data_ptr(), k.sdf.biases.data_ptr(),
             k.sdf.plan.ctypes.data, k.sdf.n_layers, k.t.weights.data_ptr(),
@@ -305,11 +321,10 @@ def rev_bwd(k: RevStages, x: torch.Tensor, c_out: torch.Tensor,
             script.data_ptr(), plan.script.shape[0], plan.jobs.ctypes.data,
             plan.jobs.shape[0], plan.db_host.ctypes.data, out.data_ptr(),
             mma_pack.stream_of(x))
-        build.check(err, "rev_bwd")
-        bwd_launches += 1
+        build.check(err, name)
     else:
         out.zero_()
-    return k.unpack_grads(out, plan)
+    return k.unpack_grads(out, plan), int(n > 0)
 
 
 class RevOp(torch.autograd.Function):

@@ -5,29 +5,34 @@ the backward of the same function, through that gradient too.
 Replaces `i2sdf_tpu/ops/pallas/fused_grad.py:250 get_sdf_outputs_op`: its
 forward (pallas_call at `:277`) is K11 (`csrc/sdf_grad_fwd.cu`), its
 backward (`:323`) is K12 (`csrc/sdf_grad_bwd.cu`). The op computes what
-`get_rev_op` (K5/K6, `rev.py`) computes, by the other algorithm: the
-three tangents d/dx_k ride through the net beside the activations, so
-there is no reverse sweep. Each CUDA source's header says what bounds it
-and how it is built; the sweep K10-K12 share is `csrc/tangent_common.cuh`.
+`get_rev_op` (K5/K6, `rev.py`) computes (`fused_rev.py:215-219`): K11 by
+the other algorithm, the three tangents d/dx_k riding through the net
+beside the activations on mma.sync (`csrc/tangent_common.cuh`), and K12 by
+K6's: its wgmma sweeps, products and sums on K6's pack (`rev.RevStages`)
+and plan, under K12's own C entry and launch count, so that on the same
+inputs its gradients are K6's to the bit. Each CUDA source's header says
+what bounds it.
 
 * `embed_tangents` and `sdf_tangents`: the tangent sweep in plain f32
   PyTorch, differentiable with respect to the weights (autograd through
   it gives the second order). The embedding's tangents are arguments, so
   that a check can feed a faulty layout through the same sweep.
-* `SdfGradLayout`: the SDF net in K10-K12's layout (weight norm
+* `SdfGradLayout`: the SDF net in K11's layout (weight norm
   materialized, bf16, mma fragment order), the output layer in the net's
-  own column order [sdf | features]; K12's transposed chain is built at
-  its first launch. A net with no encoding runs as frequency count 0:
-  its tangents are e_k.
+  own column order [sdf | features]. A net with no encoding runs as
+  frequency count 0: its tangents are e_k.
+* `bwd_stages(icfg, ws, bs)`: K12's pack, K6's `rev.RevStages` (a net
+  with no encoding too).
 * `sdf_grad_fwd(k, x)` -> (out (N, 1 + F), grad (N, 3)) and
-  `sdf_grad_bwd(k, x, c_out, c_g)` -> (dws, dbs): the launches, CUDA
+  `sdf_grad_bwd(kr, x, c_out, c_g)` -> (dws, dbs): the launches, CUDA
   tensors only.
 * `sdf_grad_plain(icfg, ws, bs, x)`: the same function in plain f32
   PyTorch, the gradient by autograd with `create_graph` (`rev.rev_plain`).
   The CPU path and the tests use it; on the card it only serves as the
   yardstick the kernels are held to.
 * `SdfGradOp`: the `torch.autograd.Function` on the card, K11 forward,
-  K12 backward, no gradient to x (`fused_grad.py:341-347`).
+  K12 backward, both packs built in the forward, no gradient to x
+  (`fused_grad.py:341-347`).
 * `sdf_outputs_fused_grad(implicit, x, plain=False)` -> (sdf, feat, grad),
   the bounding-sphere clamp composed outside the kernels: the counterpart
   of `fused_grad.py:353 sdf_outputs_fused_grad`.
@@ -116,12 +121,10 @@ sdf_grad_plain = rev.rev_plain
 # ---- kernel layout ----------------------------------------------------------
 
 class SdfGradLayout:
-    """The SDF net in K10-K12's layout, from materialized (in, out)
-    weights and biases: `fwd` (layer 0 first) as `render_core.sdf_chains`
-    builds it, in the net's column order; `mx` the encoding's frequency
-    count (0: no encoding). K12's transposed chain (`sdft`) and the output
-    layer's sdf column (`wsdf_col`) are built at its first launch
-    (`backward`), so K10 and K11 pack and check only what they run."""
+    """The SDF net in K11's layout, from materialized (in, out) weights
+    and biases: `fwd` (layer 0 first, `render_core.sdf_chain_fwd`), in the
+    net's column order; `mx` the encoding's frequency count (0: no
+    encoding)."""
 
     def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs):
         if icfg.d_out != 1 or icfg.output_activation is not None:
@@ -129,10 +132,9 @@ class SdfGradLayout:
                              "activation")
         dims = icfg.layer_dims()
         n = len(dims) - 1
-        self.icfg = icfg
-        self.ws = [t.detach().float() for t in ws]
         self.fwd = render_core.sdf_chain_fwd(
-            icfg, self.ws, [t.detach().float() for t in bs], embed_none=True)
+            icfg, [t.detach().float() for t in ws],
+            [t.detach().float() for t in bs], embed_none=True)
         if self.fwd.max_width > render_core._MAX_WIDTH:
             raise ValueError(f"sdf_grad: layer width above "
                              f"{render_core._MAX_WIDTH}")
@@ -140,49 +142,24 @@ class SdfGradLayout:
             raise ValueError("sdf_grad: too many layers for the kernels")
         self.n_sdf, self.out_cols = n, dims[-1]
         self.lda = mma_pack.row_stride(self.fwd.max_width)
-        self.ldd = mma_pack.row_stride(int(self.fwd.plan[:-1, 1].max()))
         if fwd_smem(self) > render_core._MAX_SMEM:
             raise ValueError(f"sdf_grad_fwd: needs {fwd_smem(self)} bytes "
                              "of shared memory")
         self.mx = icfg.multires if icfg.embed_type else 0
-        self.shapes = tuple(tuple(t.shape) for t in ws)
-        self.sdft = self.wsdf_col = None
-
-    def backward(self):
-        """Build K12's `sdft` and `wsdf_col` if not yet built; the
-        transposed layers are no wider than the forward's (`lda`)."""
-        if self.sdft is None:
-            self.sdft, _, self.wsdf_col = render_core.sdf_chain_t(self.icfg,
-                                                                  self.ws)
-            if bwd_smem(self) > render_core._MAX_SMEM:
-                raise ValueError(f"sdf_grad_bwd: needs {bwd_smem(self)} "
-                                 "bytes of shared memory")
-        return self
 
 
 def fwd_smem(k) -> int:
-    """The shared memory (bytes) of K10's and K11's kernel
+    """The shared memory (bytes) of K11's kernel
     (`tan_fwd_smem_bytes` in csrc/tangent_common.cuh): two activation
     buffers of the four streams, and per point x, the sdf and the
     gradient."""
     return 2 * 2 * _STREAMS * _POINTS * k.lda + 4 * _POINTS * (3 + 1 + 3)
 
 
-def bwd_smem(k) -> int:
-    """The shared memory (bytes) of K12's sweep (`tan_bwd_smem_bytes` in
-    csrc/sdf_grad_bwd.cu): two activation buffers of the four streams,
-    every hidden layer's stash q, the f32 dz the bias sums take, and per
-    point x and c_g."""
-    return (2 * (2 * _STREAMS * _POINTS * k.lda
-                 + (k.n_sdf - 1) * _POINTS * k.ldd)
-            + 4 * _POINTS * (k.lda + 3 + 3))
-
-
-def bwd_plan(k: SdfGradLayout, n: int):
-    """K12's scratch plan at n points (`render_core._BwdPlan`): the four
-    streams, 16 points a block, no second-order stash, and the output
-    layer's tangent cotangents as a rank-3 term of its sdf column."""
-    return render_core._BwdPlan(k, n, streams=_STREAMS, rows=_POINTS)
+def bwd_stages(icfg: mlp.ImplicitNetConfig, ws, bs) -> rev.RevStages:
+    """K12's pack: K6's (`rev.RevStages`), for a net with no encoding too
+    (run as frequency count 0)."""
+    return rev.RevStages(icfg, ws, bs, embed_none=True)
 
 
 # ---- kernels ----------------------------------------------------------------
@@ -215,44 +192,22 @@ def sdf_grad_fwd(k: SdfGradLayout, x: torch.Tensor):
     return out, grad
 
 
-def sdf_grad_bwd(k: SdfGradLayout, x: torch.Tensor, c_out: torch.Tensor,
+def sdf_grad_bwd(kr: rev.RevStages, x: torch.Tensor, c_out: torch.Tensor,
                  c_g: torch.Tensor):
     """K12: the gradients of <c_out, out> + <c_g, grad> (unclamped
     outputs) with respect to the materialized weights and biases, as
-    (dws, dbs) lists of f32 tensors in the net's shapes."""
+    (dws, dbs) lists of f32 tensors in the net's shapes: K6 on K6's pack
+    (`bwd_stages`), through K12's own C entry."""
     global bwd_launches
-    check_points(k, x, "sdf_grad_bwd")
-    mma_pack.check_input(c_out, "c_out", cols=k.out_cols)
-    mma_pack.check_input(c_g, "c_g", cols=3)
-    n = x.shape[0]
-    if (c_out.shape[0] != n or c_g.shape[0] != n
-            or c_out.device != x.device or c_g.device != x.device):
-        raise ValueError("sdf_grad_bwd: cotangents and points disagree in "
-                         "length or device")
-    k.backward()
-    plan = bwd_plan(k, n)
-    out = torch.zeros(plan.n_out, dtype=torch.float32, device=x.device)
-    if n:
-        ws16 = torch.empty(plan.n16, dtype=torch.bfloat16, device=x.device)
-        ws32 = torch.empty(plan.n32, dtype=torch.float32, device=x.device)
-        err = build.load_library().i2sdf_sdf_grad_bwd(
-            x.data_ptr(), c_out.data_ptr(), c_g.data_ptr(), n, plan.np,
-            k.out_cols, k.fwd.weights.data_ptr(), k.fwd.biases.data_ptr(),
-            k.fwd.plan.ctypes.data, k.fwd.n_layers,
-            k.sdft.weights.data_ptr(), k.sdft.plan.ctypes.data,
-            k.sdft.n_layers, k.wsdf_col.data_ptr(), k.mx, k.lda, k.ldd,
-            ws16.data_ptr(), ws32.data_ptr(), plan.table.ctypes.data,
-            out.data_ptr(), mma_pack.stream_of(x))
-        build.check(err, "sdf_grad_bwd")
-        bwd_launches += 1
-    dws, dbs = rev.unpack_grads(k.shapes, out, plan)
-    # the output layer's tangent rows: their rank-3 share of the sdf column
-    dws[-1][:, 0] += out[plan.out_db + plan.col_db:][:dws[-1].shape[0]]
-    return dws, dbs
+    grads, launched = rev.bwd_launch("i2sdf_sdf_grad_bwd", "sdf_grad_bwd",
+                                     kr, x, c_out, c_g)
+    bwd_launches += launched
+    return grads
 
 
 class SdfGradOp(torch.autograd.Function):
-    """The op on the card: K11 forward, K12 backward.
+    """The op on the card: K11 forward on its layout, K12 backward on K6's
+    pack, both packed once in the forward.
 
     apply(icfg, x, *ws, *bs) -> (out, grad), unclamped. Gradients flow to
     the weights and biases only; x is a constant."""
@@ -260,17 +215,16 @@ class SdfGradOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, icfg, x, *flat):
         n = len(flat) // 2
-        k = SdfGradLayout(icfg, flat[:n], flat[n:])
-        out, grad = sdf_grad_fwd(k, x)
+        out, grad = sdf_grad_fwd(SdfGradLayout(icfg, flat[:n], flat[n:]), x)
+        ctx.stages = bwd_stages(icfg, flat[:n], flat[n:])
         ctx.save_for_backward(x)
-        ctx.layout = k
         return out, grad
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, c_out, c_g):
         (x,) = ctx.saved_tensors
-        dws, dbs = sdf_grad_bwd(ctx.layout, x, c_out.float().contiguous(),
+        dws, dbs = sdf_grad_bwd(ctx.stages, x, c_out.float().contiguous(),
                                 c_g.float().contiguous())
         return (None, None, *dws, *dbs)
 

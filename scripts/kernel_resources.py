@@ -14,8 +14,9 @@ instructions (`MUFU`, by opcode in `mufu_ops`: the exponentials' `EX2`,
 reciprocals' `RCP`; static counts, a loop body once) and its highest
 register (`max_reg`) from `cuobjdump -sass`, and ptxas's warnings (a
 `setmaxnreg` it ignored, wgmma it serialized). Needs `nvcc`, so it runs
-on the machine with the card. K2's, K5's, K6's and K7's rows are the
-smoke's `sass` for them, as K4's, K8's and K9's are.
+on the machine with the card. K2's, K5's, K6's, K7's and K10's rows are
+the smoke's `sass` for them, as K4's, K8's and K9's are (K12's are K6's:
+`sdf_grad_bwd.cu` holds no kernel of its own).
 """
 
 from __future__ import annotations

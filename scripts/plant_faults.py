@@ -1,5 +1,5 @@
-"""Plant faults in copies of the tree and show that the smoke's K1-K9
-checks catch each one.
+"""Plant faults in copies of the tree and show that the smoke's K1-K10
+and K12 checks catch each one.
 
     python scripts/plant_faults.py [--log DIR] [FAULT ...]
 
@@ -14,8 +14,11 @@ config's K3-light, `k3_light`; both also on a net of odd depth) and
 `chip_smoke.check_k4` (the training config's K4, `k4`),
 `chip_smoke.check_bg` (the bg config's K8 and K9, `bg`), the K2 rows of
 `chip_smoke.check_kernels` (`k2`: they come before its K3 check),
-`chip_smoke.check_rev` (K5 and K6 at the training config, `rev`) and
-`chip_smoke.check_conv` (K7 at the perray config, `conv`). A check that
+`chip_smoke.check_rev` (K5 and K6 at the training config, `rev`),
+`chip_smoke.check_conv` (K7 at the perray config, `conv`),
+`chip_smoke.check_sdf_outputs` (K10 at the flagship config, `k10`) and
+`chip_smoke.check_sdf_grad` (K11 and K12 at the training config, `k12`;
+K12's faults must fail its K12 rows). A check that
 raises has caught the fault. Prints one JSON line per fault (with the
 seconds it took), and exits nonzero if a check named in the fault's
 `must_fail` passed; with `--log DIR`, each check's output goes to
@@ -49,32 +52,32 @@ FAULTS = {
     # every layer's epilogue instead cancels out after an even number of
     # layers)
     "pe_tangent_axes_swapped": (
-        ("i2sdf_tpu_torch/csrc/render_core.cu",
+        ("i2sdf_tpu_torch/csrc/tangent_form.cuh",
          "  unsigned char* tile = s < 2 ? t0 : t1;\n",
          "  const int d = s == 1 ? 2 : s == 2 ? 1 : s;\n"
          "  unsigned char* tile = d < 2 ? t0 : t1;\n"),
-        ("i2sdf_tpu_torch/csrc/render_core.cu",
+        ("i2sdf_tpu_torch/csrc/tangent_form.cuh",
          "    put1(tile, stream_row(s, p), col0 + q,",
          "    put1(tile, stream_row(d, p), col0 + q,"),
-        ("k3", "k3_light")),
+        ("k3", "k3_light", "k10")),
     # neither kernel writes the encoding at the skip
     "skip_pe_dropped": (
         ("i2sdf_tpu_torch/csrc/sdf_mlp.cu",
          "    pe_rows(tile, pe, d0, next[kCol], next[kK], kInvSqrt2);\n", ""),
-        ("i2sdf_tpu_torch/csrc/render_core.cu",
+        ("i2sdf_tpu_torch/csrc/tangent_form.cuh",
          "    pe_streams(t0, t1, enc, next[kCol], next[kK], kInvSqrt2);\n",
          ""),
-        ("k1", "k3", "k3_light")),
-    # K3 exchanges t_x and t_y at every hidden layer's epilogue (over an
-    # even number of layers the exchange cancels: the checks' odd-depth
-    # nets show it)
+        ("k1", "k3", "k3_light", "k10")),
+    # K3 and K10 exchange t_x and t_y at every hidden layer's epilogue
+    # (over an even number of layers the exchange cancels: the checks'
+    # odd-depth nets show it)
     "epilogue_tangents_exchanged": (
-        ("i2sdf_tpu_torch/csrc/render_core.cu",
+        ("i2sdf_tpu_torch/csrc/tangent_form.cuh",
          "      put_pair(t0, r + 8, col, s0 * p0[2], s1 * p0[3]);\n"
          "      put_pair(t1, r, col, s0 * p1[0], s1 * p1[1]);\n",
          "      put_pair(t0, r + 8, col, s0 * p1[0], s1 * p1[1]);\n"
          "      put_pair(t1, r, col, s0 * p0[2], s1 * p0[3]);\n"),
-        ("k3", "k3_light")),
+        ("k3", "k3_light", "k10")),
     # K4's upward sweep reads back layer l - 1's stash q where it needs
     # layer l's (the ring table's item)
     "k4_stash_one_layer_off": (
@@ -136,6 +139,33 @@ FAULTS = {
         "  const int first = kSdf ? 0 : 1;  // [sdf | features]\n",
         "  const int first = kSdf ? a.F : 0;  // [features | sdf]\n",
         ("rev",)),
+    # K10 writes each feature one column to the right in its rows of
+    # [sdf | features]
+    "k10_features_one_column_off": (
+        "i2sdf_tpu_torch/csrc/sdf_outputs.cu",
+        "    float* row = stage + p * oc + 1;\n",
+        "    float* row = stage + p * oc + 2;\n",
+        ("k10",)),
+    # K10 takes the bounding sphere where it is above the net's sdf
+    "k10_clamp_select_inverted": (
+        "i2sdf_tpu_torch/csrc/sdf_outputs.cu",
+        "      if (sphere < sdf) {\n",
+        "      if (sphere > sdf) {\n",
+        ("k10",)),
+    # K10's epilogue exchanges the gradient's x and y components (its
+    # odd-depth nets, too, must show it)
+    "k10_grad_axes_exchanged": (
+        "i2sdf_tpu_torch/csrc/sdf_outputs.cu",
+        "    float g[3] = {a0[2], a1[0], a1[2]};\n",
+        "    float g[3] = {a1[0], a0[2], a1[2]};\n",
+        ("k10",)),
+    # K12's entry hands K6's kernels a zero cotangent for the features
+    "k12_zero_feature_cotangent": (
+        "i2sdf_tpu_torch/ops/kernels/sdf_grad.py",
+        "                                     kr, x, c_out, c_g)\n",
+        "                                     kr, x, torch.cat([c_out[:, :1], "
+        "torch.zeros_like(c_out[:, 1:])], 1), c_g)\n",
+        ("k12",)),
     # K7 takes its first warp's maximum of the bound, not the group's
     "k7_one_warp_max": (
         "i2sdf_tpu_torch/csrc/conv_check.cu",
@@ -153,7 +183,7 @@ build.build()
 device = torch.device("cuda", 0)
 which = sys.argv[1]
 conf = (cs.light_conf(train=False) if which == "k3_light"
-        else cs.train_conf() if which in ("k4", "rev")
+        else cs.train_conf() if which in ("k4", "rev", "k12")
         else cs.perray_conf(train=False) if which == "conv"
         else cs.bg_conf(train=False) if which == "bg" else cs.eval_conf())
 cfg, model = cs.seeded_model(conf, device)
@@ -163,6 +193,10 @@ elif which == "k2":
     cs.check_kernels(model, cfg, conf, device)
 elif which == "rev":
     cs.check_rev(model, cfg, cs.eval_conf(), device)
+elif which == "k10":
+    cs.check_sdf_outputs(model, cfg, conf, device)
+elif which == "k12":
+    cs.check_sdf_grad(model, cfg, cs.eval_conf(), device)
 elif which == "conv":
     cs.check_conv(model, cfg, conf, device)
 elif which == "bg":

@@ -6,9 +6,10 @@ or several in turns.
     python scripts/time_kernels.py [--only PART[,PART ...]] TREE [TREE ...]
 
 PART is one of `k2` (`sampler_round`), `k5` (`rev_fwd`), `k6`
-(`rev_bwd`), `k7` (`conv_check`), `eval_perray` and `nonormal` (default:
-all). Each TREE (this repository, or e.g. a `git archive` of another
-commit unpacked under `exps/`) runs in a process of its own, in the order
+(`rev_bwd`), `k7` (`conv_check`), `k10` (`sdf_outputs`), `k12`
+(`sdf_grad_bwd`), `eval_perray` and `nonormal` (default: all). Each
+TREE (this repository, or e.g. a `git archive` of another commit
+unpacked under `exps/`) runs in a process of its own, in the order
 given (parent, change, change, parent compares two trees on one card),
 imports that tree's package and `chip_smoke.py`, builds its kernels there
 and prints one JSON line. The inputs come from this repository's smoke
@@ -26,14 +27,22 @@ and prints one JSON line. The inputs come from this repository's smoke
   own pack where the tree's K5 has one (`RevLayout`), else on K6's;
 * `k7`: at the perray training shape (1,600 rays) and the eval chunk's
   (12,000), S = 416, on K2's `wall` scene: `ms` and `device_ms`;
+* `k10`: at the first eval chunk's 1,164,000 points (`check_sdf_outputs`'
+  inputs, the eval config's init), its launch on the tree's own pack
+  (`sdf_outputs.OutputStages`, or the first design's
+  `sdf_grad.SdfGradLayout`): `ms` (events, 5 launches) and `device_ms`;
+* `k12`: at `check_rev`'s points and cotangents, its launch on the tree's
+  own pack (K6's, `sdf_grad.bwd_stages`, or the first design's
+  `SdfGradLayout`): `ms` and `device_ms` by kernel (the sweep, the
+  products, the sums: K6's, or the first design's);
 * `eval_perray`: the tree's own `chip_smoke.run_eval_perray(device)`:
   the view's `render_s`, its launches and PSNR;
 * `nonormal`: the tree's own `chip_smoke.run_train(device, "nonormal")`:
   its step times, its profile's device ms a step and its `host_split`.
 
 The first run of each tree that times a kernel also prints
-`scripts/kernel_resources.py`'s rows for its K2, K5, K6 and K7 sources
-(registers, spills, HGMMA, MUFU).
+`scripts/kernel_resources.py`'s rows for its K2, K5, K6, K7, K10 and K12
+sources (registers, spills, HGMMA, MUFU).
 Needs a CUDA device and nvcc.
 """
 
@@ -46,14 +55,15 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PARTS = ("k2", "k5", "k6", "k7", "eval_perray", "nonormal")
+PARTS = ("k2", "k5", "k6", "k7", "k10", "k12", "eval_perray", "nonormal")
+KERNEL_PARTS = {"k2", "k5", "k6", "k7", "k10", "k12"}
 
 
 def profiled(fn, reps: int, keys: dict) -> dict:
     """Device ms a call of fn for each group of kernel names (a group's
-    key a substring of the kernel's name), over the calls of reps that
-    the trace holds (counted by the first group's kernel, launched once a
-    call), and that count."""
+    key a substring of the kernel's name, or a tuple of them), over the
+    calls of reps that the trace holds (counted by the first group's
+    kernel, launched once a call), and that count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -69,7 +79,9 @@ def profiled(fn, reps: int, keys: dict) -> dict:
             continue
         dev = getattr(e, "self_device_time_total",
                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-        g = next((g for g, k in keys.items() if k in e.key), None)
+        g = next((g for g, k in keys.items()
+                  if any(s in e.key for s in ((k,) if isinstance(k, str)
+                                              else k))), None)
         if g is not None:
             out[g] += dev
             # the first group's kernel runs once a call: the calls held
@@ -120,7 +132,8 @@ def one(tree: Path, resources: bool, parts) -> dict:
 
     import chip_smoke as cs
     from i2sdf_tpu_torch.ops.kernels import (build, conv_check, rev,
-                                             sampler_round)
+                                             sampler_round, sdf_grad,
+                                             sdf_outputs)
     assert Path(cs.__file__).resolve().parent == tree, cs.__file__
     inp = inputs()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -132,7 +145,8 @@ def one(tree: Path, resources: bool, parts) -> dict:
         out = subprocess.run(
             [sys.executable, str(tree / "scripts" / "kernel_resources.py"),
              *(str(src / f) for f in ("sampler_round.cu", "rev_fwd.cu",
-                                      "rev_bwd.cu", "conv_check.cu"))],
+                                      "rev_bwd.cu", "conv_check.cu",
+                                      "sdf_outputs.cu", "sdf_grad_bwd.cu"))],
             capture_output=True, text=True, check=True).stdout
         row["resources"] = [
             {k: r.get(k) for k in ("source", "name", "registers",
@@ -166,8 +180,29 @@ def one(tree: Path, resources: bool, parts) -> dict:
         del scenes, zs, cases
         torch.cuda.empty_cache()
 
-    # ---- K5 and K6: check_rev's inputs ---------------------------------
-    if {"k5", "k6"} & parts:
+    # ---- K10: check_sdf_outputs' inputs --------------------------------
+    if "k10" in parts:
+        econf = inp.eval_conf()
+        ecfg, emodel = inp.seeded_model(econf, device)
+        x10, _ = inp.eval_chunk_points(ecfg, econf, device)
+        lins = emodel.implicit.layers()
+        with torch.no_grad():
+            w10 = ([l.weight() for l in lins], [l.b for l in lins])
+            own = getattr(sdf_outputs, "OutputStages", None)
+            k10 = (own or sdf_grad.SdfGradLayout)(ecfg.implicit, *w10)
+
+        def fn10():
+            with torch.no_grad():
+                sdf_outputs.sdf_outputs_fwd(k10, ecfg.implicit, x10)
+        row["k10"] = dict(
+            n=x10.shape[0], ms=cs.time_ms(fn10, 5),
+            device_ms=profiled(fn10, 5, {"k": ("sdf_outputs_kernel",
+                                               "tangent_fwd_kernel")})["k"])
+        del emodel, x10, k10
+        torch.cuda.empty_cache()
+
+    # ---- K5, K6 and K12: check_rev's inputs ----------------------------
+    if {"k5", "k6", "k12"} & parts:
         tconf = inp.train_conf()
         tcfg, tmodel = inp.seeded_model(tconf, device)
         lins = tmodel.implicit.layers()
@@ -177,9 +212,14 @@ def one(tree: Path, resources: bool, parts) -> dict:
             # K5's own pack where the tree's K5 has one (the mma.sync K5's)
             k5 = (rev.RevLayout(tcfg.implicit, ws, bs)
                   if hasattr(rev, "RevLayout") else k)
-        groups = {"sweep": "sweep_kernel", "products": "wgrad_kernel",
+        groups = {"sweep": ("sweep_kernel", "tangent_bwd_kernel"),
+                  "products": "wgrad_kernel",
                   "products_mma_sync": "atb_kernel", "sums": "sum_kernel"}
-        k5_rows, k6_rows = [], []
+        # K12 on the tree's own pack: K6's, or the first design's layout
+        k12 = (sdf_grad.bwd_stages(tcfg.implicit, ws, bs)
+               if hasattr(sdf_grad, "bwd_stages")
+               else sdf_grad.SdfGradLayout(tcfg.implicit, ws, bs))
+        k5_rows, k6_rows, k12_rows = [], [], []
         for label, x in (("eikonal", inp.eikonal_batch(tcfg, tconf, device,
                                                        inp.SEED + 8)),
                          ("render", inp.render_batch(tcfg, tconf, device))):
@@ -194,6 +234,10 @@ def one(tree: Path, resources: bool, parts) -> dict:
             def fn6():
                 with torch.no_grad():
                     rev.rev_bwd(k, x, c_out, c_g)
+
+            def fn12():
+                with torch.no_grad():
+                    sdf_grad.sdf_grad_bwd(k12, x, c_out, c_g)
             if "k5" in parts:
                 k5_rows.append(dict(
                     points=label, n=x.shape[0], ms=cs.time_ms(fn5, 5),
@@ -202,9 +246,13 @@ def one(tree: Path, resources: bool, parts) -> dict:
                 k6_rows.append(dict(
                     points=label, n=x.shape[0], ms=cs.time_ms(fn6, 5),
                     device_ms=profiled(fn6, 5, groups)))
+            if "k12" in parts:
+                k12_rows.append(dict(
+                    points=label, n=x.shape[0], ms=cs.time_ms(fn12, 5),
+                    device_ms=profiled(fn12, 5, groups)))
             torch.cuda.empty_cache()
-        row |= {p: r for p, r in (("k5", k5_rows), ("k6", k6_rows))
-                if p in parts}
+        row |= {p: r for p, r in (("k5", k5_rows), ("k6", k6_rows),
+                                  ("k12", k12_rows)) if p in parts}
         del tmodel
         torch.cuda.empty_cache()
 
@@ -240,8 +288,7 @@ def main(argv: list[str]) -> int:
     seen, rc = set(), 0
     for tree in argv or [str(ROOT)]:
         tree = str(Path(tree).resolve())
-        res = "0" if tree in seen or not set(parts) & {
-            "k2", "k5", "k6", "k7"} else "1"
+        res = "0" if tree in seen or not set(parts) & KERNEL_PARTS else "1"
         seen.add(tree)
         proc = subprocess.run([sys.executable, __file__, "--one",
                                f"{tree}:{res}", ",".join(parts)],

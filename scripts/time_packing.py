@@ -1,6 +1,6 @@
 """Host time of packing the NeRF++ background pair's weights for K8 and
-K9, and the SDF net's for K5 and K6, on one card, at the smoke's bg and
-training configs (their seeded inits).
+K9, and the SDF net's for K5 and K6, K10, and K11 and K12, on one card,
+at the smoke's bg and training configs (their seeded inits).
 
     python scripts/time_packing.py [TREE ...]
 
@@ -24,7 +24,14 @@ card and times on the host clock, after a warm-up, `REPS` times each:
   (`mma_pack.pack_stage_chain` of `render_core.core_sdf_layers` and
   `t_sdf_layers`, the bits `RevStages` must equal);
 * `rev_step_ms`: the SDF packs one normal-off step makes (`RevOp`: K5's
-  and K6's, or the one both read).
+  and K6's, or the one both read);
+* `sdf_outputs_ms`: K10's pack (`sdf_outputs.OutputStages`, K3's SDF
+  chain gathered through a layout built once; the first design's
+  `sdf_grad.SdfGradLayout` where the tree has no `OutputStages`);
+* `sdf_grad_step_ms`: the packs one call of the tangent op makes for K11
+  and K12 (`SdfGradOp`: K11's `SdfGradLayout` and K12's, K6's
+  `RevStages`, both in the forward; the first design's K12 built its
+  transposed chain at its first launch, `SdfGradLayout.backward`).
 
 Each pack starts with the device idle and ends when the host returns (its
 device work runs behind, as in a step); `synced_ms` adds the wait for the
@@ -100,6 +107,19 @@ def one(tree: Path) -> dict:
                 rev.RevStages(icfg, ws, bs)
         packs += [("rev_bwd", lambda: rev.RevStages(icfg, ws, bs)),
                   ("rev_bwd_stagewise", stagewise), ("rev_step", step)]
+
+    from i2sdf_tpu_torch.ops.kernels import sdf_grad, sdf_outputs
+    own10 = getattr(sdf_outputs, "OutputStages", sdf_grad.SdfGradLayout)
+
+    def sdf_grad_step():
+        with torch.no_grad():
+            k = sdf_grad.SdfGradLayout(icfg, ws, bs)
+            if hasattr(sdf_grad, "bwd_stages"):
+                sdf_grad.bwd_stages(icfg, ws, bs)
+            else:
+                k.backward()
+    packs += [("sdf_outputs", lambda: own10(icfg, ws, bs)),
+              ("sdf_grad_step", sdf_grad_step)]
 
     out = dict(tree=str(tree), device=str(device), packer=packer.__name__,
                reps=REPS)

@@ -977,38 +977,41 @@ def test_bg_kernels_refuse_cpu_weights(dev):
 # test_pallas_op_is_past_the_f32_bound_at_perturbed_weights).
 
 TAN_COUNTS = [1, 33, 4800, 155_200]
+# K10: both sides of its 32-point blocks too
+K10_COUNTS = [1, 31, 32, 33, 4800, 155_200]
 TAN_COS_MIN_NORM = 0.5
 NO_PE = mlp.ImplicitNetConfig(feature_vector_size=8, sdf_bounding_sphere=1.5,
                               dims=(32, 32), geometric_init=False)
 
 
-def _tan_case(dev, n, perturbed=True, sphere=0.0, cfg=None):
+def _tan_case(dev, n, perturbed=True, sphere=0.0, cfg=None, depth=8):
     from test_torch_bwd_replay import points
     from test_torch_rev_replay import FLAGSHIP, eikonal_points, sdf_net
     if cfg is not None:
         net = mlp.ImplicitNet(cfg, torch.Generator().manual_seed(0)).to(dev)
     elif perturbed:
-        net = sdf_net(**FLAGSHIP, sphere=sphere, device=dev)
+        net = sdf_net(**{**FLAGSHIP, "depth": depth}, sphere=sphere,
+                      device=dev)
     else:
-        net = mlp.ImplicitNet(dataclasses.replace(ICFG, sdf_bounding_sphere=
-                                                  sphere),
-                              torch.Generator().manual_seed(0)).to(dev)
+        net = mlp.ImplicitNet(dataclasses.replace(
+            ICFG, sdf_bounding_sphere=sphere, dims=ICFG.dims[:depth]),
+            torch.Generator().manual_seed(0)).to(dev)
     if n > 4800:
         return net, points(n, n, device=dev)[0].contiguous()
     return net, eikonal_points(n, n, device=dev)
 
 
-def _sphere_agree(sdf, sdf_r, x, icfg):
-    """Points where K10 and its plain version both took the bounding
-    sphere or both the net: next to the sphere the kernel's bf16 sdf may
-    pick the other side (then the two gradients differ by construction).
-    At least 99% must agree."""
-    agree = torch.ones_like(sdf[:, 0], dtype=torch.bool)
+def _sphere_agree(out, out_r, x, icfg):
+    """Points where K10 and its plain version (sdf, feat, grad) both took
+    the bounding sphere or both the net (`chip_smoke.took_sphere`: the
+    sphere's sdf and gradient): next to the sphere the kernel's bf16 sdf
+    may pick the other branch (then the two gradients differ by
+    construction). At least 99% must agree."""
+    import chip_smoke as cs
+    agree = torch.ones_like(out[0][:, 0], dtype=torch.bool)
     if icfg.sdf_bounding_sphere > 0:
-        sphere = icfg.sphere_scale * (icfg.sdf_bounding_sphere
-                                      - torch.linalg.norm(x, dim=-1))
-        agree = (((sdf[:, 0] - sphere).abs() < 1e-5)
-                 == ((sdf_r[:, 0] - sphere).abs() < 1e-5))
+        agree = (cs.took_sphere(icfg, x, out)
+                 == cs.took_sphere(icfg, x, out_r))
         assert float(agree.float().mean()) > 0.99
     return agree
 
@@ -1042,20 +1045,53 @@ def _tan_close(outs, refs):
         assert float(cos[held].min()) > 0.995, float(cos[held].min())
 
 
-@pytest.mark.parametrize("perturbed", [False, True], ids=["init", "perturbed"])
-@pytest.mark.parametrize("n", TAN_COUNTS)
-def test_sdf_outputs_kernel(dev, n, perturbed):
-    net, x = _tan_case(dev, n, perturbed, sphere=4.0)
+@pytest.mark.parametrize("nets", ["init", "perturbed", "odd"])
+@pytest.mark.parametrize("n", K10_COUNTS)
+def test_sdf_outputs_kernel(dev, n, nets):
+    """K10 (K3's tangent form, 32-point blocks) against the plain op (at
+    the bf16-rounded weights off the init) and its bf16 replay
+    (`replay.K10Replay`, at the same bounds and `chip_smoke.REPLAY_GATE`),
+    a sphere of radius 4 cutting the points."""
+    import chip_smoke as cs
+    from i2sdf_tpu_torch.ops.kernels.replay import emulate_sdf_outputs
+    from test_torch_rev_replay import flat_weights
+    net, x = _tan_case(dev, n, nets != "init", sphere=4.0,
+                       depth=7 if nets == "odd" else 8)
     kernels.reset_launch_counts()
     with torch.no_grad():
         got = sdf_outputs.fused_sdf_outputs(net, x)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["sdf_outputs"] == 1
-    ref = (_bf16w_plain(net, x, True) if perturbed
+    ref = (_bf16w_plain(net, x, True) if nets != "init"
            else sdf_outputs.sdf_outputs_plain(net, x))
     assert [t.shape for t in got] == [t.shape for t in ref]
-    agree = _sphere_agree(got[0], ref[0], x, net.cfg)
+    agree = _sphere_agree(got, ref, x, net.cfg)
     _tan_close([t[agree] for t in got], [t[agree] for t in ref])
+    with torch.no_grad():
+        k = sdf_outputs.OutputStages(net.cfg, *flat_weights(net))
+        rep = emulate_sdf_outputs(k, net.cfg, x)
+    agree = _sphere_agree(got, rep, x, net.cfg)
+    _tan_close([t[agree] for t in got], [t[agree] for t in rep])
+    gaps = cs.replay_gaps((torch.cat(got[:2], 1), got[2]),
+                          (torch.cat(rep[:2], 1), rep[2]))
+    assert cs.replay_ok(gaps, n), gaps
+
+
+def test_sdf_outputs_block_edges_and_reruns(dev):
+    """The first n points alone give the rows of the same points in the
+    full run, to the bit, at counts on both sides of K10's 32-point
+    blocks; a rerun gives the same bits."""
+    from test_torch_rev_replay import flat_weights
+    net, x = _tan_case(dev, 4800, sphere=4.0)
+    with torch.no_grad():
+        k = sdf_outputs.OutputStages(net.cfg, *flat_weights(net))
+        full = sdf_outputs.sdf_outputs_fwd(k, net.cfg, x)
+        again = sdf_outputs.sdf_outputs_fwd(k, net.cfg, x)
+        for n in (1, 31, 32, 33, 63, 65, 4097):
+            part = sdf_outputs.sdf_outputs_fwd(k, net.cfg,
+                                               x[:n].contiguous())
+            assert all(torch.equal(a, b[:n]) for a, b in zip(part, full))
+    assert all(torch.equal(a, b) for a, b in zip(full, again))
 
 
 @pytest.mark.parametrize("perturbed", [False, True], ids=["init", "perturbed"])
@@ -1081,8 +1117,12 @@ def test_sdf_grad_fwd_kernel(dev, n, perturbed):
 @pytest.mark.parametrize("perturbed", [False, True], ids=["init", "perturbed"])
 @pytest.mark.parametrize("n", TAN_COUNTS)
 def test_sdf_grad_bwd_kernel(dev, n, perturbed):
+    """K12 (K6 on K6's pack, through its own entry) against the plain
+    backward, with the loss's cotangents and with c_g alone, to its bf16
+    replay (K6's, `replay.RevReplay`), and to K6 on K6's own pack, bit
+    for bit."""
+    from i2sdf_tpu_torch.ops.kernels.replay import emulate_rev_bwd
     from test_torch_bwd_replay import grad_check
-    from test_torch_tangent_replay import replay_tangent_bwd
     from test_torch_rev_replay import flat_weights, loss_cotangents
     net, x = _tan_case(dev, n, perturbed)
     ws, bs = flat_weights(net)
@@ -1096,23 +1136,23 @@ def test_sdf_grad_bwd_kernel(dev, n, perturbed):
         torch.autograd.grad(grad, ws + bs, c_g, allow_unused=True), ws + bs)]
     del out, grad
     leaf_tol = 0.1 if n >= 4800 else float("inf")
+    c_out, c_g = c_out.contiguous(), c_g.contiguous()
     with torch.no_grad():
-        k = sdf_grad.SdfGradLayout(net.cfg, ws, bs)
+        k = sdf_grad.bwd_stages(net.cfg, ws, bs)
         kernels.reset_launch_counts()
-        dws, dbs = sdf_grad.sdf_grad_bwd(k, x, c_out.contiguous(),
-                                         c_g.contiguous())
+        dws, dbs = sdf_grad.sdf_grad_bwd(k, x, c_out, c_g)
         torch.cuda.synchronize()
-        assert kernels.launch_counts()["sdf_grad_bwd"] == 1
-        got_g = sdf_grad.sdf_grad_bwd(k, x, torch.zeros_like(c_out),
-                                      c_g.contiguous())
+        counts = kernels.launch_counts()
+        assert counts["sdf_grad_bwd"] == 1 and counts["rev_bwd"] == 0
+        got_g = sdf_grad.sdf_grad_bwd(k, x, torch.zeros_like(c_out), c_g)
+        k6 = rev.rev_bwd(rev.RevStages(net.cfg, ws, bs), x, c_out, c_g)
+    assert all(torch.equal(a, b) for a, b in zip(dws + dbs, k6[0] + k6[1]))
     grad_check(dws + dbs, ref, leaf_tol=leaf_tol)
     grad_check(got_g[0] + got_g[1], ref_g, leaf_tol=leaf_tol)
-    # and to its bf16 replay, much closer
+    # and to its bf16 replay (K6's), at K6's bound for it
     with torch.no_grad():
-        replay = replay_tangent_bwd(net.cfg, [w.detach() for w in ws],
-                                    [b.detach() for b in bs], x, c_out, c_g)
-    grad_check(dws + dbs, replay[0] + replay[1], leaf_tol=0.02,
-               cos_tol=0.9999)
+        replay = emulate_rev_bwd(k, x, c_out, c_g)
+    grad_check(dws + dbs, replay[0] + replay[1])
 
 
 def test_sdf_grad_bwd_padding_rows_add_nothing_and_runs_agree(dev):
@@ -1127,7 +1167,7 @@ def test_sdf_grad_bwd_padding_rows_add_nothing_and_runs_agree(dev):
     c_out[33:] = 0.0
     c_g[33:] = 0.0
     with torch.no_grad():
-        k = sdf_grad.SdfGradLayout(net.cfg, *flat_weights(net))
+        k = sdf_grad.bwd_stages(net.cfg, *flat_weights(net))
         a = sdf_grad.sdf_grad_bwd(k, x[:33].contiguous(),
                                   c_out[:33].contiguous(),
                                   c_g[:33].contiguous())
@@ -1164,7 +1204,7 @@ def test_sdf_grad_op(dev, n, sphere):
         assert counts["rev_fwd"] == counts["rev_bwd"] == 0
         res[plain] = ((sdf.detach(), feat.detach(), grad.detach()), list(g))
     got, ref = res[False][0], _bf16w_plain(net, x, sphere > 0)
-    agree = _sphere_agree(got[0], ref[0], x, net.cfg)
+    agree = _sphere_agree(got, ref, x, net.cfg)
     _tan_close([t[agree] for t in got], [t[agree] for t in ref])
     grad_check(res[False][1], res[True][1],
                leaf_tol=0.1 if n >= 4800 else float("inf"))
@@ -1172,42 +1212,44 @@ def test_sdf_grad_op(dev, n, sphere):
 
 @pytest.mark.parametrize("n", [33, 4800])
 def test_tangent_kernels_without_encoding(dev, n):
-    """A net with no encoding and a bounding sphere: K10 and K11 against
-    their plain versions, K12 against its bf16 replay
-    (tests/test_torch_tangent_replay.py): this small net's gradient is
-    short at some points, where the loss's normal term weighs bf16's
-    error past the f32 bound (the replay lands on the kernel's numbers
-    there)."""
-    from test_torch_tangent_replay import replay_tangent_bwd
+    """A net with no encoding and a bounding sphere (the kernels run it as
+    frequency count 0): K10 and K11 against their plain versions, K12 (K6
+    on `bwd_stages`' pack, which K6's own refuses) against its bf16 replay
+    (K6's) and against K6's entry on the same pack, bit for bit: this
+    small net's gradient is short at some points, where the loss's normal
+    term weighs bf16's error past the f32 bound (the replay lands on the
+    kernel's numbers there)."""
+    from i2sdf_tpu_torch.ops.kernels.replay import emulate_rev_bwd
     from test_torch_bwd_replay import grad_check
     from test_torch_rev_replay import flat_weights, loss_cotangents
     net, x = _tan_case(dev, n, cfg=NO_PE)
     with torch.no_grad():
         got = sdf_outputs.fused_sdf_outputs(net, x)
     ref = sdf_outputs.sdf_outputs_plain(net, x)
-    agree = _sphere_agree(got[0], ref[0], x, net.cfg)
+    agree = _sphere_agree(got, ref, x, net.cfg)
     _tan_close([t[agree] for t in got], [t[agree] for t in ref])
     ws, bs = flat_weights(net)
     out_r, grad_r = sdf_grad.sdf_grad_plain(net.cfg, ws, bs, x)
     c_out, c_g = loss_cotangents(out_r, grad_r, seed=n)
+    c_out, c_g = c_out.contiguous(), c_g.contiguous()
     with torch.no_grad():
         k = sdf_grad.SdfGradLayout(net.cfg, ws, bs)
         out, grad = sdf_grad.sdf_grad_fwd(k, x)
-        dws, dbs = sdf_grad.sdf_grad_bwd(k, x, c_out.contiguous(),
-                                         c_g.contiguous())
-        replay = replay_tangent_bwd(net.cfg, [w.detach() for w in ws],
-                                    [b.detach() for b in bs], x, c_out, c_g)
+        kr = sdf_grad.bwd_stages(net.cfg, ws, bs)
+        dws, dbs = sdf_grad.sdf_grad_bwd(kr, x, c_out, c_g)
+        k6 = rev.rev_bwd(kr, x, c_out, c_g)
+        replay = emulate_rev_bwd(kr, x, c_out, c_g)
     _tan_close((out[:, :1], out[:, 1:], grad),
                (out_r[:, :1], out_r[:, 1:], grad_r))
-    grad_check(dws + dbs, replay[0] + replay[1], leaf_tol=0.02,
-               cos_tol=0.9999)
+    assert all(torch.equal(a, b) for a, b in zip(dws + dbs, k6[0] + k6[1]))
+    grad_check(dws + dbs, replay[0] + replay[1])
 
 
 @pytest.mark.parametrize("n", [4800, 155_200])
 def test_tangent_kernels_agree_with_rev_kernels(dev, n):
-    """Two algorithms for one function: K11 against K5 and K12 against K6
-    on the same points, weights and cotangents, to the same bounds."""
-    from test_torch_bwd_replay import grad_check
+    """One function: K11 against K5 (two algorithms) to the same bounds,
+    and K12 against K6 (one: K12 is K6 under its own name) on the same
+    points, weights and cotangents, bit for bit."""
     from test_torch_rev_replay import flat_weights, loss_cotangents
     net, x = _tan_case(dev, n)
     ws, bs = flat_weights(net)
@@ -1219,9 +1261,11 @@ def test_tangent_kernels_agree_with_rev_kernels(dev, n):
         _tan_close((out_t[:, :1], out_t[:, 1:], grad_t),
                    (out_r[:, :1], out_r[:, 1:], grad_r))
         c_out, c_g = (c.contiguous() for c in loss_cotangents(out_r, grad_r))
-        got_t = sdf_grad.sdf_grad_bwd(kt, x, c_out, c_g)
+        got_t = sdf_grad.sdf_grad_bwd(sdf_grad.bwd_stages(net.cfg, ws, bs),
+                                      x, c_out, c_g)
         got_r = rev.rev_bwd(kr, x, c_out, c_g)
-    grad_check([t for g in got_t for t in g], [t for g in got_r for t in g])
+    assert all(torch.equal(a, b) for a, b in zip(
+        [t for g in got_t for t in g], [t for g in got_r for t in g]))
 
 
 def test_tangent_kernels_refuse_cpu_weights(dev):
@@ -1234,8 +1278,9 @@ def test_tangent_kernels_refuse_cpu_weights(dev):
         with pytest.raises(ValueError):
             sdf_grad.sdf_grad_fwd(k, x.to(dev))
         with pytest.raises(ValueError):
-            sdf_grad.sdf_grad_bwd(k, x.to(dev), torch.zeros((8, 257),
-                                                            device=dev),
-                                  torch.zeros((8, 3), device=dev))
+            sdf_grad.sdf_grad_bwd(
+                sdf_grad.bwd_stages(net.cfg, *flat_weights(net)), x.to(dev),
+                torch.zeros((8, 257), device=dev),
+                torch.zeros((8, 3), device=dev))
     with pytest.raises(ValueError):
         sdf_grad.sdf_grad_fwd(k, x)

@@ -21,6 +21,7 @@ arrangement are held against each other, not against a second copy of
 one formula.
 """
 
+import dataclasses
 import math
 import types
 
@@ -387,6 +388,102 @@ def test_render_core_light_plan_replays_to_plain(case):
         lnet.cfg)
     assert (k4.n_sdf, k4.n_light) == (depth + 1, len(ldims) + 1)
     assert int(k4.t.plan[:, 1].max()) <= render_core._K3_WIDTH
+
+
+# ---- K10 on K3's tangent form (csrc/sdf_outputs.cu) ------------------------
+
+# the nets K10's replay is held on: K3's narrow and flagship nets (sphere
+# 0), the narrow net with a bounding sphere of 1.2 (the eikonal points'
+# cube [-4, 4]^3 reaches past it: both sides of the clamp), and a net with
+# no encoding (run as frequency count 0) and a sphere
+K10_NETS = ("narrow", "narrow_sphere", "no_pe", "flagship")
+
+
+def _k10_net(case):
+    if case == "no_pe":
+        cfg = mlp.ImplicitNetConfig(feature_vector_size=8,
+                                    sdf_bounding_sphere=1.5, dims=(32, 32),
+                                    geometric_init=False)
+        return mlp.ImplicitNet(cfg, torch.Generator().manual_seed(0))
+    name = "narrow" if case == "narrow_sphere" else case
+    width, skip, feat, rad, mx, md = CASES[name]
+    net, _ = _nets(width, skip, feat, rad, mx, md)
+    if case == "narrow_sphere":
+        net.cfg = dataclasses.replace(net.cfg, sdf_bounding_sphere=1.2)
+    return net
+
+
+def _k10_pack(net):
+    from i2sdf_tpu_torch.ops.kernels import sdf_outputs
+    lins = net.layers()
+    with torch.no_grad():
+        return sdf_outputs.OutputStages(net.cfg, [l.weight() for l in lins],
+                                        [l.b for l in lins])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_k10_pack_is_k3_sdf_chain(case):
+    """K10's pack (`OutputStages`, gathered through a layout built once)
+    holds K3's SDF stage chain of the same net byte for byte."""
+    width, skip, feat, rad, mx, md = CASES[case]
+    net, rnet = _nets(width, skip, feat, rad, mx, md)
+    k3 = render_core.CoreStages(net.cfg, rnet.cfg,
+                                render_core.CoreWeights.of(net, rnet))
+    k10 = _k10_pack(net)
+    assert k10.sdf.weights.dtype == k3.sdf.weights.dtype == torch.bfloat16
+    assert torch.equal(k10.sdf.weights.view(torch.int16),
+                       k3.sdf.weights.view(torch.int16))
+    assert torch.equal(k10.sdf.biases, k3.sdf.biases)
+    assert np.array_equal(k10.sdf.plan, k3.sdf.plan)
+    assert (k10.F, k10.mx) == (k3.F, k3.mx)
+
+
+def test_k10_replay_is_k3_emulation():
+    """K10's replay (`replay.K10Replay`, all blocks at once) gives K3's
+    emulation's sdf and gradient (`emulate_render_core`, block by block)
+    to the bit on the same SDF net: the same tangent form on the same
+    stage images (sphere 0: no clamp)."""
+    from i2sdf_tpu_torch.ops.kernels import replay
+    net, rnet = _nets(*CASES["narrow"])
+    k3 = render_core.CoreStages(net.cfg, rnet.cfg,
+                                render_core.CoreWeights.of(net, rnet))
+    x, d = _points(70, 4)
+    sdf, grad, _ = emulate_render_core(k3, x, d)
+    sdf10, feat10, grad10 = replay.emulate_sdf_outputs(_k10_pack(net),
+                                                       net.cfg, x)
+    assert torch.equal(sdf10, sdf) and torch.equal(grad10, grad)
+    assert feat10.shape == (70, CASES["narrow"][2])
+
+
+@pytest.mark.parametrize("case", K10_NETS)
+def test_k10_replay_without_rounding_is_the_plain_op(case):
+    """K10's replay with no rounding of its activations is the plain op
+    (`sdf_outputs_plain`'s sweep and clamp) on the pack's bf16 weights, to
+    f32 rounding (1e-5 of each output's largest entry): 70 eikonal points,
+    two blocks and a ragged one."""
+    from i2sdf_tpu_torch.ops.kernels import replay
+    from test_torch_rev_replay import eikonal_points
+    net = _k10_net(case)
+    x = eikonal_points(70, 7)
+    lins = net.layers()
+    with torch.no_grad():
+        ws = [bf(l.weight()) for l in lins]
+        out, grad = sdf_grad.sdf_tangents(net.cfg, ws, [l.b for l in lins],
+                                          x)
+        sdf, grad = render_core._sphere_clamp(net.cfg, x, out[:, :1], grad)
+    got = replay.emulate_sdf_outputs(_k10_pack(net), net.cfg, x,
+                                     rnd=lambda t: t)
+    for name, g, r in zip(("sdf", "feat", "grad"), got,
+                          (sdf, out[:, 1:], grad)):
+        assert g.shape == r.shape, name
+        torch.testing.assert_close(g, r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()),
+                                   msg=name)
+    if net.cfg.sdf_bounding_sphere > 0:  # both sides of the clamp
+        share = float(((sdf[:, 0] - net.cfg.sphere_scale * (
+            net.cfg.sdf_bounding_sphere - x.norm(dim=-1))).abs()
+            < 1e-6).float().mean())
+        assert 0.0 < share < 1.0
 
 
 def _expect_wt(w, K, N):

@@ -240,3 +240,36 @@ def test_pallas_op_is_past_the_f32_bound_at_perturbed_weights(points):
           f"at {past}")
     assert past["f32"] >= 1
     assert past["bf16w"] < past["f32"]
+
+
+@pytest.mark.parametrize("name", ["small", "small_perturbed"])
+def test_k12_replay_matches_pallas_interpret(name):
+    """K12 is K6 on K6's pack (`sdf_grad.bwd_stages`): K6's replay as it
+    rounds (`replay.emulate_rev_bwd`) on that pack, against the backward
+    of the JAX package's `get_sdf_outputs_op` in interpret mode on the
+    same points, weights and cotangents (a loss that reads the sdf, the
+    features and the gradient), within the JAX package's bound for bf16
+    kernel gradients (per leaf max|d|/max|ref| < 0.1, cosine > 0.999)."""
+    from i2sdf_tpu.ops.pallas.fused_grad import get_sdf_outputs_op
+    from i2sdf_tpu_torch.ops.kernels import replay, rev
+    from test_torch_bwd_replay import grad_check
+    from test_torch_rev_replay import loss_cotangents
+    cfg, params, pts, _ = case(name)
+    net = implicit_from_jax(params, cfg)
+    lins = net.layers()
+    ws = [lin.weight().detach() for lin in lins]
+    bs = [lin.b.detach() for lin in lins]
+    x = torch.from_numpy(pts)
+    c_out, c_g = loss_cotangents(*rev.rev_plain(net.cfg, ws, bs, x))
+    with torch.no_grad():
+        got = [t for grp in replay.emulate_rev_bwd(
+            sdf_grad.bwd_stages(net.cfg, ws, bs), x, c_out, c_g)
+            for t in grp]
+    op = get_sdf_outputs_op(cfg, 32, True)
+    _, vjp = jax.vjp(lambda w, b: op(w, b, jnp.asarray(pts)),
+                     tuple(jnp.asarray(w.numpy()) for w in ws),
+                     tuple(jnp.asarray(b.numpy()) for b in bs))
+    ref = [torch.from_numpy(np.array(t)) for grp in vjp(
+        (jnp.asarray(c_out.numpy()), jnp.asarray(c_g.numpy()))) for t in grp]
+    assert [g.shape for g in got] == [r.shape for r in ref]
+    grad_check(got, ref)

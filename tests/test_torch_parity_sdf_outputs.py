@@ -10,13 +10,17 @@ f32) against the JAX package on the same parameters and points.
   sdf 0.02, features 0.05, gradient atol 0.05 / rtol 0.08 and cosine >
   0.995 per point).
 
-The configs are the JAX test's (SMALL, CLAMPED with no encoding and a
-bounding sphere, NONGEO_PE) and SMALL at perturbed weights (init + 0.01
+K10's replay (`replay.K10Replay`: the kernel's own rounding on its stage
+images) is held to the Pallas op at the same bounds. The configs are the
+JAX test's (SMALL, CLAMPED with no encoding and a bounding sphere,
+NONGEO_PE) and SMALL at perturbed weights (init + 0.01
 N(0, 1)): the geometric init zeroes the encoding's rows of layer 0 and of
 the skip, which hides a fault in the tangents' layout, so there each of
 three planted faults must fail the bounds. The CUDA kernel is held to this
 plain version on the card in tests/test_torch_gpu_kernels.py.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +31,8 @@ import torch
 from i2sdf_tpu.models.mlp import ImplicitNetConfig, implicit_net_init
 from i2sdf_tpu.models.mlp import sdf_outputs as xla_sdf_outputs
 from i2sdf_tpu.ops.pallas.fused_outputs import fused_sdf_outputs as jax_fused
-from i2sdf_tpu_torch.ops.kernels import render_core, sdf_grad, sdf_outputs
+from i2sdf_tpu_torch.ops.kernels import (render_core, replay, sdf_grad,
+                                         sdf_outputs)
 from test_torch_helpers import implicit_from_jax
 
 SMALL = ImplicitNetConfig(
@@ -66,6 +71,15 @@ def case(name, n=200):
     return cfg, params, pts
 
 
+@functools.lru_cache(maxsize=None)
+def pallas_refs(name):
+    """The Pallas op's (sdf, feat, grad) in interpret mode on `case(name)`,
+    as numpy arrays (computed once a case)."""
+    cfg, params, pts = case(name)
+    return [np.asarray(r) for r in jax_fused(
+        params, cfg, jnp.asarray(pts), block_rows=64, interpret=True)]
+
+
 def port(cfg, params, pts):
     net = implicit_from_jax(params, cfg)
     with torch.no_grad():
@@ -98,9 +112,23 @@ def test_sdf_outputs_plain_matches_xla(name):
 @pytest.mark.parametrize("name", list(CASES))
 def test_sdf_outputs_plain_matches_pallas_interpret(name):
     cfg, params, pts = case(name)
-    refs = jax_fused(params, cfg, jnp.asarray(pts), block_rows=64,
-                     interpret=True)
-    assert_pallas_close(port(cfg, params, pts), [np.asarray(r) for r in refs])
+    assert_pallas_close(port(cfg, params, pts), pallas_refs(name))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_k10_replay_matches_pallas_interpret(name):
+    """K10 as it rounds (`replay.K10Replay` on its pack, `OutputStages`:
+    K3's wgmma tangent form on the stage images, bf16 activations, f32
+    sums, the clamp in its epilogue) against the Pallas op in interpret
+    mode, within the JAX test's bounds for its bf16 kernel."""
+    cfg, params, pts = case(name)
+    net = implicit_from_jax(params, cfg)
+    lins = net.layers()
+    with torch.no_grad():
+        k = sdf_outputs.OutputStages(net.cfg, [l.weight() for l in lins],
+                                     [l.b for l in lins])
+        got = replay.emulate_sdf_outputs(k, net.cfg, torch.from_numpy(pts))
+    assert_pallas_close([t.numpy() for t in got], pallas_refs(name))
 
 
 def test_flagship_perturbed_matches_pallas_interpret():

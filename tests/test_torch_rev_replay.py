@@ -334,3 +334,55 @@ def test_rev_op_on_cpu_is_the_plain_version_clamped():
                                      torch.zeros(60, 3))):
         with pytest.raises(ValueError):
             call()
+
+
+NO_PE = mlp.ImplicitNetConfig(feature_vector_size=8, sdf_bounding_sphere=1.5,
+                              dims=(32, 32), geometric_init=False)
+
+
+@pytest.mark.parametrize("case", ["narrow", "no_pe"])
+def test_k12_pack_and_plan_are_k6s(case):
+    """K12 (`sdf_grad.sdf_grad_bwd`) launches K6 on K6's pack and plan:
+    `sdf_grad.bwd_stages` is `RevStages`, the same bits as K6's own pack
+    of the net (with no encoding, which K6's own pack refuses, the same
+    bits as packing its layers stage by stage, at frequency count 0), and
+    its plan is K6's (`rev.plan_for`). K6's replay on it with no rounding
+    is the plain op's VJP on the pack's bf16 weights, to f32 rounding."""
+    from i2sdf_tpu_torch.ops.kernels import sdf_grad
+    if case == "no_pe":
+        net = mlp.ImplicitNet(NO_PE, torch.Generator().manual_seed(0))
+    else:
+        net = sdf_net(**NARROW)
+    ws, bs = flat_weights(net)
+    with torch.no_grad():
+        kr = sdf_grad.bwd_stages(net.cfg, ws, bs)
+        if case == "no_pe":
+            with pytest.raises(ValueError):
+                rev.RevStages(net.cfg, ws, bs)
+            w = [t.detach().float() for t in ws]
+            b = [t.detach().float() for t in bs]
+            want = [mma_pack.pack_stage_chain(layers) for layers in (
+                render_core.core_sdf_layers(net.cfg, w, b, embed_none=True),
+                render_core.t_sdf_layers(net.cfg, w, first=True))]
+            assert kr.mx == 0
+        else:
+            k6 = rev.RevStages(net.cfg, ws, bs)
+            want = [k6.sdf, k6.t]
+            assert torch.equal(kr.wsdf, k6.wsdf) and kr.mx == k6.mx
+            assert rev.plan_for(kr, 70) is rev.plan_for(k6, 70)
+    for got, ref in zip((kr.sdf, kr.t), want):
+        assert torch.equal(got.weights.view(torch.int16),
+                           ref.weights.view(torch.int16))
+        assert torch.equal(got.biases, ref.biases)
+        assert np.array_equal(got.plan, ref.plan)
+    x = eikonal_points(70, 70)
+    wl, bl = bf16_leaves(ws, bs)
+    out_ref, grad_ref = rev.rev_plain(net.cfg, wl, bl, x)
+    c_out, c_g = loss_cotangents(out_ref, grad_ref, seed=70)
+    got = [t for grp in emulate_rev_bwd(kr, x, c_out, c_g,
+                                        rnd=lambda t: t) for t in grp]
+    ref = plain_vjp(net.cfg, wl, bl, x, c_out, c_g)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        torch.testing.assert_close(g, r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()),
+                                   msg=str(i))
