@@ -36,7 +36,10 @@ Phases, each printed as one JSON line with its wall time:
    bits (`check_sdf_outputs`), K11 and K12 at the normal-off step's 4,800
    eikonal points and at 155,200, each at the init's and the perturbed
    weights, where three tangent faults planted in the plain op must fail
-   the same check, K11 also against K5 and K12 (K6 under its own name)
+   the same check, K11 (K10's kernel at sphere radius 0) also against
+   K5, against K10 bit for bit (at sphere 0, and at the scene's sphere
+   where it does not win), against K10's replay and at K10's block-edge
+   counts to the full run's bits, and K12 (K6 under its own name)
    against K6 bit for bit; K1 also at
    weights perturbed by 0.01 N(0, 1) against the f32 plain version, K3
    and K3-light also at perturbed weights and on nets with one SDF
@@ -53,7 +56,7 @@ Phases, each printed as one JSON line with its wall time:
    K10's, K11's and K12's design work (`design_macs`) beside the
    function's least work that their bounds count (`macs`), K4's, K5's,
    K6's and K12's scratch (`staging_gb`), the profiler's device time of
-   K2, K5, K6, K7, K10 and K12 (`device_ms`), K2's and K7's bounds with
+   K2, K5, K6, K7, K10, K11 and K12 (`device_ms`), K2's and K7's bounds with
    the exponentials on the SFU (`bound_f32`), and K2's, K4's, K5's, K6's,
    K7's and K10's kernels' registers, spills, HGMMA, MUFU and bulk copies
    (`scripts/kernel_resources.py`, started beside the checks);
@@ -1797,19 +1800,26 @@ def check_sdf_outputs(model, cfg, conf, device,
 def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
     """K11 and K12 at the normal-off step's eikonal batch (4,800 points)
     and at 155,200 points, at the init's weights and at perturbed weights,
-    against the plain op (`sdf_grad_plain`: f32 autograd with
-    create_graph), K11 at the perturbed weights against the plain sweep at
-    the weights rounded to bf16 as K3 is (the f32 comparison reported as
-    `vs_f32`), K12 with the cotangents of the JAX package's kernel-test
-    loss (`rev_cotangents`) and with their c_g alone; at the perturbed
-    weights each planted tangent fault in the plain op must fail the same
-    check (K12's with c_g alone). Each row also holds
-    K11 against K5 (at the perturbed weights past the bounds at no more
-    points than against the f32 op: K5's layer 0 is the more exact) and
-    K12, which is K6 on its own pack (`sdf_grad.bwd_stages`), against K6
-    on another on the same points, weights and cotangents: bit for bit
-    (`vs_rev_bwd`). Both rows' bounds count the function's least work
-    (K5's and K6's), `design_macs` the design's own."""
+    both on the op's one pack (`sdf_grad.bwd_stages`), against the plain
+    op (`sdf_grad_plain`: f32 autograd with create_graph), K11 at the
+    perturbed weights against the plain sweep at the weights rounded to
+    bf16 as K3 is (the f32 comparison reported as `vs_f32`), K12 with the
+    cotangents of the JAX package's kernel-test loss (`rev_cotangents`)
+    and with their c_g alone; at the perturbed weights each planted
+    tangent fault in the plain op must fail the same check (K12's with c_g
+    alone). K11 is K10's kernel at sphere radius 0: its output must be
+    K10's (`sdf_outputs_fwd` on the same pack's chain) at a config with no
+    bounding sphere bit for bit, and at the scene's sphere at every point
+    where the sphere does not win (`took_sphere`; `vs_sdf_outputs`); it is
+    held to K10's replay at sphere 0 (`replay.emulate_sdf_outputs`) at the
+    same bounds and at `REPLAY_GATE`, and its first n points for n in
+    K10_EDGE_COUNTS, and a rerun, give the full run's bits. Each row also
+    holds K11 against K5 (at the perturbed weights past the bounds at no
+    more points than against the f32 op: K5's layer 0 is the more exact)
+    and K12, which is K6 on its own pack, against K6 on another on the
+    same points, weights and cotangents: bit for bit (`vs_rev_bwd`). Both
+    rows' bounds count the function's least work (K5's and K6's),
+    `design_macs` the design's own."""
     icfg = cfg.implicit
     rows = []
     nets = (("init", model.implicit),
@@ -1822,8 +1832,8 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
         n_w = sum(w.numel() for w in ws)
         n_p = n_w + sum(b.numel() for b in bs)
         with torch.no_grad():
-            k = sdf_grad.SdfGradLayout(icfg, ws, bs)
-            kr = rev.RevStages(icfg, ws, bs)
+            k = sdf_grad.bwd_stages(icfg, ws, bs)  # K11's and K12's pack
+            kr = rev.RevStages(icfg, ws, bs)       # K5's and K6's
         # K11
         with torch.no_grad():
             out, grad = sdf_grad.sdf_grad_fwd(k, x)
@@ -1840,6 +1850,41 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
         vs_k5, ok5 = tangent_check(split(out, grad), split(out5, grad5), x,
                                    icfg, False)
         fields.update(vs_f32=vs_f32, vs_rev_fwd=vs_k5)
+        # K11 is K10 at sphere 0: to the bit, and at the scene's sphere
+        # wherever the sphere does not win; its replay is K10's
+        cfg0 = dataclasses.replace(icfg, sdf_bounding_sphere=0.0)
+        cfg_s = dataclasses.replace(icfg, sdf_bounding_sphere=(
+            icfg.sdf_bounding_sphere or cfg.scene_bounding_sphere))
+        with torch.no_grad():
+            o10 = sdf_outputs.sdf_outputs_fwd(k, cfg0, x)
+            same0 = (torch.equal(out, torch.cat(o10[:2], 1))
+                     and torch.equal(grad, o10[2]))
+            o10 = sdf_outputs.sdf_outputs_fwd(k, cfg_s, x)
+            net_wins = ~took_sphere(cfg_s, x, o10)
+            same_s = (torch.equal(out[net_wins],
+                                  torch.cat(o10[:2], 1)[net_wins])
+                      and torch.equal(grad[net_wins], o10[2][net_wins]))
+            del o10
+            rep = replay.emulate_sdf_outputs(k, cfg0, x)
+            rf, ok_r = tangent_check(split(out, grad), rep, x, icfg, False)
+            rf["past_gap"] = replay_gaps(
+                (out, grad), (torch.cat(rep[:2], 1), rep[2]))
+            ok_r = ok_r and replay_ok(rf["past_gap"], n)
+            del rep
+            edges = all(
+                torch.equal(e, f[:m]) for m in K10_EDGE_COUNTS
+                for e, f in zip(sdf_grad.sdf_grad_fwd(k, x[:m].contiguous()),
+                                (out, grad)))
+            rerun = all(torch.equal(e, f) for e, f in zip(
+                sdf_grad.sdf_grad_fwd(k, x), (out, grad)))
+        fields.update(
+            vs_sdf_outputs=dict(bitwise_sphere0=same0,
+                                sphere=cfg_s.sdf_bounding_sphere,
+                                sphere_share=1.0 - float(
+                                    net_wins.float().mean()),
+                                bitwise_where_net_wins=same_s),
+            replay=rf, edges_bitwise=edges, bitwise_rerun=rerun)
+        ok = ok and same0 and same_s and ok_r and edges and rerun
         # K5 takes layer 0's encoding as a hi/lo pair, K11 in bf16: at the
         # perturbed weights K5 is the nearer to the f32 op, against which
         # K11 (as the JAX package's) is past the bound at a few points, so
@@ -1856,7 +1901,7 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
             fields["faults_caught"] = not any(v[1] for v in bad.values())
             ok = ok and fields["faults_caught"]
         b_ms, b_by = bound(2.0 * k5_macs(icfg) * n,
-                           n * (12 + 4 * k.out_cols + 12) + 2 * n_w,
+                           n * (12 + 4 * (k.F + 1) + 12) + 2 * n_w,
                            PEAK_BF16)
 
         def k11():
@@ -1875,6 +1920,7 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
             max_abs_err=max(fields["errs"].values()), **fields,
             tolerances=TAN_TOLS, cos_tol=TAN_COS_TOL, macs=k5_macs(icfg),
             design_macs=tangent_design_macs(icfg), ms=time_ms(k11, 5),
+            device_ms=device_ms(k11, 5, "sdf_outputs_kernel"),
             plain_ms=time_ms(lambda: sdf_grad.sdf_grad_plain(icfg, ws, bs,
                                                              x), 2),
             bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib11, 3)))
@@ -1891,8 +1937,8 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
             torch.autograd.grad(grad_p, ws + bs, c_g, allow_unused=True),
             ws + bs)]
         del out_p, grad_p
+        k12p = k  # the forward's pack, as the op keeps it
         with torch.no_grad():
-            k12p = sdf_grad.bwd_stages(icfg, ws, bs)
             got = [t for g in sdf_grad.sdf_grad_bwd(k12p, x, c_out, c_g)
                    for t in g]
             again = [t for g in sdf_grad.sdf_grad_bwd(k12p, x, c_out, c_g)
@@ -1920,7 +1966,7 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
             ok = ok and fields["faults_caught"]
         del got6, got_g, ref_g
         b_ms, b_by = bound(2.0 * k6_macs(icfg) * n,
-                           n * (12 + 4 * k.out_cols + 12) + 2 * 2 * n_w
+                           n * (12 + 4 * (k.F + 1) + 12) + 2 * 2 * n_w
                            + 4 * n_p, PEAK_BF16)
 
         def k12():
@@ -1941,7 +1987,7 @@ def check_sdf_grad(model, cfg, conf, device) -> list[dict]:
             source="i2sdf_tpu_torch/csrc/sdf_grad_bwd.cu",
             replaces="i2sdf_tpu/ops/pallas/fused_grad.py:250",
             points=label, weights=wlabel, shape=[n, 3],
-            cotangents=[k.out_cols, 3],
+            cotangents=[k.F + 1, 3],
             staging_gb=k4_staging_gb(rev.plan_for(k12p, n)),
             max_abs_err=max(float((g - r).abs().max())
                             for g, r in zip(got, ref)),

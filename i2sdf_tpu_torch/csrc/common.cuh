@@ -1,17 +1,8 @@
 // Shared device code for the port's kernels (sm_90a, plain C interface):
 // the layer plan, bf16 packing, the activations, the encoding, the
-// backward sweeps' stash and fixed-order sums. Every MLP kernel but K11
-// is built on `wgmma_layer.cuh`; K11 (`tangent_common.cuh`) still runs the
-// mma.sync layer below.
-//
-// `mma_layer`: a block of rows flows through a layer as a tiled product
-// on the tensor cores with `mma.sync.m16n8k16` (bf16 operands, f32
-// accumulation): the block's 8 warps split the layer's output columns into
-// 8-wide tiles, and every warp covers all of the block's rows, so each
-// weight fragment it loads feeds MT mma instructions. Weights arrive
-// pre-packed in fragment order (one 8-byte load per lane per tile,
-// coalesced, served from L2). The epilogue is a functor applied to the
-// accumulators in registers.
+// backward sweeps' stash and fixed-order sums. Every MLP kernel is built
+// on `wgmma_layer.cuh`, which takes its layer plan (`Plan`, `LayerField`)
+// from here.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,15 +27,6 @@ struct Plan {
   int n;
   int L[kMaxLayers][8];
 };
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -82,61 +64,6 @@ __device__ __forceinline__ float pe_value(const float* x, int F, int p) {
   return is_cos ? cosf(arg) : sinf(arg);
 }
 
-// out[rows, N] = A[rows, K] @ W[K, N] for a block of MT*16 rows, then
-// epi(row, col, v(col), v(col+1)) for every accumulator pair. A is bf16 in
-// shared memory with leading dimension lda; W is the packed fragment
-// stream: for tile t (8 columns) and k-step kk (16 deep), lane l holds
-// uint2{b0, b1} at W[(t * KS + kk) * 32 + l]. K % 16 == 0, N % 8 == 0,
-// N <= 8 * kWarps * MAXNT.
-template <int MT, int MAXNT, class Epi>
-__device__ __forceinline__ void mma_layer(const __nv_bfloat16* A, int lda,
-                                          int K, const uint2* __restrict__ W,
-                                          int N, Epi& epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int NT = N >> 3, KS = K >> 4;
-  float acc[MT][MAXNT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < MAXNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
-
-  for (int kk = 0; kk < KS; ++kk) {
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const __nv_bfloat16* p = A + (m * 16 + g) * lda + kk * 16 + tig * 2;
-      a[m][0] = *reinterpret_cast<const uint32_t*>(p);
-      a[m][1] = *reinterpret_cast<const uint32_t*>(p + 8 * lda);
-      a[m][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-      a[m][3] = *reinterpret_cast<const uint32_t*>(p + 8 * lda + 8);
-    }
-#pragma unroll
-    for (int j = 0; j < MAXNT; ++j) {
-      const int t = warp + kWarps * j;
-      if (t < NT) {
-        const uint2 b = __ldg(W + ((size_t)t * KS + kk) * 32 + lane);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) mma_bf16(acc[m][j], a[m], b.x, b.y);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < MAXNT; ++j) {
-    const int t = warp + kWarps * j;
-    if (t < NT) {
-      const int col = t * 8 + tig * 2;
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        epi(m * 16 + g, col, acc[m][j][0], acc[m][j][1]);
-        epi(m * 16 + g + 8, col, acc[m][j][2], acc[m][j][3]);
-      }
-    }
-  }
-}
-
 // ---- the backward sweeps' shared pieces -----------------------------------
 //
 // K4, K5, K6 and K9 run their sweeps on `wgmma_layer.cuh` (sdf_sweep.cuh,
@@ -150,10 +77,6 @@ constexpr int kMaxJobs = kMaxSdf + kMaxRad + kMaxLight;
 // a row's cotangents [c_grad | c_sdf | c_rgb | c_lm], in device memory
 // and in shared memory
 constexpr int kCot = 8;
-
-__device__ __forceinline__ void put2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
-}
 
 // The activation derivative as stored for the backward: q =
 // sigmoid(-|100 z|) with the sign bit set where z > 0 (-0 in softplus's

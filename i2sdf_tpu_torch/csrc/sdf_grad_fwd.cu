@@ -15,23 +15,29 @@
 // (`chip_smoke.py::k5_macs`, as K5), against 12 bytes in and 1,040 out;
 // the tangent form does ~1.9 M (`tangent_design_macs`).
 //
-// Design: the mma.sync tangent sweep of `tangent_common.cuh`
-// (`tangent_fwd_kernel`). Where K5 stashes every hidden layer's
-// activation derivative for a reverse sweep, the three tangents ride
-// beside the activations as three more 16-row tiles against each weight
-// fragment, scaled by softplus'(z) in registers; the output layer's
-// tangent rows compute the sdf column alone.
-#include "tangent_common.cuh"
+// It computes K10's function without the bounding-sphere clamp (the op
+// clamps outside, as the TPU op's wrapper does, `fused_grad.py:353`).
+// So K11 is K10 (`sdf_outputs.cu`): its kernel, K3's wgmma tangent form
+// on the SDF net (`tangent_form.cuh`), launched with sphere radius 0 on
+// K10's stage chain, which is the `.sdf` chain of K12's pack
+// (`rev.RevStages`, the same bits as `sdf_outputs.OutputStages`), under
+// K11's own name and launch count; on the same points and weights its
+// output is K10's at sphere 0, bit for bit.
 
+// sdf_outputs.cu
+extern "C" int i2sdf_sdf_outputs(const float* x, int n, const void* w,
+                                 const float* b, const int* desc,
+                                 int n_layers, int mx, int F, float sphere_r,
+                                 float sphere_scale, float* out,
+                                 float* grad_out, void* stream);
+
+// `w`, `b` and `desc` are the `.sdf` chain of `rev.RevStages` (K3's SDF
+// stage chain: the hidden layers, the sdf alone, the features); `mx` the
+// encoding's frequency count (0: none).
 extern "C" int i2sdf_sdf_grad_fwd(const float* x, int n, const void* w,
                                   const float* b, const int* desc,
-                                  int n_layers, int mx, int lda, int out_cols,
-                                  float* out, float* grad_out, void* stream) {
-  using namespace i2sdf;
-  if (n <= 0) return 0;
-  if (n_layers > kMaxLayers || n_layers < 2)
-    return (int)cudaErrorInvalidValue;
-  return (int)launch_tangent_fwd(x, n, (const uint2*)w, b,
-                                 read_plan(desc, n_layers), mx, lda, out_cols,
-                                 out, grad_out, stream);
+                                  int n_layers, int mx, int F, float* out,
+                                  float* grad_out, void* stream) {
+  return i2sdf_sdf_outputs(x, n, w, b, desc, n_layers, mx, F, 0.f, 1.f, out,
+                           grad_out, stream);
 }

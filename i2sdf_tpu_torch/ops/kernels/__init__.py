@@ -30,9 +30,9 @@ counterpart here. K1, K3, K4, K5, K6, K8, K9 and K10 are built on the
 wgmma layer primitive `csrc/wgmma_layer.cuh`; K3 and K10 share its
 four-stream tangent form, `csrc/tangent_form.cuh`; K4, K5, K6 and K9 its
 backward-sweep pieces, `csrc/wgmma_sweep.cuh`, and K4, K5 and K6 the SDF
-net's sweeps, `csrc/sdf_sweep.cuh`. K12 is K6 (its kernels on its pack,
-through K12's own C entry and counter). K11 still runs the mma.sync
-tangent sweep of `csrc/tangent_common.cuh`.
+net's sweeps, `csrc/sdf_sweep.cuh`. K11 is K10 at sphere radius 0 and
+K12 is K6: their kernels on K6's pack, each through its own C entry and
+counter.
 """
 
 from . import (bg_core, conv_check, render_core, rev, sampler_round,

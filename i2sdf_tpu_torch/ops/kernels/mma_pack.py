@@ -1,23 +1,17 @@
 """Host-side weight packing for the MLP kernels.
 
-Two layouts, each a chain of layers with one `Plan` row per layer (8
-int32: padded sizes, offsets, flags; the field order is `LayerField` in
-`csrc/common.cuh`):
-
-* fragment order (`pack_chain`, the mma.sync kernels of `csrc/common.cuh`
-  and the tangent and background kernels): a layer's (K, N) weight is
-  zero-padded to multiples of 16, rounded to bf16 and reordered into
-  `mma.m16n8k16` B-fragment order: for 8-column tile t, 16-deep k-step kk
-  and lane l = 4*g + i, the four values W[16kk + 2i + {0, 1}, 8t + g] and
-  W[16kk + 8 + 2i + {0, 1}, 8t + g] are adjacent, so a lane fetches its
-  fragment with one 8-byte load;
-* stage images (`pack_stage_chain`, K1 and K3 on `csrc/wgmma_layer.cuh`):
-  per 64-deep chunk of K, W^T's N rows x 64 columns in wgmma's
-  128-byte-swizzle K-major layout, one contiguous block that one bulk
-  copy brings into shared memory. K is padded to 16 and N to one of the
-  kernels' instantiated widths (`WG_WIDTHS`); `kWOff` counts bf16
-  elements, and `kStageRows` (field 7) the rows of W^T a stage holds
-  where a layer comes in passes (0: all N).
+A net is a chain of layers with one `Plan` row per layer (8 int32: padded
+sizes, offsets, flags; the field order is `LayerField` in
+`csrc/common.cuh`), its weights as stage images (`pack_stage_chain`,
+every kernel on `csrc/wgmma_layer.cuh`): per 64-deep chunk of K, W^T's N
+rows x 64 columns in wgmma's 128-byte-swizzle K-major layout, one
+contiguous block that one bulk copy brings into shared memory. K is
+padded to 16 and N to one of the kernels' instantiated widths
+(`WG_WIDTHS`); `kWOff` counts bf16 elements, and `kStageRows` (field 7)
+the rows of W^T a stage holds where a layer comes in passes (0: all N).
+`rev.RevStages`, `sdf_outputs.OutputStages` and `bg_core.BgStages`
+gather each chain from the net's flat weights through a layout built
+once for its shapes (`chain_index`, `gather_chain`).
 """
 
 from __future__ import annotations
@@ -36,21 +30,10 @@ def round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def pack_b(w: torch.Tensor, K: int, N: int) -> torch.Tensor:
-    """(k, n) f32 weight -> flat bf16 fragment stream for a (K, N) tile
-    grid."""
-    k, n = w.shape
-    full = torch.zeros((K, N), dtype=torch.float32, device=w.device)
-    full[:k, :n] = w
-    frag = full.to(torch.bfloat16).reshape(K // 16, 2, 4, 2, N // 8, 8)
-    # -> (tile, k-step, g, i, half, pair)
-    return frag.permute(4, 0, 5, 2, 1, 3).reshape(-1).contiguous()
-
-
 @dataclasses.dataclass
 class PackedMlp:
     """A chain of layers in kernel layout."""
-    weights: torch.Tensor   # flat bf16: every layer's fragments or stages
+    weights: torch.Tensor   # flat bf16: every layer's stage images
     biases: torch.Tensor    # flat f32, each layer padded to its N
     plan: np.ndarray        # (layers, 8) int32, host memory
 
@@ -61,26 +44,6 @@ class PackedMlp:
     @property
     def max_width(self) -> int:
         return int(self.plan[:, :2].max())
-
-
-def pack_chain(layers: list[dict]) -> PackedMlp:
-    """layers: dicts with w (k, n) f32, b (n,) f32 or None, flags, col."""
-    ws, bs, rows = [], [], []
-    w_off = b_off = 0
-    for lay in layers:
-        k, n = lay["w"].shape
-        K, N = round_up(k, 16), round_up(n, 16)
-        ws.append(pack_b(lay["w"], K, N))
-        b = torch.zeros(N, dtype=torch.float32, device=lay["w"].device)
-        if lay.get("b") is not None:
-            b[:n] = lay["b"]
-        bs.append(b)
-        rows.append([K, N, lay.get("real", n), w_off // 4, b_off,
-                     lay.get("flags", 0), lay.get("col", 0), 0])
-        w_off += ws[-1].numel()
-        b_off += N
-    return PackedMlp(torch.cat(ws), torch.cat(bs),
-                     np.ascontiguousarray(np.asarray(rows, np.int32)))
 
 
 STAGE_K = 64                          # K columns of a stage (128 bytes)
@@ -125,7 +88,8 @@ def pack_stages(w: torch.Tensor, K: int, N: int, rows: int = 256,
 
 def pack_stage_chain(layers: list[dict], rows: int = 256,
                      dtype=torch.bfloat16) -> PackedMlp:
-    """`pack_chain`'s layers (w (k, n), b, flags, col, real) as stage
+    """Layers (dicts of w (k, n) f32, b (n,) f32 or None, flags, col,
+    real) as stage
     images of at most `rows` rows
     (`pack_stages`, recorded as the plan's kStageRows when below N):
     K = round_up(k, 16), N = wg_width(n), biases zero-padded to N. With
@@ -212,12 +176,6 @@ def chain_index(key, chains, shapes: tuple, rows: tuple) -> ChainIndex:
     if key not in _INDEX:
         _INDEX[key] = ChainIndex(chains, shapes, rows)
     return _INDEX[key]
-
-
-def row_stride(width: int) -> int:
-    """Shared-memory row length (bf16) >= width + 8 with a row stride of
-    4 banks mod 32, so a warp's fragment loads hit 32 distinct banks."""
-    return round_up(width, 16) + 8
 
 
 def sdf_chain(net, last_cols=None) -> list[dict]:

@@ -38,12 +38,12 @@ relu'(features) (`fused_train.py:345-348`).
   held to.
 
 The bounding-sphere clamp is applied outside the kernels, as
-`fused_train.py:771-777` does. The SDF net's fragment layout
-(`sdf_chain_fwd`) serves K11 (`sdf_grad.py`); K5 and K6 (and K12, which
-is K6) run K4's sweeps on K4's packs (`core_sdf_layers`, `t_sdf_layers`;
+`fused_train.py:771-777` does. K5 and K6 (and K12, which is K6) run K4's
+sweeps on K4's packs (`core_sdf_layers`, `t_sdf_layers`;
 `rev.RevStages`), K6 on K4's plan (`K4Plan`), K5 on its own table of the
-same items (`rev.K5Plan`); K10 runs K3's tangent form on K3's SDF chain
-(`core_sdf_layers`; `sdf_outputs.OutputStages`).
+same items (`rev.K5Plan`); K10 (and K11, which is K10 at sphere radius
+0) runs K3's tangent form on K3's SDF chain (`core_sdf_layers`;
+`sdf_outputs.OutputStages`, and `rev.RevStages.sdf` for K11).
 """
 
 from __future__ import annotations
@@ -61,11 +61,8 @@ bwd_launches = 0  # K4 launches since the last reset_launch_counts()
 light_launches = 0      # K3 with the light head
 light_bwd_launches = 0  # K4 with the light head
 
-_MAX_WIDTH = 320         # K11: 8 warps x 5 tiles x 8 columns
-_MAX_SDF = 12            # K11: SDF layer slots (kMaxSdf)
 _K3_WIDTH = 256          # K3: a tile's four 64-column chunks, wgmma's N
 _K3_RAD_K = 320          # K3 and K4: five chunks, the radiance input
-_MAX_SMEM = 232448       # bytes a block may use on the H100
 _MAX_LAYERS = 16         # K3, K4: a `Plan`'s rows (kMaxLayers)
 _MAX_SPLITS = 32         # point-range splits of the weight-gradient sums
 _PLAIN_CHUNK = 1 << 17
@@ -141,18 +138,10 @@ def _rad_perm(vdim: int, F: int) -> list:
     return list(range(vdim, vdim + F)) + list(range(vdim))
 
 
-def sdf_chain_fwd(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
-                  embed_none: bool = False):
-    """K11's SDF chain in mma.sync fragment order (`mma_pack.pack_chain`),
-    layer 0 first, the output layer's columns as in `ws`; `embed_none`
-    also takes a net with no encoding (`mma_pack.check_sdf_net`)."""
-    return mma_pack.pack_chain(sdf_layers(icfg, ws, bs, embed_none))
-
-
 def sdf_layers(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
                embed_none: bool = False) -> list:
-    """The SDF net's layers for a packer (`mma_pack.pack_chain`,
-    `pack_stage_chain`): weights, biases, the skip's flags and column."""
+    """The SDF net's layers for a packer (`mma_pack.pack_stage_chain`):
+    weights, biases, the skip's flags and column."""
     mma_pack.check_sdf_net(icfg, embed_none)
     dims = icfg.layer_dims()
     d0, n = dims[0], len(dims) - 1

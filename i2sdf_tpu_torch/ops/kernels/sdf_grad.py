@@ -5,33 +5,37 @@ the backward of the same function, through that gradient too.
 Replaces `i2sdf_tpu/ops/pallas/fused_grad.py:250 get_sdf_outputs_op`: its
 forward (pallas_call at `:277`) is K11 (`csrc/sdf_grad_fwd.cu`), its
 backward (`:323`) is K12 (`csrc/sdf_grad_bwd.cu`). The op computes what
-`get_rev_op` (K5/K6, `rev.py`) computes (`fused_rev.py:215-219`): K11 by
-the other algorithm, the three tangents d/dx_k riding through the net
-beside the activations on mma.sync (`csrc/tangent_common.cuh`), and K12 by
-K6's: its wgmma sweeps, products and sums on K6's pack (`rev.RevStages`)
-and plan, under K12's own C entry and launch count, so that on the same
-inputs its gradients are K6's to the bit. Each CUDA source's header says
-what bounds it.
+`get_rev_op` (K5/K6, `rev.py`) computes (`fused_rev.py:215-219`), and
+its forward is K10's function without the bounding-sphere clamp. So K11
+is K10's kernel (K3's wgmma tangent form on the SDF net, the three
+tangents d/dx_k riding through the net beside the activations) launched
+with sphere radius 0, and K12 is K6's kernels (its wgmma sweeps,
+products and sums); each under its own C entry and launch count, both on
+one pack, K6's `rev.RevStages`, whose SDF stage chain is K10's
+(`sdf_outputs.OutputStages`) byte for byte. On the same inputs K11's
+output is K10's at sphere 0 and K12's gradients are K6's, to the bit.
+The op takes K10's and K6's nets: layers up to 256 wide, a feature width
+that is a multiple of 8 up to 256, up to 10 encoding frequencies, 1 to
+14 hidden layers (`sdf_outputs.check_stages`; the first design took
+layers up to 320 wide, but K12's pack never did). Each CUDA source's
+header says what bounds it.
 
 * `embed_tangents` and `sdf_tangents`: the tangent sweep in plain f32
   PyTorch, differentiable with respect to the weights (autograd through
   it gives the second order). The embedding's tangents are arguments, so
   that a check can feed a faulty layout through the same sweep.
-* `SdfGradLayout`: the SDF net in K11's layout (weight norm
-  materialized, bf16, mma fragment order), the output layer in the net's
-  own column order [sdf | features]. A net with no encoding runs as
-  frequency count 0: its tangents are e_k.
-* `bwd_stages(icfg, ws, bs)`: K12's pack, K6's `rev.RevStages` (a net
-  with no encoding too).
+* `bwd_stages(icfg, ws, bs)`: the op's one pack, K6's `rev.RevStages`
+  (a net with no encoding too, run as frequency count 0): K11 reads its
+  `.sdf` chain, K12 all of it.
 * `sdf_grad_fwd(k, x)` -> (out (N, 1 + F), grad (N, 3)) and
-  `sdf_grad_bwd(kr, x, c_out, c_g)` -> (dws, dbs): the launches, CUDA
+  `sdf_grad_bwd(k, x, c_out, c_g)` -> (dws, dbs): the launches, CUDA
   tensors only.
 * `sdf_grad_plain(icfg, ws, bs, x)`: the same function in plain f32
   PyTorch, the gradient by autograd with `create_graph` (`rev.rev_plain`).
   The CPU path and the tests use it; on the card it only serves as the
   yardstick the kernels are held to.
 * `SdfGradOp`: the `torch.autograd.Function` on the card, K11 forward,
-  K12 backward, both packs built in the forward, no gradient to x
+  K12 backward, on the pack the forward builds once, no gradient to x
   (`fused_grad.py:341-347`).
 * `sdf_outputs_fused_grad(implicit, x, plain=False)` -> (sdf, feat, grad),
   the bounding-sphere clamp composed outside the kernels: the counterpart
@@ -46,13 +50,10 @@ import torch
 
 from ...models import mlp
 from ...models.embedder import pe_frequencies
-from . import build, mma_pack, render_core, rev
+from . import build, mma_pack, render_core, rev, sdf_outputs
 
 launches = 0      # K11 launches since the last reset_launch_counts()
 bwd_launches = 0  # K12 launches since the last reset_launch_counts()
-
-_POINTS = 16      # points a block (kTanPoints in csrc/tangent_common.cuh)
-_STREAMS = 4      # the primal rows and the three tangents' (kStreams)
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -120,75 +121,32 @@ sdf_grad_plain = rev.rev_plain
 
 # ---- kernel layout ----------------------------------------------------------
 
-class SdfGradLayout:
-    """The SDF net in K11's layout, from materialized (in, out) weights
-    and biases: `fwd` (layer 0 first, `render_core.sdf_chain_fwd`), in the
-    net's column order; `mx` the encoding's frequency count (0: no
-    encoding)."""
-
-    def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs):
-        if icfg.d_out != 1 or icfg.output_activation is not None:
-            raise ValueError("sdf_grad: needs d_out 1 and no output "
-                             "activation")
-        dims = icfg.layer_dims()
-        n = len(dims) - 1
-        self.fwd = render_core.sdf_chain_fwd(
-            icfg, [t.detach().float() for t in ws],
-            [t.detach().float() for t in bs], embed_none=True)
-        if self.fwd.max_width > render_core._MAX_WIDTH:
-            raise ValueError(f"sdf_grad: layer width above "
-                             f"{render_core._MAX_WIDTH}")
-        if n > render_core._MAX_SDF:
-            raise ValueError("sdf_grad: too many layers for the kernels")
-        self.n_sdf, self.out_cols = n, dims[-1]
-        self.lda = mma_pack.row_stride(self.fwd.max_width)
-        if fwd_smem(self) > render_core._MAX_SMEM:
-            raise ValueError(f"sdf_grad_fwd: needs {fwd_smem(self)} bytes "
-                             "of shared memory")
-        self.mx = icfg.multires if icfg.embed_type else 0
-
-
-def fwd_smem(k) -> int:
-    """The shared memory (bytes) of K11's kernel
-    (`tan_fwd_smem_bytes` in csrc/tangent_common.cuh): two activation
-    buffers of the four streams, and per point x, the sdf and the
-    gradient."""
-    return 2 * 2 * _STREAMS * _POINTS * k.lda + 4 * _POINTS * (3 + 1 + 3)
-
-
 def bwd_stages(icfg: mlp.ImplicitNetConfig, ws, bs) -> rev.RevStages:
-    """K12's pack: K6's (`rev.RevStages`), for a net with no encoding too
-    (run as frequency count 0)."""
+    """The op's one pack: K6's (`rev.RevStages`), for a net with no
+    encoding too (run as frequency count 0). K11 launches on its `.sdf`
+    chain (K10's, `sdf_outputs.OutputStages`' bits), K12 on all of it."""
     return rev.RevStages(icfg, ws, bs, embed_none=True)
 
 
 # ---- kernels ----------------------------------------------------------------
 
-def check_points(k: SdfGradLayout, x: torch.Tensor, name: str):
-    if not x.is_cuda:
-        raise ValueError(f"{name}: the kernel takes CUDA tensors; the plain "
-                         "version runs on the CPU")
-    mma_pack.check_input(x, "x", cols=3)
-    if k.fwd.weights.device != x.device:
-        raise ValueError(f"{name}: the weights are not on the points' "
-                         "device")
-
-
-def sdf_grad_fwd(k: SdfGradLayout, x: torch.Tensor):
-    """K11: (out (N, 1 + F), grad (N, 3)), unclamped."""
+def sdf_grad_fwd(k: rev.RevStages, x: torch.Tensor):
+    """K11: (out (N, 1 + F), grad (N, 3)), unclamped: K10's kernel on the
+    pack's `.sdf` chain at sphere radius 0, through K11's own entry."""
     global launches
-    check_points(k, x, "sdf_grad_fwd")
+    sdf_outputs.check_points(k, x, "sdf_grad_fwd")
+    sdf_outputs.check_stages(k, "sdf_grad_fwd")
     n = x.shape[0]
-    out = torch.empty((n, k.out_cols), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, k.F + 1), dtype=torch.float32, device=x.device)
     grad = torch.empty((n, 3), dtype=torch.float32, device=x.device)
-    if n == 0:
-        return out, grad
-    err = build.load_library().i2sdf_sdf_grad_fwd(
-        x.data_ptr(), n, k.fwd.weights.data_ptr(), k.fwd.biases.data_ptr(),
-        k.fwd.plan.ctypes.data, k.fwd.n_layers, k.mx, k.lda, k.out_cols,
-        out.data_ptr(), grad.data_ptr(), mma_pack.stream_of(x))
-    build.check(err, "sdf_grad_fwd")
-    launches += 1
+    if n:
+        err = build.load_library().i2sdf_sdf_grad_fwd(
+            x.data_ptr(), n, k.sdf.weights.data_ptr(),
+            k.sdf.biases.data_ptr(), k.sdf.plan.ctypes.data, k.sdf.n_layers,
+            k.mx, k.F, out.data_ptr(), grad.data_ptr(),
+            mma_pack.stream_of(x))
+        build.check(err, "sdf_grad_fwd")
+        launches += 1
     return out, grad
 
 
@@ -206,8 +164,8 @@ def sdf_grad_bwd(kr: rev.RevStages, x: torch.Tensor, c_out: torch.Tensor,
 
 
 class SdfGradOp(torch.autograd.Function):
-    """The op on the card: K11 forward on its layout, K12 backward on K6's
-    pack, both packed once in the forward.
+    """The op on the card: K11 forward, K12 backward, both on the one
+    pack (`bwd_stages`) the forward builds.
 
     apply(icfg, x, *ws, *bs) -> (out, grad), unclamped. Gradients flow to
     the weights and biases only; x is a constant."""
@@ -215,8 +173,8 @@ class SdfGradOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, icfg, x, *flat):
         n = len(flat) // 2
-        out, grad = sdf_grad_fwd(SdfGradLayout(icfg, flat[:n], flat[n:]), x)
         ctx.stages = bwd_stages(icfg, flat[:n], flat[n:])
+        out, grad = sdf_grad_fwd(ctx.stages, x)
         ctx.save_for_backward(x)
         return out, grad
 

@@ -51,12 +51,12 @@ class OutputStages:
     frequency count (0: no encoding)."""
 
     def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs):
-        F = icfg.feature_vector_size
         if icfg.d_out != 1 or icfg.output_activation is not None:
             raise ValueError("sdf_outputs: needs d_out 1 and no output "
                              "activation")
-        self.F, self.mx = F, icfg.multires if icfg.embed_type else 0
-        if self.mx > _MAX_PE:
+        self.F = icfg.feature_vector_size
+        self.mx = icfg.multires if icfg.embed_type else 0
+        if self.mx > _MAX_PE:  # before the layout is built
             raise ValueError(f"sdf_outputs: more than {_MAX_PE} encoding "
                              "frequencies")
         shapes = tuple(tuple(t.shape) for t in ws)
@@ -71,14 +71,36 @@ class OutputStages:
             w, b = mma_pack.flat_sources(ws, bs)
             (sdf,) = ix.on(ws[0].device)
             self.sdf = mma_pack.gather_chain(sdf, w, b)
-        plan = self.sdf.plan
-        if (int(plan[:, :2].max()) > render_core._K3_WIDTH
-                or F > render_core._K3_WIDTH):
-            raise ValueError(f"sdf_outputs: a layer wider than "
-                             f"{render_core._K3_WIDTH}")
-        if not 3 <= self.sdf.n_layers <= render_core._MAX_LAYERS:
-            raise ValueError("sdf_outputs: the kernel takes 1 to "
-                             f"{render_core._MAX_LAYERS - 2} hidden layers")
+        check_stages(self, "sdf_outputs")
+
+
+def check_stages(k, name: str) -> None:
+    """Refuse a pack (`OutputStages`, or K11's `rev.RevStages`: `sdf`,
+    `F`, `mx`) whose net K10's kernel cannot run, where its C entry would
+    return an error code: more than `_MAX_PE` encoding frequencies, a
+    feature width outside 1..256 or a layer wider than 256, other than 1
+    to 14 hidden layers."""
+    W = render_core._K3_WIDTH
+    if k.mx > _MAX_PE:
+        raise ValueError(f"{name}: more than {_MAX_PE} encoding frequencies")
+    if int(k.sdf.plan[:, :2].max()) > W or not 1 <= k.F <= W:
+        raise ValueError(f"{name}: a layer wider than {W}, or a feature "
+                         f"width outside 1..{W}")
+    if not 3 <= k.sdf.n_layers <= render_core._MAX_LAYERS:
+        raise ValueError(f"{name}: the kernel takes 1 to "
+                         f"{render_core._MAX_LAYERS - 2} hidden layers")
+
+
+def check_points(k, points: torch.Tensor, name: str) -> None:
+    """Refuse points K10's kernel (and so K11) cannot take: not on the
+    card, not contiguous f32 (N, 3), not on the pack's device."""
+    if not points.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors; the "
+                         "plain version runs on the CPU")
+    mma_pack.check_input(points, "x", cols=3)
+    if k.sdf.weights.device != points.device:
+        raise ValueError(f"{name}: the weights are not on the points' "
+                         "device")
 
 
 def sdf_outputs_plain(net: mlp.ImplicitNet, points: torch.Tensor):
@@ -105,13 +127,7 @@ def sdf_outputs_fwd(k: OutputStages, icfg: mlp.ImplicitNetConfig,
     bounding sphere of `icfg` and the gradient the sphere's where it
     wins."""
     global launches
-    if not points.is_cuda:
-        raise ValueError("sdf_outputs: the kernel takes CUDA tensors; the "
-                         "plain version runs on the CPU")
-    mma_pack.check_input(points, "x", cols=3)
-    if k.sdf.weights.device != points.device:
-        raise ValueError("sdf_outputs: the weights are not on the points' "
-                         "device")
+    check_points(k, points, "sdf_outputs")
     n = points.shape[0]
     out = torch.empty((n, k.F + 1), dtype=torch.float32,
                       device=points.device)

@@ -1,6 +1,6 @@
 """SHA-256 digests of K5's, K6's, K11's, K12's, K4's, K3's, K3-light's and
 K2's outputs at the smoke's seeded inputs, so that two trees' kernels can
-be held to the same bits.
+be held to the same bits; and of K10's at sphere radius 0 beside K11's.
 
     python scripts/digest_rev.py [TREE]
 
@@ -11,7 +11,12 @@ set of `chip_smoke.check_rev` (the eikonal batch's 4,800 points and the
 155,200 render points) with the digests of K5's and K11's outputs (sdf
 and features, gradient) and of K6's weight gradients at the init of the
 training config's SDF net (seed `SEED`), and of K12's where the tree's
-K12 is K6 (`sdf_grad.bwd_stages`: then K6's digest), then one line with
+K12 is K6 (`sdf_grad.bwd_stages`: then K6's digest); K11 on the tree's
+own pack (the first design's `sdf_grad.SdfGradLayout`, else the op's one
+pack, `bwd_stages`), and beside it K10 (`sdf_outputs.OutputStages`) at
+the same config with no bounding sphere (`k10_sphere0`: K11's digest
+where K11 is K10's kernel at sphere 0, as `k11_is_k10` says), then one
+line with
 the digest of K4's weight gradients at `chip_smoke.check_k4`'s inputs
 (the training config's init, `k4_batch`'s 160,000 points, the seeded
 loss's cotangents), then one line each with the digest of K3's outputs
@@ -28,6 +33,7 @@ device and nvcc.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import sys
@@ -42,7 +48,8 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from i2sdf_tpu_torch.ops.kernels import (build, render_core, rev,  # noqa
-                                         sampler_round, sdf_grad)
+                                         sampler_round, sdf_grad,
+                                         sdf_outputs)
 from time_kernels import inputs, k2_cases  # noqa: E402
 
 
@@ -65,15 +72,20 @@ def main() -> int:
         k6 = rev.RevStages(cfg.implicit, ws, bs)
         k = (rev.RevLayout(cfg.implicit, ws, bs)
              if hasattr(rev, "RevLayout") else k6)
-        k11 = sdf_grad.SdfGradLayout(cfg.implicit, ws, bs)
         k12 = (sdf_grad.bwd_stages(cfg.implicit, ws, bs)
                if hasattr(sdf_grad, "bwd_stages") else None)
+        k11 = (sdf_grad.SdfGradLayout(cfg.implicit, ws, bs)
+               if hasattr(sdf_grad, "SdfGradLayout") else k12)
+        cfg0 = dataclasses.replace(cfg.implicit, sdf_bounding_sphere=0.0)
+        k10 = sdf_outputs.OutputStages(cfg0, ws, bs)
     for label, x in (("eikonal", cs.eikonal_batch(cfg, conf, device,
                                                   cs.SEED + 8)),
                      ("render", cs.render_batch(cfg, conf, device))):
         with torch.no_grad():
             out, grad = rev.rev_fwd(k, x)
             out11, grad11 = sdf_grad.sdf_grad_fwd(k11, x)
+            sdf10, feat10, grad10 = sdf_outputs.sdf_outputs_fwd(k10, cfg0, x)
+            out10 = torch.cat([sdf10, feat10], 1)
         out_p, grad_p = rev.rev_plain(cfg.implicit, ws, bs, x)
         c_out, c_g = cs.rev_cotangents(out_p, grad_p, cs.SEED + 9)
         with torch.no_grad():
@@ -85,6 +97,10 @@ def main() -> int:
                           "n": x.shape[0], "k5": digest([out, grad]),
                           "k6": digest(dws + dbs),
                           "k11": digest([out11, grad11]),
+                          "k10_sphere0": digest([out10, grad10]),
+                          "k11_is_k10": bool(torch.equal(out11, out10)
+                                             and torch.equal(grad11,
+                                                             grad10)),
                           "k12": None if g12 is None else digest(
                               g12[0] + g12[1])}), flush=True)
     x, d, _ = cs.k4_batch(cfg, cs.eval_conf(), device)

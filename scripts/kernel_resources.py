@@ -15,8 +15,9 @@ reciprocals' `RCP`; static counts, a loop body once) and its highest
 register (`max_reg`) from `cuobjdump -sass`, and ptxas's warnings (a
 `setmaxnreg` it ignored, wgmma it serialized). Needs `nvcc`, so it runs
 on the machine with the card. K2's, K5's, K6's, K7's and K10's rows are
-the smoke's `sass` for them, as K4's, K8's and K9's are (K12's are K6's:
-`sdf_grad_bwd.cu` holds no kernel of its own).
+the smoke's `sass` for them, as K4's, K8's and K9's are (K11's are K10's
+and K12's K6's: `sdf_grad_fwd.cu` and `sdf_grad_bwd.cu` hold no kernel
+of their own, only C entries into `sdf_outputs.cu`'s and `rev_bwd.cu`'s).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Plant faults in copies of the tree and show that the smoke's K1-K10
-and K12 checks catch each one.
+"""Plant faults in copies of the tree and show that the smoke's K1-K12
+checks catch each one.
 
     python scripts/plant_faults.py [--log DIR] [FAULT ...]
 
@@ -18,7 +18,7 @@ config's K3-light, `k3_light`; both also on a net of odd depth) and
 `chip_smoke.check_conv` (K7 at the perray config, `conv`),
 `chip_smoke.check_sdf_outputs` (K10 at the flagship config, `k10`) and
 `chip_smoke.check_sdf_grad` (K11 and K12 at the training config, `k12`;
-K12's faults must fail its K12 rows). A check that
+K11's faults must fail its K11 rows, K12's its K12 rows). A check that
 raises has caught the fault. Prints one JSON line per fault (with the
 seconds it took), and exits nonzero if a check named in the fault's
 `must_fail` passed; with `--log DIR`, each check's output goes to
@@ -159,6 +159,20 @@ FAULTS = {
         "    float g[3] = {a0[2], a1[0], a1[2]};\n",
         "    float g[3] = {a1[0], a0[2], a1[2]};\n",
         ("k10",)),
+    # K11's entry launches K10's kernel with the bounding sphere of radius
+    # 1, not 0: the op's outputs come out clamped
+    "k11_entry_clamps_to_sphere": (
+        "i2sdf_tpu_torch/csrc/sdf_grad_fwd.cu",
+        "mx, F, 0.f, 1.f, out,",
+        "mx, F, 1.f, 1.f, out,",
+        ("k12",)),
+    # K11's wrapper hands the kernel a feature width 8 short: the rows of
+    # `out` leave the block at the wrong stride
+    "k11_out_row_stride": (
+        "i2sdf_tpu_torch/ops/kernels/sdf_grad.py",
+        "            k.mx, k.F, out.data_ptr(), grad.data_ptr(),\n",
+        "            k.mx, k.F - 8, out.data_ptr(), grad.data_ptr(),\n",
+        ("k12",)),
     # K12's entry hands K6's kernels a zero cotangent for the features
     "k12_zero_feature_cotangent": (
         "i2sdf_tpu_torch/ops/kernels/sdf_grad.py",

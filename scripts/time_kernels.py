@@ -6,8 +6,9 @@ or several in turns.
     python scripts/time_kernels.py [--only PART[,PART ...]] TREE [TREE ...]
 
 PART is one of `k2` (`sampler_round`), `k5` (`rev_fwd`), `k6`
-(`rev_bwd`), `k7` (`conv_check`), `k10` (`sdf_outputs`), `k12`
-(`sdf_grad_bwd`), `eval_perray` and `nonormal` (default: all). Each
+(`rev_bwd`), `k7` (`conv_check`), `k10` (`sdf_outputs`), `k11`
+(`sdf_grad_fwd`), `k12` (`sdf_grad_bwd`), `eval_perray` and `nonormal`
+(default: all). Each
 TREE (this repository, or e.g. a `git archive` of another commit
 unpacked under `exps/`) runs in a process of its own, in the order
 given (parent, change, change, parent compares two trees on one card),
@@ -31,6 +32,10 @@ and prints one JSON line. The inputs come from this repository's smoke
   inputs, the eval config's init), its launch on the tree's own pack
   (`sdf_outputs.OutputStages`, or the first design's
   `sdf_grad.SdfGradLayout`): `ms` (events, 5 launches) and `device_ms`;
+* `k11`: at `check_rev`'s points, its launch on the tree's own pack (the
+  op's one pack, K6's `sdf_grad.bwd_stages`, where K11 is K10's kernel at
+  sphere 0; or the first design's `SdfGradLayout`): `ms` and `device_ms`
+  (K10's kernel, or the first design's `tangent_fwd_kernel`);
 * `k12`: at `check_rev`'s points and cotangents, its launch on the tree's
   own pack (K6's, `sdf_grad.bwd_stages`, or the first design's
   `SdfGradLayout`): `ms` and `device_ms` by kernel (the sweep, the
@@ -41,8 +46,9 @@ and prints one JSON line. The inputs come from this repository's smoke
   its step times, its profile's device ms a step and its `host_split`.
 
 The first run of each tree that times a kernel also prints
-`scripts/kernel_resources.py`'s rows for its K2, K5, K6, K7, K10 and K12
-sources (registers, spills, HGMMA, MUFU).
+`scripts/kernel_resources.py`'s rows for its K2, K5, K6, K7, K10, K11 and
+K12 sources (registers, spills, HGMMA, MUFU; K11's and K12's sources
+hold no kernel of their own where they are K10's and K6's).
 Needs a CUDA device and nvcc.
 """
 
@@ -55,8 +61,9 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PARTS = ("k2", "k5", "k6", "k7", "k10", "k12", "eval_perray", "nonormal")
-KERNEL_PARTS = {"k2", "k5", "k6", "k7", "k10", "k12"}
+PARTS = ("k2", "k5", "k6", "k7", "k10", "k11", "k12", "eval_perray",
+         "nonormal")
+KERNEL_PARTS = {"k2", "k5", "k6", "k7", "k10", "k11", "k12"}
 
 
 def profiled(fn, reps: int, keys: dict) -> dict:
@@ -146,7 +153,8 @@ def one(tree: Path, resources: bool, parts) -> dict:
             [sys.executable, str(tree / "scripts" / "kernel_resources.py"),
              *(str(src / f) for f in ("sampler_round.cu", "rev_fwd.cu",
                                       "rev_bwd.cu", "conv_check.cu",
-                                      "sdf_outputs.cu", "sdf_grad_bwd.cu"))],
+                                      "sdf_outputs.cu", "sdf_grad_fwd.cu",
+                                      "sdf_grad_bwd.cu"))],
             capture_output=True, text=True, check=True).stdout
         row["resources"] = [
             {k: r.get(k) for k in ("source", "name", "registers",
@@ -201,8 +209,8 @@ def one(tree: Path, resources: bool, parts) -> dict:
         del emodel, x10, k10
         torch.cuda.empty_cache()
 
-    # ---- K5, K6 and K12: check_rev's inputs ----------------------------
-    if {"k5", "k6", "k12"} & parts:
+    # ---- K5, K6, K11 and K12: check_rev's inputs -----------------------
+    if {"k5", "k6", "k11", "k12"} & parts:
         tconf = inp.train_conf()
         tcfg, tmodel = inp.seeded_model(tconf, device)
         lins = tmodel.implicit.layers()
@@ -219,7 +227,11 @@ def one(tree: Path, resources: bool, parts) -> dict:
         k12 = (sdf_grad.bwd_stages(tcfg.implicit, ws, bs)
                if hasattr(sdf_grad, "bwd_stages")
                else sdf_grad.SdfGradLayout(tcfg.implicit, ws, bs))
-        k5_rows, k6_rows, k12_rows = [], [], []
+        # K11 on the tree's own pack: the first design's layout, or the
+        # op's one pack (K10's kernel on its chain)
+        k11 = (sdf_grad.SdfGradLayout(tcfg.implicit, ws, bs)
+               if hasattr(sdf_grad, "SdfGradLayout") else k12)
+        k5_rows, k6_rows, k11_rows, k12_rows = [], [], [], []
         for label, x in (("eikonal", inp.eikonal_batch(tcfg, tconf, device,
                                                        inp.SEED + 8)),
                          ("render", inp.render_batch(tcfg, tconf, device))):
@@ -235,6 +247,10 @@ def one(tree: Path, resources: bool, parts) -> dict:
                 with torch.no_grad():
                     rev.rev_bwd(k, x, c_out, c_g)
 
+            def fn11():
+                with torch.no_grad():
+                    sdf_grad.sdf_grad_fwd(k11, x)
+
             def fn12():
                 with torch.no_grad():
                     sdf_grad.sdf_grad_bwd(k12, x, c_out, c_g)
@@ -246,13 +262,19 @@ def one(tree: Path, resources: bool, parts) -> dict:
                 k6_rows.append(dict(
                     points=label, n=x.shape[0], ms=cs.time_ms(fn6, 5),
                     device_ms=profiled(fn6, 5, groups)))
+            if "k11" in parts:
+                k11_rows.append(dict(
+                    points=label, n=x.shape[0], ms=cs.time_ms(fn11, 5),
+                    device_ms=profiled(fn11, 5, {"k": (
+                        "sdf_outputs_kernel", "tangent_fwd_kernel")})["k"]))
             if "k12" in parts:
                 k12_rows.append(dict(
                     points=label, n=x.shape[0], ms=cs.time_ms(fn12, 5),
                     device_ms=profiled(fn12, 5, groups)))
             torch.cuda.empty_cache()
         row |= {p: r for p, r in (("k5", k5_rows), ("k6", k6_rows),
-                                  ("k12", k12_rows)) if p in parts}
+                                  ("k11", k11_rows), ("k12", k12_rows))
+                if p in parts}
         del tmodel
         torch.cuda.empty_cache()
 

@@ -29,9 +29,11 @@ card and times on the host clock, after a warm-up, `REPS` times each:
   chain gathered through a layout built once; the first design's
   `sdf_grad.SdfGradLayout` where the tree has no `OutputStages`);
 * `sdf_grad_step_ms`: the packs one call of the tangent op makes for K11
-  and K12 (`SdfGradOp`: K11's `SdfGradLayout` and K12's, K6's
-  `RevStages`, both in the forward; the first design's K12 built its
-  transposed chain at its first launch, `SdfGradLayout.backward`).
+  and K12 (`SdfGradOp`: since K11 is K10's kernel, one pack, K6's
+  `RevStages` through `sdf_grad.bwd_stages`, in the forward; before
+  that also K11's own `SdfGradLayout` beside it, and the first design's
+  K12 built its transposed chain at its first launch,
+  `SdfGradLayout.backward`).
 
 Each pack starts with the device idle and ends when the host returns (its
 device work runs behind, as in a step); `synced_ms` adds the wait for the
@@ -109,11 +111,13 @@ def one(tree: Path) -> dict:
                   ("rev_bwd_stagewise", stagewise), ("rev_step", step)]
 
     from i2sdf_tpu_torch.ops.kernels import sdf_grad, sdf_outputs
-    own10 = getattr(sdf_outputs, "OutputStages", sdf_grad.SdfGradLayout)
+    own10 = (getattr(sdf_outputs, "OutputStages", None)
+             or sdf_grad.SdfGradLayout)
+    own11 = getattr(sdf_grad, "SdfGradLayout", None)
 
     def sdf_grad_step():
         with torch.no_grad():
-            k = sdf_grad.SdfGradLayout(icfg, ws, bs)
+            k = own11(icfg, ws, bs) if own11 is not None else None
             if hasattr(sdf_grad, "bwd_stages"):
                 sdf_grad.bwd_stages(icfg, ws, bs)
             else:

@@ -1101,17 +1101,47 @@ def test_sdf_grad_fwd_kernel(dev, n, perturbed):
     net, x = _tan_case(dev, n, perturbed)
     ws, bs = flat_weights(net)
     with torch.no_grad():
-        k = sdf_grad.SdfGradLayout(net.cfg, ws, bs)
+        k = sdf_grad.bwd_stages(net.cfg, ws, bs)
         kernels.reset_launch_counts()
         out, grad = sdf_grad.sdf_grad_fwd(k, x)
         torch.cuda.synchronize()
-        assert kernels.launch_counts()["sdf_grad_fwd"] == 1
+        counts = kernels.launch_counts()
+        assert counts["sdf_grad_fwd"] == 1 and counts["sdf_outputs"] == 0
     if perturbed:
         ref = _bf16w_plain(net, x, False)
     else:
         out_r, grad_r = sdf_grad.sdf_grad_plain(net.cfg, ws, bs, x)
         ref = (out_r[:, :1], out_r[:, 1:], grad_r)
     _tan_close((out[:, :1], out[:, 1:], grad), ref)
+
+
+@pytest.mark.parametrize("n", TAN_COUNTS)
+def test_sdf_grad_fwd_is_k10_unclamped(dev, n):
+    """K11 is K10's kernel at sphere radius 0 on the op's pack: its output
+    is K10's (`sdf_outputs_fwd` on the same pack's chain) at a config with
+    no bounding sphere, bit for bit, and at the net's own sphere (radius
+    4) at every point where the sphere does not win; the first m points
+    alone, at counts on both sides of the 32-point blocks, give the full
+    run's rows to the bit."""
+    import chip_smoke as cs
+    from test_torch_rev_replay import flat_weights
+    net, x = _tan_case(dev, n, sphere=4.0)
+    cfg0 = dataclasses.replace(net.cfg, sdf_bounding_sphere=0.0)
+    with torch.no_grad():
+        k = sdf_grad.bwd_stages(net.cfg, *flat_weights(net))
+        out, grad = sdf_grad.sdf_grad_fwd(k, x)
+        o10 = sdf_outputs.sdf_outputs_fwd(k, cfg0, x)
+        assert torch.equal(out, torch.cat(o10[:2], 1))
+        assert torch.equal(grad, o10[2])
+        o10 = sdf_outputs.sdf_outputs_fwd(k, net.cfg, x)
+        net_wins = ~cs.took_sphere(net.cfg, x, o10)
+        assert torch.equal(out[net_wins], torch.cat(o10[:2], 1)[net_wins])
+        assert torch.equal(grad[net_wins], o10[2][net_wins])
+        for m in (1, 31, 32, 33, 63, 65, 4097):
+            if m < n:
+                part = sdf_grad.sdf_grad_fwd(k, x[:m].contiguous())
+                assert torch.equal(part[0], out[:m])
+                assert torch.equal(part[1], grad[:m])
 
 
 @pytest.mark.parametrize("perturbed", [False, True], ids=["init", "perturbed"])
@@ -1233,9 +1263,8 @@ def test_tangent_kernels_without_encoding(dev, n):
     c_out, c_g = loss_cotangents(out_r, grad_r, seed=n)
     c_out, c_g = c_out.contiguous(), c_g.contiguous()
     with torch.no_grad():
-        k = sdf_grad.SdfGradLayout(net.cfg, ws, bs)
-        out, grad = sdf_grad.sdf_grad_fwd(k, x)
         kr = sdf_grad.bwd_stages(net.cfg, ws, bs)
+        out, grad = sdf_grad.sdf_grad_fwd(kr, x)
         dws, dbs = sdf_grad.sdf_grad_bwd(kr, x, c_out, c_g)
         k6 = rev.rev_bwd(kr, x, c_out, c_g)
         replay = emulate_rev_bwd(kr, x, c_out, c_g)
@@ -1254,15 +1283,14 @@ def test_tangent_kernels_agree_with_rev_kernels(dev, n):
     net, x = _tan_case(dev, n)
     ws, bs = flat_weights(net)
     with torch.no_grad():
-        kt = sdf_grad.SdfGradLayout(net.cfg, ws, bs)
+        kt = sdf_grad.bwd_stages(net.cfg, ws, bs)
         kr = rev.RevStages(net.cfg, ws, bs)
         out_t, grad_t = sdf_grad.sdf_grad_fwd(kt, x)
         out_r, grad_r = rev.rev_fwd(kr, x)
         _tan_close((out_t[:, :1], out_t[:, 1:], grad_t),
                    (out_r[:, :1], out_r[:, 1:], grad_r))
         c_out, c_g = (c.contiguous() for c in loss_cotangents(out_r, grad_r))
-        got_t = sdf_grad.sdf_grad_bwd(sdf_grad.bwd_stages(net.cfg, ws, bs),
-                                      x, c_out, c_g)
+        got_t = sdf_grad.sdf_grad_bwd(kt, x, c_out, c_g)
         got_r = rev.rev_bwd(kr, x, c_out, c_g)
     assert all(torch.equal(a, b) for a, b in zip(
         [t for g in got_t for t in g], [t for g in got_r for t in g]))
@@ -1274,13 +1302,12 @@ def test_tangent_kernels_refuse_cpu_weights(dev):
     with torch.no_grad():
         with pytest.raises(ValueError):
             sdf_outputs.fused_sdf_outputs(net, x.to(dev))
-        k = sdf_grad.SdfGradLayout(net.cfg, *flat_weights(net))
+        k = sdf_grad.bwd_stages(net.cfg, *flat_weights(net))
         with pytest.raises(ValueError):
             sdf_grad.sdf_grad_fwd(k, x.to(dev))
         with pytest.raises(ValueError):
-            sdf_grad.sdf_grad_bwd(
-                sdf_grad.bwd_stages(net.cfg, *flat_weights(net)), x.to(dev),
-                torch.zeros((8, 257), device=dev),
-                torch.zeros((8, 3), device=dev))
+            sdf_grad.sdf_grad_bwd(k, x.to(dev),
+                                  torch.zeros((8, 257), device=dev),
+                                  torch.zeros((8, 3), device=dev))
     with pytest.raises(ValueError):
         sdf_grad.sdf_grad_fwd(k, x)

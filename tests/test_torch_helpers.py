@@ -1,15 +1,37 @@
 """Shared helpers of the PyTorch-port parity tests (no tests of its own):
-build the port's nets from the JAX package's configs and parameters."""
+build the port's nets from the JAX package's configs and parameters.
+
+Importing it also sizes torch's CPU thread pool under pytest-xdist
+(`share_cores_between_workers`): every worker collects every test
+module, so this import reaches each worker before its first test."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
 import torch
 
 from i2sdf_tpu_torch.models import mlp as tmlp
+
+
+def share_cores_between_workers() -> None:
+    """Give each pytest-xdist worker its share of the cores for torch's
+    CPU ops (at least one thread). By default every worker's thread pool
+    is as wide as the machine: with 6 workers on 8 cores that is 48
+    threads, and the pools' spinning waits then slow torch's ops by over
+    an order of magnitude (six concurrent 2-step fits of the tiny scene's
+    trainer on 8 cores: ~363 s each at 8 threads, ~11 s at one;
+    `scripts/thread_share_probe.py`). Outside xdist the pool stays as
+    torch sets it."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 0)
+    if os.environ.get("PYTEST_XDIST_WORKER") and workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+share_cores_between_workers()
 
 
 def to_numpy(tree):

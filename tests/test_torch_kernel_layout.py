@@ -3,7 +3,7 @@
 The kernels themselves run only on the card, but the weight packing and
 the per-layer plans they read are built in Python. This file replays the
 kernels' algorithm in torch from exactly what the wrappers hand them (the
-packed bf16 weights, padded biases, plan rows, row strides), with bf16
+packed bf16 weights, padded biases, plan rows), with bf16
 rounding where the kernels round and NaN in every shared-memory column
 no layer has written, and holds the result to the plain version at the
 kernels' tolerances. A wrong offset, width, skip column, scale flag or
@@ -40,14 +40,6 @@ INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
 def bf(t):
     return t.to(torch.bfloat16).float()
-
-
-def unpack(pm: mma_pack.PackedMlp, i: int):
-    K, N, real, woff, boff, flags, col, _ = (int(v) for v in pm.plan[i])
-    w = pm.weights[woff * 4: woff * 4 + K * N]
-    W = (w.reshape(N // 8, K // 16, 8, 4, 2, 2).permute(1, 4, 3, 5, 0, 2)
-         .reshape(K, N).float())
-    return K, N, real, flags, col, W, pm.biases[boff: boff + N]
 
 
 def pe_cols(x, F, width):
@@ -262,23 +254,6 @@ def unswizzle(pm: mma_pack.PackedMlp, i: int):
         for slots in stage_images(pm, i)])
 
 
-def test_fragment_packing_round_trips():
-    w = torch.randn(39, 217)
-    K, N = mma_pack.round_up(39, 16), mma_pack.round_up(217, 16)
-    pm = mma_pack.pack_chain([dict(w=w, b=torch.zeros(217))])
-    K2, N2, real, _, _, W, b = unpack(pm, 0)
-    assert (K2, N2, real) == (K, N, 217)
-    assert torch.equal(W[:39, :217], bf(w))
-    assert torch.all(W[39:] == 0) and torch.all(W[:, 217:] == 0)
-    # lane l of tile t, k-step kk holds W[16kk + 2i + {0,1, 8, 9}, 8t + g]
-    frag = pm.weights.reshape(N // 8, K // 16, 32, 4)
-    t, kk, g, i = 3, 1, 5, 2
-    assert torch.equal(frag[t, kk, 4 * g + i].float(),
-                       W[[16 * kk + 2 * i, 16 * kk + 2 * i + 1,
-                          16 * kk + 2 * i + 8, 16 * kk + 2 * i + 9],
-                         8 * t + g])
-
-
 def _nets(width, skip, feat, rad, mx, md, seed=0, depth=8, rdepth=4):
     gen = torch.Generator().manual_seed(seed)
     icfg = mlp.ImplicitNetConfig(
@@ -436,6 +411,56 @@ def test_k10_pack_is_k3_sdf_chain(case):
     assert torch.equal(k10.sdf.biases, k3.sdf.biases)
     assert np.array_equal(k10.sdf.plan, k3.sdf.plan)
     assert (k10.F, k10.mx) == (k3.F, k3.mx)
+
+
+@pytest.mark.parametrize("case", [*CASES, "no_pe"])
+def test_k11_pack_is_k10_pack(case):
+    """K11 launches K10's kernel on the `.sdf` chain of the tangent op's
+    one pack (`sdf_grad.bwd_stages`, K6's `rev.RevStages`): that chain is
+    K10's (`OutputStages`) byte for byte, with the same feature width and
+    frequency count, for a net with no encoding too (frequency count 0);
+    and it is a net the kernel runs (`check_stages`)."""
+    from i2sdf_tpu_torch.ops.kernels import sdf_outputs
+    net = _k10_net(case)
+    lins = net.layers()
+    with torch.no_grad():
+        k11 = sdf_grad.bwd_stages(net.cfg, [l.weight() for l in lins],
+                                  [l.b for l in lins])
+    k10 = _k10_pack(net)
+    assert k11.sdf.weights.dtype == k10.sdf.weights.dtype == torch.bfloat16
+    assert torch.equal(k11.sdf.weights.view(torch.int16),
+                       k10.sdf.weights.view(torch.int16))
+    assert torch.equal(k11.sdf.biases, k10.sdf.biases)
+    assert np.array_equal(k11.sdf.plan, k10.sdf.plan)
+    assert (k11.F, k11.mx) == (k10.F, k10.mx)
+    assert k11.mx == (0 if case == "no_pe" else CASES[case][4])
+    sdf_outputs.check_stages(k11, "sdf_grad_fwd")
+
+
+# nets K10's kernel cannot run, which K11's wrapper refuses before any
+# launch: more encoding frequencies than its cache holds, no features,
+# more hidden layers than a plan holds
+K11_REFUSED = {"multires_11": dict(multires=11),
+               "no_features": dict(feature_vector_size=0),
+               "15_hidden": dict(dims=(64,) * 15, skip_in=())}
+
+
+@pytest.mark.parametrize("case", list(K11_REFUSED))
+def test_k11_refuses_nets_its_kernel_cannot_run(case):
+    """A `ValueError` from the pack or from `sdf_outputs.check_stages`
+    (which `sdf_grad_fwd` calls before it launches), never the C entry's
+    error code."""
+    from i2sdf_tpu_torch.ops.kernels import sdf_outputs
+    cfg = mlp.ImplicitNetConfig(
+        **{**dict(feature_vector_size=16, sdf_bounding_sphere=0.0,
+                  dims=(96,) * 4, skip_in=(2,), embed_type="positional",
+                  multires=4), **K11_REFUSED[case]})
+    net = mlp.ImplicitNet(cfg, torch.Generator().manual_seed(0))
+    lins = net.layers()
+    with torch.no_grad(), pytest.raises(ValueError):
+        k = sdf_grad.bwd_stages(cfg, [l.weight() for l in lins],
+                                [l.b for l in lins])
+        sdf_outputs.check_stages(k, "sdf_grad_fwd")
 
 
 def test_k10_replay_is_k3_emulation():

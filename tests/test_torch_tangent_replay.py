@@ -1,11 +1,15 @@
-"""K11's arithmetic replayed in torch: the tangent sweep with bf16
-rounding where the kernel rounds (the encoding and its tangents, each
-layer's weights, activations and tangents; f32 sums), JAX-free. K10 runs
-the same rounding on K3's wgmma tangent form, whose own replay is
-`replay.K10Replay` (tests/test_torch_kernel_layout.py).
+"""K11's arithmetic replayed in torch, JAX-free. K11 is K10's kernel
+launched at sphere radius 0 on the `.sdf` chain of the tangent op's one
+pack (`sdf_grad.bwd_stages`, K6's `rev.RevStages`), so its replay is
+K10's (`replay.K10Replay`, `emulate_sdf_outputs`) on that pack at a
+config with no bounding sphere: K3's wgmma tangent form on the SDF net,
+with bf16 rounding where the kernel rounds (the encoding and its
+tangents, each layer's weights, activations and tangents; f32 sums, 16
+deep as wgmma's steps).
 
-* with no rounding the replay is the plain sweep (`sdf_grad.sdf_tangents`);
-* with bf16 rounding it shows what the kernels' operand type costs: at the
+* with no rounding of its activations the replay is the plain sweep
+  (`sdf_grad.sdf_tangents`) at the pack's bf16 weights;
+* with bf16 rounding it shows what the kernel's operand type costs: at the
   flagship net at perturbed weights (v + 0.01 N(0, 1), the `gpu` tests'
   net) and 4,800 eikonal points, the gradient's error against the f32
   plain op reaches the JAX bound for its tangent kernels
@@ -19,13 +23,12 @@ JAX package's own kernel lands past the f32 bound there too:
 tests/test_torch_parity_sdf_grad.py). K12 is K6 (`replay.RevReplay`).
 """
 
-import math
+import dataclasses
 
 import pytest
 import torch
 
-from i2sdf_tpu_torch.models import mlp
-from i2sdf_tpu_torch.ops.kernels import sdf_grad
+from i2sdf_tpu_torch.ops.kernels import replay, sdf_grad
 from test_torch_rev_replay import (FLAGSHIP, NARROW, eikonal_points,
                                    flat_weights, sdf_net)
 
@@ -45,26 +48,16 @@ def bf16_weights(ws):
     return [bf(w) for w in ws]
 
 
-def replay_tangent_fwd(icfg, ws, bs, x, rnd=bf, rnd_w=None):
-    """(out (N, 1 + F), grad (N, 3)) as K11 computes them, unclamped:
-    `rnd` rounds the encoding, its tangents and every layer's outputs,
-    `rnd_w` the weights (default `rnd`); products and sums in f32."""
-    rnd_w = rnd if rnd_w is None else rnd_w
-    inv_sqrt2 = 1.0 / math.sqrt(2.0)
-    emb, t_emb = icfg.embed(x), sdf_grad.embed_tangents(icfg, x)
-    h, t = rnd(emb), rnd(t_emb)
-    last = len(ws) - 1
-    for l, (w, b) in enumerate(zip(ws, bs)):
-        w = rnd_w(w)
-        if l in icfg.skip_in:
-            h = torch.cat([h, rnd(emb * inv_sqrt2)], -1)
-            t = torch.cat([t, rnd(t_emb * inv_sqrt2)], -1)
-        z, tz = h @ w + b, t @ w
-        if l == last:
-            return z, tz[..., 0].T
-        scale = inv_sqrt2 if l + 1 in icfg.skip_in else 1.0
-        h = rnd(mlp.softplus_beta(z, 100.0) * scale)
-        t = rnd(sdf_grad.dsoftplus(z) * scale * tz)
+def replay_k11(net, x, rnd=bf):
+    """(out (N, 1 + F), grad (N, 3)) as K11 computes them, unclamped: K10's
+    replay on the op's pack at sphere radius 0, `rnd` rounding the
+    encoding, its tangents and every layer's outputs (the weights are the
+    pack's bf16)."""
+    with torch.no_grad():
+        k = sdf_grad.bwd_stages(net.cfg, *flat_weights(net))
+    cfg = dataclasses.replace(net.cfg, sdf_bounding_sphere=0.0)
+    sdf, feat, grad = replay.emulate_sdf_outputs(k, cfg, x, rnd)
+    return torch.cat([sdf, feat], 1), grad
 
 
 def excess(grad, ref):
@@ -78,8 +71,9 @@ def test_replay_without_rounding_is_the_plain_sweep(case):
     x = eikonal_points(200, 3)
     with torch.no_grad():
         ws, bs = flat_weights(net)
-        out, grad = replay_tangent_fwd(net.cfg, ws, bs, x, keep)
-        out_p, grad_p = sdf_grad.sdf_tangents(net.cfg, ws, bs, x)
+        out, grad = replay_k11(net, x, keep)
+        out_p, grad_p = sdf_grad.sdf_tangents(net.cfg, bf16_weights(ws), bs,
+                                              x)
     torch.testing.assert_close(out, out_p, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(grad, grad_p, atol=1e-4, rtol=1e-4)
 
@@ -93,8 +87,8 @@ def test_bf16_weights_take_the_perturbed_flagship_to_the_bound():
     with torch.no_grad():
         ws, bs = flat_weights(net)
         _, grad_p = sdf_grad.sdf_tangents(net.cfg, ws, bs, x)
-        _, grad = replay_tangent_fwd(net.cfg, ws, bs, x)
-        _, grad_w = replay_tangent_fwd(net.cfg, ws, bs, x, keep, bf)
+        _, grad = replay_k11(net, x)
+        _, grad_w = replay_k11(net, x, keep)
         _, grad_pw = sdf_grad.sdf_tangents(net.cfg, bf16_weights(ws), bs, x)
     weights_alone = float((grad_w - grad_p).abs().max())
     assert weights_alone > 0.5 * ATOL
