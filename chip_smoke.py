@@ -74,7 +74,18 @@ Phases, each printed as one JSON line with its wall time:
    every output finite and every kernel of the path launched; then the
    first 12000-ray chunk rendered again through the plain path, held
    against the kernels' render;
-6. train (the training path): `ReconstructionTrainer.fit` for 6 steps of
+6. mesh (the mesh path, `eval/mesh.py::extract_mesh`): the flagship
+   training config's init net (SDF 8 x 256, grid boundary +-2.1) at
+   `--resolution` 512 (134 M fine-grid points; its PCA frame ill-posed,
+   a sphere) and a perturbed net at 256: K1 launched once a 2 M-point
+   chunk of both grids and no other kernel, the points each launch took
+   equal to the grids' built apart (`reference_points`), K1's grids
+   against the plain net's on the same points (K1's gate), K1's mesh
+   against the plain grid's mesh on the same axes and frame in world
+   space (`mesh_gaps`: mean nearest-neighbour distance in fine spacings,
+   F-score at one spacing); each stage's seconds and K1 on a 2 M-point
+   chunk of the fine grid (events, device time, bound);
+7. train (the training path): `ReconstructionTrainer.fit` for 6 steps of
    `configs/synthetic_quality.yml` at full width (1600 rays a step) on
    scan1's images and cameras, with seeded synthetic depth, normals and
    bubble point cloud at scan1's shapes (the checkout holds no `depth/`
@@ -87,44 +98,44 @@ Phases, each printed as one JSON line with its wall time:
    step and a plain step from the same weights and draws, loss terms and
    gradients held to the JAX package's gradient tolerance (the other
    training phases likewise);
-7. train_nonormal (the normal-loss-off training path): the same trainer,
+8. train_nonormal (the normal-loss-off training path): the same trainer,
    config and synthetic depth and bubble cloud with `normal_weight: 0`,
    which routes the render points through the plain nets and the
    eikonal points through K5/K6; every loss finite, per step K5 and K6
    once, K3 and K4 never, K1 and K2 at most five times (one a sampler
    round); a profile of two steps; one batch through a kernel step and a
    plain step;
-8. eval_light (the light-mask config's eval path): one 240x320 view of
+9. eval_light (the light-mask config's eval path): one 240x320 view of
    scan1 through the eval entry point at the full width of
    `configs/synthetic_light_mask.yml` (SDF 6 x 256, radiance 3 x 256,
    light 256 -> 128 -> 1), seeded init weights: every output finite, K1,
    K2 and K3 with the light head launched (K3 without it never); then the
    first chunk through the plain path, its rgb and light mask held to the
    kernels';
-9. train_light: the trainer for 6 steps of a copy of the light config at
+10. train_light: the trainer for 6 steps of a copy of the light config at
    full width on scan1 with seeded light masks (grey PNGs at scan1's
    shape, written to the temporary scene) and the `train` phase's seeded
    depth, normals and bubble cloud: K3 and K4 with the light head once a
    step (without it never), `light_mask_loss` > 0 at every step, every
    light-net leaf moved; a profile of two steps; one batch through a
    kernel step and a plain step;
-10. eval_perray: one 240x320 view of scan1 through the eval entry point
+11. eval_perray: one 240x320 view of scan1 through the eval entry point
    with the perray config (`synthetic_quality.yml` with
    `ray_sampler.per_ray_exit` and `per_ray_fracs` pinned to [1.0, 0.5,
    0.5, 0.5]; the beta ladder would not compact at the seeded init's
    beta): K7 four times a chunk, and K1/K2 on the capped rows after the
    first compacted round (the sizes they saw are recorded); then the
    first chunk through the plain path;
-11. train_perray: the trainer for 6 steps of the perray config: K7 four
+12. train_perray: the trainer for 6 steps of the perray config: K7 four
    times a step, K3/K4 once, every loss finite; a profile of two steps;
    one batch through a kernel step and a plain step;
-12. eval_bg: one view of the bg config (`synthetic_quality.yml` with the
+13. eval_bg: one view of the bg config (`synthetic_quality.yml` with the
    NeRF++ background of VolSDF's BlendedMVS config, `BG_BLOCK`): K8 once
    a chunk, K9 never; then the first chunk through the plain path;
-13. train_bg: the trainer for 6 steps of the bg config: K8 and K9 once a
+14. train_bg: the trainer for 6 steps of the bg config: K8 and K9 once a
    step beside K1-K4, every background leaf moved; a profile of two
    steps; one batch through a kernel step and a plain step;
-14. cli: `python -m i2sdf_tpu_torch.main` in train mode for 3 steps on
+15. cli: `python -m i2sdf_tpu_torch.main` in train mode for 3 steps on
    scan1 as the checkout holds it (images and cameras only), then
    `--resume` for one more step from the checkpoint it wrote, then
    `--test --test_mode render --indices 0` with no `--ckpt`, which must
@@ -135,7 +146,19 @@ Phases, each printed as one JSON line with its wall time:
    masks), whose logs carry the light-mask term and whose validation
    writes a light-mask plot, and the render CLI on its newest checkpoint;
    and the train CLI for 2 steps on the bg config and the render CLI on
-   its newest checkpoint.
+   its newest checkpoint;
+16. mesh_cli: `--test --test_mode mesh --resolution 512 --score` on the
+   `cli` phase's checkpoint, scored against a GT `mesh.ply` the script
+   writes into its temporary scene (the plain net's mesh of that
+   checkpoint over a uniform 128^3 grid): the mesh, its viewer, the
+   refused meshes and five finite scores; K1 launched once a 2 M-point
+   chunk (the CLI prints its launch counts); the process seconds, the
+   extraction's split and `refuse`'s seconds;
+17. interpolate: `--test --test_mode interpolate --inter_id 0 3
+   --n_frames 4` on the same checkpoint: 4 RGB and 4 normal frames (and
+   the videos where ffmpeg is on the path), K1, K2 and K3 launched as
+   often as by the eval render of the same 4 poses in this process, whose
+   frames the CLI's equal to within one level; the seconds a frame.
 
 The card's `nvidia-smi` line is printed on its own after phase 1. The
 run ends with the launch counts of each path, one JSON line with every
@@ -143,8 +166,8 @@ kernel's numbers (launches from the path it serves), and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero;
 with no CUDA device the script exits nonzero before printing a result.
 All files are written to a temporary directory; no scene file under
-`depth/`, `normal/`, `light_mask/` or `mesh.ply` is read (the light masks
-are written by the script).
+`depth/`, `normal/`, `light_mask/` or the checkout's `mesh.ply` is read
+(the light masks and the GT mesh are written by the script).
 
 Precision: the plain path is f32 throughout, with TF32 turned off for
 matmuls and cuDNN; the kernels take bf16 operands with f32 accumulation.
@@ -158,6 +181,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -168,14 +192,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from i2sdf_tpu_torch import native
 from i2sdf_tpu_torch.config import load_cfg
 from i2sdf_tpu_torch.data.plot import PlotData
+from i2sdf_tpu_torch.eval import mesh as tmesh
+from i2sdf_tpu_torch.eval.interpolate import interpolate_poses
 from i2sdf_tpu_torch.eval.render import run_render_eval
 from i2sdf_tpu_torch.models import mlp, renderer
 from i2sdf_tpu_torch.models.density import effective_beta
 from i2sdf_tpu_torch.ops.activations import softplus_beta
 from i2sdf_tpu_torch.ops import kernels
 from i2sdf_tpu_torch.models import sampler as tsampler
+from i2sdf_tpu_torch.params import load_model
 from i2sdf_tpu_torch.ops.kernels import (bg_core, build, conv_check,
                                          render_core, replay, rev,
                                          sampler_round, sdf_grad, sdf_mlp,
@@ -2957,57 +2985,365 @@ def run_eval_bg(device) -> dict:
     return dict(**sl, compare=cmp)
 
 
-def run_cli() -> dict:
-    """The train CLI on scan1 as the checkout holds it (images and cameras
-    only), then --resume for one step, then the render CLI with no --ckpt,
-    which loads the newest checkpoint; last the train CLI on a copy of the
-    config with the normal losses off."""
-    with tempfile.TemporaryDirectory() as tmp:
-        cli = [sys.executable, "-m", "i2sdf_tpu_torch.main", "--scan_id",
-               "1", "--data_root", images_only_root(tmp), "--log_every", "1"]
-        base = cli + ["--conf", str(TRAIN_CONF), "--exps_folder",
-                      str(Path(tmp) / "exps")]
-        runs = []
-        for extra in (["--max_steps", "3"],
-                      ["--max_steps", "4", "--resume"],
-                      ["--test", "--test_mode", "render", "--indices", "0"]):
+# ---- mesh extraction and view interpolation ---------------------------------
+
+MESH_RES, MESH_PERTURBED_RES = 512, 256
+# the points K1 took against the grid's built apart (`reference_points`):
+# f32 rounding of `p @ vecs + mean` on coordinates below 3
+MESH_POINTS_TOL = 1e-5
+# K1's mesh against the plain grid's on the same axes and frame, in world
+# space, in fine spacings: the mean nearest-neighbour distance both ways,
+# and the F-score at one spacing (`mesh_gaps`; PERF.md §6 gives the
+# measurements they were set against)
+MESH_NN_GATE = 0.5
+MESH_FSCORE_GATE = 0.95
+
+
+class KeepK1Points:
+    """While open, every call of K1's wrapper keeps the points it took
+    (the wrapper runs and counts as it does); `points` in call order."""
+
+    def __enter__(self):
+        self.points, self._wrapped = [], sdf_mlp.sdf_mlp_nograd
+
+        def keep(pack, pts):
+            self.points.append(pts)
+            return self._wrapped(pack, pts)
+
+        sdf_mlp.sdf_mlp_nograd = keep
+        return self
+
+    def __exit__(self, *exc):
+        sdf_mlp.sdf_mlp_nograd = self._wrapped
+
+
+def reference_points(axes, frame, device) -> torch.Tensor:
+    """The grid's points built apart from `eval/mesh.py::grid_points`:
+    `torch.meshgrid` of the axes, then `addmm` with the frame (TF32 is
+    off)."""
+    ax = [torch.from_numpy(np.asarray(a, np.float32)).to(device)
+          for a in axes]
+    p = torch.stack([g.reshape(-1) for g in torch.meshgrid(*ax,
+                                                           indexing="ij")],
+                    -1)
+    if frame is None:
+        return p
+    vecs, mean = (torch.from_numpy(np.asarray(a, np.float32)).to(device)
+                  for a in frame)
+    return torch.addmm(mean, p, vecs)
+
+
+def mesh_gaps(verts, ref, spacing) -> dict:
+    """A mesh against a reference mesh in world space: nearest-neighbour
+    distances both ways in spacings, and the F-score at one spacing."""
+    d_out = native.nn_distances(ref, verts)  # each vertex to the ref
+    d_in = native.nn_distances(verts, ref)
+    d = np.concatenate([d_out, d_in]) / spacing
+    prec, rec = float(np.mean(d_out < spacing)), float(np.mean(d_in < spacing))
+    return dict(mean_nn=float(d.mean()), max_nn=float(d.max()),
+                p99_nn=float(np.quantile(d, 0.99)), precision=prec,
+                recall=rec, fscore=2 * prec * rec / max(prec + rec, 1e-12))
+
+
+def frame_angles_deg(a, b) -> list:
+    """Angles between two frames' principal axes (rows), sign-free."""
+    return [float(np.degrees(np.arccos(min(abs(float(x @ y)), 1.0))))
+            for x, y in zip(a, b)]
+
+
+def check_mesh(model, cfg, conf, device) -> dict:
+    """`eval/mesh.py::extract_mesh` on the card at the config's grid
+    boundary: the init's net at `MESH_RES` (its PCA frame ill-posed: a
+    sphere) and a perturbed net (`perturbed_net`) at `MESH_PERTURBED_RES`.
+    For each: K1 launched ceil(coarse / 2 M) + ceil(fine / 2 M) times and
+    no other kernel; the points each launch took equal to the grids'
+    built apart (`reference_points`, `MESH_POINTS_TOL`); K1's coarse and
+    fine grids against the plain net's on those points (K1's gate,
+    `close(..., 0.02, 0.02)`); K1's mesh against the plain fine grid's
+    mesh on the same axes and frame in world space (`mesh_gaps`,
+    `MESH_NN_GATE`, `MESH_FSCORE_GATE`). Reported: the surface samples'
+    covariance eigenvalues, the frame the plain coarse grid gives and its
+    angles to K1's, each stage's seconds, and K1 on a full 2 M-point chunk
+    of the fine grid (events, the profiler's device time, its bound)."""
+    boundary = tuple(conf.plot.grid_boundary)
+    cases = {"init": (model.implicit, MESH_RES),
+             "perturbed": (perturbed_net(model.implicit, SEED + 10),
+                           MESH_PERTURBED_RES)}
+    out = {}
+    for label, (net, res) in cases.items():
+        rec = {}
+        torch.cuda.synchronize()
+        with KeepK1Points() as kept:
+            kernels.reset_launch_counts()
             t0 = time.perf_counter()
-            proc = subprocess.run(base + extra, cwd=ROOT, capture_output=True,
-                                  text=True, timeout=600)
-            runs.append(dict(args=extra, rc=proc.returncode,
-                             seconds=time.perf_counter() - t0,
-                             tail=proc.stdout.strip().splitlines()[-4:]))
-            assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[
-                -3000:]
-            if "--resume" in extra:
-                assert "[INFO] Resumed from step 3" in proc.stdout, \
-                    proc.stdout
-        assert "[INFO] restored checkpoint @4" in proc.stdout, proc.stdout
-        # the normal-off route through the CLI: a copy of the config with
-        # normal_weight 0, in its own experiments folder
-        nonormal = Path(tmp) / "quality_nonormal.yml"
-        nonormal.write_text(TRAIN_CONF.read_text().replace(
-            "normal_weight: 0.05", "normal_weight: 0.0"))
-        args = ["--conf", str(nonormal), "--exps_folder",
-                str(Path(tmp) / "exps_nonormal"), "--max_steps", "2"]
+            verts, tris = tmesh.extract_mesh(net, resolution=res,
+                                             grid_boundary=boundary,
+                                             record=rec)
+            total_s = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+        sizes = {k: rec[k]["grid"].size for k in ("coarse", "fine")}
+        want = sum(math.ceil(n / tmesh.CHUNK) for n in sizes.values())
+        assert launches["sdf_mlp_nograd"] == want == len(kept.points), (
+            launches, want)
+        assert not any(v for k, v in launches.items()
+                       if k != "sdf_mlp_nograd"), launches
+        fields = dict(resolution=res, points=sizes, k1_launches=want,
+                      launches={k: v for k, v in launches.items() if v},
+                      verts=len(verts), tris=len(tris))
+        first = 0
+        for key in ("coarse", "fine"):
+            ref = reference_points(rec[key]["axes"], rec[key]["frame"],
+                                   device)
+            n_calls = math.ceil(sizes[key] / tmesh.CHUNK)
+            took = torch.cat(kept.points[first:first + n_calls])
+            first += n_calls
+            gap = float((took - ref).abs().max())
+            assert took.shape == ref.shape and gap <= MESH_POINTS_TOL, (
+                key, gap)
+            del took
+            k1 = torch.from_numpy(rec[key]["grid"]).to(device).reshape(-1)
+            plain = sdf_mlp.sdf_mlp_plain(net, ref)
+            err = (k1 - plain).abs()
+            near = plain.abs() < 0.01  # the surface's band
+            fields[key] = dict(points_gap=gap,
+                               max_abs_err=float(err.max()),
+                               mean_abs_err_near_surface=float(
+                                   err[near].mean()) if near.any() else None)
+            assert close(k1, plain, 0.02, 0.02), (label, key, fields[key])
+            if key == "fine":
+                plain_fine = plain.reshape(rec[key]["grid"].shape).cpu()
+            else:
+                plain_coarse = plain.reshape(rec[key]["grid"].shape).cpu()
+            del ref, k1, plain, err, near
+        kept.points.clear()
+        torch.cuda.empty_cache()
+        # the plain fine grid's mesh on K1's axes and frame, world space
+        axes = rec["fine"]["axes"]
+        vecs, mean = rec["frame"]
+        t1 = time.perf_counter()
+        pv, _ = tmesh._march(plain_fine.numpy(), axes)
+        plain_march_s = time.perf_counter() - t1
+        spacing = float(axes[0][1] - axes[0][0])
+        gaps = mesh_gaps(verts, pv @ vecs + mean, spacing)
+        # the frame the plain coarse grid gives
+        cv, ct = tmesh._march(plain_coarse.numpy(), rec["coarse"]["axes"])
+        plain_vecs, _ = tmesh._surface_frame(
+            tmesh.mesh_io.sample_surface(cv, ct, 10_000))
+        surf = rec["surface"] - rec["surface"].mean(0)
+        # K1 on one full chunk of the fine grid
+        n_chunk = min(tmesh.CHUNK, sizes["fine"])
+        chunk = tmesh.grid_points(
+            [torch.from_numpy(a).to(device) for a in axes], 0, n_chunk,
+            tuple(torch.from_numpy(np.asarray(a, np.float32)).to(device)
+                  for a in (vecs, mean)))
+        pack = sdf_mlp.SdfMlpPack(net)
+        k1 = lambda: sdf_mlp.sdf_mlp_nograd(pack, chunk)  # noqa: E731
+        macs = hidden_macs(cfg.implicit) + cfg.implicit.layer_dims()[-2]
+        wbytes = sum(w.numel() for w in _bf16_weights(net)[0]) * 2
+        b_ms, b_by = bound(2.0 * macs * n_chunk, n_chunk * 16 + wbytes,
+                           PEAK_BF16)
+        fields.update(
+            spacing=spacing, mesh=gaps, nn_gate=MESH_NN_GATE,
+            fscore_gate=MESH_FSCORE_GATE,
+            eigenvalues=np.linalg.eigvalsh(surf.T @ surf).tolist(),
+            plain_frame_angles_deg=frame_angles_deg(vecs, plain_vecs),
+            chunk_points=n_chunk, chunk_ms=time_ms(k1, 10),
+            chunk_device_ms=device_ms(k1, 10, "sdf_mlp_kernel"),
+            chunk_bound_ms=b_ms, chunk_bound_by=b_by,
+            grid_s=rec["coarse_grid_s"] + rec["fine_grid_s"],
+            copy_s=rec["coarse_copy_s"] + rec["fine_copy_s"],
+            march_s=rec["coarse_march_s"] + rec["fine_march_s"],
+            sample_s=rec["sample_s"], frame_s=rec["frame_s"],
+            plain_march_s=plain_march_s, total_s=total_s)
+        del chunk, pack, plain_fine, plain_coarse, rec
+        torch.cuda.empty_cache()
+        assert (gaps["mean_nn"] < MESH_NN_GATE
+                and gaps["fscore"] >= MESH_FSCORE_GATE), (label, gaps)
+        out[label] = fields
+        print(json.dumps({"phase": "mesh_case", "case": label, **fields}),
+              flush=True)
+    return out
+
+
+def cli_launches(stdout: str) -> dict:
+    """The launch counts a test-mode CLI run printed last."""
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith("[INFO] kernel launches: ")]
+    assert lines, stdout[-2000:]
+    return json.loads(lines[-1].split(": ", 1)[1])
+
+
+def run_mesh_cli(tmp, device) -> dict:
+    """`--test_mode mesh --resolution 512 --score` on the `cli` phase's
+    checkpoint (step 4) in `tmp`, against a GT `mesh.ply` the smoke writes
+    into the temporary scene: the plain net's mesh of that checkpoint over
+    a uniform 128^3 grid. The CLI's files (`scanN.ply`, `.html`,
+    `_refined.ply`, `_gt.ply`, `metrics.txt` with five finite scores), K1
+    launched once a 2 M-point chunk of both grids and no other kernel; its
+    process seconds, extraction split and `refuse` seconds."""
+    exp = Path(tmp) / "exps" / "quality_1" / "version_0"
+    tcfg = renderer.I2SDFConfig.from_cfgnode(load_cfg(str(TRAIN_CONF)).model)
+    model = load_model(tcfg, str(exp / "checkpoints" / "step_4.pt"), SEED,
+                       device)
+    conf = load_cfg(str(TRAIN_CONF))
+    axes = tmesh._uniform_grid(128, tuple(conf.plot.grid_boundary))
+    with torch.no_grad():
+        gt = sdf_mlp.sdf_mlp_plain(model.implicit,
+                                   reference_points(axes, None, device))
+    gv, gtri = tmesh._march(gt.reshape(128, 128, 128).cpu().numpy(), axes)
+    scan = Path(tmp) / "data" / "synthetic_quality" / "scan1"
+    tmesh.mesh_io.write_ply(str(scan / "mesh.ply"), gv, gtri)
+    del model, gt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli_args(tmp) + [
+        "--test", "--test_mode", "mesh", "--resolution", str(MESH_RES),
+        "--score"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    out = exp / "eval" / "mesh"
+    files = sorted(os.listdir(out))
+    assert files == ["metrics.txt", "scan1.html", "scan1.ply",
+                     "scan1_gt.ply", "scan1_refined.ply"], files
+    metrics = dict(line.split(": ") for line in
+                   (out / "metrics.txt").read_text().splitlines())
+    metrics = {k: float(v) for k, v in metrics.items()}
+    assert list(metrics) == ["ACC", "COMP", "PREC", "RECAL", "F-SCORE"]
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    launches = cli_launches(proc.stdout)
+    split = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("[INFO] mesh extraction: ")][-1]
+    stats = dict(kv.split("=") for kv in split.split(": ", 1)[1].split())
+    fine = int(stats["points"]) - 100 ** 3
+    want = math.ceil(100 ** 3 / tmesh.CHUNK) + math.ceil(fine / tmesh.CHUNK)
+    assert launches == {"sdf_mlp_nograd": want} and int(
+        stats["chunks"]) == want, (launches, stats)
+    refuse = {side: float(ln.split(": ")[1].split()[0])
+              for side in ("pred", "gt") for ln in proc.stdout.splitlines()
+              if ln.startswith(f"[INFO] refuse ({side}): ")}
+    verts, _ = tmesh.mesh_io.read_ply(str(out / "scan1.ply"))
+    assert len(verts) > 1000 and np.isfinite(verts).all()
+    return dict(process_s=seconds, launches=launches,
+                extraction={k: float(v) for k, v in stats.items()},
+                refuse_s=refuse, metrics=metrics, gt_tris=len(gtri),
+                verts=len(verts), files=files)
+
+
+def run_interpolate_cli(tmp, device) -> dict:
+    """`--test_mode interpolate --inter_id 0 3 --n_frames 4` on the `cli`
+    phase's checkpoint: 4 RGB and 4 normal PNGs (and the videos when
+    ffmpeg is on the path); K1, K2 and K3 launched as often as by the eval
+    render of the same 4 poses in this process, whose frames the CLI's
+    equal to within one level; the seconds a frame."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli_args(tmp) + [
+        "--test", "--test_mode", "interpolate", "--inter_id", "0", "3",
+        "--n_frames", "4"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    launches = cli_launches(proc.stdout)
+    frame_s = [float(ln.split(": ")[1].split()[0])
+               for ln in proc.stdout.splitlines()
+               if ln.startswith("[INFO] frame ")]
+    exp = Path(tmp) / "exps" / "quality_1" / "version_0"
+    out = exp / "eval" / "interpolate"
+    names = [f"{i:04d}.png" for i in range(4)]
+    assert sorted(os.listdir(out / "0000_0003")) == names
+    assert sorted(os.listdir(out / "0000_0003_normal")) == names
+    ffmpeg = shutil.which("ffmpeg") is not None
+    videos = sorted(p.name for p in out.glob("*.mp4"))
+    assert len(videos) == (2 if ffmpeg else 0), videos
+    # the same 4 views through the eval render in this process
+    conf = load_cfg(str(TRAIN_CONF))
+    tcfg = renderer.I2SDFConfig.from_cfgnode(conf.model)
+    model = load_model(tcfg, str(exp / "checkpoints" / "step_4.pt"), SEED,
+                       device)
+    pd = PlotData("synthetic_quality", scan_id=1,
+                  data_root=str(Path(tmp) / "data"),
+                  downsample=conf.dataset.downsample, indices=[0, 3])
+    poses = interpolate_poses(pd.pose_all[0], pd.pose_all[1], 4)
+    render = train_step.make_eval_render_fn(model,
+                                            conf.train.split_n_pixels)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    H, W = pd.img_res
+    kernels.reset_launch_counts()
+    worst = 0
+    for i, pose in enumerate(poses):
+        o = render(t(pd.uv), t(pd.intrinsics_all[0]), t(pose))
+        rgb = imaging.to_u8(o["rgb_values"].cpu().numpy().reshape(H, W, 3))
+        got = imaging.read_png(str(out / "0000_0003" / names[i]))
+        worst = max(worst, int(np.abs(got.astype(int) - rgb).max()))
+    views = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert views == launches and all(
+        launches.get(k) for k in EVAL_KERNELS), (launches, views)
+    assert worst <= 1, worst
+    del model
+    torch.cuda.empty_cache()
+    return dict(process_s=seconds, frame_s=frame_s,
+                launches=launches, ffmpeg=ffmpeg, videos=videos,
+                frame_gap_levels=worst, image=[H, W])
+
+
+def cli_args(tmp) -> list:
+    """The CLI on scan1 of `tmp`'s data root (`images_only_root`) with the
+    flagship config and `tmp`'s experiments folder."""
+    return [sys.executable, "-m", "i2sdf_tpu_torch.main", "--scan_id", "1",
+            "--data_root", str(Path(tmp) / "data"), "--log_every", "1",
+            "--conf", str(TRAIN_CONF), "--exps_folder",
+            str(Path(tmp) / "exps")]
+
+
+def run_cli(tmp) -> dict:
+    """The train CLI in `tmp` on scan1 as the checkout holds it (images and
+    cameras only), then --resume for one step, then the render CLI with no
+    --ckpt, which loads the newest checkpoint; last the train CLI on a copy
+    of the config with the normal losses off. `tmp` keeps the experiment
+    for the mesh and interpolation CLIs."""
+    cli = [sys.executable, "-m", "i2sdf_tpu_torch.main", "--scan_id",
+           "1", "--data_root", images_only_root(tmp), "--log_every", "1"]
+    base = cli_args(tmp)
+    runs = []
+    for extra in (["--max_steps", "3"],
+                  ["--max_steps", "4", "--resume"],
+                  ["--test", "--test_mode", "render", "--indices", "0"]):
         t0 = time.perf_counter()
-        proc = subprocess.run(cli + args, cwd=ROOT, capture_output=True,
+        proc = subprocess.run(base + extra, cwd=ROOT, capture_output=True,
                               text=True, timeout=600)
-        logs = [ln for ln in proc.stdout.splitlines() if "[scan1 " in ln]
-        runs.append(dict(args=args, rc=proc.returncode,
-                         seconds=time.perf_counter() - t0, tail=logs))
+        runs.append(dict(args=extra, rc=proc.returncode,
+                         seconds=time.perf_counter() - t0,
+                         tail=proc.stdout.strip().splitlines()[-4:]))
         assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[
             -3000:]
-        assert len(logs) == 2 and not any(
-            t in ln for ln in logs for t in ("normal=", "angular=")), logs
-        exp = Path(tmp) / "exps" / "quality_1" / "version_0"
-        ckpts = sorted(os.listdir(exp / "checkpoints"))
-        plots = sorted(str(p.relative_to(exp)) for p in (exp / "plots")
-                       .rglob("*.png"))
-        depth = np.load(exp / "eval" / "depth" / "0000.npy")
-        normal = np.load(exp / "eval" / "normal" / "0000w.npy")
-        evals = sorted(str(p.relative_to(exp / "eval"))
-                       for p in (exp / "eval").rglob("*") if p.is_file())
+        if "--resume" in extra:
+            assert "[INFO] Resumed from step 3" in proc.stdout, \
+                proc.stdout
+    assert "[INFO] restored checkpoint @4" in proc.stdout, proc.stdout
+    # the normal-off route through the CLI: a copy of the config with
+    # normal_weight 0, in its own experiments folder
+    nonormal = Path(tmp) / "quality_nonormal.yml"
+    nonormal.write_text(TRAIN_CONF.read_text().replace(
+        "normal_weight: 0.05", "normal_weight: 0.0"))
+    args = ["--conf", str(nonormal), "--exps_folder",
+            str(Path(tmp) / "exps_nonormal"), "--max_steps", "2"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli + args, cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    logs = [ln for ln in proc.stdout.splitlines() if "[scan1 " in ln]
+    runs.append(dict(args=args, rc=proc.returncode,
+                     seconds=time.perf_counter() - t0, tail=logs))
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[
+        -3000:]
+    assert len(logs) == 2 and not any(
+        t in ln for ln in logs for t in ("normal=", "angular=")), logs
+    exp = Path(tmp) / "exps" / "quality_1" / "version_0"
+    ckpts = sorted(os.listdir(exp / "checkpoints"))
+    plots = sorted(str(p.relative_to(exp)) for p in (exp / "plots")
+                   .rglob("*.png"))
+    depth = np.load(exp / "eval" / "depth" / "0000.npy")
+    normal = np.load(exp / "eval" / "normal" / "0000w.npy")
+    evals = sorted(str(p.relative_to(exp / "eval"))
+                   for p in (exp / "eval").rglob("*") if p.is_file())
     assert ckpts == ["step_3.pt", "step_4.pt"], ckpts
     assert len(plots) == 6, plots
     assert np.isfinite(depth).all() and np.isfinite(normal).all()
@@ -3168,6 +3504,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    mconf = train_conf()
+    mcfg, mmodel = seeded_model(mconf, device)
+    mesh = check_mesh(mmodel, mcfg, mconf, device)
+    emit("mesh", t0, **mesh)
+    del mmodel
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     tr = run_train(device)
     emit("train", t0, **tr)
@@ -3209,9 +3553,16 @@ def main() -> int:
     trb = run_train(device, "bg")
     emit("train_bg", t0, **trb)
 
-    t0 = time.perf_counter()
-    cli = run_cli()
-    emit("cli", t0, **cli)
+    with tempfile.TemporaryDirectory() as cli_tmp:
+        t0 = time.perf_counter()
+        cli = run_cli(cli_tmp)
+        emit("cli", t0, **cli)
+        t0 = time.perf_counter()
+        mesh_cli = run_mesh_cli(cli_tmp, device)
+        emit("mesh_cli", t0, **mesh_cli)
+        t0 = time.perf_counter()
+        interp = run_interpolate_cli(cli_tmp, device)
+        emit("interpolate", t0, **interp)
 
     per_kernel = {}
     for row in rows:  # one entry per kernel: its main-path shape's row
@@ -3240,12 +3591,21 @@ def main() -> int:
                                    "train_perray": trp["launches"],
                                    "eval_bg": slb["launches"],
                                    "train_bg": trb["launches"],
-                                   "sdf_outputs": so["launches"]},
+                                   "sdf_outputs": so["launches"],
+                                   "mesh": mesh["init"]["launches"],
+                                   "mesh_perturbed":
+                                       mesh["perturbed"]["launches"],
+                                   "mesh_cli": mesh_cli["launches"],
+                                   "interpolate": interp["launches"]},
                       "seconds": time.perf_counter() - t_all}))
+    # K1 also serves the mesh: its launches and 2 M-point chunk there
+    on_mesh = {"sdf_mlp_nograd": dict(
+        mesh_launches=mesh["init"]["k1_launches"],
+        mesh_chunk_ms=mesh["init"]["chunk_ms"])}
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          "launches": paths[path_of[r["name"]]][r["name"]],
-         "launches_path": path_of[r["name"]]}
+         "launches_path": path_of[r["name"]], **on_mesh.get(r["name"], {})}
         for r in per_kernel.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -1,29 +1,47 @@
-"""CLI of the port (counterpart of `i2sdf_tpu/main.py`): train and render.
+"""CLI of the port (counterpart of `i2sdf_tpu/main.py`): train, render,
+extract and score a mesh, interpolate views.
 
     python -m i2sdf_tpu_torch.main --conf configs/synthetic_quality.yml \
-        --scan_id 1 [--max_steps N] [--resume] [--seed 7] [--device cpu]
+        --scan_id 1 [--max_steps N] [--resume] [--val_mesh] [--seed 7] \
+        [--device cpu]
     python -m i2sdf_tpu_torch.main --conf configs/synthetic.yml --test \
         --test_mode render [--indices 0 3] [--ckpt last|N|model.pt] \
         [--seed 7] [--device cpu]
+    python -m i2sdf_tpu_torch.main --conf configs/synthetic_quality.yml \
+        --scan_id 1 --test --test_mode mesh [--resolution 512] [--score] \
+        [--far_clip 5.0]
+    python -m i2sdf_tpu_torch.main --conf configs/synthetic_quality.yml \
+        --scan_id 1 --test --test_mode interpolate [--inter_id 0 1] \
+        [--n_frames 60] [--frame_rate 24]
 
 The flags are the reference's. Every shipped config whose model the port
 has (the flagship's, its normal-loss-off copies, the light-mask config)
-runs through both modes, and so do configs with per-ray sampler
-compaction (`ray_sampler.per_ray_exit`) or the NeRF++ background
+trains and renders, and so do configs with per-ray sampler compaction
+(`ray_sampler.per_ray_exit`) or the NeRF++ background
 (`model.bg_network`). Without `--test` the trainer runs
-(`train/trainer.py`) for `--max_steps` steps (the config's
-`train.steps` if not given); `--resume` continues from the newest
-checkpoint of the experiment's version directory. Of the test modes only
-`render` is ported; the others are refused. The model runs on the card
-unless `--device cpu` is given. Render weights come from the
-experiment's checkpoints, as the JAX CLI takes them (`main.py:61,181-185`
-there): `--ckpt last` (the default, or `latest`) loads the newest
+(`train/trainer.py`) for `--max_steps` steps (the config's `train.steps`
+if not given); `--resume` continues from the newest checkpoint of the
+experiment's version directory; `--val_mesh` extracts a mesh at each
+validation (`plots/mesh/{step}.ply` and `.html`, at the config's
+`plot.resolution`). The test modes `render` (`eval/render.py`), `mesh`
+(`eval/mesh.py`: `eval/mesh/scan{N}.ply` and `.html` at `--resolution`,
+with `--score` the refused meshes and `metrics.txt` against the scan's
+`mesh.ply`) and `interpolate` (`eval/interpolate.py`: `--n_frames`
+frames from view `--inter_id`'s first pose to its second, a video at
+`--frame_rate` when ffmpeg is on the path) are ported; `relight`,
+`relight_video`, `--use_material` and `--is_val` are refused. On the
+card a test mode ends by printing its kernels' launch counts
+(`ops/kernels::launch_counts`). The mesh and interpolation flags'
+defaults are the JAX CLI's. The model runs on the card unless `--device
+cpu` is given. Test weights come from the experiment's checkpoints, as
+the JAX CLI takes them (`main.py:61,181-185` there): `--ckpt last` (the
+default, or `latest`) loads the newest
 `<exp_dir>/checkpoints/step_N.pt`, `--ckpt N` loads step N, and a path
-ending in `.pt` loads that state_dict (e.g. written from a JAX checkpoint
-with `i2sdf_tpu_torch.params.from_jax_params`, or a training checkpoint).
-When none is found the CLI exits with an error; it never renders the
-seeded init. The experiment's version is `--version`, else a
-`version_N` in the `--conf` path, else the newest one (a new one for
+ending in `.pt` loads that state_dict (e.g. written from a JAX
+checkpoint with `i2sdf_tpu_torch.params.from_jax_params`, or a training
+checkpoint). When none is found the CLI exits with an error; it never
+evaluates the seeded init. The experiment's version is `--version`, else
+a `version_N` in the `--conf` path, else the newest one (a new one for
 training without `--resume`). `--seed` defaults to None, which means the
 config's `seed:` key, or 0: an explicit `--seed` always wins.
 """
@@ -31,14 +49,18 @@ config's `seed:` key, or 0: an explicit `--seed` always wins.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import re
 
 import torch
 
 from .config import load_cfg
+from .eval.interpolate import run_interpolation
+from .eval.mesh import run_mesh_eval
 from .eval.render import run_render_eval
 from .models.renderer import I2SDFConfig
+from .ops import kernels
 from .params import load_model
 from .train.checkpoint import CheckpointManager
 from .train.trainer import ReconstructionTrainer
@@ -56,17 +78,25 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["render", "mesh", "interpolate", "relight",
                             "relight_video"])
     p.add_argument("--version", type=int, default=None)
+    p.add_argument("--inter_id", type=int, nargs=2, default=[0, 1])
     p.add_argument("--indices", type=int, nargs="*", default=None)
+    p.add_argument("--n_frames", type=int, default=60)
+    p.add_argument("--frame_rate", type=int, default=24)
     p.add_argument("--full_res", action="store_true")
     p.add_argument("--is_val", action="store_true")
+    p.add_argument("--val_mesh", action="store_true")
+    p.add_argument("--score", action="store_true")
+    p.add_argument("--far_clip", type=float, default=5.0)
     p.add_argument("--ckpt", default="last",
                    help="'last' or 'latest' (the experiment's newest "
                         "checkpoint), a step N, or a .pt state_dict path")
+    p.add_argument("--resolution", type=int, default=512)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", default="cuda")
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--log_every", type=int, default=50)
+    p.add_argument("--use_material", action="store_true")
     return p
 
 
@@ -121,10 +151,13 @@ def resolve_ckpt(ckpt: str, exp_dir: str) -> tuple[str, int | None]:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.test and args.test_mode != "render":
+    if args.test and args.test_mode in ("relight", "relight_video"):
         raise SystemExit(f"--test_mode {args.test_mode} is not ported yet")
     if args.is_val:
         raise SystemExit("--is_val (held-out val/ cameras) is not ported yet")
+    if args.use_material:
+        raise SystemExit("--use_material (the material stage) is not ported "
+                         "yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run the plain "
@@ -141,7 +174,8 @@ def main(argv=None) -> int:
     if not args.test:
         trainer = ReconstructionTrainer(conf, exp_dir,
                                         data_root=args.data_root,
-                                        device=device, seed=seed)
+                                        device=device, seed=seed,
+                                        val_mesh=args.val_mesh)
         trainer.fit(max_steps=args.max_steps, resume=args.resume,
                     log_every=args.log_every)
         return 0
@@ -150,8 +184,21 @@ def main(argv=None) -> int:
     model = load_model(cfg, path, seed, device)
     print(f"[INFO] restored checkpoint @{step}" if step is not None
           else f"[INFO] weights: {path}")
-    run_render_eval(model, conf, exp_dir, data_root=args.data_root,
-                    indices=args.indices, full_res=args.full_res)
+    if args.test_mode == "render":
+        run_render_eval(model, conf, exp_dir, data_root=args.data_root,
+                        indices=args.indices, full_res=args.full_res)
+    elif args.test_mode == "mesh":
+        run_mesh_eval(model, conf, exp_dir, data_root=args.data_root,
+                      resolution=args.resolution, score=args.score,
+                      far_clip=args.far_clip)
+    else:
+        run_interpolation(model, conf, exp_dir, id0=args.inter_id[0],
+                          id1=args.inter_id[1], n_frames=args.n_frames,
+                          frame_rate=args.frame_rate,
+                          data_root=args.data_root)
+    if device.type == "cuda":
+        print("[INFO] kernel launches: " + json.dumps(
+            {k: v for k, v in kernels.launch_counts().items() if v}))
     return 0
 
 

@@ -42,8 +42,11 @@ class SdfMlpPack:
 
 
 def sdf_mlp_plain(net: mlp.ImplicitNet, points: torch.Tensor) -> torch.Tensor:
-    """(N, 3) -> (N,) clamped SDF in f32 (chunked to bound memory)."""
-    chunks = [mlp.sdf_vals(net, c)[:, 0] for c in points.split(_PLAIN_CHUNK)]
+    """(N, 3) -> (N,) clamped SDF in f32 (chunked to bound memory: each
+    chunk's sdf column is copied out of the net's output, whose features
+    would otherwise stay alive with it)."""
+    chunks = [mlp.sdf_vals(net, c)[:, 0].contiguous()
+              for c in points.split(_PLAIN_CHUNK)]
     return torch.cat(chunks) if chunks else points.new_zeros((0,))
 
 

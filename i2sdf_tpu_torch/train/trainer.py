@@ -17,9 +17,13 @@ learned beta (`trainer.py:206-222,385-406,498`): at the start of `fit`
 trainer picks the phase (`train/step.py::per_ray_fracs_for_beta`, or the
 config's pinned `per_ray_fracs`) and, when it changed, builds that
 phase's step; PyTorch has nothing to recompile. The validation renders
-keep `per_ray_exit` and pick their own phase. Left out against the JAX
-trainer: LPIPS, TensorBoard, multi-device data parallelism, and the
-bubble hot/count maps and point-cloud HTML of `train/artifacts.py`.
+keep `per_ray_exit` and pick their own phase. With `val_mesh` each
+validation also extracts a mesh at the config's `plot.resolution` (a
+coarse grid of at most 64) through `eval/mesh.py`, written to
+`plots/mesh/{step}.ply` with its viewer `.html` and the training
+cameras (`trainer.py:627-646`). Left out against the JAX trainer: LPIPS,
+TensorBoard, multi-device data parallelism, and the bubble hot/count
+maps and point-cloud HTML of `train/artifacts.py`.
 """
 
 from __future__ import annotations
@@ -34,10 +38,13 @@ import torch
 
 from ..data.plot import PlotData
 from ..data.recon import ReconData
+from ..eval import mesh_io
+from ..eval.mesh import extract_mesh
 from ..models import renderer
 from ..models.density import effective_beta
 from ..models.losses import TERMS, LossConfig
 from ..utils import imaging
+from .artifacts import write_mesh_html
 from .checkpoint import CheckpointManager
 from .state import create_train_state, make_reference_lr_schedule
 from .step import (BubbleState, TrainDraws, cfg_with_fracs, eval_fracs,
@@ -47,8 +54,10 @@ from .step import (BubbleState, TrainDraws, cfg_with_fracs, eval_fracs,
 
 class ReconstructionTrainer:
     def __init__(self, conf, exp_dir: str, data_root: str = "data",
-                 device="cuda", seed: int | None = None):
+                 device="cuda", seed: int | None = None,
+                 val_mesh: bool = False):
         self.conf = conf
+        self.val_mesh = val_mesh
         self.exp_dir = exp_dir
         self.device = torch.device(device)
         self.plots_dir = os.path.join(exp_dir, "plots")
@@ -297,11 +306,28 @@ class ReconstructionTrainer:
                 imaging.write_png(
                     f"{self.plots_dir}/light_mask/{step}_{i}.png",
                     imaging.to_u8(out["light_mask"].reshape(H, W)))
+        if self.val_mesh:
+            self._write_val_mesh(step)
         result = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
         print(f"[val @{step}] " + " ".join(f"{k}={v:.4g}"
                                            for k, v in result.items())
               + f" ({time.perf_counter() - t0:.1f}s)")
         return result
+
+    def _write_val_mesh(self, step: int) -> None:
+        """A mesh at the plot resolution, with the training cameras'
+        frusta in its viewer (`trainer.py:627-646`)."""
+        res = self.conf.plot.get("resolution", 100)
+        out = extract_mesh(self.state.model.implicit, resolution=res,
+                           grid_boundary=tuple(self.conf.plot.grid_boundary),
+                           coarse_resolution=min(64, res))
+        if out is None:
+            return
+        os.makedirs(f"{self.plots_dir}/mesh", exist_ok=True)
+        mesh_io.write_ply(f"{self.plots_dir}/mesh/{step}.ply", *out)
+        write_mesh_html(out[0], out[1], f"{self.plots_dir}/mesh/{step}.html",
+                        poses=self.train_data.pose_all,
+                        intrinsics=self.train_data.intrinsics_all)
 
     def save_checkpoint(self) -> str:
         bubble = None

@@ -16,9 +16,11 @@ config's K3-light, `k3_light`; both also on a net of odd depth) and
 `chip_smoke.check_kernels` (`k2`: they come before its K3 check),
 `chip_smoke.check_rev` (K5 and K6 at the training config, `rev`),
 `chip_smoke.check_conv` (K7 at the perray config, `conv`),
-`chip_smoke.check_sdf_outputs` (K10 at the flagship config, `k10`) and
+`chip_smoke.check_sdf_outputs` (K10 at the flagship config, `k10`),
 `chip_smoke.check_sdf_grad` (K11 and K12 at the training config, `k12`;
-K11's faults must fail its K11 rows, K12's its K12 rows). A check that
+K11's faults must fail its K11 rows, K12's its K12 rows) and
+`chip_smoke.check_mesh` (K1 on the mesh's grids at the training
+config's grid boundary, `mesh`). A check that
 raises has caught the fault. Prints one JSON line per fault (with the
 seconds it took), and exits nonzero if a check named in the fault's
 `must_fail` passed; with `--log DIR`, each check's output goes to
@@ -180,6 +182,15 @@ FAULTS = {
         "                                     kr, x, torch.cat([c_out[:, :1], "
         "torch.zeros_like(c_out[:, 1:])], 1), c_g)\n",
         ("k12",)),
+    # every chunk of a mesh grid but the first built one grid row off (its
+    # points' j index one more, wrapping at the axis' end): K1 evaluates
+    # the next row's points
+    "mesh_chunk_row_offset": (
+        "i2sdf_tpu_torch/eval/mesh.py",
+        '    j = torch.div(idx % nyz, len(az), rounding_mode="floor")\n',
+        '    j = (torch.div(idx % nyz, len(az), rounding_mode="floor")\n'
+        '         + (1 if start else 0)) % len(ay)\n',
+        ("mesh",)),
     # K7 takes its first warp's maximum of the bound, not the group's
     "k7_one_warp_max": (
         "i2sdf_tpu_torch/csrc/conv_check.cu",
@@ -197,7 +208,7 @@ build.build()
 device = torch.device("cuda", 0)
 which = sys.argv[1]
 conf = (cs.light_conf(train=False) if which == "k3_light"
-        else cs.train_conf() if which in ("k4", "rev", "k12")
+        else cs.train_conf() if which in ("k4", "rev", "k12", "mesh")
         else cs.perray_conf(train=False) if which == "conv"
         else cs.bg_conf(train=False) if which == "bg" else cs.eval_conf())
 cfg, model = cs.seeded_model(conf, device)
@@ -217,6 +228,8 @@ elif which == "bg":
     cs.check_bg(model, cfg, conf, device)
 elif which == "k4":
     cs.check_k4(model, cfg, conf, device)
+elif which == "mesh":
+    cs.check_mesh(model, cfg, conf, device)
 else:
     cs.check_k3(model, cfg, conf, device)
 """

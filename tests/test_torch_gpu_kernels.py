@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from i2sdf_tpu_torch.eval import mesh as tmesh
 from i2sdf_tpu_torch.models import mlp
 from i2sdf_tpu_torch.models import sampler as tsampler
 from i2sdf_tpu_torch.models.sampler import SamplerConfig
@@ -186,6 +187,77 @@ def test_render_core_kernel(dev, n, perturbed, depth):
             ("sdf", "grad", "rgb"), got, ref,
             ((0.02, 0.02), (0.05, 0.08), (0.03, 0.05))):
         torch.testing.assert_close(g, r, atol=atol, rtol=rtol, msg=name)
+
+
+# K1 on the mesh path (`eval/mesh.py`): a chunk of an aligned grid's
+# points, built on the card as the extraction builds them (flat index ->
+# (i, j, k), then `@ vecs + mean`), starting mid-row, at counts on both
+# sides of a 128-point block's edge, on a narrow net at the init's and at
+# perturbed weights, against the f32 plain net (K1's gate above); the
+# points against numpy's meshgrid in the frame (f32 rounding of the
+# products, 1e-5); and a grid past 2 M points in two K1 launches, the
+# last one partial.
+MESH_ICFG = dataclasses.replace(ICFG, feature_vector_size=16,
+                                dims=(64,) * 4, skip_in=(2,))
+
+
+def _mesh_grid(shape_points=500, resolution=60, seed=4):
+    """An aligned grid's host axes and a frame (vecs, mean)."""
+    rng = np.random.default_rng(seed)
+    cloud = rng.normal(size=(shape_points, 3)) * [0.9, 0.6, 0.4]
+    axes = tmesh._aligned_grid(cloud.astype(np.float32), resolution)
+    vecs = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    if np.linalg.det(vecs) < 0:
+        vecs[[1, 2]] = vecs[[2, 1]]
+    mean = 0.1 * rng.normal(size=3)
+    return axes, (vecs.astype(np.float32), mean.astype(np.float32))
+
+
+def _host_points(axes, frame, start, stop):
+    X, Y, Z = np.meshgrid(*axes, indexing="ij")
+    pts = np.stack([X.ravel()[start:stop], Y.ravel()[start:stop],
+                    Z.ravel()[start:stop]], -1)
+    return pts @ frame[0] + frame[1]
+
+
+@WEIGHTS
+@pytest.mark.parametrize("n", [127, 128, 129, 4097])
+def test_sdf_mlp_kernel_on_a_mesh_grid_chunk(dev, n, perturbed):
+    net = mlp.ImplicitNet(MESH_ICFG, torch.Generator().manual_seed(0)).to(dev)
+    if perturbed:
+        (net,) = _perturb(net)
+    axes, frame = _mesh_grid()
+    start = 3 * len(axes[1]) * len(axes[2]) + 5
+    pts = tmesh.grid_points([torch.from_numpy(a).to(dev) for a in axes],
+                            start, start + n,
+                            tuple(torch.from_numpy(a).to(dev) for a in frame))
+    np.testing.assert_allclose(pts.cpu().numpy(),
+                               _host_points(axes, frame, start, start + n),
+                               atol=1e-5)
+    kernels.reset_launch_counts()
+    got = sdf_mlp.sdf_mlp_nograd(sdf_mlp.SdfMlpPack(net), pts)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sdf_mlp_nograd"] == 1
+    torch.testing.assert_close(got, sdf_mlp.sdf_mlp_plain(net, pts),
+                               atol=0.02, rtol=0.02)
+
+
+def test_mesh_grid_runs_k1_in_2m_point_chunks(dev):
+    net = mlp.ImplicitNet(MESH_ICFG, torch.Generator().manual_seed(0)).to(dev)
+    (net,) = _perturb(net)
+    axes, frame = _mesh_grid(resolution=96)
+    n = len(axes[0]) * len(axes[1]) * len(axes[2])
+    assert tmesh.CHUNK < n < 2 * tmesh.CHUNK, n  # one full chunk, one part
+    kernels.reset_launch_counts()
+    grid = tmesh._eval_sdf_grid(sdf_mlp.SdfMlpPack(net), axes, frame)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sdf_mlp_nograd"] == 2
+    assert grid.shape == tuple(len(a) for a in axes) and grid.is_cuda
+    pts = torch.from_numpy(_host_points(axes, frame, 0, n).astype(
+        np.float32)).to(dev)
+    torch.testing.assert_close(grid.reshape(-1),
+                               sdf_mlp.sdf_mlp_plain(net, pts),
+                               atol=0.02, rtol=0.02)
 
 
 def test_kernels_refuse_cpu_weights(dev):
