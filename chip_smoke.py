@@ -60,6 +60,21 @@ Phases, each printed as one JSON line with its wall time:
    the exponentials on the SFU (`bound_f32`), and K2's, K4's, K5's, K6's,
    K7's and K10's kernels' registers, spills, HGMMA, MUFU and bulk copies
    (`scripts/kernel_resources.py`, started beside the checks);
+3a. idr (the idr config, `idr_conf`: `synthetic_quality.yml` with VolSDF's
+   DTU radiance net, mode idr, d_in 9, on [pts | PE(view) | normals |
+   features], 289 inputs, written to a temporary file): K3-idr at the
+   eval chunk's 1,164,000 points and K4-idr at the training batch's
+   160,000 (handed K3's gradient), each at the init's, perturbed and
+   odd-depth nets as K3 and K4 above; one 240x320 view through the eval
+   entry point (K1, K2 and K3-idr, never another K3) and its first chunk
+   against the plain path (rgb PSNR >= 30 dB);
+3b. sh (the SH config, `sh_conf`: the spherical-harmonics view encoding,
+   which the render core does not take): K5 and K6 at one training
+   step's 155,200 render points with the SH route's sdf, feature and
+   gradient cotangents (`sh_cotangents`) against the plain op, and K5 at
+   the eval chunk's 1,164,000 points (its scratch and peak memory); one
+   view through the eval entry point (K1, K2 and K5, never K3) and its
+   first chunk against the plain path;
 4. sdf_outputs (the path of K10-K12, whose JAX counterparts only the JAX
    package's public kernel API reaches): `fused_sdf_outputs` under no_grad
    over the first eval chunk's sample points, and `sdf_outputs_fused_grad`
@@ -129,6 +144,14 @@ Phases, each printed as one JSON line with its wall time:
 12. train_perray: the trainer for 6 steps of the perray config: K7 four
    times a step, K3/K4 once, every loss finite; a profile of two steps;
    one batch through a kernel step and a plain step;
+12a. train_idr, train_idr_nonormal: the trainer for 6 steps of the idr
+   config, with the normal losses on and with `normal_weight: 0` (the
+   radiance net takes the gradient either way): K3-idr and K4-idr once a
+   step, no other K3 / K4 and no K5 / K6; a profile, the host split and
+   one batch through a kernel step and a plain step;
+12b. train_sh: 6 steps of the SH config: K5 and K6 twice a step (the
+   render points, then the eikonal points), K3 / K4 never; the same
+   measurements;
 13. eval_bg: one view of the bg config (`synthetic_quality.yml` with the
    NeRF++ background of VolSDF's BlendedMVS config, `BG_BLOCK`): K8 once
    a chunk, K9 never; then the first chunk through the plain path;
@@ -147,7 +170,10 @@ Phases, each printed as one JSON line with its wall time:
    writes a light-mask plot, and the render CLI on its newest checkpoint;
    and the train CLI for 2 steps on the bg config and the render CLI on
    its newest checkpoint;
-16. mesh_cli: `--test --test_mode mesh --resolution 512 --score` on the
+15a. cli_idr: the idr config through the CLIs: the train CLI for 2 steps,
+   then `--test_mode render`, `interpolate` (2 frames) and `mesh`
+   (`--resolution 128`) on its newest checkpoint;
+16. mesh_cli: `--test --test_mode mesh --resolution 256 --score` on the
    `cli` phase's checkpoint, scored against a GT `mesh.ply` the script
    writes into its temporary scene (the plain net's mesh of that
    checkpoint over a uniform 128^3 grid): the mesh, its viewer, the
@@ -230,6 +256,19 @@ PERRAY_KERNELS = TRAIN_KERNELS + ("conv_check",)
 EVAL_BG_KERNELS = EVAL_KERNELS + ("bg_core_fwd",)
 BG_KERNELS = TRAIN_KERNELS + ("bg_core_fwd", "bg_core_bwd")
 SDF_OUTPUTS_KERNELS = ("sdf_outputs", "sdf_grad_fwd", "sdf_grad_bwd")
+# VolSDF's DTU radiance net (idr) through K3-idr / K4-idr; the SH view
+# encoding through K5 (eval) and K5 / K6 (training), the radiance plain
+IDR_EVAL_KERNELS = ("sdf_mlp_nograd", "sampler_round", "render_core_fwd_idr")
+IDR_KERNELS = IDR_EVAL_KERNELS + ("render_core_bwd_idr",)
+SH_EVAL_KERNELS = ("sdf_mlp_nograd", "sampler_round", "rev_fwd")
+SH_KERNELS = SH_EVAL_KERNELS + ("rev_bwd",)
+CORE_KERNELS = ("render_core_fwd", "render_core_bwd", "render_core_fwd_light",
+                "render_core_bwd_light", "render_core_fwd_idr",
+                "render_core_bwd_idr")
+# the radiance blocks of the two configurations (`TRAIN_CONF`'s text)
+IDR_EDIT = ("mode: nerf\n        d_in: 3", "mode: idr\n        d_in: 9")
+SH_EDIT = ("embed_type: 'positional'\n        multires: 4",
+           "embed_type: spherical_harmonics\n        multires: 4")
 # the perray config's pinned capacities (the beta ladder gives None at the
 # seeded init's beta 0.1, so it would never compact)
 PER_RAY_FRACS = (1.0, 0.5, 0.5, 0.5)
@@ -271,6 +310,9 @@ CONV_BAND, CONV_BAND_SHARE = 1e-4, 0.01
 # `bg_faults` must fail the check.
 BG_SPREAD_TOL = 0.05
 BG_SIGNAL_GAIN = math.sqrt(6.0)
+# K4-idr's `signal` case: the gradient rows of the radiance input layer
+# scaled by this besides (`idr_signal_net`)
+IDR_GRAD_GAIN = 5.0
 BG_MIN_SPREAD = 0.25
 # K8 and K9 are checked at these counts too: both sides of their blocks'
 # edges (K8 128 points a block, two warpgroups of 64; K9 64)
@@ -514,7 +556,7 @@ def library_render_core(inet, iw, ib, rnet, rw, rb, x, dirs, lw=None,
     g_cos = g_pe[:, 3 + 3 * F:].reshape(-1, 3, F)
     grad = g_pe[:, :3] + (f * (g_sin * torch.cos(xf)
                                - g_cos * torch.sin(xf))).sum(-1)
-    h = torch.cat([rnet.cfg.embed(dirs), feat], -1).to(torch.bfloat16)
+    h = mlp.rendering_input(rnet.cfg, dirs, feat, x, grad).to(torch.bfloat16)
     for l in range(len(rw)):
         z = torch.matmul(h, rw[l]).float() + rb[l]
         h = torch.relu(z).to(torch.bfloat16) if l < len(rw) - 1 else z
@@ -805,15 +847,17 @@ def k3_design_macs(cfg, light: bool) -> int:
 
 
 def check_k3(model, cfg, conf, device) -> dict:
-    """K3 (with the light head, if the model has one: its own kernel,
-    `render_core_fwd_light`) on one eval chunk: at the init's weights
+    """K3 (with the light head, if the model has one, or the idr-mode
+    radiance net: their own kernels, `render_core_fwd_light`,
+    `render_core_fwd_idr`) on one eval chunk: at the init's weights
     against the f32 plain version (CORE_TOLS); at perturbed weights
     (`perturbed_net` of each net) and on `odd_nets` (perturbed, one SDF
     hidden layer fewer) against the plain version at the weights rounded
     to bf16, the f32 reading and the points past the bound against f32
-    (`points_past_f32`) reported beside it; and the first n of the points
-    for each n in EDGE_COUNTS, at every weight. Timed at the init's
-    weights."""
+    (`points_past_f32`) reported beside it; with idr also at the init's
+    SDF net and the radiance net scaled by `signal_net` (`signal`, against
+    the bf16 weights); and the first n of the points for each n in
+    EDGE_COUNTS, at every weight. Timed at the init's weights."""
     x, dd = eval_chunk_points(cfg, conf, device)
     nets0 = (model.implicit, model.rendering, model.light)
     nets = {"init": nets0,
@@ -821,6 +865,10 @@ def check_k3(model, cfg, conf, device) -> dict:
                 None if m is None else perturbed_net(m, SEED + 10 + i)
                 for i, m in enumerate(nets0)),
             "odd": odd_nets(cfg, device, SEED + 20)}
+    if cfg.rendering.mode == "idr":
+        # the radiance net scaled (`signal_net`): the xyz and gradient
+        # columns then move rgb past the tolerances when read wrong
+        nets["signal"] = (model.implicit, signal_net(model.rendering), None)
     fields, ok = {}, True
     for label, ns in nets.items():
         pack = render_core.RenderCorePack(*ns)
@@ -877,14 +925,16 @@ def check_k3(model, cfg, conf, device) -> dict:
     block_bytes = 2 * sum(c.weights.numel() for c in
                           (stages.sdf, stages.rad, stages.light)
                           if c is not None)
+    suffix = ("_light" if light is not None
+              else "_idr" if cfg.rendering.mode == "idr" else "")
     row = dict(
-        name="render_core_fwd" + ("_light" if light is not None else ""),
+        name="render_core_fwd" + suffix,
         route="cuda", source="i2sdf_tpu_torch/csrc/render_core.cu",
         replaces="i2sdf_tpu/ops/pallas/fused_train.py:449",
         shape=list(x.shape), max_abs_err=max(fields["init"]["errs"].values()),
         errs=fields["init"]["errs"], tolerances=CORE_TOLS,
         perturbed=fields["perturbed"], odd=fields["odd"],
-        edges=fields["init"]["edges"],
+        signal=fields.get("signal"), edges=fields["init"]["edges"],
         macs=macs, design_macs=k3_design_macs(cfg, light is not None),
         l2_weight_gb_model=math.ceil(len(x) / K3_POINTS) * block_bytes
         / 1e9,
@@ -1032,6 +1082,8 @@ def k4_macs(icfg, rcfg, lcfg=None, detach_light=True) -> int:
         lm = light_macs(lcfg)
         macs += (sum(lm) + sum(lm[1:]) + (0 if detach_light else lm[0])
                  + sum(lm))
+    if rcfg.mode == "idr":   # the radiance input's gradient columns' cotangent
+        macs += 3 * rd[1]
     return macs
 
 
@@ -1079,10 +1131,14 @@ def k4_batch(cfg, conf, device):
     return x, d, S
 
 
-def k4_grads(nets, x, d, detach_light):
+def k4_grads(nets, x, d, detach_light, rgb_only: bool = False):
     """K4 and the plain f32 backward of the nets (implicit, rendering,
     light or None) at the cotangents of a seeded loss: (kernel leaves,
-    plain leaves, cotangents, weights, packs)."""
+    plain leaves, cotangents, weights, packs, K3's gradient: the idr
+    radiance input K4 is handed, as the training op hands it; None
+    otherwise). `rgb_only`: the loss's rgb cotangent alone (the others
+    zero), so the radiance net's share of the SDF leaves is not buried
+    under the eikonal and normal terms'."""
     inet, rnet, lnet = nets
     icfg, rcfg = inet.cfg, rnet.cfg
     lcfg = None if lnet is None else lnet.cfg
@@ -1091,15 +1147,20 @@ def k4_grads(nets, x, d, detach_light):
                                                detach_light)
     cot = loss_cotangents(*outs[:3], K4_EIK, SEED + 5,
                           lmask=outs[3] if lcfg is not None else None)
+    if rgb_only:
+        cot[:, :4] = 0.0
     cots = (cot[:, 3:4], cot[:, :3], cot[:, 4:7], cot[:, 7:8])[:len(outs)]
     ref = torch.autograd.grad(outs, w.flat(), cots)
     del outs
     with torch.no_grad():
         packs = (render_core.CoreStages(icfg, rcfg, w, lcfg),
                  render_core.K4Stages(icfg, rcfg, w, lcfg))
-        got = render_core.render_core_bwd(*packs, x, d, cot, detach_light)
+        g3 = (render_core._launch_fwd(packs[0], x, d)[1] if packs[0].idr
+              else None)
+        got = render_core.render_core_bwd(*packs, x, d, cot, detach_light,
+                                          g3)
     torch.cuda.synchronize()
-    return [t for grp in got for t in grp], list(ref), cot, w, packs
+    return [t for grp in got for t in grp], list(ref), cot, w, packs, g3
 
 
 def k4_staging_gb(plan) -> float:
@@ -1139,7 +1200,8 @@ class Resources:
 
 def k4_sass(resources: Resources, light: bool, coupled: bool) -> dict:
     """K4's kernels' ptxas and SASS counts: its sweep (with the light head
-    or not, coupled or not) and its products."""
+    or not, coupled or not; idr runs the sweep without the head) and its
+    products."""
     rows = resources.get()
     want = (f"k4_sweep_kernel<{str(light).lower()}, {str(coupled).lower()}>",
             "wgrad_kernel<4>")
@@ -1150,10 +1212,13 @@ def check_k4(model, cfg, conf, device, detach_light=True,
              resources: Resources | None = None) -> dict:
     """K4 at one training step's render-core batch (`k4_batch`) with the
     model's light head if it has one (its own kernel,
-    `render_core_bwd_light`, at this `detach_light`): against the plain f32
+    `render_core_bwd_light`, at this `detach_light`), or its idr-mode
+    radiance net (`render_core_bwd_idr`, handed K3's gradient of the
+    batch): against the plain f32
     backward (`grads_ok`) at the init's weights, at perturbed weights
-    (`perturbed_net`) and on `odd_nets`; two launches give the same bits.
-    Timed at the init's weights."""
+    (`perturbed_net`) and on `odd_nets`, with idr also at the radiance net
+    of `idr_signal_net` with the rgb cotangent alone (`signal`); two
+    launches give the same bits. Timed at the init's weights."""
     x, d, S = k4_batch(cfg, conf, device)
     icfg, rcfg, lcfg = cfg.implicit, cfg.rendering, cfg.light
     nets0 = (model.implicit, model.rendering, model.light)
@@ -1162,16 +1227,23 @@ def check_k4(model, cfg, conf, device, detach_light=True,
                                 perturbed_net(m, SEED + 10 + i)
                                 for i, m in enumerate(nets0)),
              "odd": odd_nets(cfg, device, SEED + 20)}
+    if rcfg.mode == "idr":
+        # the radiance net scaled (`idr_signal_net`) and the rgb cotangent
+        # alone: the gradient columns' cotangent is then a large share of
+        # the SDF leaves' gradients (`scripts/idr_signal_probe.py`)
+        cases["signal"] = (model.implicit, idr_signal_net(model.rendering),
+                           None)
     fields, ok = {}, True
     for label, nets in cases.items():
-        got, ref, cot, w, packs = k4_grads(nets, x, d, detach_light)
+        got, ref, cot, w, packs, g3 = k4_grads(nets, x, d, detach_light,
+                                               rgb_only=label == "signal")
         errs = grad_errors(got, ref)
         ok = ok and grads_ok(errs)
         fields[label] = errs
         if label == "init":
-            w0, cot0, packs0 = w, cot, packs
+            w0, cot0, packs0, g30 = w, cot, packs, g3
             again = render_core.render_core_bwd(*packs, x, d, cot,
-                                                detach_light)
+                                                detach_light, g3)
             same = all(torch.equal(a, b) for a, b in zip(
                 got, [t for grp in again for t in grp]))
             ok = ok and same
@@ -1179,15 +1251,17 @@ def check_k4(model, cfg, conf, device, detach_light=True,
                           for g, r in zip(got, ref))
         del got, ref
     n = x.shape[0]
+    idr = rcfg.mode == "idr"
     wbytes = sum(t.numel() for t in w0.flat())
     b_ms, b_by = bound(2.0 * k4_macs(icfg, rcfg, lcfg, detach_light) * n,
-                       n * (24 + 4 * cot0.shape[1]) + wbytes * (2 + 4),
-                       PEAK_BF16)
+                       n * (24 + 4 * cot0.shape[1] + (12 if idr else 0))
+                       + wbytes * (2 + 4), PEAK_BF16)
     cots = (cot0[:, 3:4], cot0[:, :3], cot0[:, 4:7], cot0[:, 7:8])
 
     def kernel():
         with torch.no_grad():
-            render_core.render_core_bwd(*packs0, x, d, cot0, detach_light)
+            render_core.render_core_bwd(*packs0, x, d, cot0, detach_light,
+                                        g30)
 
     def plain():
         outs = render_core.render_core_train_plain(icfg, rcfg, w0, x, d,
@@ -1197,14 +1271,16 @@ def check_k4(model, cfg, conf, device, detach_light=True,
     plan = render_core.plan_for(*packs0, n, lcfg is not None
                                 and not detach_light)
     row = dict(
-        name="render_core_bwd" + ("_light" if lcfg is not None else ""),
+        name="render_core_bwd" + ("_light" if lcfg is not None
+                                  else "_idr" if idr else ""),
         route="cuda", source="i2sdf_tpu_torch/csrc/render_core_bwd.cu",
         replaces="i2sdf_tpu/ops/pallas/fused_train.py:449",
         shape=list(cot0.shape), rays=K4_RAYS, samples=S,
         eikonal_rows=K4_EIK,
         detach_light=detach_light if lcfg is not None else None,
         max_abs_err=max_abs, **fields["init"],
-        perturbed=fields["perturbed"], odd=fields["odd"], bitwise_rerun=same,
+        perturbed=fields["perturbed"], odd=fields["odd"],
+        signal=fields.get("signal"), bitwise_rerun=same,
         leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
         staging_gb=k4_staging_gb(plan),
         sass=(k4_sass(resources, lcfg is not None,
@@ -1531,6 +1607,172 @@ def check_rev(model, cfg, conf, device, resources=None) -> list[dict]:
         emit_row(rows[-1], ok)
         del c_out0, c_g0
         torch.cuda.empty_cache()
+    return rows
+
+
+def sh_cotangents(model, out, grad, dirs, seed):
+    """(c_out, c_g) at the render points of a training step of the SH
+    config: the JAX package's kernel-test loss (rgb L1 through the plain
+    SH radiance net on the features, sdf^2, normal L1 and eikonal against
+    seeded targets), so the sdf, feature and gradient cotangents are all
+    non-zero, as the SH route hands them to K6."""
+    gen = torch.Generator().manual_seed(seed)
+    n = out.shape[0]
+    gt = torch.rand((n, 3), generator=gen).to(out.device)
+    gn = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen),
+                                       dim=-1).to(out.device)
+    o, g = (t.detach().requires_grad_(True) for t in (out, grad))
+    with torch.enable_grad():
+        rgb = model.rendering(dirs, o[:, 1:])
+        nrm = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True),
+                              min=1e-9)
+        loss = ((rgb - gt).abs().mean() + 0.2 * (o[:, :1] ** 2).mean()
+                + 0.5 * (1 - (nrm * gn).sum(-1)).abs().mean()
+                + 0.1 * ((torch.linalg.norm(g, dim=-1) - 1) ** 2).mean())
+        c_out, c_g = torch.autograd.grad(loss, (o, g))
+    assert all(float(t.abs().max()) > 0
+               for t in (c_out[:, :1], c_out[:, 1:], c_g))
+    return c_out.contiguous(), c_g.contiguous()
+
+
+def check_rev_sh(model, cfg, conf, device) -> list[dict]:
+    """K5 and K6 on the SH config's routes (`sh_conf`): at one training
+    step's 155,200 render points, one pack (`rev.RevStages`), K5 against
+    the plain op (`rev_plain`) at `REV_TOLS` and K6 against the plain f32
+    backward at `grads_ok`'s bounds with the cotangents the SH route hands
+    it (`sh_cotangents`: sdf, features and gradient); and K5 at the eval
+    chunk's 1,164,000 points (eval-sh: one launch a chunk) against the
+    plain net's values and gradient (`sdf_outputs_rev_eval(plain=True)`,
+    f32, in chunks) at `REV_TOLS`, with its scratch (`staging_gb`).
+    Timed at the init's net; the library yardsticks are the plain op
+    under bf16 autocast (and `autograd.grad` of it for K6; in chunks at
+    the eval chunk)."""
+    icfg = cfg.implicit
+    net = model.implicit
+    lins = net.layers()
+    ws, bs = [l.weight() for l in lins], [l.b for l in lins]
+    out_cols = icfg.feature_vector_size + 1
+    n_w = sum(w.numel() for w in ws)
+    n_p = n_w + sum(b.numel() for b in bs)
+    rows = []
+    x = render_batch(cfg, conf, device)
+    _, dirs, _ = chunk_rays(conf, device, K4_RAYS)
+    S = cfg.sampler.total_fg_samples - 1
+    d = dirs[:, None].expand(K4_RAYS, S, 3).reshape(-1, 3).contiguous()
+    n = x.shape[0]
+    with torch.no_grad():
+        k = rev.RevStages(icfg, ws, bs)
+        got = rev.rev_fwd(k, x)
+        torch.cuda.synchronize()
+    out_p, grad_p = rev.rev_plain(icfg, ws, bs, x)
+    errs, ok = rev_errors(got, (out_p, grad_p))
+    c_out, c_g = sh_cotangents(model, out_p, grad_p, d, SEED + 12)
+    ref = torch.autograd.grad((out_p, grad_p), ws + bs, (c_out, c_g))
+    del out_p, grad_p
+    with torch.no_grad():
+        got6 = flat(rev.rev_bwd(k, x, c_out, c_g))
+        torch.cuda.synchronize()
+    errs6 = grad_errors(got6, ref)
+    ok6 = grads_ok(errs6)
+    max6 = max(float((g - r).abs().max()) for g, r in zip(got6, ref))
+    del got6, ref
+
+    def k5():
+        with torch.no_grad():
+            rev.rev_fwd(k, x)
+
+    def lib5():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            rev.rev_plain(icfg, ws, bs, x)
+
+    b_ms, b_by = bound(2.0 * k5_macs(icfg) * n,
+                       n * (12 + 4 * out_cols + 12) + 2 * 2 * n_w, PEAK_BF16)
+    rows.append(dict(
+        name="rev_fwd", route="cuda",
+        source="i2sdf_tpu_torch/csrc/rev_fwd.cu",
+        replaces="i2sdf_tpu/ops/pallas/fused_rev.py:213",
+        points="sh_render", shape=[n, 3], max_abs_err=max(
+            errs[k] for k in ("sdf", "feat", "grad")), **errs,
+        tolerances=REV_TOLS,
+        staging_gb=rev.k5_plan_for(k, n).scratch_bytes / 1e9,
+        ms=time_ms(k5, 5), device_ms=device_ms(k5, 5, "k5_sweep_kernel"),
+        plain_ms=time_ms(lambda: rev.rev_plain(icfg, ws, bs, x), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib5, 3)))
+    emit_row(rows[-1], ok)
+
+    def k6():
+        with torch.no_grad():
+            rev.rev_bwd(k, x, c_out, c_g)
+
+    def plain6():
+        torch.autograd.grad(rev.rev_plain(icfg, ws, bs, x), ws + bs,
+                            (c_out, c_g))
+
+    def lib6():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            outs = rev.rev_plain(icfg, ws, bs, x)
+        torch.autograd.grad(outs, ws + bs, (c_out, c_g))
+
+    b_ms, b_by = bound(2.0 * k6_macs(icfg) * n,
+                       n * (12 + 4 * out_cols + 12) + 2 * 2 * n_w + 4 * n_p,
+                       PEAK_BF16)
+    rows.append(dict(
+        name="rev_bwd", route="cuda",
+        source="i2sdf_tpu_torch/csrc/rev_bwd.cu",
+        replaces="i2sdf_tpu/ops/pallas/fused_rev.py:213",
+        points="sh_render", shape=[n, 3], cotangents=[out_cols, 3],
+        cotangent_max={"sdf": float(c_out[:, 0].abs().max()),
+                       "feat": float(c_out[:, 1:].abs().max()),
+                       "grad": float(c_g.abs().max())},
+        staging_gb=k4_staging_gb(rev.plan_for(k, n)), max_abs_err=max6,
+        **errs6, leaf_tol=GRAD_LEAF_TOL, cos_tol=GRAD_COS_TOL,
+        ms=time_ms(k6, 5), device_ms=device_ms(k6, 5, K6_KERNELS),
+        plain_ms=time_ms(plain6, 2), bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lib6, 2)))
+    emit_row(rows[-1], ok6)
+    del c_out, c_g, got
+    torch.cuda.empty_cache()
+
+    # K5 on the eval chunk's points
+    xe, _ = eval_chunk_points(cfg, conf, device)
+    ne = xe.shape[0]
+    with torch.no_grad():
+        got = rev.rev_fwd(k, xe)
+        torch.cuda.synchronize()
+        sdf_p, feat_p, grad_p = rev.sdf_outputs_rev_eval(net, xe, plain=True)
+        errs, ok = rev_errors(got, (torch.cat([sdf_p, feat_p], 1), grad_p))
+    del got, sdf_p, feat_p, grad_p
+
+    def k5e():
+        with torch.no_grad():
+            rev.rev_fwd(k, xe)
+
+    def plain5e():
+        rev.sdf_outputs_rev_eval(net, xe, plain=True)
+
+    def lib5e():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            rev.sdf_outputs_rev_eval(net, xe, plain=True)
+
+    b_ms, b_by = bound(2.0 * k5_macs(icfg) * ne,
+                       ne * (12 + 4 * out_cols + 12) + 2 * 2 * n_w,
+                       PEAK_BF16)
+    torch.cuda.reset_peak_memory_stats()
+    rows.append(dict(
+        name="rev_fwd", route="cuda",
+        source="i2sdf_tpu_torch/csrc/rev_fwd.cu",
+        replaces="i2sdf_tpu/ops/pallas/fused_rev.py:213",
+        points="sh_eval_chunk", shape=[ne, 3],
+        max_abs_err=max(errs[k] for k in ("sdf", "feat", "grad")), **errs,
+        tolerances=REV_TOLS,
+        staging_gb=rev.k5_plan_for(k, ne).scratch_bytes / 1e9,
+        ms=time_ms(k5e, 3), device_ms=device_ms(k5e, 3, "k5_sweep_kernel"),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+        plain_ms=time_ms(plain5e, 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib5e, 1)))
+    emit_row(rows[-1], ok)
+    del xe
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2107,6 +2349,40 @@ def perray_conf(train: bool = True):
     return conf
 
 
+def edited_conf_path(tmp, edit, name) -> str:
+    """`synthetic_quality.yml` with its radiance block rewritten by `edit`
+    (old, new), written to `tmp`: `IDR_EDIT` gives VolSDF's DTU radiance
+    net (`confs/dtu.conf` of lioryariv/volsdf: mode idr, d_in 9, 4 x 256,
+    weight norm, view PE of 4 frequencies), `SH_EDIT` the spherical-
+    harmonics view encoding (degree 4: 16 columns)."""
+    text = TRAIN_CONF.read_text()
+    assert text.count(edit[0]) == 1
+    path = Path(tmp) / name
+    path.write_text(text.replace(*edit))
+    return str(path)
+
+
+def edited_conf(edit, train: bool = True):
+    """The config of `edited_conf_path` on scan1, for training with
+    `train_conf`'s bubble window."""
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = load_cfg(edited_conf_path(tmp, edit, "quality.yml"))
+    conf.dataset.scan_id = 1
+    if train:
+        conf.loss.min_bubble_iter = 2
+        conf.loss.max_bubble_iter = 4
+        conf.train.uniform_bubble = True
+    return conf
+
+
+def idr_conf(train: bool = True):
+    return edited_conf(IDR_EDIT, train)
+
+
+def sh_conf(train: bool = True):
+    return edited_conf(SH_EDIT, train)
+
+
 def bg_conf_path(tmp) -> str:
     """The bg config (`synthetic_quality.yml` with `BG_BLOCK`) written to
     `tmp`."""
@@ -2291,12 +2567,34 @@ def bg_cotangents(sigma, rgb, seed):
 def signal_bg_nets(implicit, rendering):
     """Copies of the background nets with every weight scaled by
     BG_SIGNAL_GAIN."""
-    nets = copy.deepcopy(implicit), copy.deepcopy(rendering)
+    return signal_net(implicit), signal_net(rendering)
+
+
+def idr_signal_net(rendering):
+    """`signal_net` of an idr radiance net, its input layer's gradient rows
+    (the nets' rows 3 + vdim .. 6 + vdim) scaled by IDR_GRAD_GAIN besides:
+    the gradient columns' cotangent then carries a share of the SDF
+    leaves' gradients that K4's gate sees when it is left out
+    (`scripts/idr_signal_probe.py`)."""
+    net = signal_net(rendering)
+    v = net.cfg.view_dim()
+    lin = net.lin0
     with torch.no_grad():
-        for net in nets:
-            for lin in net.layers():
-                (lin.g if lin.weight_norm else lin.w).mul_(BG_SIGNAL_GAIN)
-    return nets
+        (lin.v if lin.weight_norm else lin.w)[3 + v:6 + v] *= IDR_GRAD_GAIN
+    return net
+
+
+def signal_net(net):
+    """A copy of a net with every weight scaled by BG_SIGNAL_GAIN: at the
+    init a radiance net's uniform weights shrink its signal layer by
+    layer, so its rgb barely varies and an input column read wrong moves
+    it by less than `CORE_TOLS`; scaled, the signal keeps its size and rgb
+    spreads over [0, 1] (`scripts/idr_signal_probe.py`)."""
+    net = copy.deepcopy(net)
+    with torch.no_grad():
+        for lin in net.layers():
+            (lin.g if lin.weight_norm else lin.w).mul_(BG_SIGNAL_GAIN)
+    return net
 
 
 def bg_faults(icfg, rcfg, w, x4, dirs) -> dict:
@@ -2627,13 +2925,15 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
                        tr.loss_cfg.dynamic_weights(s), tr.bubble)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    # K3 and K4 are each one kernel template (with the light head or
-    # not); K4's, K6's and K9's products are `wgrad_kernel<4>`, `<6>` and
+    # K3 is one kernel template (with the light head, idr or neither), K4
+    # one with the light head or not (its idr sweep is the one without);
+    # K4's, K6's and K9's products are `wgrad_kernel<4>`, `<6>` and
     # `<9>`, their sums `sum_kernel` (K12, which is K6, runs on no step)
     groups = {"K1 sdf_mlp": "sdf_mlp_kernel", "K2 sampler_round":
               "sampler_round",
-              "K3 render_core_fwd": "render_core_kernel<false>",
-              "K3 render_core_fwd_light": "render_core_kernel<true>",
+              "K3 render_core_fwd": "render_core_kernel<false, false>",
+              "K3 render_core_fwd_light": "render_core_kernel<true",
+              "K3 render_core_fwd_idr": "render_core_kernel<false, true>",
               "K5 rev_fwd": "k5_sweep_kernel",
               "K4 sweep": "k4_sweep_kernel<false",
               "K4 sweep light": "k4_sweep_kernel<true",
@@ -2775,10 +3075,12 @@ def light_conf(train: bool = True):
 
 
 TRAIN_CONFS = {"train": train_conf, "nonormal": train_conf,
-               "light": light_conf, "perray": perray_conf, "bg": bg_conf}
+               "light": light_conf, "perray": perray_conf, "bg": bg_conf,
+               "idr": idr_conf, "idr_nonormal": idr_conf, "sh": sh_conf}
 TRAIN_WANT = {"train": TRAIN_KERNELS, "nonormal": NONORMAL_KERNELS,
               "light": LIGHT_KERNELS, "perray": PERRAY_KERNELS,
-              "bg": BG_KERNELS}
+              "bg": BG_KERNELS, "idr": IDR_KERNELS,
+              "idr_nonormal": IDR_KERNELS, "sh": SH_KERNELS}
 
 
 def run_train(device, kind: str = "train") -> dict:
@@ -2794,9 +3096,16 @@ def run_train(device, kind: str = "train") -> dict:
     * `perray`: per-ray compaction at the pinned fractions: K7 four times
       a step (once a refinement round), K3/K4 once;
     * `bg`: the NeRF++ background: K8 and K9 once a step beside K1-K4,
-      every background leaf moved."""
+      every background leaf moved;
+    * `idr`, `idr_nonormal` (`idr_conf`: VolSDF's DTU radiance net; the
+      latter with `normal_weight: 0`): the render core's idr
+      instantiations once a step either way (the radiance net takes the
+      gradient), the other K3 / K4 and K5 / K6 never;
+    * `sh` (`sh_conf`: the SH view encoding): the render points and the
+      eikonal points each through K5 / K6, twice a step, K3 / K4 never."""
     conf = TRAIN_CONFS[kind]()
-    normal, light = kind != "nonormal", kind == "light"
+    normal = kind not in ("nonormal", "idr_nonormal")
+    light = kind == "light"
     if not normal:
         conf.loss.normal_weight = 0.0
     with tempfile.TemporaryDirectory() as tmp:
@@ -2872,6 +3181,19 @@ def run_train(device, kind: str = "train") -> dict:
             moved = {k: float((params[k].detach() - v).abs().max())
                      for k, v in bg0.items()}
             assert all(v > 0 for v in moved.values()), moved
+        elif kind in ("idr", "idr_nonormal"):
+            for c in per_step:
+                assert (c["render_core_fwd_idr"]
+                        == c["render_core_bwd_idr"] == 1), c
+                assert not any(c[k] for k in CORE_KERNELS[:4]), c
+                assert c["rev_fwd"] == c["rev_bwd"] == 0, c
+            if not normal:
+                for m, _ in seen:
+                    assert m["normal_loss"] == m["angular_loss"] == 0.0, m
+        elif kind == "sh":
+            for c in per_step:
+                assert c["rev_fwd"] == c["rev_bwd"] == 2, c
+                assert not any(c[k] for k in CORE_KERNELS), c
         elif normal:
             assert launches["render_core_bwd"] == TRAIN_STEPS, launches
         else:
@@ -2988,6 +3310,9 @@ def run_eval_bg(device) -> dict:
 # ---- mesh extraction and view interpolation ---------------------------------
 
 MESH_RES, MESH_PERTURBED_RES = 512, 256
+# the mesh CLI's resolution (512 before the idr and SH phases; 256 keeps
+# the smoke inside its time with them)
+MESH_CLI_RES = 256
 # the points K1 took against the grid's built apart (`reference_points`):
 # f32 rounding of `p @ vecs + mean` on coordinates below 3
 MESH_POINTS_TOL = 1e-5
@@ -3174,7 +3499,7 @@ def cli_launches(stdout: str) -> dict:
 
 
 def run_mesh_cli(tmp, device) -> dict:
-    """`--test_mode mesh --resolution 512 --score` on the `cli` phase's
+    """`--test_mode mesh --resolution 256 --score` on the `cli` phase's
     checkpoint (step 4) in `tmp`, against a GT `mesh.ply` the smoke writes
     into the temporary scene: the plain net's mesh of that checkpoint over
     a uniform 128^3 grid. The CLI's files (`scanN.ply`, `.html`,
@@ -3197,7 +3522,7 @@ def run_mesh_cli(tmp, device) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     proc = subprocess.run(cli_args(tmp) + [
-        "--test", "--test_mode", "mesh", "--resolution", str(MESH_RES),
+        "--test", "--test_mode", "mesh", "--resolution", str(MESH_CLI_RES),
         "--score"], cwd=ROOT, capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
@@ -3353,6 +3678,59 @@ def run_cli(tmp) -> dict:
                 image=list(depth.shape))
 
 
+def run_cli_idr() -> dict:
+    """The idr config (`IDR_EDIT`, written to a temporary directory) through
+    the CLIs on scan1 as the checkout holds it: the train CLI for 2 steps,
+    then on its newest checkpoint `--test_mode render`, `interpolate`
+    (`--inter_id 0 3 --n_frames 2`) and `mesh` (`--resolution 128`): K3-idr
+    launched by the render and the frames, never K3, and K1 alone by the
+    mesh."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = [sys.executable, "-m", "i2sdf_tpu_torch.main", "--scan_id",
+               "1", "--data_root", images_only_root(tmp), "--log_every", "1",
+               "--conf", edited_conf_path(tmp, IDR_EDIT, "quality_idr.yml"),
+               "--exps_folder", str(Path(tmp) / "exps")]
+        runs, launches = [], {}
+        for name, extra in (
+                ("train", ["--max_steps", "2"]),
+                ("render", ["--test", "--test_mode", "render", "--indices",
+                            "0"]),
+                ("interpolate", ["--test", "--test_mode", "interpolate",
+                                 "--inter_id", "0", "3", "--n_frames", "2"]),
+                ("mesh", ["--test", "--test_mode", "mesh", "--resolution",
+                          "128"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cli + extra, cwd=ROOT, capture_output=True,
+                                  text=True, timeout=600)
+            logs = [ln for ln in proc.stdout.splitlines() if "[scan1 " in ln]
+            runs.append(dict(args=["idr"] + extra, rc=proc.returncode,
+                             seconds=time.perf_counter() - t0,
+                             tail=logs or proc.stdout.strip().splitlines()
+                             [-3:]))
+            assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[
+                -3000:]
+            if name != "train":
+                launches[name] = cli_launches(proc.stdout)
+                assert "[INFO] restored checkpoint @2" in proc.stdout
+        assert len(runs[0]["tail"]) == 2, runs[0]
+        for name in ("render", "interpolate"):
+            got = launches[name]
+            assert all(got.get(k) for k in IDR_EVAL_KERNELS), got
+            assert not any(got.get(k) for k in CORE_KERNELS
+                           if k != "render_core_fwd_idr"), got
+        assert set(launches["mesh"]) == {"sdf_mlp_nograd"}, launches
+        exp = Path(tmp) / "exps" / "quality_1" / "version_0"
+        depth = np.load(exp / "eval" / "depth" / "0000.npy")
+        frames = sorted(os.listdir(exp / "eval" / "interpolate"
+                                   / "0000_0003"))
+        verts, _ = tmesh.mesh_io.read_ply(str(exp / "eval" / "mesh"
+                                              / "scan1.ply"))
+    assert np.isfinite(depth).all() and frames == ["0000.png", "0001.png"]
+    assert len(verts) > 100 and np.isfinite(verts).all()
+    return dict(runs=runs, launches=launches, mesh_verts=len(verts),
+                image=list(depth.shape))
+
+
 def run_cli_light() -> list:
     """The train CLI for 2 steps on a copy of the light config (scan1 of
     the checkout, seeded light masks), then the render CLI on its newest
@@ -3486,6 +3864,35 @@ def main() -> int:
     del bmodel
     torch.cuda.empty_cache()
     emit("kernels", t0, n=len(rows))
+
+    # phase idr: K3-idr and K4-idr at the idr config's eval chunk and
+    # training batch (init, perturbed, odd), its eval view and chunk
+    t0 = time.perf_counter()
+    iconf = idr_conf(train=False)
+    icfg, imodel = seeded_model(iconf, device)
+    rows.append(check_k3(imodel, icfg, iconf, device))
+    torch.cuda.empty_cache()
+    rows.append(check_k4(imodel, icfg, iconf, device, resources=k4_res))
+    torch.cuda.empty_cache()
+    sli = run_slice(imodel, iconf, device, want=IDR_EVAL_KERNELS,
+                    never=CORE_KERNELS[:4] + ("rev_fwd",))
+    cmpi = compare_chunk(imodel, iconf, device)
+    del imodel
+    torch.cuda.empty_cache()
+    emit("idr", t0, **sli, compare=cmpi)
+
+    # phase sh: K5 / K6 on the SH config's render points and eval chunk,
+    # its eval view and chunk
+    t0 = time.perf_counter()
+    hconf = sh_conf(train=False)
+    hcfg, hmodel = seeded_model(hconf, device)
+    rows += check_rev_sh(hmodel, hcfg, hconf, device)
+    slh = run_slice(hmodel, hconf, device, want=SH_EVAL_KERNELS,
+                    never=CORE_KERNELS)
+    cmph = compare_chunk(hmodel, hconf, device)
+    del hmodel
+    torch.cuda.empty_cache()
+    emit("sh", t0, **slh, compare=cmph)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3545,6 +3952,21 @@ def main() -> int:
     emit("train_perray", t0, **trp)
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tri = run_train(device, "idr")
+    emit("train_idr", t0, **tri)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trin = run_train(device, "idr_nonormal")
+    emit("train_idr_nonormal", t0, **trin)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trs = run_train(device, "sh")
+    emit("train_sh", t0, **trs)
+
+    t0 = time.perf_counter()
     slb = run_eval_bg(device)
     emit("eval_bg", t0, **slb)
 
@@ -3552,6 +3974,10 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     trb = run_train(device, "bg")
     emit("train_bg", t0, **trb)
+
+    t0 = time.perf_counter()
+    cli_idr = run_cli_idr()
+    emit("cli_idr", t0, **cli_idr)
 
     with tempfile.TemporaryDirectory() as cli_tmp:
         t0 = time.perf_counter()
@@ -3569,17 +3995,20 @@ def main() -> int:
         per_kernel.setdefault(row["name"], row)
     # each kernel's launches from the training path it serves: K1-K4 the
     # normal-on step's (`train`), K5/K6 the normal-off step's, K3 and K4
-    # with the light head the light config's step's, K7 the perray
-    # config's, K8 and K9 the bg config's, K10-K12 the `sdf_outputs` phase's
+    # with the light head the light config's step's, with idr the idr
+    # config's, K7 the perray config's, K8 and K9 the bg config's, K10-K12
+    # the `sdf_outputs` phase's
     path_of = {k: ("sdf_outputs" if k in SDF_OUTPUTS_KERNELS else
                    "train_nonormal" if k.startswith("rev_") else
                    "train_light" if k.endswith("_light") else
+                   "train_idr" if k.endswith("_idr") else
                    "train_perray" if k == "conv_check" else
                    "train_bg" if k.startswith("bg_core") else "train")
                for k in per_kernel}
     paths = {"train": tr["launches"], "train_nonormal": trn["launches"],
              "train_light": trl["launches"], "train_perray": trp["launches"],
-             "train_bg": trb["launches"], "sdf_outputs": so["launches"]}
+             "train_bg": trb["launches"], "sdf_outputs": so["launches"],
+             "train_idr": tri["launches"]}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"launches": {"eval": sl["launches"],
@@ -3591,6 +4020,11 @@ def main() -> int:
                                    "train_perray": trp["launches"],
                                    "eval_bg": slb["launches"],
                                    "train_bg": trb["launches"],
+                                   "eval_idr": sli["launches"],
+                                   "train_idr": tri["launches"],
+                                   "train_idr_nonormal": trin["launches"],
+                                   "eval_sh": slh["launches"],
+                                   "train_sh": trs["launches"],
                                    "sdf_outputs": so["launches"],
                                    "mesh": mesh["init"]["launches"],
                                    "mesh_perturbed":
@@ -3598,10 +4032,19 @@ def main() -> int:
                                    "mesh_cli": mesh_cli["launches"],
                                    "interpolate": interp["launches"]},
                       "seconds": time.perf_counter() - t_all}))
-    # K1 also serves the mesh: its launches and 2 M-point chunk there
+    # K1 also serves the mesh: its launches and 2 M-point chunk there; K5
+    # and K6 the SH config's routes (K5 at the eval chunk: `check_rev_sh`'s
+    # row), K3-idr the idr eval view
     on_mesh = {"sdf_mlp_nograd": dict(
         mesh_launches=mesh["init"]["k1_launches"],
         mesh_chunk_ms=mesh["init"]["chunk_ms"])}
+    sh_rows = {r["points"]: r for r in rows if r["name"] == "rev_fwd"}
+    for k in ("rev_fwd", "rev_bwd"):
+        on_mesh[k] = dict(launches_train_sh=trs["launches"][k],
+                          launches_eval_sh=slh["launches"][k])
+    on_mesh["rev_fwd"]["sh_eval_chunk_ms"] = sh_rows["sh_eval_chunk"]["ms"]
+    on_mesh["render_core_fwd_idr"] = dict(
+        launches_eval_idr=sli["launches"]["render_core_fwd_idr"])
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          "launches": paths[path_of[r["name"]]][r["name"]],

@@ -30,9 +30,16 @@
 // 288): its primal rows are the 32 points, the t_x rows ride along and
 // are discarded. With the light head (`kLight`), relu(features) goes to
 // tile 1's primal rows, where the light net (Softplus(100) hidden layers,
-// a sigmoid output) runs after the radiance net. The block streams
-// every layer's stage images through the ring (a producer warp issues
-// them). Only sdf, grad, rgb (and the mask) reach device memory.
+// a sigmoid output) runs after the radiance net. With the idr-mode
+// radiance net (`kIdr`, the TPU op's `idr` branch, `fused_train.py:199-218`)
+// the radiance input is [features | PE(dirs) | xyz | d sdf / d x]: the
+// sdf product's tangent rows already hold the gradient, so the threads
+// that hold it write it (unclamped, bf16) into the tile's columns after
+// PE(dirs), and the raw xyz go beside it from the encoding's cache; K
+// stays within the tile's 320 columns (289 at the flagship's widths).
+// The block streams every layer's stage images through the ring (a
+// producer warp issues them). Only sdf, grad, rgb (and the mask) reach
+// device memory.
 #include "tangent_form.cuh"
 
 namespace i2sdf {
@@ -51,14 +58,17 @@ constexpr size_t kSmemBytes = 1024 + kTile0Bytes + kTile1Bytes + kRingBytes +
 // The SDF output layer: the sdf tile (`Ls`, N = 8) over both tiles (into
 // the heads of a0 and a1: an accumulator fragment at an offset into an
 // array made ptxas serialize every wgmma of the kernel), sdf and
-// d sdf / d x from it to device memory (the first warpgroup's); then this
+// d sdf / d x from it to device memory (the first warpgroup's; with kIdr
+// also into tile 0's primal rows after PE(dirs), columns F + dd + 3..5,
+// a chunk no SDF product reads); then this
 // warpgroup's NW feature columns (`Lf`) over tile 0 (a0), the features
 // into tile 0's primal rows, relu(features) into tile 1's with the light
 // head, and PE(dirs) after the features (zero up to the radiance input's
-// depth, `k_rad`; the light input's past the features, `k_light`, zero
-// too). The sdf tile goes first so that its accumulators are dead before
-// the features' are live.
-template <int NW, bool kLight>
+// depth, `k_rad`; with kIdr the raw xyz after PE(dirs) and the gradient's
+// columns left as written; the light input's past the features,
+// `k_light`, zero too). The sdf tile goes first so that its accumulators
+// are dead before the features' are live.
+template <int NW, bool kLight, bool kIdr>
 __device__ __forceinline__ void sdf_output(
     float* a0, float* a1, unsigned char* t0, unsigned char* t1, const int* Lf,
     const int* Ls, const float* __restrict__ b_sdf, const Enc& enc, int F,
@@ -75,6 +85,12 @@ __device__ __forceinline__ void sdf_output(
     g[1] = a1[0];
     g[2] = a1[2];
   }
+  if (kIdr && cw == 0 && f.tig == 0) {
+    const int c = F + enc.dd + 3;
+    put1(t0, r, c, a0[2]);
+    put1(t0, r, c + 1, a1[0]);
+    put1(t0, r, c + 2, a1[2]);
+  }
   products<NW, 1>(a0, nullptr, smem_addr(t0), 0, col0, Lf[kK], ring);
   bar_sync(1, kConsumers);
   if (active) {
@@ -90,11 +106,22 @@ __device__ __forceinline__ void sdf_output(
       }
     }
   }
-  // eight threads a point: PE(dirs), and the light input's zero padding
+  // eight threads a point: PE(dirs) (kIdr: then xyz, the gradient's
+  // three columns skipped), and the light input's zero padding
   const int pp = threadIdx.x >> 3;
   const float* pd = enc.pd + pp * kPeStride;
-  for (int q = threadIdx.x & 7; q < k_rad - F; q += 8)
-    put1(t0, stream_row(0, pp), F + q, q < enc.dd ? pd[q] : 0.f);
+  const float* px = enc.px + pp * kPeStride;
+  for (int q = threadIdx.x & 7; q < k_rad - F; q += 8) {
+    float v = 0.f;
+    if (q < enc.dd) {
+      v = pd[q];
+    } else if (kIdr && q < enc.dd + 3) {
+      v = px[q - enc.dd];
+    } else if (kIdr && q < enc.dd + 6) {
+      continue;
+    }
+    put1(t0, stream_row(0, pp), F + q, v);
+  }
   if (kLight)
     for (int q = F + (threadIdx.x & 7); q < k_light; q += 8)
       put1(t1, stream_row(0, pp), q, 0.f);
@@ -146,7 +173,7 @@ __device__ __forceinline__ void net_layer(float* acc, unsigned char* tile,
   }
 }
 
-template <bool kLight>
+template <bool kLight, bool kIdr>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 render_core_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
                    int n, const unsigned char* __restrict__ w_sdf,
@@ -208,9 +235,10 @@ render_core_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
       const Split sp(fwd.L[nh + 1][kN], cw);
       const int k_light = kLight ? lp.L[0][kK] : F;
   #define CALL(W)                                                          \
-  sdf_output<W, kLight>(a0, a1, t0, t1, fwd.L[nh + 1], fwd.L[nh], b_sdf, \
-                        enc, F, rad.L[0][kK], k_light, sp.col0,          \
-                        sp.active, cw, row0, n, sdf_out, grad_out, ring)
+  sdf_output<W, kLight, kIdr>(a0, a1, t0, t1, fwd.L[nh + 1], fwd.L[nh],  \
+                              b_sdf, enc, F, rad.L[0][kK], k_light,     \
+                              sp.col0, sp.active, cw, row0, n, sdf_out, \
+                              grad_out, ring)
       I2SDF_BY_WIDTH(sp.nw, CALL)
   #undef CALL
     }
@@ -237,7 +265,7 @@ render_core_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
   }
 }
 
-template <bool kLight>
+template <bool kLight, bool kIdr>
 cudaError_t launch(const float* x, const float* dirs, int n,
                    const unsigned char* w_sdf, const float* b_sdf,
                    const Plan& fwd, const unsigned char* w_rad,
@@ -246,11 +274,11 @@ cudaError_t launch(const float* x, const float* dirs, int n,
                    int mx, int md, int F, float* sdf_out, float* grad_out,
                    float* rgb_out, float* lmask_out, void* stream) {
   cudaError_t err =
-      set_smem((const void*)render_core_kernel<kLight>, kSmemBytes);
+      set_smem((const void*)render_core_kernel<kLight, kIdr>, kSmemBytes);
   if (err != cudaSuccess) return err;
   const int blocks = (n + kPoints - 1) / kPoints;
-  render_core_kernel<kLight><<<blocks, kBlockThreads, kSmemBytes,
-                               (cudaStream_t)stream>>>(
+  render_core_kernel<kLight, kIdr><<<blocks, kBlockThreads, kSmemBytes,
+                                     (cudaStream_t)stream>>>(
       x, dirs, n, w_sdf, b_sdf, fwd, w_rad, b_rad, rad, w_l, b_l, lp, mx, md,
       F, sdf_out, grad_out, rgb_out, lmask_out);
   return cudaGetLastError();
@@ -264,23 +292,31 @@ extern "C" int i2sdf_render_core_fwd(
     const float* b_sdf, const int* fwd_desc, int n_fwd, const void* w_rad,
     const float* b_rad, const int* rad_desc, int n_rad, const void* w_l,
     const float* b_l, const int* l_desc, int n_l, int mx, int md, int F,
-    float* sdf_out, float* grad_out, float* rgb_out, float* lmask_out,
-    void* stream) {
+    int idr, float* sdf_out, float* grad_out, float* rgb_out,
+    float* lmask_out, void* stream) {
   using namespace i2sdf;
   if (n <= 0) return 0;
   if (n_fwd < 3 || n_fwd > kMaxLayers || n_rad < 1 || n_rad > kMaxLayers ||
       n_l < 0 || n_l > kMaxLayers || 3 + 6 * mx > wg::kPeStride ||
-      3 + 6 * md > wg::kPeStride)
+      3 + 6 * md > wg::kPeStride || (idr && n_l > 0))
     return (int)cudaErrorInvalidValue;
   const Plan fwd = read_plan(fwd_desc, n_fwd), rad = read_plan(rad_desc, n_rad);
   const Plan lp = read_plan(l_desc, n_l);
   const auto* ws = (const unsigned char*)w_sdf;
   const auto* wr = (const unsigned char*)w_rad;
+  // idr: the radiance input's 6 columns after PE(dirs) inside tile 0
+  if (idr && (F + 3 + 6 * md + 6 > rad.L[0][kK] || rad.L[0][kK] > 320))
+    return (int)cudaErrorInvalidValue;
   if (n_l > 0)
-    return (int)launch<true>(x, dirs, n, ws, b_sdf, fwd, wr, b_rad, rad,
-                             (const unsigned char*)w_l, b_l, lp, mx, md, F,
-                             sdf_out, grad_out, rgb_out, lmask_out, stream);
-  return (int)launch<false>(x, dirs, n, ws, b_sdf, fwd, wr, b_rad, rad,
-                            nullptr, nullptr, lp, mx, md, F, sdf_out,
-                            grad_out, rgb_out, nullptr, stream);
+    return (int)launch<true, false>(
+        x, dirs, n, ws, b_sdf, fwd, wr, b_rad, rad, (const unsigned char*)w_l,
+        b_l, lp, mx, md, F, sdf_out, grad_out, rgb_out, lmask_out, stream);
+  if (idr)
+    return (int)launch<false, true>(x, dirs, n, ws, b_sdf, fwd, wr, b_rad,
+                                    rad, nullptr, nullptr, lp, mx, md, F,
+                                    sdf_out, grad_out, rgb_out, nullptr,
+                                    stream);
+  return (int)launch<false, false>(x, dirs, n, ws, b_sdf, fwd, wr, b_rad, rad,
+                                   nullptr, nullptr, lp, mx, md, F, sdf_out,
+                                   grad_out, rgb_out, nullptr, stream);
 }

@@ -78,6 +78,21 @@
 // then the features come back into T and the radiance net runs, its
 // feature cotangent joined by the light's in f32 before the SDF output
 // layer's cotangent is stored.
+//
+// The idr-mode radiance net (the TPU op's `idr` branch,
+// `fused_train.py:199-218,355-366`; `gin` not null) takes [features |
+// PE(dirs) | xyz | d sdf / d x]: the gradient is the one K3 gave the
+// same points (`gin`, unclamped; the wrapper keeps K3's output), written
+// as bf16 beside the raw xyz after PE(dirs), so the radiance forward runs
+// before any sweep of the SDF net has given it. The radiance input's
+// cotangent on the gradient's three columns, dz_0 W_rad0[grad rows]^T
+// (`wgr`, bf16 rounded, summed in f32 from T's bf16 dz_0 before the
+// feature product's result replaces it), joins the external c_grad in
+// shared memory, which the upward sweep's dg_emb reads after the radiance
+// backward: every render row then carries a gradient cotangent. The two
+// steps branch on `gin`, uniform over the block, outside every sweep's
+// loop: a template flag would compile the whole sweep once more (K4's
+// source sets the build's length).
 #include "sdf_sweep.cuh"
 
 namespace i2sdf {
@@ -216,6 +231,19 @@ __device__ __forceinline__ void rad_first_bwd(Ctx& c, float* acc,
   const int* Lt = c.a->trad.L[c.a->rad.n - 1];
   const int F = c.a->F;
   product<NW>(c, acc, Lt, sp.col0);
+  if (c.a->gin != nullptr) {
+    // T still holds dz_0 (bf16): the gradient columns' cotangent, a
+    // point's three sums a thread, into c_grad
+    const int n0 = c.a->rad.L[0][kN], ws = 64 * chunks(n0);
+    for (int i = threadIdx.x; i < kPts * 3; i += kConsumers) {
+      const int r = i / 3, j = i - 3 * r;
+      const float* w = c.a->wgr + j * ws;
+      float s = 0.f;
+      for (int k = 0; k < n0; ++k) s += get1(c.T, r, k) * w[k];
+      Smem::cot(c)[r * kCot + j] += s;
+    }
+    bar_sync(1, kConsumers);
+  }
   int sa = -1, sb = -1;
   if constexpr (coupled) {
     sa = take(c);
@@ -377,6 +405,20 @@ __device__ __forceinline__ void consume(Ctx& c) {
 
   // ---- 2. radiance forward: its inputs stored, rgb to shared memory ------
   fill_T(c, kFillPeDirs, F, a.rad.L[0][kK], 1.f);
+  if (a.gin != nullptr) {
+    // bf16 xyz and K3's gradient after PE(dirs)
+    const int c0 = F + 3 + 6 * a.md, row0 = blockIdx.x * kPts;
+    bar_sync(1, kConsumers);
+    for (int i = threadIdx.x; i < kPts * 6; i += kConsumers) {
+      const int r = i / 6, j = i - 6 * r;
+      float v = 0.f;
+      if (j < 3)
+        v = Smem::xs(c)[3 * r + j];
+      else if (row0 + r < a.n)
+        v = a.gin[(size_t)(row0 + r) * 3 + j - 3];
+      put1(c.T, r, c0 + j, v);
+    }
+  }
   fence_async();
   bar_sync(1, kConsumers);
   for (int l = 0; l < nr; ++l) {
@@ -493,7 +535,9 @@ cudaError_t launch(const Args& a, int blocks, const WJobs& jobs, int grid,
 // `reg`, `script` and `jobs` (int64, device memory except `jobs`) are
 // built by `i2sdf_tpu_torch/ops/kernels/render_core.py::K4Plan`; the
 // plans are K3's `CoreStages` (sdf, radiance, light) and `K4Stages`'
-// transposed chains (their row counts 0 without a light head). `jobs`
+// transposed chains (their row counts 0 without a light head). `gin` and
+// `wgr` (device memory, null unless idr): K3's unclamped gradient (n, 3)
+// and `K4Stages.wgr` (3 rows of 64 * ceil(N_0 / 64) floats). `jobs`
 // (host memory): n_jobs rows of 18 int64 (`WJob`'s fields in order),
 // then each job's out offset; the sums add job p's partials into out and
 // the blocks' bias rows (`reg`'s) after them.
@@ -504,15 +548,17 @@ extern "C" int i2sdf_render_core_bwd(
     const void* w_l, const float* b_l, const int* l_desc, int n_l,
     const void* w_t, const int* tsdf_desc, int n_tsdf, const int* trad_desc,
     const int* tl_desc, const float* wsdf, int detach_light, int mx, int md,
-    int F, void* scratch, float* ws32, const long long* reg,
-    const long long* script, int n_items, const long long* jobs, int n_jobs,
+    int F, const float* gin, const float* wgr, void* scratch, float* ws32,
+    const long long* reg, const long long* script, int n_items,
+    const long long* jobs, int n_jobs,
     const long long* db_host, float* out, void* stream) {
   using namespace i2sdf;
   if (n <= 0) return 0;
   if (n_fwd < 3 || n_fwd > kMaxLayers || n_tsdf != n_fwd - 2 ||
       n_rad < 1 || n_rad > kMaxLayers || n_l < 0 || n_l > kMaxLayers ||
       n_jobs > kMaxWJobs || n_fwd - 1 > kRegLayers || n_rad > kRegLayers ||
-      3 + 6 * mx > 64 || 3 + 6 * md > 64)
+      3 + 6 * mx > 64 || 3 + 6 * md > 64 ||
+      (gin != nullptr) != (wgr != nullptr) || (gin != nullptr && n_l > 0))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x;
@@ -528,10 +574,15 @@ extern "C" int i2sdf_render_core_bwd(
   a.b_rad = b_rad;
   a.b_l = b_l;
   a.wsdf = wsdf;
+  a.gin = gin;
+  a.wgr = wgr;
   a.fwd = read_plan(fwd_desc, n_fwd);
   a.tsdf = read_plan(tsdf_desc, n_tsdf);
   a.rad = read_plan(rad_desc, n_rad);
   a.trad = read_plan(trad_desc, n_rad);
+  // idr: the radiance input's 6 columns after PE(dirs) inside T's 5 chunks
+  if (gin != nullptr && F + 3 + 6 * md + 6 > a.rad.L[0][kK])
+    return (int)cudaErrorInvalidValue;
   a.light = read_plan(l_desc, n_l);
   a.tlight = read_plan(tl_desc, n_l);
   a.mx = mx;

@@ -41,6 +41,8 @@ struct Args {
   const float* b_rad;      // the radiance chain's,
   const float* b_l;        // the light chain's
   const float* wsdf;       // ah of the output layer: W[:, sdf] (bf16)
+  const float* gin;        // K4 idr: K3's d sdf / d x (n, 3), unclamped
+  const float* wgr;        // K4 idr: W_rad0's gradient rows (3, bf16)
   Plan fwd, tsdf, rad, trad, light, tlight;
   int mx, md, F;
   const long long* reg;    // regions, then the bias rows' offsets

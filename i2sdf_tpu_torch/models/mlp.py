@@ -23,13 +23,31 @@ import torch
 from torch import nn
 
 from ..ops.activations import softplus_beta
-from .embedder import pe_dim, positional_encoding
+from .embedder import (pe_dim, positional_encoding, sh_dim,
+                       spherical_harmonics)
 
 
 def _check_embed(embed_type):
+    """The SDF net's encoding: K1, K3-K6 and K10 build the positional
+    encoding in-kernel, so no other."""
     if embed_type not in (None, "positional"):
-        raise ValueError(f"embed_type {embed_type!r} is not ported yet "
-                         "(only 'positional')")
+        raise ValueError(f"embed_type {embed_type!r} is not ported for the "
+                         "SDF net (only 'positional')")
+
+
+def _check_view_embed(embed_type):
+    """The radiance net's view encoding. Fourier stays refused: the JAX
+    package cannot build it through a net config either (`layer_dims` calls
+    `get_embedder` with no `channels`, a KeyError at `embedder.py:186`), and
+    its matrix comes from a JAX key (`models/embedder.py::fourier_feature`
+    takes it as a tensor)."""
+    if embed_type == "fourier":
+        raise ValueError("embed_type 'fourier' is refused through a net "
+                         "config (the JAX package's layer_dims cannot build "
+                         "it either: get_embedder needs `channels`)")
+    if embed_type not in (None, "positional", "spherical_harmonics"):
+        raise ValueError(f"embed_type {embed_type!r} is not ported for the "
+                         "radiance net")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +85,12 @@ class ImplicitNetConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RenderingNetConfig:
+    """The radiance net. `mode` "nerf" takes [view encoding | features],
+    "idr" [points (PE with `embed_point_multires`) | view encoding |
+    normals | features], `d_in` counting the raw inputs (3 and 9: VolSDF's
+    and IDR's). The view encoding is positional (`multires`) or spherical
+    harmonics of degree 4 (`multires` ignored, as the JAX `get_embedder`
+    ignores it)."""
     feature_vector_size: int
     mode: str = "nerf"
     d_in: int = 3
@@ -75,22 +99,47 @@ class RenderingNetConfig:
     weight_norm: bool = True
     embed_type: str | None = None
     multires: int = 4
+    embed_point_multires: int | None = None
     output_activation: str = "sigmoid"
 
     def __post_init__(self):
-        _check_embed(self.embed_type)
-        if self.mode != "nerf" or self.output_activation != "sigmoid":
-            raise ValueError("only the nerf-mode, sigmoid-output radiance "
-                             "net is ported yet")
+        _check_view_embed(self.embed_type)
+        if self.mode not in ("nerf", "idr"):
+            raise ValueError(f"rendering mode {self.mode!r} is not one of "
+                             "'nerf', 'idr'")
+        if self.output_activation != "sigmoid":
+            raise ValueError("only the sigmoid-output radiance net is "
+                             "ported yet")
+
+    def view_dim(self) -> int:
+        """Columns of the view encoding."""
+        if self.embed_type == "positional":
+            return pe_dim(self.multires)
+        if self.embed_type == "spherical_harmonics":
+            return sh_dim(4)
+        return 3
+
+    def point_multires(self) -> int:
+        """The points' PE frequency count in idr mode (0: raw points)."""
+        return (self.embed_point_multires or 0) if self.mode == "idr" else 0
 
     def layer_dims(self) -> list[int]:
-        d0 = self.d_in + self.feature_vector_size
-        if self.embed_type:
-            d0 += pe_dim(self.multires) - 3
+        d0 = self.d_in + self.feature_vector_size + self.view_dim() - 3
+        if self.point_multires():
+            d0 += pe_dim(self.point_multires()) - 3
         return [d0] + list(self.dims) + [self.d_out]
 
     def embed(self, d: torch.Tensor) -> torch.Tensor:
-        return positional_encoding(d, self.multires) if self.embed_type else d
+        """The view encoding."""
+        if self.embed_type == "positional":
+            return positional_encoding(d, self.multires)
+        if self.embed_type == "spherical_harmonics":
+            return spherical_harmonics(d, 4)
+        return d
+
+    def embed_points(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.point_multires()
+        return positional_encoding(x, m) if m else x
 
 
 class WNLinear(nn.Module):
@@ -213,7 +262,8 @@ def sdf_outputs(net: ImplicitNet, x: torch.Tensor):
 
 
 class RenderingNet(nn.Module):
-    """nerf-mode radiance: [PE(view), feature] -> ReLU MLP -> sigmoid."""
+    """Radiance: nerf [view encoding, feature] or idr [points, view
+    encoding, normals, feature] -> ReLU MLP -> sigmoid."""
 
     def __init__(self, cfg: RenderingNetConfig, generator: torch.Generator):
         super().__init__()
@@ -229,17 +279,36 @@ class RenderingNet(nn.Module):
     def layers(self) -> list[WNLinear]:
         return [getattr(self, f"lin{i}") for i in range(self.n_layers)]
 
-    def forward(self, view_dirs: torch.Tensor,
-                features: torch.Tensor) -> torch.Tensor:
+    def forward(self, view_dirs: torch.Tensor, features: torch.Tensor,
+                points: torch.Tensor | None = None,
+                normals: torch.Tensor | None = None) -> torch.Tensor:
         lins = self.layers()
         return rendering_apply(self.cfg, [l.weight() for l in lins],
-                               [l.b for l in lins], view_dirs, features)
+                               [l.b for l in lins], view_dirs, features,
+                               points, normals)
+
+
+def rendering_input(cfg: RenderingNetConfig, view_dirs: torch.Tensor,
+                    features: torch.Tensor, points=None,
+                    normals=None) -> torch.Tensor:
+    """The radiance net's input in the nets' own row order (JAX
+    `mlp.py:338-355`): nerf [view encoding, features]; idr [points (opt.
+    PE), view encoding, normals, features], the normals being whatever
+    the caller passes (the unnormalized spatial gradient)."""
+    if cfg.mode == "idr":
+        if points is None or normals is None:
+            raise ValueError("idr-mode radiance needs the points and the "
+                             "normals")
+        return torch.cat([cfg.embed_points(points), cfg.embed(view_dirs),
+                          normals, features], dim=-1)
+    return torch.cat([cfg.embed(view_dirs), features], dim=-1)
 
 
 def rendering_apply(cfg: RenderingNetConfig, ws, bs, view_dirs: torch.Tensor,
-                    features: torch.Tensor) -> torch.Tensor:
+                    features: torch.Tensor, points=None,
+                    normals=None) -> torch.Tensor:
     """The radiance net with explicit (in, out) weights and biases."""
-    h = torch.cat([cfg.embed(view_dirs), features], dim=-1)
+    h = rendering_input(cfg, view_dirs, features, points, normals)
     for layer in range(len(ws)):
         h = h @ ws[layer] + bs[layer]
         if layer < len(ws) - 1:

@@ -9,12 +9,22 @@ rgb, depth, the normal map and the light mask, through K1-K3.
 `diff_norm`, `surface_sdf` on the bubble points, `normal_values` under
 `use_normal`, `light_mask` with a light head), differentiable with
 respect to the model's parameters,
-and takes one of two routes, chosen as the JAX renderer chooses
-(`returns_grad`, `renderer.py:294`):
+and takes one of three routes, chosen as the JAX renderer chooses
+(`returns_grad`, `renderer.py:294`, and `supports_render_core`,
+`fused_train.py:683-704`):
 
-* normal losses on (`use_normal`): the render core, K3 forward and K4
-  backward, on the render points and the eikonal points folded into one
-  batch with zero directions (`renderer.py:345-377`);
+* the spatial gradient wanted (the normal losses on, `use_normal`, or the
+  idr-mode radiance net, which takes it as an input) and the render core
+  able to take the nets: K3 forward and K4 backward, on the render points
+  and the eikonal points folded into one batch with zero directions
+  (`renderer.py:345-377`); with idr their idr kernels,
+  `render_core_fwd_idr` / `render_core_bwd_idr`;
+* the gradient wanted, the render core not able (a spherical-harmonics
+  view encoding): the render points through K5 forward and K6 backward
+  (`get_rev_op`, `renderer.py:378-387`), the radiance net in plain
+  PyTorch on their features (and in idr mode their points and clamped
+  gradient), and `grad_theta` from a second K5/K6 op on the eikonal
+  points (`renderer.py:471-478`);
 * normal losses off: the render points through the SDF net with no
   spatial gradient and then the radiance net, in plain PyTorch (large
   matrix products that the JAX package leaves to XLA,
@@ -43,8 +53,10 @@ inverted sphere (`depth2pts_outside`) go through the background's pair of
 MLPs (K8 forward and K9 backward on the card, on every route), with
 |sigma| as the density, and `rgb = fg + bg_transmittance * bg`.
 
-Still refused, with a message: idr-mode radiance and the SH/Fourier
-encodings.
+The eval render takes K3 where the render core takes the nets, else K5
+on the chunk's points (`renderer.py:337-343`) and the radiance net in
+plain PyTorch. Still refused, with a message: the Fourier view encoding
+(`models/mlp.py`), the light head beside the idr-mode radiance net.
 
 Compute is f32 in the plain path on either device; on the card the hot
 functions run as CUDA kernels with bf16 operands and f32 accumulation
@@ -128,6 +140,7 @@ class I2SDFConfig:
             weight_norm=ren.get("weight_norm", True),
             embed_type=ren.get("embed_type", None),
             multires=ren.get("multires", 4),
+            embed_point_multires=ren.get("embed_point_multires", None),
         )
         light = None
         if "light_network" in conf:
@@ -201,6 +214,36 @@ class I2SDFConfig:
                    bg_implicit=bg_implicit, bg_rendering=bg_rendering)
 
 
+def supports_render_core(icfg: ImplicitNetConfig, rcfg: RenderingNetConfig,
+                         lcfg: ImplicitNetConfig | None = None) -> bool:
+    """True where the render core (K3/K4) takes the nets, the JAX
+    package's predicate (`fused_train.py:683-704`): nerf or idr mode (idr
+    with no point encoding, the raw xyz coming from the encoding's
+    stream), the positional encodings, a 3-d SDF input, a sigmoid rgb
+    output; a light head with no encoding or skip on the features and one
+    sigmoid output."""
+    base = (rcfg.mode in ("nerf", "idr")
+            and icfg.embed_type == "positional"
+            and rcfg.embed_type == "positional"
+            and icfg.d_in == 3 and rcfg.d_out == 3
+            and rcfg.output_activation == "sigmoid"
+            and (rcfg.mode == "nerf" or not rcfg.embed_point_multires))
+    if not base:
+        return False
+    if lcfg is None:
+        return True
+    return (lcfg.embed_type is None and not lcfg.skip_in
+            and lcfg.d_in == icfg.feature_vector_size
+            and lcfg.d_out == 1 and lcfg.feature_vector_size == 0
+            and lcfg.output_activation == "sigmoid")
+
+
+def uses_render_core(cfg: I2SDFConfig) -> bool:
+    """Whether the model's foreground goes through K3 (and K4 when
+    training with the gradient wanted), or else through K5 (and K6)."""
+    return supports_render_core(cfg.implicit, cfg.rendering, cfg.light)
+
+
 class I2SDFModel(nn.Module):
     """Parameters of the model: `implicit`, `rendering`, raw `beta`, in
     the light-mask config `light`, and with the NeRF++ background
@@ -208,6 +251,9 @@ class I2SDFModel(nn.Module):
 
     def __init__(self, cfg: I2SDFConfig, seed: int = 0):
         super().__init__()
+        if cfg.use_light and cfg.rendering.mode == "idr":
+            raise ValueError("the light head with the idr-mode radiance net "
+                             "is not ported yet")
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         self.implicit = ImplicitNet(cfg.implicit, gen)
@@ -224,19 +270,26 @@ class I2SDFModel(nn.Module):
 @dataclasses.dataclass
 class KernelWeights:
     """The model's weights in the kernels' layouts, packed once per render
-    (weight norm materialized, bf16; stage images for K1 and K3, mma
-    fragment order for K8)."""
+    (weight norm materialized, bf16; stage images for K1, K3 and K5, mma
+    fragment order for K8): K3's where the render core takes the nets,
+    else K5's (`rev`, on the card only)."""
     sdf: sdf_mlp.SdfMlpPack
-    core: render_core.RenderCorePack
+    core: render_core.RenderCorePack | None
     bg: bg_core.BgPack | None = None
+    rev: rev.RevStages | None = None
 
     @classmethod
     def pack(cls, model: I2SDFModel) -> "KernelWeights":
+        core = uses_render_core(model.cfg)
+        on_card = next(model.implicit.parameters()).is_cuda
         return cls(sdf=sdf_mlp.SdfMlpPack(model.implicit),
-                   core=render_core.RenderCorePack(
-                       model.implicit, model.rendering, model.light),
+                   core=(render_core.RenderCorePack(
+                       model.implicit, model.rendering, model.light)
+                       if core else None),
                    bg=(bg_core.BgPack(model.bg_implicit, model.bg_rendering)
-                       if model.cfg.use_bg else None))
+                       if model.cfg.use_bg else None),
+                   rev=(rev.pack_of(model.implicit)
+                        if on_card and not core else None))
 
 
 def _camera_rays(inputs: dict):
@@ -380,7 +433,7 @@ def render_rays_train(model: I2SDFModel, inputs: dict, draws: RenderDraws,
 
     returns_grad = cfg.use_normal or cfg.rendering.mode == "idr"
     lmask = None
-    if returns_grad:
+    if returns_grad and uses_render_core(cfg):
         with torch.no_grad():
             pts_in = torch.cat([points, eik_all]).contiguous()
             dirs_in = torch.cat([dirs, torch.zeros_like(eik_all)]).contiguous()
@@ -394,6 +447,20 @@ def render_rays_train(model: I2SDFModel, inputs: dict, draws: RenderDraws,
         if lm_a:
             lmask = lm_a[0][:n_main]
         grad_theta = grad_a[n_main:]
+    elif returns_grad:
+        # the render points through K5/K6 (the clamped gradient through the
+        # radiance net in idr mode), the eikonal points through a second op
+        sdf, feat, grad = rev.sdf_outputs_rev(model.implicit,
+                                              points.contiguous(),
+                                              plain=plain)
+        rgb = model.rendering(dirs, feat, points, grad)
+        if cfg.use_light:
+            lf = torch.relu(feat)
+            lmask = model.light(lf.detach() if cfg.detach_light_feature
+                                else lf)
+        _, _, grad_theta = rev.sdf_outputs_rev(model.implicit,
+                                               eik_all.contiguous(),
+                                               plain=plain)
     else:
         out_main = model.implicit(points)
         sdf = clamp_sdf(cfg.implicit, out_main[:, :1], points)
@@ -473,7 +540,13 @@ def render_rays(model: I2SDFModel, inputs: dict,
                   + z_vals[..., None] * ray_dirs[:, None, :]).reshape(-1, 3)
         dirs = ray_dirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
 
-        if plain:
+        if not uses_render_core(cfg):
+            sdf, feat, grad = rev.sdf_outputs_rev_eval(
+                model.implicit, points, None if plain else weights.rev,
+                plain=plain)
+            rgb = model.rendering(dirs, feat, points, grad)
+            lmask = [model.light(torch.relu(feat))] if cfg.use_light else []
+        elif plain:
             sdf, grad, rgb, *lmask = render_core.render_core_plain(
                 model.implicit, model.rendering, points, dirs, model.light)
         else:

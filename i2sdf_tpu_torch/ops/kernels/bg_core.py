@@ -89,9 +89,10 @@ def check_bg_nets(icfg: mlp.ImplicitNetConfig,
                          "(sigma) before its features")
     if icfg.feature_vector_size % 2 or icfg.feature_vector_size < 2:
         raise ValueError("bg_core: needs an even feature width")
-    if rcfg.embed_type != "positional" or rcfg.d_in != 3:
+    if (rcfg.embed_type != "positional" or rcfg.d_in != 3
+            or rcfg.mode != "nerf"):
         raise ValueError("bg_core: the radiance net takes the positional "
-                         "view encoding")
+                         "view encoding (nerf mode)")
     n = n_layers(icfg)
     if n < 2 or 0 in icfg.skip_in or n - 1 in icfg.skip_in:
         raise ValueError("bg_core: needs 2 or more implicit layers, no skip "

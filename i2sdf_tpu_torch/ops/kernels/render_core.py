@@ -22,6 +22,20 @@ and `render_core_bwd_light`. The light loss reaches the light net; with
 `detach_light` off, its feature cotangent joins the SDF's through
 relu'(features) (`fused_train.py:345-348`).
 
+The idr-mode radiance net (VolSDF's DTU and IDR's, `rcfg.mode == "idr"`,
+`d_in` 9: the TPU op's `idr` branch, `_rad_input` at `:199-218`, the
+backward's gradient cotangent at `:355-366`, the row permutation at
+`:740-748`) takes [features | PE(view) | pts | grad] in the kernels'
+order, `grad` being the unclamped spatial gradient: K3 writes the raw xyz
+and its gradient as bf16 into the radiance tile after PE(view); K4 takes
+the gradient K3 gave the same points (`RenderCoreTrain` keeps it) for
+the radiance forward, and adds the radiance input's cotangent on the
+gradient's columns to the external one before the second-order sweeps.
+K3-idr is its own instantiation (`kIdr`), K4-idr K4's sweep on its
+branch for a given gradient (`gin`); both are counted apart:
+`render_core_fwd_idr` and `render_core_bwd_idr`. The light head with idr
+is refused.
+
 * `render_core_fwd(pack, x, dirs)`: the eval forward (no gradient).
 * `render_core_train(nets, x, dirs)`: the training op, differentiable
   with respect to every net's parameters, through the spatial gradient
@@ -60,6 +74,8 @@ launches = 0      # K3 launches since the last reset_launch_counts()
 bwd_launches = 0  # K4 launches since the last reset_launch_counts()
 light_launches = 0      # K3 with the light head
 light_bwd_launches = 0  # K4 with the light head
+idr_launches = 0        # K3 with the idr radiance input
+idr_bwd_launches = 0    # K4 with the idr radiance input
 
 _K3_WIDTH = 256          # K3: a tile's four 64-column chunks, wgmma's N
 _K3_RAD_K = 320          # K3 and K4: five chunks, the radiance input
@@ -132,10 +148,33 @@ def _sdf_perm(F: int) -> list:
     return list(range(1, F + 1)) + [0]
 
 
-def _rad_perm(vdim: int, F: int) -> list:
+def _rad_perm(vdim: int, F: int, idr: bool = False) -> list:
     """Kernel row order of the radiance input layer: [features | PE(view)]
-    (the nets' order is [PE(view) | features])."""
-    return list(range(vdim, vdim + F)) + list(range(vdim))
+    (the nets' order is [PE(view) | features]); in idr mode [features |
+    PE(view) | pts | grad] (the nets' order is [pts | PE(view) | normals |
+    features], `fused_train.py:740-748`)."""
+    if not idr:
+        return list(range(vdim, vdim + F)) + list(range(vdim))
+    g = 3 + vdim
+    return (list(range(g + 3, g + 3 + F)) + list(range(3, g))
+            + list(range(3)) + list(range(g, g + 3)))
+
+
+def check_radiance_net(rcfg: mlp.RenderingNetConfig,
+                       light: bool = False) -> None:
+    """The radiance nets the kernels run (`supports_render_core`,
+    `fused_train.py:683-704`): the positional view encoding, three raw
+    inputs in nerf mode, nine in idr mode with no point encoding, and no
+    light head beside idr."""
+    idr = rcfg.mode == "idr"
+    if (rcfg.embed_type != "positional" or rcfg.d_in != (9 if idr else 3)
+            or rcfg.point_multires() or rcfg.d_out != 3):
+        raise ValueError("render_core: the radiance net takes the "
+                         "positional view encoding (and in idr mode the raw "
+                         "points and the gradient, no point encoding)")
+    if idr and light:
+        raise ValueError("render_core: the light head with the idr-mode "
+                         "radiance net is not ported yet")
 
 
 def sdf_layers(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
@@ -203,7 +242,8 @@ class CoreStages:
       N = 8 product whose tangent rows give the gradient), then the
       features (the first F columns of [features | sdf], `_sdf_perm`);
     * `rad`: the radiance net, its first layer's rows as [features |
-      PE(view)] (`_rad_perm`);
+      PE(view)], in idr mode [features | PE(view) | pts | grad]
+      (`_rad_perm`);
     * `light`: with a light head (`lcfg`), the light net on relu(features)
       (`n_light` layers; None and 0 without)."""
 
@@ -214,16 +254,15 @@ class CoreStages:
         if icfg.d_out != 1 or F % 2:
             raise ValueError("render_core: needs d_out 1 and an even "
                              "feature width")
-        if rcfg.embed_type != "positional" or rcfg.d_in != 3:
-            raise ValueError("render_core: the radiance net takes the "
-                             "positional view encoding")
+        check_radiance_net(rcfg, lcfg is not None)
         self.sdf = mma_pack.pack_stage_chain(core_sdf_layers(
             icfg, [t.detach().float() for t in w.ws_sdf],
             [t.detach().float() for t in w.bs_sdf]))
-        vdim = rcfg.layer_dims()[0] - F
+        self.idr = rcfg.mode == "idr"
+        self.vdim, self.rad_in = rcfg.view_dim(), rcfg.layer_dims()[0]
         wr = [t.detach().float() for t in w.ws_rad]
         br = [t.detach().float() for t in w.bs_rad]
-        wr[0] = wr[0][_rad_perm(vdim, F)]
+        wr[0] = wr[0][_rad_perm(self.vdim, F, self.idr)]
         self.rad = mma_pack.pack_stage_chain(
             [dict(w=a, b=b) for a, b in zip(wr, br)])
         self.light, self.n_light = None, n_layers(lcfg)
@@ -273,14 +312,18 @@ def render_core_train_plain(icfg, rcfg, w: CoreWeights, x: torch.Tensor,
     light net on relu(features), the features detached with
     `detach_light`; differentiable with respect to the weights in `w`,
     through the spatial gradient too (`create_graph`). Unclamped; `x`
-    and `dirs` are constants."""
+    and `dirs` are constants. In idr mode the radiance net takes the
+    points and this unclamped gradient, as the TPU kernel's `_rad_input`
+    does (the XLA composition takes the clamped one; they differ only
+    with a bounding sphere, which the renderer's nets never have)."""
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
         out = mlp.implicit_apply(icfg, w.ws_sdf, w.bs_sdf, xg)
         sdf, feat = out[:, :1], out[:, 1:]
         (grad,) = torch.autograd.grad(sdf, xg, torch.ones_like(sdf),
                                       create_graph=True)
-        rgb = mlp.rendering_apply(rcfg, w.ws_rad, w.bs_rad, dirs, feat)
+        rgb = mlp.rendering_apply(rcfg, w.ws_rad, w.bs_rad, dirs, feat, x,
+                                  grad)
         if lcfg is None:
             return sdf, grad, rgb
         lf = torch.relu(feat)
@@ -293,9 +336,21 @@ def render_core_plain(implicit: mlp.ImplicitNet, rendering: mlp.RenderingNet,
                       x: torch.Tensor, dirs: torch.Tensor,
                       light: mlp.ImplicitNet | None = None):
     """(sdf (N, 1), grad (N, 3), rgb (N, 3)) in f32 (chunked), and with a
-    light net the light mask (N, 1)."""
+    light net the light mask (N, 1). An idr-mode radiance net takes the
+    unclamped gradient (`render_core_train_plain`)."""
+    idr = rendering.cfg.mode == "idr"
+    if idr:
+        with torch.no_grad():
+            w = CoreWeights.of(implicit, rendering)
     outs = []
     for xc, dc in zip(x.split(_PLAIN_CHUNK), dirs.split(_PLAIN_CHUNK)):
+        if idr:
+            with torch.no_grad():
+                sdf, grad, rgb = render_core_train_plain(
+                    implicit.cfg, rendering.cfg, w, xc, dc)
+                sdf, grad = _sphere_clamp(implicit.cfg, xc, sdf, grad)
+                outs.append((sdf.detach(), grad.detach(), rgb.detach()))
+            continue
         sdf, feat, grad = mlp.sdf_outputs(implicit, xc)
         with torch.no_grad():
             o = (sdf, grad, rendering(dc, feat))
@@ -338,7 +393,7 @@ def _light_args(k) -> tuple:
 
 
 def _launch_fwd(k: CoreStages, x: torch.Tensor, dirs: torch.Tensor):
-    global launches, light_launches
+    global launches, light_launches, idr_launches
     _check_points(x, dirs, "render_core_fwd")
     if k.sdf.weights.device != x.device:
         raise ValueError("render_core_fwd: the weights are not on the "
@@ -356,7 +411,7 @@ def _launch_fwd(k: CoreStages, x: torch.Tensor, dirs: torch.Tensor):
         k.sdf.plan.ctypes.data, k.sdf.n_layers,
         k.rad.weights.data_ptr(), k.rad.biases.data_ptr(),
         k.rad.plan.ctypes.data, k.rad.n_layers, *_light_args(k),
-        k.mx, k.md, k.F,
+        k.mx, k.md, k.F, int(k.idr),
         sdf.data_ptr(), grad.data_ptr(), rgb.data_ptr(),
         None if lmask is None else lmask.data_ptr(),
         mma_pack.stream_of(x))
@@ -364,7 +419,10 @@ def _launch_fwd(k: CoreStages, x: torch.Tensor, dirs: torch.Tensor):
     if k.n_light:
         light_launches += 1
         return sdf, grad, rgb, lmask
-    launches += 1
+    if k.idr:
+        idr_launches += 1
+    else:
+        launches += 1
     return sdf, grad, rgb
 
 
@@ -412,7 +470,11 @@ class K4Stages:
     * then (`tlight`) the light net's layers n_l-1 .. 0 (none without a
       light head);
     * `wsdf`: W_{n-1}[:, sdf] rounded to bf16 (f32, zero-padded), d sdf /
-      d h of the last hidden layer."""
+      d h of the last hidden layer;
+    * `wgr` (idr mode): the radiance input layer's three gradient rows
+      rounded to bf16 (3, N_0 padded to 64, f32), against which K4 takes
+      the radiance input's cotangent on the gradient's columns (None in
+      nerf mode)."""
 
     def __init__(self, icfg: mlp.ImplicitNetConfig,
                  rcfg: mlp.RenderingNetConfig, w: CoreWeights,
@@ -423,7 +485,18 @@ class K4Stages:
         ws = [t.detach().float() for t in w.ws_sdf]
         layers = t_sdf_layers(icfg, ws)
         wr = [t.detach().float() for t in w.ws_rad]
-        wr[0] = wr[0][_rad_perm(rdims[0] - F, F)][:F]
+        idr = rcfg.mode == "idr"
+        vdim = rcfg.view_dim()
+        wr[0] = wr[0][_rad_perm(vdim, F, idr)]
+        self.wgr = None
+        if idr:
+            n0 = wr[0].shape[1]
+            width = mma_pack.round_up(mma_pack.wg_width(n0), 64)
+            self.wgr = torch.zeros((3, width), dtype=torch.float32,
+                                   device=wr[0].device)
+            self.wgr[:, :n0] = wr[0][F + vdim + 3:F + vdim + 6].to(
+                torch.bfloat16).float()
+        wr[0] = wr[0][:F]
         nr = len(wr)
         layers += [dict(w=wr[l].t(), real=F if l == 0 else rdims[l])
                    for l in range(nr - 1, -1, -1)]
@@ -721,8 +794,7 @@ def unpack_grads(st: CoreStages, t: K4Stages, out: torch.Tensor,
         k = (3 + 6 * st.mx if l == 0 else int(fwd[l - 1, 2])
              + (3 + 6 * st.mx if fwd[l, 5] & mma_pack.SKIP_IN else 0))
         shapes.append((k, int(fwd[l, 2]) if l < ns - 1 else F + 1))
-    vdim = 3 + 6 * st.md
-    shapes += [(F + vdim if l == 0 else int(rad[l - 1, 2]), int(rad[l, 2]))
+    shapes += [(st.rad_in if l == 0 else int(rad[l - 1, 2]), int(rad[l, 2]))
                for l in range(nr)]
     if t.n_light:
         lp = st.light.plan
@@ -737,23 +809,26 @@ def unpack_grads(st: CoreStages, t: K4Stages, out: torch.Tensor,
     inv_sdf = np.argsort(_sdf_perm(F))
     dws[ns - 1] = dws[ns - 1][:, inv_sdf]
     dbs[ns - 1] = dbs[ns - 1][inv_sdf]
-    dws[ns] = dws[ns][np.argsort(_rad_perm(vdim, F))]
+    dws[ns] = dws[ns][np.argsort(_rad_perm(st.vdim, F, st.idr))]
     c = ns + nr
     return dws[:ns], dbs[:ns], dws[ns:c], dbs[ns:c], dws[c:], dbs[c:]
 
 
 def render_core_bwd(st: CoreStages, t: K4Stages, x: torch.Tensor,
                     dirs: torch.Tensor, cot: torch.Tensor,
-                    detach_light: bool = True):
+                    detach_light: bool = True,
+                    grad: torch.Tensor | None = None):
     """K4: the gradients of <cot, [grad | sdf | rgb | lmask]> with respect
     to the materialized weights and biases of the nets (unclamped
     outputs), from K3's pack `st` and `t` (`K4Stages` of the same
     weights), as (dws_sdf, dbs_sdf, dws_rad, dbs_rad, dws_l, dbs_l) lists
     of f32 tensors (the light lists empty without a light head; with one,
     `detach_light` off lets the light cotangent reach the SDF net through
-    the features). CUDA tensors only: the plain backward is autograd of
+    the features). In idr mode `grad` is the unclamped spatial gradient
+    K3 gave the same points (N, 3), the radiance input's gradient
+    columns. CUDA tensors only: the plain backward is autograd of
     `render_core_train_plain`."""
-    global bwd_launches, light_bwd_launches
+    global bwd_launches, light_bwd_launches, idr_bwd_launches
     if not x.is_cuda:
         raise ValueError("render_core_bwd: the kernel takes CUDA tensors; "
                          "the plain backward is autograd of "
@@ -763,6 +838,14 @@ def render_core_bwd(st: CoreStages, t: K4Stages, x: torch.Tensor,
     if cot.shape[0] != x.shape[0] or st.sdf.weights.device != x.device:
         raise ValueError("render_core_bwd: cotangents, points and weights "
                          "disagree in length or device")
+    if st.idr:
+        if grad is None:
+            raise ValueError("render_core_bwd: the idr radiance net needs "
+                             "K3's spatial gradient of the points")
+        mma_pack.check_input(grad, "grad", cols=3)
+        if grad.shape[0] != x.shape[0] or grad.device != x.device:
+            raise ValueError("render_core_bwd: grad and points disagree in "
+                             "length or device")
     n = x.shape[0]
     coupled = bool(st.n_light) and not detach_light
     plan = plan_for(st, t, n, coupled)
@@ -786,6 +869,7 @@ def render_core_bwd(st: CoreStages, t: K4Stages, x: torch.Tensor,
         t.t.weights.data_ptr(), t.tsdf.ctypes.data, t.tsdf.shape[0],
         t.trad.ctypes.data, t.tlight.ctypes.data if nl else None,
         t.wsdf.data_ptr(), int(bool(detach_light)), st.mx, st.md, st.F,
+        *((grad.data_ptr(), t.wgr.data_ptr()) if st.idr else (None, None)),
         scratch.data_ptr(), ws32.data_ptr(), reg.data_ptr(),
         script.data_ptr(), plan.script.shape[0], plan.jobs.ctypes.data,
         plan.jobs.shape[0], plan.db_host.ctypes.data, out.data_ptr(),
@@ -793,6 +877,8 @@ def render_core_bwd(st: CoreStages, t: K4Stages, x: torch.Tensor,
     build.check(err, "render_core_bwd")
     if nl:
         light_bwd_launches += 1
+    elif st.idr:
+        idr_bwd_launches += 1
     else:
         bwd_launches += 1
     return unpack_grads(st, t, out, plan)
@@ -806,7 +892,8 @@ class RenderCoreTrain(torch.autograd.Function):
     unclamped. Gradients flow to the weights and biases only (x and dirs
     are constants: sampler depths and cameras). The forward's pack
     (`CoreStages`) stays in `ctx` for the backward, which packs only the
-    transposed chains (`K4Stages`)."""
+    transposed chains (`K4Stages`); in idr mode so does K3's unclamped
+    gradient, the radiance input K4 takes."""
 
     @staticmethod
     def forward(ctx, icfg, rcfg, lcfg, detach_light, x, dirs, *flat):
@@ -815,6 +902,7 @@ class RenderCoreTrain(torch.autograd.Function):
         ctx.stages = CoreStages(icfg, rcfg, w, lcfg)
         outs = _launch_fwd(ctx.stages, x, dirs)
         ctx.save_for_backward(x, dirs, *flat)
+        ctx.grad = outs[1].detach() if ctx.stages.idr else None
         ctx.cfgs = (icfg, rcfg, lcfg, detach_light)
         return outs
 
@@ -828,7 +916,7 @@ class RenderCoreTrain(torch.autograd.Function):
         cot = pack_cotangents(x.shape[0], c_sdf, c_grad, c_rgb, x.device,
                               c_lm)
         grads = render_core_bwd(ctx.stages, K4Stages(icfg, rcfg, w, lcfg),
-                                x, dirs, cot, detach_light)
+                                x, dirs, cot, detach_light, ctx.grad)
         return (None,) * 6 + tuple(t for g in grads for t in g)
 
 

@@ -115,9 +115,12 @@ class K4Replay:
     (`K4Plan.script`) is consumed item by item, and the scratch regions
     hold what the bulk copies move. `rnd` is where the kernel rounds to
     bf16 (the identity replays the algorithm in f32 on the bf16 weights).
-    A load must come after a wait for the sweep that stored it."""
+    A load must come after a wait for the sweep that stored it. With the
+    idr radiance net `grad` is the gradient the kernel is handed (K3's),
+    the radiance input's columns after PE(view) beside bf16 xyz."""
 
-    def __init__(self, st, t, plan, x, dirs, cot, rnd, detach_light):
+    def __init__(self, st, t, plan, x, dirs, cot, rnd, detach_light,
+                 grad=None):
         self.st, self.t, self.plan, self.rnd = st, t, plan, rnd
         self.B = B = plan.blocks
         P = B * 64
@@ -125,6 +128,7 @@ class K4Replay:
         self.xs = pad_rows(x, P).view(B, 64, 3)
         self.ds = pad_rows(dirs, P).view(B, 64, 3)
         self.cot = pad_rows(cot, P, 8).view(B, 64, 8)
+        self.gin = None if grad is None else pad_rows(grad, P).view(B, 64, 3)
         self.T = torch.full((B, 5 * CHUNK // 2), float("nan"), device=dev)
         self.scr = {}          # region offset -> (B, bf16 or f32 values)
         self.stored_in = {}    # region offset -> the sweep that stored it
@@ -323,6 +327,10 @@ class K4Replay:
             self.light_head()
         # 2. radiance forward
         self.fill("dirs", F, int(rad[0, 0]))
+        if st.idr:
+            c0 = F + st.vdim
+            self.put(self.T, torch.arange(c0, c0 + 6),
+                     torch.cat([self.xs, self.gin], -1))
         for l in range(nr):
             K, N, real, woff, boff, *_ = (int(v) for v in rad[l])
             self.store_T(REG_RX, l, ch(K))
@@ -348,6 +356,12 @@ class K4Replay:
             self.bias(ns + l - 1, dz, int(rad[l - 1, 2]))
         self.store_T(REG_RDZ, 0, ch(rad[0, 1]))
         cf = self.product(t.trad[nr - 1])[..., :F]
+        if st.idr:
+            # the gradient columns' cotangent, f32 sums of T's bf16 dz_0
+            # against the bf16 rows, into c_grad
+            n0 = int(rad[0, 1])
+            dz0 = self.get(self.T, torch.arange(n0))
+            self.cot[..., :3] += dz0 @ t.wgr[:, :n0].t()
         if self.coupled:
             g0, g1 = self.take_stash(True), self.take_stash(True)
             g = torch.cat([g0, g1], 1)

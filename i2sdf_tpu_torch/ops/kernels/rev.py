@@ -28,7 +28,9 @@ CUDA source's header says what bounds it and how it is built.
   `fused_rev.py:319-324` does.
 * `sdf_outputs_rev(implicit, x, plain=False)` -> (sdf, feat, grad), the
   bounding-sphere clamp composed outside the kernels: the counterpart of
-  `fused_rev.py:329 sdf_outputs_fused_rev`.
+  `fused_rev.py:329 sdf_outputs_fused_rev`; `sdf_outputs_rev_eval` the
+  same with no gradient through the weights (K5 alone), the eval route of
+  a model the render core does not take (`renderer.py:337-343`).
 """
 
 from __future__ import annotations
@@ -89,6 +91,7 @@ class RevStages:
 
     rad = light = None
     n_rad = n_light = 0
+    idr = False
     trad = tlight = np.zeros((0, 8), np.int32)
 
     def __init__(self, icfg: mlp.ImplicitNetConfig, ws, bs,
@@ -367,3 +370,28 @@ def sdf_outputs_rev(implicit: mlp.ImplicitNet, x: torch.Tensor,
         out, grad = rev_plain(cfg, ws, bs, x)
     sdf, grad = render_core._sphere_clamp(cfg, x, out[:, :1], grad)
     return sdf, out[:, 1:], grad
+
+
+def pack_of(implicit: mlp.ImplicitNet) -> RevStages:
+    """K5's and K6's pack of the net's current weights."""
+    with torch.no_grad():
+        lins = implicit.layers()
+        return RevStages(implicit.cfg, [l.weight() for l in lins],
+                         [l.b for l in lins])
+
+
+def sdf_outputs_rev_eval(implicit: mlp.ImplicitNet, x: torch.Tensor,
+                         k: RevStages | None = None, plain: bool = False):
+    """(sdf (N, 1), features (N, F), grad (N, 3)) of the bounding-sphere
+    clamped SDF, no gradient through the weights. CUDA tensors launch K5
+    once on the pack `k` (`pack_of` if None); CPU tensors, or `plain=True`,
+    take the plain f32 net (the gradient by autograd, in chunks)."""
+    if x.is_cuda and not plain:
+        with torch.no_grad():
+            out, grad = rev_fwd(pack_of(implicit) if k is None else k, x)
+        sdf, grad = render_core._sphere_clamp(implicit.cfg, x, out[:, :1],
+                                              grad)
+        return sdf, out[:, 1:], grad
+    outs = [mlp.sdf_outputs(implicit, xc)
+            for xc in x.split(render_core._PLAIN_CHUNK)]
+    return tuple(torch.cat(o) for o in zip(*outs))

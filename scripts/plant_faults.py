@@ -11,7 +11,8 @@ whose headers it changes, compile again), and runs, each in its own
 process, the checks the fault must fail: `chip_smoke.check_k1`,
 `chip_smoke.check_k3` (the flagship config's K3, `k3`, and the light
 config's K3-light, `k3_light`; both also on a net of odd depth) and
-`chip_smoke.check_k4` (the training config's K4, `k4`),
+`chip_smoke.check_k4` (the training config's K4, `k4`), K3 and K4 with
+the idr-mode radiance net at `chip_smoke.idr_conf` (`k3_idr`, `k4_idr`),
 `chip_smoke.check_bg` (the bg config's K8 and K9, `bg`), the K2 rows of
 `chip_smoke.check_kernels` (`k2`: they come before its K3 check),
 `chip_smoke.check_rev` (K5 and K6 at the training config, `rev`),
@@ -191,6 +192,30 @@ FAULTS = {
         '    j = (torch.div(idx % nyz, len(az), rounding_mode="floor")\n'
         '         + (1 if start else 0)) % len(ay)\n',
         ("mesh",)),
+    # K3-idr writes the gradient into the radiance input's xyz columns and
+    # the xyz into the gradient's (at the init grad ~ x / |x|: the check's
+    # perturbed and odd nets, and the eval chunk's far points, show it)
+    "k3_idr_pts_grad_swapped": (
+        ("i2sdf_tpu_torch/csrc/render_core.cu",
+         "    const int c = F + enc.dd + 3;\n",
+         "    const int c = F + enc.dd;\n"),
+        ("i2sdf_tpu_torch/csrc/render_core.cu",
+         "    } else if (kIdr && q < enc.dd + 3) {\n"
+         "      v = px[q - enc.dd];\n"
+         "    } else if (kIdr && q < enc.dd + 6) {\n"
+         "      continue;\n",
+         "    } else if (kIdr && q < enc.dd + 3) {\n"
+         "      continue;\n"
+         "    } else if (kIdr && q < enc.dd + 6) {\n"
+         "      v = px[q - enc.dd - 3];\n"),
+        ("k3_idr",)),
+    # K4-idr leaves the radiance input's gradient-column cotangent out of
+    # c_grad: the second-order sweeps see the external cotangent alone
+    "k4_idr_grad_cot_dropped": (
+        "i2sdf_tpu_torch/csrc/render_core_bwd.cu",
+        "      Smem::cot(c)[r * kCot + j] += s;\n",
+        "      (void)s;\n",
+        ("k4_idr",)),
     # K7 takes its first warp's maximum of the bound, not the group's
     "k7_one_warp_max": (
         "i2sdf_tpu_torch/csrc/conv_check.cu",
@@ -208,6 +233,7 @@ build.build()
 device = torch.device("cuda", 0)
 which = sys.argv[1]
 conf = (cs.light_conf(train=False) if which == "k3_light"
+        else cs.idr_conf() if which in ("k3_idr", "k4_idr")
         else cs.train_conf() if which in ("k4", "rev", "k12", "mesh")
         else cs.perray_conf(train=False) if which == "conv"
         else cs.bg_conf(train=False) if which == "bg" else cs.eval_conf())
@@ -226,7 +252,7 @@ elif which == "conv":
     cs.check_conv(model, cfg, conf, device)
 elif which == "bg":
     cs.check_bg(model, cfg, conf, device)
-elif which == "k4":
+elif which in ("k4", "k4_idr"):
     cs.check_k4(model, cfg, conf, device)
 elif which == "mesh":
     cs.check_mesh(model, cfg, conf, device)

@@ -122,30 +122,39 @@ def k4_pack(icfg, rcfg, w, lcfg=None):
 
 
 def emulate_bwd(icfg, rcfg, w, x, dirs, cot, rnd=bf, detach_light=True,
-                lcfg=None):
+                lcfg=None, grad=None):
     """K4 in torch from what its wrapper hands it (the packs of `w`, its
     `K4Plan`); returns what the wrapper returns. `rnd` is where the kernel
     rounds to bf16 (activations, cotangents, everything it stores as
     bf16); the identity replays the same algorithm in f32 on the kernel's
     bf16 weights. With a light head (`lcfg`), c_lm is the cotangents'
-    column 7."""
+    column 7. An idr-mode radiance net takes `grad` (K3's gradient of the
+    points; the plain f32 one at `w` if None)."""
     st, t = k4_pack(icfg, rcfg, w, lcfg)
     coupled = lcfg is not None and not detach_light
+    if st.idr and grad is None:
+        grad = render_core.render_core_train_plain(icfg, rcfg, w, x,
+                                                   dirs)[1].detach()
     with torch.no_grad():
         plan = render_core.K4Plan(st, t, x.shape[0], coupled)
-        out = K4Replay(st, t, plan, x, dirs, cot, rnd, detach_light).run()
+        out = K4Replay(st, t, plan, x, dirs, cot, rnd, detach_light,
+                       grad).run()
         return render_core.unpack_grads(st, t, out, plan)
 
 
-def nets(width, skip, feat, rad, mx, md, seed=0, device="cpu", depth=8):
-    """The SDF net (`depth` hidden layers) and radiance net of a case."""
+def nets(width, skip, feat, rad, mx, md, seed=0, device="cpu", depth=8,
+         mode="nerf"):
+    """The SDF net (`depth` hidden layers) and radiance net of a case
+    (`mode` "idr": the radiance net on [pts | PE(view) | normals |
+    features], `d_in` 9)."""
     gen = torch.Generator().manual_seed(seed)
     icfg = mlp.ImplicitNetConfig(
         feature_vector_size=feat, sdf_bounding_sphere=0.0,
         dims=(width,) * depth, skip_in=(skip,), bias=0.6,
         embed_type="positional", multires=mx)
     rcfg = mlp.RenderingNetConfig(feature_vector_size=feat, dims=(rad,) * 4,
-                                  embed_type="positional", multires=md)
+                                  embed_type="positional", multires=md,
+                                  mode=mode, d_in=9 if mode == "idr" else 3)
     net, rnet = mlp.ImplicitNet(icfg, gen), mlp.RenderingNet(rcfg, gen)
     with torch.no_grad():  # move off the init's zero PE weights
         for lin in net.layers() + rnet.layers():
@@ -208,6 +217,55 @@ def test_k4_replay_with_its_rounding_meets_the_kernel_tolerance():
     grad_check(got, plain_vjp(net.cfg, rnet.cfg, w, x, d, c))
 
 
+@pytest.mark.parametrize("case,n,eik", [("flagship", 96, 32),
+                                        ("narrow", 160, 64)])
+def test_k4_idr_replay_in_f32_equals_plain_backward(case, n, eik):
+    """K4 with the idr-mode radiance net, its algorithm in f32 on its bf16
+    weights and handed the plain gradient at those weights (K3's, without
+    its rounding), against the plain backward on the same weights (1e-5 of
+    each leaf's largest entry): the radiance input's xyz and gradient
+    columns, the gradient rows' cotangent joined to c_grad before the
+    second-order sweeps, and the row order of radiance layer 0 put back.
+    The radiance layer 0's gradient rows and the SDF leaves differ from a
+    replay that leaves the gradient's cotangent out."""
+    net, rnet = nets(*CASES[case], mode="idr")
+    x, d = points(n, n, eik)
+    c = eik_only(torch.from_numpy(np.random.default_rng(n).normal(
+        size=(n, 7)).astype(np.float32)), eik)
+    w = render_core.CoreWeights.of(net, rnet)
+    wb = bf16_weights(w)
+    g = render_core.render_core_train_plain(net.cfg, rnet.cfg, wb, x,
+                                            d)[1].detach()
+    got = [t for grp in emulate_bwd(net.cfg, rnet.cfg, w, x, d, c,
+                                    rnd=lambda t: t, grad=g) for t in grp]
+    ref = plain_vjp(net.cfg, rnet.cfg, wb, x, d, c)
+    assert [a.shape for a in got] == [r.shape for r in ref]
+    assert ref[2 * len(w.ws_sdf)].shape[0] == rnet.cfg.layer_dims()[0]
+    for i, (a, r) in enumerate(zip(got, ref)):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()),
+                                   msg=str(i))
+
+
+def test_k4_idr_replay_with_its_rounding_meets_the_kernel_tolerance():
+    """At the flagship's widths in idr mode, with the kernel's bf16
+    rounding, handed the gradient of K3's replay, and a loss's
+    cotangents: the JAX package's gradient tolerance for its bf16 kernel
+    against the plain f32 backward."""
+    from test_torch_kernel_layout import emulate_render_core
+    net, rnet = nets(*CASES["flagship"], mode="idr")
+    n, eik = 1024, 256
+    x, d = points(n, 5, eik)
+    w = render_core.CoreWeights.of(net, rnet)
+    c = eik_only(loss_cotangents(*render_core.render_core_train_plain(
+        net.cfg, rnet.cfg, w, x, d)), eik)
+    st, _ = k4_pack(net.cfg, rnet.cfg, w)
+    g3 = emulate_render_core(st, x, d)[1]
+    got = [t for grp in emulate_bwd(net.cfg, rnet.cfg, w, x, d, c, grad=g3)
+           for t in grp]
+    grad_check(got, plain_vjp(net.cfg, rnet.cfg, w, x, d, c))
+
+
 def _check_plan(plan, st, t):
     """Every region 1024-byte aligned and disjoint from the others; the
     ring table's items: each layer's stage images in the order the
@@ -263,6 +321,30 @@ def test_bwd_plan_table_and_cotangents():
     cot = render_core.pack_cotangents(2, None, None, None, "cpu",
                                       torch.full((2, 1), 5.0))
     assert cot.tolist() == [[0, 0, 0, 0, 0, 0, 0, 5]] * 2
+
+
+def test_bwd_plan_and_pack_in_idr_mode():
+    """K4's plan at the training batch in idr mode: the radiance input's
+    289 rows fit the tile's five chunks, so the regions, ring table and
+    jobs are nerf mode's but for radiance layer 0's depth (304 against
+    288); `K4Stages.wgr` is radiance layer 0's normals rows (the nets'
+    rows 3 + vdim .. 6 + vdim) rounded to bf16, and nerf mode has none."""
+    packs = {}
+    for mode in ("nerf", "idr"):
+        net, rnet = nets(*CASES["flagship"], mode=mode)
+        w = render_core.CoreWeights.of(net, rnet)
+        st, t = k4_pack(net.cfg, rnet.cfg, w)
+        packs[mode] = (st, t, render_core.K4Plan(st, t, 160_000, False), w)
+    (sn, tn, pn, _), (si, ti, pi, wi) = packs["nerf"], packs["idr"]
+    _check_plan(pi, si, ti)
+    assert tn.wgr is None and (int(sn.rad.plan[0, 0]),
+                               int(si.rad.plan[0, 0])) == (288, 304)
+    assert pi.scratch_bytes == pn.scratch_bytes
+    assert np.array_equal(pi.script, pn.script)
+    assert pi.dims == [d if p != 9 else (304, 256)
+                                    for p, d in enumerate(pn.dims)]
+    w0 = wi.ws_rad[0].detach()
+    assert torch.equal(ti.wgr, bf(w0[30:33]))
 
 
 def light_layout(case, device="cpu", seed=0):

@@ -227,6 +227,10 @@ def emulate_render_core(k: render_core.CoreStages, x, dirs):
                 torch.zeros((32, kl - F)))
         kr = int(k.rad.plan[0, 0])
         put(mem, 0, rows[0], torch.arange(F, kr), pe_block(db, k.md, kr - F))
+        if k.idr:   # bf16 xyz and the unclamped gradient after PE(view)
+            c0 = F + k.vdim
+            put(mem, 0, rows[0], torch.arange(c0, c0 + 6),
+                torch.cat([xb, o[1]], -1))
         for name, pm, base in (("rad", k.rad, 0),
                                ("light", k.light, K3_TILE0)):
             if pm is None:
@@ -254,7 +258,8 @@ def unswizzle(pm: mma_pack.PackedMlp, i: int):
         for slots in stage_images(pm, i)])
 
 
-def _nets(width, skip, feat, rad, mx, md, seed=0, depth=8, rdepth=4):
+def _nets(width, skip, feat, rad, mx, md, seed=0, depth=8, rdepth=4,
+          mode="nerf"):
     gen = torch.Generator().manual_seed(seed)
     icfg = mlp.ImplicitNetConfig(
         feature_vector_size=feat, sdf_bounding_sphere=0.0,
@@ -262,7 +267,8 @@ def _nets(width, skip, feat, rad, mx, md, seed=0, depth=8, rdepth=4):
         embed_type="positional", multires=mx)
     rcfg = mlp.RenderingNetConfig(feature_vector_size=feat,
                                   dims=(rad,) * rdepth,
-                                  embed_type="positional", multires=md)
+                                  embed_type="positional", multires=md,
+                                  mode=mode, d_in=9 if mode == "idr" else 3)
     net, rnet = mlp.ImplicitNet(icfg, gen), mlp.RenderingNet(rcfg, gen)
     with torch.no_grad():  # move off the init's zero PE weights
         for lin in net.layers() + rnet.layers():
@@ -336,6 +342,33 @@ def test_render_core_plan_replays_to_plain(case):
     k = render_core.CoreStages(net.cfg, rnet.cfg,
                                render_core.CoreWeights.of(net, rnet))
     x, d = _points(200, 2)
+    _core_close(emulate_render_core(k, x, d),
+                render_core.render_core_plain(net, rnet, x, d))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_render_core_idr_plan_replays_to_plain(case):
+    """K3 with the idr-mode radiance net ([features | PE(view) | xyz |
+    grad] in the tile): its replay against the plain op at CORE_TOLS, the
+    weights moved by 0.01 N(0, 1) off the init, where a swapped xyz /
+    grad pair would show (at a sphere's init grad ~ x / |x|); the pack's
+    radiance layer 0 is the nets' rows in the kernel order
+    (`fused_train.py:740-748`), 289 rows at the flagship's widths inside
+    the tile's 320 columns."""
+    width, skip, feat, rad, mx, md = CASES[case]
+    net, rnet = _nets(width, skip, feat, rad, mx, md, mode="idr")
+    w = render_core.CoreWeights.of(net, rnet)
+    k = render_core.CoreStages(net.cfg, rnet.cfg, w)
+    vdim = 3 + 6 * md
+    assert k.idr and k.rad_in == feat + vdim + 6
+    assert int(k.rad.plan[0, 0]) <= render_core._K3_RAD_K
+    w0 = w.ws_rad[0].detach()
+    perm = render_core._rad_perm(vdim, feat, True)
+    assert perm[:feat] == list(range(vdim + 6, vdim + 6 + feat))
+    assert perm[feat + vdim:] == [0, 1, 2, vdim + 3, vdim + 4, vdim + 5]
+    torch.testing.assert_close(unswizzle(k.rad, 0)[:w0.shape[1], :len(perm)],
+                               bf(w0[perm].t()))
+    x, d = _points(200, 4)
     _core_close(emulate_render_core(k, x, d),
                 render_core.render_core_plain(net, rnet, x, d))
 
