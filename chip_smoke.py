@@ -75,6 +75,31 @@ Phases, each printed as one JSON line with its wall time:
    the eval chunk's 1,164,000 points (its scratch and peak memory); one
    view through the eval entry point (K1, K2 and K5, never K3) and its
    first chunk against the plain path;
+3c. light_idr (the light-idr config, `light_idr_conf`: the light-mask
+   config with VolSDF's DTU radiance net, `IDR_EDIT`, 289 inputs, the
+   light head 256 -> 128 -> 1, written to a temporary file): K3-light-idr
+   at the eval chunk's 1,164,000 points and K4-light-idr at the training
+   batch's 160,000 (handed K3's gradient), both `detach_light` values,
+   each at the init's, perturbed, odd-depth and signal nets as K3-idr and
+   K4-idr above; one view through the eval entry point (K1, K2 and
+   K3-light-idr, no other K3) and its first chunk against the plain path
+   (rgb and light-mask PSNR >= 30 dB); 6 trainer steps with the normal
+   losses on (`detach_light_feature` true) and 6 with them off
+   (`detach_light_feature` false), K3-light-idr and K4-light-idr once a
+   step, with `rays_per_s` and `host_split`; then (`cli_light_idr`) the
+   CLIs (`run_cli_idr` with `light`): train 2 steps, `--test_mode
+   render`, `interpolate` and `mesh` on its checkpoint, side by side with
+   the io phase's chains and `cli_idr` (`side_by_side`: their processes
+   share the card and the host, so their seconds overlap);
+3d. io (`io_scene`: scan1 with HDR `.npy` images, object masks, seeded
+   normals and two held-out `val/` views, `synthetic_quality.yml` with
+   `is_hdr` and `mask_weight`): the train CLI with `--is_val` for 4 steps
+   with `--profile 2:2`, then `--test_mode render --is_val`: the mask
+   term in the logs, LPIPS in the validation line, `metrics.npz` with
+   psnr, ssim and lpips-rf-torch for both views, a trace naming
+   `render_core_fwd` and `render_core_bwd`, K1-K3 launched by the render;
+   beside it the same with `--no_fused` (2 steps), whose render launches
+   no K1, K2 or K3;
 4. sdf_outputs (the path of K10-K12, whose JAX counterparts only the JAX
    package's public kernel API reaches): `fused_sdf_outputs` under no_grad
    over the first eval chunk's sample points, and `sdf_outputs_fused_grad`
@@ -203,6 +228,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -262,9 +288,15 @@ IDR_EVAL_KERNELS = ("sdf_mlp_nograd", "sampler_round", "render_core_fwd_idr")
 IDR_KERNELS = IDR_EVAL_KERNELS + ("render_core_bwd_idr",)
 SH_EVAL_KERNELS = ("sdf_mlp_nograd", "sampler_round", "rev_fwd")
 SH_KERNELS = SH_EVAL_KERNELS + ("rev_bwd",)
+# the light head beside VolSDF's DTU radiance net: K3-light-idr /
+# K4-light-idr
+LIGHT_IDR_EVAL_KERNELS = ("sdf_mlp_nograd", "sampler_round",
+                          "render_core_fwd_light_idr")
+LIGHT_IDR_KERNELS = LIGHT_IDR_EVAL_KERNELS + ("render_core_bwd_light_idr",)
 CORE_KERNELS = ("render_core_fwd", "render_core_bwd", "render_core_fwd_light",
                 "render_core_bwd_light", "render_core_fwd_idr",
-                "render_core_bwd_idr")
+                "render_core_bwd_idr", "render_core_fwd_light_idr",
+                "render_core_bwd_light_idr")
 # the radiance blocks of the two configurations (`TRAIN_CONF`'s text)
 IDR_EDIT = ("mode: nerf\n        d_in: 3", "mode: idr\n        d_in: 9")
 SH_EDIT = ("embed_type: 'positional'\n        multires: 4",
@@ -868,7 +900,8 @@ def check_k3(model, cfg, conf, device) -> dict:
     if cfg.rendering.mode == "idr":
         # the radiance net scaled (`signal_net`): the xyz and gradient
         # columns then move rgb past the tolerances when read wrong
-        nets["signal"] = (model.implicit, signal_net(model.rendering), None)
+        nets["signal"] = (model.implicit, signal_net(model.rendering),
+                          model.light)
     fields, ok = {}, True
     for label, ns in nets.items():
         pack = render_core.RenderCorePack(*ns)
@@ -925,8 +958,8 @@ def check_k3(model, cfg, conf, device) -> dict:
     block_bytes = 2 * sum(c.weights.numel() for c in
                           (stages.sdf, stages.rad, stages.light)
                           if c is not None)
-    suffix = ("_light" if light is not None
-              else "_idr" if cfg.rendering.mode == "idr" else "")
+    suffix = (("_light" if light is not None else "")
+              + ("_idr" if cfg.rendering.mode == "idr" else ""))
     row = dict(
         name="render_core_fwd" + suffix,
         route="cuda", source="i2sdf_tpu_torch/csrc/render_core.cu",
@@ -1232,7 +1265,7 @@ def check_k4(model, cfg, conf, device, detach_light=True,
         # alone: the gradient columns' cotangent is then a large share of
         # the SDF leaves' gradients (`scripts/idr_signal_probe.py`)
         cases["signal"] = (model.implicit, idr_signal_net(model.rendering),
-                           None)
+                           model.light)
     fields, ok = {}, True
     for label, nets in cases.items():
         got, ref, cot, w, packs, g3 = k4_grads(nets, x, d, detach_light,
@@ -1271,8 +1304,8 @@ def check_k4(model, cfg, conf, device, detach_light=True,
     plan = render_core.plan_for(*packs0, n, lcfg is not None
                                 and not detach_light)
     row = dict(
-        name="render_core_bwd" + ("_light" if lcfg is not None
-                                  else "_idr" if idr else ""),
+        name="render_core_bwd" + ("_light" if lcfg is not None else "")
+        + ("_idr" if idr else ""),
         route="cuda", source="i2sdf_tpu_torch/csrc/render_core_bwd.cu",
         replaces="i2sdf_tpu/ops/pallas/fused_train.py:449",
         shape=list(cot0.shape), rays=K4_RAYS, samples=S,
@@ -1298,7 +1331,8 @@ def check_k4(model, cfg, conf, device, detach_light=True,
             bare = (render_core.CoreStages(icfg, rcfg, w1),
                     render_core.K4Stages(icfg, rcfg, w1))
         row["ms_without_head"] = time_ms(
-            lambda: render_core.render_core_bwd(*bare, x, d, cot0), 5)
+            lambda: render_core.render_core_bwd(*bare, x, d, cot0,
+                                                grad=g30), 5)
     emit_row(row, ok)
     return row
 
@@ -2932,6 +2966,8 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
     groups = {"K1 sdf_mlp": "sdf_mlp_kernel", "K2 sampler_round":
               "sampler_round",
               "K3 render_core_fwd": "render_core_kernel<false, false>",
+              "K3 render_core_fwd_light_idr":
+                  "render_core_kernel<true, true>",
               "K3 render_core_fwd_light": "render_core_kernel<true",
               "K3 render_core_fwd_idr": "render_core_kernel<false, true>",
               "K5 rev_fwd": "k5_sweep_kernel",
@@ -2950,8 +2986,14 @@ def profile_steps(tr, step0: int, n: int = 2) -> dict:
     top = []
     for e in prof.key_averages():
         # kernels only: an operator's own entry also counts the kernels
-        # it launched (the autograd functions around K3 and K4 do)
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # it launched (the autograd functions around K3 and K4 do), and so
+        # does a named range on the device's track (the render core's
+        # launches, `render_core_fwd*` / `render_core_bwd*`, and the
+        # optimizer's `Optimizer.step#Adam.step`)
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.key in kernels.KERNELS
+                or e.key.startswith("Optimizer.")):
             continue
         dev = getattr(e, "self_device_time_total",
                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
@@ -3074,13 +3116,43 @@ def light_conf(train: bool = True):
     return conf
 
 
+def light_idr_conf_path(tmp) -> str:
+    """The light-idr config: `configs/synthetic_light_mask.yml` with
+    VolSDF's DTU radiance net (`IDR_EDIT`: mode idr, d_in 9, 289 inputs at
+    the light config's widths) on scan1 (`data_dir: synthetic_quality`),
+    written to `tmp`; no file under `configs/` changes."""
+    text = LIGHT_CONF.read_text()
+    assert text.count(IDR_EDIT[0]) == 1
+    path = Path(tmp) / "light_idr.yml"
+    path.write_text(text.replace(*IDR_EDIT).replace(
+        "data_dir: synthetic\n", "data_dir: synthetic_quality\n"))
+    return str(path)
+
+
+def light_idr_conf(train: bool = True):
+    """The light-idr config on scan1, for training with `train_conf`'s
+    bubble window."""
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = load_cfg(light_idr_conf_path(tmp))
+    conf.dataset.scan_id = 1
+    if train:
+        conf.loss.min_bubble_iter = 2
+        conf.loss.max_bubble_iter = 4
+        conf.train.uniform_bubble = True
+    return conf
+
+
 TRAIN_CONFS = {"train": train_conf, "nonormal": train_conf,
                "light": light_conf, "perray": perray_conf, "bg": bg_conf,
-               "idr": idr_conf, "idr_nonormal": idr_conf, "sh": sh_conf}
+               "idr": idr_conf, "idr_nonormal": idr_conf, "sh": sh_conf,
+               "light_idr": light_idr_conf,
+               "light_idr_nonormal": light_idr_conf}
 TRAIN_WANT = {"train": TRAIN_KERNELS, "nonormal": NONORMAL_KERNELS,
               "light": LIGHT_KERNELS, "perray": PERRAY_KERNELS,
               "bg": BG_KERNELS, "idr": IDR_KERNELS,
-              "idr_nonormal": IDR_KERNELS, "sh": SH_KERNELS}
+              "idr_nonormal": IDR_KERNELS, "sh": SH_KERNELS,
+              "light_idr": LIGHT_IDR_KERNELS,
+              "light_idr_nonormal": LIGHT_IDR_KERNELS}
 
 
 def run_train(device, kind: str = "train") -> dict:
@@ -3102,12 +3174,20 @@ def run_train(device, kind: str = "train") -> dict:
       instantiations once a step either way (the radiance net takes the
       gradient), the other K3 / K4 and K5 / K6 never;
     * `sh` (`sh_conf`: the SH view encoding): the render points and the
-      eikonal points each through K5 / K6, twice a step, K3 / K4 never."""
+      eikonal points each through K5 / K6, twice a step, K3 / K4 never;
+    * `light_idr` (`light_idr_conf`, `detach_light_feature` true, the
+      config's default) and `light_idr_nonormal` (`normal_weight: 0` and
+      `detach_light_feature` false, so that each setting runs once):
+      K3-light-idr and K4-light-idr once a step either way, no other K3 /
+      K4 and no K5 / K6, the light-mask loss on at every step, every
+      light-net leaf moved."""
     conf = TRAIN_CONFS[kind]()
-    normal = kind not in ("nonormal", "idr_nonormal")
-    light = kind == "light"
+    normal = kind not in ("nonormal", "idr_nonormal", "light_idr_nonormal")
+    light = kind in ("light", "light_idr", "light_idr_nonormal")
     if not normal:
         conf.loss.normal_weight = 0.0
+    if kind == "light_idr_nonormal":
+        conf.model.detach_light_feature = False
     with tempfile.TemporaryDirectory() as tmp:
         tr = ReconstructionTrainer(conf, os.path.join(tmp, "exp"),
                                    data_root=images_only_root(tmp, light),
@@ -3158,10 +3238,18 @@ def run_train(device, kind: str = "train") -> dict:
         missing = [k for k in want if launches[k] == 0]
         assert not missing, f"kernels not launched on the path: {missing}"
         if light:
+            fwd, bwd = (("render_core_fwd_light", "render_core_bwd_light")
+                        if kind == "light" else
+                        ("render_core_fwd_light_idr",
+                         "render_core_bwd_light_idr"))
             for c in per_step:
-                assert (c["render_core_fwd_light"]
-                        == c["render_core_bwd_light"] == 1), c
-                assert c["render_core_fwd"] == c["render_core_bwd"] == 0, c
+                assert c[fwd] == c[bwd] == 1, c
+                assert not any(c[k] for k in CORE_KERNELS
+                               if k not in (fwd, bwd)), c
+                assert c["rev_fwd"] == c["rev_bwd"] == 0, c
+            if not normal:
+                for m, _ in seen:
+                    assert m["normal_loss"] == m["angular_loss"] == 0.0, m
             for m, _ in seen:
                 assert m["light_mask_loss"] > 0, m
             moved = [float((a.detach() - b).abs().max()) for a, b in zip(
@@ -3221,6 +3309,8 @@ def run_train(device, kind: str = "train") -> dict:
         out = dict(
             launches=launches, launches_per_step=per_step,
             steps=TRAIN_STEPS, rays=tr.batch_size,
+            detach_light=(tr.model_cfg.detach_light_feature if light
+                          else None),
             # 97 samples and 3 eikonal points a ray
             points=tr.batch_size * (tr.model_cfg.sampler.total_fg_samples
                                     - 1 + 3),
@@ -3678,18 +3768,22 @@ def run_cli(tmp) -> dict:
                 image=list(depth.shape))
 
 
-def run_cli_idr() -> dict:
-    """The idr config (`IDR_EDIT`, written to a temporary directory) through
-    the CLIs on scan1 as the checkout holds it: the train CLI for 2 steps,
-    then on its newest checkpoint `--test_mode render`, `interpolate`
-    (`--inter_id 0 3 --n_frames 2`) and `mesh` (`--resolution 128`): K3-idr
-    launched by the render and the frames, never K3, and K1 alone by the
-    mesh."""
+def run_cli_idr(light: bool = False) -> dict:
+    """The idr config (`IDR_EDIT`, written to a temporary directory), or
+    with `light` the light-idr config (`light_idr_conf_path`, with seeded
+    light masks), through the CLIs on scan1 as the checkout holds it: the
+    train CLI for 2 steps, then on its newest checkpoint `--test_mode
+    render`, `interpolate` (`--inter_id 0 3 --n_frames 2`) and `mesh`
+    (`--resolution 128`): K3-idr (K3-light-idr) launched by the render and
+    the frames, no other K3, and K1 alone by the mesh."""
     with tempfile.TemporaryDirectory() as tmp:
+        conf = (light_idr_conf_path(tmp) if light
+                else edited_conf_path(tmp, IDR_EDIT, "quality_idr.yml"))
         cli = [sys.executable, "-m", "i2sdf_tpu_torch.main", "--scan_id",
-               "1", "--data_root", images_only_root(tmp), "--log_every", "1",
-               "--conf", edited_conf_path(tmp, IDR_EDIT, "quality_idr.yml"),
+               "1", "--data_root", images_only_root(tmp, light),
+               "--log_every", "1", "--conf", conf,
                "--exps_folder", str(Path(tmp) / "exps")]
+        label = "light_idr" if light else "idr"
         runs, launches = [], {}
         for name, extra in (
                 ("train", ["--max_steps", "2"]),
@@ -3703,7 +3797,7 @@ def run_cli_idr() -> dict:
             proc = subprocess.run(cli + extra, cwd=ROOT, capture_output=True,
                                   text=True, timeout=600)
             logs = [ln for ln in proc.stdout.splitlines() if "[scan1 " in ln]
-            runs.append(dict(args=["idr"] + extra, rc=proc.returncode,
+            runs.append(dict(args=[label] + extra, rc=proc.returncode,
                              seconds=time.perf_counter() - t0,
                              tail=logs or proc.stdout.strip().splitlines()
                              [-3:]))
@@ -3713,13 +3807,17 @@ def run_cli_idr() -> dict:
                 launches[name] = cli_launches(proc.stdout)
                 assert "[INFO] restored checkpoint @2" in proc.stdout
         assert len(runs[0]["tail"]) == 2, runs[0]
+        if light:
+            assert all("light_mask=" in ln for ln in runs[0]["tail"]), runs
+        want = LIGHT_IDR_EVAL_KERNELS if light else IDR_EVAL_KERNELS
         for name in ("render", "interpolate"):
             got = launches[name]
-            assert all(got.get(k) for k in IDR_EVAL_KERNELS), got
+            assert all(got.get(k) for k in want), got
             assert not any(got.get(k) for k in CORE_KERNELS
-                           if k != "render_core_fwd_idr"), got
+                           if k != want[-1]), got
         assert set(launches["mesh"]) == {"sdf_mlp_nograd"}, launches
-        exp = Path(tmp) / "exps" / "quality_1" / "version_0"
+        exp = (Path(tmp) / "exps" / ("synthetic_light_1" if light
+                                     else "quality_1") / "version_0")
         depth = np.load(exp / "eval" / "depth" / "0000.npy")
         frames = sorted(os.listdir(exp / "eval" / "interpolate"
                                    / "0000_0003"))
@@ -3729,6 +3827,145 @@ def run_cli_idr() -> dict:
     assert len(verts) > 100 and np.isfinite(verts).all()
     return dict(runs=runs, launches=launches, mesh_verts=len(verts),
                 image=list(depth.shape))
+
+
+IO_STEPS = 4             # the io phase's default train run; --no_fused 2
+IO_VAL = (2, 3)          # the views held out into `val/` (cameras, HDR)
+IO_PROFILE = "2:2"
+IO_NO_FUSED_EVAL = ("sdf_mlp_nograd", "sampler_round", "render_core_fwd")
+
+
+def io_scene(tmp) -> tuple[str, str]:
+    """The io phase's scene and config, written to `tmp`: scan1's images
+    (linked) and cameras, `hdr/` the images taken to linear
+    (`srgb_to_linear`) as `.npy`, `mask/` seeded object masks (a twentieth
+    of the pixels 0), `normal/` seeded view-space normals as `.npy` (so
+    that the flagship's normal losses stay on and its step runs K3/K4),
+    `val/` views `IO_VAL` as linear `.npy` with their cameras as
+    `val_mat_{i}` in a copy of `cameras_normalize.npz`; the config is
+    `synthetic_quality.yml` with `dataset.is_hdr: true` and
+    `loss.mask_weight: 0.1`. Returns (data root, config path)."""
+    src = ROOT / "data" / "synthetic_quality" / "scan1"
+    scan = Path(tmp) / "data" / "synthetic_quality" / "scan1"
+    for sub in ("hdr", "mask", "normal", "val"):
+        (scan / sub).mkdir(parents=True)
+    os.symlink(src / "image", scan / "image")
+    images = imaging.glob_imgs(str(src / "image"), (".png",))
+    rng = np.random.default_rng(SEED + 30)
+    for i, path in enumerate(images):
+        lin = imaging.srgb_to_linear(imaging.load_rgb(path))
+        np.save(scan / "hdr" / f"{i:04d}.npy", lin)
+        H, W = lin.shape[:2]
+        obj = rng.uniform(size=(H, W)) >= 0.05
+        imaging.write_png(str(scan / "mask" / f"{i:04d}.png"),
+                          (obj * 255).astype(np.uint8))
+        nrm = rng.normal(size=(H, W, 3)).astype(np.float32)
+        np.save(scan / "normal" / f"{i:04d}.npy",
+                nrm / np.linalg.norm(nrm, axis=-1, keepdims=True))
+    cams = dict(np.load(src / "cameras_normalize.npz"))
+    for j, i in enumerate(IO_VAL):
+        np.save(scan / "val" / f"{j:04d}.npy",
+                np.load(scan / "hdr" / f"{i:04d}.npy"))
+        cams[f"val_mat_{j}"] = cams[f"world_mat_{i}"]
+    np.savez(scan / "cameras_normalize.npz", **cams)
+    text = TRAIN_CONF.read_text()
+    for old, new in (("dataset:\n", "dataset:\n    is_hdr: true\n"),
+                     ("loss:\n", "loss:\n    mask_weight: 0.1\n")):
+        assert text.count(old) == 1
+        text = text.replace(old, new)
+    conf = Path(tmp) / "quality_io.yml"
+    conf.write_text(text)
+    return str(Path(tmp) / "data"), str(conf)
+
+
+def io_chain(root, conf, exps, fused: bool) -> dict:
+    """The train CLI (with `--is_val`; the default run for `IO_STEPS` steps
+    with `--profile IO_PROFILE`, the `--no_fused` one for 2) and then
+    `--test_mode render --is_val` on its newest checkpoint: their seconds,
+    the render's launches, its `metrics.npz` and (default run) the
+    trace's file and which launches it names."""
+    cli = [sys.executable, "-m", "i2sdf_tpu_torch.main", "--scan_id", "1",
+           "--data_root", root, "--log_every", "1", "--conf", conf,
+           "--exps_folder", exps, "--is_val"]
+    if not fused:
+        cli.append("--no_fused")
+    steps = IO_STEPS if fused else 2
+    runs = []
+    for extra in ((["--max_steps", str(steps)]
+                   + (["--profile", IO_PROFILE] if fused else [])),
+                  ["--test", "--test_mode", "render"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cli + extra, cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        runs.append(dict(args=extra, seconds=time.perf_counter() - t0,
+                         stdout=proc.stdout))
+    logs = [ln for ln in runs[0]["stdout"].splitlines() if "[scan1 " in ln]
+    assert len(logs) == steps and all("mask=" in ln for ln in logs), logs
+    assert ("--no_fused" in runs[0]["stdout"]) != fused
+    exp = Path(exps) / "quality_1" / "version_0"
+    val = [ln for ln in runs[0]["stdout"].splitlines()
+           if ln.startswith(f"[val @{steps}]")]
+    assert val and "lpips-rf-torch=" in val[0], runs[0]["stdout"][-2000:]
+    with np.load(exp / "eval" / "test" / "metrics.npz") as z:
+        metrics = {k: z[k].tolist() for k in z.files}
+    assert set(metrics) == {"psnr", "ssim", "lpips-rf-torch"}, metrics
+    assert all(len(v) == len(IO_VAL) and all(map(math.isfinite, v))
+               for v in metrics.values()), metrics
+    assert (exp / "plots" / "hdr").is_dir()
+    out = dict(seconds=[r["seconds"] for r in runs], val_line=val[0],
+               launches=cli_launches(runs[1]["stdout"]), metrics=metrics,
+               train_tail=logs[-1])
+    if fused:
+        traces = sorted((exp / "profile").glob("*.json"))
+        assert len(traces) == 1, traces
+        text = traces[0].read_text()
+        names = {k: text.count(f'"{k}"') for k in (
+            "render_core_fwd", "render_core_bwd", "validation")}
+        assert names["render_core_fwd"] and names["render_core_bwd"], names
+        out.update(trace=traces[0].name, trace_bytes=len(text),
+                   trace_ranges=names,
+                   trace_device_kernels=dict(
+                       k3=text.count("render_core_kernel"),
+                       k4=text.count("k4_sweep_kernel")))
+    return out
+
+
+def run_io() -> dict:
+    """Phase io: `io_scene`'s HDR + mask + `val/` scene through the CLIs,
+    the default chain and the `--no_fused` chain side by side (two
+    processes at a time on the card): each trains with `--is_val` and
+    renders the held-out views, writing `metrics.npz` (PSNR, SSIM and
+    LPIPS under the proxy's name `lpips-rf-torch`); the default run
+    writes a trace that names K3's and K4's launches, and its render
+    launches K1, K2 and K3, which the `--no_fused` render never does."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root, conf = io_scene(tmp)
+        scene_s = time.perf_counter() - t0
+        res = side_by_side(**{
+            name: functools.partial(io_chain, root, conf,
+                                    str(Path(tmp) / f"exps_{name}"),
+                                    name == "default")
+            for name in ("default", "no_fused")})
+    (on, _), (off, _) = res["default"], res["no_fused"]
+    assert all(on["launches"].get(k) for k in IO_NO_FUSED_EVAL), on
+    assert not any(off["launches"].get(k) for k in IO_NO_FUSED_EVAL), off
+    return dict(scene_s=scene_s, default=on, no_fused=off)
+
+
+def side_by_side(**phases) -> dict:
+    """Each named phase function run in a thread of its own, all at once:
+    {name: (its result, its seconds)}; the first failure raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(phases)) as pool:
+        futs = {name: pool.submit(timed, fn) for name, fn in phases.items()}
+        return {name: f.result() for name, f in futs.items()}
 
 
 def run_cli_light() -> list:
@@ -3810,10 +4047,10 @@ def main() -> int:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
-    emit("device", t0, name=name, count=count, nvidia_smi=smi,
+    emit("device", t0, name=kind, count=count, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
     print(smi, flush=True)
 
@@ -3975,9 +4212,42 @@ def main() -> int:
     trb = run_train(device, "bg")
     emit("train_bg", t0, **trb)
 
+    # phase light_idr: K3-light-idr and K4-light-idr (both detach values)
+    # at the light-idr config's eval chunk and training batch (init,
+    # perturbed, odd, signal), its eval view and chunk, 6 steps for each
+    # normal setting (detach on with the normal losses, off without) and
+    # its CLIs
     t0 = time.perf_counter()
-    cli_idr = run_cli_idr()
-    emit("cli_idr", t0, **cli_idr)
+    liconf = light_idr_conf(train=False)
+    licfg, limodel = seeded_model(liconf, device)
+    rows.append(check_k3(limodel, licfg, liconf, device))
+    torch.cuda.empty_cache()
+    for detach in (True, False):
+        rows.append(check_k4(limodel, licfg, liconf, device, detach,
+                             resources=k4_res))
+        torch.cuda.empty_cache()
+    slli = run_slice(limodel, liconf, device, want=LIGHT_IDR_EVAL_KERNELS,
+                     never=CORE_KERNELS[:6] + ("rev_fwd",))
+    cmpli = compare_chunk(limodel, liconf, device)
+    del limodel
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trli = run_train(device, "light_idr")
+    torch.cuda.reset_peak_memory_stats()
+    trlin = run_train(device, "light_idr_nonormal")
+    emit("light_idr", t0, eval=dict(**slli, compare=cmpli), train=trli,
+         train_nonormal=trlin)
+
+    # the CLI chains of the light-idr config, the io scene (two chains) and
+    # the idr config, side by side: each is its own processes, and the
+    # card holds them all at once (their seconds overlap)
+    t0 = time.perf_counter()
+    clis = side_by_side(cli_light_idr=lambda: run_cli_idr(light=True),
+                        io=run_io, cli_idr=run_cli_idr)
+    for phase, (res, secs) in clis.items():
+        emit(phase, time.perf_counter() - secs, side_by_side=True, **res)
+    emit("clis_side_by_side", t0, phases=list(clis))
+    io = clis["io"][0]
 
     with tempfile.TemporaryDirectory() as cli_tmp:
         t0 = time.perf_counter()
@@ -4000,6 +4270,7 @@ def main() -> int:
     # the `sdf_outputs` phase's
     path_of = {k: ("sdf_outputs" if k in SDF_OUTPUTS_KERNELS else
                    "train_nonormal" if k.startswith("rev_") else
+                   "train_light_idr" if k.endswith("_light_idr") else
                    "train_light" if k.endswith("_light") else
                    "train_idr" if k.endswith("_idr") else
                    "train_perray" if k == "conv_check" else
@@ -4008,7 +4279,8 @@ def main() -> int:
     paths = {"train": tr["launches"], "train_nonormal": trn["launches"],
              "train_light": trl["launches"], "train_perray": trp["launches"],
              "train_bg": trb["launches"], "sdf_outputs": so["launches"],
-             "train_idr": tri["launches"]}
+             "train_idr": tri["launches"],
+             "train_light_idr": trli["launches"]}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"launches": {"eval": sl["launches"],
@@ -4025,6 +4297,13 @@ def main() -> int:
                                    "train_idr_nonormal": trin["launches"],
                                    "eval_sh": slh["launches"],
                                    "train_sh": trs["launches"],
+                                   "eval_light_idr": slli["launches"],
+                                   "train_light_idr": trli["launches"],
+                                   "train_light_idr_nonormal":
+                                       trlin["launches"],
+                                   "io_eval": io["default"]["launches"],
+                                   "io_eval_no_fused":
+                                       io["no_fused"]["launches"],
                                    "sdf_outputs": so["launches"],
                                    "mesh": mesh["init"]["launches"],
                                    "mesh_perturbed":
@@ -4045,12 +4324,14 @@ def main() -> int:
     on_mesh["rev_fwd"]["sh_eval_chunk_ms"] = sh_rows["sh_eval_chunk"]["ms"]
     on_mesh["render_core_fwd_idr"] = dict(
         launches_eval_idr=sli["launches"]["render_core_fwd_idr"])
+    on_mesh["render_core_fwd_light_idr"] = dict(
+        launches_eval_light_idr=slli["launches"]["render_core_fwd_light_idr"])
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          "launches": paths[path_of[r["name"]]][r["name"]],
          "launches_path": path_of[r["name"]], **on_mesh.get(r["name"], {})}
         for r in per_kernel.values()]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0
 

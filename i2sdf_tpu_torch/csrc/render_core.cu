@@ -37,6 +37,12 @@
 // that hold it write it (unclamped, bf16) into the tile's columns after
 // PE(dirs), and the raw xyz go beside it from the encoding's cache; K
 // stays within the tile's 320 columns (289 at the flagship's widths).
+// Both together (`kLight` and `kIdr`, the light-mask config with VolSDF's
+// DTU radiance net) keep apart: the light input is tile 1's primal rows
+// (relu(features), zero from F up to the light net's K, at most 256
+// columns), the idr columns tile 0's (F + dd .. F + dd + 5, past the
+// features), and the light net runs after the radiance net is done with
+// tile 0; the shared memory is the same as either alone.
 // The block streams every layer's stage images through the ring (a
 // producer warp issues them). Only sdf, grad, rgb (and the mask) reach
 // device memory.
@@ -298,7 +304,7 @@ extern "C" int i2sdf_render_core_fwd(
   if (n <= 0) return 0;
   if (n_fwd < 3 || n_fwd > kMaxLayers || n_rad < 1 || n_rad > kMaxLayers ||
       n_l < 0 || n_l > kMaxLayers || 3 + 6 * mx > wg::kPeStride ||
-      3 + 6 * md > wg::kPeStride || (idr && n_l > 0))
+      3 + 6 * md > wg::kPeStride)
     return (int)cudaErrorInvalidValue;
   const Plan fwd = read_plan(fwd_desc, n_fwd), rad = read_plan(rad_desc, n_rad);
   const Plan lp = read_plan(l_desc, n_l);
@@ -307,6 +313,10 @@ extern "C" int i2sdf_render_core_fwd(
   // idr: the radiance input's 6 columns after PE(dirs) inside tile 0
   if (idr && (F + 3 + 6 * md + 6 > rad.L[0][kK] || rad.L[0][kK] > 320))
     return (int)cudaErrorInvalidValue;
+  if (n_l > 0 && idr)
+    return (int)launch<true, true>(
+        x, dirs, n, ws, b_sdf, fwd, wr, b_rad, rad, (const unsigned char*)w_l,
+        b_l, lp, mx, md, F, sdf_out, grad_out, rgb_out, lmask_out, stream);
   if (n_l > 0)
     return (int)launch<true, false>(
         x, dirs, n, ws, b_sdf, fwd, wr, b_rad, rad, (const unsigned char*)w_l,

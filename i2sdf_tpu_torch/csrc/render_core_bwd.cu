@@ -93,6 +93,19 @@
 // steps branch on `gin`, uniform over the block, outside every sweep's
 // loop: a template flag would compile the whole sweep once more (K4's
 // source sets the build's length).
+//
+// The light head beside idr (the TPU kernel's `n_l` with `idr`,
+// `fused_train.py:267-446`) is the light sweep on the idr branch, in
+// this order: the light head borrows the radiance input's operand region
+// and gives T's feature chunks back (it touches no column past the
+// features), and only then do PE(dirs) and the idr columns go into T, so
+// neither overwrites the other; the radiance forward then stores the
+// whole input over the region. With `detach_light` off the two
+// cotangents into the SDF output layer keep their own staging: the
+// light's gated feature cotangent in the scratch (`kRegClg`, read back
+// into c_feat), idr's gradient-column cotangent summed into c_grad in
+// shared memory (`Smem::cot`), which the upward sweep reads. The shared
+// memory is K4-light's: idr adds no staging of its own.
 #include "sdf_sweep.cuh"
 
 namespace i2sdf {
@@ -558,7 +571,7 @@ extern "C" int i2sdf_render_core_bwd(
       n_rad < 1 || n_rad > kMaxLayers || n_l < 0 || n_l > kMaxLayers ||
       n_jobs > kMaxWJobs || n_fwd - 1 > kRegLayers || n_rad > kRegLayers ||
       3 + 6 * mx > 64 || 3 + 6 * md > 64 ||
-      (gin != nullptr) != (wgr != nullptr) || (gin != nullptr && n_l > 0))
+      (gin != nullptr) != (wgr != nullptr))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x;

@@ -1,16 +1,21 @@
 """Reconstruction dataset (counterpart of `i2sdf_tpu/data/recon.py`).
 
-The scan directory layout is the reference's: `image/`, optional `mask/`,
-`light_mask/`, `depth/`, `normal/`, and `cameras_normalize.npz` with
-`world_mat_i`/`scale_mat_i` pairs. Depth is divided by `scale_mat[2,2]`
-and valid in (1e-3, 6); normals are rotated from view to world; the
-bubble point cloud is the valid depth unprojected, with `pointlinks`
-(flat pixel -> point, -1 where invalid) and `pixlinks` (point -> flat
-pixel). A modality whose directory is missing is switched off, as the JAX
-loader does. Images are PNG (`utils/imaging.py`); depth and normal maps
-EXR or `.npy`; light masks grey PNG or `.npy` (`load_mask`), read for the
-light-mask loss (JAX `recon.py:133-139`). Object masks are not read yet:
-their loss is off in the configs this port runs.
+The scan directory layout is the reference's: `image/` (or `hdr/` with
+`is_hdr`), optional `mask/`, `light_mask/`, `depth/`, `normal/`, and
+`cameras_normalize.npz` with `world_mat_i`/`scale_mat_i` pairs. Depth is
+divided by `scale_mat[2,2]` and valid in (1e-3, 6); with `noise_scale`
+the sensor-noise ablation adds `np.random.default_rng(0)`'s draws, image
+by image in the JAX loader's order (`recon.py:153-162`), to the valid
+depth (the validity window is the clean depth's); normals are rotated
+from view to world; the bubble point cloud is the (noisy) valid depth
+unprojected, with `pointlinks` (flat pixel -> point, -1 where invalid)
+and `pixlinks` (point -> flat pixel). A modality whose directory is
+missing is switched off, as the JAX loader does; object masks
+(`use_mask`, for the mask BCE) are ones then (`recon.py:118-128`).
+Images are PNG, HDR images `.npy` or EXR (`utils/imaging.py`); depth and
+normal maps EXR or `.npy`; light and object masks grey PNG or `.npy`
+(`load_mask`), the light masks read for the light-mask loss (JAX
+`recon.py:133-139`).
 
 Every flat tensor is moved to the device once (`DeviceArrays`), and each
 step gathers its ray batch there (`sample_batch`).
@@ -35,6 +40,7 @@ class DeviceArrays:
     intrinsics: torch.Tensor           # (n, 4, 4)
     pose: torch.Tensor                 # (n, 4, 4)
     rgb: torch.Tensor                  # (n, HW, 3)
+    mask: torch.Tensor | None = None          # (n, HW, 1)
     light_mask: torch.Tensor | None = None    # (n, HW, 1)
     depth: torch.Tensor | None = None         # (n, HW)
     depth_mask: torch.Tensor | None = None    # (n, HW) bool
@@ -72,15 +78,14 @@ class ReconData:
                                          f"scan{scan_id}")
         if not os.path.isdir(self.instance_dir):
             raise FileNotFoundError(f"no scan directory {self.instance_dir}")
-        if is_hdr or use_mask or noise_scale > 0:
-            raise ValueError("HDR images, masks and depth noise are not "
-                             "ported yet")
+        self.is_hdr = is_hdr
+        image_dir = os.path.join(self.instance_dir,
+                                 "hdr" if is_hdr else "image")
         image_paths = imaging.glob_imgs(
-            os.path.join(self.instance_dir, "image"), (".png",))
+            image_dir, imaging.HDR_EXTENSIONS if is_hdr else (".png",))
         self.n_images = len(image_paths)
         if not self.n_images:
-            raise FileNotFoundError(f"no images under {self.instance_dir}"
-                                    "/image")
+            raise FileNotFoundError(f"no images under {image_dir}")
         cams = np.load(os.path.join(self.instance_dir,
                                     "cameras_normalize.npz"))
         self.scale_mats = [cams[f"scale_mat_{i}"].astype(np.float32)
@@ -94,13 +99,24 @@ class ReconData:
             pose.append(c2w)
         self.intrinsics_all = np.stack(intr)
         self.pose_all = np.stack(pose)
-        rgb = [imaging.load_rgb(p) for p in image_paths]
+        rgb = [imaging.load_rgb(p, is_hdr) for p in image_paths]
         self.img_res = list(rgb[0].shape[:2])
         self.rgb_images = np.stack([r.reshape(-1, 3) for r in rgb])
         self.total_pixels = self.rgb_images.shape[1]
         H, W = self.img_res
         jj, ii = np.meshgrid(np.arange(W), np.arange(H))
         self.uv = np.stack([jj, ii], -1).reshape(-1, 2).astype(np.float32)
+
+        self.use_mask = use_mask
+        self.mask_images = None
+        if use_mask:
+            paths = imaging.glob_imgs(os.path.join(self.instance_dir,
+                                                   "mask"))
+            self.mask_images = (
+                np.stack([imaging.load_mask(p).reshape(-1, 1)
+                          for p in paths]) if paths
+                else np.ones((self.n_images, self.total_pixels, 1),
+                             np.float32))
 
         lmask_dir = os.path.join(self.instance_dir, "light_mask")
         self.use_lightmask = use_lightmask and os.path.isdir(lmask_dir)
@@ -117,10 +133,18 @@ class ReconData:
         self.depth_images = self.depth_masks = None
         self.pointcloud = self.pointlinks = self.pixlinks = None
         if self.use_depth or self.use_bubble:
-            depths = [imaging.load_depth(p).reshape(-1)
-                      / self.scale_mats[i][2, 2]
-                      for i, p in enumerate(imaging.glob_imgs(depth_dir))]
-            self.set_depth(np.stack(depths).astype(np.float32))
+            depths = np.stack([
+                imaging.load_depth(p).reshape(-1) / self.scale_mats[i][2, 2]
+                for i, p in enumerate(imaging.glob_imgs(depth_dir))])
+            masks = (depths > 1e-3) & (depths < 6.0)
+            if noise_scale > 0:
+                rng = np.random.default_rng(0)
+                for i, depth in enumerate(depths):
+                    mu = 0.0001125 * depth ** 2 + 0.0048875
+                    sigma = 0.002925 * depth ** 2 + 0.003325
+                    noise = rng.normal(size=depth.shape) * sigma + mu
+                    depths[i] = (depth + noise * noise_scale) * masks[i]
+            self.set_depth(depths.astype(np.float32), masks)
 
         normal_dir = os.path.join(self.instance_dir, "normal")
         self.use_normal = use_normal and os.path.isdir(normal_dir)
@@ -130,10 +154,13 @@ class ReconData:
                 imaging.load_normal(p).reshape(-1, 3)
                 for p in imaging.glob_imgs(normal_dir)]))
 
-    def set_depth(self, depth: np.ndarray) -> None:
-        """Depth (n, HW) in scene units: the validity window, and with the
-        bubble loss on, the point cloud and its links."""
-        masks = (depth > 1e-3) & (depth < 6.0)
+    def set_depth(self, depth: np.ndarray,
+                  masks: np.ndarray | None = None) -> None:
+        """Depth (n, HW) in scene units and its validity (the window (1e-3,
+        6) of `depth` when not given), and with the bubble loss on, the
+        point cloud and its links."""
+        if masks is None:
+            masks = (depth > 1e-3) & (depth < 6.0)
         self.depth_images = depth.astype(np.float32)
         self.depth_masks = masks
         if not self.use_bubble:
@@ -182,7 +209,7 @@ class ReconData:
         return DeviceArrays(
             uv=put(self.uv), intrinsics=put(self.intrinsics_all),
             pose=put(self.pose_all), rgb=put(self.rgb_images),
-            light_mask=put(self.lightmask_images),
+            mask=put(self.mask_images), light_mask=put(self.lightmask_images),
             depth=put(self.depth_images), depth_mask=put(self.depth_masks),
             normal=put(self.normal_images),
             normal_mask=put(self.normal_masks),
@@ -201,6 +228,8 @@ def sample_batch(data: DeviceArrays, idx: torch.Tensor):
               "intrinsics": data.intrinsics[img],
               "pose": data.pose[img]}
     gt = {"rgb": data.rgb[img, pidx]}
+    if data.mask is not None:
+        gt["mask"] = data.mask[img, pidx]
     if data.light_mask is not None:
         gt["light_mask"] = data.light_mask[img, pidx]
     if data.depth is not None:

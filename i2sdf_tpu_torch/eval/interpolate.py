@@ -58,11 +58,12 @@ def frames_to_video(frame_dir: str, out_path: str, frame_rate: int) -> bool:
 
 def run_interpolation(model, conf, exp_dir: str, id0: int, id1: int,
                       n_frames: int = 60, frame_rate: int = 24,
-                      data_root: str = "data") -> str:
+                      data_root: str = "data", fused: bool = True) -> str:
     """Render `n_frames` views from view id0's pose to id1's into
     `eval/interpolate/{id0:04d}_{id1:04d}/` (RGB) and `..._normal/`
     (camera-space normals), then the videos; returns the RGB frames'
-    directory."""
+    directory. `fused=False` renders through the plain versions
+    (`--no_fused`)."""
     device = next(model.parameters()).device
     ds_conf = dict(conf.dataset)
     scan_id = ds_conf.get("scan_id", 0)
@@ -79,7 +80,8 @@ def run_interpolation(model, conf, exp_dir: str, id0: int, id1: int,
         os.makedirs(d, exist_ok=True)
 
     render_image = make_eval_render_fn(
-        model, chunk_size=conf.train.get("split_n_pixels", 12000))
+        model, chunk_size=conf.train.get("split_n_pixels", 12000),
+        fused=fused)
     uv = torch.from_numpy(pd.uv).to(device)
     K = torch.from_numpy(pd.intrinsics_all[0]).to(device)
     for i, pose in enumerate(poses):

@@ -27,6 +27,7 @@ material stage is not ported yet; the CLI refuses `--use_material`).
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 
@@ -91,10 +92,10 @@ def grid_points(axes, start: int, stop: int, frame=None) -> torch.Tensor:
 
 @torch.no_grad()
 def _eval_sdf_grid(pack: sdf_mlp.SdfMlpPack, axes, frame=None,
-                   batch: int = CHUNK) -> torch.Tensor:
+                   batch: int = CHUNK, fused: bool = True) -> torch.Tensor:
     """The SDF over the grid of the host `axes` (optionally in `frame`,
-    host (vecs, mean)), chunk by chunk through K1: (nx, ny, nz) f32 on the
-    net's device."""
+    host (vecs, mean)), chunk by chunk through K1 (its plain version with
+    `fused=False`, `--no_fused`): (nx, ny, nz) f32 on the net's device."""
     device = next(pack.net.parameters()).device
     dev = lambda a: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a, np.float32)).to(device)
@@ -106,8 +107,9 @@ def _eval_sdf_grid(pack: sdf_mlp.SdfMlpPack, axes, frame=None,
     out = torch.empty(n, dtype=torch.float32, device=device)
     for start in range(0, n, batch):
         stop = min(start + batch, n)
-        out[start:stop] = sdf_mlp.sdf_mlp_nograd(
-            pack, grid_points(axes, start, stop, frame))
+        pts = grid_points(axes, start, stop, frame)
+        out[start:stop] = (sdf_mlp.sdf_mlp_nograd(pack, pts) if fused
+                           else sdf_mlp.sdf_mlp_plain(pack.net, pts))
     return out.view(shape)
 
 
@@ -129,13 +131,16 @@ def _march(grid: np.ndarray, axes):
         spacing=tuple(a[1] - a[0] for a in axes))
 
 
-def _grid_on_host(pack, axes, frame, rec: dict, key: str) -> np.ndarray:
+def _grid_on_host(pack, axes, frame, rec: dict, key: str,
+                  fused: bool = True) -> np.ndarray:
     """The grid's SDF through K1, copied to the host once; its seconds
     (`{key}_grid_s`, the device's synchronized) and the copy's
     (`{key}_copy_s`) and what it made (`rec[key]`) go into rec."""
     clock = time.perf_counter
     t0 = clock()
-    grid = _eval_sdf_grid(pack, axes, frame)
+    evaluate = (_eval_sdf_grid if fused
+                else functools.partial(_eval_sdf_grid, fused=False))
+    grid = evaluate(pack, axes, frame)
     if grid.is_cuda:
         torch.cuda.synchronize(grid.device)
     t1 = clock()
@@ -149,14 +154,16 @@ def _grid_on_host(pack, axes, frame, rec: dict, key: str) -> np.ndarray:
 
 def extract_mesh(net, resolution: int = 512, grid_boundary=(-1.5, 1.5),
                  scale_mat: np.ndarray | None = None,
-                 coarse_resolution: int = 100, record: dict | None = None):
+                 coarse_resolution: int = 100, record: dict | None = None,
+                 fused: bool = True):
     """Full two-stage extraction of the port's `ImplicitNet`; returns
     (verts, tris) in world scale or None when no surface crosses zero.
 
     With `record` (a dict), each stage's seconds (host clock) and what it
     made are written into it: `coarse` and `fine` (axes, frame, the host
     grid), `coarse_mesh`, `surface`, `frame` (vecs, mean), `points` and
-    `chunks` (K1's launches on a CUDA net)."""
+    `chunks` (K1's launches on a CUDA net). `fused=False` takes K1's plain
+    version (`--no_fused`)."""
     clock = time.perf_counter
     pack = sdf_mlp.SdfMlpPack(net)
     rec = {} if record is None else record
@@ -164,7 +171,7 @@ def extract_mesh(net, resolution: int = 512, grid_boundary=(-1.5, 1.5),
 
     # stage 1: coarse grid -> PCA frame of the surface
     axes = _uniform_grid(coarse_resolution, grid_boundary)
-    grid = _grid_on_host(pack, axes, None, rec, "coarse")
+    grid = _grid_on_host(pack, axes, None, rec, "coarse", fused)
     if grid.min() > 0 or grid.max() < 0:
         return None
     t0 = clock()
@@ -180,7 +187,7 @@ def extract_mesh(net, resolution: int = 512, grid_boundary=(-1.5, 1.5),
                surface=surf, frame=(vecs, mean))
 
     # stage 2: fine grid in the aligned frame, rotated back to world
-    grid = _grid_on_host(pack, axes, (vecs, mean), rec, "fine")
+    grid = _grid_on_host(pack, axes, (vecs, mean), rec, "fine", fused)
     if grid.min() > 0 or grid.max() < 0:
         return None
     t0 = clock()
@@ -271,7 +278,7 @@ def _cameras(instance_dir: str, cams):
 
 def run_mesh_eval(model, conf, exp_dir: str, data_root: str = "data",
                   resolution: int = 512, score: bool = False,
-                  far_clip: float = 5.0) -> str | None:
+                  far_clip: float = 5.0, fused: bool = True) -> str | None:
     """Full `--test_mode mesh` flow incl. optional scoring; returns the
     PLY path (parity recon.py:92-129). Writes `eval/mesh/scan{N}.ply` and
     `.html` (the training cameras' frusta), and with `score` the refused
@@ -290,7 +297,7 @@ def run_mesh_eval(model, conf, exp_dir: str, data_root: str = "data",
     result = extract_mesh(
         model.implicit, resolution=resolution,
         grid_boundary=tuple(conf.plot.grid_boundary), scale_mat=scale_mat,
-        record=record)
+        record=record, fused=fused)
     seconds = time.perf_counter() - t0
     print("[INFO] mesh extraction: " + " ".join(
         f"{k}={record[k]:.3f}" for k in (

@@ -3,10 +3,10 @@ extract and score a mesh, interpolate views.
 
     python -m i2sdf_tpu_torch.main --conf configs/synthetic_quality.yml \
         --scan_id 1 [--max_steps N] [--resume] [--val_mesh] [--seed 7] \
-        [--device cpu]
+        [--profile START[:COUNT]] [--no_fused] [--device cpu]
     python -m i2sdf_tpu_torch.main --conf configs/synthetic.yml --test \
-        --test_mode render [--indices 0 3] [--ckpt last|N|model.pt] \
-        [--seed 7] [--device cpu]
+        --test_mode render [--indices 0 3] [--is_val] \
+        [--ckpt last|N|model.pt] [--seed 7] [--no_fused] [--device cpu]
     python -m i2sdf_tpu_torch.main --conf configs/synthetic_quality.yml \
         --scan_id 1 --test --test_mode mesh [--resolution 512] [--score] \
         [--far_clip 5.0]
@@ -29,8 +29,18 @@ with `--score` the refused meshes and `metrics.txt` against the scan's
 `mesh.ply`) and `interpolate` (`eval/interpolate.py`: `--n_frames`
 frames from view `--inter_id`'s first pose to its second, a video at
 `--frame_rate` when ffmpeg is on the path) are ported; `relight`,
-`relight_video`, `--use_material` and `--is_val` are refused. On the
-card a test mode ends by printing its kernels' launch counts
+`relight_video` and `--use_material` are refused. `--is_val` renders
+the held-out `val/` views (`val_mat_i @ scale_mat_0`) into `eval/test/`;
+as in the JAX CLI, training takes the flag and validates on the training
+views all the same (the JAX trainer's `PlotData` is handed the training
+arrays). `--profile START[:COUNT]` traces COUNT training steps (5 if not
+given) from step START into `<exp_dir>/profile/` (`utils/profiling.py`).
+`--no_fused` is the JAX CLI's (`fused_sampler=False`): the sampler's
+SDF and rounds in training, the whole eval render (sampler, forward and
+background) and the mesh's grids run their plain PyTorch versions, on
+the card too; the training render core and background stay on their
+kernels, as in the JAX package. Nothing else turns the plain versions
+on. On the card a test mode ends by printing its kernels' launch counts
 (`ops/kernels::launch_counts`). The mesh and interpolation flags'
 defaults are the JAX CLI's. The model runs on the card unless `--device
 cpu` is given. Test weights come from the experiment's checkpoints, as
@@ -42,8 +52,9 @@ checkpoint with `i2sdf_tpu_torch.params.from_jax_params`, or a training
 checkpoint). When none is found the CLI exits with an error; it never
 evaluates the seeded init. The experiment's version is `--version`, else
 a `version_N` in the `--conf` path, else the newest one (a new one for
-training without `--resume`). `--seed` defaults to None, which means the
-config's `seed:` key, or 0: an explicit `--seed` always wins.
+training without `--resume`). The seed is the JAX CLI's
+(`i2sdf_tpu/main.py:63,160`): `--seed` defaults to 42, and a config's
+`seed:` key wins unless `--seed` is given another value.
 """
 
 from __future__ import annotations
@@ -91,13 +102,25 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="'last' or 'latest' (the experiment's newest "
                         "checkpoint), a step N, or a .pt state_dict path")
     p.add_argument("--resolution", type=int, default=512)
-    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda")
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--use_material", action="store_true")
+    p.add_argument("--no_fused", action="store_true",
+                   help="run the sampler (training) and the eval render "
+                        "through their plain PyTorch versions")
+    p.add_argument("--profile", default=None, metavar="START[:COUNT]",
+                   help="trace COUNT training steps (default 5) from step "
+                        "START into <exp_dir>/profile/")
     return p
+
+
+def resolve_seed(flag: int, conf) -> int:
+    """The JAX CLI's precedence: the config's `seed:` wins unless the flag
+    differs from its default, 42."""
+    return flag if flag != 42 or "seed" not in conf else conf.seed
 
 
 def resolve_exp_dir(args, conf, new_version: bool = False) -> str:
@@ -153,8 +176,6 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     if args.test and args.test_mode in ("relight", "relight_video"):
         raise SystemExit(f"--test_mode {args.test_mode} is not ported yet")
-    if args.is_val:
-        raise SystemExit("--is_val (held-out val/ cameras) is not ported yet")
     if args.use_material:
         raise SystemExit("--use_material (the material stage) is not ported "
                          "yet")
@@ -163,7 +184,13 @@ def main(argv=None) -> int:
         raise SystemExit("no CUDA device; pass --device cpu to run the plain "
                          "PyTorch path on the CPU")
     conf = load_cfg(args.conf)
-    seed = args.seed if args.seed is not None else conf.get("seed", 0)
+    seed = resolve_seed(args.seed, conf)
+    fused = not args.no_fused
+    if not fused:
+        print("[INFO] --no_fused: the sampler and the eval render run their "
+              "plain PyTorch versions (kernels off: sdf_mlp_nograd, "
+              "sampler_round, conv_check, render_core_fwd*, rev_fwd at "
+              "eval, bg_core_fwd at eval)")
     exp_dir = resolve_exp_dir(
         args, conf, new_version=not args.test and not args.resume)
     os.makedirs(exp_dir, exist_ok=True)
@@ -175,9 +202,10 @@ def main(argv=None) -> int:
         trainer = ReconstructionTrainer(conf, exp_dir,
                                         data_root=args.data_root,
                                         device=device, seed=seed,
-                                        val_mesh=args.val_mesh)
+                                        val_mesh=args.val_mesh,
+                                        fused_sampler=fused)
         trainer.fit(max_steps=args.max_steps, resume=args.resume,
-                    log_every=args.log_every)
+                    log_every=args.log_every, profile=args.profile)
         return 0
     path, step = resolve_ckpt(args.ckpt, exp_dir)
     cfg = I2SDFConfig.from_cfgnode(conf.model)
@@ -186,16 +214,17 @@ def main(argv=None) -> int:
           else f"[INFO] weights: {path}")
     if args.test_mode == "render":
         run_render_eval(model, conf, exp_dir, data_root=args.data_root,
-                        indices=args.indices, full_res=args.full_res)
+                        indices=args.indices, full_res=args.full_res,
+                        is_val=args.is_val, fused=fused)
     elif args.test_mode == "mesh":
         run_mesh_eval(model, conf, exp_dir, data_root=args.data_root,
                       resolution=args.resolution, score=args.score,
-                      far_clip=args.far_clip)
+                      far_clip=args.far_clip, fused=fused)
     else:
         run_interpolation(model, conf, exp_dir, id0=args.inter_id[0],
                           id1=args.inter_id[1], n_frames=args.n_frames,
                           frame_rate=args.frame_rate,
-                          data_root=args.data_root)
+                          data_root=args.data_root, fused=fused)
     if device.type == "cuda":
         print("[INFO] kernel launches: " + json.dumps(
             {k: v for k, v in kernels.launch_counts().items() if v}))

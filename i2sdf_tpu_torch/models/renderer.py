@@ -18,7 +18,9 @@ and takes one of three routes, chosen as the JAX renderer chooses
   able to take the nets: K3 forward and K4 backward, on the render points
   and the eikonal points folded into one batch with zero directions
   (`renderer.py:345-377`); with idr their idr kernels,
-  `render_core_fwd_idr` / `render_core_bwd_idr`;
+  `render_core_fwd_idr` / `render_core_bwd_idr`, and with the light head
+  beside idr `render_core_fwd_light_idr` / `render_core_bwd_light_idr`
+  (`renderer.py:362-369`);
 * the gradient wanted, the render core not able (a spherical-harmonics
   view encoding): the render points through K5 forward and K6 backward
   (`get_rev_op`, `renderer.py:378-387`), the radiance net in plain
@@ -55,8 +57,9 @@ MLPs (K8 forward and K9 backward on the card, on every route), with
 
 The eval render takes K3 where the render core takes the nets, else K5
 on the chunk's points (`renderer.py:337-343`) and the radiance net in
-plain PyTorch. Still refused, with a message: the Fourier view encoding
-(`models/mlp.py`), the light head beside the idr-mode radiance net.
+plain PyTorch; with the light head beside the idr-mode radiance net K3's
+light-idr kernel (`renderer.py:326-334`). Still refused, with a message:
+the Fourier view encoding (`models/mlp.py`).
 
 Compute is f32 in the plain path on either device; on the card the hot
 functions run as CUDA kernels with bf16 operands and f32 accumulation
@@ -111,7 +114,12 @@ class I2SDFConfig:
         """Build from a `model:` config section. Everything is computed in
         f32 (the reference's `compute_dtype` key is not read: its TPU
         default was bf16 matmul operands, which the port's kernels take
-        on their own)."""
+        on their own). `rendering_network.embed_point_multires` is not
+        read either, as the JAX package's `from_cfgnode` does not read it
+        (`i2sdf_tpu/models/renderer.py:78-88`): a config that sets it
+        builds the same net in both packages, and a line says the key was
+        ignored. `RenderingNetConfig(embed_point_multires=...)` still
+        builds the point encoding."""
         rs = conf.ray_sampler
         fvs = conf.feature_vector_size
         sphere = conf.get("scene_bounding_sphere", 1.0)
@@ -131,6 +139,9 @@ class I2SDFConfig:
             sphere_scale=imp.get("sphere_scale", 1.0),
         )
         ren = conf.rendering_network
+        if ren.get("embed_point_multires", None):
+            print("[INFO] rendering_network.embed_point_multires is ignored "
+                  "(the JAX package's from_cfgnode does not read it)")
         rendering = RenderingNetConfig(
             feature_vector_size=fvs,
             mode=ren.get("mode", "nerf"),
@@ -140,7 +151,6 @@ class I2SDFConfig:
             weight_norm=ren.get("weight_norm", True),
             embed_type=ren.get("embed_type", None),
             multires=ren.get("multires", 4),
-            embed_point_multires=ren.get("embed_point_multires", None),
         )
         light = None
         if "light_network" in conf:
@@ -251,9 +261,6 @@ class I2SDFModel(nn.Module):
 
     def __init__(self, cfg: I2SDFConfig, seed: int = 0):
         super().__init__()
-        if cfg.use_light and cfg.rendering.mode == "idr":
-            raise ValueError("the light head with the idr-mode radiance net "
-                             "is not ported yet")
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         self.implicit = ImplicitNet(cfg.implicit, gen)
@@ -403,7 +410,8 @@ class RenderDraws:
 
 def render_rays_train(model: I2SDFModel, inputs: dict, draws: RenderDraws,
                       plain: bool = False,
-                      sampler: SamplerConfig | None = None) -> dict:
+                      sampler: SamplerConfig | None = None,
+                      fused_sampler: bool = True) -> dict:
     """Render a batch of rays for a training step.
 
     inputs as `render_rays`'s, plus an optional "pointcloud" (P, 3) of
@@ -412,14 +420,20 @@ def render_rays_train(model: I2SDFModel, inputs: dict, draws: RenderDraws,
     the plain versions on CPU tensors, or the plain versions anywhere
     with `plain=True`. The sampler sees the current weights (packed here)
     and beta, without gradient; `sampler` replaces the model's sampler
-    config (the trainer's per-ray capacity phase)."""
+    config (the trainer's per-ray capacity phase). `fused_sampler=False`
+    (the CLI's `--no_fused`, the JAX step's `fused_sampler=False`) takes
+    the sampler's plain versions and leaves the rest of the route on its
+    kernels."""
     cfg = model.cfg
     with torch.no_grad():
         ray_dirs, cam_loc, ray_dirs_norm = _camera_rays(inputs)
         R = ray_dirs.shape[0]
         beta0 = effective_beta(model.beta.detach(), cfg.beta_min)
-        sdf_pack = None if plain else sdf_mlp.SdfMlpPack(model.implicit)
-        sample = _sampler(model, sampler or cfg.sampler, sdf_pack, plain)
+        plain_sampler = plain or not fused_sampler
+        sdf_pack = (None if plain_sampler
+                    else sdf_mlp.SdfMlpPack(model.implicit))
+        sample = _sampler(model, sampler or cfg.sampler, sdf_pack,
+                          plain_sampler)
         z_all, z_vals_bg = sample(ray_dirs, cam_loc, beta0, draws.sampler)
         z_eik = torch.gather(z_all, 1, draws.sampler.eik_idx)
         z_max, z_vals = z_all[:, -1], z_all[:, :-1]

@@ -10,6 +10,8 @@
 | `render_core_bwd_light` | `render_core.py`, `csrc/render_core_bwd.cu` | backward of the same op with the light head |
 | `render_core_fwd_idr` | `render_core.py`, `csrc/render_core.cu` | forward of the same op with the idr-mode radiance net (`idr`) |
 | `render_core_bwd_idr` | `render_core.py`, `csrc/render_core_bwd.cu` | backward of the same op with the idr-mode radiance net |
+| `render_core_fwd_light_idr` | `render_core.py`, `csrc/render_core.cu` | forward of the same op with the light head beside the idr-mode radiance net (`lcfg`, `idr`) |
+| `render_core_bwd_light_idr` | `render_core.py`, `csrc/render_core_bwd.cu` | backward of the same op with the light head beside the idr-mode radiance net |
 | `rev_fwd` | `rev.py`, `csrc/rev_fwd.cu` | forward of `ops/pallas/fused_rev.py:213 get_rev_op` |
 | `rev_bwd` | `rev.py`, `csrc/rev_bwd.cu` | backward of `ops/pallas/fused_rev.py:213 get_rev_op` |
 | `conv_check` | `conv_check.py`, `csrc/conv_check.cu` | `ops/pallas/sampler_round.py:355 conv_check_pallas` |
@@ -25,8 +27,9 @@ integer counter in its module that its wrapper increments once per
 kernel launch (`launches` in `sdf_mlp.py`, `sampler_round.py`,
 `conv_check.py` and `sdf_outputs.py`; `launches` and `bwd_launches` in
 `render_core.py`, `rev.py`, `bg_core.py` and `sdf_grad.py`;
-`light_launches`, `light_bwd_launches`, `idr_launches` and
-`idr_bwd_launches` in `render_core.py`).
+`light_launches`, `light_bwd_launches`, `idr_launches`,
+`idr_bwd_launches`, `light_idr_launches` and `light_idr_bwd_launches` in
+`render_core.py`).
 
 With K10-K12 every `pl.pallas_call` site of the JAX package has its
 counterpart here. K1, K3, K4, K5, K6, K8, K9 and K10 are built on the
@@ -50,6 +53,8 @@ KERNELS = {
     "render_core_bwd_light": (render_core, "light_bwd_launches"),
     "render_core_fwd_idr": (render_core, "idr_launches"),
     "render_core_bwd_idr": (render_core, "idr_bwd_launches"),
+    "render_core_fwd_light_idr": (render_core, "light_idr_launches"),
+    "render_core_bwd_light_idr": (render_core, "light_idr_bwd_launches"),
     "rev_fwd": (rev, "launches"),
     "rev_bwd": (rev, "bwd_launches"),
     "conv_check": (conv_check, "launches"),

@@ -33,8 +33,15 @@ the radiance forward, and adds the radiance input's cotangent on the
 gradient's columns to the external one before the second-order sweeps.
 K3-idr is its own instantiation (`kIdr`), K4-idr K4's sweep on its
 branch for a given gradient (`gin`); both are counted apart:
-`render_core_fwd_idr` and `render_core_bwd_idr`. The light head with idr
-is refused.
+`render_core_fwd_idr` and `render_core_bwd_idr`. The light head beside
+idr (the TPU op's `lcfg` with `idr`, `fused_train.py:221-265,267-446`) is
+K3's `kLight` x `kIdr` instantiation and K4's light sweep on its idr
+branch, counted as `render_core_fwd_light_idr` and
+`render_core_bwd_light_idr`: K3's light input sits in tile 1 and the idr
+columns in tile 0; K4 runs the light head before it writes the idr
+columns into T, and the light's feature cotangent (coupled, staged in
+the scratch) and idr's gradient cotangent (summed into c_grad in shared
+memory) join at different places.
 
 * `render_core_fwd(pack, x, dirs)`: the eval forward (no gradient).
 * `render_core_train(nets, x, dirs)`: the training op, differentiable
@@ -76,6 +83,8 @@ light_launches = 0      # K3 with the light head
 light_bwd_launches = 0  # K4 with the light head
 idr_launches = 0        # K3 with the idr radiance input
 idr_bwd_launches = 0    # K4 with the idr radiance input
+light_idr_launches = 0      # K3 with the light head and the idr input
+light_idr_bwd_launches = 0  # K4 with the light head and the idr input
 
 _K3_WIDTH = 256          # K3: a tile's four 64-column chunks, wgmma's N
 _K3_RAD_K = 320          # K3 and K4: five chunks, the radiance input
@@ -160,21 +169,17 @@ def _rad_perm(vdim: int, F: int, idr: bool = False) -> list:
             + list(range(3)) + list(range(g, g + 3)))
 
 
-def check_radiance_net(rcfg: mlp.RenderingNetConfig,
-                       light: bool = False) -> None:
+def check_radiance_net(rcfg: mlp.RenderingNetConfig) -> None:
     """The radiance nets the kernels run (`supports_render_core`,
     `fused_train.py:683-704`): the positional view encoding, three raw
-    inputs in nerf mode, nine in idr mode with no point encoding, and no
-    light head beside idr."""
+    inputs in nerf mode, nine in idr mode with no point encoding (with or
+    without a light head beside it)."""
     idr = rcfg.mode == "idr"
     if (rcfg.embed_type != "positional" or rcfg.d_in != (9 if idr else 3)
             or rcfg.point_multires() or rcfg.d_out != 3):
         raise ValueError("render_core: the radiance net takes the "
                          "positional view encoding (and in idr mode the raw "
                          "points and the gradient, no point encoding)")
-    if idr and light:
-        raise ValueError("render_core: the light head with the idr-mode "
-                         "radiance net is not ported yet")
 
 
 def sdf_layers(icfg: mlp.ImplicitNetConfig, ws: list, bs: list,
@@ -254,7 +259,7 @@ class CoreStages:
         if icfg.d_out != 1 or F % 2:
             raise ValueError("render_core: needs d_out 1 and an even "
                              "feature width")
-        check_radiance_net(rcfg, lcfg is not None)
+        check_radiance_net(rcfg)
         self.sdf = mma_pack.pack_stage_chain(core_sdf_layers(
             icfg, [t.detach().float() for t in w.ws_sdf],
             [t.detach().float() for t in w.bs_sdf]))
@@ -337,19 +342,21 @@ def render_core_plain(implicit: mlp.ImplicitNet, rendering: mlp.RenderingNet,
                       light: mlp.ImplicitNet | None = None):
     """(sdf (N, 1), grad (N, 3), rgb (N, 3)) in f32 (chunked), and with a
     light net the light mask (N, 1). An idr-mode radiance net takes the
-    unclamped gradient (`render_core_train_plain`)."""
+    unclamped gradient (`render_core_train_plain`, the light head beside
+    it too)."""
     idr = rendering.cfg.mode == "idr"
     if idr:
         with torch.no_grad():
-            w = CoreWeights.of(implicit, rendering)
+            w = CoreWeights.of(implicit, rendering, light)
     outs = []
     for xc, dc in zip(x.split(_PLAIN_CHUNK), dirs.split(_PLAIN_CHUNK)):
         if idr:
             with torch.no_grad():
-                sdf, grad, rgb = render_core_train_plain(
-                    implicit.cfg, rendering.cfg, w, xc, dc)
+                sdf, grad, *rest = render_core_train_plain(
+                    implicit.cfg, rendering.cfg, w, xc, dc,
+                    None if light is None else light.cfg)
                 sdf, grad = _sphere_clamp(implicit.cfg, xc, sdf, grad)
-                outs.append((sdf.detach(), grad.detach(), rgb.detach()))
+                outs.append(tuple(t.detach() for t in (sdf, grad, *rest)))
             continue
         sdf, feat, grad = mlp.sdf_outputs(implicit, xc)
         with torch.no_grad():
@@ -392,8 +399,14 @@ def _light_args(k) -> tuple:
             k.light.plan.ctypes.data, k.n_light)
 
 
+def _variant(k: CoreStages) -> str:
+    """The suffix of a pack's launch counter and trace range: "",
+    "_light", "_idr" or "_light_idr"."""
+    return ("_light" if k.n_light else "") + ("_idr" if k.idr else "")
+
+
 def _launch_fwd(k: CoreStages, x: torch.Tensor, dirs: torch.Tensor):
-    global launches, light_launches, idr_launches
+    global launches, light_launches, idr_launches, light_idr_launches
     _check_points(x, dirs, "render_core_fwd")
     if k.sdf.weights.device != x.device:
         raise ValueError("render_core_fwd: the weights are not on the "
@@ -405,25 +418,27 @@ def _launch_fwd(k: CoreStages, x: torch.Tensor, dirs: torch.Tensor):
     lmask = (torch.empty((n, 1), dtype=torch.float32, device=x.device)
              if k.n_light else None)
     lib = build.load_library()
-    err = lib.i2sdf_render_core_fwd(
-        x.data_ptr(), dirs.data_ptr(), n,
-        k.sdf.weights.data_ptr(), k.sdf.biases.data_ptr(),
-        k.sdf.plan.ctypes.data, k.sdf.n_layers,
-        k.rad.weights.data_ptr(), k.rad.biases.data_ptr(),
-        k.rad.plan.ctypes.data, k.rad.n_layers, *_light_args(k),
-        k.mx, k.md, k.F, int(k.idr),
-        sdf.data_ptr(), grad.data_ptr(), rgb.data_ptr(),
-        None if lmask is None else lmask.data_ptr(),
-        mma_pack.stream_of(x))
+    with torch.profiler.record_function("render_core_fwd" + _variant(k)):
+        err = lib.i2sdf_render_core_fwd(
+            x.data_ptr(), dirs.data_ptr(), n,
+            k.sdf.weights.data_ptr(), k.sdf.biases.data_ptr(),
+            k.sdf.plan.ctypes.data, k.sdf.n_layers,
+            k.rad.weights.data_ptr(), k.rad.biases.data_ptr(),
+            k.rad.plan.ctypes.data, k.rad.n_layers, *_light_args(k),
+            k.mx, k.md, k.F, int(k.idr),
+            sdf.data_ptr(), grad.data_ptr(), rgb.data_ptr(),
+            None if lmask is None else lmask.data_ptr(),
+            mma_pack.stream_of(x))
     build.check(err, "render_core_fwd")
-    if k.n_light:
+    if k.n_light and k.idr:
+        light_idr_launches += 1
+    elif k.n_light:
         light_launches += 1
-        return sdf, grad, rgb, lmask
-    if k.idr:
+    elif k.idr:
         idr_launches += 1
     else:
         launches += 1
-    return sdf, grad, rgb
+    return (sdf, grad, rgb, lmask) if k.n_light else (sdf, grad, rgb)
 
 
 def render_core_fwd(p: RenderCorePack, x: torch.Tensor, dirs: torch.Tensor):
@@ -829,6 +844,7 @@ def render_core_bwd(st: CoreStages, t: K4Stages, x: torch.Tensor,
     columns. CUDA tensors only: the plain backward is autograd of
     `render_core_train_plain`."""
     global bwd_launches, light_bwd_launches, idr_bwd_launches
+    global light_idr_bwd_launches
     if not x.is_cuda:
         raise ValueError("render_core_bwd: the kernel takes CUDA tensors; "
                          "the plain backward is autograd of "
@@ -858,24 +874,27 @@ def render_core_bwd(st: CoreStages, t: K4Stages, x: torch.Tensor,
     out = torch.empty(plan.n_out, dtype=torch.float32, device=x.device)
     nl = st.n_light
     lib = build.load_library()
-    err = lib.i2sdf_render_core_bwd(
-        x.data_ptr(), dirs.data_ptr(), cot.data_ptr(), n, plan.blocks,
-        st.sdf.weights.data_ptr(), st.sdf.biases.data_ptr(),
-        st.sdf.plan.ctypes.data, st.sdf.n_layers,
-        st.rad.weights.data_ptr(), st.rad.biases.data_ptr(),
-        st.rad.plan.ctypes.data, st.rad.n_layers,
-        *((st.light.weights.data_ptr(), st.light.biases.data_ptr(),
-           st.light.plan.ctypes.data) if nl else (None, None, None)), nl,
-        t.t.weights.data_ptr(), t.tsdf.ctypes.data, t.tsdf.shape[0],
-        t.trad.ctypes.data, t.tlight.ctypes.data if nl else None,
-        t.wsdf.data_ptr(), int(bool(detach_light)), st.mx, st.md, st.F,
-        *((grad.data_ptr(), t.wgr.data_ptr()) if st.idr else (None, None)),
-        scratch.data_ptr(), ws32.data_ptr(), reg.data_ptr(),
-        script.data_ptr(), plan.script.shape[0], plan.jobs.ctypes.data,
-        plan.jobs.shape[0], plan.db_host.ctypes.data, out.data_ptr(),
-        mma_pack.stream_of(x))
+    with torch.profiler.record_function("render_core_bwd" + _variant(st)):
+        err = lib.i2sdf_render_core_bwd(
+            x.data_ptr(), dirs.data_ptr(), cot.data_ptr(), n, plan.blocks,
+            st.sdf.weights.data_ptr(), st.sdf.biases.data_ptr(),
+            st.sdf.plan.ctypes.data, st.sdf.n_layers,
+            st.rad.weights.data_ptr(), st.rad.biases.data_ptr(),
+            st.rad.plan.ctypes.data, st.rad.n_layers,
+            *((st.light.weights.data_ptr(), st.light.biases.data_ptr(),
+               st.light.plan.ctypes.data) if nl else (None, None, None)), nl,
+            t.t.weights.data_ptr(), t.tsdf.ctypes.data, t.tsdf.shape[0],
+            t.trad.ctypes.data, t.tlight.ctypes.data if nl else None,
+            t.wsdf.data_ptr(), int(bool(detach_light)), st.mx, st.md, st.F,
+            *((grad.data_ptr(), t.wgr.data_ptr()) if st.idr else (None, None)),
+            scratch.data_ptr(), ws32.data_ptr(), reg.data_ptr(),
+            script.data_ptr(), plan.script.shape[0], plan.jobs.ctypes.data,
+            plan.jobs.shape[0], plan.db_host.ctypes.data, out.data_ptr(),
+            mma_pack.stream_of(x))
     build.check(err, "render_core_bwd")
-    if nl:
+    if nl and st.idr:
+        light_idr_bwd_launches += 1
+    elif nl:
         light_bwd_launches += 1
     elif st.idr:
         idr_bwd_launches += 1

@@ -1,20 +1,113 @@
-"""Visualization artifacts (counterpart of `i2sdf_tpu/train/artifacts.py`),
-for now only the mesh viewer: `write_mesh_html`, a self-contained
-interactive mesh and camera-frustum HTML page, which `--test_mode mesh`
-and the trainer's `--val_mesh` write beside each PLY.
+"""Visualization artifacts (counterpart of `i2sdf_tpu/train/artifacts.py`):
+the colormapped plots (`write_colormap`: the light mask), the bubble's
+hot and count maps (`write_hotmaps`, `write_countmaps`: the point-cloud
+pdf and the sample counts scattered back to each training image's
+pixels, `artifacts.py:62-88` there), the self-contained point-cloud viewer
+(`write_pointcloud_html`, `:269-279`) and the mesh viewer
+(`write_mesh_html`, a mesh and its cameras' frusta, which `--test_mode
+mesh` and the trainer's `--val_mesh` write beside each PLY).
 
-The rest of the JAX module (the bubble hot and count maps, the
-point-cloud HTML, the colormapped depth and light-mask plots) uses
-OpenCV's colormaps, which the card's machine does not promise; it waits
-for the port's next slice of train and eval, which does the colormaps
-in numpy.
+The JAX module takes OpenCV's MAGMA colormap; the port takes the same
+table as a numpy constant (`utils/colormap.py`), so its PNGs decode to
+the JAX package's pixels, and writes them with `utils/imaging.py`.
 """
 
 from __future__ import annotations
 
 import json
+import os
 
 import numpy as np
+
+from ..utils.colormap import apply_colormap
+from ..utils.imaging import write_png
+
+
+def _u8(values: np.ndarray) -> np.ndarray:
+    return (np.clip(np.asarray(values), 0, 1) * 255).astype(np.uint8)
+
+
+def write_colormap(path: str, values: np.ndarray) -> None:
+    """(H, W) values in [0, 1] -> a MAGMA PNG."""
+    write_png(path, apply_colormap(_u8(values)))
+
+
+def write_hotmaps(out_dir: str, pdf: np.ndarray, pixlinks: np.ndarray,
+                  n_images: int, img_res, step: int | None = None,
+                  trace_idx: int = -1, trace_dir: str | None = None,
+                  suffix: str = "hot") -> None:
+    """The point-cloud pdf scattered back to each image's pixels
+    (`pixlinks`: point -> flat pixel), one MAGMA PNG an image
+    (`{i:04d}.png`), and image `trace_idx`'s also as
+    `trace_dir/{step}_{suffix}.png`."""
+    os.makedirs(out_dir, exist_ok=True)
+    H, W = img_res
+    flat = np.zeros(n_images * H * W, np.float32)
+    flat[np.asarray(pixlinks)] = np.asarray(pdf)
+    for i, m in enumerate(flat.reshape(n_images, H, W)):
+        colored = apply_colormap(_u8(m))
+        write_png(os.path.join(out_dir, f"{i:04d}.png"), colored)
+        if trace_idx == i and trace_dir and step is not None:
+            write_png(os.path.join(trace_dir, f"{step}_{suffix}.png"),
+                      colored)
+
+
+def write_countmaps(out_dir: str, counts: np.ndarray, pixlinks: np.ndarray,
+                    n_images: int, img_res, **kwargs) -> None:
+    """The sample counts, over their maximum (at least 1), as hot maps."""
+    counts = np.asarray(counts, np.float32)
+    counts = counts / max(1.0, float(counts.max()))
+    write_hotmaps(out_dir, counts, pixlinks, n_images, img_res,
+                  suffix="cnt", **kwargs)
+
+
+_POINTS_HTML_TEMPLATE = """<!DOCTYPE html>
+<html><head><meta charset="utf-8"><title>pointcloud</title></head>
+<body style="margin:0;background:#111">
+<canvas id="c" width="1000" height="800" style="display:block;margin:auto"></canvas>
+<script>
+const pts = %%POINTS%%;
+const canvas = document.getElementById('c'), ctx = canvas.getContext('2d');
+let ax = 0.5, ay = 0.5, dist = 3.0, drag = false, lx = 0, ly = 0;
+canvas.onmousedown = e => { drag = true; lx = e.clientX; ly = e.clientY; };
+window.onmouseup = () => drag = false;
+window.onmousemove = e => { if (!drag) return;
+  ay += (e.clientX - lx) * 0.01; ax += (e.clientY - ly) * 0.01;
+  lx = e.clientX; ly = e.clientY; draw(); };
+canvas.onwheel = e => { dist *= e.deltaY > 0 ? 1.1 : 0.9; draw();
+  e.preventDefault(); };
+function draw() {
+  ctx.fillStyle = '#111'; ctx.fillRect(0, 0, canvas.width, canvas.height);
+  const ca = Math.cos(ax), sa = Math.sin(ax);
+  const cb = Math.cos(ay), sb = Math.sin(ay);
+  const f = 400 / dist;
+  ctx.fillStyle = '#7fd4ff';
+  for (let i = 0; i < pts.length; i += 3) {
+    let x = pts[i], y = pts[i+1], z = pts[i+2];
+    let x1 = cb*x + sb*z, z1 = -sb*x + cb*z;
+    let y1 = ca*y - sa*z1, z2 = sa*y + ca*z1 + dist;
+    if (z2 < 0.1) continue;
+    ctx.fillRect(500 + f*x1/z2*3, 400 - f*y1/z2*3, 1.2, 1.2);
+  }
+}
+draw();
+</script></body></html>
+"""
+
+
+def write_pointcloud_html(points: np.ndarray, path: str,
+                          max_points: int = 200_000) -> None:
+    """A self-contained interactive point-cloud viewer, at most
+    `max_points` points (a seeded subset, as the JAX writer takes)."""
+    pts = np.asarray(points, np.float32)
+    if len(pts) > max_points:
+        idx = np.random.default_rng(0).choice(len(pts), max_points,
+                                              replace=False)
+        pts = pts[idx]
+    data = json.dumps(np.round(pts, 3).reshape(-1).tolist())
+    with open(path, "w") as f:
+        f.write(_POINTS_HTML_TEMPLATE.replace("%%POINTS%%", data))
+
 
 _MESH_HTML_TEMPLATE = """<!DOCTYPE html>
 <html><head><meta charset="utf-8"><title>mesh</title></head>

@@ -165,7 +165,8 @@ def make_train_step(cfg: renderer.I2SDFConfig, batch_size: int,
                     pdf_prune: float = 0.0, pdf_max: float | None = None,
                     pdf_criterion: str = "DEPTH",
                     angular_reference_bug: bool = False,
-                    bubble_draw_every: int = 1, plain: bool = False):
+                    bubble_draw_every: int = 1, plain: bool = False,
+                    fused_sampler: bool = True):
     """The training step.
 
         step(state, data, draws, weights, bubble=None) -> metrics
@@ -175,8 +176,9 @@ def make_train_step(cfg: renderer.I2SDFConfig, batch_size: int,
     per step, as `step.py:219-233`), the pdf scatter and the sample
     counts. `metrics` are 0-d device tensors: the loss, its nine terms and
     the batch PSNR. `plain=True` takes the plain versions of the kernels
-    on any device. The render samples with `cfg.sampler` (a per-ray
-    phase's, from `cfg_with_fracs`)."""
+    on any device; `fused_sampler=False` the sampler's alone (`--no_fused`).
+    The render samples with `cfg.sampler` (a per-ray phase's, from
+    `cfg_with_fracs`)."""
     bubble_bs = bubble_batch_size or batch_size
     every = max(int(bubble_draw_every), 1)
     if pdf_criterion not in ("DEPTH", "RGB"):
@@ -202,8 +204,11 @@ def make_train_step(cfg: renderer.I2SDFConfig, batch_size: int,
                                           (pos + 1) * bubble_bs]
                 bubble.queue_pos += 1
             inputs["pointcloud"] = data.pointcloud[bubble_idx]
+        # the sampler's plain versions only when asked (`--no_fused`)
+        kw = {} if fused_sampler else {"fused_sampler": False}
         out = renderer.render_rays_train(model, inputs, draws.render,
-                                         plain=plain, sampler=cfg.sampler)
+                                         plain=plain, sampler=cfg.sampler,
+                                         **kw)
         terms = compute_losses(out, gt, weights,
                                angular_reference_bug=angular_reference_bug)
         state.optimizer.zero_grad(set_to_none=True)
@@ -229,13 +234,17 @@ def make_train_step(cfg: renderer.I2SDFConfig, batch_size: int,
     return step
 
 
-def make_eval_render_fn(model: renderer.I2SDFModel, chunk_size: int):
+def make_eval_render_fn(model: renderer.I2SDFModel, chunk_size: int,
+                        fused: bool = True):
     """Returns render_image(uv (HW, 2), intrinsics (4, 4), pose (4, 4)) ->
     dict of (HW, ...) tensors. The image is cut into `chunk_size`-ray
     chunks (the last one zero-padded, as the reference pads it), each
     rendered by `render_rays`; the kernels' weights are packed once. With
-    per-ray compaction each image samples in the phase of `eval_fracs`."""
-    weights = renderer.KernelWeights.pack(model)
+    per-ray compaction each image samples in the phase of `eval_fracs`.
+    `fused=False` (`--no_fused`, the JAX eval's `fused_sampler=False`)
+    renders through the plain versions on any device: the sampler, the
+    forward and the background."""
+    weights = renderer.KernelWeights.pack(model) if fused else None
 
     def render_image(uv: torch.Tensor, intrinsics: torch.Tensor,
                      pose: torch.Tensor) -> dict:
@@ -248,7 +257,7 @@ def make_eval_render_fn(model: renderer.I2SDFModel, chunk_size: int):
             outs.append(renderer.render_rays(
                 model, {"uv": chunk[None], "intrinsics": intrinsics[None],
                         "pose": pose[None]}, weights=weights,
-                sampler=sampler))
+                plain=not fused, sampler=sampler))
         return {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}
 
     return render_image

@@ -21,9 +21,25 @@ keep `per_ray_exit` and pick their own phase. With `val_mesh` each
 validation also extracts a mesh at the config's `plot.resolution` (a
 coarse grid of at most 64) through `eval/mesh.py`, written to
 `plots/mesh/{step}.ply` with its viewer `.html` and the training
-cameras (`trainer.py:627-646`). Left out against the JAX trainer: LPIPS,
-TensorBoard, multi-device data parallelism, and the bubble hot/count
-maps and point-cloud HTML of `train/artifacts.py`.
+cameras (`trainer.py:627-646`).
+
+As the JAX trainer (`trainer.py:76-110,274-282,352-366,560-660`): the
+object masks (`loss.mask_weight`) and HDR images (`dataset.is_hdr`) come
+with the data; an HDR scene validates in display space,
+`linear_to_srgb(clip(., 0, 1))` of both images, and also writes the
+linear prediction (`plots/hdr/{step}_{i}.npy`); validation reports LPIPS
+(`eval/lpips.py`, under its weights' name) beside PSNR and SSIM; the
+light mask is plotted through the MAGMA colormap; with the bubble loss
+the point cloud's viewer (`pointcloud.html`) is written at the start and
+the pdf's hot maps and the sample counts' count maps (`hotmap/`,
+`countmap/`, `train/artifacts.py`) at the pdf's initialization and at
+each validation inside the window. `fit(profile="START[:COUNT]")`
+traces those steps (`utils/profiling.py`), the bubble pdf's
+initialization and the validations marked. `fused_sampler=False`
+(`--no_fused`) takes the plain versions of the sampler in the steps and
+of the whole eval render in validation and the pdf's initialization.
+Left out against the JAX trainer: TensorBoard and multi-device data
+parallelism.
 """
 
 from __future__ import annotations
@@ -42,8 +58,10 @@ from ..eval import mesh_io
 from ..eval.mesh import extract_mesh
 from ..models import renderer
 from ..models.density import effective_beta
+from ..eval.lpips import make_lpips
 from ..models.losses import TERMS, LossConfig
-from ..utils import imaging
+from ..utils import imaging, profiling
+from . import artifacts
 from .artifacts import write_mesh_html
 from .checkpoint import CheckpointManager
 from .state import create_train_state, make_reference_lr_schedule
@@ -55,9 +73,10 @@ from .step import (BubbleState, TrainDraws, cfg_with_fracs, eval_fracs,
 class ReconstructionTrainer:
     def __init__(self, conf, exp_dir: str, data_root: str = "data",
                  device="cuda", seed: int | None = None,
-                 val_mesh: bool = False):
+                 val_mesh: bool = False, fused_sampler: bool = True):
         self.conf = conf
         self.val_mesh = val_mesh
+        self.fused = fused_sampler
         self.exp_dir = exp_dir
         self.device = torch.device(device)
         self.plots_dir = os.path.join(exp_dir, "plots")
@@ -77,6 +96,7 @@ class ReconstructionTrainer:
             use_normal=use_normal, use_bubble=lc.bubble_weight > 0,
             use_lightmask=lc.light_mask_weight > 0, **ds)
         td = self.train_data
+        self.is_hdr = td.is_hdr
         if td.use_lightmask and conf.train.get("flip_light", False):
             td.lightmask_images = 1.0 - td.lightmask_images
         self.device_data = td.to_device(self.device)
@@ -125,7 +145,8 @@ class ReconstructionTrainer:
             pdf_max=self.train_data.pdf_max,
             pdf_criterion=self.pdf_criterion,
             angular_reference_bug=lc.angular_reference_bug,
-            bubble_draw_every=self.bubble_draw_every)
+            bubble_draw_every=self.bubble_draw_every,
+            fused_sampler=fused_sampler)
         # per-ray compaction: the step starts on the global early exit;
         # `update_per_ray_phase` swaps in the beta's phase
         self.per_ray = self.model_cfg.sampler.per_ray_exit
@@ -137,8 +158,18 @@ class ReconstructionTrainer:
         self.bubble: BubbleState | None = None
         self.bubble_activated = False
         self.ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"))
+        self.lpips = make_lpips(self.device)
+        self.trace_bub_idx = tc.get("trace_bub_idx", -1)
         with open(os.path.join(exp_dir, "config.json"), "w") as f:
             json.dump(conf, f, indent=1)
+        if td.use_bubble:
+            for d in ("hotmap", "countmap"):
+                os.makedirs(os.path.join(exp_dir, d), exist_ok=True)
+            artifacts.write_pointcloud_html(
+                td.pointcloud, os.path.join(exp_dir, "pointcloud.html"))
+            if self.trace_bub_idx != -1:
+                os.makedirs(os.path.join(self.plots_dir, "bubble"),
+                            exist_ok=True)
         print(f"[INFO] Finish loading data. Data-set size: "
               f"{self.train_data.n_images}")
 
@@ -150,7 +181,8 @@ class ReconstructionTrainer:
         (`trainer.py:309-350`)."""
         ds, data = self.train_data, self.device_data
         pdf = torch.zeros(len(ds.pointcloud), device=self.device)
-        render = make_eval_render_fn(self.state.model, self.split_n_pixels)
+        render = make_eval_render_fn(self.state.model, self.split_n_pixels,
+                                     self.fused)
         hw = ds.total_pixels
         for i in range(ds.n_images):
             out = render(data.uv, data.intrinsics[i], data.pose[i])
@@ -168,6 +200,21 @@ class ReconstructionTrainer:
                 pdf.cpu().numpy())
         print(f"[INFO] {int((pdf > 0).sum())}/{len(pdf)} points to be "
               "sampled")
+        self.write_hotmaps()
+
+    def write_hotmaps(self) -> None:
+        """The pdf's hot maps and the sample counts' count maps, one PNG an
+        image under `hotmap/` and `countmap/` (`trainer.py:352-366`)."""
+        ds, step = self.train_data, self.state.step
+        kw = dict(step=step, trace_idx=self.trace_bub_idx,
+                  trace_dir=os.path.join(self.plots_dir, "bubble"))
+        artifacts.write_hotmaps(os.path.join(self.exp_dir, "hotmap"),
+                                self.bubble.pdf.cpu().numpy(), ds.pixlinks,
+                                ds.n_images, ds.img_res, **kw)
+        artifacts.write_countmaps(
+            os.path.join(self.exp_dir, "countmap"),
+            self.bubble.sample_count.cpu().numpy(), ds.pixlinks,
+            ds.n_images, ds.img_res, **kw)
 
     def _maybe_toggle_bubble(self, step: int) -> None:
         want = self.train_data.use_bubble and self.loss_cfg.in_bubble(step)
@@ -186,7 +233,8 @@ class ReconstructionTrainer:
                 print(f"[INFO] Initializing pointcloud PDF "
                       f"({self.pdf_criterion})")
                 t0 = time.perf_counter()
-                self.initialize_bubble_pdf()
+                with profiling.annotate("bubble_pdf_init"):
+                    self.initialize_bubble_pdf()
                 print(f"[INFO] pdf init took {time.perf_counter() - t0:.1f}s")
             # the draw queue is not checkpointed: redrawn on activation
             self.bubble.queue, self.bubble.queue_pos = None, 0
@@ -222,8 +270,11 @@ class ReconstructionTrainer:
                                  self.batch_size, gen, bubble_draws=n_bubble)
 
     def fit(self, max_steps: int | None = None, resume: bool = False,
-            log_every: int = 50) -> None:
+            log_every: int = 50, profile: str | None = None) -> None:
+        """Train to `max_steps`; `profile` ("START[:COUNT]", the CLI's
+        `--profile`) traces COUNT steps from START into `profile/`."""
         max_steps = max_steps or self.max_steps
+        prof = profiling.TraceProfiler.from_spec(self.exp_dir, profile)
         if resume:
             try:
                 bubble = self.ckpt.restore(self.state)
@@ -242,19 +293,24 @@ class ReconstructionTrainer:
             self._maybe_toggle_bubble(step)
             if self.per_ray and step % self.per_ray_check_freq == 0:
                 self.update_per_ray_phase()
-            metrics = self.step_fn(self.state, self.device_data,
-                                   self.draws(step),
-                                   self.loss_cfg.dynamic_weights(step),
-                                   self.bubble)
+            prof.maybe_start(step)
+            with prof.step(step):
+                metrics = self.step_fn(self.state, self.device_data,
+                                       self.draws(step),
+                                       self.loss_cfg.dynamic_weights(step),
+                                       self.bubble)
+            prof.maybe_stop(step)
             pending.append(metrics)
             step += 1
             if step % log_every == 0 or step == max_steps:
                 self._flush_logs(step, pending, t0, max_steps)
                 pending, t0 = [], time.perf_counter()
             if step % self.plot_freq == 0 or step == max_steps:
-                self.validate(step)
+                with profiling.annotate("validation"):
+                    self.validate(step)
             if step % self.checkpoint_freq == 0 or step == max_steps:
                 self.save_checkpoint()
+        prof.close()
         print("[INFO] Training complete")
 
     def _flush_logs(self, step, pending, t0, total) -> None:
@@ -278,8 +334,9 @@ class ReconstructionTrainer:
         H, W = pd.img_res
         rng = np.random.default_rng(self.seed + step)
         views = rng.permutation(pd.n_images)[:self.plot_nimgs]
-        render = make_eval_render_fn(self.state.model, self.split_n_pixels)
-        psnrs, ssims = [], []
+        render = make_eval_render_fn(self.state.model, self.split_n_pixels,
+                                     self.fused)
+        psnrs, ssims, lpipss = [], [], []
         for i in views:
             uv, K, pose, rgb_gt = pd.image_inputs(int(i))
             out = render(*(torch.from_numpy(a).to(self.device)
@@ -287,8 +344,14 @@ class ReconstructionTrainer:
             out = {k: v.cpu().numpy() for k, v in out.items()}
             pred = out["rgb_values"].reshape(H, W, 3)
             gt = rgb_gt.reshape(H, W, 3)
+            if self.is_hdr:
+                os.makedirs(f"{self.plots_dir}/hdr", exist_ok=True)
+                np.save(f"{self.plots_dir}/hdr/{step}_{i}.npy", pred)
+                pred, gt = (imaging.linear_to_srgb(np.clip(a, 0, 1))
+                            for a in (pred, gt))
             psnrs.append(imaging.psnr(pred, gt))
             ssims.append(imaging.ssim(pred, gt))
+            lpipss.append(self.lpips(pred, gt))
             for sub in ("rendering", "depth", "normal"):
                 os.makedirs(os.path.join(self.plots_dir, sub), exist_ok=True)
             imaging.write_png(
@@ -303,12 +366,15 @@ class ReconstructionTrainer:
                               imaging.to_u8((n_cam + 1.0) / 2.0))
             if "light_mask" in out:
                 os.makedirs(f"{self.plots_dir}/light_mask", exist_ok=True)
-                imaging.write_png(
+                artifacts.write_colormap(
                     f"{self.plots_dir}/light_mask/{step}_{i}.png",
-                    imaging.to_u8(out["light_mask"].reshape(H, W)))
+                    out["light_mask"].reshape(H, W))
+        if self.bubble is not None and not self.uniform_bubble:
+            self.write_hotmaps()
         if self.val_mesh:
             self._write_val_mesh(step)
-        result = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
+        result = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)),
+                  self.lpips.name: float(np.mean(lpipss))}
         print(f"[val @{step}] " + " ".join(f"{k}={v:.4g}"
                                            for k, v in result.items())
               + f" ({time.perf_counter() - t0:.1f}s)")

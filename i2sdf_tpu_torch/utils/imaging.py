@@ -5,9 +5,11 @@ numpy alone (8-bit gray, RGB or RGBA, not interlaced): the machine the
 port runs on is not promised OpenCV, imageio or PIL. EXR depth and normal
 maps are read by `utils/exr.py`, and `.npy` is accepted wherever an EXR
 is (`load_depth`, `load_normal`); masks are PNG or `.npy`
-(`load_mask`). Downsampling is an area mean over exact
-integer factors (what OpenCV's INTER_AREA computes there). PSNR, SSIM
-and the sRGB curve follow the reference's definitions.
+(`load_mask`); HDR images (`load_rgb(..., is_hdr=True)`) `.npy` or EXR,
+in RGB order as the JAX loader gives them. Downsampling is an area mean
+over exact integer factors (what OpenCV's INTER_AREA computes there).
+PSNR, SSIM and the sRGB curves follow the reference's definitions; the
+sRGB curves take numpy arrays or torch tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from .exr import read_exr
 
 IMG_EXTENSIONS = (".png", ".exr", ".npy")
+HDR_EXTENSIONS = (".exr", ".npy")
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # PNG color type -> channels
 
@@ -150,8 +153,19 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + chunk(b"IEND", b""))
 
 
-def load_rgb(path: str) -> np.ndarray:
-    """8-bit PNG -> float32 (H, W, 3) in [0, 1]."""
+def load_rgb(path: str, is_hdr: bool = False) -> np.ndarray:
+    """An image as float32 (H, W, 3): an 8-bit PNG in [0, 1]; `.npy` as
+    stored; with `is_hdr` an EXR's channels in R, G, B order (linear), as
+    `i2sdf_tpu/utils/imaging.py:64-80` gives them: its reader's B, G, R
+    order (`_read_float`) turned back, whatever order the file stores
+    them in."""
+    if path.endswith(".npy"):
+        return np.load(path).astype(np.float32)
+    if is_hdr:
+        img = _read_float(path).astype(np.float32)
+        if img.ndim == 3 and img.shape[2] >= 3:
+            img = img[:, :, :3][:, :, ::-1].copy()
+        return img
     img = read_png(path).astype(np.float32) / 255.0
     if img.shape[2] == 1:
         img = np.repeat(img, 3, axis=2)
@@ -191,9 +205,26 @@ def downsample_area(img: np.ndarray, factor: int) -> np.ndarray:
         h, w, *img.shape[2:])
 
 
-def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(x <= 0.0031308, x * 12.92,
-                       1.055 * x.abs() ** (1 / 2.4) - 0.055)
+def linear_to_srgb(x):
+    """The sRGB curve (`i2sdf_tpu/utils/imaging.py:207-211`) of a tensor,
+    or of a numpy array (float32 for a float32 array)."""
+    if isinstance(x, torch.Tensor):
+        return torch.where(x <= 0.0031308, x * 12.92,
+                           1.055 * x.abs() ** (1 / 2.4) - 0.055)
+    x = np.asarray(x)
+    return np.where(x <= 0.0031308, x * 12.92,
+                    1.055 * np.abs(x) ** (1 / 2.4) - 0.055).astype(x.dtype)
+
+
+def srgb_to_linear(x):
+    """Its inverse (`i2sdf_tpu/utils/imaging.py:213-216`)."""
+    if isinstance(x, torch.Tensor):
+        return torch.where(x <= 0.04045, x / 12.92,
+                           ((x + 0.055) / 1.055) ** 2.4)
+    x = np.asarray(x)
+    with np.errstate(invalid="ignore"):   # the branch not taken, x < 0
+        return np.where(x <= 0.04045, x / 12.92,
+                        ((x + 0.055) / 1.055) ** 2.4).astype(x.dtype)
 
 
 def psnr(img1, img2) -> float:

@@ -13,6 +13,8 @@ process, the checks the fault must fail: `chip_smoke.check_k1`,
 config's K3-light, `k3_light`; both also on a net of odd depth) and
 `chip_smoke.check_k4` (the training config's K4, `k4`), K3 and K4 with
 the idr-mode radiance net at `chip_smoke.idr_conf` (`k3_idr`, `k4_idr`),
+K3 and K4 with the light head beside it at `chip_smoke.light_idr_conf`
+(`k3_light_idr`; `k4_light_idr` detached, `k4_light_idr_coupled` not),
 `chip_smoke.check_bg` (the bg config's K8 and K9, `bg`), the K2 rows of
 `chip_smoke.check_kernels` (`k2`: they come before its K3 check),
 `chip_smoke.check_rev` (K5 and K6 at the training config, `rev`),
@@ -216,6 +218,35 @@ FAULTS = {
         "      Smem::cot(c)[r * kCot + j] += s;\n",
         "      (void)s;\n",
         ("k4_idr",)),
+    # K4-light-idr writes the idr columns [xyz | grad] into T before the
+    # light head runs, not after it: the light head's pass over T and the
+    # PE(dirs) fill after it leave those columns zero, so the radiance
+    # net's forward and its layer 0's weight gradient read no xyz and no
+    # gradient (the order that keeps the two apart, inverted)
+    "k4_light_idr_cols_before_head": (
+        ("i2sdf_tpu_torch/csrc/render_core_bwd.cu",
+         "  light_head<kLight, kCoupled>(c, acc);\n\n"
+         "  // ---- 2. radiance forward: its inputs stored, rgb to shared "
+         "memory ------\n"
+         "  fill_T(c, kFillPeDirs, F, a.rad.L[0][kK], 1.f);\n"
+         "  if (a.gin != nullptr) {\n",
+         "  if (a.gin != nullptr) {\n"),
+        ("i2sdf_tpu_torch/csrc/render_core_bwd.cu",
+         "      put1(c.T, r, c0 + j, v);\n    }\n  }\n  fence_async();\n"
+         "  bar_sync(1, kConsumers);\n",
+         "      put1(c.T, r, c0 + j, v);\n    }\n  }\n  fence_async();\n"
+         "  bar_sync(1, kConsumers);\n"
+         "  light_head<kLight, kCoupled>(c, acc);\n"
+         "  fill_T(c, kFillPeDirs, F, a.rad.L[0][kK], 1.f);\n"
+         "  fence_async();\n  bar_sync(1, kConsumers);\n"),
+        ("k4_light_idr",)),
+    # K4-light-idr with `detach_light` off drops idr's gradient-column
+    # cotangent (the light's feature cotangent still joins c_feat)
+    "k4_light_idr_grad_cot_dropped": (
+        "i2sdf_tpu_torch/csrc/render_core_bwd.cu",
+        "      Smem::cot(c)[r * kCot + j] += s;\n",
+        "      (void)s;\n",
+        ("k4_light_idr_coupled",)),
     # K7 takes its first warp's maximum of the bound, not the group's
     "k7_one_warp_max": (
         "i2sdf_tpu_torch/csrc/conv_check.cu",
@@ -234,6 +265,7 @@ device = torch.device("cuda", 0)
 which = sys.argv[1]
 conf = (cs.light_conf(train=False) if which == "k3_light"
         else cs.idr_conf() if which in ("k3_idr", "k4_idr")
+        else cs.light_idr_conf(train=False) if "light_idr" in which
         else cs.train_conf() if which in ("k4", "rev", "k12", "mesh")
         else cs.perray_conf(train=False) if which == "conv"
         else cs.bg_conf(train=False) if which == "bg" else cs.eval_conf())
@@ -252,8 +284,10 @@ elif which == "conv":
     cs.check_conv(model, cfg, conf, device)
 elif which == "bg":
     cs.check_bg(model, cfg, conf, device)
-elif which in ("k4", "k4_idr"):
+elif which in ("k4", "k4_idr", "k4_light_idr"):
     cs.check_k4(model, cfg, conf, device)
+elif which == "k4_light_idr_coupled":
+    cs.check_k4(model, cfg, conf, device, detach_light=False)
 elif which == "mesh":
     cs.check_mesh(model, cfg, conf, device)
 else:

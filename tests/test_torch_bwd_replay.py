@@ -347,8 +347,9 @@ def test_bwd_plan_and_pack_in_idr_mode():
     assert torch.equal(ti.wgr, bf(w0[30:33]))
 
 
-def light_layout(case, device="cpu", seed=0):
-    """The nets and kernel layout of a `LIGHT_CASES` case."""
+def light_layout(case, device="cpu", seed=0, mode="nerf"):
+    """The nets and kernel layout of a `LIGHT_CASES` case (`mode` "idr":
+    the radiance net on [pts | PE(view) | normals | features])."""
     (width, skip, feat, rad, mx, md), depth, rdepth, ldims = {
         **LIGHT_CASES, **LIGHT_ODD}[case]
     gen = torch.Generator().manual_seed(seed)
@@ -358,7 +359,8 @@ def light_layout(case, device="cpu", seed=0):
         embed_type="positional", multires=mx)
     rcfg = mlp.RenderingNetConfig(feature_vector_size=feat,
                                   dims=(rad,) * rdepth,
-                                  embed_type="positional", multires=md)
+                                  embed_type="positional", multires=md,
+                                  mode=mode, d_in=9 if mode == "idr" else 3)
     net, rnet = mlp.ImplicitNet(icfg, gen), mlp.RenderingNet(rcfg, gen)
     with torch.no_grad():  # move off the init's zero PE weights
         for lin in net.layers() + rnet.layers():
@@ -446,6 +448,99 @@ def test_bwd_plan_table_with_the_light_head():
         assert plan.regions[REG_LS][0][1] and not plan.regions[REG_LS][1][1]
         stages = sum(1 for it in plan.script if it[0] == render_core._STAGE)
         assert stages == (ns - 1) + 2 * (ns - 2) + (ns - 1) + 1 + 2 * coupled
+
+
+@pytest.mark.parametrize("detach", [True, False], ids=["detached",
+                                                       "coupled"])
+@pytest.mark.parametrize("case,n,eik", [("light", 96, 32),
+                                        ("narrow", 160, 64)])
+def test_k4_light_idr_replay_in_f32_equals_plain_backward(case, n, eik,
+                                                          detach):
+    """K4 with the light head beside the idr-mode radiance net, its
+    algorithm in f32 on its bf16 weights and handed the plain gradient at
+    those weights, against the plain backward on the same weights (1e-5
+    of each leaf's largest entry): the light head before the idr columns
+    (each would show the other's overwrite), and with `detach` off the
+    light's feature cotangent and idr's gradient cotangent each joined
+    where the kernel joins it. Detached, the SDF and radiance leaves are
+    the idr replay's without the light head; coupled, the SDF leaves
+    differ from them."""
+    net, rnet, lnet = light_layout(case, mode="idr")
+    x, d = points(n, n, eik)
+    c = eik_only(torch.from_numpy(np.random.default_rng(n).normal(
+        size=(n, 8)).astype(np.float32)), eik)
+    w = render_core.CoreWeights.of(net, rnet, lnet)
+    wb = bf16_weights(w)
+    g = render_core.render_core_train_plain(net.cfg, rnet.cfg, wb, x,
+                                            d)[1].detach()
+    got = [t for grp in emulate_bwd(net.cfg, rnet.cfg, w, x, d, c,
+                                    rnd=lambda t: t, detach_light=detach,
+                                    lcfg=lnet.cfg, grad=g) for t in grp]
+    ref = plain_vjp(net.cfg, rnet.cfg, wb, x, d, c, lnet.cfg, detach)
+    assert [a.shape for a in got] == [r.shape for r in ref]
+    for i, (a, r) in enumerate(zip(got, ref)):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()),
+                                   msg=str(i))
+    n_light = 2 * render_core.n_layers(lnet.cfg)
+    assert all(float(a.abs().max()) > 0 for a in got[-n_light:])
+    base = [t for grp in emulate_bwd(
+        net.cfg, rnet.cfg, render_core.CoreWeights.of(net, rnet), x, d,
+        c[:, :7].contiguous(), rnd=lambda t: t, grad=g) for t in grp]
+    same = all(torch.equal(a, b) for a, b in zip(got[:-n_light], base))
+    assert same == detach
+
+
+@pytest.mark.parametrize("detach", [True, False], ids=["detached",
+                                                       "coupled"])
+def test_k4_light_idr_replay_with_its_rounding_meets_the_kernel_tolerance(
+        detach):
+    """At the light config's widths and depths with the idr radiance net
+    (289 inputs), the kernel's bf16 rounding, K3's replayed gradient and a
+    loss's cotangents (the light term included): the JAX package's
+    gradient tolerance for its bf16 kernel against the plain f32
+    backward."""
+    from test_torch_kernel_layout import emulate_render_core
+    net, rnet, lnet = light_layout("light", mode="idr")
+    n, eik = 1024, 256
+    x, d = points(n, 6, eik)
+    w = render_core.CoreWeights.of(net, rnet, lnet)
+    outs = render_core.render_core_train_plain(net.cfg, rnet.cfg, w, x, d,
+                                               lnet.cfg, detach)
+    c = eik_only(loss_cotangents(*outs[:3], lmask=outs[3]), eik)
+    st, _ = k4_pack(net.cfg, rnet.cfg, w, lnet.cfg)
+    assert st.idr and st.n_light and int(st.rad.plan[0, 0]) == 304  # 289
+    g3 = emulate_render_core(st, x, d)[1]
+    got = [t for grp in emulate_bwd(net.cfg, rnet.cfg, w, x, d, c,
+                                    detach_light=detach, lcfg=lnet.cfg,
+                                    grad=g3) for t in grp]
+    grad_check(got, plain_vjp(net.cfg, rnet.cfg, w, x, d, c, lnet.cfg,
+                              detach))
+
+
+def test_bwd_plan_with_the_light_head_and_idr():
+    """K4's plan with the light head beside idr is the light head's plan
+    (regions, ring table, jobs) but for radiance layer 0's depth (the 289
+    rows in five chunks): idr adds no ring item, region or staging; its
+    `wgr` is radiance layer 0's gradient rows in bf16."""
+    plans = {}
+    for mode in ("nerf", "idr"):
+        net, rnet, lnet = light_layout("light", mode=mode)
+        w = render_core.CoreWeights.of(net, rnet, lnet)
+        st, t = k4_pack(net.cfg, rnet.cfg, w, lnet.cfg)
+        plans[mode] = [(st, t, render_core.K4Plan(st, t, 160_000, coupled),
+                        w) for coupled in (False, True)]
+    for (sn, tn, pn, _), (si, ti, pi, wi) in zip(plans["nerf"],
+                                                 plans["idr"]):
+        _check_plan(pi, si, ti)
+        assert (si.idr, si.n_light) == (True, 2) and ti.n_light == 2
+        assert np.array_equal(pi.script, pn.script)
+        assert pi.scratch_bytes == pn.scratch_bytes
+        assert [r for r in pi.regions] == [r for r in pn.regions]
+        ns = ti.n_sdf
+        assert pi.dims == [d if p != ns else (int(si.rad.plan[0, 0]), 256)
+                           for p, d in enumerate(pn.dims)]
+        assert torch.equal(ti.wgr, bf(wi.ws_rad[0].detach()[30:33]))
 
 
 def test_train_op_on_cpu_is_the_plain_version_clamped():

@@ -673,6 +673,123 @@ def test_render_core_light_train_op(dev, n, eik, detach):
                leaf_tol=0.1 if n >= 4800 else float("inf"))
 
 
+# ---- K3 and K4 with the light head beside the idr radiance net -------------
+# The light-mask config's nets with VolSDF's DTU radiance net (289 rows):
+# K3-light-idr held to the plain op as K3-light (LIGHT_TOLS; at perturbed
+# weights to the plain op at bf16-rounded weights, as K3-idr); K4-light-idr,
+# handed K3's gradient as the training op hands it, to its replay (handed
+# the same gradient) and the plain f32 backward as K4-light, both
+# `detach_light` values; the training op through autograd.
+
+
+def _light_idr_case(dev, n, eik, detach, case="light", perturbed=False):
+    from test_torch_bwd_replay import (eik_only, light_layout,
+                                       loss_cotangents, points)
+    net, rnet, lnet = light_layout(case, device=dev, mode="idr")
+    if perturbed:
+        net, rnet, lnet = _perturb(net, rnet, lnet)
+    x, d = points(n, n + 4, eik, device=dev)
+    w = render_core.CoreWeights.of(net, rnet, lnet)
+    outs = render_core.render_core_train_plain(net.cfg, rnet.cfg, w, x, d,
+                                               lnet.cfg, detach)
+    cot = eik_only(loss_cotangents(*outs[:3], lmask=outs[3]), eik)
+    return net, rnet, lnet, x, d, w, cot
+
+
+@WEIGHTS
+@pytest.mark.parametrize("case", ["light", "odd"])
+@pytest.mark.parametrize("n", EDGE_COUNTS + [12_000])
+def test_render_core_light_idr_kernel(dev, n, perturbed, case):
+    net, rnet, lnet, x, d, _, _ = _light_idr_case(dev, n, 0, True, case,
+                                                  perturbed)
+    pack = render_core.RenderCorePack(net, rnet, lnet)
+    kernels.reset_launch_counts()
+    got = render_core.render_core_fwd(pack, x, d)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["render_core_fwd_light_idr"] == 1
+    assert not any(counts[k] for k in ("render_core_fwd",
+                                       "render_core_fwd_light",
+                                       "render_core_fwd_idr"))
+    ref = (_bf16w_core(net, rnet, x, d, lnet) if perturbed
+           else render_core.render_core_plain(net, rnet, x, d, lnet))
+    assert len(got) == len(ref) == 4
+    for (name, (atol, rtol)), g, r in zip(LIGHT_TOLS.items(), got, ref):
+        torch.testing.assert_close(g, r, atol=atol, rtol=rtol, msg=name)
+
+
+@WEIGHTS
+@pytest.mark.parametrize("detach", [True, False], ids=["detached",
+                                                       "coupled"])
+@pytest.mark.parametrize("n,eik", [(1, 0), (33, 16), (4800, 4800),
+                                   (160_000, 4800)])
+def test_render_core_bwd_light_idr_kernel(dev, n, eik, detach, perturbed):
+    from test_torch_bwd_replay import (emulate_bwd, grad_check, k4_pack,
+                                       plain_vjp)
+    net, rnet, lnet, x, d, w, cot = _light_idr_case(dev, n, eik, detach,
+                                                    perturbed=perturbed)
+    st, t = k4_pack(net.cfg, rnet.cfg, w, lnet.cfg)
+    with torch.no_grad():
+        g3 = render_core._launch_fwd(st, x, d)[1]
+        kernels.reset_launch_counts()
+        got = render_core.render_core_bwd(st, t, x, d, cot, detach, g3)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["render_core_bwd_light_idr"] == 1
+        assert not any(counts[k] for k in ("render_core_bwd",
+                                           "render_core_bwd_light",
+                                           "render_core_bwd_idr"))
+        got = [t for grp in got for t in grp]
+        replay = [t for grp in emulate_bwd(
+            net.cfg, rnet.cfg, w, x, d, cot, detach_light=detach,
+            lcfg=lnet.cfg, grad=g3) for t in grp]
+    _k4_vs_replay(f"light_idr {detach} {perturbed} {n}", n, got, replay)
+    del replay
+    grad_check(got, plain_vjp(net.cfg, rnet.cfg, w, x, d, cot, lnet.cfg,
+                              detach),
+               leaf_tol=0.1 if n >= 4800 else float("inf"))
+
+
+@pytest.mark.parametrize("detach", [True, False], ids=["detached",
+                                                       "coupled"])
+@pytest.mark.parametrize("n,eik", [(33, 16), (4800, 4800)])
+def test_render_core_light_idr_train_op(dev, n, eik, detach):
+    """The training op with the light head beside idr (K3-light-idr
+    forward, K4-light-idr backward on K3's gradient) against the plain op,
+    through autograd to every v, g and b; the outputs against the plain
+    op at bf16-rounded weights (`light_layout`'s nets are moved off the
+    init, as K3-idr's train-op test)."""
+    from test_torch_bwd_replay import (eik_only, grad_check, light_layout,
+                                       loss_cotangents, points)
+    net, rnet, lnet = light_layout("light", device=dev, mode="idr")
+    x, d = points(n, n + 5, eik, device=dev)
+    leaves = (list(net.parameters()) + list(rnet.parameters())
+              + list(lnet.parameters()))
+    res = {}
+    for plain in (True, False):
+        kernels.reset_launch_counts()
+        w = render_core.CoreWeights.of(net, rnet, lnet)
+        outs = render_core.render_core_train(net.cfg, rnet.cfg, w, x, d,
+                                             plain=plain, lcfg=lnet.cfg,
+                                             detach_light=detach)
+        if plain:
+            cot = eik_only(loss_cotangents(*outs[:3], lmask=outs[3]), eik)
+        g = torch.autograd.grad(outs, leaves, (cot[:, 3:4], cot[:, :3],
+                                               cot[:, 4:7], cot[:, 7:8]))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = 0 if plain else 1
+        assert (counts["render_core_fwd_light_idr"]
+                == counts["render_core_bwd_light_idr"] == want), counts
+        res[plain] = ([t.detach() for t in outs], list(g))
+    for (name, (atol, rtol)), a, b in zip(
+            LIGHT_TOLS.items(), res[False][0],
+            _bf16w_core(net, rnet, x, d, lnet)):
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol, msg=name)
+    grad_check(res[False][1], res[True][1],
+               leaf_tol=0.1 if n >= 4800 else float("inf"))
+
+
 # ---- K5 rev_fwd and K6 rev_bwd ----------------------------------------------
 # At the flagship SDF net. Up to 4,800 points (the normal-off step's
 # eikonal batch) the points are drawn as the training step draws them

@@ -2,8 +2,10 @@
 downsampling (held to PyYAML and OpenCV), its metrics (held to the JAX
 package's), and a guard that the package (the training slice's modules
 and the mesh and interpolation slice's by name) and `chip_smoke.py`
-import none of JAX, the JAX package, OpenCV, imageio, PIL, orbax or
-PyYAML."""
+import none of JAX, the JAX package, OpenCV, imageio, PIL, orbax,
+PyYAML or torchmetrics (the last train and eval slice's modules, LPIPS,
+the colormaps and the profiler, by name too), and that no source of the
+port names OpenCV or torchmetrics in an import."""
 
 import glob
 import os
@@ -159,7 +161,7 @@ def test_metrics_match_jax():
 GUARD = r"""
 import importlib, importlib.abc, pkgutil, sys
 BLOCKED = {"jax", "jaxlib", "i2sdf_tpu", "orbax", "cv2", "imageio", "PIL",
-           "yaml"}
+           "yaml", "torchmetrics"}
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -182,7 +184,11 @@ missing = {"i2sdf_tpu_torch.utils.exr", "i2sdf_tpu_torch.data.recon",
            "i2sdf_tpu_torch.native", "i2sdf_tpu_torch.eval.mesh",
            "i2sdf_tpu_torch.eval.mesh_io",
            "i2sdf_tpu_torch.eval.interpolate",
-           "i2sdf_tpu_torch.train.artifacts"} - set(names)
+           "i2sdf_tpu_torch.train.artifacts",
+           "i2sdf_tpu_torch.eval.lpips", "i2sdf_tpu_torch.eval.render",
+           "i2sdf_tpu_torch.utils.profiling",
+           "i2sdf_tpu_torch.utils.colormap",
+           "i2sdf_tpu_torch.data.plot"} - set(names)
 assert not missing, missing
 import chip_smoke
 print(len(names), "modules")
@@ -195,3 +201,17 @@ def test_port_imports_nothing_the_card_may_lack():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[0]) >= 44
+
+
+def test_no_port_source_imports_opencv_or_torchmetrics():
+    """A static look at every source of the port and at `chip_smoke.py`:
+    no `import cv2` or torchmetrics import, also inside a function, where
+    the import guard above would not reach (the colormaps are numpy,
+    `utils/colormap.py`; LPIPS is `eval/lpips.py`)."""
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(cv2|torchmetrics)\b", re.M)
+    files = glob.glob(os.path.join(ROOT, "i2sdf_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
+    assert len(files) > 40
+    hits = [f for f in files if pat.search(open(f).read())]
+    assert not hits, hits

@@ -398,6 +398,36 @@ def test_render_core_light_plan_replays_to_plain(case):
     assert int(k4.t.plan[:, 1].max()) <= render_core._K3_WIDTH
 
 
+@pytest.mark.parametrize("case", list(LIGHT_CASES))
+def test_render_core_light_idr_plan_replays_to_plain(case):
+    """K3 with the light head beside the idr-mode radiance net (the light
+    input in tile 1, the idr columns [xyz | grad] in tile 0 after
+    PE(view)): the replay's four outputs against the plain op at
+    CORE_TOLS and the JAX light test's light-mask tolerance, at weights
+    moved by 0.01 N(0, 1) off the init; the two regions do not meet (the
+    light input ends at its K, 256 at most, in tile 1; the idr columns
+    start past the features in tile 0), and K4's chains of the same nets
+    fit its kernel."""
+    (width, skip, feat, rad, mx, md), depth, rdepth, ldims = LIGHT_CASES[case]
+    net, rnet = _nets(width, skip, feat, rad, mx, md, depth=depth,
+                      rdepth=rdepth, mode="idr")
+    lnet = light_net(feat, ldims)
+    w = render_core.CoreWeights.of(net, rnet, lnet)
+    k = render_core.CoreStages(net.cfg, rnet.cfg, w, lnet.cfg)
+    vdim = 3 + 6 * md
+    assert k.idr and k.n_light == len(ldims) + 1
+    assert k.rad_in == feat + vdim + 6
+    assert int(k.light.plan[0, 0]) <= render_core._K3_WIDTH
+    assert int(k.rad.plan[0, 0]) <= render_core._K3_RAD_K
+    x, d = _points(200, 5)
+    _core_close(emulate_render_core(k, x, d),
+                render_core.render_core_plain(net, rnet, x, d, lnet))
+    k4 = render_core.K4Stages(net.cfg, rnet.cfg, w, lnet.cfg)
+    assert (k4.n_sdf, k4.n_light) == (depth + 1, len(ldims) + 1)
+    assert k4.wgr is not None and k4.wgr.shape[0] == 3
+    assert int(k4.t.plan[:, 1].max()) <= render_core._K3_WIDTH
+
+
 # ---- K10 on K3's tangent form (csrc/sdf_outputs.cu) ------------------------
 
 # the nets K10's replay is held on: K3's narrow and flagship nets (sphere

@@ -356,6 +356,11 @@ def test_params_carry_the_idr_radiance_layer_in_the_nets_row_order(tmp_path):
 
 
 def test_light_head_with_idr_is_refused():
+    """The light head beside the idr-mode radiance net was refused until
+    the render core ran them together: now the model builds, the port's
+    `supports_render_core` agrees with the JAX predicate, the render core
+    packs the three nets, and only an idr net with a point encoding is
+    refused by the kernels (which the JAX predicate refuses too)."""
     icfg, rcfgs, lcfg = _jax_cfgs()
     conv = lambda cls, c: cls(**{f.name: getattr(c, f.name)  # noqa: E731
                                  for f in dataclasses.fields(cls)})
@@ -364,7 +369,15 @@ def test_light_head_with_idr_is_refused():
         implicit=conv(renderer.ImplicitNetConfig, icfg),
         rendering=conv(tmlp.RenderingNetConfig, rcfgs["idr"]),
         light=conv(renderer.ImplicitNetConfig, lcfg))
-    with pytest.raises(ValueError, match="light head"):
-        renderer.I2SDFModel(cfg)
-    with pytest.raises(ValueError, match="light head"):
-        render_core.check_radiance_net(cfg.rendering, light=True)
+    model = renderer.I2SDFModel(cfg)
+    assert renderer.uses_render_core(cfg)
+    assert supports_render_core(icfg, rcfgs["idr"], lcfg)
+    render_core.check_radiance_net(cfg.rendering)
+    st = render_core.CoreStages(
+        cfg.implicit, cfg.rendering,
+        render_core.CoreWeights.of(model.implicit, model.rendering,
+                                   model.light), cfg.light)
+    assert st.idr and st.n_light == 2
+    with pytest.raises(ValueError, match="point encoding"):
+        render_core.check_radiance_net(dataclasses.replace(
+            cfg.rendering, embed_point_multires=2))

@@ -183,7 +183,8 @@ def test_render_cli_on_cpu(tmp_path):
     depth = np.load(out / "depth" / "0001.npy")
     assert depth.shape == (24, 32) and np.isfinite(depth).all()
     lines = (out / "metrics.txt").read_text().splitlines()
-    assert lines[-1].startswith("[MEAN] [PSNR]") and len(lines) == 4
+    assert lines[-1].startswith("[MEAN] [PSNR]") and len(lines) == 5
+    assert lines[1].startswith("# LPIPS implementation: lpips-rf-torch")
     with pytest.raises(SystemExit):
         tmain.main(["--conf", str(conf), "--test", "--test_mode", "mesh",
                     "--device", "cpu"])

@@ -175,7 +175,7 @@ def test_light_clis_on_cpu(tmp_path, capsys):
     plots = sorted(os.listdir(exp / "plots" / "light_mask"))
     assert len(plots) == 1 and plots[0].startswith("2_")
     lm = imaging.read_png(str(exp / "plots" / "light_mask" / plots[0]))
-    assert lm.shape == (24, 32, 1)
+    assert lm.shape == (24, 32, 3)   # MAGMA-colormapped, as the JAX plot
     assert tmain.main(args + ["--test", "--indices", "1"]) == 0
     out = capsys.readouterr().out
     assert "[INFO] restored checkpoint @2" in out
