@@ -211,6 +211,29 @@ Phases, each printed as one JSON line with its wall time:
    often as by the eval render of the same 4 poses in this process, whose
    frames the CLI's equal to within one level; the seconds a frame.
 
+18. relight (the relight path, `eval/relight.py::run_relight`): the
+   light config at full width and seeded init weights relights view 0
+   (240x320) of a copy of scan1 with two seeded lamps (light-mask discs
+   in views 0 and 16) and seeded depth (`relight_root`): the GT-mask
+   emitters clustered into `RELIGHT_EMITTERS`, next-event shading at
+   `RELIGHT_SPP` samples with the `RELIGHT_VIS_STEPS`-step visibility
+   march through the plain SDF net, with `indirect_spp` 0 and then 2: the
+   relit image finite and non-negative, the PNGs written, K1, K2 and
+   K3-light launched by the geometry render and K3-light once a chunk
+   (so no chunk took the plain render), each stage's seconds (geometry
+   render, visibility and shading, field bounce, writes) and the SDF
+   evaluations of the view's visibility; then the first 4,096-point
+   shading chunk shaded again on the same draws from the plain eval
+   render's geometry, its relit chunk (sRGB) within 30 dB of the
+   kernels';
+19. cli_relight (side by side with the CLI chains of 3c/3d/15a): the
+   train CLI for 2 steps on the light config with the lamps' masks, then
+   on its checkpoint `--test_mode relight` with GT depth, the same
+   without depth (the model-head fallback, which must say so),
+   `relight_video --n_frames 2` and `relight` with `--edit_conf` (an
+   `emission_scale` and a kd map at another size): each one's launches
+   K1, K2 and K3-light only, its relit image finite and non-negative.
+
 The card's `nvidia-smi` line is printed on its own after phase 1. The
 run ends with the launch counts of each path, one JSON line with every
 kernel's numbers (launches from the path it serves), and last
@@ -247,8 +270,10 @@ import torch
 from i2sdf_tpu_torch import native
 from i2sdf_tpu_torch.config import load_cfg
 from i2sdf_tpu_torch.data.plot import PlotData
+from i2sdf_tpu_torch.data.relight import RelightData
 from i2sdf_tpu_torch.eval import mesh as tmesh
 from i2sdf_tpu_torch.eval.interpolate import interpolate_poses
+from i2sdf_tpu_torch.eval.relight import RelightContext, run_relight
 from i2sdf_tpu_torch.eval.render import run_render_eval
 from i2sdf_tpu_torch.models import mlp, renderer
 from i2sdf_tpu_torch.models.density import effective_beta
@@ -265,6 +290,7 @@ from i2sdf_tpu_torch.train.state import create_train_state
 from i2sdf_tpu_torch.train.trainer import ReconstructionTrainer
 from i2sdf_tpu_torch.utils import imaging
 from i2sdf_tpu_torch.utils.cameras import get_camera_params
+from i2sdf_tpu_torch.utils.draws import Draws
 
 ROOT = Path(__file__).resolve().parent
 CONF = ROOT / "configs" / "synthetic.yml"
@@ -4037,6 +4063,261 @@ def run_cli_bg() -> list:
     return runs
 
 
+# ---- relighting -------------------------------------------------------------
+
+RELIGHT_SPP = 8          # next-event samples a pixel and emitter
+RELIGHT_VIS_STEPS = 32   # the visibility march's steps (the CLI's default)
+RELIGHT_EMITTERS = 2
+RELIGHT_SCALE = 10.0     # --emitter_scale: the lamps' mean colour x 10
+RELIGHT_CHUNK = 4096     # the shading chunk (run_relight's default)
+# the seeded lamps: a disc of light-mask pixels (full resolution) in two
+# views on opposite sides of the scene, at z-depth LAMP_DEPTH under it: in
+# front of the init's sphere (radius 0.6; the cameras at radius 1.2)
+LAMPS = {0: (140, 440), 16: (140, 200)}
+LAMP_RADIUS_PX, LAMP_DEPTH = 60, 0.35
+
+
+def relight_root(tmp, depth: bool = True) -> str:
+    """A data root whose scan1 holds the checkout's images and cameras
+    (symlinks), seeded grey light masks (the `LAMPS` discs; every other
+    view dark) and, with `depth`, seeded depth as `.npy`
+    (`synthetic_supervision`'s draws: uniform in [0.5, 4.5], 0.5 %
+    invalid; `LAMP_DEPTH` under the lamps; scan1's scale is 1)."""
+    src = ROOT / "data" / "synthetic_quality" / "scan1"
+    scan = Path(tmp) / "data" / "synthetic_quality" / "scan1"
+    scan.mkdir(parents=True)
+    for name in ("image", "cameras_normalize.npz"):
+        os.symlink(src / name, scan / name)
+    images = imaging.glob_imgs(str(src / "image"), (".png",))
+    H, W = imaging.read_png(images[0]).shape[:2]
+    rows, cols = np.mgrid[:H, :W]
+    rng = np.random.default_rng(SEED + 40)
+    (scan / "light_mask").mkdir()
+    if depth:
+        (scan / "depth").mkdir()
+    for i in range(len(images)):
+        lit = np.zeros((H, W), bool)
+        if i in LAMPS:
+            r, c = LAMPS[i]
+            lit = (rows - r) ** 2 + (cols - c) ** 2 < LAMP_RADIUS_PX ** 2
+        imaging.write_png(str(scan / "light_mask" / f"{i:04d}.png"),
+                          (lit * 255).astype(np.uint8))
+        if depth:
+            d = rng.uniform(0.5, 4.5, (H, W)).astype(np.float32)
+            d[rng.uniform(size=(H, W)) < 0.005] = 0.0
+            d[lit] = LAMP_DEPTH
+            np.save(scan / "depth" / f"{i:04d}.npy", d)
+    return str(Path(tmp) / "data")
+
+
+def relight_launches_ok(launches: dict, views: int = 1,
+                        rays: int = 240 * 320) -> None:
+    """A relit view's launches: the geometry render's K1, K2 and K3-light
+    (once a 12,000-ray chunk: 7 a 240x320 view, so no chunk took the plain
+    render), and no other render-core, rev or background kernel."""
+    chunks = math.ceil(rays / 12000)
+    assert all(launches.get(k) for k in EVAL_LIGHT_KERNELS), launches
+    assert launches["render_core_fwd_light"] == chunks * views, launches
+    assert not any(launches.get(k) for k in CORE_KERNELS
+                   if k != "render_core_fwd_light"), launches
+    assert not any(launches.get(k) for k in (
+        "rev_fwd", "rev_bwd", "bg_core_fwd", "bg_core_bwd")), launches
+
+
+def run_relight_phase(device) -> dict:
+    """Phase relight: the light config at full width and seeded init
+    weights relights view 0 (240x320) of a copy of scan1 with seeded lamps
+    and depth (`relight_root`) through `eval/relight.py::run_relight`: the
+    GT-mask emitters (`RELIGHT_EMITTERS` clusters), next-event shading at
+    `RELIGHT_SPP` samples with the `RELIGHT_VIS_STEPS` visibility march,
+    first with `indirect_spp` 0, then 2: the files, finite and
+    non-negative, the launches (`relight_launches_ok`), each stage's
+    seconds (geometry render, visibility and shading `nee`, the field
+    bounce `indirect`, `writes`; `setup_s` the data and the emitters) and
+    the SDF evaluations the view's visibility makes. Then the first
+    4,096-point chunk shaded again, on the same draws, from the plain eval
+    render's geometry: its relit chunk (sRGB) within `SLICE_PSNR_BAR_DB`
+    of the kernel geometry's."""
+    conf = light_conf(train=False)
+    _, model = seeded_model(conf, device)
+    H, W = 480 // conf.dataset.downsample, 640 // conf.dataset.downsample
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = relight_root(tmp)
+        scene_s = time.perf_counter() - t0
+        runs = []
+        for isp in (0, 2):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run_relight(model, conf, str(Path(tmp) / f"exp{isp}"),
+                              data_root=root, indices=[0], spp=RELIGHT_SPP,
+                              n_emitters=RELIGHT_EMITTERS,
+                              emitter_scale=RELIGHT_SCALE,
+                              vis_steps=RELIGHT_VIS_STEPS, indirect_spp=isp,
+                              seed=SEED, chunk=RELIGHT_CHUNK)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            relight_launches_ok(launches, rays=H * W)
+            out = Path(res["out_dir"])
+            relit = np.load(out / "0000_relit.npy")
+            assert relit.shape == (H, W, 3), relit.shape
+            assert np.isfinite(relit).all() and (relit >= 0).all()
+            for name in ("relit", "diffuse", "specular"):
+                assert imaging.read_png(str(out / f"0000_{name}.png")
+                                        ).shape == (H, W, 3)
+            assert res["emitters"] == RELIGHT_EMITTERS
+            seconds = res["images"][0]["seconds"]
+            runs.append(dict(indirect_spp=isp, wall_s=wall,
+                             setup_s=wall - sum(seconds.values()),
+                             seconds=seconds, mean=float(relit.mean()),
+                             max=float(relit.max()),
+                             launches={k: v for k, v in launches.items()
+                                       if v}))
+        # the first chunk (the view's top rows, which the lamps barely
+        # light) from the kernels' and the plain render's geometry, with
+        # the field bounce, so that the whole chunk carries light
+        ctx = RelightContext(model, conf, root, RELIGHT_EMITTERS,
+                             RELIGHT_SCALE, RELIGHT_SPP, RELIGHT_VIS_STEPS,
+                             indirect_spp=2)
+        em = ctx.emitters
+        assert torch.isfinite(em.centers).all() and bool((em.radii > 0).all())
+        assert bool((em.radiance >= 0).all())
+        pd = RelightData(scan_id=1, data_root=root,
+                         downsample=ctx.downsample, indices=[0],
+                         **ctx.dataset_conf)
+        uv, K, pose, _ = pd.image_inputs(0)
+        plain = train_step.make_eval_render_fn(
+            model, chunk_size=conf.train.split_n_pixels, fused=False)
+        chunk = {}
+        for name, render in (("kernel", None), ("plain", plain)):
+            kernels.reset_launch_counts()
+            cols = ctx.view_inputs(pd, uv, K, pose, render_image=render)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in kernels.launch_counts().items() if v}
+            assert bool(launched) == (name == "kernel"), (name, launched)
+            if name == "kernel":  # where the rendered points lie
+                sdf = mlp.sdf_vals(model.implicit, cols[0])[:, 0]
+                q = torch.tensor([0.1, 0.5, 0.9], device=device)
+                sdf_at_points = dict(zip(("p10", "median", "p90"),
+                                         torch.quantile(sdf, q).tolist()))
+            first = [c[:RELIGHT_CHUNK] for c in cols]
+            with torch.no_grad():
+                o = ctx.shade_chunk(Draws.seeded(SEED, device), *first)
+                relit = ctx.paint_emitters(first[0], o["color_diffuse"]
+                                           + o["color_specular"])
+            for v in (o["color_diffuse"], o["color_specular"], relit):
+                assert torch.isfinite(v).all() and bool((v >= 0).all())
+            chunk[name] = relit
+    srgb = {k: torch.clamp(imaging.linear_to_srgb(v), 0, 1)
+            for k, v in chunk.items()}
+    mse = float(((srgb["kernel"] - srgb["plain"]) ** 2).mean())
+    psnr = -10 * math.log10(max(mse, 1e-20))
+    assert psnr >= SLICE_PSNR_BAR_DB, \
+        f"relit chunk kernel vs plain {psnr:.2f} dB"
+    means = {k: float(v.mean()) for k, v in chunk.items()}
+    return dict(runs=runs, scene_s=scene_s, image=[H, W],
+                emitters=dict(centers=em.centers.tolist(),
+                              radii=em.radii.tolist(),
+                              radiance=em.radiance.tolist()),
+                sdf_evaluations=H * W * RELIGHT_SPP * RELIGHT_VIS_STEPS
+                * RELIGHT_EMITTERS,
+                chunk_psnr_db=psnr, chunk_means=means,
+                bar_db=SLICE_PSNR_BAR_DB, sdf_at_points=sdf_at_points)
+
+
+def run_cli_relight() -> dict:
+    """cli_relight: the light config through the CLIs on scan1 with seeded
+    lamps: the train CLI for 2 steps (on the lamps' masks, no depth); then
+    on its checkpoint, in two chains side by side (each on its own copy of
+    the experiment, so that neither overwrites the other's files):
+    `--test_mode relight --spp RELIGHT_SPP --indices 0` with GT depth (the
+    GT-mask emitters), then `relight` with `--edit_conf` (an
+    `emission_scale` and a kd map written as a PNG at another size, so the
+    area resize and the edit run); and the first relight on the copy
+    without depth, which must take the model-head fallback and say so,
+    then `relight_video --n_frames 2` at half the samples: each test mode
+    K1, K2 and K3-light (`relight_launches_ok`), its relit image finite
+    and non-negative, its frames written; the processes' seconds."""
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = Path(tmp) / "light_mask.yml"
+        conf.write_text(LIGHT_CONF.read_text().replace(
+            "data_dir: synthetic\n", "data_dir: synthetic_quality\n"))
+        gt = relight_root(Path(tmp) / "gt")
+        nodepth = relight_root(Path(tmp) / "nodepth", depth=False)
+        kd = Path(tmp) / "kd.png"
+        imaging.write_png(str(kd), np.random.default_rng(SEED + 41).integers(
+            0, 256, (150, 200, 3), dtype=np.uint8))
+        edit = Path(tmp) / "edit.yml"
+        edit.write_text(f"emission_scale: [1.5, 1.0, 0.5]\nkd: {kd}\n")
+        ds = load_cfg(str(conf)).dataset.downsample
+        H, W = 480 // ds, 640 // ds
+        cli = [sys.executable, "-m", "i2sdf_tpu_torch.main", "--scan_id",
+               "1", "--log_every", "1", "--conf", str(conf)]
+        test = ["--test", "--emitter_scale", str(RELIGHT_SCALE),
+                "--n_emitters", str(RELIGHT_EMITTERS), "--spp"]
+        one = ["--test_mode", "relight", "--indices", "0"]
+        spp, video_spp = str(RELIGHT_SPP), str(RELIGHT_SPP // 2)
+        launches = {}
+
+        def run(name, root, exps, extra) -> dict:
+            t0 = time.perf_counter()
+            proc = subprocess.run(cli + ["--data_root", root,
+                                         "--exps_folder", str(exps)] + extra,
+                                  cwd=ROOT, capture_output=True, text=True,
+                                  timeout=600)
+            lines = proc.stdout.splitlines()
+            out = dict(name=name, rc=proc.returncode,
+                       seconds=time.perf_counter() - t0,
+                       tail=[ln for ln in lines
+                             if ln.startswith("[relight")][-4:]
+                       or lines[-3:])
+            assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[
+                -3000:]
+            if name == "train":
+                return out
+            assert "[INFO] restored checkpoint @2" in proc.stdout
+            launches[name] = cli_launches(proc.stdout)
+            # the video's two frames; the fallback's discovery renders 16
+            # of the 32 views before the relit one
+            relight_launches_ok(launches[name], views={
+                "relight_video": 2, "relight_model_head": 17}.get(name, 1),
+                rays=H * W)
+            fallback = "falling back to the model's light head" in proc.stdout
+            assert fallback == (name == "relight_model_head"), proc.stdout
+            assert ("emission_scale applied" in proc.stdout) == (
+                name == "relight_edit"), proc.stdout
+            exp = Path(exps) / "synthetic_light_1" / "version_0" / "eval"
+            if name == "relight_video":
+                frames = sorted(os.listdir(exp / "relight_video"
+                                           / "0000_0001"))
+                assert frames == ["0000.png", "0001.png"], frames
+            else:
+                relit = np.load(exp / "relight" / "0000_relit.npy")
+                assert relit.shape == (H, W, 3), relit.shape
+                assert np.isfinite(relit).all() and (relit >= 0).all()
+                out["mean"] = float(relit.mean())
+            return out
+
+        exps = Path(tmp) / "exps"
+        runs = [run("train", nodepth, exps, ["--max_steps", "2"])]
+        shutil.copytree(exps, Path(tmp) / "exps_b")
+        chains = side_by_side(
+            gt=lambda: [run("relight", gt, exps, test + [spp] + one),
+                        run("relight_edit", gt, exps, test + [spp] + one
+                            + ["--edit_conf", str(edit)])],
+            fallback=lambda: [
+                run("relight_model_head", nodepth, Path(tmp) / "exps_b",
+                    test + [spp] + one),
+                run("relight_video", gt, Path(tmp) / "exps_b",
+                    test + [video_spp, "--test_mode", "relight_video",
+                            "--n_frames", "2"])])
+    for res, secs in chains.values():
+        runs += res
+    return dict(runs=runs, launches=launches,
+                chains_s={k: secs for k, (_, secs) in chains.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4238,12 +4519,21 @@ def main() -> int:
     emit("light_idr", t0, eval=dict(**slli, compare=cmpli), train=trli,
          train_nonormal=trlin)
 
-    # the CLI chains of the light-idr config, the io scene (two chains) and
-    # the idr config, side by side: each is its own processes, and the
-    # card holds them all at once (their seconds overlap)
+    # phase relight: the light config's relit view (K1, K2, K3-light by
+    # the geometry render; visibility through the plain net)
+    t0 = time.perf_counter()
+    rl = run_relight_phase(device)
+    emit("relight", t0, **rl)
+    torch.cuda.empty_cache()
+
+    # the CLI chains of the light-idr config, the io scene (two chains),
+    # the idr config and relighting, side by side: each is its own
+    # processes, and the card holds them all at once (their seconds
+    # overlap)
     t0 = time.perf_counter()
     clis = side_by_side(cli_light_idr=lambda: run_cli_idr(light=True),
-                        io=run_io, cli_idr=run_cli_idr)
+                        io=run_io, cli_idr=run_cli_idr,
+                        cli_relight=run_cli_relight)
     for phase, (res, secs) in clis.items():
         emit(phase, time.perf_counter() - secs, side_by_side=True, **res)
     emit("clis_side_by_side", t0, phases=list(clis))
@@ -4309,7 +4599,10 @@ def main() -> int:
                                    "mesh_perturbed":
                                        mesh["perturbed"]["launches"],
                                    "mesh_cli": mesh_cli["launches"],
-                                   "interpolate": interp["launches"]},
+                                   "interpolate": interp["launches"],
+                                   "relight": rl["runs"][0]["launches"],
+                                   "cli_relight":
+                                       clis["cli_relight"][0]["launches"]},
                       "seconds": time.perf_counter() - t_all}))
     # K1 also serves the mesh: its launches and 2 M-point chunk there; K5
     # and K6 the SH config's routes (K5 at the eval chunk: `check_rev_sh`'s
@@ -4326,6 +4619,10 @@ def main() -> int:
         launches_eval_idr=sli["launches"]["render_core_fwd_idr"])
     on_mesh["render_core_fwd_light_idr"] = dict(
         launches_eval_light_idr=slli["launches"]["render_core_fwd_light_idr"])
+    # K1, K2 and K3-light also serve a relit view's geometry
+    for k in EVAL_LIGHT_KERNELS:
+        on_mesh.setdefault(k, {})["launches_relight_view"] = rl["runs"][0][
+            "launches"][k]
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          "launches": paths[path_of[r["name"]]][r["name"]],

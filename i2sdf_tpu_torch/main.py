@@ -1,5 +1,5 @@
 """CLI of the port (counterpart of `i2sdf_tpu/main.py`): train, render,
-extract and score a mesh, interpolate views.
+extract and score a mesh, interpolate views, relight.
 
     python -m i2sdf_tpu_torch.main --conf configs/synthetic_quality.yml \
         --scan_id 1 [--max_steps N] [--resume] [--val_mesh] [--seed 7] \
@@ -13,6 +13,11 @@ extract and score a mesh, interpolate views.
     python -m i2sdf_tpu_torch.main --conf configs/synthetic_quality.yml \
         --scan_id 1 --test --test_mode interpolate [--inter_id 0 1] \
         [--n_frames 60] [--frame_rate 24]
+    python -m i2sdf_tpu_torch.main --conf configs/synthetic_light_mask.yml \
+        --test --test_mode relight [--spp 64] [--n_emitters 1] \
+        [--emitter_scale 1.0] [--indirect_spp N] [--edit_conf edits.yml]
+    python -m i2sdf_tpu_torch.main --conf ... --test --test_mode \
+        relight_video [--inter_id 0 1] [--n_frames 60] [--spp 64]
 
 The flags are the reference's. Every shipped config whose model the port
 has (the flagship's, its normal-loss-off copies, the light-mask config)
@@ -28,8 +33,17 @@ validation (`plots/mesh/{step}.ply` and `.html`, at the config's
 with `--score` the refused meshes and `metrics.txt` against the scan's
 `mesh.ply`) and `interpolate` (`eval/interpolate.py`: `--n_frames`
 frames from view `--inter_id`'s first pose to its second, a video at
-`--frame_rate` when ffmpeg is on the path) are ported; `relight`,
-`relight_video` and `--use_material` are refused. `--is_val` renders
+`--frame_rate` when ffmpeg is on the path), `relight` and `relight_video`
+(`eval/relight.py`: `eval/relight/{i}_relit.png`, `_diffuse.png`,
+`_specular.png` and `_relit.npy`, and the relit frames of `--inter_id`'s
+flythrough; `--spp` next-event samples a pixel and emitter, `--n_emitters`
+clusters of the GT light-mask pixels unprojected by GT depth (without
+them, of the model's light head), `--emitter_scale`, `--indirect_spp`
+field-bounce samples, `--edit_conf` a YAML of material override maps and
+`emission_scale`, read with the port's own YAML reader) are ported;
+`--material` and `--use_material` (the material stage) are refused.
+As in the JAX CLI the relight draws are seeded with `--seed` as given.
+`--is_val` renders
 the held-out `val/` views (`val_mat_i @ scale_mat_0`) into `eval/test/`;
 as in the JAX CLI, training takes the flag and validates on the training
 views all the same (the JAX trainer's `PlotData` is handed the training
@@ -67,8 +81,10 @@ import re
 import torch
 
 from .config import load_cfg
+from .config.cfgnode import parse_yaml
 from .eval.interpolate import run_interpolation
 from .eval.mesh import run_mesh_eval
+from .eval.relight import run_relight, run_relight_video
 from .eval.render import run_render_eval
 from .models.renderer import I2SDFConfig
 from .ops import kernels
@@ -107,7 +123,22 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--log_every", type=int, default=50)
-    p.add_argument("--use_material", action="store_true")
+    p.add_argument("--spp", type=int, default=64,
+                   help="relight: samples per pixel and emitter")
+    p.add_argument("--edit_conf", default=None,
+                   help="relight: YAML of material override maps (keys "
+                        "mask/normal/rough/kd/ks -> image paths) and "
+                        "`emission_scale`")
+    p.add_argument("--n_emitters", type=int, default=1)
+    p.add_argument("--emitter_scale", type=float, default=1.0)
+    p.add_argument("--indirect_spp", type=int, default=None,
+                   help="relight: one-bounce indirect samples a shading "
+                        "point from the trained radiance field (default: "
+                        "the config's `material.indirect_spp`, else 0)")
+    p.add_argument("--material", action="store_true",
+                   help="the material stage's trainer (not ported yet)")
+    p.add_argument("--use_material", action="store_true",
+                   help="the trained material stage (not ported yet)")
     p.add_argument("--no_fused", action="store_true",
                    help="run the sampler (training) and the eval render "
                         "through their plain PyTorch versions")
@@ -174,11 +205,14 @@ def resolve_ckpt(ckpt: str, exp_dir: str) -> tuple[str, int | None]:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.test and args.test_mode in ("relight", "relight_video"):
-        raise SystemExit(f"--test_mode {args.test_mode} is not ported yet")
+    if args.material:
+        raise SystemExit("--material (the material stage's trainer, "
+                         "`train/material.py`) is not ported yet: it comes "
+                         "with the next slice, the material trainer")
     if args.use_material:
-        raise SystemExit("--use_material (the material stage) is not ported "
-                         "yet")
+        raise SystemExit("--use_material (the trained material stage) is not "
+                         "ported yet: it comes with the next slice, the "
+                         "material trainer")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run the plain "
@@ -220,11 +254,27 @@ def main(argv=None) -> int:
         run_mesh_eval(model, conf, exp_dir, data_root=args.data_root,
                       resolution=args.resolution, score=args.score,
                       far_clip=args.far_clip, fused=fused)
-    else:
+    elif args.test_mode == "interpolate":
         run_interpolation(model, conf, exp_dir, id0=args.inter_id[0],
                           id1=args.inter_id[1], n_frames=args.n_frames,
                           frame_rate=args.frame_rate,
                           data_root=args.data_root, fused=fused)
+    else:
+        edit_conf = None
+        if args.edit_conf:
+            with open(args.edit_conf) as f:
+                edit_conf = parse_yaml(f.read())
+        common = dict(data_root=args.data_root, spp=args.spp,
+                      n_emitters=args.n_emitters,
+                      emitter_scale=args.emitter_scale, edit_conf=edit_conf,
+                      fused=fused, full_res=args.full_res, seed=args.seed,
+                      indirect_spp=args.indirect_spp)
+        if args.test_mode == "relight_video":
+            run_relight_video(model, conf, exp_dir, id0=args.inter_id[0],
+                              id1=args.inter_id[1], n_frames=args.n_frames,
+                              frame_rate=args.frame_rate, **common)
+        else:
+            run_relight(model, conf, exp_dir, indices=args.indices, **common)
     if device.type == "cuda":
         print("[INFO] kernel launches: " + json.dumps(
             {k: v for k, v in kernels.launch_counts().items() if v}))

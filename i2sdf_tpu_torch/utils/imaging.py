@@ -7,13 +7,16 @@ maps are read by `utils/exr.py`, and `.npy` is accepted wherever an EXR
 is (`load_depth`, `load_normal`); masks are PNG or `.npy`
 (`load_mask`); HDR images (`load_rgb(..., is_hdr=True)`) `.npy` or EXR,
 in RGB order as the JAX loader gives them. Downsampling is an area mean
-over exact integer factors (what OpenCV's INTER_AREA computes there).
+over exact integer factors (what OpenCV's INTER_AREA computes there);
+`resize_area` is INTER_AREA between any two sizes (the relight edit
+maps').
 PSNR, SSIM and the sRGB curves follow the reference's definitions; the
 sRGB curves take numpy arrays or torch tensors.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 import zlib
@@ -203,6 +206,53 @@ def downsample_area(img: np.ndarray, factor: int) -> np.ndarray:
     blocks = img.reshape(h, factor, w, factor, -1).astype(np.float64)
     return blocks.mean(axis=(1, 3)).astype(img.dtype).reshape(
         h, w, *img.shape[2:])
+
+
+def _area_weights(src: int, dst: int, area: bool) -> np.ndarray:
+    """(dst, src) weights of one axis of OpenCV's INTER_AREA: with `area`
+    (both axes shrink) each output cell's overlap with the inputs
+    (`computeResizeAreaTab`), else its linear emulation (`resize`'s
+    `area_mode` taps: input floor(d * scale) and the next, the second
+    weighted by the fractional part of (d + 1) - (s + 1) * dst / src)."""
+    scale = src / dst
+    w = np.zeros((dst, src), np.float64)
+    for d in range(dst):
+        if area:
+            f1 = d * scale
+            f2 = f1 + scale
+            cell = min(scale, src - f1)
+            s2 = min(math.floor(f2), src - 1)
+            s1 = min(math.ceil(f1), s2)
+            if s1 - f1 > 1e-3:
+                w[d, s1 - 1] = np.float32((s1 - f1) / cell)
+            w[d, s1:s2] = np.float32(1.0 / cell)
+            if f2 - s2 > 1e-3:
+                w[d, s2] = np.float32(min(f2 - s2, 1.0, cell) / cell)
+        else:
+            s = math.floor(d * scale)
+            f = float(np.float32((d + 1) - (s + 1) * (dst / src)))
+            f = 0.0 if f <= 0 else f - math.floor(f)
+            if s >= src - 1:
+                s, f = src - 1, 0.0
+            w[d, s] += np.float32(1.0 - f)
+            w[d, min(s + 1, src - 1)] += np.float32(f)
+    return w
+
+
+def resize_area(img: np.ndarray, size) -> np.ndarray:
+    """(H, W[, C]) -> (h, w[, C]) as `cv2.resize(img, (w, h),
+    interpolation=cv2.INTER_AREA)` gives it, for any sizes: area means
+    where both axes shrink, OpenCV's linear emulation of them where one
+    grows (whole-pixel replication at integer factors), float32."""
+    h, w = size
+    H, W = img.shape[:2]
+    area = H >= h and W >= w
+    wy, wx = _area_weights(H, h, area), _area_weights(W, w, area)
+    x = np.asarray(img, np.float64).reshape(H, W, -1)
+    rows = np.tensordot(wy, x, axes=(1, 0))            # (h, W, C)
+    out = np.tensordot(wx, rows, axes=(1, 1))          # (w, h, C)
+    return out.transpose(1, 0, 2).astype(np.float32).reshape(
+        (h, w) + img.shape[2:])
 
 
 def linear_to_srgb(x):

@@ -71,3 +71,32 @@ def perturbed(jparams, seed):
     return jax.tree_util.tree_map(
         lambda v: np.asarray(v) + 0.01 * rng.normal(size=np.shape(v)).astype(
             np.float32), to_numpy(jparams))
+
+
+class JaxDraws:
+    """`i2sdf_tpu_torch.utils.draws.Draws`' interface on a JAX key: each
+    node's draws are JAX's own (`jax.random.uniform`, `randint`,
+    `categorical`), as f32 CPU tensors, so the port walks JAX's key tree
+    to the same numbers."""
+
+    def __init__(self, key):
+        self.key = key
+
+    device = torch.device("cpu")
+
+    def split(self, n):
+        return [JaxDraws(k) for k in jax.random.split(self.key, n)]
+
+    def fold_in(self, i):
+        return JaxDraws(jax.random.fold_in(self.key, i))
+
+    def uniform(self, shape):
+        return torch.from_numpy(np.array(jax.random.uniform(
+            self.key, tuple(shape))))
+
+    def randint(self, high):
+        return int(jax.random.randint(self.key, (), 0, high))
+
+    def categorical(self, logits):
+        return int(jax.random.categorical(
+            self.key, jax.numpy.asarray(logits.cpu().numpy())))

@@ -390,15 +390,18 @@ def test_run_mesh_eval_and_cli_match_jax(tmp_path):
     ["--test", "--test_mode", "relight"],
     ["--test", "--test_mode", "relight_video"],
     ["--test", "--test_mode", "mesh", "--use_material"],
-    ["--test", "--test_mode", "mesh", "--is_val"]])
+    ["--test", "--test_mode", "mesh", "--is_val"],
+    ["--material"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
     """The CLI refuses the modes and flags the port lacks. `--is_val` was
-    one of them until the held-out views were ported: the mesh mode now
-    takes it (as the JAX CLI does, which ignores it there) and goes on to
-    look for the experiment's checkpoint, of which this one has none."""
+    one of them until the held-out views were ported, the relight modes
+    until relighting was: the mesh mode now takes `--is_val` (as the JAX
+    CLI does, which ignores it there) and the relight modes run, each
+    going on to look for the experiment's checkpoint, of which this one
+    has none. The material stage's flags stay refused."""
     conf = write_tiny_scene(str(tmp_path))
-    match = ("no checkpoint under" if "--is_val" in extra
-             else "not ported")
+    refused = "--use_material" in extra or "--material" in extra
+    match = "not ported" if refused else "no checkpoint under"
     with pytest.raises(SystemExit, match=match):
         tmain.main(["--conf", conf, "--device", "cpu", "--data_root",
                     str(tmp_path), "--exps_folder", str(tmp_path / "exps"),
