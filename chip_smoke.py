@@ -232,11 +232,36 @@ Phases, each printed as one JSON line with its wall time:
    without depth (the model-head fallback, which must say so),
    `relight_video --n_frames 2` and `relight` with `--edit_conf` (an
    `emission_scale` and a kd map at another size): each one's launches
-   K1, K2 and K3-light only, its relit image finite and non-negative.
+   K1, K2 and K3-light only, its relit image (`0000_relit.exr`, read
+   with the port's EXR reader) finite and non-negative.
+20. material (the material stage, `train/material.py`): the light
+   config's material section at full width (SDF 6 x 256 with the light
+   head, material net 4 x 256 at PE 6, batch 2,048, spp 8 in two buffers
+   of 4, 24 march steps, one emitter) on a copy of scan1 with one seeded
+   lamp (view 0's) and seeded depth, the bake cut to `downsample_train`
+   2 (240x320, 32 views; `MATERIAL_CUT`), seeded init weights:
+   `MaterialTrainer` (emitters, the bake through K1, K2 and K3-light, the
+   projection, the exclusion, `calibrate`) with each view's valid count,
+   the excluded and projected counts and the stages' seconds; `fit` for
+   20 steps: K1 48 times a step an emitter and no other kernel, steps/s;
+   10 steps timed one by one (median); K1 alone at a march step's 8,192
+   points (events, device time, bound, plain, library); one batch with K1
+   and with plain f32 visibility on the same draws (`material_step_pair`:
+   flags apart only within K1's bound of eps, loss terms within 0.1,
+   gradient leaves' cosine above 0.999); a profile of three steps; one
+   validation plot;
+21. cli_material (a third chain beside cli_relight's two, on a copy of
+   its 2-step experiment and a one-lamp copy of scan1 with depth):
+   `--material --max_steps 4`, `--material --resume --max_steps 6` (a
+   plot at step 5), `--test_mode relight --use_material --indices 0` (the
+   trained stage; K1, K2, K3-light; a finite non-negative
+   `0000_relit.exr`) and `--test_mode mesh --use_material --resolution
+   128` (a PLY with uchar colours).
 
 The card's `nvidia-smi` line is printed on its own after phase 1. The
 run ends with the launch counts of each path, one JSON line with every
-kernel's numbers (launches from the path it serves), and last
+kernel's numbers (launches from the path it serves; K1's also a material
+step's and its time at the march's shape), and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero;
 with no CUDA device the script exits nonzero before printing a result.
 All files are written to a temporary directory; no scene file under
@@ -285,10 +310,11 @@ from i2sdf_tpu_torch.ops.kernels import (bg_core, build, conv_check,
                                          render_core, replay, rev,
                                          sampler_round, sdf_grad, sdf_mlp,
                                          sdf_outputs)
+from i2sdf_tpu_torch.train import material as tmat
 from i2sdf_tpu_torch.train import step as train_step
 from i2sdf_tpu_torch.train.state import create_train_state
 from i2sdf_tpu_torch.train.trainer import ReconstructionTrainer
-from i2sdf_tpu_torch.utils import imaging
+from i2sdf_tpu_torch.utils import exr, imaging
 from i2sdf_tpu_torch.utils.cameras import get_camera_params
 from i2sdf_tpu_torch.utils.draws import Draws
 
@@ -4077,12 +4103,14 @@ LAMPS = {0: (140, 440), 16: (140, 200)}
 LAMP_RADIUS_PX, LAMP_DEPTH = 60, 0.35
 
 
-def relight_root(tmp, depth: bool = True) -> str:
+def relight_root(tmp, depth: bool = True, lamps=None) -> str:
     """A data root whose scan1 holds the checkout's images and cameras
-    (symlinks), seeded grey light masks (the `LAMPS` discs; every other
-    view dark) and, with `depth`, seeded depth as `.npy`
+    (symlinks), seeded grey light masks (the discs of `lamps`, by default
+    `LAMPS`; every other view dark) and, with `depth`, seeded depth as
+    `.npy`
     (`synthetic_supervision`'s draws: uniform in [0.5, 4.5], 0.5 %
     invalid; `LAMP_DEPTH` under the lamps; scan1's scale is 1)."""
+    lamps = LAMPS if lamps is None else lamps
     src = ROOT / "data" / "synthetic_quality" / "scan1"
     scan = Path(tmp) / "data" / "synthetic_quality" / "scan1"
     scan.mkdir(parents=True)
@@ -4097,8 +4125,8 @@ def relight_root(tmp, depth: bool = True) -> str:
         (scan / "depth").mkdir()
     for i in range(len(images)):
         lit = np.zeros((H, W), bool)
-        if i in LAMPS:
-            r, c = LAMPS[i]
+        if i in lamps:
+            r, c = lamps[i]
             lit = (rows - r) ** 2 + (cols - c) ** 2 < LAMP_RADIUS_PX ** 2
         imaging.write_png(str(scan / "light_mask" / f"{i:04d}.png"),
                           (lit * 255).astype(np.uint8))
@@ -4160,7 +4188,7 @@ def run_relight_phase(device) -> dict:
             launches = kernels.launch_counts()
             relight_launches_ok(launches, rays=H * W)
             out = Path(res["out_dir"])
-            relit = np.load(out / "0000_relit.npy")
+            relit, _ = exr.read_exr(str(out / "0000_relit.exr"))
             assert relit.shape == (H, W, 3), relit.shape
             assert np.isfinite(relit).all() and (relit >= 0).all()
             for name in ("relit", "diffuse", "specular"):
@@ -4293,7 +4321,8 @@ def run_cli_relight() -> dict:
                                            / "0000_0001"))
                 assert frames == ["0000.png", "0001.png"], frames
             else:
-                relit = np.load(exp / "relight" / "0000_relit.npy")
+                relit, _ = exr.read_exr(str(exp / "relight"
+                                            / "0000_relit.exr"))
                 assert relit.shape == (H, W, 3), relit.shape
                 assert np.isfinite(relit).all() and (relit >= 0).all()
                 out["mean"] = float(relit.mean())
@@ -4302,7 +4331,10 @@ def run_cli_relight() -> dict:
         exps = Path(tmp) / "exps"
         runs = [run("train", nodepth, exps, ["--max_steps", "2"])]
         shutil.copytree(exps, Path(tmp) / "exps_b")
+        shutil.copytree(exps, Path(tmp) / "exps_c")
         chains = side_by_side(
+            material=lambda: run_cli_material(Path(tmp) / "material",
+                                              Path(tmp) / "exps_c"),
             gt=lambda: [run("relight", gt, exps, test + [spp] + one),
                         run("relight_edit", gt, exps, test + [spp] + one
                             + ["--edit_conf", str(edit)])],
@@ -4312,10 +4344,357 @@ def run_cli_relight() -> dict:
                 run("relight_video", gt, Path(tmp) / "exps_b",
                     test + [video_spp, "--test_mode", "relight_video",
                             "--n_frames", "2"])])
+    material, material_s = chains.pop("material")
     for res, secs in chains.values():
         runs += res
     return dict(runs=runs, launches=launches,
-                chains_s={k: secs for k, (_, secs) in chains.items()})
+                chains_s={k: secs for k, (_, secs) in chains.items()},
+                material=dict(**material, seconds=material_s))
+
+
+
+# ---- the material stage -----------------------------------------------------
+
+MATERIAL_STEPS = 20       # the phase's fit
+MATERIAL_TIMED = 10       # steps timed one by one after it
+MATERIAL_CUT = 2          # `material.downsample_train`: 240x320 a view
+MATERIAL_CLI_STEPS = (4, 6)   # `--material`, then `--resume` to 6
+MATERIAL_MESH_RES = 128
+# one lamp (view 0's): the config's single emitter is one fixture, not the
+# midpoint of two on opposite sides of the scene
+MATERIAL_LAMPS = {0: LAMPS[0]}
+# K1's error bound, as `check_k1` holds it: a visibility flag may differ
+# from the plain march's only where the plain march's closest approach is
+# within this of eps
+K1_ATOL, K1_RTOL = 0.02, 0.02
+
+
+def material_conf():
+    """The light config on scan1 with its material section, the bake cut
+    to `MATERIAL_CUT` (`downsample_train`)."""
+    conf = light_conf(train=False)
+    conf.material.downsample_train = MATERIAL_CUT
+    return conf
+
+
+def march_min_s(sdf_fn, origins, dirs, t_max, n_steps: int,
+                t0: float = 2e-2):
+    """`sphere_trace_visibility`'s march, returning its closest approach
+    (the minimum sampled sdf) instead of the flag."""
+    t_max = torch.clamp(t_max, min=t0)
+    floor = t_max / n_steps
+    t = torch.full(origins.shape[:1], t0, device=origins.device)
+    min_s = torch.full_like(t, float("inf"))
+    for _ in range(n_steps):
+        s = sdf_fn(origins + t[:, None] * dirs)
+        min_s = torch.minimum(min_s, s)
+        t = torch.minimum(t + torch.maximum(s, floor), t_max)
+    return min_s
+
+
+class KeepMarches:
+    """While open, every visibility march of the material step keeps its
+    rays (origins, dirs, t_max) and the flags it returned."""
+
+    def __enter__(self):
+        self.rays, self._wrapped = [], tmat.sphere_trace_visibility
+
+        def keep(sdf_fn, pts, dirs, t_max, n_steps=32):
+            flags = self._wrapped(sdf_fn, pts, dirs, t_max, n_steps=n_steps)
+            self.rays.append((pts, dirs, t_max, flags))
+            return flags
+
+        tmat.sphere_trace_visibility = keep
+        return self
+
+    def __exit__(self, *exc):
+        tmat.sphere_trace_visibility = self._wrapped
+
+
+def material_step_pair(mt, model) -> dict:
+    """One batch through the step's loss with K1 visibility and with the
+    plain f32 net's, on the same draws: the flags of every march apart
+    only where the plain march's closest approach is within K1's bound of
+    eps, the loss terms within GRAD_LEAF_TOL relative, each gradient
+    leaf's cosine above GRAD_COS_TOL."""
+    tcfg, em = mt.tcfg, mt.emitters
+    pack = sdf_mlp.SdfMlpPack(model.implicit)
+    sdfs = {"kernel": lambda p: sdf_mlp.sdf_mlp_nograd(pack, p),
+            "plain": lambda p: sdf_mlp.sdf_mlp_plain(model.implicit, p)}
+    out = {}
+    for name, fn in sdfs.items():
+        _, _, _, loss_fn = tmat.make_material_train_step(
+            tcfg, fn, em.centers, em.radii)
+        draws = Draws(train_step.step_generator(SEED + 7, 0, mt.device))
+        k_idx, k_loss = draws.split(2)
+        n = mt.buffers["points"].shape[0]
+        idx = k_idx.integers((tcfg.batch_size,), n)
+        b = {k: v[idx] for k, v in mt.buffers.items()}
+        stage = mt.state.model
+        stage.zero_grad(set_to_none=True)
+        with KeepMarches() as marches:
+            loss, metrics = loss_fn(stage, k_loss, b["points"], b["normals"],
+                                    b["view_dirs"], b["rgb"])
+        loss.backward()
+        out[name] = dict(metrics={k: float(v) for k, v in metrics.items()},
+                         grads={k: p.grad.detach().clone()
+                                for k, p in stage.named_parameters()},
+                         rays=marches.rays)
+    stage.zero_grad(set_to_none=True)
+    carved = {k: tmat.carve_emitters_sdf(fn, em.centers, em.radii)
+              for k, fn in sdfs.items()}
+    eps = 2e-3
+    flips = band = rays = 0
+    err = 0.0
+    for (p, d, tm, fk), (p2, d2, tm2, fp) in zip(out["kernel"]["rays"],
+                                                  out["plain"]["rays"]):
+        assert torch.equal(p, p2) and torch.equal(d, d2), "draws differ"
+        with torch.no_grad():
+            ms_k = march_min_s(carved["kernel"], p, d, tm, tcfg.vis_steps)
+            ms_p = march_min_s(carved["plain"], p, d, tm, tcfg.vis_steps)
+            err = max(err, float((sdfs["kernel"](p) - sdfs["plain"](p))
+                                 .abs().max()))
+        assert torch.equal(fk, (ms_k > eps).float())
+        assert torch.equal(fp, (ms_p > eps).float())
+        near = (ms_p - eps).abs() < K1_ATOL + K1_RTOL * ms_p.abs()
+        apart = fk != fp
+        assert not bool((apart & ~near).any()), "flag apart outside bound"
+        flips += int(apart.sum())
+        band += int(near.sum())
+        rays += int(p.shape[0])
+    mk, mp = out["kernel"]["metrics"], out["plain"]["metrics"]
+    rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp}
+    cos = {}
+    for k, gp in out["plain"]["grads"].items():
+        gk = out["kernel"]["grads"][k]
+        cos[k] = float((gk * gp).sum() / torch.clamp(
+            gk.norm() * gp.norm(), min=1e-30))
+    assert all(v <= GRAD_LEAF_TOL for v in rel.values()), rel
+    assert all(v > GRAD_COS_TOL for v in cos.values()), cos
+    return dict(marches=len(out["kernel"]["rays"]), rays=rays,
+                flags_apart=flips, rays_in_band=band,
+                k1_vs_plain_at_start=err, loss_rel=rel,
+                min_grad_cos=min(cos.values()), kernel=mk, plain=mp)
+
+
+def material_profile(mt, n: int = 3) -> dict:
+    """The profiler's reading of `n` material steps after a warm one: the
+    device time and kernel launches a step, K1's share, and the five
+    kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    mt.step_fn(mt.state, mt.buffers, mt.step_draws(mt.state.step))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            mt.step_fn(mt.state, mt.buffers, mt.step_draws(mt.state.step))
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    rows = [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+             / n, e.count / n) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(r[1] for r in rows)
+    k1 = sum(r[1] for r in rows if "sdf_mlp_kernel" in r[0])
+    return dict(steps=n, wall_ms=wall * 1e3, device_ms=device,
+                busy=device / (wall * 1e3) if wall else None,
+                launches=sum(r[2] for r in rows), k1_device_ms=k1,
+                top=[dict(kernel=r[0][:60], ms=r[1], count=r[2]) for r in
+                     sorted(rows, key=lambda r: -r[1])[:5]])
+
+
+def run_material_phase(device) -> dict:
+    """Phase material: the light config's material stage at full width
+    (SDF 6 x 256 with the light head; material net 4 x 256, PE 6; batch
+    2,048, spp 8 as two buffers of 4, 24 march steps, one emitter) on a
+    copy of scan1 with one seeded lamp and seeded depth (`relight_root`),
+    the bake cut to `MATERIAL_CUT` (240x320 a view, 32 views), seeded
+    init weights: the bake's valid, excluded and projected counts and its
+    stages' seconds, `calibrate` (in the trainer), `fit` for
+    `MATERIAL_STEPS` steps (steps/s, launches: K1 2 x 24 times a step an
+    emitter, nothing else), then `MATERIAL_TIMED` steps timed one by one
+    (median); K1 alone at a march step's 8,192 points against its bound,
+    the plain net and the library chain; one batch with K1 and with plain
+    visibility (`material_step_pair`); a profile of three steps (device
+    time, launches, K1's share: `material_profile`); one validation
+    plot."""
+    conf = material_conf()
+    _, model = seeded_model(conf, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = relight_root(tmp, lamps=MATERIAL_LAMPS)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        mt = tmat.MaterialTrainer(conf, str(Path(tmp) / "exp"), model,
+                                  data_root=root, seed=SEED)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        bake_launches = {k: v for k, v in kernels.launch_counts().items()
+                         if v}
+        assert all(bake_launches.get(k) for k in EVAL_LIGHT_KERNELS), \
+            bake_launches
+        tcfg, n_em = mt.tcfg, mt.emitters.count
+        valid = [int(g["valid"].sum()) for g in mt.per_image]
+        n_train = int(mt.buffers["points"].shape[0])
+        assert n_train > tcfg.batch_size, n_train
+        with torch.no_grad():
+            sample = mt.buffers["points"][:: max(1, n_train // 65536)]
+            proj_sdf = sdf_mlp.sdf_mlp_plain(model.implicit, sample).abs()
+
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = mt.fit(max_steps=MATERIAL_STEPS, log_freq=5)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        per_step = launches.get("sdf_mlp_nograd", 0) / MATERIAL_STEPS
+        assert per_step == 2 * tcfg.vis_steps * n_em, launches
+        assert set(launches) == {"sdf_mlp_nograd"}, launches
+        emission = tmat.emission_apply(state.model.emission)
+        assert torch.isfinite(emission).all() and bool((emission > 0).all())
+
+        step_s = []
+        for _ in range(MATERIAL_TIMED):
+            t0 = time.perf_counter()
+            m = mt.step_fn(mt.state, mt.buffers,
+                           mt.step_draws(mt.state.step))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            assert all(math.isfinite(float(v)) for v in m.values()), m
+
+        with KeepK1Points() as kept:
+            mt.step_fn(mt.state, mt.buffers, mt.step_draws(mt.state.step))
+            torch.cuda.synchronize()
+        assert len(kept.points) == 2 * tcfg.vis_steps * n_em
+        assert all(p.shape == (tcfg.batch_size * tcfg.spp // 2, 3)
+                   for p in kept.points)
+        pack = sdf_mlp.SdfMlpPack(model.implicit)
+        errs = []
+        for p in kept.points:
+            got = sdf_mlp.sdf_mlp_nograd(pack, p)
+            ref = sdf_mlp.sdf_mlp_plain(model.implicit, p)
+            assert close(got, ref, K1_ATOL, K1_RTOL)
+            errs.append(float((got - ref).abs().max()))
+        pts = kept.points[0]
+        icfg = model.implicit.cfg
+        iw, ib = _bf16_weights(model.implicit)
+        macs = hidden_macs(icfg) + icfg.layer_dims()[-2]
+        b_ms, b_by = bound(2.0 * macs * len(pts),
+                           len(pts) * 16 + sum(w.numel() for w in iw) * 2,
+                           PEAK_BF16)
+        k1 = dict(points=len(pts), launches_per_step=per_step,
+                  max_abs_err=max(errs), atol=K1_ATOL, rtol=K1_RTOL,
+                  ms=time_ms(lambda: sdf_mlp.sdf_mlp_nograd(pack, pts), 50),
+                  plain_ms=time_ms(lambda: sdf_mlp.sdf_mlp_plain(
+                      model.implicit, pts), 20),
+                  library_ms=time_ms(lambda: library_sdf(
+                      model.implicit, iw, ib, pts), 20),
+                  bound_ms=b_ms, bound_by=b_by,
+                  device_ms=device_ms(lambda: sdf_mlp.sdf_mlp_nograd(
+                      pack, pts), 20, "sdf_mlp_kernel"))
+        pair = material_step_pair(mt, model)
+        prof = material_profile(mt)
+
+        t0 = time.perf_counter()
+        val_psnr = mt._write_plots(mt.state.step)
+        plot_s = time.perf_counter() - t0
+        plots = sorted(os.listdir(mt.plot_dir))
+        assert len(plots) == 3 and math.isfinite(val_psnr), plots
+    med = statistics.median(step_s)
+    return dict(cut=dict(downsample_train=MATERIAL_CUT,
+                         image=list(mt.data.img_res), views=len(valid),
+                         steps=MATERIAL_STEPS),
+                emitters=dict(count=n_em,
+                              centers=mt.emitters.centers.tolist(),
+                              radii=mt.emitters.radii.tolist()),
+                valid_per_view=valid, baked=mt.n_baked,
+                projected=mt.n_baked, excluded=mt.n_excluded,
+                train_samples=n_train,
+                abs_sdf_after_projection=dict(zip(
+                    ("median", "p90"), torch.quantile(
+                        proj_sdf, torch.tensor([0.5, 0.9], device=device))
+                    .tolist())),
+                stage_s=dict(setup=setup_s, **mt.seconds, fit=fit_s,
+                             plot=plot_s),
+                bake_launches=bake_launches, launches=launches,
+                steps_per_s=MATERIAL_STEPS / fit_s, step_ms_median=med * 1e3,
+                step_ms=[t * 1e3 for t in step_s],
+                learned_emission=emission.tolist(), k1=k1,
+                k1_vs_plain_step=pair, profile=prof, val_psnr=val_psnr,
+                plots=plots)
+
+
+def material_conf_path(tmp) -> str:
+    """The light config on scan1 with the material section's bake cut to
+    `MATERIAL_CUT` and a plot every 5 steps."""
+    text = LIGHT_CONF.read_text().replace("data_dir: synthetic\n",
+                                          "data_dir: synthetic_quality\n")
+    old = "    plot_freq: 1000\n    checkpoint_freq: 5000\n"
+    assert old in text
+    path = Path(tmp) / "material.yml"
+    path.write_text(text.replace(old, "    plot_freq: 5\n    checkpoint_freq:"
+                                 f" 5000\n    downsample_train: "
+                                 f"{MATERIAL_CUT}\n"))
+    return str(path)
+
+
+def run_cli_material(tmp, exps) -> dict:
+    """cli_material: on a copy of cli_relight's 2-step experiment (`exps`)
+    and a copy of scan1 with one seeded lamp and seeded depth:
+    `--material --max_steps 4`, then `--material --resume --max_steps 6`
+    (its plot at step 5), `--test_mode relight --use_material --indices 0`
+    (the trained stage, K1, K2 and K3-light, a finite non-negative
+    `0000_relit.exr`) and `--test_mode mesh --use_material` at
+    `MATERIAL_MESH_RES` (a PLY with vertex colours); the processes'
+    seconds and launches."""
+    root = relight_root(Path(tmp) / "one", lamps=MATERIAL_LAMPS)
+    cli = [sys.executable, "-m", "i2sdf_tpu_torch.main", "--scan_id", "1",
+           "--conf", material_conf_path(tmp), "--data_root", root,
+           "--exps_folder", str(exps)]
+    exp = Path(exps) / "synthetic_light_1" / "version_0"
+    runs, launches = [], {}
+    first, last = MATERIAL_CLI_STEPS
+    for name, extra in (
+            ("material", ["--material", "--max_steps", str(first)]),
+            ("material_resume", ["--material", "--resume", "--max_steps",
+                                 str(last)]),
+            ("relight", ["--test", "--test_mode", "relight",
+                         "--use_material", "--indices", "0", "--spp",
+                         str(RELIGHT_SPP)]),
+            ("mesh", ["--test", "--test_mode", "mesh", "--use_material",
+                      "--resolution", str(MATERIAL_MESH_RES)])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cli + extra, cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        out = proc.stdout
+        assert proc.returncode == 0, out[-3000:] + proc.stderr[-3000:]
+        launches[name] = cli_launches(out)
+        runs.append(dict(name=name, seconds=time.perf_counter() - t0,
+                         tail=[ln for ln in out.splitlines()
+                               if ln.startswith(("[material", "[relight"))]
+                         [-6:]))
+        if name.startswith("material"):
+            target = first if name == "material" else last
+            steps = target - (0 if name == "material" else first)
+            # the bake's sampler launches K1 too: at least 48 a step
+            assert launches[name]["sdf_mlp_nograd"] >= 48 * steps, launches
+            assert f"[material {target}/{target}]" in out, out
+        if name == "material_resume":
+            assert f"[material] resumed from step {first}" in out, out
+            assert "kd_000005_0.png" in os.listdir(exp / "material"
+                                                   / "plots")
+        if name == "relight":
+            assert "using trained material stage" in out, out
+            relight_launches_ok(launches[name])
+            relit, _ = exr.read_exr(str(exp / "eval" / "relight"
+                                        / "0000_relit.exr"))
+            assert relit.shape[2] == 3 and np.isfinite(relit).all()
+            assert (relit >= 0).all()
+            runs[-1]["mean"] = float(relit.mean())
+        if name == "mesh":
+            assert "baked learned albedo" in out, out
+            with open(exp / "eval" / "mesh" / "scan1.ply", "rb") as f:
+                assert b"property uchar red" in f.read(600)
+    return dict(runs=runs, launches=launches)
 
 
 def main() -> int:
@@ -4526,6 +4905,13 @@ def main() -> int:
     emit("relight", t0, **rl)
     torch.cuda.empty_cache()
 
+    # phase material: the light config's material stage (the bake on K1,
+    # K2, K3-light; the steps' visibility march on K1)
+    t0 = time.perf_counter()
+    mat = run_material_phase(device)
+    emit("material", t0, **mat)
+    torch.cuda.empty_cache()
+
     # the CLI chains of the light-idr config, the io scene (two chains),
     # the idr config and relighting, side by side: each is its own
     # processes, and the card holds them all at once (their seconds
@@ -4534,8 +4920,11 @@ def main() -> int:
     clis = side_by_side(cli_light_idr=lambda: run_cli_idr(light=True),
                         io=run_io, cli_idr=run_cli_idr,
                         cli_relight=run_cli_relight)
+    cli_mat = clis["cli_relight"][0].pop("material")
     for phase, (res, secs) in clis.items():
         emit(phase, time.perf_counter() - secs, side_by_side=True, **res)
+    emit("cli_material", time.perf_counter() - cli_mat["seconds"],
+         side_by_side=True, **cli_mat)
     emit("clis_side_by_side", t0, phases=list(clis))
     io = clis["io"][0]
 
@@ -4602,7 +4991,9 @@ def main() -> int:
                                    "interpolate": interp["launches"],
                                    "relight": rl["runs"][0]["launches"],
                                    "cli_relight":
-                                       clis["cli_relight"][0]["launches"]},
+                                       clis["cli_relight"][0]["launches"],
+                                   "material": mat["launches"],
+                                   "cli_material": cli_mat["launches"]},
                       "seconds": time.perf_counter() - t_all}))
     # K1 also serves the mesh: its launches and 2 M-point chunk there; K5
     # and K6 the SH config's routes (K5 at the eval chunk: `check_rev_sh`'s
@@ -4623,6 +5014,12 @@ def main() -> int:
     for k in EVAL_LIGHT_KERNELS:
         on_mesh.setdefault(k, {})["launches_relight_view"] = rl["runs"][0][
             "launches"][k]
+    # K1 also marches the material step's visibility: its launches a step
+    # and its times at the march's 8,192 points
+    on_mesh["sdf_mlp_nograd"].update(
+        {f"material_{k}": mat["k1"][k] for k in (
+            "launches_per_step", "points", "ms", "device_ms", "bound_ms",
+            "bound_by", "plain_ms", "library_ms", "max_abs_err")})
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          "launches": paths[path_of[r["name"]]][r["name"]],

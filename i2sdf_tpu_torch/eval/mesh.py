@@ -21,8 +21,8 @@ package: the PCA `eigh` (torch's could pick other eigenvector signs),
 the det-sign row swap and `_aligned_grid`'s `np.arange` axes, which set
 the fine grid's shape.
 
-Left out against the JAX module: the `material=` albedo bake (the
-material stage is not ported yet; the CLI refuses `--use_material`).
+With a trained material stage (`--use_material`) the learned albedo is
+baked onto the vertices as the PLY's colours.
 """
 
 from __future__ import annotations
@@ -278,12 +278,17 @@ def _cameras(instance_dir: str, cams):
 
 def run_mesh_eval(model, conf, exp_dir: str, data_root: str = "data",
                   resolution: int = 512, score: bool = False,
-                  far_clip: float = 5.0, fused: bool = True) -> str | None:
+                  far_clip: float = 5.0, fused: bool = True,
+                  material=None) -> str | None:
     """Full `--test_mode mesh` flow incl. optional scoring; returns the
     PLY path (parity recon.py:92-129). Writes `eval/mesh/scan{N}.ply` and
     `.html` (the training cameras' frusta), and with `score` the refused
     meshes `scan{N}_refined.ply`, `scan{N}_gt.ply` and `metrics.txt`
-    (no score, with a warning, when the scan has no `mesh.ply`)."""
+    (no score, with a warning, when the scan has no `mesh.ply`).
+    `material`, a trained stage from `train/material.py::
+    load_material_stage`, bakes its albedo onto the vertices (the PLY's
+    uchar colours), evaluated in chunks of 262,144 at the vertices taken
+    back through `scale_mat` to the scene's normalized frame."""
     from ..train.artifacts import write_mesh_html
 
     scan_id = conf.dataset.get("scan_id", 0)
@@ -309,10 +314,23 @@ def run_mesh_eval(model, conf, exp_dir: str, data_root: str = "data",
         print("[WARN] SDF has no zero crossing; no mesh extracted")
         return None
     verts, tris = result
+    colors = None
+    if material is not None:
+        stage = material[0]
+        dev = next(stage.parameters()).device
+        inv = np.linalg.inv(np.asarray(scale_mat, np.float64))
+        vn = (verts @ inv[:3, :3].T + inv[:3, 3]).astype(np.float32)
+        with torch.no_grad():
+            colors = np.concatenate([
+                stage.material(torch.from_numpy(vn[s:s + 262_144]).to(
+                    dev))["kd"].cpu().numpy()
+                for s in range(0, len(vn), 262_144)])
+        print(f"[INFO] baked learned albedo onto {len(colors)} mesh "
+              "vertices")
     mesh_dir = os.path.join(exp_dir, "eval", "mesh")
     os.makedirs(mesh_dir, exist_ok=True)
     ply_path = os.path.join(mesh_dir, f"scan{scan_id}.ply")
-    mesh_io.write_ply(ply_path, verts, tris)
+    mesh_io.write_ply(ply_path, verts, tris, colors=colors)
     print(f"[INFO] mesh saved to {ply_path} "
           f"({len(verts)} verts, {len(tris)} tris)")
 

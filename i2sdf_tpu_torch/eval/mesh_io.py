@@ -16,8 +16,7 @@ import numpy as np
 def write_ply(path: str, verts: np.ndarray, tris: np.ndarray,
               colors: np.ndarray | None = None) -> None:
     """Binary little-endian PLY; `colors` (N, 3) in [0, 1] adds uchar
-    per-vertex RGB (the JAX package's `--use_material` bakes the learned
-    albedo so; the port's material stage is not there yet)."""
+    per-vertex RGB (`--use_material` bakes the learned albedo so)."""
     verts = np.asarray(verts, np.float32)
     tris = np.asarray(tris, np.int32)
     color_props = ""

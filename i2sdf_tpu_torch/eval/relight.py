@@ -15,8 +15,11 @@ emitters, `--test_mode relight` and `relight_video`.
    the mean pixel colour; `emission_scale` in the edit config rescales
    them.
 3. Materials: kd the rendered colour clipped to [0, 1], ks 0.04,
-   roughness 0.5, under the edit config's override maps
-   (`data/relight.py`).
+   roughness 0.5, or with a trained material stage (`--use_material`,
+   `train/material.py::load_material_stage`) the material net's kd, ks
+   and roughness at the surface points, its emitters with their learned
+   emission in place of the discovered ones and its learned ambient
+   added; then the edit config's override maps (`data/relight.py`).
 4. Shading: next-event estimation over the emitters
    (`models/rendering_layer.shade_emitters`), visibility sphere-traced
    through the plain SDF net with the emitter balls carved out, in chunks
@@ -27,10 +30,8 @@ emitters, `--test_mode relight` and `relight_video`.
 Random draws walk the JAX key tree (`utils/draws.py`): a child a view,
 one a chunk, split into the emitters' and the bounce's. Outputs keep the
 JAX names, `{tag}_relit.png`, `_diffuse.png`, `_specular.png` (sRGB), and
-the linear relit image as `{tag}_relit.npy` (the JAX package writes EXR
-where its codec builds and `.npy` where not; the port has no EXR writer).
-The trained material stage (`--use_material`) and the mesh's albedo bake
-come with the material trainer, and are not here.
+the linear relit image as `{tag}_relit.exr` (ZIP, FLOAT: the JAX native
+writer's bytes, `utils/exr.write_exr`; a failed write fails the run).
 """
 
 from __future__ import annotations
@@ -46,10 +47,11 @@ from ..data.recon import ReconData, depth_to_world
 from ..data.relight import RelightData, RelightVideoData
 from ..models import mlp
 from ..models.indirect import indirect_irradiance, make_field_radiance_fn
+from ..models.material import ambient_apply
 from ..models.rendering_layer import RenderingLayerConfig, shade_emitters
 from ..ops.clustering import init_emission_groups
 from ..train.step import make_eval_render_fn
-from ..utils import imaging
+from ..utils import exr, imaging
 from ..utils.cameras import get_camera_params
 from ..utils.draws import Draws
 from .interpolate import frames_to_video
@@ -293,7 +295,7 @@ class RelightContext:
                  fused: bool = True, full_res: bool = False,
                  edit_conf: dict | None = None,
                  indirect_spp: int | None = None,
-                 emitter_draws: Draws | None = None):
+                 emitter_draws: Draws | None = None, material=None):
         self.device = device = next(model.parameters()).device
         dataset_conf = dict(conf.dataset)
         self.scan_id = dataset_conf.pop("scan_id", 0)
@@ -306,26 +308,32 @@ class RelightContext:
             model, chunk_size=conf.train.get("split_n_pixels", 12000),
             fused=fused)
         emitter_draws = emitter_draws or Draws.seeded(0, device)
-        try:
-            rd = ReconData(dataset_conf["data_dir"], scan_id=self.scan_id,
-                           data_root=data_root, use_depth=True,
-                           use_lightmask=True)
-            self.emitters = find_emitters(
-                rd, n_emitters=n_emitters, emitter_scale=emitter_scale,
-                draws=emitter_draws, device=device)
-        except (ValueError, AssertionError, FileNotFoundError) as e:
-            # no GT light masks or depth: the model's own light head and
-            # rendered depth (a light-mask model only)
-            if model.light is None:
-                raise
-            print(f"[relight] GT-mask emitter discovery failed ({e}); "
-                  "falling back to the model's light head")
-            pd0 = PlotData(scan_id=self.scan_id, data_root=data_root,
-                           downsample=self.downsample, **dataset_conf)
-            self.emitters = find_emitters_from_model(
-                self.render_image, pd0, n_emitters=n_emitters,
-                emitter_scale=emitter_scale, draws=emitter_draws,
-                device=device)
+        self.material = material
+        if material is not None:
+            self.emitters = material[2]
+            print("[relight] using trained material stage; "
+                  f"{self.emitters.count} emitters with learned emission")
+        else:
+            try:
+                rd = ReconData(dataset_conf["data_dir"],
+                               scan_id=self.scan_id, data_root=data_root,
+                               use_depth=True, use_lightmask=True)
+                self.emitters = find_emitters(
+                    rd, n_emitters=n_emitters, emitter_scale=emitter_scale,
+                    draws=emitter_draws, device=device)
+            except (ValueError, AssertionError, FileNotFoundError) as e:
+                # no GT light masks or depth: the model's own light head
+                # and rendered depth (a light-mask model only)
+                if model.light is None:
+                    raise
+                print(f"[relight] GT-mask emitter discovery failed ({e}); "
+                      "falling back to the model's light head")
+                pd0 = PlotData(scan_id=self.scan_id, data_root=data_root,
+                               downsample=self.downsample, **dataset_conf)
+                self.emitters = find_emitters_from_model(
+                    self.render_image, pd0, n_emitters=n_emitters,
+                    emitter_scale=emitter_scale, draws=emitter_draws,
+                    device=device)
         if edit_conf and edit_conf.get("emission_scale") is not None:
             s = torch.as_tensor(edit_conf["emission_scale"],
                                 dtype=torch.float32, device=device)
@@ -343,7 +351,10 @@ class RelightContext:
                                      self.emitters.radii)
         self.vis_fn = lambda pts, dirs, t_max: sphere_trace_visibility(
             vis_sdf, pts, dirs, t_max, n_steps=vis_steps)
-        self.ambient = torch.zeros(3, device=device)
+        # the learned ambient irradiance of a trained material stage
+        self.ambient = (ambient_apply(material[0].emission).detach()
+                        if material is not None
+                        else torch.zeros(3, device=device))
         self.layer_cfg = RenderingLayerConfig(spp=spp)
         if indirect_spp is None:
             indirect_spp = int((conf.get("material", {}) or {})
@@ -384,7 +395,8 @@ class RelightContext:
         """One camera's shading inputs [points, unit normals, view dirs,
         kd, ks, roughness] on the device: the geometry of the eval render
         (`render_image`, by default the context's), the default materials
-        under `pd`'s edit maps."""
+        (or the trained material net's at the points) under `pd`'s edit
+        maps."""
         dev = self.device
         uv, K, pose = (torch.from_numpy(np.asarray(a)).to(dev)
                        for a in (uv, K, pose))
@@ -393,10 +405,17 @@ class RelightContext:
         _sync(dev)
         self.seconds["geometry"] += time.perf_counter() - t0
         pts, units = _view_points(out, uv, K, pose)
-        kd = np.clip(out["rgb_values"].reshape(-1, 3).cpu().numpy(), 0, 1)
+        if self.material is not None:
+            m = self.material[0].material(pts)
+            kd, ks, rough = (m[k].cpu().numpy()
+                             for k in ("kd", "ks", "rough"))
+        else:
+            kd = np.clip(out["rgb_values"].reshape(-1, 3).cpu().numpy(),
+                         0, 1)
+            ks = np.full_like(kd, 0.04)
+            rough = np.full(kd.shape[0], 0.5, np.float32)
         mats = pd.edited_materials(
-            kd, np.full_like(kd, 0.04),
-            np.full((kd.shape[0], 1), 0.5, np.float32),
+            kd, ks, rough[:, None],
             out["normal_map"].reshape(-1, 3).cpu().numpy())
         normals = torch.from_numpy(np.asarray(mats["normal"], np.float32)
                                    ).to(dev)
@@ -448,17 +467,19 @@ def run_relight(model, conf, exp_dir: str, data_root: str = "data",
                 fused: bool = True, full_res: bool = False,
                 chunk: int = 4096, vis_steps: int = 32, seed: int = 0,
                 indirect_spp: int | None = None, draws: Draws | None = None,
-                emitter_draws: Draws | None = None) -> dict:
+                emitter_draws: Draws | None = None, material=None) -> dict:
     """Relit images of every view (or `indices`) into `eval/relight/`:
     `{tag}_relit.png`, `_diffuse.png`, `_specular.png` and the linear
-    `{tag}_relit.npy`. `draws` defaults to a generator seeded with `seed`
+    `{tag}_relit.exr`. `draws` defaults to a generator seeded with `seed`
     on the model's device, `emitter_draws` (the clustering's) to one
-    seeded with 0, as the JAX package's keys. Returns the emitter count,
-    each image's mean radiance and stage seconds, and the output
-    directory."""
+    seeded with 0, as the JAX package's keys. `material`: a trained
+    stage, `(MaterialStage, MaterialNetConfig, Emitters)` from
+    `train/material.py::load_material_stage`, whose materials, emitters
+    and ambient replace the defaults. Returns the emitter count, each
+    image's mean radiance and stage seconds, and the output directory."""
     ctx = RelightContext(model, conf, data_root, n_emitters, emitter_scale,
                          spp, vis_steps, fused, full_res, edit_conf,
-                         indirect_spp, emitter_draws)
+                         indirect_spp, emitter_draws, material)
     pd = RelightData(scan_id=ctx.scan_id, data_root=data_root,
                      downsample=ctx.downsample, indices=indices,
                      edit_conf=edit_conf, **ctx.dataset_conf)
@@ -478,8 +499,8 @@ def run_relight(model, conf, exp_dir: str, data_root: str = "data",
                           ("specular", spec)):
             _write_srgb(os.path.join(out_dir, f"{tag}_{name}.png"),
                         img.reshape(H, W, 3))
-        np.save(os.path.join(out_dir, f"{tag}_relit.npy"),
-                relit.reshape(H, W, 3).astype(np.float32))
+        exr.write_exr(os.path.join(out_dir, f"{tag}_relit.exr"),
+                      relit.reshape(H, W, 3))
         seconds = {k: ctx.seconds[k] - before[k] for k in before}
         seconds["writes"] = time.perf_counter() - t0
         results.append({"idx": idx, "mean_radiance": float(relit.mean()),
@@ -499,13 +520,15 @@ def run_relight_video(model, conf, exp_dir: str, id0: int = 0, id1: int = 1,
                       vis_steps: int = 32, seed: int = 0,
                       indirect_spp: int | None = None,
                       draws: Draws | None = None,
-                      emitter_draws: Draws | None = None) -> dict:
+                      emitter_draws: Draws | None = None,
+                      material=None) -> dict:
     """A relit flythrough from view id0's pose to id1's: `n_frames` PNG
     frames in `eval/relight_video/{id0:04d}_{id1:04d}/` and, with ffmpeg on
-    the path, `relight_{id0:04d}_{id1:04d}.mp4` beside them."""
+    the path, `relight_{id0:04d}_{id1:04d}.mp4` beside them (`material`
+    as in `run_relight`)."""
     ctx = RelightContext(model, conf, data_root, n_emitters, emitter_scale,
                          spp, vis_steps, fused, full_res, edit_conf,
-                         indirect_spp, emitter_draws)
+                         indirect_spp, emitter_draws, material)
     pd = RelightVideoData(scan_id=ctx.scan_id, data_root=data_root,
                           downsample=ctx.downsample, edit_conf=edit_conf,
                           id0=id0, id1=id1, num_frames=n_frames,

@@ -18,6 +18,10 @@ extract and score a mesh, interpolate views, relight.
         [--emitter_scale 1.0] [--indirect_spp N] [--edit_conf edits.yml]
     python -m i2sdf_tpu_torch.main --conf ... --test --test_mode \
         relight_video [--inter_id 0 1] [--n_frames 60] [--spp 64]
+    python -m i2sdf_tpu_torch.main --conf configs/synthetic_light_mask.yml \
+        --material [--max_steps N] [--resume]
+    python -m i2sdf_tpu_torch.main --conf ... --test --test_mode \
+        relight|relight_video|mesh --use_material
 
 The flags are the reference's. Every shipped config whose model the port
 has (the flagship's, its normal-loss-off copies, the light-mask config)
@@ -40,9 +44,16 @@ flythrough; `--spp` next-event samples a pixel and emitter, `--n_emitters`
 clusters of the GT light-mask pixels unprojected by GT depth (without
 them, of the model's light head), `--emitter_scale`, `--indirect_spp`
 field-bounce samples, `--edit_conf` a YAML of material override maps and
-`emission_scale`, read with the port's own YAML reader) are ported;
-`--material` and `--use_material` (the material stage) are refused.
-As in the JAX CLI the relight draws are seeded with `--seed` as given.
+`emission_scale`, read with the port's own YAML reader) are ported.
+`--material` trains the material stage (`train/material.py`) on the
+experiment's reconstruction checkpoint for `--max_steps` steps (the
+config's `material.steps` if not given), `--resume` continuing from its
+newest checkpoint under `<exp_dir>/material/checkpoints/`; with
+`--use_material` the relight modes shade with the trained stage's
+materials, emitters and ambient, and the mesh mode bakes its albedo into
+the PLY's vertex colours. As in the JAX CLI the relight draws and the
+material trainer are seeded with `--seed` as given
+(`i2sdf_tpu/main.py:192,246`).
 `--is_val` renders
 the held-out `val/` views (`val_mat_i @ scale_mat_0`) into `eval/test/`;
 as in the JAX CLI, training takes the flag and validates on the training
@@ -90,6 +101,7 @@ from .models.renderer import I2SDFConfig
 from .ops import kernels
 from .params import load_model
 from .train.checkpoint import CheckpointManager
+from .train.material import MaterialTrainer, load_material_stage
 from .train.trainer import ReconstructionTrainer
 
 
@@ -136,9 +148,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         "point from the trained radiance field (default: "
                         "the config's `material.indirect_spp`, else 0)")
     p.add_argument("--material", action="store_true",
-                   help="the material stage's trainer (not ported yet)")
+                   help="train the material stage on the experiment's "
+                        "reconstruction checkpoint")
     p.add_argument("--use_material", action="store_true",
-                   help="the trained material stage (not ported yet)")
+                   help="relight and mesh: use the trained material stage")
     p.add_argument("--no_fused", action="store_true",
                    help="run the sampler (training) and the eval render "
                         "through their plain PyTorch versions")
@@ -205,14 +218,6 @@ def resolve_ckpt(ckpt: str, exp_dir: str) -> tuple[str, int | None]:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.material:
-        raise SystemExit("--material (the material stage's trainer, "
-                         "`train/material.py`) is not ported yet: it comes "
-                         "with the next slice, the material trainer")
-    if args.use_material:
-        raise SystemExit("--use_material (the trained material stage) is not "
-                         "ported yet: it comes with the next slice, the "
-                         "material trainer")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run the plain "
@@ -225,14 +230,15 @@ def main(argv=None) -> int:
               "plain PyTorch versions (kernels off: sdf_mlp_nograd, "
               "sampler_round, conv_check, render_core_fwd*, rev_fwd at "
               "eval, bg_core_fwd at eval)")
+    train_recon = not args.test and not args.material
     exp_dir = resolve_exp_dir(
-        args, conf, new_version=not args.test and not args.resume)
+        args, conf, new_version=train_recon and not args.resume)
     os.makedirs(exp_dir, exist_ok=True)
     print(f"[INFO] experiment dir: {exp_dir}")
     print(f"[INFO] device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
-    if not args.test:
+    if train_recon:
         trainer = ReconstructionTrainer(conf, exp_dir,
                                         data_root=args.data_root,
                                         device=device, seed=seed,
@@ -246,14 +252,25 @@ def main(argv=None) -> int:
     model = load_model(cfg, path, seed, device)
     print(f"[INFO] restored checkpoint @{step}" if step is not None
           else f"[INFO] weights: {path}")
-    if args.test_mode == "render":
+    material = (load_material_stage(exp_dir, conf, device=device)
+                if args.use_material and not args.material
+                and args.test_mode in ("mesh", "relight", "relight_video")
+                else None)
+    if args.material:
+        mt = MaterialTrainer(conf, exp_dir, model, data_root=args.data_root,
+                             fused=fused, seed=args.seed)
+        if args.resume:
+            mt.resume()
+        mt.fit(max_steps=args.max_steps)
+    elif args.test_mode == "render":
         run_render_eval(model, conf, exp_dir, data_root=args.data_root,
                         indices=args.indices, full_res=args.full_res,
                         is_val=args.is_val, fused=fused)
     elif args.test_mode == "mesh":
         run_mesh_eval(model, conf, exp_dir, data_root=args.data_root,
                       resolution=args.resolution, score=args.score,
-                      far_clip=args.far_clip, fused=fused)
+                      far_clip=args.far_clip, fused=fused,
+                      material=material)
     elif args.test_mode == "interpolate":
         run_interpolation(model, conf, exp_dir, id0=args.inter_id[0],
                           id1=args.inter_id[1], n_frames=args.n_frames,
@@ -268,7 +285,7 @@ def main(argv=None) -> int:
                       n_emitters=args.n_emitters,
                       emitter_scale=args.emitter_scale, edit_conf=edit_conf,
                       fused=fused, full_res=args.full_res, seed=args.seed,
-                      indirect_spp=args.indirect_spp)
+                      indirect_spp=args.indirect_spp, material=material)
         if args.test_mode == "relight_video":
             run_relight_video(model, conf, exp_dir, id0=args.inter_id[0],
                               id1=args.inter_id[1], n_frames=args.n_frames,

@@ -8,6 +8,11 @@ config, and `"bg_implicit"`, `"bg_rendering"` with the NeRF++ background
 the same way (`models/mlp.py`), so a leaf crosses as it is, under the key
 `"{net}.lin{i}.{leaf}"`. The tree is taken as numpy arrays (the port
 never imports JAX): convert with `np.asarray` first.
+
+The material stage's tree, `{"material": {"lin{i}": {"v", "g", "b"}},
+"emission": {"log_radiance", "log_ambient"}}`, crosses the same way into
+`models/material.py::MaterialStage` (`material_from_jax`,
+`material_to_jax`).
 """
 
 from __future__ import annotations
@@ -66,3 +71,40 @@ def load_model(cfg: I2SDFConfig, ckpt: str, seed: int,
     state = torch.load(ckpt, map_location="cpu", weights_only=True)
     model.load_state_dict(state.get("model", state.get("state_dict", state)))
     return model.to(device)
+
+
+def material_from_jax(tree: dict, stage: torch.nn.Module | None = None
+                      ) -> dict:
+    """JAX material-stage tree (numpy leaves) -> the `state_dict` of a
+    `MaterialStage`. With `stage`, keys and shapes are checked against
+    it."""
+    sd = {f"material.{lin}.{leaf}": torch.from_numpy(
+              np.array(arr, dtype=np.float32))
+          for lin, leaves in tree["material"].items()
+          for leaf, arr in leaves.items()}
+    sd.update({f"emission.{k}": torch.from_numpy(
+        np.array(v, dtype=np.float32)) for k, v in tree["emission"].items()})
+    if stage is not None:
+        ref = stage.state_dict()
+        if set(ref) != set(sd):
+            raise KeyError(f"parameter names differ: "
+                           f"{sorted(set(ref) ^ set(sd))}")
+        for k, v in ref.items():
+            if tuple(v.shape) != tuple(sd[k].shape):
+                raise ValueError(f"{k}: shape {tuple(sd[k].shape)}, stage "
+                                 f"wants {tuple(v.shape)}")
+    return sd
+
+
+def material_to_jax(state_dict: dict) -> dict:
+    """A `MaterialStage`'s `state_dict` -> JAX material-stage tree with
+    numpy leaves."""
+    tree: dict = {"material": {}, "emission": {}}
+    for key, v in state_dict.items():
+        arr = v.detach().cpu().numpy().astype(np.float32)
+        net, *rest = key.split(".")
+        if net == "emission":
+            tree["emission"][rest[0]] = arr
+        else:
+            tree["material"].setdefault(rest[0], {})[rest[1]] = arr
+    return tree

@@ -4,7 +4,7 @@ The JAX package's relight code splits its PRNG key per view, per chunk,
 per emitter and per sample (`jax.random.split`, `fold_in`) and draws each
 uniform from its own leaf. The port's functions take a `Draws` and walk
 the same tree: `split(n)` and `fold_in(i)` name the children, `uniform`,
-`randint` and `categorical` draw at a node. Here every node reads one
+`normal`, `randint`, `integers` and `categorical` draw at a node. Here every node reads one
 `torch.Generator` in call order, so a split costs nothing and the stream
 stays on the generator's device. Threefry and Philox never agree bit for
 bit, so the CPU tests hand the port a source with the same methods that
@@ -41,6 +41,17 @@ class Draws:
         """f32 uniforms in [0, 1) of `shape`, on the generator's device."""
         return torch.rand(tuple(shape), generator=self.generator,
                           device=self.device)
+
+    def normal(self, shape) -> torch.Tensor:
+        """f32 standard normals of `shape`, on the generator's device."""
+        return torch.randn(tuple(shape), generator=self.generator,
+                           device=self.device)
+
+    def integers(self, shape, high: int) -> torch.Tensor:
+        """int64 integers in [0, high) of `shape` (`jax.random.randint(key,
+        shape, 0, high)`), on the generator's device."""
+        return torch.randint(high, tuple(shape), generator=self.generator,
+                             device=self.device)
 
     def randint(self, high: int) -> int:
         """One integer in [0, high)."""

@@ -75,9 +75,9 @@ def perturbed(jparams, seed):
 
 class JaxDraws:
     """`i2sdf_tpu_torch.utils.draws.Draws`' interface on a JAX key: each
-    node's draws are JAX's own (`jax.random.uniform`, `randint`,
-    `categorical`), as f32 CPU tensors, so the port walks JAX's key tree
-    to the same numbers."""
+    node's draws are JAX's own (`jax.random.uniform`, `normal`, `randint`,
+    `categorical`), as f32 (int64) CPU tensors, so the port walks JAX's
+    key tree to the same numbers."""
 
     def __init__(self, key):
         self.key = key
@@ -93,6 +93,14 @@ class JaxDraws:
     def uniform(self, shape):
         return torch.from_numpy(np.array(jax.random.uniform(
             self.key, tuple(shape))))
+
+    def normal(self, shape):
+        return torch.from_numpy(np.array(jax.random.normal(
+            self.key, tuple(shape))))
+
+    def integers(self, shape, high):
+        return torch.from_numpy(np.array(jax.random.randint(
+            self.key, tuple(shape), 0, high)).astype(np.int64))
 
     def randint(self, high):
         return int(jax.random.randint(self.key, (), 0, high))

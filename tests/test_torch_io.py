@@ -2,11 +2,12 @@
 downsampling (held to PyYAML and OpenCV), its metrics (held to the JAX
 package's), and a guard that the package (the training slice's modules
 and the mesh and interpolation slice's by name) and `chip_smoke.py`
-import none of JAX, the JAX package, OpenCV, imageio, PIL, orbax,
-PyYAML, torchmetrics or scikit-learn (the last train and eval slice's
-modules, LPIPS, the colormaps and the profiler, and the relight slice's,
-by name too), and that no source of the port names OpenCV, torchmetrics
-or scikit-learn in an import."""
+import none of JAX, the JAX package, OpenCV, imageio, PIL, orbax, optax,
+tensorboardX, PyYAML, torchmetrics or scikit-learn (the last train and
+eval slice's modules, LPIPS, the colormaps and the profiler, the relight
+slice's and the material stage's, by name too), and that no source of
+the port names OpenCV, optax, tensorboardX, torchmetrics or scikit-learn
+in an import."""
 
 import glob
 import os
@@ -162,7 +163,7 @@ def test_metrics_match_jax():
 GUARD = r"""
 import importlib, importlib.abc, pkgutil, sys
 BLOCKED = {"jax", "jaxlib", "i2sdf_tpu", "orbax", "cv2", "imageio", "PIL",
-           "yaml", "torchmetrics", "sklearn"}
+           "yaml", "torchmetrics", "sklearn", "optax", "tensorboardX"}
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -194,7 +195,10 @@ missing = {"i2sdf_tpu_torch.utils.exr", "i2sdf_tpu_torch.data.recon",
            "i2sdf_tpu_torch.models.indirect",
            "i2sdf_tpu_torch.ops.clustering", "i2sdf_tpu_torch.data.relight",
            "i2sdf_tpu_torch.eval.relight",
-           "i2sdf_tpu_torch.utils.draws"} - set(names)
+           "i2sdf_tpu_torch.utils.draws",
+           "i2sdf_tpu_torch.models.material",
+           "i2sdf_tpu_torch.data.material",
+           "i2sdf_tpu_torch.train.material"} - set(names)
 assert not missing, missing
 import chip_smoke
 print(len(names), "modules")
@@ -206,18 +210,19 @@ def test_port_imports_nothing_the_card_may_lack():
     proc = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 51
+    assert int(proc.stdout.split()[0]) >= 54
 
 
 def test_no_port_source_imports_opencv_or_torchmetrics():
     """A static look at every source of the port and at `chip_smoke.py`:
-    no `import cv2`, torchmetrics or sklearn import, also inside a
+    no `import cv2`, optax, tensorboardX, torchmetrics or sklearn import,
+    also inside a
     function, where the import guard above would not reach (the colormaps
     are numpy, `utils/colormap.py`; LPIPS is `eval/lpips.py`; the
     clustering raises where the JAX package would take sklearn's DBSCAN)."""
     import re
-    pat = re.compile(r"^\s*(import|from)\s+(cv2|torchmetrics|sklearn)\b",
-                     re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(cv2|optax|tensorboardX|"
+                     r"torchmetrics|sklearn)\b", re.M)
     files = glob.glob(os.path.join(ROOT, "i2sdf_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
     assert len(files) > 40

@@ -395,14 +395,13 @@ def test_run_mesh_eval_and_cli_match_jax(tmp_path):
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
     """The CLI refuses the modes and flags the port lacks. `--is_val` was
     one of them until the held-out views were ported, the relight modes
-    until relighting was: the mesh mode now takes `--is_val` (as the JAX
-    CLI does, which ignores it there) and the relight modes run, each
-    going on to look for the experiment's checkpoint, of which this one
-    has none. The material stage's flags stay refused."""
+    until relighting was, the material stage's flags until it was: the
+    mesh mode now takes `--is_val` (as the JAX CLI does, which ignores it
+    there) and `--use_material`, the relight modes and `--material` run,
+    each going on to look for the experiment's checkpoint, of which this
+    one has none."""
     conf = write_tiny_scene(str(tmp_path))
-    refused = "--use_material" in extra or "--material" in extra
-    match = "not ported" if refused else "no checkpoint under"
-    with pytest.raises(SystemExit, match=match):
+    with pytest.raises(SystemExit, match="no checkpoint under"):
         tmain.main(["--conf", conf, "--device", "cpu", "--data_root",
                     str(tmp_path), "--exps_folder", str(tmp_path / "exps"),
                     *extra])

@@ -5,10 +5,12 @@ images of 20 x 24), a narrow light-mask model whose JAX parameters
 (perturbed off the init) cross with `params.py`, the draws JAX's own
 (`JaxDraws` from the JAX keys `PRNGKey(seed)` and, for the clustering,
 `PRNGKey(0)`). The relit, diffuse and specular images within PSNR 40 dB of
-the JAX package's (the PNGs and the linear relit image), the emitters at
-atol 1e-4; then one CLI run of each mode with `--device cpu`, the GT
-emitters and, on a copy of the scene without depth, the model-head
-fallback; `--material` and `--use_material` still refuse."""
+the JAX package's (the PNGs and the linear relit image, `.exr` in both),
+the emitters at atol 1e-4; then one CLI run of each mode with `--device
+cpu`, the GT emitters and, on a copy of the scene without depth, the
+model-head fallback; `--use_material` before a material stage exists
+fails, `--material` trains one (zero steps: its bake, calibration and
+checkpoint) and `--use_material` then relights with it."""
 
 import os
 import shutil
@@ -28,7 +30,7 @@ from i2sdf_tpu_torch.config import CfgNode as TNode
 from i2sdf_tpu_torch.eval import relight as trel
 from i2sdf_tpu_torch.models import renderer as tren
 from i2sdf_tpu_torch.params import from_jax_params
-from i2sdf_tpu_torch.utils import imaging
+from i2sdf_tpu_torch.utils import exr, imaging
 from test_torch_helpers import JaxDraws, perturbed
 
 PSNR_BAR_DB = 40.0
@@ -139,7 +141,7 @@ def test_run_relight_matches_jax(scene, tmp_path, indirect_spp, edit):
     tdir = str(tmp_path / "port" / "eval" / "relight")
     assert sorted(os.listdir(tdir)) == sorted(
         f"{t}_{n}" for t in ("0000", "0002")
-        for n in ("relit.png", "diffuse.png", "specular.png", "relit.npy"))
+        for n in ("relit.png", "diffuse.png", "specular.png", "relit.exr"))
     for tag in ("0000", "0002"):
         for name in ("relit", "diffuse", "specular"):
             assert _psnr_u8(os.path.join(tdir, f"{tag}_{name}.png"),
@@ -148,7 +150,7 @@ def test_run_relight_matches_jax(scene, tmp_path, indirect_spp, edit):
         want = [f for f in os.listdir(jdir) if f.startswith(f"{tag}_relit.")
                 and not f.endswith(".png")]
         want = jimaging.load_rgb(os.path.join(jdir, want[0]), is_hdr=True)
-        got = np.load(os.path.join(tdir, f"{tag}_relit.npy"))
+        got, _ = exr.read_exr(os.path.join(tdir, f"{tag}_relit.exr"))
         assert got.shape == (20, 24, 3) and np.isfinite(got).all()
         assert _linear_psnr(got, np.asarray(want)) >= PSNR_BAR_DB
     means = [r["mean_radiance"] for r in tres["images"]]
@@ -191,8 +193,10 @@ def test_run_relight_video_matches_jax(scene, tmp_path):
 def test_relight_cli_both_modes_and_the_refusals(scene, tmp_path, capsys):
     """`--test_mode relight` on the scene (GT masks and depth; here the
     brightest-pixels selection), again on a copy without depth (the
-    model-head fallback), `relight_video`; `--material` and
-    `--use_material` exit naming the next slice."""
+    model-head fallback), `relight_video`; `--use_material` fails while
+    the experiment has no material stage, `--material --max_steps 0`
+    writes one, and `--use_material` then relights with it (these were
+    refusals until the material stage was ported)."""
     _, _, model, conf = light_pair(str(tmp_path))
     pt = str(tmp_path / "model.pt")
     torch.save(model.state_dict(), pt)
@@ -216,16 +220,22 @@ def test_relight_cli_both_modes_and_the_refusals(scene, tmp_path, capsys):
             root != scene), out
     exp = tmp_path / "exps" / "relight_0"
     relit = sorted(os.listdir(exp / "version_0" / "eval" / "relight"))
-    assert relit == ["0001_diffuse.png", "0001_relit.npy", "0001_relit.png",
+    assert relit == ["0001_diffuse.png", "0001_relit.exr", "0001_relit.png",
                      "0001_specular.png"]
     assert "0000_relit.png" in os.listdir(exp / "version_1" / "eval"
                                           / "relight")
-    img = np.load(exp / "version_0" / "eval" / "relight" / "0001_relit.npy")
+    img, _ = exr.read_exr(str(exp / "version_0" / "eval" / "relight"
+                              / "0001_relit.exr"))
     assert img.shape == (20, 24, 3) and np.isfinite(img).all()
     assert (img >= 0).all()
     frames = exp / "version_0" / "eval" / "relight_video" / "0000_0001"
     assert sorted(os.listdir(frames)) == ["0000.png", "0001.png"]
-    for flag in ("--material", "--use_material"):
-        with pytest.raises(SystemExit, match="next slice"):
-            tmain.main(base + ["--data_root", scene, "--test_mode", "relight",
-                               flag])
+    use = base + ["--data_root", scene, "--test_mode", "relight", "--indices",
+                  "0", "--version", "0", "--use_material"]
+    with pytest.raises(FileNotFoundError, match="run --material first"):
+        tmain.main(use)
+    assert tmain.main(base + ["--data_root", scene, "--version", "0",
+                              "--material", "--max_steps", "0"]) == 0
+    assert os.path.isfile(exp / "version_0" / "material" / "emitters.npz")
+    assert tmain.main(use) == 0
+    assert "using trained material stage" in capsys.readouterr().out
